@@ -1,0 +1,144 @@
+"""The paper's CFD application, built through the DSL-to-executable flow.
+
+:data:`CFD_PIPELINE_SRC` is the whole pipeline -- interpolation ->
+gradient -> inverse Helmholtz -- as one CFDlang program, and
+:func:`compile_cfd_pipeline` compiles it through ``repro_torch.flow``
+at the paper's operator-granularity cuts: the generic tool flow derives
+the stage programs, the inter-stage residency, and (for ``pallas``
+stages) the dispatch to the hand-written CUDA kernels.  The
+single-operator builders of the reference (``build_inverse_helmholtz``
+and friends, the Fig. 2 path) are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+from .. import flow
+from ..memory.chain import ChainPlan, ProgramChain
+from ..memory.plan import MemoryPlan
+
+
+def chain_stage_block_elements(
+    chain_plan: Optional[ChainPlan], stage: str
+) -> Optional[int]:
+    """The VMEM-budgeted block a ChainPlan assigned to one stage (None
+    when no plan, or the plan does not know the stage)."""
+    if chain_plan is None:
+        return None
+    for sp in chain_plan.stages:
+        if sp.name == stage and sp.block_elements:
+            return sp.block_elements
+    return None
+
+
+#: The paper's full application as ONE CFDlang program: interpolation
+#: (A), gradient (Dx/Dy/Dz), and inverse Helmholtz (S, D) over a shared
+#: element stream.  ``repro_torch.flow`` cuts it into the three pipeline
+#: stages at the declared temporaries -- no builder code per operator.
+CFD_PIPELINE_SRC = """
+var input  A  : [{p} {p}]
+var input  Dx : [{p} {p}]
+var input  Dy : [{p} {p}]
+var input  Dz : [{p} {p}]
+var input  S  : [{p} {p}]
+var input elem u  : [{p} {p} {p}]
+var input elem D  : [{p} {p} {p}]
+var output elem gy : [{p} {p} {p}]
+var output elem gz : [{p} {p} {p}]
+var output elem v  : [{p} {p} {p}]
+var w  : [{p} {p} {p}]
+var gx : [{p} {p} {p}]
+var t  : [{p} {p} {p}]
+var r  : [{p} {p} {p}]
+w = A # A # A # u . [[1 6][3 7][5 8]]
+gx = Dx # w . [[1 2]]
+gy = Dy # w . [[1 3]]
+gz = Dz # w . [[1 4]]
+t = S # S # S # gx . [[1 6][3 7][5 8]]
+r = D * t
+v = S # S # S # r . [[0 6][2 7][4 8]]
+"""
+
+#: The canonical stage cuts: interpolation owns ``w``, the gradient its
+#: three derivatives, the Helmholtz stage the final solve.
+CFD_PIPELINE_STAGES = (
+    ("interp", ("w",)),
+    ("grad", ("gx", "gy", "gz")),
+    ("helmholtz", ("v",)),
+)
+
+
+def compile_cfd_pipeline(
+    p: int = 11,
+    *,
+    policy="float32",
+    backends: Union[str, Tuple[str, str, str]] = "xla",
+    stage_blocks=None,
+    **flow_kwargs,
+) -> "flow.CompiledSystem":
+    """Compile the whole CFD application through ``repro_torch.flow`` at
+    the paper's operator-granularity stage cuts.  ``flow_kwargs`` pass
+    to ``flow.compile`` (``device="cpu"`` plans for the host; the
+    default detects the CUDA card)."""
+    if isinstance(backends, str):
+        backends = (backends, backends, backends)
+    return flow.compile(
+        CFD_PIPELINE_SRC.format(p=p),
+        name=f"cfd_pipeline_p{p}",
+        policy=policy,
+        stages=CFD_PIPELINE_STAGES,
+        backends=backends,
+        stage_blocks=stage_blocks,
+        **flow_kwargs,
+    )
+
+
+def build_cfd_chain(
+    p: int = 11,
+    *,
+    policy="float32",
+    backends: Union[str, Tuple[str, str, str]] = "xla",
+    helmholtz_plan: Optional[MemoryPlan] = None,
+    chain_plan: Optional[ChainPlan] = None,
+    **flow_kwargs,
+) -> ProgramChain:
+    """The paper's full application as one ProgramChain:
+
+        interpolation -> gradient -> inverse Helmholtz
+
+    Compiled end-to-end from :data:`CFD_PIPELINE_SRC` by ``repro_torch.flow``:
+    the flow extracts the three stage programs, wires interpolation's
+    ``w`` into the gradient and the gradient's ``gx`` into the Helmholtz
+    solve (both HBM-resident -- no host round-trip), and streams
+    ``gy``/``gz``/``v`` back to the host.
+
+    For a kernel Helmholtz stage, pass a ChainPlan back in as
+    ``chain_plan`` so the kernel's block size comes from that plan's
+    per-stage on-chip budget (plan first against a plan-only chain, then
+    rebuild the executable chain with the plan):
+
+        ch = build_cfd_chain(p, device="cpu")         # plan-only (xla)
+        plan = chain.plan_chain(ch, backends=("xla", "xla", "pallas"))
+        ch = build_cfd_chain(p, backends=("xla", "xla", "pallas"),
+                             chain_plan=plan, device="cpu")
+        simulation.run_chain(ch, plan, device="cpu")
+
+    ``flow_kwargs`` (``target``, ``device``, ...) pass to
+    ``flow.compile``.
+    """
+    blocks = {}
+    blk = chain_stage_block_elements(chain_plan, "helmholtz")
+    if blk is None and helmholtz_plan is not None and (
+            helmholtz_plan.block_elements):
+        blk = helmholtz_plan.block_elements
+    if blk:
+        blocks["helmholtz"] = blk
+    return compile_cfd_pipeline(
+        p, policy=policy, backends=backends, stage_blocks=blocks,
+        **flow_kwargs,
+    ).chain
+
+
+def flops_per_element(p: int) -> int:
+    """Paper Eq. (2)."""
+    return (12 * p + 1) * p ** 3

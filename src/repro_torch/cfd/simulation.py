@@ -1,0 +1,296 @@
+"""Element-batched chain driver -- the Olympus system/host layer on one
+CUDA card.
+
+Implements the paper's section 3.1 quantities:
+
+  * **batch**: ``E`` elements processed per dispatch, sized by an explicit
+    :class:`repro_torch.memory.chain.ChainPlan` -- the driver holds no
+    hardcoded batch size.
+  * **N_b = N_eq / E** batches.
+  * **transfer pipelining**: batch k+K..k+1 transfer host->device (pinned
+    buffers, a side CUDA stream) while batch k computes, through the
+    generic engine in ``repro_torch.memory.pipeline`` (K=1 is the
+    ping/pong channel pair of Fig. 14a; K=0 is the serial baseline).
+
+The synthetic data follows the reference's numpy streams exactly
+(``seed + b`` per batch, ``seed + 2**31 + k`` per shared operand over
+the sorted shared names), so at equal E and seed both packages see the
+same inputs.  The single-operator Fig. 2 driver (``run_simulation``) and
+the reference's multi-device placement execution are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from ..memory import chain as memchain
+from ..memory import channels as memchannels
+from ..memory import pipeline as mempipe
+from ..memory.placement import DeviceTopology
+
+
+def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """Numpy arrays by name as tensors on ``device`` (the CUDA card unless
+    ``"cpu"``), dtypes kept."""
+    dev = memchannels.resolve_device(device)
+    return {
+        k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        for k, v in arrays.items()
+    }
+
+
+@dataclasses.dataclass
+class ChainResult:
+    """One run of a whole pipeline off a single ChainPlan."""
+
+    batches: int
+    elements: int
+    wall_s: float
+    checksums: Dict[str, float]
+    plan: Optional[memchain.ChainPlan] = None
+    #: full chain outputs, qualified "stage.output" (collect_outputs=True)
+    outputs: Optional[Dict[str, np.ndarray]] = None
+    #: whether stages were cross-batch pipelined (one dispatch ring per
+    #: stage) or run back-to-back per batch (the serial baseline)
+    pipelined_stages: bool = False
+    #: the device the run executed on
+    device: str = ""
+
+
+def _chain_batch_inputs(
+    chain: memchain.ProgramChain,
+    E: int,
+    n_batches: int,
+    seed: int,
+    inputs: Optional[Dict[str, np.ndarray]],
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Per-batch host-streamed inputs, qualified "stage.input".
+
+    ``inputs`` supplies full arrays (element-axis leading) to slice;
+    otherwise a deterministic synthetic stream in [-1, 1] is generated,
+    batch ``b`` from ``default_rng(seed + b)``."""
+    names = [
+        f"{s.name}.{n}"
+        for i, s in enumerate(chain.stages)
+        for n, _ in chain.host_element_inputs(i)
+    ]
+    shapes = {
+        f"{s.name}.{n}": v.shape
+        for i, s in enumerate(chain.stages)
+        for n, v in chain.host_element_inputs(i)
+    }
+    for b in range(n_batches):
+        if inputs is not None:
+            yield {q: inputs[q][b * E:(b + 1) * E] for q in names}
+        else:
+            rng = np.random.default_rng(seed + b)
+            yield {
+                q: rng.uniform(-1, 1, (E,) + shapes[q]).astype(np.float32)
+                for q in names
+            }
+
+
+def _shared_host(
+    chain: memchain.ProgramChain,
+    seed: int,
+    shared: Optional[Dict[str, np.ndarray]],
+) -> Dict[str, np.ndarray]:
+    """The batch-invariant operands by bare name: from ``shared`` where
+    given, else operand ``k`` of the sorted names from
+    ``default_rng(seed + 2**31 + k)``."""
+    out: Dict[str, np.ndarray] = {}
+    for k, (name, node) in enumerate(sorted(chain.shared_operands().items())):
+        if shared is not None and name in shared:
+            out[name] = np.asarray(shared[name])
+        else:
+            rng = np.random.default_rng(seed + 2 ** 31 + k)
+            out[name] = rng.uniform(-1, 1, node.shape).astype(np.float32)
+    return out
+
+
+def run_chain(
+    chain: memchain.ProgramChain,
+    plan: Optional[memchain.ChainPlan] = None,
+    *,
+    n_eq: Optional[int] = None,
+    device=None,
+    max_batches: Optional[int] = None,
+    seed: int = 0,
+    inputs: Optional[Dict[str, np.ndarray]] = None,
+    shared: Optional[Dict[str, np.ndarray]] = None,
+    collect_outputs: bool = False,
+    pipeline_stages: Optional[bool] = None,
+    tracer=None,
+    monitor=None,
+    metrics=None,
+) -> ChainResult:
+    """Execute a whole multi-operator pipeline off one ChainPlan.
+
+    Bound streams (e.g. interpolation's ``w`` into the gradient) never
+    leave the device -- exactly the residency the plan prices.  The
+    execution schedule comes from the plan's ``pipeline`` spec: in
+    pipelined mode each stage gets its own dispatch ring and stage i of
+    batch k is dispatched alongside stage i+1 of batch k-1
+    (``memory.pipeline.run_stage_pipelined``); in serial mode stages run
+    back-to-back per batch -- the paper's baseline, bitwise-equal to the
+    pipelined schedule.  ``pipeline_stages`` overrides the plan's mode.
+
+    ``device`` is the CUDA card unless ``"cpu"`` is passed (then every
+    kernel stage runs its plain PyTorch version).  Host-streamed inputs
+    come from ``inputs`` (full numpy arrays, qualified "stage.input") or
+    a deterministic synthetic stream; ``shared`` supplies the
+    batch-invariant operands by bare name (synthesized when omitted).
+
+    ``collect_outputs`` returns the concatenated chain outputs; by
+    default only a checksum per output crosses back.  ``tracer``,
+    ``monitor`` and ``metrics`` are not ported yet and must be None.
+    """
+    for label, given in (("tracer", tracer), ("monitor", monitor),
+                         ("metrics", metrics)):
+        if given is not None:
+            raise NotImplementedError(f"run_chain({label}=...) is not ported yet")
+    dev = memchannels.resolve_device(device)
+    if n_eq is None and inputs:
+        # the data bounds the problem -- derive n_eq before planning so
+        # the auto-sized E can never exceed what the arrays hold
+        n_eq = min(v.shape[0] for v in inputs.values())
+    if plan is None:
+        plan = memchain.plan_chain(
+            chain, target=memchannels.detect_target(dev),
+            topology=DeviceTopology.from_torch([dev]), n_eq=n_eq,
+        )
+    planned = tuple(sp.backend for sp in plan.stages)
+    compiled = tuple(s.backend for s in chain.stages)
+    if planned != compiled:
+        warnings.warn(
+            f"run_chain: plan backends {planned} differ from the "
+            f"compiled chain's {compiled}; executing the compiled chain.",
+            RuntimeWarning,
+        )
+    if plan.stage_batch_elements and not plan.uniform_batch:
+        raise NotImplementedError(
+            "per-stage batch sizes (re-blocking handoffs) are not ported yet"
+        )
+    if plan.placement.devices_used[-1] >= 1:
+        warnings.warn(
+            f"run_chain: plan placement spans "
+            f"{plan.placement.topology.n_devices} device(s); executing on "
+            f"the one device {dev}.",
+            RuntimeWarning,
+        )
+    E = plan.batch_elements
+    pipe = plan.pipeline
+    if pipe is None:  # legacy plan: derive the spec from the stage Ks
+        pipe = memchain.derive_pipeline(
+            [sp.prefetch_depth for sp in plan.stages]
+        )
+    stage_depths = list(pipe.stage_depths)
+    if len(stage_depths) != len(chain.stages):
+        # a plan from a differently-staged compile still executes the
+        # compiled chain (warned above): carry the plan's deepest K as
+        # host staging and keep its mode with depth-1 rings
+        stage_depths = [max(stage_depths)] + (
+            [1 if pipe.pipelined else 0] * (len(chain.stages) - 1)
+        )
+    if pipeline_stages is None:
+        pipeline_stages = pipe.pipelined
+    if pipeline_stages:
+        depths = stage_depths
+        # forcing the mode on cannot pipeline a plan with no inter-stage
+        # ring depth: execution (and the reported flag) stays serial
+        pipeline_stages = len(depths) > 1 and any(d > 0 for d in depths[1:])
+    else:
+        # serial baseline: host staging only, stages back-to-back
+        depths = [max(stage_depths)] + [0] * (len(chain.stages) - 1)
+    if n_eq is None:
+        n_eq = E * (max_batches if max_batches else 4)
+    if inputs is not None:
+        avail = min(v.shape[0] for v in inputs.values())
+        if E > avail:
+            raise ValueError(
+                f"plan batch E={E} exceeds the provided input arrays "
+                f"({avail} elements); re-plan with n_eq or pass larger "
+                "inputs"
+            )
+        # never slice past the data: an oversized n_eq would otherwise
+        # run empty batches while reporting their elements as work done
+        n_eq = min(n_eq, avail)
+    n_total = max(1, n_eq // E)
+    n = n_total if max_batches is None else min(max_batches, n_total)
+
+    shared_dev = to_device(_shared_host(chain, seed, shared), dev)
+    out_names = [
+        f"{s.name}.{n}"
+        for i, s in enumerate(chain.stages)
+        for n, _ in chain.chain_outputs(i)
+    ]
+
+    def make_stage_fn(i: int, s: memchain.ChainStage):
+        batched_fn = s.compiled.batched_fn
+
+        def run_stage(staged: mempipe.Staged, carry):
+            live: Dict[str, torch.Tensor] = dict(carry) if carry else {}
+            env: Dict[str, torch.Tensor] = {}
+            host = None
+            for name in s.program.inputs:
+                if name in chain.resolved[i]:
+                    p_idx, out_name = chain.resolved[i][name]
+                    env[name] = live[
+                        f"{chain.stages[p_idx].name}.{out_name}"
+                    ]
+                elif name in shared_dev:
+                    env[name] = shared_dev[name]
+                else:
+                    if host is None:
+                        host = staged.arrays()
+                    env[name] = host[f"{s.name}.{name}"]
+            outs = batched_fn(env)
+            for out_name, val in outs.items():
+                live[f"{s.name}.{out_name}"] = val
+            return live
+
+        return run_stage
+
+    stage_fns = [make_stage_fn(i, s) for i, s in enumerate(chain.stages)]
+
+    if collect_outputs:
+        def reduce_fn(live):
+            return {q: live[q] for q in out_names}
+    else:
+        def reduce_fn(live):
+            return {q: torch.sum(live[q]) for q in out_names}
+
+    t0 = time.perf_counter()
+    per_batch = mempipe.run_stage_pipelined(
+        stage_fns,
+        _chain_batch_inputs(chain, E, n, seed, inputs),
+        stage_fn=mempipe.HostStager(dev, slots=depths[0] + 1),
+        depths=depths,
+        reduce_fn=reduce_fn,
+    )
+    wall = time.perf_counter() - t0
+
+    checksums: Dict[str, float] = {q: 0.0 for q in out_names}
+    outputs: Optional[Dict[str, np.ndarray]] = None
+    if collect_outputs:
+        outputs = {}
+        for q in out_names:
+            t = torch.cat([b[q] for b in per_batch])
+            # numpy has no bfloat16: such outputs come back as float32
+            outputs[q] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        for q in out_names:
+            checksums[q] = float(np.sum(outputs[q], dtype=np.float64))
+    else:
+        for b in per_batch:
+            for q, v in b.items():
+                checksums[q] += float(v)
+    return ChainResult(
+        batches=n, elements=n * E, wall_s=wall, checksums=checksums,
+        plan=plan, outputs=outputs, pipelined_stages=bool(pipeline_stages),
+        device=str(dev),
+    )

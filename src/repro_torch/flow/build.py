@@ -1,0 +1,623 @@
+"""The end-to-end tool flow: CFDlang source in, planned executable
+memory architecture out (the paper's headline pipeline, Fig. 5).
+
+``compile()`` wires the repo's two halves together with no per-operator
+hand-written builder code:
+
+  1. **front-end**   -- ``core.dsl`` parses the source (``elem`` markers
+     or ``element_vars`` name the batched streams);
+  2. **middle-end**  -- ``core.rewrite`` factorizes/CSEs the tensor
+     expressions;
+  3. **schedule**    -- ``core.schedule`` partitions the value graph into
+     dataflow groups; ``stage_partition`` turns group boundaries into
+     pipeline-stage boundaries (or explicit named cuts are honored);
+  4. **liveness**    -- ``core.liveness.classify_boundary_streams``
+     decides which cross-stage values stay device-resident and which
+     cross the host link;
+  5. **backend**     -- each stage is compiled by ``core.emit`` (plain
+     PyTorch ``xla``, or a hand-written CUDA kernel via structural
+     pattern dispatch, ``flow.patterns``);
+  6. **memory**      -- the derived :class:`ProgramChain` is planned by
+     ``memory.plan_chain``; a kernel stage without a pinned block runs
+     at the block its plan sized against the card's shared memory.
+
+The result is a :class:`CompiledSystem`: per-stage callables, the
+:class:`ChainPlan`, and a human-readable system report -- the generated-
+architecture description the paper's flow emits, byte for byte the
+reference's.  ``CompiledSystem.run`` executes the artifact through the
+K-deep chain pipeline driver.  The design-space sweep (``dse``), stage
+fusion (``fuse='auto'``), measured block tuning (``tune_blocks``) and
+the profile store (``profile``) are not ported yet and raise
+:class:`FlowError`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+from ..core import dsl, emit, ir, liveness, rewrite
+from ..core.schedule import (Group, Schedule, schedule as make_schedule,
+                             stage_partition)
+from ..core.precision import get_policy
+from ..memory import channels
+from ..memory.chain import ChainPlan, ChainStage, ProgramChain, plan_chain
+from ..memory.placement import DeviceTopology
+from . import patterns
+
+
+class FlowError(ValueError):
+    """Raised when a program cannot be lowered to a pipelined system."""
+
+
+#: Explicit stage cuts: ``(stage_name, (value_name, ...))`` where value
+#: names refer to the program's declared temporaries/outputs.
+StageSpec = Sequence[Tuple[str, Sequence[str]]]
+
+
+def resolve_target(
+    target: Union[None, str, channels.MemoryTarget],
+    device=None,
+) -> channels.MemoryTarget:
+    """None -> detect on ``device`` (the CUDA card unless ``"cpu"``);
+    str -> datasheet lookup ('alveo_u280' ~ 'alveo-u280').
+
+    Delegates to :func:`repro_torch.memory.channels.resolve_target` so
+    every caller normalizes names identically; typos raise a FlowError
+    listing the known targets."""
+    try:
+        return channels.resolve_target(target, device)
+    except channels.UnknownTargetError as e:
+        raise FlowError(str(e)) from e
+
+
+# ---------------------------------------------------------------------------
+# stage extraction
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Stage:
+    """One extracted pipeline stage, pre-compilation."""
+
+    name: str
+    nodes: List[ir.Node]           # slice of the whole program, topo order
+    program: ir.Program            # standalone rebuilt subprogram
+    bindings: Dict[str, str]       # input name -> "producer.output"
+    group: Group                   # report view (streams/flops/liveness)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamInfo:
+    """One cross-stage value and where it lives."""
+
+    name: str
+    klass: str                     # liveness.STREAM_{RESIDENT,HOST,BOTH}
+    bytes_per_element: int
+    producer: str
+    consumers: Tuple[str, ...]     # empty for host-only outputs
+
+
+def _named_partitions(
+    prog: ir.Program, stages: StageSpec
+) -> List[Tuple[str, List[ir.Node]]]:
+    """Partition the program at explicit named cuts: each stage owns the
+    nodes needed for its named values that no earlier stage claimed."""
+    by_name: Dict[str, ir.Node] = dict(prog.temps)
+    by_name.update(prog.outputs)
+    topo = prog.toposort()
+    topo_pos = {n.uid: i for i, n in enumerate(topo)}
+    input_uids = {v.uid for v in prog.inputs.values()}
+    claimed: set = set()
+    parts: List[Tuple[str, List[ir.Node]]] = []
+    seen_names: set = set()
+    for name, value_names in stages:
+        if not name or "." in name or name in seen_names:
+            raise FlowError(f"bad or duplicate stage name {name!r}")
+        seen_names.add(name)
+        nodes: List[ir.Node] = []
+        stack = []
+        for vn in value_names:
+            if vn not in by_name:
+                raise FlowError(
+                    f"stage {name!r}: unknown value {vn!r} (stage cuts "
+                    "name declared temporaries or outputs)"
+                )
+            stack.append(by_name[vn])
+        while stack:
+            n = stack.pop()
+            if n.uid in claimed or n.uid in input_uids:
+                continue
+            claimed.add(n.uid)
+            nodes.append(n)
+            stack.extend(n.operands())
+        if not nodes:
+            raise FlowError(
+                f"stage {name!r} is empty: its values are computed by "
+                "earlier stages (cut order conflicts with the dataflow)"
+            )
+        nodes.sort(key=lambda n: topo_pos[n.uid])
+        parts.append((name, nodes))
+    for out_name, v in prog.outputs.items():
+        if v.uid not in claimed:
+            raise FlowError(
+                f"stage cuts do not cover output {out_name!r}"
+            )
+    return parts
+
+
+def _stream_namer(prog: ir.Program):
+    """Deterministic cross-stage stream names: declared temp names where
+    available, else t0, t1, ... in topological order (uids never leak
+    into reports)."""
+    taken = set(prog.inputs) | set(prog.outputs) | set(prog.temps)
+    temp_of = {v.uid: k for k, v in prog.temps.items()}
+    fresh = iter(range(10 ** 6))
+    cache: Dict[int, str] = {}
+
+    def name_of(node: ir.Node) -> str:
+        if node.uid not in cache:
+            got = temp_of.get(node.uid)
+            if got is None:
+                got = f"t{next(fresh)}"
+                while got in taken:
+                    got = f"t{next(fresh)}"
+                taken.add(got)
+            cache[node.uid] = got
+        return cache[node.uid]
+
+    return name_of
+
+
+def _extract_stages(
+    prog: ir.Program,
+    parts: List[Tuple[str, List[ir.Node]]],
+    bytes_per_scalar: int,
+) -> Tuple[List[_Stage], List[StreamInfo]]:
+    """Turn a node partition into standalone stage programs + bindings.
+
+    Cross-stage values become the producer stage's outputs and fresh
+    inputs of each consumer (same stream name on both sides, so chain
+    bindings are by construction never dangling).  A program output that
+    later stages also consume is exported twice: under its output name
+    (host stream) and under a ``<name>_res`` alias (the HBM-resident
+    copy consumers bind to), so the host still receives every program
+    output.
+    """
+    elem_dep = prog.element_dependent_uids()
+    classes = liveness.classify_boundary_streams(
+        prog, [nodes for _, nodes in parts]
+    )
+    out_names: Dict[int, List[str]] = {}
+    for name, v in prog.outputs.items():
+        out_names.setdefault(v.uid, []).append(name)
+    input_name_of = {v.uid: k for k, v in prog.inputs.items()}
+    stream_name = _stream_namer(prog)
+
+    stage_of: Dict[int, int] = {}
+    for i, (_, nodes) in enumerate(parts):
+        for n in nodes:
+            stage_of[n.uid] = i
+
+    # pre-name pure-resident streams in topo order for determinism
+    stream_name_by_uid: Dict[int, str] = {}
+    for _, nodes in parts:
+        for n in nodes:
+            if (n.uid in classes
+                    and classes[n.uid] == liveness.STREAM_RESIDENT
+                    and n.uid not in out_names):
+                stream_name_by_uid[n.uid] = stream_name(n)
+
+    def export_name(uid: int) -> str:
+        """The producer-side output name consumers bind to."""
+        if classes[uid] == liveness.STREAM_BOTH:
+            return f"{out_names[uid][0]}_res"
+        if uid in out_names:
+            return out_names[uid][0]
+        return stream_name_by_uid[uid]
+
+    stages: List[_Stage] = []
+    consumers: Dict[int, List[str]] = {}
+    for i, (name, nodes) in enumerate(parts):
+        node_uids = {n.uid for n in nodes}
+        # --- boundary inputs ------------------------------------------------
+        inputs: Dict[str, ir.Node] = {}
+        bindings: Dict[str, str] = {}
+        in_elem: List[str] = []
+        for n in nodes:
+            for op in n.operands():
+                if op.uid in node_uids:
+                    continue
+                if op.uid in input_name_of:        # whole-program input
+                    in_name = input_name_of[op.uid]
+                    src = None
+                else:                               # earlier stage's value
+                    in_name = (
+                        stream_name_by_uid.get(op.uid)
+                        or out_names[op.uid][0]
+                    )
+                    p = stage_of[op.uid]
+                    src = f"{parts[p][0]}.{export_name(op.uid)}"
+                if in_name in inputs:
+                    continue
+                inputs[in_name] = op
+                if src is not None:
+                    bindings[in_name] = src
+                    consumers.setdefault(op.uid, []).append(name)
+                if op.uid in elem_dep:
+                    in_elem.append(in_name)
+        # --- boundary outputs ----------------------------------------------
+        outputs: Dict[str, ir.Node] = {}
+        out_elem: List[str] = []
+        for n in nodes:
+            klass = classes.get(n.uid)
+            if klass is None:
+                continue
+            names: List[str] = list(out_names.get(n.uid, ()))
+            if klass == liveness.STREAM_BOTH:
+                names.append(f"{out_names[n.uid][0]}_res")
+            elif klass == liveness.STREAM_RESIDENT and n.uid not in out_names:
+                names = [stream_name_by_uid[n.uid]]
+            for nm in names:
+                outputs[nm] = n
+                if n.uid in elem_dep:
+                    out_elem.append(nm)
+            if n.uid not in elem_dep:
+                raise FlowError(
+                    f"stream {names[0]!r} does not depend on any element "
+                    "input; the flow pipelines element streams only "
+                    "(precompute shared values on the host instead)"
+                )
+        stage_prog = ir.subprogram(
+            nodes, inputs, outputs, element_vars=in_elem + out_elem
+        )
+        group = Group(
+            nodes=nodes,
+            in_streams=list(inputs.values()),
+            out_streams=[prog_out for prog_out in dict.fromkeys(
+                outputs.values()
+            )],
+            name=name,
+            bytes_per_scalar=bytes_per_scalar,
+        )
+        stages.append(_Stage(
+            name=name, nodes=nodes, program=stage_prog,
+            bindings=bindings, group=group,
+        ))
+
+    streams = [
+        StreamInfo(
+            name=(
+                out_names[uid][0] if uid in out_names
+                else stream_name_by_uid[uid]
+            ),
+            klass=klass,
+            bytes_per_element=(
+                next(n for n in parts[stage_of[uid]][1] if n.uid == uid).size
+                * bytes_per_scalar
+            ),
+            producer=parts[stage_of[uid]][0],
+            consumers=tuple(consumers.get(uid, ())),
+        )
+        for uid, klass in sorted(
+            classes.items(),
+            key=lambda kv: (stage_of[kv[0]], kv[0]),
+        )
+    ]
+    return stages, streams
+
+
+# ---------------------------------------------------------------------------
+# stage compilation (with kernel pattern dispatch)
+# ---------------------------------------------------------------------------
+
+
+def _compile_stages(
+    stages: List[_Stage],
+    policy,
+    backends: Sequence[str],
+    stage_blocks: Mapping[str, int],
+) -> Tuple[List[ChainStage], Tuple[str, ...]]:
+    """Compile every stage program; ``pallas`` stages are structurally
+    matched against the CUDA kernels and fall back to ``xla`` when no
+    kernel fits.  Returns the chain stages + effective backends."""
+    chain_stages: List[ChainStage] = []
+    effective: List[str] = []
+    for st, backend in zip(stages, backends):
+        pallas_impl = None
+        if backend == "pallas":
+            pallas_impl = patterns.pallas_impl_for(
+                st.program, block_elements=stage_blocks.get(st.name)
+            )
+            if pallas_impl is None:
+                backend = "xla"
+        compiled = emit.compile_program(
+            st.program, policy=policy, backend=backend,
+            pallas_impl=pallas_impl,
+        )
+        chain_stages.append(ChainStage(st.name, compiled, dict(st.bindings)))
+        effective.append(backend)
+    return chain_stages, tuple(effective)
+
+
+# ---------------------------------------------------------------------------
+# the compiled artifact
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CompiledSystem:
+    """Everything the flow generates for one program: the executable
+    chain, its memory architecture, and the derivation record."""
+
+    name: str
+    source: str
+    policy: str
+    target: channels.MemoryTarget
+    program: ir.Program            # whole program after rewrites
+    schedule: Schedule
+    chain: ProgramChain
+    plan: ChainPlan
+    backends: Tuple[str, ...]      # effective per-stage backends
+    streams: Tuple[StreamInfo, ...]
+    sharing: Dict[str, "liveness.SharingPlan"]
+    stage_groups: Tuple[Group, ...]
+
+    @property
+    def stage_names(self) -> Tuple[str, ...]:
+        """Planned stage names, in execution order."""
+        return tuple(s.name for s in self.chain.stages)
+
+    def run(self, **kwargs):
+        """Execute the system through the chain pipeline driver: the
+        plan's ``pipeline`` spec decides whether stages are cross-batch
+        pipelined (one dispatch ring per stage) or run back-to-back
+        (pass ``pipeline_stages=False`` to force the serial baseline;
+        see ``repro_torch.cfd.simulation.run_chain`` for all arguments,
+        ``device`` among them: the CUDA card unless ``"cpu"``)."""
+        from ..cfd.simulation import run_chain  # lazy: cfd builds on flow
+
+        return run_chain(self.chain, self.plan, **kwargs)
+
+    def report(self) -> str:
+        """The generated-architecture description (golden-checked)."""
+        prog = self.program
+        elem = set(prog.element_vars)
+        n_elem_in = sum(1 for n in prog.inputs if n in elem)
+        bps = self.schedule.bytes_per_scalar
+        fusion_line = (
+            "  fusion: off (fuse='auto' merges stages whose handoff "
+            "the cost model prices above their combined roofline)"
+        )
+        lines = [
+            f"repro.flow system: {self.name}",
+            "  pipeline: DSL source -> teil IR -> schedule -> chain -> "
+            "plan -> execute",
+            f"  target={self.target.name}  policy={self.policy}  "
+            f"stages={len(self.chain.stages)}",
+            f"  program: {len(prog.inputs)} inputs ({n_elem_in} element), "
+            f"{len(prog.outputs)} outputs, "
+            f"{sum(1 for n in prog.toposort() if not isinstance(n, ir.Input))}"
+            f" ir nodes, {prog.total_flops()} flops/element",
+            f"  schedule: {len(self.schedule.groups)} groups -> "
+            f"{len(self.chain.stages)} stages",
+            fusion_line,
+            "",
+            f"  {'stage':<12} {'backend':<8} {'nodes':>5} "
+            f"{'flops/elem':>12} {'in B/elem':>10} {'out B/elem':>10} "
+            f"{'sharing':>8}",
+        ]
+        for g, backend in zip(self.stage_groups, self.backends):
+            share = self.sharing[g.name]
+            lines.append(
+                f"  {g.name:<12} {backend:<8} {len(g.nodes):>5} "
+                f"{g.flops:>12} {g.in_stream_bytes(bps):>10} "
+                f"{g.out_stream_bytes(bps):>10} "
+                f"{share.savings_frac * 100:>7.1f}%"
+            )
+        lines += [
+            "",
+            f"  {'stream':<12} {'class':<9} {'B/elem':>8}  route",
+        ]
+        for s in self.streams:
+            route = s.producer + " -> " + (
+                ", ".join(s.consumers) if s.consumers else "host"
+            )
+            if s.klass == liveness.STREAM_BOTH:
+                route += " + host"
+            lines.append(
+                f"  {s.name:<12} {s.klass:<9} "
+                f"{s.bytes_per_element:>8}  {route}"
+            )
+        lines += ["", self.plan.report()]
+        return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# the entry point
+# ---------------------------------------------------------------------------
+
+
+def compile(
+    source: str,
+    *,
+    name: str = "program",
+    element_vars: Sequence[str] = (),
+    stages: Optional[StageSpec] = None,
+    target: Union[None, str, channels.MemoryTarget] = None,
+    device=None,
+    policy: Union[str, object] = "float32",
+    backend: str = "xla",
+    backends: Optional[Sequence[str]] = None,
+    stage_blocks: Optional[Mapping[str, int]] = None,
+    optimize: bool = True,
+    max_stages: Optional[int] = None,
+    vmem_budget: Optional[int] = None,
+    batch_elements: Optional[int] = None,
+    prefetch_depth: Union[int, Sequence[int]] = 1,
+    cu_count: Union[int, Sequence[int]] = 1,
+    devices: Union[None, int, str, DeviceTopology] = None,
+    n_eq: Optional[int] = None,
+    channel_bytes: Optional[int] = None,
+    dse: bool = False,
+    profile=None,
+    fuse: Optional[str] = None,
+    tune_blocks: bool = False,
+) -> CompiledSystem:
+    """Compile a CFDlang program end-to-end into a planned, executable
+    memory architecture.
+
+    Args:
+        source: CFDlang program text (``var input/output [elem]`` decls
+            plus tensor statements).
+        name: Label used in reports.
+        element_vars: Names of batched streams when the source does not
+            mark them with ``elem``.
+        stages: Explicit named cuts (:data:`StageSpec`); ``None``
+            derives the pipeline from the scheduler's dataflow groups.
+        target: Memory datasheet -- a :class:`~repro_torch.memory.
+            channels.MemoryTarget`, a name like ``'h100-sxm'``, or
+            ``None`` to detect it from ``device``.
+        device: The device a detected target describes: ``None`` is the
+            CUDA card (and raises without one), ``"cpu"`` the host.
+        policy: Numeric precision policy name (or policy object).
+        backend: Backend for every stage unless ``backends`` is given.
+        backends: Per-stage backend overrides; ``pallas`` stages are
+            structurally matched to the hand-written CUDA kernels and
+            fall back to ``xla`` (plain PyTorch) when nothing fits.
+        stage_blocks: Per-stage ``block_elements`` pins for kernel
+            stages; an unpinned kernel stage runs at its plan's block.
+        optimize: Run the middle-end rewrites (factorize/CSE) first.
+        max_stages: With ``stages=None``, cap the schedule's stage
+            count.
+        vmem_budget: Override the scheduler's on-chip working-set budget.
+        batch_elements: Explicit E; ``None`` co-sizes it per the
+            paper's channel rule.
+        prefetch_depth: Pipeline depth K, one value or one per stage.
+        cu_count: Compute units per stage, one value or one per stage.
+        devices: Device topology the stage CU groups are planned on: an
+            int (homogeneous pool of that size; ``0`` = the local CUDA
+            pool), a spec string like ``"cpu:2,tpu:4"``, or an explicit
+            :class:`~repro_torch.memory.placement.DeviceTopology`.
+        n_eq: Total equations/elements the plan should assume.
+        channel_bytes: Override the target's pseudo-channel capacity.
+        dse, profile, fuse, tune_blocks: Not ported yet; anything but
+            the defaults (``fuse='off'`` aside) raises.
+
+    Returns:
+        A :class:`CompiledSystem`: per-stage callables, the
+        :class:`~repro_torch.memory.chain.ChainPlan`, and the derivation
+        record rendered by :meth:`CompiledSystem.report`.
+
+    Raises:
+        FlowError: On parse errors, unknown targets/policies/backends,
+            malformed stage cuts, non-element outputs, or a knob that is
+            not ported yet.
+    """
+    for flag, given in (("dse", dse), ("profile", profile is not None),
+                        ("tune_blocks", tune_blocks),
+                        ("fuse='auto'", fuse == "auto")):
+        if given:
+            raise FlowError(f"{flag} is not ported yet")
+    if fuse not in (None, "off"):
+        raise FlowError(f"unknown fuse mode {fuse!r}; use 'auto' or 'off'")
+    try:
+        pol = get_policy(policy) if isinstance(policy, str) else policy
+    except (ValueError, NotImplementedError) as e:
+        raise FlowError(str(e)) from e
+    bps = pol.bits // 8
+    target = resolve_target(target, device)
+
+    prog = dsl.parse(source, element_vars=element_vars)
+    if not prog.outputs:
+        raise FlowError("program has no outputs; nothing to compile")
+    if not prog.element_vars:
+        raise FlowError(
+            "program has no element-marked streams; qualify batched "
+            "inputs/outputs with 'elem' (or pass element_vars=...)"
+        )
+    if optimize:
+        prog = rewrite.optimize(prog)
+    elem_dep = prog.element_dependent_uids()
+    for out_name, v in prog.outputs.items():
+        if v.uid not in elem_dep:
+            raise FlowError(
+                f"output {out_name!r} does not depend on any element "
+                "input; the flow pipelines element streams only"
+            )
+
+    sched_kwargs = {}
+    if vmem_budget is not None:
+        sched_kwargs["vmem_budget"] = vmem_budget
+    if max_stages is not None:
+        sched_kwargs["max_groups"] = max_stages
+    sched = make_schedule(prog, bytes_per_scalar=bps, **sched_kwargs)
+
+    if stages is None:
+        parts = [
+            (f"s{i}", nodes)
+            for i, nodes in enumerate(stage_partition(sched))
+        ]
+    else:
+        parts = _named_partitions(prog, stages)
+
+    stage_specs, streams = _extract_stages(prog, parts, bps)
+
+    if backends is None:
+        backends = [backend] * len(stage_specs)
+    if len(backends) != len(stage_specs):
+        raise FlowError(
+            f"need {len(stage_specs)} per-stage backends "
+            f"({', '.join(s.name for s in stage_specs)}), "
+            f"got {len(backends)}"
+        )
+    stage_blocks = dict(stage_blocks or {})
+    chain_stages, effective = _compile_stages(
+        stage_specs, pol, backends, stage_blocks
+    )
+    chain = ProgramChain(chain_stages)
+
+    if devices is None:
+        topology = None  # plan_chain sizes it to the widest stage
+    elif isinstance(devices, DeviceTopology):
+        topology = devices
+    elif isinstance(devices, str):
+        try:
+            topology = DeviceTopology.parse(devices)
+        except ValueError as e:
+            raise FlowError(str(e)) from e
+    elif devices == 0:
+        topology = DeviceTopology.detect()
+    else:
+        topology = DeviceTopology.homogeneous(devices)
+
+    plan = plan_chain(
+        chain, target=target, policy=pol.name, backends=effective,
+        batch_elements=batch_elements, prefetch_depth=prefetch_depth,
+        cu_count=cu_count, topology=topology, n_eq=n_eq,
+        channel_bytes=channel_bytes,
+    )
+
+    # a kernel stage without a pinned block runs at the block its plan
+    # sized against the target's on-chip memory (a divisor of E), so the
+    # executable and the plan agree on BE
+    planned_blocks = {
+        sp.name: sp.block_elements
+        for sp, be in zip(plan.stages, effective)
+        if be == "pallas" and sp.block_elements
+        and sp.name not in stage_blocks
+    }
+    if planned_blocks:
+        chain_stages, effective = _compile_stages(
+            stage_specs, pol, effective, {**planned_blocks, **stage_blocks}
+        )
+        chain = ProgramChain(chain_stages)
+
+    sharing = liveness.plan_program(
+        [s.group for s in stage_specs], bytes_per_scalar=bps
+    )
+    return CompiledSystem(
+        name=name, source=source, policy=pol.name, target=target,
+        program=prog, schedule=sched, chain=chain, plan=plan,
+        backends=effective, streams=tuple(streams), sharing=sharing,
+        stage_groups=tuple(s.group for s in stage_specs),
+    )

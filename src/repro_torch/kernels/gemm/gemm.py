@@ -1,0 +1,319 @@
+"""Generic GEMM-chain operator: the CUDA kernel's wrapper, its plain
+PyTorch version, and the recipe both run.
+
+A :class:`GemmRecipe` (built by ``flow.patterns.match_gemm_chain``)
+describes any stage made of shared-matrix mode contractions and
+elementwise ops -- the interpolation stage (three contractions with A),
+the gradient stage (three outputs through Dx/Dy/Dz with perms), and any
+single schedule-derived stage.  :func:`gemm_chain` is the port of the
+reference's ``gemm_chain_pallas``: on CUDA tensors it launches
+``csrc/gemm_chain.cu``, one generic kernel that reads the recipe from a
+small int32 op table; on CPU tensors it runs :func:`gemm_chain_plain`.
+Both sum every contraction over ``l`` in ascending order in float32, so
+an element's result never depends on the block size or the batch split.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Dict, List, Tuple
+
+import torch
+
+from ..helmholtz.helmholtz import MAX_SHARED_BYTES, contract_mode
+
+DEFAULT_BLOCK_ELEMENTS = 128
+
+#: ewise ops the kernel (and the matcher) accept.
+EWISE_OPS = ("add", "sub", "mul", "div", "neg", "scale")
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmRecipe:
+    """A hashable, IR-free description of one GEMM-chain stage.
+
+    ``inputs`` lists every program input as ``(name, shape, is_element)``
+    -- element tensors are rank-r all-``p`` cubes carrying the batch
+    axis, shared inputs are ``(p, p)`` contraction matrices.  Value
+    slots number the inputs first (in order) and then one slot per op
+    result, so ``ops`` and ``outputs`` reference values positionally:
+
+      * ``("contract", src_slot, mat_slot, mode, mat_dim, perm)`` --
+        contract the matrix's ``mat_dim`` axis against tensor mode
+        ``mode``, then permute the element-local axes of the in-place
+        result by ``perm`` (identity for in-place contractions; the
+        gradient einsums move the new free axis to the front);
+      * ``("ewise", op, lhs_slot, rhs_slot, const)`` -- ``rhs_slot`` is
+        ``-1`` for unary ops, ``const`` is None unless ``op=='scale'``.
+
+    ``outputs`` maps output names to slots.
+    """
+
+    p: int
+    inputs: Tuple[Tuple[str, Tuple[int, ...], bool], ...]
+    ops: Tuple[Tuple, ...]
+    outputs: Tuple[Tuple[str, int], ...]
+
+    @property
+    def n_inputs(self) -> int:
+        return len(self.inputs)
+
+    def slot_shape(self, slot: int) -> Tuple[int, ...]:
+        """Element-local shape of a value slot (no batch axis)."""
+        shapes = [shape for _, shape, _ in self.inputs]
+        for op in self.ops:
+            if op[0] == "contract":
+                shapes.append(shapes[op[1]])
+            else:
+                shapes.append(shapes[op[2]])
+        return shapes[slot]
+
+    def flops_per_element(self) -> int:
+        """Mirror of ``ir.Node.flops`` summed over the recipe."""
+        total = 0
+        for op in self.ops:
+            if op[0] == "contract":
+                total += 2 * self.p * math.prod(self.slot_shape(op[1]))
+            else:
+                total += math.prod(self.slot_shape(op[2]))
+        return total
+
+
+def apply_recipe(recipe: GemmRecipe, vals: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Run the op chain over float32 values (axis 0 of element values is
+    the batch axis), in the kernel's arithmetic order."""
+    vals = list(vals)
+    for op in recipe.ops:
+        if op[0] == "contract":
+            _, src, mat, mode, mat_dim, perm = op
+            m = vals[mat]
+            # mat_dim 0: M(a, l) = m[l, a]; mat_dim 1: M(a, l) = m[a, l]
+            y = contract_mode(vals[src], m.t() if mat_dim == 0 else m, mode)
+            if tuple(perm) != tuple(range(len(perm))):
+                y = y.permute((0,) + tuple(q + 1 for q in perm))
+            vals.append(y)
+        else:
+            _, eop, lhs, rhs, const = op
+            a = vals[lhs]
+            if eop == "add":
+                y = a + vals[rhs]
+            elif eop == "sub":
+                y = a - vals[rhs]
+            elif eop == "mul":
+                y = a * vals[rhs]
+            elif eop == "div":
+                y = a / vals[rhs]
+            elif eop == "neg":
+                y = -a
+            elif eop == "scale":
+                y = a * const
+            else:
+                raise ValueError(f"unknown ewise op {eop!r}")
+            vals.append(y)
+    return vals
+
+
+def _batch_and_block(recipe: GemmRecipe, arrays, block_elements: int):
+    e = next(
+        (a.shape[0] for (_, _, is_elem), a in zip(recipe.inputs, arrays)
+         if is_elem),
+        None,
+    )
+    if e is None:
+        raise ValueError("recipe has no element input")
+    be = min(block_elements, e)
+    if be < 1 or e % be != 0:
+        raise ValueError(f"element count {e} not divisible by block {be}")
+    return e, be
+
+
+def gemm_chain_plain(
+    recipe: GemmRecipe,
+    env: Dict[str, torch.Tensor],
+    *,
+    block_elements: int = DEFAULT_BLOCK_ELEMENTS,
+) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of the kernel.  Outputs take the dtype of the
+    recipe's first input, as in the reference; ``block_elements`` must
+    divide E, exactly as for the kernel."""
+    arrays = [env[name] for name, _, _ in recipe.inputs]
+    _batch_and_block(recipe, arrays, block_elements)
+    vals = apply_recipe(recipe, [a.to(torch.float32) for a in arrays])
+    out_dtype = arrays[0].dtype
+    return {
+        name: vals[slot].to(out_dtype).contiguous()
+        for name, slot in recipe.outputs
+    }
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's argument block (mirrors GemmChainArgs in gemm_chain.cu)
+# ---------------------------------------------------------------------------
+
+MAX_IN, MAX_OUT, MAX_OPS, MAX_SLOTS, MAX_MATS, OP_WIDTH = 8, 8, 32, 8, 8, 10
+_EWISE_CODE = {op: i for i, op in enumerate(EWISE_OPS)}
+
+
+class GemmChainArgs(ctypes.Structure):
+    _fields_ = [
+        ("inp", ctypes.c_void_p * MAX_IN),
+        ("out", ctypes.c_void_p * MAX_OUT),
+        ("n_in", ctypes.c_int), ("n_out", ctypes.c_int),
+        ("n_ops", ctypes.c_int), ("n_slots", ctypes.c_int),
+        ("n_mats", ctypes.c_int), ("p", ctypes.c_int), ("be", ctypes.c_int),
+        ("in_is_elem", ctypes.c_int * MAX_IN),
+        ("in_index", ctypes.c_int * MAX_IN),
+        ("out_slot", ctypes.c_int * MAX_OUT),
+        ("ops", (ctypes.c_int * OP_WIDTH) * MAX_OPS),
+        ("consts", ctypes.c_float * MAX_OPS),
+    ]
+
+
+def op_table(recipe: GemmRecipe):
+    """Lower a recipe to the kernel's tables: element slots (inputs and op
+    results) number the shared-memory cubes, matrices their own area.
+    Returns ``(in_index, n_slots, n_mats, ops, consts, out_slot)``;
+    raises for what the kernel does not take."""
+    p = recipe.p
+    where: Dict[int, Tuple[str, int]] = {}   # recipe slot -> (area, index)
+    n_slots = n_mats = 0
+    in_index = []
+    for slot, (name, shape, is_elem) in enumerate(recipe.inputs):
+        if is_elem:
+            if tuple(shape) != (p, p, p):
+                raise ValueError(
+                    f"kernel takes rank-3 element cubes, input {name!r} is "
+                    f"{tuple(shape)}"
+                )
+            where[slot] = ("slot", n_slots)
+            in_index.append(n_slots)
+            n_slots += 1
+        else:
+            if tuple(shape) != (p, p):
+                raise ValueError(
+                    f"kernel takes (p, p) shared matrices, input {name!r} "
+                    f"is {tuple(shape)}"
+                )
+            where[slot] = ("mat", n_mats)
+            in_index.append(n_mats)
+            n_mats += 1
+
+    def elem(slot: int) -> int:
+        area, idx = where[slot]
+        if area != "slot":
+            raise ValueError(f"slot {slot} is a shared matrix, not an element value")
+        return idx
+
+    ops, consts = [], []
+    for k, op in enumerate(recipe.ops):
+        dst = n_slots
+        if op[0] == "contract":
+            _, src, mat, mode, mat_dim, perm = op
+            area, m = where[mat]
+            if area != "mat":
+                raise ValueError(f"contract {k}: slot {mat} is not a matrix")
+            row = [0, dst, elem(src), m, mode, mat_dim, *perm]
+            consts.append(0.0)
+        else:
+            _, eop, lhs, rhs, const = op
+            row = [1 + _EWISE_CODE[eop], dst, elem(lhs),
+                   elem(rhs) if rhs >= 0 else -1]
+            consts.append(float(const) if const is not None else 0.0)
+        ops.append(row + [0] * (OP_WIDTH - len(row)))
+        where[recipe.n_inputs + k] = ("slot", dst)
+        n_slots += 1
+    out_slot = [elem(slot) for _, slot in recipe.outputs]
+    if (len(recipe.inputs) > MAX_IN or len(out_slot) > MAX_OUT
+            or len(ops) > MAX_OPS or n_slots > MAX_SLOTS
+            or n_mats > MAX_MATS):
+        raise ValueError(
+            f"recipe exceeds the kernel's static limits: {len(recipe.inputs)} "
+            f"inputs (max {MAX_IN}), {len(out_slot)} outputs (max {MAX_OUT}), "
+            f"{len(ops)} ops (max {MAX_OPS}), {n_slots} element slots "
+            f"(max {MAX_SLOTS}), {n_mats} matrices (max {MAX_MATS})"
+        )
+    return in_index, n_slots, n_mats, ops, consts, out_slot
+
+
+def _check_abi(lib) -> None:
+    """The ctypes mirror must match the compiled struct and limits."""
+    got = (ctypes.c_int * 7)()
+    lib.repro_gemm_chain_limits(got)
+    want = (MAX_IN, MAX_OUT, MAX_OPS, MAX_SLOTS, MAX_MATS, OP_WIDTH,
+            ctypes.sizeof(GemmChainArgs))
+    if tuple(got) != want:
+        raise RuntimeError(
+            f"GemmChainArgs mismatch: library {tuple(got)}, Python {want}"
+        )
+
+
+def gemm_chain(
+    recipe: GemmRecipe,
+    env: Dict[str, torch.Tensor],
+    *,
+    block_elements: int = DEFAULT_BLOCK_ELEMENTS,
+) -> Dict[str, torch.Tensor]:
+    """Run one recipe.  ``env`` maps the recipe's input names to tensors
+    (element tensors batched on axis 0).  CUDA tensors launch the kernel
+    (or raise); CPU tensors run the plain version.
+    ``gemm_chain.launches`` counts kernel launches."""
+    arrays = [env[name] for name, _, _ in recipe.inputs]
+    e, be = _batch_and_block(recipe, arrays, block_elements)
+    devices = {a.device for a in arrays}
+    if len(devices) != 1:
+        raise ValueError(f"recipe inputs lie on different devices: {devices}")
+    (device,) = devices
+    if device.type == "cpu":
+        return gemm_chain_plain(recipe, env, block_elements=be)
+    if device.type != "cuda":
+        raise ValueError(f"no GEMM-chain kernel for device {device}")
+    from .. import _cuda
+
+    dtypes = {a.dtype for a in arrays}
+    if len(dtypes) != 1:
+        raise TypeError(f"recipe inputs must share one dtype, got {dtypes}")
+    code = _cuda.dtype_code(arrays[0].dtype)
+    for (name, shape, is_elem), a in zip(recipe.inputs, arrays):
+        want = ((e,) + tuple(shape)) if is_elem else tuple(shape)
+        if tuple(a.shape) != want:
+            raise ValueError(f"input {name!r}: shape {tuple(a.shape)} != {want}")
+        if not a.is_contiguous():
+            raise ValueError(f"input {name!r} is not contiguous")
+    in_index, n_slots, n_mats, ops, consts, out_slot = op_table(recipe)
+    smem = 4 * (n_mats * recipe.p ** 2 + n_slots * be * recipe.p ** 3)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"block of {be} elements needs {smem} B of shared memory "
+            f"(limit {MAX_SHARED_BYTES}); use a smaller block"
+        )
+    outs = {
+        name: torch.empty((e,) + recipe.slot_shape(slot), dtype=arrays[0].dtype,
+                          device=device)
+        for name, slot in recipe.outputs
+    }
+    args = GemmChainArgs()
+    for j, ((_, _, is_elem), a) in enumerate(zip(recipe.inputs, arrays)):
+        args.inp[j] = a.data_ptr()
+        args.in_is_elem[j] = int(is_elem)
+        args.in_index[j] = in_index[j]
+    for j, (name, _) in enumerate(recipe.outputs):
+        args.out[j] = outs[name].data_ptr()
+        args.out_slot[j] = out_slot[j]
+    for k, row in enumerate(ops):
+        for c, v in enumerate(row):
+            args.ops[k][c] = v
+        args.consts[k] = consts[k]
+    args.n_in, args.n_out, args.n_ops = len(arrays), len(outs), len(ops)
+    args.n_slots, args.n_mats, args.p, args.be = n_slots, n_mats, recipe.p, be
+    lib = _cuda.library()
+    _check_abi(lib)
+    err = lib.repro_gemm_chain(
+        ctypes.addressof(args), e, code, _cuda.stream_handle(device)
+    )
+    _cuda.check(err, "gemm_chain")
+    gemm_chain.launches += 1
+    return outs
+
+
+gemm_chain.launches = 0

@@ -1,0 +1,184 @@
+"""The port's front end and emitter held against the reference.
+
+Parse/rewrite must give the same structural program signature in both
+packages for every DSL source; the port's ``xla`` backend (plain
+whole-program PyTorch) must match the reference's jitted XLA path; and
+no module of ``repro_torch`` may import ``jax`` or ``repro``.
+"""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import dsl as r_dsl
+from repro.core import emit as r_emit
+from repro.core import rewrite as r_rewrite
+from repro.core.precision import F32 as R_F32
+from repro.core.precision import F64 as R_F64
+from repro.core.precision import enable_x64
+from repro.flow.patterns import program_signature as r_signature
+from repro_torch.cfd import operators as t_operators
+from repro_torch.core import dsl as t_dsl
+from repro_torch.core import emit as t_emit
+from repro_torch.core import rewrite as t_rewrite
+from repro_torch.core.precision import BF16, F32, F64, POLICIES, get_policy
+from repro_torch.flow.patterns import program_signature as t_signature
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+EXAMPLES = ROOT / "examples"
+
+#: (label, source template attribute, format args, element vars)
+DSL_SOURCES = [
+    ("helmholtz", "INVERSE_HELMHOLTZ_SRC", {"p": 5}, ("u", "D", "v")),
+    ("interpolation", "INTERPOLATION_SRC", {"n": 4, "m": 6}, ("u", "v")),
+    ("gradient", "GRADIENT_SRC", {"nx": 3, "ny": 4, "nz": 5},
+     ("u", "gx", "gy", "gz")),
+]
+
+
+def _sources():
+    out = []
+    for label, attr, fmt, ev in DSL_SOURCES:
+        t_src = getattr(t_dsl, attr).format(**fmt)
+        r_src = getattr(r_dsl, attr).format(**fmt)
+        out.append(pytest.param(t_src, r_src, ev, id=label))
+    for path in sorted(EXAMPLES.glob("*.cfd")):
+        text = path.read_text()
+        out.append(pytest.param(text, text, (), id=path.stem))
+    src = t_operators.CFD_PIPELINE_SRC.format(p=4)
+    out.append(pytest.param(src, src, (), id="cfd_pipeline_p4"))
+    return out
+
+
+@pytest.mark.parametrize("t_src,r_src,element_vars", _sources())
+@pytest.mark.parametrize("optimize", [False, True], ids=["parsed", "rewritten"])
+def test_program_signature_matches_reference(t_src, r_src, element_vars,
+                                             optimize):
+    assert t_src == r_src
+    t_prog = t_dsl.parse(t_src, element_vars=element_vars)
+    r_prog = r_dsl.parse(r_src, element_vars=element_vars)
+    if optimize:
+        t_prog = t_rewrite.optimize(t_prog)
+        r_prog = r_rewrite.optimize(r_prog)
+    assert t_signature(t_prog) == r_signature(r_prog)
+    assert sorted(t_prog.inputs) == sorted(r_prog.inputs)
+    assert sorted(t_prog.outputs) == sorted(r_prog.outputs)
+    assert set(t_prog.element_vars) == set(r_prog.element_vars)
+    assert t_prog.total_flops() == r_prog.total_flops()
+
+
+def _env(prog, rng, n_elem):
+    elem = set(prog.element_vars)
+    return {
+        name: rng.uniform(-1, 1, ((n_elem,) if name in elem else ())
+                          + tuple(node.shape))
+        for name, node in prog.inputs.items()
+    }
+
+
+# float32: both sides sum in their own order (XLA's dot vs torch.einsum),
+# so a few float32 ulps of the largest output; float64 agrees to ~1e-12
+TOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+@pytest.mark.parametrize("t_src,r_src,element_vars", _sources())
+@pytest.mark.parametrize("policy", ["float64", "float32"])
+def test_xla_backend_matches_reference(t_src, r_src, element_vars, policy,
+                                       rng):
+    t_prog = t_rewrite.optimize(t_dsl.parse(t_src, element_vars=element_vars))
+    r_prog = r_rewrite.optimize(r_dsl.parse(r_src, element_vars=element_vars))
+    env = _env(t_prog, rng, n_elem=3)
+    t_pol, r_pol = get_policy(policy), {"float64": R_F64,
+                                        "float32": R_F32}[policy]
+    np_dtype = np.float64 if policy == "float64" else np.float32
+    with enable_x64(policy == "float64"):
+        r_fn = r_emit.compile_program(r_prog, policy=r_pol, backend="xla")
+        want = {k: np.asarray(v) for k, v in r_fn.batched_fn(
+            {k: v.astype(np_dtype) for k, v in env.items()}).items()}
+        r_one = {k: np.asarray(v) for k, v in r_fn.element_fn(
+            {k: (v[0] if k in r_prog.element_vars else v).astype(np_dtype)
+             for k, v in env.items()}).items()}
+    t_fn = t_emit.compile_program(t_prog, policy=t_pol, backend="xla")
+    got = t_fn.batched_fn({k: torch.from_numpy(v) for k, v in env.items()})
+    one = t_fn.element_fn({
+        k: torch.from_numpy(v[0] if k in t_prog.element_vars else v)
+        for k, v in env.items()
+    })
+    assert t_fn.backend == "xla"
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == t_pol.torch_dtype
+        assert tuple(got[k].shape) == want[k].shape
+        scale = np.abs(want[k]).max()
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=TOL[policy],
+                                   atol=TOL[policy] * scale)
+        np.testing.assert_allclose(one[k].numpy(), r_one[k], rtol=TOL[policy],
+                                   atol=TOL[policy] * scale)
+
+
+def test_bf16_policy_stores_bf16_and_accumulates_in_f32(rng):
+    prog = t_rewrite.optimize(t_dsl.parse(
+        t_dsl.INVERSE_HELMHOLTZ_SRC.format(p=5), element_vars=("u", "D", "v")
+    ))
+    env = {k: torch.from_numpy(v).float() for k, v in _env(prog, rng, 4).items()}
+    lo = t_emit.compile_program(prog, policy=BF16).batched_fn(env)["v"]
+    hi = t_emit.compile_program(prog, policy=F32).batched_fn(env)["v"]
+    assert lo.dtype == torch.bfloat16
+    # bf16 storage (8 mantissa bits) of inputs, intermediates and output
+    np.testing.assert_allclose(lo.float().numpy(), hi.numpy(), rtol=0.05,
+                               atol=0.05 * hi.abs().max().item())
+
+
+def test_policies_and_fixed_point_not_ported():
+    assert set(POLICIES) == {"float64", "float32", "bfloat16"}
+    assert (F64.bits, F32.bits, BF16.bits) == (64, 32, 16)
+    assert BF16.torch_accum_dtype == torch.float32
+    for name in ("fixed64_q24.40", "fixed32_q8.24"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_policy(name)
+    with pytest.raises(ValueError, match="unknown policy"):
+        get_policy("float16")
+
+
+def test_backends_not_ported_raise():
+    prog = t_dsl.inverse_helmholtz_program(3)
+    with pytest.raises(NotImplementedError, match="staged"):
+        t_emit.compile_program(prog, backend="staged")
+    with pytest.raises(ValueError, match="pallas_impl"):
+        t_emit.compile_program(prog, backend="pallas")
+
+
+def test_compile_turns_tf32_off():
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        t_emit.compile_program(t_dsl.inverse_helmholtz_program(3))
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                bad.append(f"{path.relative_to(ROOT)}: {mod}")
+    assert not bad, "port modules import JAX or the reference: " + ", ".join(bad)

@@ -1,0 +1,189 @@
+"""The port's planner, flow and kernel dispatch held against the
+reference: the nine plan/chain/flow golden reports come out byte for
+byte, plans carry equal signatures, both pattern matchers return equal
+GEMM recipes, and the H100 datasheet plans the slice's batch."""
+import dataclasses
+import pathlib
+
+import pytest
+import torch
+
+from repro.cfd import operators as r_operators
+from repro.flow import build as r_build
+from repro.flow import patterns as r_patterns
+from repro.memory import chain as r_chain
+from repro_torch import flow as t_flow
+from repro_torch.cfd import operators as t_operators
+from repro_torch.flow import patterns as t_patterns
+from repro_torch.memory import chain as t_chain
+from repro_torch.memory import channels, dse
+from repro_torch.memory.placement import DeviceTopology
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+GOLDEN = ROOT / "tests" / "golden"
+
+
+def _golden(name):
+    return (GOLDEN / name).read_text()
+
+
+PLAN_CASES = {
+    "plan_helmholtz_p7_alveo.txt": dict(policy="float32", prefetch_depth=1),
+    "plan_helmholtz_p7_staged_alveo.txt": dict(
+        policy="float32", backend="staged", prefetch_depth=2),
+    "plan_helmholtz_p7_bf16_alveo.txt": dict(policy="bfloat16",
+                                             prefetch_depth=1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_CASES))
+def test_single_op_plan_golden(name):
+    plan = dse.make_plan(7, target=channels.ALVEO_U280, n_eq=1 << 16,
+                         **PLAN_CASES[name])
+    assert plan.report().rstrip("\n") == _golden(name).rstrip("\n")
+
+
+CHAIN_CASES = {
+    "chain_cfd_p5_alveo.txt": dict(batch_elements=512, prefetch_depth=1),
+    "chain_cfd_p5_mixed_alveo.txt": dict(
+        backends=("xla", "xla", "staged"), batch_elements=256,
+        prefetch_depth=(1, 1, 2)),
+    "chain_cfd_p5_sharded_alveo.txt": dict(
+        batch_elements=256, prefetch_depth=(2, 1, 1), cu_count=(1, 2, 1),
+        topology="2"),
+    "chain_cfd_p5_hetero_alveo.txt": dict(
+        batch_elements=256, prefetch_depth=(2, 1, 1), cu_count=(1, 2, 1),
+        topology="cpu:1,alveo:2", stage_groups=(0, 1, 1),
+        stage_batch_elements=(64, 256, 256)),
+}
+
+
+def _chain_kwargs(name, topology_cls):
+    kw = dict(CHAIN_CASES[name])
+    topo = kw.pop("topology", None)
+    if topo == "2":
+        kw["topology"] = topology_cls.homogeneous(2)
+    elif topo is not None:
+        kw["topology"] = topology_cls.parse(topo)
+    return kw
+
+
+@pytest.mark.parametrize("name", sorted(CHAIN_CASES))
+def test_chain_plan_golden_and_signature(name):
+    from repro.memory.channels import ALVEO_U280 as R_ALVEO
+    from repro.memory.placement import DeviceTopology as RTopology
+
+    t_plan = t_chain.plan_chain(
+        t_operators.build_cfd_chain(5, device="cpu"),
+        target=channels.ALVEO_U280, policy="float32", n_eq=1 << 12,
+        **_chain_kwargs(name, DeviceTopology),
+    )
+    assert t_plan.report().rstrip("\n") == _golden(name).rstrip("\n")
+    r_plan = r_chain.plan_chain(
+        r_operators.build_cfd_chain(5), target=R_ALVEO, policy="float32",
+        n_eq=1 << 12, **_chain_kwargs(name, RTopology),
+    )
+    assert t_plan.signature == r_plan.signature
+
+
+@pytest.mark.parametrize("example", ["inverse_helmholtz", "cfd_pipeline"])
+def test_flow_report_golden(example):
+    """What ``python -m repro.flow examples/<x>.cfd --target alveo-u280``
+    prints, produced by the port's flow."""
+    system = t_flow.compile(
+        (ROOT / "examples" / f"{example}.cfd").read_text(), name=example,
+        target="alveo-u280",
+    )
+    assert system.report() + "\n" == _golden(f"flow_{example}.txt")
+
+
+def _stage_programs(pkg_operators, cut, **kw):
+    stages = pkg_operators.CFD_PIPELINE_STAGES if cut else None
+    compile_fn = (t_flow.compile if pkg_operators is t_operators
+                  else r_build.compile)
+    system = compile_fn(pkg_operators.CFD_PIPELINE_SRC.format(p=5),
+                        stages=stages, target="alveo-u280", **kw)
+    return [(s.name, s.program) for s in system.chain.stages]
+
+
+@pytest.mark.parametrize("cut", [True, False], ids=["named-cuts", "schedule"])
+def test_matchers_agree_on_every_pipeline_stage(cut):
+    t_stages = _stage_programs(t_operators, cut)
+    r_stages = _stage_programs(r_operators, cut)
+    assert [n for n, _ in t_stages] == [n for n, _ in r_stages]
+    matched = 0
+    for (name, t_prog), (_, r_prog) in zip(t_stages, r_stages):
+        assert t_patterns.program_signature(t_prog) == \
+            r_patterns.program_signature(r_prog), name
+        t_recipe = t_patterns.match_gemm_chain(t_prog)
+        r_recipe = r_patterns.match_gemm_chain(r_prog)
+        assert (t_recipe is None) == (r_recipe is None), name
+        if t_recipe is not None:
+            assert dataclasses.astuple(t_recipe) == dataclasses.astuple(r_recipe)
+            matched += 1
+        assert (t_patterns.match_inverse_helmholtz(t_prog)
+                == r_patterns.match_inverse_helmholtz(r_prog)), name
+    assert matched >= 2
+
+
+def test_pallas_dispatch_matches_reference_backends():
+    kw = dict(backends="pallas", target="alveo-u280")
+    t_sys = t_operators.compile_cfd_pipeline(5, **kw)
+    r_sys = r_operators.compile_cfd_pipeline(5, **kw)
+    assert t_sys.backends == r_sys.backends == ("pallas",) * 3
+    assert t_sys.report() == r_sys.report()
+    # every kernel stage runs at the block its plan sized
+    assert t_sys.plan.signature == r_sys.plan.signature
+
+
+def test_h100_plan_for_the_slice():
+    """The H100 datasheet plans the slice: E = 50,420, blocks 4 / 2 / 4,
+    1,292.5 MiB per batch over the host link, feasible."""
+    system = t_operators.compile_cfd_pipeline(11, backends="pallas",
+                                              target="h100-sxm")
+    plan = system.plan
+    assert plan.target is channels.H100_SXM and plan.feasible
+    assert plan.batch_elements == 50_420
+    assert [sp.block_elements for sp in plan.stages] == [4, 2, 4]
+    assert round(plan.host_stream_bytes / 2 ** 20, 1) == 1292.5
+    assert plan.pipeline.pipelined
+    assert system.backends == ("pallas",) * 3
+
+
+def test_h100_datasheet():
+    t = channels.H100_SXM
+    assert channels.resolve_target("H100_SXM") is t
+    assert (t.hbm_bytes, t.n_channels, t.vmem_bytes) == (80 * 2 ** 30, 80,
+                                                         232_448)
+    assert (t.hbm_bw, t.peak_flops, t.host_link_bw) == (3.35e12, 67e12, 64e9)
+    assert t.channel_bytes == 2 ** 30
+
+
+def test_detect_target_needs_the_card_unless_cpu_is_asked():
+    assert channels.detect_target("cpu") is channels.CPU_HOST
+    assert DeviceTopology.from_torch([torch.device("cpu")]).device_kind == "cpu"
+    if torch.cuda.is_available():
+        name = torch.cuda.get_device_properties(0).name
+        if "H100" in name:
+            assert channels.detect_target() is channels.H100_SXM
+        else:
+            with pytest.raises(channels.UnknownTargetError):
+                channels.detect_target()
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            channels.detect_target()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            t_operators.compile_cfd_pipeline(5)
+
+
+def test_not_ported_knobs_raise():
+    src = t_operators.CFD_PIPELINE_SRC.format(p=3)
+    for kw in (dict(dse=True), dict(fuse="auto"), dict(tune_blocks=True),
+               dict(profile=True)):
+        with pytest.raises(t_flow.FlowError, match="not ported"):
+            t_flow.compile(src, target="cpu-host", **kw)
+    chain = t_operators.build_cfd_chain(3, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        t_chain.plan_chain(chain, target=channels.CPU_HOST, max_stages=1)
+    with pytest.raises(t_flow.FlowError, match="not ported"):
+        t_flow.compile(src, target="cpu-host", policy="fixed32_q8.24")
