@@ -21,7 +21,22 @@ Phases (any failure exits non-zero, and no result line is printed):
      zeroed just before and read just after; pipelined and serial
      checksums bitwise equal; 64 elements of batch 0 against the float64
      numpy oracles;
-  4. one JSON line describing every kernel, then the result line.
+  4. the flash-attention kernel against its plain version at the model
+     path's shape (B = 4, Hq = 16, Hkv = 8, T = 4096, d = 128, causal) in
+     bfloat16 (rtol 8e-3 / atol 1e-4 max|plain|) and float32, plus
+     Tq = 512 < Tk = 4096 and a non-causal case; bitwise equality of G
+     heads with two calls of G/2; times of kernel, plain version and
+     ``scaled_dot_product_attention`` (``is_causal`` at Tq = Tk; at
+     Tq < Tk the end-aligned mask ``causal_lower_right(Tq, Tk)``);
+  5. the model path: ``build_model(configs.get("internlm2-1.8b"))`` at
+     full size (24 layers, bfloat16, random weights from generator seed
+     0), one scoring ``forward`` on tokens (4, 4096) with the launch
+     counters zeroed just before and read just after (exactly 24 flash
+     launches), its next-token loss, and the same forward with
+     ``attn_impl="xla"``; then serving: prefill of a 512-token prompt at
+     batch 4, 32 greedy decode steps, and their logits against the
+     teacher-forced forward of the same sequence;
+  6. one JSON line describing every kernel, then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 with a non-zero code before printing any result.
@@ -39,11 +54,31 @@ SRC = REPO / "src"
 
 #: H100 SXM datasheet peaks the bounds are computed against
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
+PEAK_F32_FLOPS = 67e12           # CUDA cores
+PEAK_BF16_FLOPS = 989e12         # dense tensor cores
 N_BATCHES = 8
 CHECK_ELEMENTS = 64
 F32_RTOL, F32_ATOL_FRAC = 5e-4, 5e-4
 BF16_RTOL, BF16_ATOL_FRAC = 0.15, 0.3
+#: flash attention in bfloat16: kernel and plain version both compute in
+#: float32 and round only the output, so an entry differs by at most one
+#: bfloat16 step of itself (2^-7 relative) where the two float32 values
+#: straddle a rounding boundary; the small absolute floor covers their
+#: float32 difference near zero.  Bounded per element, so a row of
+#: typical size (about 0.03 at T = 4096) is held as tightly as the
+#: largest one
+FLASH_BF16_RTOL, FLASH_BF16_ATOL_FRAC = 8e-3, 1e-4
+#: the model path: internlm2-1.8b at full width and depth
+MODEL_ARCH = "internlm2-1.8b"
+SCORE_BATCH, SCORE_LEN = 4, 4096
+PROMPT_LEN, DECODE_STEPS = 512, 32
+#: kernel logits against another bfloat16 path to the same logits
+#: (plain-op attention, which rounds p to bfloat16 before the PV product;
+#: the cached prefill/decode path, whose products have other shapes):
+#: they round at other places, so logits of order 1 differ by bfloat16
+#: noise -- about 1 % of max|logits| on an H100 -- and near-ties may swap
+#: the argmax.  Allowed: 5 % and 90 % agreement.
+LOGIT_ATOL_FRAC, LOGIT_MIN_ARGMAX = 0.05, 0.9
 
 
 class SmokeFailure(RuntimeError):
@@ -88,16 +123,38 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
     """The least time (ms) the card could take: bytes over the memory rate
-    or f32 operations over the CUDA-core peak, whichever is larger."""
+    or operations over ``peak`` (default the f32 CUDA-core peak),
+    whichever is larger."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _wrappers():
+    from repro_torch.kernels.attention import attention
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.helmholtz import helmholtz
+
+    return {"helmholtz": helmholtz.inverse_helmholtz,
+            "gemm_chain": gemm.gemm_chain,
+            "flash_attention": attention.flash_attention}
+
+
+def zero_counts() -> None:
+    """Set every kernel's launch count to 0 (just before a main path)."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count (just after a main path)."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def phase_setup():
@@ -113,6 +170,10 @@ def phase_setup():
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
+    # float32 products in full float32 (the kernels' plain versions, the
+    # cache path's scores): no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(f"device {torch.cuda.get_device_name(0)} | count "
           f"{torch.cuda.device_count()}")
     from repro_torch.kernels import _cuda
@@ -246,8 +307,6 @@ def phase_slice(system):
     import torch
 
     from repro_torch.cfd import operators, reference, simulation
-    from repro_torch.kernels.gemm import gemm
-    from repro_torch.kernels.helmholtz import helmholtz
     from repro_torch.memory import pipeline as mempipe
 
     if system.backends != ("pallas",) * 3:
@@ -256,14 +315,13 @@ def phase_slice(system):
     n_eq = N_BATCHES * E
     p = system.program.inputs["u"].shape[0]
 
-    gemm.gemm_chain.launches = 0
-    helmholtz.inverse_helmholtz.launches = 0
+    zero_counts()
     res = system.run(n_eq=n_eq)
     torch.cuda.synchronize()
-    launches = {"gemm_chain": gemm.gemm_chain.launches,
-                "helmholtz": helmholtz.inverse_helmholtz.launches}
+    launches = read_counts()
     n = res.batches
-    if n != N_BATCHES or launches != {"gemm_chain": 2 * n, "helmholtz": n}:
+    if n != N_BATCHES or launches != {"gemm_chain": 2 * n, "helmholtz": n,
+                                      "flash_attention": 0}:
         fail(f"main path ran {n} batches with launches {launches}; want "
              f"{N_BATCHES} batches, 2n gemm_chain and n helmholtz")
     if not res.pipelined_stages:
@@ -323,6 +381,283 @@ def phase_slice(system):
     return res, launches
 
 
+def visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
+    """(query, key) pairs the attention must form: with ``causal`` and
+    queries aligned to the end of the keys, row i sees
+    ``clamp(Tk - Tq + i + 1, 0, Tk)`` keys (half of Tq * Tk at Tq = Tk)."""
+    if not causal:
+        return Tq * Tk
+    return sum(min(max(Tk - Tq + i + 1, 0), Tk) for i in range(Tq))
+
+
+def phase_flash():
+    """The flash-attention kernel against its plain version at the model
+    path's shapes; times beside SDPA and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch import configs
+    from repro_torch.kernels.attention import attention, ref
+
+    cfg = configs.get(MODEL_ARCH)
+    B, Hq, Hkv, d = SCORE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [  # (name, Tq, Tk, causal, dtype); the first is the main path's
+        ("causal bf16", SCORE_LEN, SCORE_LEN, True, torch.bfloat16),
+        ("causal f32", SCORE_LEN, SCORE_LEN, True, torch.float32),
+        ("causal bf16 Tq<Tk", PROMPT_LEN, SCORE_LEN, True, torch.bfloat16),
+        ("non-causal bf16", SCORE_LEN, SCORE_LEN, False, torch.bfloat16),
+    ]
+    rows = []
+    for name, Tq, Tk, causal, dtype in cases:
+        q = torch.randn(B * Hq, Tq, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B * Hkv, Tk, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B * Hkv, Tk, d, generator=gen, device=dev).to(dtype)
+        kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=causal)
+        got = attention.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            err = compare(got, want, F32_RTOL, F32_ATOL_FRAC, f"flash {name}")
+        else:
+            err = compare(got, want, FLASH_BF16_RTOL, FLASH_BF16_ATOL_FRAC,
+                          f"flash {name}")
+        size = want.float().abs()
+        max_plain, median_plain = size.max().item(), size.median().item()
+        del size
+        h = B // 2  # G heads against two calls of G/2 (split by batch)
+        parts = [attention.flash_attention(q[a * Hq:(a + h) * Hq],
+                                           k[a * Hkv:(a + h) * Hkv],
+                                           v[a * Hkv:(a + h) * Hkv], **kw)
+                 for a in (0, h)]
+        if not torch.equal(got, torch.cat(parts)):
+            fail(f"flash {name}: G={B * Hq} heads differ bitwise from two "
+                 f"calls of {h * Hq}")
+        ms = time_ms(lambda: attention.flash_attention(q, k, v, **kw), 5)
+        plain_ms = time_ms(lambda: ref.flash_attention_plain(q, k, v, **kw), 2)
+        # SDPA's is_causal aligns the mask to the top left; the kernel's,
+        # to the end of the keys, which causal_lower_right gives at Tq < Tk
+        mask = dict(is_causal=causal) if Tq == Tk or not causal else dict(
+            attn_mask=causal_lower_right(Tq, Tk))
+        shape4 = lambda t, H: t.view(B, H, t.shape[1], d)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            shape4(q, Hq), shape4(k, Hkv), shape4(v, Hkv), enable_gqa=True,
+            **mask)
+        lib_err = (sdpa().reshape(got.shape).float() - want.float()).abs().max().item()
+        if lib_err > 0.1 * max_plain:
+            fail(f"flash {name}: SDPA is off the plain version by "
+                 f"{lib_err:.3e}: not the same function")
+        library_ms = time_ms(sdpa, 5)
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        flops = 4 * B * Hq * d * visible_pairs(Tq, Tk, causal)
+        b_ms, b_by = bound(nbytes(q, k, v, got), flops, peak)
+        peak_name = ("bf16 tensor-core 989 TFLOP/s" if dtype == torch.bfloat16
+                     else "f32 CUDA-core 67 TFLOP/s")
+        rows.append(dict(case=name, G=B * Hq, Tq=Tq, Tk=Tk, d=d, causal=causal,
+                         dtype=str(dtype).split(".")[-1], ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=b_ms, bound_by=b_by, peak=peak_name,
+                         max_abs_err=err, max_abs_plain=max_plain,
+                         median_abs_plain=median_plain, sdpa_max_abs_err=lib_err))
+        print(f"flash {name}: G={B * Hq} Tq={Tq} Tk={Tk} d={d}: max|err| "
+              f"{err:.3e} (max|plain| {max_plain:.3f}, median "
+              f"{median_plain:.4f}), head split bitwise ok | kernel {ms:.3f} "
+              f"ms  plain {plain_ms:.3f} ms  sdpa {library_ms:.3f} ms "
+              f"(max|sdpa - plain| {lib_err:.3e})  bound {b_ms:.3f} ms "
+              f"({b_by}; {flops / 1e9:.1f} GFLOP at the {peak_name} peak)")
+        del q, k, v, got, want, parts
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_model():
+    """The model path: a scoring forward at full size through the flash
+    kernel, the same forward through plain attention, then serving."""
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.runtime import losses
+
+    cfg = configs.get(MODEL_ARCH)
+    dev = torch.device("cuda", 0)
+    model = build_model(cfg)
+    if model.device.type != "cuda":
+        fail(f"build_model placed the model on {model.device}")
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"model {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, vocab {cfg.vocab}"
+          f": {n_params / 1e9:.3f} B params ({cfg.param_dtype}), init "
+          f"{time.perf_counter() - t:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (SCORE_BATCH, SCORE_LEN),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens}
+
+    model.forward(params, batch)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    logits = model.forward(params, batch)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t
+    launches = read_counts()
+    want = {"helmholtz": 0, "gemm_chain": 0, "flash_attention": cfg.n_layers}
+    if launches != want:
+        fail(f"scoring forward launched {launches}; want {want}")
+    if logits.shape != (SCORE_BATCH, SCORE_LEN, cfg.vocab) or (
+            logits.dtype != torch.float32):
+        fail(f"logits {tuple(logits.shape)} {logits.dtype}")
+    if not torch.isfinite(logits).all():
+        fail("scoring forward: non-finite logits")
+    loss = losses.next_token_loss(logits, tokens).item()
+    ln_v = math.log(cfg.vocab)
+    if not (math.isfinite(loss) and abs(loss - ln_v) < 2.0):
+        fail(f"next-token loss {loss} not near ln V = {ln_v:.3f}")
+    n_tok = SCORE_BATCH * SCORE_LEN
+    print(f"scoring forward ({SCORE_BATCH}, {SCORE_LEN}): {fwd_s:.3f} s, "
+          f"{n_tok / fwd_s:.0f} tokens/s | launches {launches} | next-token "
+          f"loss {loss:.4f} (ln V = {ln_v:.4f}) | peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    fwd_profile = device_profile(lambda: model.forward(params, batch),
+                                 "scoring forward")
+
+    # the kernel's share of one forward: its launches at this shape, timed
+    # alone (phase 4's main case) over the forward's wall time
+    xla_model = build_model(cfg, attn_impl="xla")
+    t = time.perf_counter()
+    logits_x = xla_model.forward(params, batch)
+    torch.cuda.synchronize()
+    xla_s = time.perf_counter() - t
+    print(f"attn_impl='xla' forward: {xla_s:.3f} s")
+    stats = dict(forward_s=fwd_s, forward_tokens_per_s=n_tok / fwd_s,
+                 xla_forward_s=xla_s, loss=loss, launches=launches,
+                 forward_profile=fwd_profile,
+                 vs_xla=logit_agreement(logits, logits_x,
+                                        "kernel logits vs attn_impl='xla'"))
+    del logits, logits_x, xla_model
+    torch.cuda.empty_cache()
+
+    # serving: prefill a prompt, decode greedily, then teacher-force
+    prompt = tokens[:, :PROMPT_LEN]
+    zero_counts()
+    cache = model.init_cache(SCORE_BATCH, PROMPT_LEN + DECODE_STEPS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lg, cache = model.prefill(params, {"tokens": prompt}, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    steps, fed = [lg], []
+    t = time.perf_counter()
+    for i in range(DECODE_STEPS):
+        tok = steps[-1].argmax(-1)
+        fed.append(tok)
+        lg, cache = model.decode_step(params, tok, cache, PROMPT_LEN + i)
+        steps.append(lg)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    serve_launches = read_counts()
+    seq = torch.cat([prompt, torch.stack(fed, dim=1)], dim=1)
+    # causal: padding past the sequence leaves its logits unchanged, and
+    # 1024 rows satisfy the attention's block rule
+    pad = torch.zeros(SCORE_BATCH, 1024 - seq.shape[1], dtype=seq.dtype,
+                      device=dev)
+    full = model.forward(params, {"tokens": torch.cat([seq, pad], dim=1)})
+    forced = full[:, PROMPT_LEN - 1:PROMPT_LEN + DECODE_STEPS]
+    served = torch.stack(steps, dim=1)
+    if serve_launches["flash_attention"] != 0:
+        fail(f"prefill/decode launched {serve_launches}: the cache path "
+             "should not reach the flash kernel")
+    print(f"serving: prefill ({SCORE_BATCH}, {PROMPT_LEN}) {prefill_s:.3f} s, "
+          f"{DECODE_STEPS} decode steps {decode_s:.3f} s = "
+          f"{SCORE_BATCH * DECODE_STEPS / decode_s:.1f} tokens/s | launches "
+          f"{serve_launches}")
+    stats.update(prefill_s=prefill_s, decode_s=decode_s,
+                 decode_tokens_per_s=SCORE_BATCH * DECODE_STEPS / decode_s,
+                 vs_forced=logit_agreement(
+                     served, forced, "decode logits vs teacher-forced forward"))
+    last = PROMPT_LEN + DECODE_STEPS - 1   # rewrites that slot's same K/V
+    stats["decode_profile"] = device_profile(
+        lambda: model.decode_step(params, fed[-1], cache, last),
+        "one decode step")
+    return stats
+
+
+def device_profile(fn, what: str):
+    """Where ``fn``'s time goes on the card: its wall time without the
+    profiler, then the kernels ``torch.profiler`` records in a second
+    call -- their summed device time, its share of that wall time (one
+    stream, so kernels do not overlap), and the largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    if dev_s == 0:
+        print(f"  {what}: wall {wall:.4f} s; the profiler saw no device "
+              "time, busy share not measured")
+        return dict(wall_s=wall, device_s=None, busy_share=None, top=[])
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    out = dict(wall_s=wall, device_s=dev_s, busy_share=dev_s / wall,
+               launches=sum(e.count for e in kernels),
+               top=[dict(kernel=e.key[:80], s=e.self_device_time_total / 1e6,
+                         calls=e.count) for e in top])
+    print(f"  {what}: wall {wall:.4f} s, kernels {dev_s:.4f} s on the card "
+          f"({out['launches']} launches), busy share {dev_s / wall:.3f}")
+    for k in out["top"]:
+        print(f"    {k['s']:.4f} s  x{k['calls']}  {k['kernel']}")
+    return out
+
+
+def logit_agreement(got, want, what: str) -> dict:
+    """Two bfloat16 paths to the same logits: max |got - want| within
+    LOGIT_ATOL_FRAC max|want| and the same argmax at LOGIT_MIN_ARGMAX of
+    the positions, else fail."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite logits")
+    diff = (got - want).abs()
+    scale = want.abs().max().item()
+    out = dict(max_abs=diff.max().item(), mean_abs=diff.mean().item(),
+               max_ref=scale,
+               argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float()
+               .mean().item())
+    print(f"  {what}: max|diff| {out['max_abs']:.3e}, mean "
+          f"{out['mean_abs']:.3e} (max|ref| {scale:.3f}); argmax agreement "
+          f"{out['argmax_agreement']:.4f}")
+    if out["max_abs"] > LOGIT_ATOL_FRAC * scale or (
+            out["argmax_agreement"] < LOGIT_MIN_ARGMAX):
+        fail(f"{what}: beyond max|diff| <= {LOGIT_ATOL_FRAC} max|ref| or "
+             f"argmax agreement >= {LOGIT_MIN_ARGMAX}")
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     try:
         import torch
@@ -352,6 +687,8 @@ def main() -> int:
               "MiB/batch")
         rows = phase_kernels(system)
         _, launches = phase_slice(system)
+        flash_rows = phase_flash()
+        model = phase_model()
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -378,7 +715,19 @@ def main() -> int:
             "library_ms": sum(libs) if all(x is not None for x in libs) else None,
             "shapes": shapes,
         })
+    main_case = flash_rows[0]  # the shape the model path gives the kernel
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/attention/attention.py:88",
+        "launches": model["launches"]["flash_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+        "shapes": flash_rows,
+    })
     print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"model": model}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -73,3 +73,33 @@ def get_policy(name: str) -> FloatPolicy:
             f"fixed-point policy {name!r} is not ported yet"
         )
     raise ValueError(f"unknown policy {name!r}; known: {sorted(POLICIES)}")
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` accumulated and returned in float32, like the reference's
+    ``einsum(..., preferred_element_type=float32)`` on bfloat16 operands.
+
+    ``b`` is 2-D, or has ``a``'s leading (batch) dims.  On a CUDA card,
+    bfloat16/float16 operands go to ``torch.mm``/``torch.bmm`` with
+    ``out_dtype=torch.float32`` (no rounding to the low precision), and
+    any other shape raises.  On the CPU, which has no kernel for those
+    overloads, and for float32 operands, both are upcast to float32,
+    which is exact for bfloat16 values and accumulates in float32."""
+    low = (torch.bfloat16, torch.float16)
+    if a.device.type == "cuda" and (a.dtype in low or b.dtype in low):
+        if a.dtype != b.dtype:
+            raise TypeError(f"matmul_f32: operands of {a.dtype} and {b.dtype}")
+        if b.dim() == 2:
+            out = torch.mm(a.reshape(-1, a.shape[-1]), b,
+                           out_dtype=torch.float32)
+            return out.reshape(*a.shape[:-1], b.shape[-1])
+        if b.dim() == a.dim() >= 3 and b.shape[:-2] == a.shape[:-2]:
+            out = torch.bmm(a.reshape(-1, *a.shape[-2:]),
+                            b.reshape(-1, *b.shape[-2:]),
+                            out_dtype=torch.float32)
+            return out.reshape(*a.shape[:-2], *out.shape[-2:])
+        raise ValueError(
+            f"matmul_f32: b {tuple(b.shape)} is neither 2-D nor batched "
+            f"like a {tuple(a.shape)}"
+        )
+    return torch.matmul(a.float(), b.float())

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper, each with its plain PyTorch
-version: the fused Inverse-Helmholtz operator (``helmholtz``) and the
-generic GEMM-chain kernel (``gemm``).  Sources live in ``../csrc`` and
+version: the fused Inverse-Helmholtz operator (``helmholtz``), the
+generic GEMM-chain kernel (``gemm``) and GQA flash attention
+(``attention``).  Sources live in ``../csrc`` and
 are built on first use (``_cuda``)."""
-from . import gemm, helmholtz
+from . import attention, gemm, helmholtz
 
-__all__ = ["gemm", "helmholtz"]
+__all__ = ["attention", "gemm", "helmholtz"]

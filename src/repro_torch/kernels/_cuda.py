@@ -24,7 +24,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (
     pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 )
-SOURCES = ("helmholtz.cu", "gemm_chain.cu")
+SOURCES = ("helmholtz.cu", "gemm_chain.cu", "flash_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -117,6 +117,9 @@ def library() -> ctypes.CDLL:
         lib.repro_gemm_chain.restype = ci
         lib.repro_gemm_chain_limits.argtypes = [vp]
         lib.repro_gemm_chain_limits.restype = ci
+        lib.repro_flash_attention.argtypes = [
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, vp]
+        lib.repro_flash_attention.restype = ci
         lib.repro_cuda_error_string.argtypes = [ci]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,0 +1,91 @@
+"""Public attention entry point with implementation switch.
+
+Models call :func:`multi_head_attention` with ``(B, H, T, d)`` tensors;
+head folding to the kernel layout happens here.  ``impl``:
+
+* ``"auto"``: the CUDA kernel for CUDA tensors, ``"xla"`` on the CPU (as
+  the reference takes the Pallas kernel only on a TPU);
+* ``"pallas"``: the kernel's wrapper (:func:`.attention.flash_attention`),
+  which runs the plain version for CPU tensors;
+* ``"interpret"``: the kernel's plain PyTorch version on any device;
+* ``"xla"``: the same math in plain whole-tensor PyTorch ops
+  (:func:`_xla_attention`);
+* ``"xla_flash"``: the reference's custom-VJP blockwise path for
+  training, not ported yet.
+
+``"pallas"`` and ``"interpret"`` agree with the reference's kernel on
+every row that sees a key.  A causal row that sees none (``Tq > Tk``)
+is the mean of the V rows its query tile visits, and the port's tiles
+are a fixed 64 x 64 where the reference visits by ``block_q x
+block_k``: such rows can differ (0 here, the mean of V there, e.g. at
+``Tq = 128, Tk = 64`` and the default blocks; see ``ref.py``).
+"""
+from __future__ import annotations
+
+from typing import Literal, Optional
+
+import torch
+
+from ...core.precision import matmul_f32
+from .attention import flash_attention
+from .ref import NEG_INF, flash_attention_plain
+
+Impl = Literal["auto", "pallas", "interpret", "xla", "xla_flash"]
+
+
+def _xla_attention(q, k, v, *, causal: bool, scale: float):
+    """(B, Hq, Tq, d) x (B, Hkv, Tk, d) GQA attention in plain ops: scores
+    in float32, softmax in float32, ``p`` cast to ``v.dtype`` before the
+    PV product (accumulated in float32), output in ``q.dtype``."""
+    B, Hq, Tq, d = q.shape
+    _, Hkv, Tk, _ = k.shape
+    group = Hq // Hkv
+    qh = q.reshape(B, Hkv, group * Tq, d)
+    s = matmul_f32(qh, k.transpose(-1, -2)).reshape(B, Hkv, group, Tq, Tk)
+    s = s * scale
+    if causal:
+        qpos = torch.arange(Tq, device=q.device)[:, None] + (Tk - Tq)
+        kpos = torch.arange(Tk, device=q.device)[None, :]
+        s = torch.where(qpos >= kpos, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = matmul_f32(p.reshape(B, Hkv, group * Tq, Tk), v)
+    return o.reshape(B, Hq, Tq, d).to(q.dtype)
+
+
+def multi_head_attention(
+    q: torch.Tensor,   # (B, Hq, Tq, d)
+    k: torch.Tensor,   # (B, Hkv, Tk, d)
+    v: torch.Tensor,   # (B, Hkv, Tk, d)
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    impl: Impl = "auto",
+    block_q: int = 512,
+    block_k: int = 512,
+) -> torch.Tensor:
+    B, Hq, Tq, d = q.shape
+    _, Hkv, Tk, _ = k.shape
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if impl == "auto":
+        impl = "pallas" if q.device.type == "cuda" else "xla"
+    if impl == "xla_flash":
+        raise NotImplementedError(
+            "impl='xla_flash' (the blockwise custom-VJP path for training) "
+            "is not ported yet: ROADMAP queue 1, item 13 (training)"
+        )
+    if impl == "xla":
+        return _xla_attention(q, k, v, causal=causal, scale=scale)
+    if impl not in ("pallas", "interpret"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+
+    qf = q.reshape(B * Hq, Tq, d).contiguous()
+    kf = k.reshape(B * Hkv, Tk, d).contiguous()
+    vf = v.reshape(B * Hkv, Tk, d).contiguous()
+    fn = flash_attention if impl == "pallas" else flash_attention_plain
+    out = fn(
+        qf, kf, vf,
+        n_q_heads=Hq, n_kv_heads=Hkv, causal=causal, scale=scale,
+        block_q=block_q, block_k=block_k,
+    )
+    return out.reshape(B, Hq, Tq, d)

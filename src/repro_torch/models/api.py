@@ -1,0 +1,88 @@
+"""Unified model facade: ``build_model(cfg)`` -> :class:`Model` with init /
+forward / prefill / decode, dispatching on the architecture family.
+
+This slice ports the decoder families ``dense`` and ``vlm``.  The model
+runs on ``device`` (default: the CUDA card; ``device="cpu"`` for the
+plain paths); ``init`` draws params from an explicit ``torch.Generator``
+on that device, and inputs are moved to it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..memory.channels import resolve_device
+from . import transformer
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+
+#: families of the reference not ported yet, and their ROADMAP item
+NOT_PORTED = {
+    "moe": "ROADMAP queue 1, item 10 (MoE)",
+    "hybrid_jamba": "ROADMAP queue 1, item 11 (hybrid and SSM)",
+    "ssm_xlstm": "ROADMAP queue 1, item 11 (hybrid and SSM)",
+    "encdec": "ROADMAP queue 1, item 12 (encoder-decoder)",
+}
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+    #: init(generator) -> params on ``device``
+    init: Callable[[torch.Generator], Params]
+    #: forward(params, batch) -> float32 logits; batch is a dict of tensors
+    forward: Callable[..., torch.Tensor]
+    init_cache: Optional[Callable[..., Any]] = None
+    prefill: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
+    decode_step: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
+
+    @property
+    def arch_id(self) -> str:
+        return self.cfg.arch_id
+
+
+def build_model(cfg: ModelConfig, *, attn_impl: str = "auto",
+                device=None) -> Model:
+    """The model of ``cfg``'s family.  ``attn_impl`` picks the cache-less
+    attention (``"auto"``: the flash kernel on the card, plain ops on the
+    CPU; see ``kernels.attention.ops``)."""
+    fam = cfg.family
+    if fam in NOT_PORTED:
+        raise NotImplementedError(
+            f"model family {fam!r} is not ported yet: {NOT_PORTED[fam]}"
+        )
+    if fam not in ("dense", "vlm"):
+        raise ValueError(f"unknown family {fam!r}")
+    dev = resolve_device(device)
+
+    def tokens_of(batch):
+        return torch.as_tensor(batch["tokens"], device=dev)
+
+    def fwd(params, batch):
+        return transformer.decoder_forward(
+            params, tokens_of(batch), cfg, attn_impl=attn_impl)
+
+    def prefill(params, batch, cache):
+        return transformer.decoder_prefill(params, tokens_of(batch), cache, cfg)
+
+    def decode(params, token, cache, cache_index):
+        if isinstance(cache_index, torch.Tensor):
+            cache_index = cache_index.to(dev)
+        return transformer.decoder_decode_step(
+            params, torch.as_tensor(token, device=dev), cache, cache_index, cfg)
+
+    return Model(
+        cfg=cfg,
+        device=dev,
+        init=lambda generator: transformer.decoder_init(
+            cfg, generator, device=dev),
+        forward=fwd,
+        init_cache=lambda batch, max_len: transformer.decoder_init_cache(
+            cfg, batch, max_len, device=dev),
+        prefill=prefill,
+        decode_step=decode,
+    )

@@ -1,0 +1,57 @@
+"""Params of the reference (``repro.models``) as the port's params.
+
+The reference's ``decoder_init`` returns a nested dict of arrays whose
+layout the port keeps: dense weights are ``(d_in, d_out)``, every leaf
+under ``blocks`` has a leading ``n_layers`` axis (``jax.vmap`` stacks
+them), and a tied head (``tie_embeddings``) has no ``head`` entry.  So
+the conversion is a copy of every leaf, checked against the shapes and
+dtypes :func:`~.transformer.decoder_init` gives the same config.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from ..memory.channels import resolve_device
+from . import transformer
+from .config import ModelConfig
+
+
+def _leaf(arr) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: exact through float32
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _convert(got, want, path: str, device, bad: List[str]):
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            keys = sorted(got) if isinstance(got, dict) else type(got).__name__
+            bad.append(f"{path or '<root>'}: keys {keys}, want {sorted(want)}")
+            return None
+        return {k: _convert(got[k], want[k], f"{path}/{k}", device, bad)
+                for k in want}
+    t = _leaf(got)
+    if tuple(t.shape) != tuple(want.shape) or t.dtype != want.dtype:
+        bad.append(f"{path}: {tuple(t.shape)} {t.dtype}, want "
+                   f"{tuple(want.shape)} {want.dtype}")
+        return None
+    return t.to(device)
+
+
+def params_from_jax(cfg: ModelConfig, params: Dict[str, Any], *,
+                    device=None) -> Dict[str, Any]:
+    """The port's params for ``cfg`` from the reference's nested dict of
+    arrays (numpy or anything ``np.asarray`` takes); raises ``ValueError``
+    listing every missing key or mismatched shape or dtype."""
+    dev = resolve_device(device)
+    want = transformer.decoder_init(cfg, None, device="meta")
+    bad: List[str] = []
+    out = _convert(params, want, "", dev, bad)
+    if bad:
+        raise ValueError("params do not match " + cfg.arch_id + ": "
+                         + "; ".join(bad))
+    return out

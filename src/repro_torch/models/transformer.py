@@ -1,0 +1,181 @@
+"""Decoder-only transformer (dense / VLM families).
+
+Block params are stacked along a leading ``n_layers`` axis, as the
+reference stacks them with ``jax.vmap``; :func:`_scan_blocks` is a Python
+loop over the layers in place of ``lax.scan``.  The encoder-decoder
+(whisper) and xLSTM stacks of the reference's module are not ported yet
+(ROADMAP queue 1, items 11 and 12), nor is the MoE FFN (item 10).
+
+``cfg.remat`` matters only to training (it wraps the reference's scan
+body in ``jax.checkpoint``); these forward passes ignore it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from . import layers
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+# =============================================================================
+# Uniform decoder block (dense FFN)
+# =============================================================================
+
+def block_init(gen, cfg: ModelConfig, dtype, *, lead: Tuple[int, ...] = (),
+               device=None) -> Params:
+    if cfg.family == "moe" or (cfg.moe is not None and cfg.moe.layout == "all"):
+        raise NotImplementedError(
+            "MoE FFN blocks are not ported yet (ROADMAP queue 1, item 10)"
+        )
+    kw = dict(lead=lead, device=device)
+    return {
+        "ln1": layers.norm_init(cfg.d_model, cfg.norm, dtype, **kw),
+        "attn": layers.attention_init(gen, cfg, dtype, **kw),
+        "ln2": layers.norm_init(cfg.d_model, cfg.norm, dtype, **kw),
+        "mlp": layers.mlp_init(gen, cfg, dtype, **kw),
+    }
+
+
+def block_apply(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_index=None,
+    attn_impl: str = "auto",
+):
+    h = layers.norm_apply(p["ln1"], x, cfg.norm, cfg.norm_eps)
+    a, new_cache = layers.attention_apply(
+        p["attn"], h, cfg, positions=positions, cache=cache,
+        cache_index=cache_index, causal=True, attn_impl=attn_impl,
+    )
+    x = x + a
+    h = layers.norm_apply(p["ln2"], x, cfg.norm, cfg.norm_eps)
+    return x + layers.mlp_apply(p["mlp"], h, cfg), new_cache
+
+
+# =============================================================================
+# Decoder-only model (dense | vlm)
+# =============================================================================
+
+def decoder_init(cfg: ModelConfig, generator: Optional[torch.Generator], *,
+                 device=None) -> Params:
+    """Random params from ``generator`` (on ``device``).  With
+    ``device="meta"`` and no generator, only the shapes and dtypes."""
+    dtype = layers.torch_dtype(cfg.param_dtype)
+    p = {
+        "embed": layers.embed_init(generator, cfg, dtype, device=device),
+        "blocks": block_init(generator, cfg, dtype, lead=(cfg.n_layers,),
+                             device=device),
+        "ln_f": layers.norm_init(cfg.d_model, cfg.norm, dtype, device=device),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = layers.dense_init(
+            generator, cfg.d_model, cfg.vocab, dtype,
+            scale=1.0 / math.sqrt(cfg.d_model), device=device,
+        )
+    return p
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked param (or cache) tree: views, no copies."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _scan_blocks(params_blocks, x, cfg, *, positions, attn_impl,
+                 caches=None, cache_index=None):
+    """The blocks in order over stacked params (and stacked caches, which
+    are written in place, if serving)."""
+    for i in range(cfg.n_layers):
+        x, _ = block_apply(
+            _layer(params_blocks, i), x, cfg, positions=positions,
+            cache=None if caches is None else _layer(caches, i),
+            cache_index=cache_index, attn_impl=attn_impl,
+        )
+    return x, caches
+
+
+def _positions(B: int, T: int, device) -> torch.Tensor:
+    return torch.arange(T, device=device)[None].expand(B, T)
+
+
+def decoder_forward(
+    params: Params,
+    tokens: torch.Tensor,              # (B, T)
+    cfg: ModelConfig,
+    *,
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """float32 logits (B, T, V); cache-less, so every layer's attention
+    goes through the flash kernel on the card."""
+    B, T = tokens.shape
+    x = layers.embed_apply(params["embed"], tokens, cfg)
+    x, _ = _scan_blocks(
+        params["blocks"], x, cfg, positions=_positions(B, T, x.device),
+        attn_impl=attn_impl,
+    )
+    x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
+    return layers.unembed_apply(params["embed"], params.get("head"), x, cfg)
+
+
+def decoder_init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                       device=None) -> Params:
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    dt = layers.torch_dtype(cfg.compute_dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def decoder_prefill(
+    params: Params,
+    tokens: torch.Tensor,
+    cache: Params,
+    cfg: ModelConfig,
+    *,
+    attn_impl: str = "auto",
+) -> Tuple[torch.Tensor, Params]:
+    """Run the prompt; returns (last-position logits, filled cache)."""
+    B, T = tokens.shape
+    x = layers.embed_apply(params["embed"], tokens, cfg)
+    x, new_caches = _scan_blocks(
+        params["blocks"], x, cfg, positions=_positions(B, T, x.device),
+        attn_impl=attn_impl, caches=cache, cache_index=0,
+    )
+    x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
+    logits = layers.unembed_apply(
+        params["embed"], params.get("head"), x[:, -1:], cfg
+    )
+    return logits[:, 0], new_caches
+
+
+def decoder_decode_step(
+    params: Params,
+    token: torch.Tensor,               # (B,) integers
+    cache: Params,
+    cache_index,                       # int / 0-d: write position; (B,): per slot
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Params]:
+    B = token.shape[0]
+    x = layers.embed_apply(params["embed"], token[:, None], cfg)
+    if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
+        positions = cache_index[:, None]                    # per-slot decode
+    else:
+        positions = torch.full((B, 1), int(cache_index), device=x.device)
+    x, new_caches = _scan_blocks(
+        params["blocks"], x, cfg, positions=positions, attn_impl="xla",
+        caches=cache, cache_index=cache_index,
+    )
+    x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
+    logits = layers.unembed_apply(
+        params["embed"], params.get("head"), x, cfg
+    )
+    return logits[:, 0], new_caches

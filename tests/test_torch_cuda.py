@@ -9,11 +9,19 @@ Without a card every test skips.  Tolerances: float32 within rtol 5e-4
 and atol 5e-4 max|plain| (both sum in float32, the plain version in
 another association of the same ascending-l order); bfloat16 within the
 bounds ``tests/test_kernels.py`` uses (rtol 0.15, atol 0.3 max|plain|).
+Flash attention: float32 within the same rtol 5e-4 / atol 5e-4
+max|plain|; bfloat16 within rtol 8e-3 / atol 1e-4 max|plain| (both sides
+compute in float32 and round only the output, so an entry differs by at
+most one bfloat16 step of itself, 2^-7 relative, plus their float32
+difference near zero).
 """
 import pytest
 import torch
 
+from repro_torch.core.precision import matmul_f32
 from repro_torch.kernels import gemm as t_gemm
+from repro_torch.kernels.attention import attention as t_attn
+from repro_torch.kernels.attention import ref as t_attn_ref
 from repro_torch.kernels.helmholtz import helmholtz as t_hh
 
 
@@ -128,3 +136,85 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     with pytest.raises(TypeError, match="one dtype"):
         t_gemm.gemm_chain(recipe, {"A": S.bfloat16(), "u": u},
                           block_elements=2)
+
+
+FLASH_CASES = [
+    # B, Hq, Hkv, Tq, Tk, d, causal  (the reference's sweep, then edges)
+    (2, 4, 2, 64, 64, 32, True),
+    (1, 8, 2, 32, 128, 16, True),
+    (2, 2, 2, 64, 64, 64, False),
+    (1, 4, 1, 128, 128, 32, True),
+    (1, 2, 2, 16, 16, 128, True),
+    (1, 2, 1, 64, 32, 16, True),      # Tq > Tk: fully masked rows
+    (1, 2, 1, 192, 64, 64, True),     # query tiles that visit no key
+    (2, 4, 2, 96, 96, 128, True),     # ragged last tile
+    (2, 4, 2, 96, 160, 64, False),
+]
+
+
+def _flash_inputs(gen, device, B, Hq, Hkv, Tq, Tk, d):
+    return [torch.randn(s, generator=gen, device=device)
+            for s in ((B * Hq, Tq, d), (B * Hkv, Tk, d), (B * Hkv, Tk, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    B, Hq, Hkv, Tq, Tk, d, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (x.to(dtype) for x in _flash_inputs(gen, cuda, B, Hq, Hkv, Tq, Tk, d))
+    kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=causal, block_q=32,
+              block_k=32)
+    before = t_attn.flash_attention.launches
+    got = t_attn.flash_attention(q, k, v, **kw)
+    want = t_attn_ref.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert t_attn.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol_frac = (5e-4, 5e-4) if dtype == torch.float32 else (8e-3, 1e-4)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol_frac * scale)
+    if B > 1:  # bitwise the same when the batch is split across calls
+        half_q, half_kv = B // 2 * Hq, B // 2 * Hkv
+        parts = [t_attn.flash_attention(q[a:a + half_q], k[b:b + half_kv],
+                                        v[b:b + half_kv], **kw)
+                 for a, b in ((0, 0), (half_q, half_kv))]
+        assert torch.equal(got, torch.cat(parts))
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = _flash_inputs(gen, cuda, 1, 2, 1, 64, 64, 32)
+    kw = dict(n_q_heads=2, n_kv_heads=1)
+    before = t_attn.flash_attention.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        t_attn.flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                               v, **kw)
+    with pytest.raises(TypeError, match="one dtype"):
+        t_attn.flash_attention(q, k.bfloat16(), v, **kw)
+    with pytest.raises(ValueError, match="head dims"):
+        q48, k48 = (torch.randn(n, 64, 48, device=cuda) for n in (2, 1))
+        t_attn.flash_attention(q48, k48, k48, **kw)
+    with pytest.raises(ValueError, match="not divisible"):
+        t_attn.flash_attention(q, k, v, block_q=48, **kw)
+    assert t_attn.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_matmul_f32_keeps_bf16_products_in_float32(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(2, 3, 64, 96, generator=gen, device=cuda).bfloat16()
+    w = torch.randn(96, 80, generator=gen, device=cuda).bfloat16()
+    bt = torch.randn(2, 3, 96, 40, generator=gen, device=cuda).bfloat16()
+    for b in (w, bt):
+        got = matmul_f32(a, b)
+        want = torch.matmul(a.double(), b.double())
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="neither 2-D nor batched"):
+        matmul_f32(a, bt[0])
+    with pytest.raises(TypeError, match="operands of"):
+        matmul_f32(a, w.float())

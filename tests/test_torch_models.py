@@ -1,0 +1,227 @@
+"""The port's decoder models held against the reference's.
+
+For the five dense and vlm smoke configs (internlm2, qwen2 with QKV bias,
+qwen3 with qk-norm and an explicit head dim, command-r-plus with
+layernorm and tied embeddings, chameleon), the reference initialises the
+params from a PRNG key, :func:`params_from_jax` carries them over, and
+both packages run the same seeded numpy tokens.  Everything is float32
+(the reference's bfloat16 einsums do not execute on this CPU).
+
+Tolerance rtol = atol = 2e-4 on logits of order 1: both sides accumulate
+in float32 through two layers and the vocab projection, in another
+summation order.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as r_configs
+from repro.models import build_model as r_build_model
+from repro_torch import configs as t_configs
+from repro_torch.models import build_model, params_from_jax
+from repro_torch.models import transformer as t_transformer
+from repro_torch.runtime import losses as t_losses
+from repro.runtime import losses as r_losses
+
+ARCHS = ["internlm2-1.8b", "qwen2-7b", "qwen3-14b", "command-r-plus-104b",
+         "chameleon-34b"]
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_params(arch):
+    return r_build_model(r_configs.get_smoke(arch)).init(jax.random.PRNGKey(0))
+
+
+def _pair(arch, impl="xla"):
+    """(reference model, its params, port model, port params)."""
+    r_model = r_build_model(r_configs.get_smoke(arch), attn_impl=impl)
+    r_params = _reference_params(arch)
+    t_cfg = t_configs.get_smoke(arch)
+    t_model = build_model(t_cfg, attn_impl=impl, device="cpu")
+    np_params = jax.tree_util.tree_map(np.asarray, r_params)
+    return r_model, r_params, t_model, params_from_jax(t_cfg, np_params,
+                                                        device="cpu")
+
+
+def _np(x):
+    return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def test_configs_are_copies_of_the_reference():
+    assert t_configs.ARCH_IDS == r_configs.ARCH_IDS
+    for arch in r_configs.ARCH_IDS:
+        for get in ("get", "get_smoke"):
+            want = getattr(r_configs, get)(arch)
+            got = getattr(t_configs, get)(arch)
+            assert got.__dict__ == want.__dict__ or (
+                repr(got) == repr(want)), arch
+            assert got.param_count() == want.param_count()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+def test_forward_matches_reference(arch, impl, rng):
+    r_model, r_params, t_model, t_params = _pair(arch, impl)
+    cfg = t_model.cfg
+    tokens = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    want = np.asarray(r_model.forward(r_params, {"tokens": jnp.asarray(tokens)}))
+    got = t_model.forward(t_params, {"tokens": torch.from_numpy(tokens).long()})
+    assert got.dtype == torch.float32 and got.shape == (2, 16, cfg.vocab)
+    np.testing.assert_allclose(_np(got), want, **TOL)
+    r_loss = float(r_losses.next_token_loss(jnp.asarray(want), jnp.asarray(tokens)))
+    t_loss = float(t_losses.next_token_loss(got, torch.from_numpy(tokens).long()))
+    assert abs(t_loss - r_loss) <= 2e-4 * abs(r_loss)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_reference(arch, rng):
+    """Prefill, scalar decode steps, then one per-slot step with every
+    sequence at its own position; logits within TOL of the reference and
+    of the port's own teacher-forced forward."""
+    r_model, r_params, t_model, t_params = _pair(arch)
+    cfg = t_model.cfg
+    B, T, P = 2, 6, 4
+    tokens = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+    tt = torch.from_numpy(tokens).long()
+    full = _np(t_model.forward(t_params, {"tokens": tt}))
+
+    r_cache = r_model.init_cache(B, T + 4)
+    t_cache = t_model.init_cache(B, T + 4)
+    r_lg, r_cache = r_model.prefill(r_params, {"tokens": jnp.asarray(tokens[:, :P])},
+                                    r_cache)
+    t_lg, t_cache = t_model.prefill(t_params, {"tokens": tt[:, :P]}, t_cache)
+    np.testing.assert_allclose(_np(t_lg), np.asarray(r_lg), **TOL)
+    np.testing.assert_allclose(_np(t_lg), full[:, P - 1], **TOL)
+    for t in range(P, T - 1):
+        r_lg, r_cache = r_model.decode_step(
+            r_params, jnp.asarray(tokens[:, t]), r_cache, jnp.int32(t))
+        t_lg, t_cache = t_model.decode_step(t_params, tt[:, t], t_cache, t)
+        np.testing.assert_allclose(_np(t_lg), np.asarray(r_lg), **TOL)
+        np.testing.assert_allclose(_np(t_lg), full[:, t], **TOL)
+    np.testing.assert_allclose(_np(t_cache["k"]), np.asarray(r_cache["k"]), **TOL)
+
+    # per-slot: slot 0 continues at T-1, slot 1 rewrites position P
+    idx = np.array([T - 1, P], np.int32)
+    tok = tokens[np.arange(B), idx]
+    r_lg, r_cache = r_model.decode_step(r_params, jnp.asarray(tok), r_cache,
+                                        jnp.asarray(idx))
+    t_lg, t_cache = t_model.decode_step(t_params, torch.from_numpy(tok).long(),
+                                        t_cache, torch.from_numpy(idx).long())
+    np.testing.assert_allclose(_np(t_lg), np.asarray(r_lg), **TOL)
+    np.testing.assert_allclose(_np(t_lg[0]), full[0, T - 1], **TOL)
+    np.testing.assert_allclose(_np(t_cache["v"]), np.asarray(r_cache["v"]), **TOL)
+
+
+def test_port_decode_matches_its_teacher_forced_forward(rng):
+    """Port only, with params from its own generator: greedy decode
+    logits equal the full forward's, position by position."""
+    cfg = t_configs.get_smoke("qwen3-14b")
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    B, P, n = 2, 5, 6
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, P))).long()
+    cache = model.init_cache(B, P + n)
+    lg, cache = model.prefill(params, {"tokens": prompt}, cache)
+    seq, steps = prompt, [lg]
+    for t in range(P, P + n - 1):
+        tok = steps[-1].argmax(-1)
+        seq = torch.cat([seq, tok[:, None]], dim=1)
+        lg, cache = model.decode_step(params, tok, cache, t)
+        steps.append(lg)
+    full = model.forward(params, {"tokens": seq})
+    for i, lg in enumerate(steps):
+        torch.testing.assert_close(lg, full[:, P - 1 + i], **TOL)
+
+
+def test_init_is_seeded_and_shaped_like_the_reference():
+    cfg = t_configs.get_smoke("command-r-plus-104b")
+    model = build_model(cfg, device="cpu")
+    a = model.init(torch.Generator().manual_seed(3))
+    b = model.init(torch.Generator().manual_seed(3))
+    assert "head" not in a                       # tied embeddings
+    assert torch.equal(a["blocks"]["attn"]["wq"]["w"], b["blocks"]["attn"]["wq"]["w"])
+    shapes = jax.tree_util.tree_map(lambda x: tuple(x.shape),
+                                    _reference_params("command-r-plus-104b"))
+    flat = jax.tree_util.tree_leaves_with_path(shapes, is_leaf=lambda x: isinstance(x, tuple))
+    for path, shape in flat:
+        node = a
+        for key in path:
+            node = node[key.key]
+        assert tuple(node.shape) == shape
+
+
+def test_params_from_jax_rejects_mismatches():
+    cfg = t_configs.get_smoke("internlm2-1.8b")
+    good = jax.tree_util.tree_map(np.asarray, _reference_params("internlm2-1.8b"))
+    params_from_jax(cfg, good, device="cpu")
+    bad = dict(good)
+    del bad["head"]
+    with pytest.raises(ValueError, match="keys"):
+        params_from_jax(cfg, bad, device="cpu")
+    bad = dict(good, ln_f={"scale": np.ones(3, np.float32)})
+    with pytest.raises(ValueError, match="ln_f/scale"):
+        params_from_jax(cfg, bad, device="cpu")
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("olmoe-1b-7b", "item 10"), ("dbrx-132b", "item 10"),
+    ("jamba-1.5-large-398b", "item 11"), ("xlstm-125m", "item 11"),
+    ("whisper-tiny", "item 12"),
+])
+def test_build_model_raises_for_families_not_ported(arch, item):
+    with pytest.raises(NotImplementedError, match=item):
+        build_model(t_configs.get_smoke(arch), device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default is that card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(t_configs.get_smoke("internlm2-1.8b"))
+
+
+def test_cache_layout_matches_reference():
+    cfg = t_configs.get_smoke("qwen3-14b")
+    cache = t_transformer.decoder_init_cache(cfg, 3, 10, device="cpu")
+    r_cache = r_build_model(r_configs.get_smoke("qwen3-14b")).init_cache(3, 10)
+    assert tuple(cache["k"].shape) == tuple(r_cache["k"].shape)
+    assert cache["v"].dtype == torch.float32
+
+
+def test_layers_off_the_dense_path_match_reference(rng):
+    """The layer functions the five configs do not reach -- gelu MLP,
+    cross-attention (``kv``), sinusoidal positions -- against the
+    reference's, on the same params."""
+    from repro.models import layers as r_layers
+    from repro_torch.models import layers as t_layers
+
+    cfg = r_configs.get_smoke("whisper-tiny")
+    assert cfg.act == "gelu"
+    B, T, Ts, d = 2, 5, 7, cfg.d_model
+    x = rng.normal(size=(B, T, d)).astype(np.float32)
+    src = rng.normal(size=(B, Ts, d)).astype(np.float32)
+    key = jax.random.PRNGKey(2)
+    mlp = jax.tree_util.tree_map(np.asarray, r_layers.mlp_init(key, cfg, jnp.float32))
+    attn = jax.tree_util.tree_map(np.asarray,
+                                  r_layers.attention_init(key, cfg, jnp.float32))
+    t_mlp = jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a)), mlp)
+    t_attn = jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a)), attn)
+    np.testing.assert_allclose(
+        _np(t_layers.mlp_apply(t_mlp, torch.from_numpy(x), cfg)),
+        np.asarray(r_layers.mlp_apply(mlp, jnp.asarray(x), cfg)), **TOL)
+    pos = np.broadcast_to(np.arange(T)[None], (B, T))
+    want, _ = r_layers.attention_apply(
+        attn, jnp.asarray(x), cfg, positions=jnp.asarray(pos),
+        kv=(jnp.asarray(src), jnp.asarray(src)), causal=False)
+    got, _ = t_layers.attention_apply(
+        t_attn, torch.from_numpy(x), cfg, positions=torch.from_numpy(pos.copy()),
+        kv=(torch.from_numpy(src), torch.from_numpy(src)), causal=False)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+    np.testing.assert_allclose(
+        _np(t_layers.sinusoidal_positions(12, d)),
+        np.asarray(r_layers.sinusoidal_positions(12, d)), **TOL)
