@@ -1,4 +1,6 @@
-// Flash attention with GQA and causal masking for Hopper (sm_90a).
+// Flash attention with GQA and causal masking for Hopper (sm_90a): the
+// CUDA-core route, for float32 storage and for bfloat16 at head dims 16
+// and 32 (bfloat16 at d = 64 and 128 takes flash_attention_sm90.cu).
 //
 // Replaces: src/repro/kernels/attention/attention.py,
 //   flash_attention_pallas (body _kernel) -- the TPU kernel whose grid
@@ -8,34 +10,39 @@
 // Computes, per query head g and row t (head-folded q (G, Tq, d), k/v
 // (Gkv, Tk, d), KV head (g / Hq) Hkv + (g % Hq) / (Hq / Hkv)):
 //   o[t] = sum_j softmax_j(scale q[t].k[j]) v[j]
-// with the reference's constants: masked scores are -1e30 (not -inf),
-// queries align to the end of the keys (q_offset = Tk - Tq), key tiles
-// wholly above a query tile's last row are skipped, and l == 0 is
-// replaced by 1.  So a row masked everywhere takes p = exp(0) = 1 on the
-// keys of the tiles it visits: the mean of those V rows, never NaN.
+// with the reference's constants.  Queries align to the end of the keys
+// (q_offset = Tk - Tq) and l == 0 is replaced by 1.  The reference
+// visits key blocks by the caller's bq x bk blocks and skips a key block
+// wholly above its query block's last row; its result is a function of
+// (row, bq, bk) alone, which this kernel reproduces without taking those
+// blocks as tiles: row t's query block ends at
+//   q_end = (t / bq + 1) bq - 1 + q_offset,
+// its key limit is K_lim = 0 if q_end < 0, else min(Tk, (q_end / bk + 1) bk),
+// keys at or past K_lim score -inf and causally masked keys below it
+// -1e30.  So a row masked everywhere (causal, Tq > Tk) takes p = exp(0) = 1
+// on every key below K_lim -- the mean of those V rows, as in the
+// reference -- and 0 when K_lim = 0, never NaN.
 // Arithmetic is f32 on f32 or bf16 storage; only the output is rounded to
 // the storage type (the Pallas kernel keeps p in f32 for the PV product).
 //
 // Bound on an H100 SXM: operations.  At B = 4, Hq = 16, Hkv = 8,
-// T = 4096, d = 128, causal, bf16, the call reads q, k, v and writes o
-// once (201 MB, 0.06 ms at 3.35 TB/s) but does 4 G T^2 d / 2 = 275 GFLOP
-// (0.28 ms at the 989 TFLOP/s bf16 tensor-core peak; 4.1 ms at the
-// 67 TFLOP/s f32 CUDA-core peak this kernel runs on).
+// T = 4096, d = 128, causal, f32, the call reads q, k, v and writes o
+// once (403 MB, 0.12 ms at 3.35 TB/s) but does 4 G T^2 d / 2 = 275 GFLOP
+// (4.1 ms at the 67 TFLOP/s f32 CUDA-core peak this kernel runs on).
 //
 // Design: one CTA of 256 threads per (query head, tile of 64 query rows);
 // the grid's y axis walks the query tiles last to first, so the longest
 // causal rows start first.  The Q tile is staged once in shared memory;
-// the CTA walks the key tiles (64 keys) in ascending order, staging K and
-// V in shared memory as f32.  Thread (ty, tx) of a 16 x 16 layout owns
-// query rows 4 ty .. 4 ty + 3: it forms their scores against keys
-// tx + 16 j (j < 4) as ascending-d fmaf chains, reduces each row's max and
-// sum over the 16 lanes of its half-warp with shuffles, keeps the row's
-// m and l in registers, writes P over the K tile, and accumulates P V
-// into d/16 output columns per row.  All of it is CUDA-core FMA: keeping
-// p in f32 rules out bf16 tensor-core products (wgmma, TMA and warp
-// specialisation wait for a redesign).  Each row's result depends only on
-// its own head's data and the fixed tiles, never on G, on how heads are
-// split across calls, or on the caller's block sizes.  Shared memory is
+// the CTA walks the key tiles (64 keys) in ascending order up to the
+// largest K_lim of its rows, staging K and V in shared memory as f32.
+// Thread (ty, tx) of a 16 x 16 layout owns query rows 4 ty .. 4 ty + 3:
+// it forms their scores against keys tx + 16 j (j < 4) as ascending-d
+// fmaf chains, reduces each row's max and sum over the 16 lanes of its
+// half-warp with shuffles, keeps the row's m and l in registers, writes P
+// over the K tile, and accumulates P V into d/16 output columns per row.
+// All of it is CUDA-core FMA, which keeps p in f32.  Each row's result
+// depends only on its own head's data and the fixed tiles, never on G or
+// on how heads are split across calls.  Shared memory is
 // 4 (64 d + max(64 (d + 4), 64 x 68) + 64 d) bytes (97 KB at d = 128, two
 // CTAs per SM); cudaFuncAttributeMaxDynamicSharedMemorySize is set per
 // launch.
@@ -53,6 +60,15 @@ constexpr int kTileK = 64;   // keys per shared-memory tile
 constexpr int kThreads = 256;
 constexpr int kPS = kTileK + 4;  // P row stride: conflict-free stores
 constexpr float kMasked = -1e30f;
+
+// The reference's per-row key limit K_lim (see the header); Tk when not
+// causal.  bq and bk are the effective blocks min(block, T).
+__device__ __forceinline__ int key_limit(int row, int Tq, int Tk, int causal,
+                                         int bq, int bk) {
+  if (!causal) return Tk;
+  const int q_end = (row / bq + 1) * bq - 1 + (Tk - Tq);
+  return q_end < 0 ? 0 : min(Tk, (q_end / bk + 1) * bk);
+}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -100,7 +116,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
                            int Tq, int Tk, int n_q_heads, int n_kv_heads,
-                           int causal, float scale) {
+                           int causal, float scale, int bq, int bk) {
   using S = Smem<D>;
   constexpr int kVec = D / 16 < 4 ? D / 16 : 4;  // output columns per load
   constexpr int kGroups = D / (16 * kVec);
@@ -122,17 +138,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   const T* kg = k + static_cast<int64_t>(gkv) * Tk * D;
   const T* vg = v + static_cast<int64_t>(gkv) * Tk * D;
 
-  int n_tiles = (Tk + kTileK - 1) / kTileK;
-  if (causal) {  // visit key tile kt only while q_end >= kt * kTileK
-    const int q_end = q0 + q_rows - 1 + q_offset;
-    n_tiles = q_end < 0 ? 0 : min(n_tiles, q_end / kTileK + 1);
-  }
+  // the CTA walks key tiles up to the largest K_lim of its rows, its last
+  const int n_tiles =
+      (key_limit(q0 + q_rows - 1, Tq, Tk, causal, bq, bk) + kTileK - 1) /
+      kTileK;
   stage_tile<D>(qs, S::kQS, q + (static_cast<int64_t>(g) * Tq + q0) * D,
                 q_rows);
 
   float m[4], l[4], acc[4][kCols];
+  int k_lim[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    k_lim[i] = key_limit(q0 + 4 * ty + i, Tq, Tk, causal, bq, bk);
     m[i] = kMasked;
     l[i] = 0.f;
 #pragma unroll
@@ -185,8 +202,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
-        if (key >= Tk) {
-          x = -CUDART_INF_F;  // past the keys: no weight, even in masked rows
+        if (key >= k_lim[i]) {
+          x = -CUDART_INF_F;  // not visited by the reference: no weight
         } else if (causal && qpos < key) {
           x = kMasked;
         }
@@ -278,8 +295,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 template <int D, typename T>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
                          void* o, int G, int Tq, int Tk, int n_q_heads,
-                         int n_kv_heads, int causal, float scale,
-                         cudaStream_t stream) {
+                         int n_kv_heads, int causal, float scale, int bq,
+                         int bk, cudaStream_t stream) {
   const size_t smem = Smem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<D, T>,
@@ -289,7 +306,7 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
   flash_attention_kernel<D, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Tq, Tk, n_q_heads,
-      n_kv_heads, causal, scale);
+      n_kv_heads, causal, scale, bq, bk);
   return cudaGetLastError();
 }
 
@@ -297,20 +314,20 @@ template <typename T>
 cudaError_t dispatch_flash(int d, const void* q, const void* k,
                            const void* v, void* o, int G, int Tq, int Tk,
                            int n_q_heads, int n_kv_heads, int causal,
-                           float scale, cudaStream_t stream) {
+                           float scale, int bq, int bk, cudaStream_t stream) {
   switch (d) {
     case 16:
       return launch_flash<16, T>(q, k, v, o, G, Tq, Tk, n_q_heads,
-                                 n_kv_heads, causal, scale, stream);
+                                 n_kv_heads, causal, scale, bq, bk, stream);
     case 32:
       return launch_flash<32, T>(q, k, v, o, G, Tq, Tk, n_q_heads,
-                                 n_kv_heads, causal, scale, stream);
+                                 n_kv_heads, causal, scale, bq, bk, stream);
     case 64:
       return launch_flash<64, T>(q, k, v, o, G, Tq, Tk, n_q_heads,
-                                 n_kv_heads, causal, scale, stream);
+                                 n_kv_heads, causal, scale, bq, bk, stream);
     case 128:
       return launch_flash<128, T>(q, k, v, o, G, Tq, Tk, n_q_heads,
-                                  n_kv_heads, causal, scale, stream);
+                                  n_kv_heads, causal, scale, bq, bk, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -323,18 +340,21 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int G, int Tq,
                                      int Tk, int d, int n_q_heads,
                                      int n_kv_heads, int causal, float scale,
-                                     int dtype, void* stream) {
+                                     int bq, int bk, int dtype,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_q_heads <= 0 || n_kv_heads <= 0 || n_q_heads % n_kv_heads != 0) {
+  if (n_q_heads <= 0 || n_kv_heads <= 0 || n_q_heads % n_kv_heads != 0 ||
+      bq <= 0 || bk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == repro::kFloat32) {
     return repro::dispatch_flash<float>(d, q, k, v, o, G, Tq, Tk, n_q_heads,
-                                        n_kv_heads, causal, scale, s);
+                                        n_kv_heads, causal, scale, bq, bk, s);
   }
   if (dtype == repro::kBFloat16) {
     return repro::dispatch_flash<__nv_bfloat16>(
-        d, q, k, v, o, G, Tq, Tk, n_q_heads, n_kv_heads, causal, scale, s);
+        d, q, k, v, o, G, Tq, Tk, n_q_heads, n_kv_heads, causal, scale, bq,
+        bk, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

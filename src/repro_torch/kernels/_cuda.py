@@ -118,7 +118,8 @@ def library() -> ctypes.CDLL:
         lib.repro_gemm_chain_limits.argtypes = [vp]
         lib.repro_gemm_chain_limits.restype = ci
         lib.repro_flash_attention.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, vp]
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci,
+            ci, vp]
         lib.repro_flash_attention.restype = ci
         lib.repro_cuda_error_string.argtypes = [ci]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p

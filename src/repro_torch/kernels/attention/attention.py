@@ -6,7 +6,10 @@ On CUDA tensors it launches ``csrc/flash_attention.cu`` (one CTA per
 query head and tile of 64 rows, K/V tiles staged in shared memory, an
 online softmax in float32) or raises; on CPU tensors it runs
 :func:`~.ref.flash_attention_plain`, which repeats the kernel's
-arithmetic.  Layout is head-folded: q ``(G, Tq, d)`` with ``G = batch *
+arithmetic.  Both follow the reference's visit rule per row: a row sees
+the keys below its ``K_lim``, a function of the row and the caller's
+``block_q``/``block_k`` (``ref.py``), so rows that see no key (causal,
+``Tq > Tk``) come out as the reference's do.  Layout is head-folded: q ``(G, Tq, d)`` with ``G = batch *
 n_q_heads``, k and v ``(Gkv, Tk, d)``; query head ``g`` reads KV head
 ``(g // Hq) * Hkv + (g % Hq) // (Hq / Hkv)``.
 """
@@ -39,13 +42,13 @@ def flash_attention(
     """Head-folded GQA attention; output in ``q.dtype``.
 
     ``scale`` defaults to ``1/sqrt(d)``; ``min(block, T)`` must divide T
-    (the reference's rule, else ``ValueError``), but the kernel's own
-    tiles do not depend on the blocks.  ``flash_attention.launches``
-    counts kernel launches."""
+    (the reference's rule, else ``ValueError``).  The blocks set each
+    row's key limit, as in the reference, never the kernel's own tiles.
+    ``flash_attention.launches`` counts kernel launches."""
     check_shapes(q, k, v, n_q_heads, n_kv_heads)
     G, Tq, d = q.shape
     Tk = k.shape[1]
-    check_blocks(Tq, Tk, block_q, block_k)
+    bq, bk = check_blocks(Tq, Tk, block_q, block_k)
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     devices = {q.device, k.device, v.device}
@@ -53,7 +56,7 @@ def flash_attention(
         raise ValueError(f"q, k and v lie on different devices: {devices}")
     device = q.device
     kw = dict(n_q_heads=n_q_heads, n_kv_heads=n_kv_heads, causal=causal,
-              scale=scale)
+              scale=scale, block_q=block_q, block_k=block_k)
     if device.type == "cpu":
         return flash_attention_plain(q, k, v, **kw)
     if device.type != "cuda":
@@ -81,7 +84,7 @@ def flash_attention(
     err = _cuda.library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         G, Tq, Tk, d, n_q_heads, n_kv_heads, int(causal),
-        ctypes.c_float(scale), code, _cuda.stream_handle(device),
+        ctypes.c_float(scale), bq, bk, code, _cuda.stream_handle(device),
     )
     _cuda.check(err, "flash_attention")
     flash_attention.launches += 1

@@ -14,11 +14,10 @@ head folding to the kernel layout happens here.  ``impl``:
   training, not ported yet.
 
 ``"pallas"`` and ``"interpret"`` agree with the reference's kernel on
-every row that sees a key.  A causal row that sees none (``Tq > Tk``)
-is the mean of the V rows its query tile visits, and the port's tiles
-are a fixed 64 x 64 where the reference visits by ``block_q x
-block_k``: such rows can differ (0 here, the mean of V there, e.g. at
-``Tq = 128, Tk = 64`` and the default blocks; see ``ref.py``).
+every row, those that see no key (causal, ``Tq > Tk``) included: such a
+row is the mean of the V rows below its key limit, which is set by
+``block_q`` and ``block_k`` as the reference's blocks set it (0 when
+that limit is 0; see ``ref.py``).
 """
 from __future__ import annotations
 

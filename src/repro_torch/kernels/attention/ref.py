@@ -1,32 +1,34 @@
-"""Plain PyTorch version of the flash-attention kernel (GQA + causal).
+"""Plain PyTorch version of the flash-attention kernels (GQA + causal).
 
-:func:`flash_attention_plain` repeats ``csrc/flash_attention.cu``'s
-arithmetic: the same online-softmax recurrence over the same tiles of
-``TILE_Q`` query rows and ``TILE_K`` keys, ascending, in float32, with the
+:func:`flash_attention_plain` repeats the arithmetic of the kernel that
+:func:`route` picks for the inputs: the same online-softmax recurrence
+over key tiles of :func:`tile_k` keys, ascending, in float32, with the
 reference kernel's constants (``attention.py`` of ``repro``):
 
-* masked scores are ``-1e30``, not ``-inf``;
 * queries align to the end of the keys, ``q_offset = Tk - Tq``;
-* with ``causal``, a key tile is visited by a query tile only when the
-  tile's last row reaches it (``q_end >= kt * TILE_K``); tiles wholly
-  above the diagonal are skipped;
+* the reference visits key blocks by its ``block_q x block_k`` blocks
+  (``bq = min(block_q, Tq)``, ``bk = min(block_k, Tk)``) and skips a key
+  block wholly above its query block's last row.  Its result is a
+  function of (row, ``bq``, ``bk``) alone, which the port reproduces per
+  row without taking those blocks as tiles (:func:`key_limits`): row
+  ``t``'s query block ends at ``q_end = (t // bq + 1) * bq - 1 +
+  q_offset``, its key limit is ``K_lim = 0`` if ``q_end < 0``, else
+  ``min(Tk, (q_end // bk + 1) * bk)``; keys at or past ``K_lim`` score
+  ``-inf`` and causally masked keys below it ``-1e30``;
 * a row whose running denominator is still 0 at the end is divided by 1.
 
-So a row that is masked everywhere (``Tq > Tk``, causal) takes
-``p = exp(0) = 1`` on every key of the tiles its query tile visits: it
-comes out as the mean of those V rows (0 if no tile is visited), never
-NaN.
+So a row that is masked everywhere (``Tq > Tk``, causal) takes ``p =
+exp(0) = 1`` on every key below its ``K_lim``: it comes out as the mean
+of those V rows, as in the reference, and as 0 when ``K_lim = 0``, never
+NaN.  Rows that see a key are unchanged by the rule: their masked keys
+get ``p = 0`` either way.  A result depends on the kernel's own tiles
+only through the float32 summation order.
 
-Such rows can differ from the reference kernel's.  It visits by its
-``block_q x block_k`` blocks (``min(512, T)`` by default), these tiles
-are always 64 x 64, so the two agree on a fully masked row only where
-both visit the same keys -- always at ``block_q = block_k = 64``, not
-in general.  At ``Tq = 128,
-Tk = 64`` and the reference's default blocks, its one query block
-reaches key 0 and rows 0..63 come out as the mean of V, while this
-tile 0 (last row at position -1) visits nothing and gives 0.  Rows that
-see at least one key agree in every case; the model path, whose
-cache-less forward has ``Tq = Tk``, has no fully masked row.
+The ``wgmma`` route (bfloat16 storage at head dims 64 and 128) rounds
+``p`` to bfloat16 for the PV product, as the reference's ``xla``
+attention does (``p.astype(v.dtype)``), and sums ``l`` from the unrounded
+float32 ``p``.  The ``fma`` route (float32 storage, and bfloat16 at head
+dims 16 and 32) keeps ``p`` in float32, as the reference's kernel does.
 
 Shapes are head-folded: q ``(G, Tq, d)`` with ``G = batch *
 n_q_heads``; k, v ``(Gkv, Tk, d)`` with ``Gkv = batch * n_kv_heads``.
@@ -37,19 +39,53 @@ import torch
 
 #: masked score, as in the reference kernel
 NEG_INF = -1e30
-#: query rows per CTA and keys per shared-memory tile of the CUDA kernel;
-#: fixed, so results never depend on ``block_q``/``block_k``
+#: query rows per CTA and keys per tile of the CUDA-core (``fma``) kernel
 TILE_Q = 64
 TILE_K = 64
+#: query rows per CTA and keys per tile of the tensor-core (``wgmma``) kernel
+WGMMA_TILE_Q = 128
+WGMMA_TILE_K = 128
+#: head dims each kernel is instantiated for
+FMA_HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+#: one bfloat16 rounding of p, relative (half a step of 8 significant bits)
+P_ROUND = 2.0 ** -8
 
 
-def check_blocks(Tq: int, Tk: int, block_q: int, block_k: int) -> None:
-    """The reference kernel's block rule: ``min(block, T)`` divides T."""
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel that serves ``dtype`` storage at head dim ``d``:
+    ``"wgmma"`` for bfloat16 at d in :data:`WGMMA_HEAD_DIMS`, else
+    ``"fma"``."""
+    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS else "fma"
+
+
+def tile_k(dtype: torch.dtype, d: int) -> int:
+    """Keys per tile of the kernel :func:`route` picks."""
+    return WGMMA_TILE_K if route(dtype, d) == "wgmma" else TILE_K
+
+
+def check_blocks(Tq: int, Tk: int, block_q: int, block_k: int):
+    """The reference kernel's block rule: ``min(block, T)`` divides T.
+    Returns the effective blocks ``(bq, bk)``."""
     bq, bk = min(block_q, Tq), min(block_k, Tk)
     if bq < 1 or bk < 1 or Tq % bq or Tk % bk:
         raise ValueError(
             f"seq lens ({Tq},{Tk}) not divisible by blocks ({bq},{bk})"
         )
+    return bq, bk
+
+
+def key_limits(Tq: int, Tk: int, bq: int, bk: int, causal: bool,
+               device=None) -> torch.Tensor:
+    """Each query row's ``K_lim`` (int64, ``(Tq,)``): the keys the
+    reference's blocks visit for it are ``[0, K_lim)``."""
+    rows = torch.arange(Tq, device=device)
+    if not causal:
+        return torch.full_like(rows, Tk)
+    q_end = (rows // bq + 1) * bq - 1 + (Tk - Tq)
+    lim = torch.clamp((torch.div(q_end, bk, rounding_mode="floor") + 1) * bk,
+                      max=Tk)
+    return torch.where(q_end < 0, torch.zeros_like(lim), lim)
 
 
 def check_shapes(q, k, v, n_q_heads: int, n_kv_heads: int) -> None:
@@ -79,17 +115,24 @@ def flash_attention_plain(
     scale: float | None = None,
     block_q: int = 512,
     block_k: int = 512,
-) -> torch.Tensor:
+    return_p_bound: bool = False,
+):
     """The kernel's function in plain PyTorch; output in ``q.dtype``.
 
-    ``block_q``/``block_k`` are only checked (the reference's rule), as
-    for the kernel."""
+    With ``return_p_bound`` it also returns, per output entry, one
+    bfloat16 rounding of the ``p`` terms, ``2^-8 * sum_j p_j |v_j| / l``
+    (float32; zero on the ``fma`` route, which does not round ``p``): how
+    far two computations of the same row can differ where float32 scores
+    summed in another order round ``p`` to different bfloat16
+    neighbours."""
     check_shapes(q, k, v, n_q_heads, n_kv_heads)
     G, Tq, d = q.shape
     Gkv, Tk, _ = k.shape
-    check_blocks(Tq, Tk, block_q, block_k)
+    bq, bk = check_blocks(Tq, Tk, block_q, block_k)
     if scale is None:
         scale = 1.0 / (d ** 0.5)
+    round_p = route(q.dtype, d) == "wgmma"
+    tk = tile_k(q.dtype, d)
     group = n_q_heads // n_kv_heads
     q_offset = Tk - Tq
     f32 = torch.float32
@@ -97,33 +140,33 @@ def flash_attention_plain(
     # fold each group's query rows under its KV head
     qf = q.to(f32).reshape(Gkv, group * Tq, d)
     kf, vf = k.to(f32), v.to(f32)
-    rows = torch.arange(Tq, device=q.device)
-    qpos = (rows + q_offset).repeat(group)                 # (group * Tq,)
-    tile_end = torch.clamp((rows // TILE_Q + 1) * TILE_Q, max=Tq) - 1
-    q_end = (tile_end + q_offset).repeat(group)            # last row's qpos
+    qpos = (torch.arange(Tq, device=q.device) + q_offset).repeat(group)
+    lim = key_limits(Tq, Tk, bq, bk, causal, q.device).repeat(group)
 
     m = torch.full((Gkv, group * Tq, 1), NEG_INF, dtype=f32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((Gkv, group * Tq, d), dtype=f32, device=q.device)
-    # with causal, no query tile reaches a key past the last row's qpos
-    k_stop = min(Tk, max(q_offset + Tq, 0)) if causal else Tk
-    for k0 in range(0, k_stop, TILE_K):
-        kt, vt = kf[:, k0:k0 + TILE_K], vf[:, k0:k0 + TILE_K]
-        s = torch.matmul(qf, kt.transpose(1, 2)) * scale   # (Gkv, rows, bk)
-        if causal:
-            kpos = torch.arange(k0, k0 + kt.shape[1], device=q.device)
-            s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
-            visit = (q_end >= k0)[None, :, None]
+    acc_abs = torch.zeros_like(acc) if return_p_bound and round_p else None
+    k_stop = int(lim.max()) if lim.numel() else 0
+    for k0 in range(0, k_stop, tk):
+        kt, vt = kf[:, k0:k0 + tk], vf[:, k0:k0 + tk]
+        s = torch.matmul(qf, kt.transpose(1, 2)) * scale   # (Gkv, rows, tk)
+        kpos = torch.arange(k0, k0 + kt.shape[1], device=q.device)
+        s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF) if causal else s
+        s = torch.where(kpos[None, :] < lim[:, None], s, float("-inf"))
         m_new = torch.maximum(m, s.amax(dim=2, keepdim=True))
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
-        l_new = l * corr + p.sum(dim=2, keepdim=True)
-        acc_new = acc * corr + torch.matmul(p, vt)
-        if causal:
-            m = torch.where(visit, m_new, m)
-            l = torch.where(visit, l_new, l)
-            acc = torch.where(visit, acc_new, acc)
-        else:
-            m, l, acc = m_new, l_new, acc_new
+        l = l * corr + p.sum(dim=2, keepdim=True)
+        p_pv = p.to(torch.bfloat16).to(f32) if round_p else p
+        acc = acc * corr + torch.matmul(p_pv, vt)
+        if acc_abs is not None:
+            acc_abs = acc_abs * corr + torch.matmul(p, vt.abs())
+        m = m_new
     l = torch.where(l == 0.0, torch.ones_like(l), l)
-    return (acc / l).reshape(G, Tq, d).to(q.dtype)
+    out = (acc / l).reshape(G, Tq, d).to(q.dtype)
+    if not return_p_bound:
+        return out
+    if acc_abs is None:
+        return out, torch.zeros(G, Tq, d, dtype=f32, device=q.device)
+    return out, (P_ROUND * acc_abs / l).reshape(G, Tq, d)

@@ -79,27 +79,38 @@ def test_fully_masked_rows_take_the_mean_of_the_visited_values(rng):
         got, _port(q, k, v, impl="xla"), **TOL)
 
 
-def test_no_visited_tile_gives_zero(rng):
-    """A query tile wholly above the diagonal visits no key tile:
-    l == 0 is divided as 1, so its rows are 0.  The reference kernel
-    gives the same when its blocks are the port's 64 x 64 tiles."""
-    B, Hq, Hkv, Tq, Tk, d = 1, 2, 1, 192, 64, 16  # tiles 0, 1 end above
+@pytest.mark.parametrize("blocks,zero_rows", [
+    ((512, 512), 0),     # default blocks: the one query block reaches key 0
+    ((64, 64), 128),     # query blocks 0 and 1 end above the keys
+])
+def test_no_visited_tile_gives_zero(blocks, zero_rows, rng):
+    """A row whose query block visits no key block has K_lim = 0: l == 0
+    is divided as 1, so it is 0.  Tq = 192, Tk = 64: at the reference's
+    default blocks its one query block ends at key 63, so rows 0..127
+    see no key but visit key block 0 and come out as the mean of V; at
+    64 x 64 blocks query blocks 0 and 1 visit nothing and give 0.  The
+    port equals the reference kernel in both cases."""
+    B, Hq, Hkv, Tq, Tk, d = 1, 2, 1, 192, 64, 16
     q, k, v = _qkv(rng, B, Hq, Hkv, Tq, Tk, d)
-    got = _port(q, k, v, impl="interpret")
-    assert (got[:, :, :128] == 0).all()
-    assert np.isfinite(got).all()
-    want = np.asarray(r_ops.multi_head_attention(
-        q, k, v, impl="interpret", block_q=64, block_k=64))
-    np.testing.assert_allclose(got, want, **TOL)
+    kw = dict(block_q=blocks[0], block_k=blocks[1])
+    want = np.asarray(r_ops.multi_head_attention(q, k, v, impl="interpret", **kw))
+    mean_v = np.repeat(v.mean(axis=2), Hq // Hkv, axis=1)[:, :, None]
+    for impl in ("interpret", "pallas"):
+        got = _port(q, k, v, impl=impl, **kw)
+        assert np.isfinite(got).all()
+        assert (got[:, :, :zero_rows] == 0).all()
+        np.testing.assert_allclose(
+            got[:, :, zero_rows:128],
+            np.broadcast_to(mean_v, got[:, :, zero_rows:128].shape), **TOL)
+        np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_fully_masked_rows_differ_from_the_reference_at_its_default_blocks(rng):
-    """Where the reference's blocks are not the port's tiles, rows that
-    see no key can differ.  Tq = 128, Tk = 64, default blocks: the
-    reference's one query block (last row at position 63) visits key
-    block 0, so rows 0..63 are the mean of V; the port's tile 0 (last row
-    at position -1) visits nothing, so they are 0.  Rows 64..127 see
-    keys and agree."""
+    """Rows that see no key follow the reference's blocks, not the
+    port's tiles.  Tq = 128, Tk = 64, default blocks: the reference's one
+    query block (last row at position 63) visits key block 0, so rows
+    0..63 are the mean of V -- in the port too, though its first tile of
+    64 query rows ends at position -1.  Rows 64..127 see keys."""
     B, Hq, Hkv, Tq, Tk, d = 1, 2, 1, 128, 64, 16
     q, k, v = _qkv(rng, B, Hq, Hkv, Tq, Tk, d)
     want = np.asarray(r_ops.multi_head_attention(q, k, v, impl="interpret"))
@@ -108,8 +119,30 @@ def test_fully_masked_rows_differ_from_the_reference_at_its_default_blocks(rng):
         mean_v, want[:, :, :64].shape), **TOL)
     for impl in ("interpret", "pallas"):
         got = _port(q, k, v, impl=impl)
-        assert (got[:, :, :64] == 0).all()
-        np.testing.assert_allclose(got[:, :, 64:], want[:, :, 64:], **TOL)
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+MASKED_SWEEP = [
+    # Tq, Tk, block_q, block_k; causal with Tq > Tk, so rows
+    # 0..Tq-Tk-1 see no key and their K_lim follows the blocks
+    (128, 64, 512, 512),
+    (128, 64, 32, 16),
+    (192, 64, 64, 32),
+    (192, 96, 96, 32),
+    (256, 96, 16, 96),
+    (160, 40, 32, 8),
+]
+
+
+@pytest.mark.parametrize("case", MASKED_SWEEP)
+def test_fully_masked_rows_follow_the_reference_blocks(case, rng):
+    Tq, Tk, bq, bk = case
+    B, Hq, Hkv, d = 1, 4, 2, 16
+    q, k, v = _qkv(rng, B, Hq, Hkv, Tq, Tk, d)
+    kw = dict(block_q=bq, block_k=bk)
+    want = np.asarray(r_ops.multi_head_attention(q, k, v, impl="interpret", **kw))
+    for impl in ("interpret", "pallas"):
+        np.testing.assert_allclose(_port(q, k, v, impl=impl, **kw), want, **TOL)
 
 
 def test_block_size_invariance(rng):
