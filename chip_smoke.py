@@ -21,18 +21,20 @@ Phases (any failure exits non-zero, and no result line is printed):
      zeroed just before and read just after; pipelined and serial
      checksums bitwise equal; 64 elements of batch 0 against the float64
      numpy oracles;
-  4. the flash-attention kernel against its plain version at the model
-     path's shape (B = 4, Hq = 16, Hkv = 8, T = 4096, d = 128, causal) in
-     bfloat16 (rtol 8e-3 / atol 1e-4 max|plain|) and float32, plus
-     Tq = 512 < Tk = 4096 and a non-causal case; bitwise equality of G
-     heads with two calls of G/2; times of kernel, plain version and
+  4. the flash-attention kernels against their plain version at the
+     model path's shape (B = 4, Hq = 16, Hkv = 8, T = 4096, d = 128,
+     causal): bfloat16 on the tensor-core (wgmma) route, float32 on the
+     CUDA-core (fma) route, plus Tq = 512 < Tk = 4096 and a non-causal
+     case, each checked to run on its route; bitwise equality of G heads
+     with two calls of G/2; times of kernel, plain version and
      ``scaled_dot_product_attention`` (``is_causal`` at Tq = Tk; at
      Tq < Tk the end-aligned mask ``causal_lower_right(Tq, Tk)``);
   5. the model path: ``build_model(configs.get("internlm2-1.8b"))`` at
      full size (24 layers, bfloat16, random weights from generator seed
      0), one scoring ``forward`` on tokens (4, 4096) with the launch
      counters zeroed just before and read just after (exactly 24 flash
-     launches), its next-token loss, and the same forward with
+     launches, all on the wgmma route), its next-token loss, and the same
+     forward with
      ``attn_impl="xla"``; then serving: prefill of a 512-token prompt at
      batch 4, 32 greedy decode steps, and their logits against the
      teacher-forced forward of the same sequence;
@@ -60,13 +62,16 @@ N_BATCHES = 8
 CHECK_ELEMENTS = 64
 F32_RTOL, F32_ATOL_FRAC = 5e-4, 5e-4
 BF16_RTOL, BF16_ATOL_FRAC = 0.15, 0.3
-#: flash attention in bfloat16: kernel and plain version both compute in
-#: float32 and round only the output, so an entry differs by at most one
-#: bfloat16 step of itself (2^-7 relative) where the two float32 values
-#: straddle a rounding boundary; the small absolute floor covers their
-#: float32 difference near zero.  Bounded per element, so a row of
-#: typical size (about 0.03 at T = 4096) is held as tightly as the
-#: largest one
+#: flash attention in bfloat16, per element: one bfloat16 step of the
+#: output (rtol 8e-3, where the two float32 values straddle a rounding
+#: boundary), a small absolute floor for their float32 difference near
+#: zero, and -- on the wgmma route, which rounds p to bfloat16 for the PV
+#: product -- one bfloat16 rounding of the p terms, 2^-8 sum_j p_j |v_j| / l,
+#: which the plain version returns beside its result: scores summed in
+#: another float32 order can round a p to the other bfloat16 neighbour.
+#: Bounded per element, so a row of typical size (about 0.03 at T = 4096)
+#: is held as tightly as the largest one; a dropped key tile or a scale
+#: 1 % off fails it
 FLASH_BF16_RTOL, FLASH_BF16_ATOL_FRAC = 8e-3, 1e-4
 #: the model path: internlm2-1.8b at full width and depth
 MODEL_ARCH = "internlm2-1.8b"
@@ -79,6 +84,9 @@ PROMPT_LEN, DECODE_STEPS = 512, 32
 #: noise -- about 1 % of max|logits| on an H100 -- and near-ties may swap
 #: the argmax.  Allowed: 5 % and 90 % agreement.
 LOGIT_ATOL_FRAC, LOGIT_MIN_ARGMAX = 0.05, 0.9
+#: the flash-attention kernel of each route
+FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
+                 "fma": "src/repro_torch/csrc/flash_attention.cu"}
 
 
 class SmokeFailure(RuntimeError):
@@ -89,9 +97,11 @@ def fail(msg: str) -> None:
     raise SmokeFailure(msg)
 
 
-def compare(got, want, rtol: float, atol_frac: float, what: str) -> float:
-    """Elementwise ``|got - want| <= atol + rtol |want|`` with ``atol =
-    atol_frac * max|want|``; returns max|got - want|, fails otherwise."""
+def compare(got, want, rtol: float, atol_frac: float, what: str,
+            extra=None) -> float:
+    """Elementwise ``|got - want| <= atol + rtol |want| (+ extra)`` with
+    ``atol = atol_frac * max|want|``; returns max|got - want|, fails
+    otherwise."""
     import torch
 
     got, want = got.float(), want.float()
@@ -99,7 +109,10 @@ def compare(got, want, rtol: float, atol_frac: float, what: str) -> float:
         fail(f"{what}: non-finite values")
     err = (got - want).abs()
     atol = atol_frac * want.abs().max().item()
-    bad = err > atol + rtol * want.abs()
+    bound = atol + rtol * want.abs()
+    if extra is not None:
+        bound += extra
+    bad = err > bound
     if bad.any():
         fail(f"{what}: {int(bad.sum())} entries off, max |err| "
              f"{err.max().item():.3e} (atol {atol:.3e}, rtol {rtol})")
@@ -150,6 +163,7 @@ def zero_counts() -> None:
     """Set every kernel's launch count to 0 (just before a main path)."""
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["flash_attention"].launches_by_route.update(wgmma=0, fma=0)
 
 
 def read_counts() -> dict:
@@ -416,17 +430,26 @@ def phase_flash():
         k = torch.randn(B * Hkv, Tk, d, generator=gen, device=dev).to(dtype)
         v = torch.randn(B * Hkv, Tk, d, generator=gen, device=dev).to(dtype)
         kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=causal)
+        kernel = ref.route(dtype, d)
+        counts = dict(attention.flash_attention.launches_by_route)
         got = attention.flash_attention(q, k, v, **kw)
-        want = ref.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
+        after = attention.flash_attention.launches_by_route
+        if after[kernel] != counts[kernel] + 1 or sum(after.values()) != (
+                sum(counts.values()) + 1):
+            fail(f"flash {name}: launches by route {counts} -> {after}; "
+                 f"want one {kernel} launch")
+        want, p_bound = ref.flash_attention_plain(q, k, v, return_p_bound=True,
+                                                  **kw)
         if dtype == torch.float32:
             err = compare(got, want, F32_RTOL, F32_ATOL_FRAC, f"flash {name}")
         else:
             err = compare(got, want, FLASH_BF16_RTOL, FLASH_BF16_ATOL_FRAC,
-                          f"flash {name}")
+                          f"flash {name}", extra=p_bound)
         size = want.float().abs()
         max_plain, median_plain = size.max().item(), size.median().item()
-        del size
+        max_p_bound = p_bound.max().item()
+        del size, p_bound
         h = B // 2  # G heads against two calls of G/2 (split by batch)
         parts = [attention.flash_attention(q[a * Hq:(a + h) * Hq],
                                            k[a * Hkv:(a + h) * Hkv],
@@ -455,15 +478,18 @@ def phase_flash():
         b_ms, b_by = bound(nbytes(q, k, v, got), flops, peak)
         peak_name = ("bf16 tensor-core 989 TFLOP/s" if dtype == torch.bfloat16
                      else "f32 CUDA-core 67 TFLOP/s")
-        rows.append(dict(case=name, G=B * Hq, Tq=Tq, Tk=Tk, d=d, causal=causal,
+        rows.append(dict(case=name, route=kernel, source=FLASH_SOURCES[kernel],
+                         G=B * Hq, Tq=Tq, Tk=Tk, d=d, causal=causal,
                          dtype=str(dtype).split(".")[-1], ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=b_ms, bound_by=b_by, peak=peak_name,
                          max_abs_err=err, max_abs_plain=max_plain,
-                         median_abs_plain=median_plain, sdpa_max_abs_err=lib_err))
-        print(f"flash {name}: G={B * Hq} Tq={Tq} Tk={Tk} d={d}: max|err| "
-              f"{err:.3e} (max|plain| {max_plain:.3f}, median "
-              f"{median_plain:.4f}), head split bitwise ok | kernel {ms:.3f} "
+                         median_abs_plain=median_plain, max_p_bound=max_p_bound,
+                         sdpa_max_abs_err=lib_err))
+        print(f"flash {name} [{kernel}]: G={B * Hq} Tq={Tq} Tk={Tk} d={d}: "
+              f"max|err| {err:.3e} (max|plain| {max_plain:.3f}, median "
+              f"{median_plain:.4f}, max p bound {max_p_bound:.2e}), head "
+              f"split bitwise ok | kernel {ms:.3f} "
               f"ms  plain {plain_ms:.3f} ms  sdpa {library_ms:.3f} ms "
               f"(max|sdpa - plain| {lib_err:.3e})  bound {b_ms:.3f} ms "
               f"({b_by}; {flops / 1e9:.1f} GFLOP at the {peak_name} peak)")
@@ -510,8 +536,11 @@ def phase_model():
     fwd_s = time.perf_counter() - t
     launches = read_counts()
     want = {"helmholtz": 0, "gemm_chain": 0, "flash_attention": cfg.n_layers}
-    if launches != want:
-        fail(f"scoring forward launched {launches}; want {want}")
+    by_route = dict(_wrappers()["flash_attention"].launches_by_route)
+    if launches != want or by_route != {"wgmma": cfg.n_layers, "fma": 0}:
+        fail(f"scoring forward launched {launches}, flash by route "
+             f"{by_route}; want {want}, all flash launches on wgmma")
+    launches["flash_attention_by_route"] = by_route
     if logits.shape != (SCORE_BATCH, SCORE_LEN, cfg.vocab) or (
             logits.dtype != torch.float32):
         fail(f"logits {tuple(logits.shape)} {logits.dtype}")
@@ -718,7 +747,7 @@ def main() -> int:
     main_case = flash_rows[0]  # the shape the model path gives the kernel
     kernels.append({
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "source": FLASH_SOURCES[main_case["route"]],
         "replaces": "src/repro/kernels/attention/attention.py:88",
         "launches": model["launches"]["flash_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),

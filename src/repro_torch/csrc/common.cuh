@@ -1,5 +1,6 @@
-// Shared pieces of the repro_torch kernels: storage conversion and the
-// one mode contraction both kernels are built from.
+// Shared pieces of the repro_torch kernels: storage conversion, the one
+// mode contraction both CFD kernels are built from, and the flash
+// kernels' key limit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,6 +23,18 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype does
+}
+
+// Flash attention: the reference's key limit K_lim of query row `row`.
+// The reference visits key blocks by the caller's bq x bk blocks (the
+// effective ones, min(block, T)) and skips a key block wholly above its
+// query block's last row, so the row sees keys [0, K_lim): 0 when its
+// query block ends above every key, Tk when not causal.
+__device__ __forceinline__ int key_limit(int row, int Tq, int Tk, int causal,
+                                         int bq, int bk) {
+  if (!causal) return Tk;
+  const int q_end = (row / bq + 1) * bq - 1 + (Tk - Tq);
+  return q_end < 0 ? 0 : min(Tk, (q_end / bk + 1) * bk);
 }
 
 // One mode contraction over a block of `be` elements held in shared

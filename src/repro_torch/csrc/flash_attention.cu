@@ -61,15 +61,6 @@ constexpr int kThreads = 256;
 constexpr int kPS = kTileK + 4;  // P row stride: conflict-free stores
 constexpr float kMasked = -1e30f;
 
-// The reference's per-row key limit K_lim (see the header); Tk when not
-// causal.  bq and bk are the effective blocks min(block, T).
-__device__ __forceinline__ int key_limit(int row, int Tq, int Tk, int causal,
-                                         int bq, int bk) {
-  if (!causal) return Tk;
-  const int q_end = (row / bq + 1) * bq - 1 + (Tk - Tq);
-  return q_end < 0 ? 0 : min(Tk, (q_end / bk + 1) * bk);
-}
-
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }

@@ -24,7 +24,10 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (
     pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 )
-SOURCES = ("helmholtz.cu", "gemm_chain.cu", "flash_attention.cu")
+SOURCES = (
+    "helmholtz.cu", "gemm_chain.cu", "flash_attention.cu",
+    "flash_attention_sm90.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -121,6 +124,10 @@ def library() -> ctypes.CDLL:
             vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci,
             ci, vp]
         lib.repro_flash_attention.restype = ci
+        lib.repro_flash_attention_sm90.argtypes = [
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci,
+            vp]
+        lib.repro_flash_attention_sm90.restype = ci
         lib.repro_cuda_error_string.argtypes = [ci]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

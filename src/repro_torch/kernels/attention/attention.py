@@ -1,17 +1,25 @@
-"""Flash attention with GQA and causal masking: the CUDA kernel's wrapper.
+"""Flash attention with GQA and causal masking: the CUDA kernels' wrapper.
 
 :func:`flash_attention` is the port of the reference's
 ``flash_attention_pallas`` (``repro/kernels/attention/attention.py``).
-On CUDA tensors it launches ``csrc/flash_attention.cu`` (one CTA per
-query head and tile of 64 rows, K/V tiles staged in shared memory, an
-online softmax in float32) or raises; on CPU tensors it runs
-:func:`~.ref.flash_attention_plain`, which repeats the kernel's
-arithmetic.  Both follow the reference's visit rule per row: a row sees
-the keys below its ``K_lim``, a function of the row and the caller's
-``block_q``/``block_k`` (``ref.py``), so rows that see no key (causal,
-``Tq > Tk``) come out as the reference's do.  Layout is head-folded: q ``(G, Tq, d)`` with ``G = batch *
-n_q_heads``, k and v ``(Gkv, Tk, d)``; query head ``g`` reads KV head
-``(g // Hq) * Hkv + (g % Hq) // (Hq / Hkv)``.
+On CUDA tensors it launches one of two kernels, chosen by storage dtype
+and head dim (:func:`~.ref.route`), or raises:
+
+* ``"wgmma"``: bfloat16 at head dims 64 and 128 ->
+  ``csrc/flash_attention_sm90.cu`` (tensor cores: TMA loads into a
+  shared-memory ring, one producer and two consumer warpgroups; ``p`` is
+  rounded to bfloat16 for the PV product);
+* ``"fma"``: float32, and bfloat16 at head dims 16 and 32 ->
+  ``csrc/flash_attention.cu`` (CUDA cores, ``p`` kept in float32).
+
+On CPU tensors it runs :func:`~.ref.flash_attention_plain`, which
+repeats the arithmetic of the kernel the route names.  Both follow the
+reference's visit rule per row: a row sees the keys below its ``K_lim``,
+a function of the row and the caller's ``block_q``/``block_k``
+(``ref.py``), so rows that see no key (causal, ``Tq > Tk``) come out as
+the reference's do.  Layout is head-folded: q ``(G, Tq, d)`` with ``G =
+batch * n_q_heads``, k and v ``(Gkv, Tk, d)``; query head ``g`` reads KV
+head ``(g // Hq) * Hkv + (g % Hq) // (Hq / Hkv)``.
 """
 from __future__ import annotations
 
@@ -19,10 +27,11 @@ import ctypes
 
 import torch
 
-from .ref import TILE_Q, check_blocks, check_shapes, flash_attention_plain
+from .ref import (FMA_HEAD_DIMS, TILE_Q, WGMMA_TILE_Q, check_blocks,
+                  check_shapes, flash_attention_plain, route)
 
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims some kernel is instantiated for
+HEAD_DIMS = FMA_HEAD_DIMS
 #: most query tiles one launch takes (the grid's y dimension)
 MAX_Q_TILES = 65_535
 
@@ -44,7 +53,9 @@ def flash_attention(
     ``scale`` defaults to ``1/sqrt(d)``; ``min(block, T)`` must divide T
     (the reference's rule, else ``ValueError``).  The blocks set each
     row's key limit, as in the reference, never the kernel's own tiles.
-    ``flash_attention.launches`` counts kernel launches."""
+    ``flash_attention.launches`` counts kernel launches, and
+    ``flash_attention.launches_by_route`` counts them per kernel
+    (``"wgmma"``, ``"fma"``)."""
     check_shapes(q, k, v, n_q_heads, n_kv_heads)
     G, Tq, d = q.shape
     Tk = k.shape[1]
@@ -71,8 +82,10 @@ def flash_attention(
     code = _cuda.dtype_code(q.dtype)
     if d not in HEAD_DIMS:
         raise ValueError(f"kernel supports head dims {HEAD_DIMS}, got {d}")
-    if -(-Tq // TILE_Q) > MAX_Q_TILES:
-        raise ValueError(f"kernel takes at most {MAX_Q_TILES * TILE_Q} query "
+    kernel = route(q.dtype, d)
+    tile_q = WGMMA_TILE_Q if kernel == "wgmma" else TILE_Q
+    if -(-Tq // tile_q) > MAX_Q_TILES:
+        raise ValueError(f"kernel takes at most {MAX_Q_TILES * tile_q} query "
                          f"rows, got {Tq}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernel reads contiguous q, k and v")
@@ -81,14 +94,20 @@ def flash_attention(
     o = torch.empty_like(q)
     if G == 0 or Tq == 0:
         return o
-    err = _cuda.library().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        G, Tq, Tk, d, n_q_heads, n_kv_heads, int(causal),
-        ctypes.c_float(scale), bq, bk, code, _cuda.stream_handle(device),
-    )
-    _cuda.check(err, "flash_attention")
+    lib = _cuda.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            G, Tq, Tk, d, n_q_heads, n_kv_heads, int(causal),
+            ctypes.c_float(scale), bq, bk)
+    stream = _cuda.stream_handle(device)
+    if kernel == "wgmma":
+        err = lib.repro_flash_attention_sm90(*args, stream)
+    else:
+        err = lib.repro_flash_attention(*args, code, stream)
+    _cuda.check(err, f"flash_attention ({kernel})")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[kernel] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"wgmma": 0, "fma": 0}

@@ -180,12 +180,110 @@ def test_xla_path_matches_reference_xla(causal, rng):
 def test_impl_switch(rng):
     q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 2, 1, 16, 16, 16))
     before = t_attn.flash_attention.launches
+    by_route = dict(t_attn.flash_attention.launches_by_route)
     auto = t_ops.multi_head_attention(q, k, v)              # CPU: xla
     torch.testing.assert_close(
         auto, t_ops.multi_head_attention(q, k, v, impl="xla"), rtol=0, atol=0)
     t_ops.multi_head_attention(q, k, v, impl="pallas")      # CPU: plain
     assert t_attn.flash_attention.launches == before        # no kernel ran
+    assert t_attn.flash_attention.launches_by_route == by_route
     with pytest.raises(NotImplementedError, match="training"):
         t_ops.multi_head_attention(q, k, v, impl="xla_flash")
     with pytest.raises(ValueError, match="unknown attention impl"):
         t_ops.multi_head_attention(q, k, v, impl="flash")
+
+
+# -- the wgmma route's numerics: p rounded to bfloat16 for PV ---------------
+
+BF16_CASES = [
+    # B, Hq, Hkv, Tq, Tk, d, causal, block_q, block_k
+    (1, 4, 2, 128, 128, 64, True, 64, 64),
+    (1, 2, 1, 256, 256, 128, True, 128, 256),
+    (1, 4, 4, 64, 192, 64, False, 64, 64),
+    (2, 2, 1, 200, 200, 128, True, 200, 200),    # ragged: 128 divides no T
+    (1, 4, 1, 96, 320, 64, True, 32, 64),        # Tq < Tk
+    (1, 2, 2, 192, 64, 128, True, 512, 512),     # Tq > Tk, default blocks
+    (1, 2, 2, 192, 64, 64, True, 32, 16),        # Tq > Tk, other blocks
+]
+
+
+def _bf16(rng, *shapes):
+    """Seeded normals rounded to bfloat16, and the same values as float32."""
+    t = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).bfloat16()
+         for s in shapes]
+    return t, [x.float().numpy() for x in t]
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_bf16_plain_rounds_p_like_the_reference_xla_path(case, rng):
+    """bfloat16 storage at d in (64, 128) takes the wgmma route: its plain
+    version rounds p to bfloat16 for the PV product and sums l from the
+    float32 p.  Against the reference's kernel on the same values in
+    float32 (p kept in float32) an entry may differ by its own bfloat16
+    rounding (2^-8 relative: rtol 4e-3) plus one rounding of each p term,
+    2^-8 sum_j p_j |v_j| / l, which the plain version returns beside its
+    result: about 1e-2 of a typical entry.  The port's xla path rounds
+    the normalised p where the plain version rounds the unnormalised one,
+    so the two differ by at most one such rounding each (twice the bound)
+    and the output rounding of both (rtol 8e-3)."""
+    B, Hq, Hkv, Tq, Tk, d, causal, bq, bk = case
+    (q, k, v), (qn, kn, vn) = _bf16(
+        rng, (B, Hq, Tq, d), (B, Hkv, Tk, d), (B, Hkv, Tk, d))
+    assert t_ref.route(q.dtype, d) == "wgmma"
+    kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=causal, block_q=bq,
+              block_k=bk)
+    got, p_bound = t_ref.flash_attention_plain(
+        q.reshape(B * Hq, Tq, d), k.reshape(B * Hkv, Tk, d),
+        v.reshape(B * Hkv, Tk, d), return_p_bound=True, **kw)
+    assert got.dtype == torch.bfloat16
+    got = got.float().reshape(B, Hq, Tq, d).numpy()
+    p_bound = p_bound.reshape(B, Hq, Tq, d).numpy()
+    assert (p_bound >= 0).all() and p_bound.max() > 0
+    want = np.asarray(r_ops.multi_head_attention(
+        qn, kn, vn, causal=causal, impl="interpret", block_q=bq, block_k=bk))
+    err = np.abs(got - want)
+    assert (err <= 4e-3 * np.abs(want) + p_bound + 1e-6).all(), err.max()
+    xla = t_ops.multi_head_attention(q, k, v, causal=causal, impl="xla")
+    xla = xla.float().numpy()
+    rows = slice(max(Tq - Tk, 0), Tq) if causal else slice(0, Tq)  # rows seeing a key
+    err = np.abs(got - xla)[:, :, rows]
+    bound = 8e-3 * np.abs(xla) + 2 * p_bound + 1e-6
+    assert (err <= bound[:, :, rows]).all(), err.max()
+
+
+def test_bf16_fully_masked_rows_are_the_exact_mean(rng):
+    """Rows that see no key take p = 1 (exact in bfloat16) on every key
+    below K_lim, so the wgmma route's plain version gives the mean of V
+    over [0, K_lim) as the reference does, with no p rounding at all."""
+    B, Hq, Hkv, Tq, Tk, d = 1, 2, 1, 192, 64, 64
+    (q, k, v), (qn, kn, vn) = _bf16(
+        rng, (B, Hq, Tq, d), (B, Hkv, Tk, d), (B, Hkv, Tk, d))
+    got, p_bound = t_ref.flash_attention_plain(
+        q.reshape(B * Hq, Tq, d), k.reshape(B * Hkv, Tk, d),
+        v.reshape(B * Hkv, Tk, d), n_q_heads=Hq, n_kv_heads=Hkv,
+        return_p_bound=True)
+    got = got.float().reshape(B, Hq, Tq, d).numpy()
+    want = np.asarray(r_ops.multi_head_attention(qn, kn, vn, impl="interpret"))
+    masked = Tq - Tk
+    np.testing.assert_allclose(got[:, :, :masked], want[:, :, :masked],
+                               rtol=4e-3, atol=1e-6)
+    mean_v = np.repeat(vn.mean(axis=2), Hq // Hkv, axis=1)[:, :, None]
+    np.testing.assert_allclose(
+        got[:, :, :masked], np.broadcast_to(mean_v, got[:, :, :masked].shape),
+        rtol=4e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "fma"), (torch.bfloat16, 16, "fma"),
+    (torch.float32, 128, "fma"), (torch.float32, 64, "fma"),
+])
+def test_route_by_dtype_and_head_dim(dtype, d, want, rng):
+    """The kernel is chosen by dtype and head dim, never by a failure; the
+    fma route keeps p in float32 (no p bound), the wgmma route rounds it."""
+    assert t_ref.route(dtype, d) == want
+    assert t_ref.tile_k(dtype, d) == (128 if want == "wgmma" else 64)
+    q = torch.from_numpy(rng.normal(size=(2, 32, d)).astype(np.float32)).to(dtype)
+    _, p_bound = t_ref.flash_attention_plain(
+        q, q[:1], q[:1], n_q_heads=2, n_kv_heads=1, return_p_bound=True)
+    assert (p_bound.max() > 0) == (want == "wgmma")

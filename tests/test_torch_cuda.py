@@ -10,10 +10,12 @@ and atol 5e-4 max|plain| (both sum in float32, the plain version in
 another association of the same ascending-l order); bfloat16 within the
 bounds ``tests/test_kernels.py`` uses (rtol 0.15, atol 0.3 max|plain|).
 Flash attention: float32 within the same rtol 5e-4 / atol 5e-4
-max|plain|; bfloat16 within rtol 8e-3 / atol 1e-4 max|plain| (both sides
-compute in float32 and round only the output, so an entry differs by at
-most one bfloat16 step of itself, 2^-7 relative, plus their float32
-difference near zero).
+max|plain|; bfloat16 per element within 8e-3 |plain| (one bfloat16 step
+of the output, where the two float32 values straddle a rounding
+boundary) + 1e-4 max|plain| (their float32 difference near zero) + the
+plain version's p bound, 2^-8 sum_j p_j |v_j| / l, on the wgmma route:
+it rounds p to bfloat16 for the PV product, and scores summed in another
+float32 order can round a p to the other bfloat16 neighbour.
 """
 import pytest
 import torch
@@ -157,6 +159,25 @@ def _flash_inputs(gen, device, B, Hq, Hkv, Tq, Tk, d):
             for s in ((B * Hq, Tq, d), (B * Hkv, Tk, d), (B * Hkv, Tk, d))]
 
 
+def flash_close(got, q, k, v, **kw):
+    """Kernel output against the plain version within the bound stated
+    above; returns max |got - plain|."""
+    want, p_bound = t_attn_ref.flash_attention_plain(
+        q, k, v, return_p_bound=True, **kw)
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=5e-4,
+                                   atol=5e-4 * want.abs().max().item())
+    else:
+        err = (got - want).abs()
+        bound = 8e-3 * want.abs() + 1e-4 * want.abs().max() + p_bound
+        assert (err <= bound).all(), (
+            f"{int((err > bound).sum())} entries off, max |err| "
+            f"{err.max().item():.3e}")
+    return (got - want).abs().max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -167,21 +188,80 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=causal, block_q=32,
               block_k=32)
     before = t_attn.flash_attention.launches
+    kernel = t_attn_ref.route(dtype, d)
+    by_route = t_attn.flash_attention.launches_by_route[kernel]
     got = t_attn.flash_attention(q, k, v, **kw)
-    want = t_attn_ref.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     assert t_attn.flash_attention.launches == before + 1
+    assert t_attn.flash_attention.launches_by_route[kernel] == by_route + 1
     assert got.dtype == dtype and got.shape == q.shape
-    rtol, atol_frac = (5e-4, 5e-4) if dtype == torch.float32 else (8e-3, 1e-4)
-    scale = want.float().abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=atol_frac * scale)
+    flash_close(got, q, k, v, **kw)
     if B > 1:  # bitwise the same when the batch is split across calls
         half_q, half_kv = B // 2 * Hq, B // 2 * Hkv
         parts = [t_attn.flash_attention(q[a:a + half_q], k[b:b + half_kv],
                                         v[b:b + half_kv], **kw)
                  for a, b in ((0, 0), (half_q, half_kv))]
         assert torch.equal(got, torch.cat(parts))
+
+
+WGMMA_CASES = [
+    # B, Hq, Hkv, Tq, Tk, d, causal, block_q, block_k
+    (2, 4, 4, 256, 256, 128, True, 512, 512),    # GQA group 1
+    (2, 4, 2, 256, 256, 64, True, 64, 64),       # group 2
+    (2, 8, 1, 384, 384, 128, False, 128, 128),   # group 8, non-causal
+    (2, 16, 2, 128, 128, 64, False, 128, 128),   # group 8
+    (2, 4, 2, 128, 640, 128, True, 128, 128),    # Tq < Tk
+    (2, 4, 2, 320, 96, 64, True, 512, 512),      # Tq > Tk, default blocks
+    (2, 4, 2, 320, 96, 128, True, 64, 32),       # Tq > Tk, other blocks
+    (2, 4, 2, 200, 200, 128, True, 200, 200),    # ragged: 128 divides no T
+    (2, 4, 2, 200, 200, 64, False, 200, 200),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_flash_attention_wgmma_route_matches_plain(cuda, case):
+    """bfloat16 at d = 64 and 128 runs the tensor-core kernel: against its
+    plain version, G heads bitwise equal to two calls of G/2, and the
+    route named in launches_by_route."""
+    B, Hq, Hkv, Tq, Tk, d, causal, bq, bk = case
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (x.bfloat16() for x in _flash_inputs(gen, cuda, B, Hq, Hkv, Tq, Tk, d))
+    kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=causal, block_q=bq,
+              block_k=bk)
+    counts = dict(t_attn.flash_attention.launches_by_route)
+    got = t_attn.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert t_attn.flash_attention.launches_by_route == {
+        "wgmma": counts["wgmma"] + 1, "fma": counts["fma"]}
+    flash_close(got, q, k, v, **kw)
+    # bitwise the same when the batch is split across two calls
+    parts = [t_attn.flash_attention(q[a * Hq:(a + 1) * Hq],
+                                    k[a * Hkv:(a + 1) * Hkv],
+                                    v[a * Hkv:(a + 1) * Hkv], **kw)
+             for a in range(B)]
+    assert torch.equal(got, torch.cat(parts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(512, 512), (32, 16)])
+def test_flash_attention_wgmma_fully_masked_rows_are_the_mean(cuda, blocks):
+    """Causal, Tq > Tk: a row that sees no key takes p = 1 on every key
+    below its K_lim, so it is the mean of V over [0, K_lim) (0 when
+    K_lim = 0), as in the reference."""
+    Hq, Hkv, Tq, Tk, d = 4, 2, 320, 96, 128
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (x.bfloat16() for x in _flash_inputs(gen, cuda, 1, Hq, Hkv, Tq, Tk, d))
+    kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, block_q=blocks[0], block_k=blocks[1])
+    got = t_attn.flash_attention(q, k, v, **kw).float()
+    lim = t_attn_ref.key_limits(Tq, Tk, *t_attn_ref.check_blocks(Tq, Tk, *blocks),
+                                True, cuda)
+    vf = v.float().repeat_interleave(Hq // Hkv, dim=0)      # (G, Tk, d)
+    csum = torch.cat([torch.zeros_like(vf[:, :1]), vf.cumsum(1)], dim=1)
+    for row in range(Tq - Tk):
+        n = int(lim[row])
+        want = csum[:, n] / n if n else torch.zeros_like(csum[:, 0])
+        torch.testing.assert_close(got[:, row], want, rtol=4e-3, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -200,6 +280,15 @@ def test_flash_attention_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         t_attn.flash_attention(q48, k48, k48, **kw)
     with pytest.raises(ValueError, match="not divisible"):
         t_attn.flash_attention(q, k, v, block_q=48, **kw)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        t_attn.flash_attention(q.half(), k.half(), v.half(), **kw)
+    with pytest.raises(ValueError, match="head dims"):
+        q48, k48 = (torch.randn(n, 64, 48, device=cuda).bfloat16() for n in (2, 1))
+        t_attn.flash_attention(q48, k48, k48, **kw)
+    with pytest.raises(ValueError, match="16-byte alignment"):
+        qb = torch.randn(2 * 64 * 64 + 1, device=cuda).bfloat16()[1:].view(2, 64, 64)
+        kb = torch.randn(1, 64, 64, device=cuda).bfloat16()
+        t_attn.flash_attention(qb, kb, kb, **kw)
     assert t_attn.flash_attention.launches == before
 
 
