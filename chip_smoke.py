@@ -33,11 +33,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      full size (24 layers, bfloat16, random weights from generator seed
      0), one scoring ``forward`` on tokens (4, 4096) with the launch
      counters zeroed just before and read just after (exactly 24 flash
-     launches, all on the wgmma route), its next-token loss, and the same
-     forward with
-     ``attn_impl="xla"``; then serving: prefill of a 512-token prompt at
-     batch 4, 32 greedy decode steps, and their logits against the
-     teacher-forced forward of the same sequence;
+     launches, all on the wgmma route), its next-token loss, and the
+     same forward with ``attn_impl="xla"``; then serving: prefill of a
+     512-token prompt at batch 4, 32 greedy decode steps, and their
+     logits against the teacher-forced forward of the same sequence;
   6. one JSON line describing every kernel, then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits

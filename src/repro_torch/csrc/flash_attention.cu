@@ -133,14 +133,15 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int n_tiles =
       (key_limit(q0 + q_rows - 1, Tq, Tk, causal, bq, bk) + kTileK - 1) /
       kTileK;
+  // ... and only tiles reaching past its least K_lim, its first row's,
+  // need the per-row limit (rare: the ragged end, fully masked rows)
+  const int lim_min = key_limit(q0, Tq, Tk, causal, bq, bk);
   stage_tile<D>(qs, S::kQS, q + (static_cast<int64_t>(g) * Tq + q0) * D,
                 q_rows);
 
   float m[4], l[4], acc[4][kCols];
-  int k_lim[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    k_lim[i] = key_limit(q0 + 4 * ty + i, Tq, Tk, causal, bq, bk);
     m[i] = kMasked;
     l[i] = 0.f;
 #pragma unroll
@@ -188,12 +189,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qpos = q0 + 4 * ty + i + q_offset;
+      const int k_lim = k0 + kTileK > lim_min
+                            ? key_limit(q0 + 4 * ty + i, Tq, Tk, causal, bq, bk)
+                            : Tk;
       float mx = -CUDART_INF_F;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
-        if (key >= k_lim[i]) {
+        if (key >= k_lim) {
           x = -CUDART_INF_F;  // not visited by the reference: no weight
         } else if (causal && qpos < key) {
           x = kMasked;

@@ -27,11 +27,11 @@ import ctypes
 
 import torch
 
-from .ref import (FMA_HEAD_DIMS, TILE_Q, WGMMA_TILE_Q, check_blocks,
-                  check_shapes, flash_attention_plain, route)
+from .ref import (TILE_Q, WGMMA_TILE_Q, check_blocks, check_shapes,
+                  flash_attention_plain, route)
 
-#: head dims some kernel is instantiated for
-HEAD_DIMS = FMA_HEAD_DIMS
+#: head dims the kernels are instantiated for (the fma kernel takes all)
+HEAD_DIMS = (16, 32, 64, 128)
 #: most query tiles one launch takes (the grid's y dimension)
 MAX_Q_TILES = 65_535
 

@@ -45,8 +45,7 @@ TILE_K = 64
 #: query rows per CTA and keys per tile of the tensor-core (``wgmma``) kernel
 WGMMA_TILE_Q = 128
 WGMMA_TILE_K = 128
-#: head dims each kernel is instantiated for
-FMA_HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the tensor-core (``wgmma``) kernel is instantiated for
 WGMMA_HEAD_DIMS = (64, 128)
 #: one bfloat16 rounding of p, relative (half a step of 8 significant bits)
 P_ROUND = 2.0 ** -8
