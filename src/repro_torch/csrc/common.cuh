@@ -37,6 +37,23 @@ __device__ __forceinline__ int key_limit(int row, int Tq, int Tk, int causal,
   return q_end < 0 ? 0 : min(Tk, (q_end / bk + 1) * bk);
 }
 
+// Flash attention: the keys [0, key_stop) that query rows r0..r1 (r1 <
+// Tq) must visit.  A row that sees a key needs none past its own
+// position: keys there score -1e30 and add p = 0 with a rescale of 1,
+// exactly, so skipping them changes no bit.  A row that sees no key
+// (causal, row < Tq - Tk) takes p = 1 on every key below its K_lim.
+__device__ __forceinline__ int key_stop(int r0, int r1, int Tq, int Tk,
+                                        int causal, int bq, int bk) {
+  if (!causal) return Tk;
+  const int q_offset = Tk - Tq;
+  int stop = r1 + q_offset >= 0 ? r1 + q_offset + 1 : 0;
+  const int last_masked = min(r1, -q_offset - 1);  // last row seeing none
+  if (last_masked >= r0) {
+    stop = max(stop, key_limit(last_masked, Tq, Tk, causal, bq, bk));
+  }
+  return stop;
+}
+
 // One mode contraction over a block of `be` elements held in shared
 // memory, each a p x p x p cube stored row-major at src + e * p^3:
 //

@@ -33,8 +33,8 @@
 // Design: one CTA of 256 threads per (query head, tile of 64 query rows);
 // the grid's y axis walks the query tiles last to first, so the longest
 // causal rows start first.  The Q tile is staged once in shared memory;
-// the CTA walks the key tiles (64 keys) in ascending order up to the
-// largest K_lim of its rows, staging K and V in shared memory as f32.
+// the CTA walks the key tiles (64 keys) its rows need (key_stop in
+// common.cuh) in ascending order, staging K and V in shared memory as f32.
 // Thread (ty, tx) of a 16 x 16 layout owns query rows 4 ty .. 4 ty + 3:
 // it forms their scores against keys tx + 16 j (j < 4) as ascending-d
 // fmaf chains, reduces each row's max and sum over the 16 lanes of its
@@ -129,19 +129,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   const T* kg = k + static_cast<int64_t>(gkv) * Tk * D;
   const T* vg = v + static_cast<int64_t>(gkv) * Tk * D;
 
-  // the CTA walks key tiles up to the largest K_lim of its rows, its last
+  // the CTA walks the key tiles its rows need, ascending
   const int n_tiles =
-      (key_limit(q0 + q_rows - 1, Tq, Tk, causal, bq, bk) + kTileK - 1) /
+      (key_stop(q0, q0 + q_rows - 1, Tq, Tk, causal, bq, bk) + kTileK - 1) /
       kTileK;
-  // ... and only tiles reaching past its least K_lim, its first row's,
-  // need the per-row limit (rare: the ragged end, fully masked rows)
-  const int lim_min = key_limit(q0, Tq, Tk, causal, bq, bk);
   stage_tile<D>(qs, S::kQS, q + (static_cast<int64_t>(g) * Tq + q0) * D,
                 q_rows);
 
   float m[4], l[4], acc[4][kCols];
+  int k_lim[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    k_lim[i] = key_limit(q0 + 4 * ty + i, Tq, Tk, causal, bq, bk);
     m[i] = kMasked;
     l[i] = 0.f;
 #pragma unroll
@@ -189,15 +188,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qpos = q0 + 4 * ty + i + q_offset;
-      const int k_lim = k0 + kTileK > lim_min
-                            ? key_limit(q0 + 4 * ty + i, Tq, Tk, causal, bq, bk)
-                            : Tk;
       float mx = -CUDART_INF_F;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
-        if (key >= k_lim) {
+        if (key >= k_lim[i]) {
           x = -CUDART_INF_F;  // not visited by the reference: no weight
         } else if (causal && qpos < key) {
           x = kMasked;

@@ -304,9 +304,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;
   const int q_last = min(q0 + kBM, Tq) - 1;
-  // the CTA walks key tiles up to the largest K_lim of its rows, its last
+  // the CTA walks the key tiles its rows need, ascending
   const int n_tiles =
-      (key_limit(q_last, Tq, Tk, causal, bq, bk) + kBN - 1) / kBN;
+      (key_stop(q0, q_last, Tq, Tk, causal, bq, bk) + kBN - 1) / kBN;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -362,7 +362,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int wg_tiles =
         wg_first > wg_last
             ? 0
-            : (key_limit(wg_last, Tq, Tk, causal, bq, bk) + kBN - 1) / kBN;
+            : (key_stop(wg_first, wg_last, Tq, Tk, causal, bq, bk) + kBN -
+               1) / kBN;
     const int seen = causal ? max(0, min(key_limit(wg_first, Tq, Tk, causal,
                                                    bq, bk),
                                          wg_first + q_offset + 1))
