@@ -54,7 +54,7 @@
 // - Each row depends only on its own head's data and the fixed tiles, so
 //   G heads are bitwise equal to two calls of G/2.
 //
-// The tensor maps are encoded per call on the host with the driver's
+// The tensor maps are encoded per call on the host with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion
 // (no -lcuda), and passed as __grid_constant__ kernel parameters.
 #include <cuda.h>  // CUtensorMap and its enums (types only)
@@ -512,7 +512,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// The driver's cuTensorMapEncodeTiled, looked up once.
+// cuTensorMapEncodeTiled, looked up once.
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
