@@ -15,7 +15,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      kernel also in bfloat16 within rtol 0.15 / atol 0.3 max|plain|, and
      bitwise equality of one E-element call with two E/2 calls; times of
      kernel, plain version and (where one PyTorch call computes the same
-     function) that call, beside the least time the card could take;
+     function: ``torch.einsum`` for interpolation and for the whole
+     inverse Helmholtz, held against the plain version first, the faster
+     of opt_einsum's path and einsum's own) that call, beside the least
+     time the card could take;
   3. the slice: ``compile_cfd_pipeline(11, backends="pallas")`` and
      ``.run()`` over 8 batches of E elements, with the launch counters
      zeroed just before and read just after; pipelined and serial
@@ -83,6 +86,12 @@ PROMPT_LEN, DECODE_STEPS = 512, 32
 #: noise -- about 1 % of max|logits| on an H100 -- and near-ties may swap
 #: the argmax.  Allowed: 5 % and 90 % agreement.
 LOGIT_ATOL_FRAC, LOGIT_MIN_ARGMAX = 0.05, 0.9
+#: the one-call yardsticks of the CFD kernels (timed, never used by the
+#: port): interpolation, and the whole inverse Helmholtz with D as a
+#: Hadamard factor; the element tensor comes first, so that einsum's
+#: left-to-right path is the sequence of mode contractions
+INTERP_EINSUM = "elmn,il,jm,kn->eijk"
+HELMHOLTZ_EINSUM = "eabc,la,mb,nc,elmn,li,mj,nk->eijk"
 #: the flash-attention kernel of each route
 FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "fma": "src/repro_torch/csrc/flash_attention.cu"}
@@ -135,6 +144,28 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def einsum_ms(equation: str, operands, want, what: str):
+    """The yardstick of a CFD kernel: one ``torch.einsum`` call, held
+    against the plain version and then timed, with opt_einsum's path
+    (where it is installed) and with einsum's own left-to-right path;
+    returns the faster time and a line naming both."""
+    import torch
+
+    flag = torch.backends.opt_einsum
+    times = {}
+    for opt in ([True, False] if flag.is_available() else [False]):
+        saved, flag.enabled = flag.enabled, opt
+        try:
+            fn = lambda: torch.einsum(equation, *operands)
+            compare(fn(), want, F32_RTOL, F32_ATOL_FRAC,
+                    f"einsum {what} (opt_einsum {opt})")
+            times["opt_einsum" if opt else "left to right"] = time_ms(fn, 20)
+        finally:
+            flag.enabled = saved
+    txt = "einsum " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+    return min(times.values()), txt
+
+
 def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
     """The least time (ms) the card could take: bytes over the memory rate
     or operations over ``peak`` (default the f32 CUDA-core peak),
@@ -174,7 +205,8 @@ def phase_setup():
     import torch
 
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
-          f"cuda {torch.version.cuda}")
+          f"cuda {torch.version.cuda}  opt_einsum "
+          f"{torch.backends.opt_einsum.is_available()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -248,14 +280,19 @@ def phase_kernels(system):
     ms = time_ms(lambda: helmholtz.inverse_helmholtz(S, D, u, block_elements=be), 20)
     plain_ms = time_ms(
         lambda: helmholtz.inverse_helmholtz_plain(S, D, u, block_elements=be), 3)
+    # one PyTorch call computes v = S(x)3 (D o S^T(x)3 u): left to right it
+    # contracts a, b, c, multiplies by D and contracts l, m, n, the
+    # kernel's own order
+    library_ms, lib_txt = einsum_ms(HELMHOLTZ_EINSUM, (u, S, S, S, D, S, S, S),
+                                    want, "helmholtz")
     b_ms, b_by = bound(nbytes(S, D, u, got), E * progs["helmholtz"].total_flops())
     rows["helmholtz"] = [dict(stage="helmholtz", block_elements=be, ms=ms,
                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                              library_ms=None, max_abs_err=err,
+                              library_ms=library_ms, max_abs_err=err,
                               max_abs_err_bf16=err_b)]
     print(f"helmholtz  E={E} BE={be}: f32 max|err| {err:.3e}, bf16 "
           f"{err_b:.3e}, split bitwise ok | kernel {ms:.3f} ms  plain "
-          f"{plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})")
+          f"{plain_ms:.3f} ms  {lib_txt}  bound {b_ms:.3f} ms ({b_by})")
     del D, u, got, want, Sb, Db, ub, got_b, want_b
 
     # -- gemm chain: interpolation and gradient ------------------------------
@@ -293,19 +330,18 @@ def phase_kernels(system):
                            E * progs[stage].total_flops())
         library_ms = None
         if stage == "interp":
-            # one PyTorch call computes w_ijk = sum A_il A_jm A_kn u_lmn
+            # one PyTorch call computes w_ijk = sum A_il A_jm A_kn u_lmn;
+            # with the element tensor first, einsum's left-to-right path is
+            # three mode contractions (without opt_einsum it never reorders)
             (mat,) = [n for n, _, is_elem in recipe.inputs if not is_elem]
             A, x = env[mat], env[elem_names[0]]
-            lib = torch.einsum("il,jm,kn,elmn->eijk", A, A, A, x)
-            compare(lib, want[recipe.outputs[0][0]], F32_RTOL, F32_ATOL_FRAC,
-                    "einsum interp")
-            library_ms = time_ms(
-                lambda: torch.einsum("il,jm,kn,elmn->eijk", A, A, A, x), 20)
+            library_ms, lib_txt = einsum_ms(INTERP_EINSUM, (x, A, A, A),
+                                            want[recipe.outputs[0][0]], stage)
         rows["gemm_chain"].append(dict(
             stage=stage, block_elements=be, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
             max_abs_err=err))
-        lib_txt = f"  einsum {library_ms:.3f} ms" if library_ms else ""
+        lib_txt = f"  {lib_txt}" if library_ms else ""
         print(f"gemm_chain {stage} E={E} BE={be}: f32 max|err| {err:.3e}, "
               f"split bitwise ok | kernel {ms:.3f} ms  plain {plain_ms:.3f} "
               f"ms{lib_txt}  bound {b_ms:.3f} ms ({b_by})")
