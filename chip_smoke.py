@@ -11,8 +11,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the slice gives it (p = 11, the planner's E, its blocks):
-     float32 within rtol 5e-4 / atol 5e-4 max|plain|, the Helmholtz
-     kernel also in bfloat16 within rtol 0.15 / atol 0.3 max|plain|, and
+     float32 within rtol 5e-4 / atol 5e-4 max|plain|, and in bfloat16
+     within rtol 0.15 / atol 0.3 max|plain| (timed too: half the bytes
+     for the same arithmetic, a probe of what bounds the kernel), and
      bitwise equality of one E-element call with two E/2 calls; times of
      kernel, plain version and (where one PyTorch call computes the same
      function: ``torch.einsum`` for interpolation and for the whole
@@ -226,10 +227,34 @@ def phase_setup():
     _cuda.library()
     print(f"kernels built in {_cuda.build_seconds:.1f} s "
           f"({_cuda.nvcc_path()}, sm_90a)")
-    for line in "\n".join(_cuda.build_log).splitlines():
-        if "Used" in line or line.startswith("=="):
-            print(f"  {line.strip()}")
+    for line in ptxas_summary(_cuda.build_log):
+        print(f"  {line}")
     return card
+
+
+def ptxas_summary(build_log) -> list:
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` output: its
+    name (CFD kernels as name<dtype, p>), registers and spills."""
+    import re
+
+    out, name, spill = [], "?", ""
+    for line in "\n".join(build_log).splitlines():
+        if line.startswith("=="):
+            out.append(line.strip())
+        elif "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            m = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
+                          mangled)
+            name = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}, "
+                    f"{m.group(3)}>" if m else mangled[:60])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers; "
+                       f"{spill or 'no spill report'}")
+            name, spill = "?", ""
+    return out
 
 
 def phase_kernels(system):
@@ -278,6 +303,9 @@ def phase_kernels(system):
         fail(f"helmholtz: E={E} (BE={be}) differs bitwise from two E/2 "
              f"calls (BE={be2})")
     ms = time_ms(lambda: helmholtz.inverse_helmholtz(S, D, u, block_elements=be), 20)
+    # probe: bfloat16 moves half the bytes for the same arithmetic
+    ms_bf16 = time_ms(
+        lambda: helmholtz.inverse_helmholtz(Sb, Db, ub, block_elements=be), 20)
     plain_ms = time_ms(
         lambda: helmholtz.inverse_helmholtz_plain(S, D, u, block_elements=be), 3)
     # one PyTorch call computes v = S(x)3 (D o S^T(x)3 u): left to right it
@@ -289,9 +317,10 @@ def phase_kernels(system):
     rows["helmholtz"] = [dict(stage="helmholtz", block_elements=be, ms=ms,
                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                               library_ms=library_ms, max_abs_err=err,
-                              max_abs_err_bf16=err_b)]
+                              max_abs_err_bf16=err_b, ms_bf16=ms_bf16)]
     print(f"helmholtz  E={E} BE={be}: f32 max|err| {err:.3e}, bf16 "
-          f"{err_b:.3e}, split bitwise ok | kernel {ms:.3f} ms  plain "
+          f"{err_b:.3e}, split bitwise ok | kernel {ms:.3f} ms (bf16 "
+          f"{ms_bf16:.3f} ms)  plain "
           f"{plain_ms:.3f} ms  {lib_txt}  bound {b_ms:.3f} ms ({b_by})")
     del D, u, got, want, Sb, Db, ub, got_b, want_b
 
@@ -324,6 +353,14 @@ def phase_kernels(system):
                 fail(f"gemm_chain {stage}: output {k} at E={E} (BE={be}) "
                      f"differs bitwise from two E/2 calls (BE={be2})")
         ms = time_ms(lambda: gemm.gemm_chain(recipe, env, block_elements=be), 20)
+        env_b = {k: v.bfloat16() for k, v in env.items()}
+        got_b = gemm.gemm_chain(recipe, env_b, block_elements=be)
+        want_b = gemm.gemm_chain_plain(recipe, env_b, block_elements=be)
+        err_b = max(compare(got_b[k], want_b[k], BF16_RTOL, BF16_ATOL_FRAC,
+                            f"gemm_chain {stage} {k} bf16") for k in got_b)
+        ms_bf16 = time_ms(
+            lambda: gemm.gemm_chain(recipe, env_b, block_elements=be), 20)
+        del got_b, want_b
         plain_ms = time_ms(
             lambda: gemm.gemm_chain_plain(recipe, env, block_elements=be), 3)
         b_ms, b_by = bound(nbytes(*env.values(), *got.values()),
@@ -340,12 +377,13 @@ def phase_kernels(system):
         rows["gemm_chain"].append(dict(
             stage=stage, block_elements=be, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-            max_abs_err=err))
+            max_abs_err=err, max_abs_err_bf16=err_b, ms_bf16=ms_bf16))
         lib_txt = f"  {lib_txt}" if library_ms else ""
         print(f"gemm_chain {stage} E={E} BE={be}: f32 max|err| {err:.3e}, "
-              f"split bitwise ok | kernel {ms:.3f} ms  plain {plain_ms:.3f} "
+              f"bf16 {err_b:.3e}, split bitwise ok | kernel {ms:.3f} ms "
+              f"(bf16 {ms_bf16:.3f} ms)  plain {plain_ms:.3f} "
               f"ms{lib_txt}  bound {b_ms:.3f} ms ({b_by})")
-        del env, got, want, parts
+        del env, env_b, got, want, parts
     torch.cuda.empty_cache()
     return rows
 

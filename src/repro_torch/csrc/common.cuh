@@ -1,7 +1,10 @@
-// Shared pieces of the repro_torch kernels: storage conversion, the one
-// mode contraction both CFD kernels are built from, and the flash
-// kernels' key limit.
+// Shared pieces of the repro_torch kernels: storage conversion, the flash
+// kernels' key limit, and what both CFD kernels are built from (element
+// cubes in shared memory, the register-blocked mode contraction, cp.async
+// staging, the CTA tile).
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,48 +57,289 @@ __device__ __forceinline__ int key_stop(int r0, int r1, int Tq, int Tk,
   return stop;
 }
 
-// One mode contraction over a block of `be` elements held in shared
-// memory, each a p x p x p cube stored row-major at src + e * p^3:
+// ---------------------------------------------------------------------------
+// The CFD kernels' building blocks: element cubes in shared memory, the
+// register-blocked mode contraction, and the cp.async staging of element
+// blocks.
+// ---------------------------------------------------------------------------
+
+// Every p the CFD kernels are built for (the wrappers' MAX_P = 16).
+#define REPRO_FOR_EACH_P(X)                                              \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) \
+      X(14) X(15) X(16)
+
+// Threads a CFD CTA may have, and the fibers each thread owns at once.
+constexpr int kCubeMaxThreads = 192;
+constexpr int kCubeMinThreads = 128;
+constexpr int kFibers = 2;
+// Matrix rows a thread works on at once (kFibers x kRows independent fmaf
+// chains in flight).
+constexpr int kRows = 1;
+// Shared memory per CTA under which two CTAs fit on one SM (228 KB per SM,
+// 1 KB of it reserved per CTA).
+constexpr int kCubeCtaTarget = 113 * 1024;
+
+// An f32 work cube of p x p x p in shared memory.  At even p the row pitch
+// is p + 1: a warp's fibers are 32 consecutive (fixed-index) pairs, and an
+// odd pitch keeps every mode at most two-way bank conflicted (a pitch of
+// p = 8 or 16 words would serialise the strided modes up to 16-way).
+template <int P>
+struct Cube {
+  static constexpr int kRow = P | 1;
+  static constexpr int kPlane = P * kRow;
+  static constexpr int kElem = P * kPlane;
+};
+
+// Rows of a contraction matrix M(a, l) in shared memory, padded to whole
+// float4s so that a warp reads row a as uniform 16-byte broadcasts.
+template <int P>
+__host__ __device__ constexpr int mat_row() { return (P + 3) & ~3; }
+
+__host__ __device__ constexpr int round16(int bytes) {
+  return (bytes + 15) & ~15;
+}
+
+// Axis strides of a cube (element pitch, then axes 0, 1, 2).
+struct CubeView {
+  int elem, s0, s1, s2;
+};
+
+// The strides a contraction along `mode` walks in view v: along the mode,
+// then along the two fixed axes (lower axis first).
+struct ModeStrides {
+  int elem, sm, sq0, sq1;
+};
+__device__ __forceinline__ ModeStrides mode_strides(CubeView v, int mode) {
+  return {v.elem, mode == 0 ? v.s0 : mode == 1 ? v.s1 : v.s2,
+          mode == 0 ? v.s1 : v.s0, mode == 2 ? v.s1 : v.s2};
+}
+__device__ __forceinline__ int at(ModeStrides m, int e, int q0, int q1,
+                                  int a) {
+  return e * m.elem + q0 * m.sq0 + q1 * m.sq1 + a * m.sm;
+}
+
+// One mode contraction over the first n_fibers fibers of a block of cubes:
 //
-//   dst[e][o] = sum_l M(a, l) * src[e][y with axis `mode` set to l]
+//   y[.., a at mode, ..] = sum_l M(a, l) x[.., l at mode, ..],
 //
-// where y is the in-place result index (axis `mode` holds the free index
-// a) and the stored index is o[q] = y[perm[q]]'s position, i.e.
-// y[perm[q]] = o[q].  M(a, l) = mat[a * a_stride + l * l_stride], so one
-// matrix in shared memory serves both M and its transpose.  Every output
-// entry is one p-term fmaf chain in ascending l: its value depends only
-// on its own element, never on be, E or the grid.  Ends with a barrier.
-__device__ __forceinline__ void contract_mode(
-    float* __restrict__ dst, const float* __restrict__ src,
-    const float* __restrict__ mat, int a_stride, int l_stride, int p,
-    int be, int mode, int perm0, int perm1, int perm2) {
-  const int p2 = p * p, p3 = p2 * p;
-  const int stride[3] = {p2, p, 1};
-  for (int idx = threadIdx.x; idx < be * p3; idx += blockDim.x) {
-    const int e = idx / p3;
-    const int r = idx - e * p3;
-    int o[3];
-    o[0] = r / p2;
-    o[1] = (r / p) % p;
-    o[2] = r % p;
-    int y[3];
-    y[perm0] = o[0];
-    y[perm1] = o[1];
-    y[perm2] = o[2];
-    const int a = y[mode];
-    int base = e * p3;
-    for (int d = 0; d < 3; ++d) {
-      if (d != mode) base += y[d] * stride[d];
+// M(a, l) = mrows[a * mat_row<P>() + l].  A fiber is the p inputs along
+// `mode` at fixed other indices (q0 < q1 by axis, q1 fastest); fiber f is
+// element f / p^2.  Each thread loads kFibers fibers into registers
+// (consecutive threads take neighbouring fibers) and makes their p
+// outputs in registers, each one fmaf chain in ascending l from 0.0f --
+// the sum the reference order fixes, so an output never depends on the
+// tile, E or the batch split.  Then epi(e, q0, q1, a, y) stores each
+// output.  No barrier.
+template <int P, typename TS, typename Epi>
+__device__ __forceinline__ void contract(const TS* __restrict__ src,
+                                         CubeView v, int mode,
+                                         const float* __restrict__ mrows,
+                                         int n_fibers, Epi epi) {
+  constexpr int MR = mat_row<P>();
+  const ModeStrides ms = mode_strides(v, mode);
+  for (int f0 = threadIdx.x; f0 < n_fibers;
+       f0 += kFibers * static_cast<int>(blockDim.x)) {
+    float x[kFibers][P];
+    int e[kFibers], q0[kFibers], q1[kFibers];
+    bool on[kFibers];
+#pragma unroll
+    for (int s = 0; s < kFibers; ++s) {
+      // a thread past the last fiber reads the last one and stores nothing
+      const int f = min(f0 + s * static_cast<int>(blockDim.x), n_fibers - 1);
+      on[s] = f0 + s * static_cast<int>(blockDim.x) < n_fibers;
+      e[s] = f / (P * P);
+      const int r = f - e[s] * (P * P);
+      q0[s] = r / P;
+      q1[s] = r - q0[s] * P;
+      const TS* px = src + at(ms, e[s], q0[s], q1[s], 0);
+#pragma unroll
+      for (int l = 0; l < P; ++l) x[s][l] = to_float(px[l * ms.sm]);
     }
-    const int step = stride[mode];
-    const float* m = mat + a * a_stride;
-    float acc = 0.0f;
-    for (int l = 0; l < p; ++l) {
-      acc = fmaf(m[l * l_stride], src[base + l * step], acc);
+    // all outputs first, stores after: a store between two rows' loads
+    // could alias the matrix for the compiler and serialise the rows
+    float y[kFibers][P];
+#pragma unroll
+    for (int a0 = 0; a0 < P; a0 += kRows) {
+      float m[kRows][MR];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+        for (int c = 0; c < MR; c += 4) {
+          if (a0 + r >= P) break;
+          const float4 q =
+              *reinterpret_cast<const float4*>(mrows + (a0 + r) * MR + c);
+          m[r][c] = q.x;
+          m[r][c + 1] = q.y;
+          m[r][c + 2] = q.z;
+          m[r][c + 3] = q.w;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+        for (int s = 0; s < kFibers; ++s) {
+          if (a0 + r >= P) break;
+          float acc = 0.0f;
+#pragma unroll
+          for (int l = 0; l < P; ++l) acc = fmaf(m[r][l], x[s][l], acc);
+          y[s][a0 + r] = acc;
+        }
+      }
     }
-    dst[idx] = acc;
+#pragma unroll
+    for (int s = 0; s < kFibers; ++s) {
+      if (!on[s]) continue;
+#pragma unroll
+      for (int a = 0; a < P; ++a) epi(e[s], q0[s], q1[s], a, y[s][a]);
+    }
   }
-  __syncthreads();
+}
+
+// Write M(a, l) = m[a][l] (transpose false) or m[l][a] (true) of a p x p
+// matrix in device memory as padded rows in shared memory.
+template <int P, typename T>
+__device__ __forceinline__ void load_mat_rows(float* __restrict__ rows,
+                                              const T* __restrict__ m,
+                                              bool transpose) {
+  constexpr int MR = mat_row<P>();
+  for (int i = threadIdx.x; i < P * MR; i += blockDim.x) {
+    const int a = i / MR, l = i - a * MR;
+    rows[i] = l < P ? to_float(transpose ? m[l * P + a] : m[a * P + l]) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Bytes of one staging region holding `elems` values of T: the copy keeps
+// device memory's offset modulo 16, so a region has 16 bytes of slack.
+__host__ __device__ constexpr int stage_bytes(int elems, int elem_bytes) {
+  return round16(elems * elem_bytes) + 16;
+}
+
+// An element value the staging leaves to a plain load: the under-16-byte
+// head and tail of a range.  The thread holds it in a register until the
+// tile is needed, so the load overlaps the current tile's work.
+template <typename T>
+struct Held {
+  T v;
+  T* dst = nullptr;
+  __device__ __forceinline__ void flush() {
+    if (dst) *dst = v;
+    dst = nullptr;
+  }
+};
+
+// Where stage_async puts value 0 of g in `region`: at g's offset modulo 16.
+template <typename T>
+__device__ __forceinline__ const T* staged(const void* region, const T* g) {
+  return reinterpret_cast<const T*>(static_cast<const char*>(region) +
+                                    (reinterpret_cast<uintptr_t>(g) & 15));
+}
+
+// Start copying n values of T from device memory at g into the staging
+// region `region` (16-byte aligned; staged(region, g) is value 0):
+// cp.async of 16 bytes for the aligned middle, and plain loads for the
+// head and tail, which threads slot * 2 * (16 / sizeof(T)) + j hold (no
+// over-read: every byte copied lies in [g, g + n)).  Commit the group
+// yourself.
+template <typename T>
+__device__ __forceinline__ void stage_async(void* region, const T* g, int n,
+                                            int slot, Held<T>& held) {
+  constexpr int kEdge = 16 / sizeof(T);
+  const uintptr_t ga = reinterpret_cast<uintptr_t>(g);
+  const uintptr_t end = ga + static_cast<uintptr_t>(n) * sizeof(T);
+  const uintptr_t base = ga & ~uintptr_t(15);
+  uintptr_t c0 = (ga + 15) & ~uintptr_t(15);
+  if (c0 > end) c0 = end;
+  uintptr_t c1 = end & ~uintptr_t(15);
+  if (c1 < c0) c1 = c0;
+  char* s = static_cast<char*>(region);
+  const int chunks = static_cast<int>((c1 - c0) / 16);
+  for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
+    cp_async16(s + (c0 - base) + 16 * k,
+               reinterpret_cast<const char*>(c0) + 16 * k);
+  }
+  const int n_head = static_cast<int>((c0 - ga) / sizeof(T));
+  const int n_tail = static_cast<int>((end - c1) / sizeof(T));
+  const int j = static_cast<int>(threadIdx.x) - slot * 2 * kEdge;
+  if (j >= 0 && j < n_head) {
+    held.v = g[j];
+    held.dst = reinterpret_cast<T*>(s + (ga - base)) + j;
+  } else if (j >= kEdge && j - kEdge < n_tail) {
+    const int i = static_cast<int>((c1 - ga) / sizeof(T)) + (j - kEdge);
+    held.v = g[i];
+    held.dst = reinterpret_cast<T*>(s + (ga - base)) + i;
+  }
+}
+
+// The CTA's tile: te elements a step, its thread count and its shared
+// memory, for a CFD kernel at p with `n_stage` staged element inputs
+// (double-buffered, elem_bytes each value), `n_work` f32 work cubes and
+// `n_mat_rows` padded matrix row blocks.  The tile fills a CTA's fibers
+// (kFibers * kCubeMaxThreads) and, where it can, keeps two CTAs on an SM.
+// Mirrored by repro_torch.kernels.helmholtz.helmholtz.cube_tile.
+struct CubeTile {
+  int te, threads, smem;
+};
+
+__host__ __device__ constexpr int cube_smem(int p, int te, int n_stage,
+                                            int elem_bytes, int n_work,
+                                            int n_mat_rows) {
+  return round16(n_mat_rows * p * ((p + 3) & ~3) * 4) +
+         2 * n_stage * stage_bytes(te * p * p * p, elem_bytes) +
+         n_work * round16(te * p * p * (p | 1) * 4);
+}
+
+__host__ __device__ constexpr CubeTile cube_tile(int p, int n_stage,
+                                                 int elem_bytes, int n_work,
+                                                 int n_mat_rows) {
+  int te = kFibers * kCubeMaxThreads / (p * p);
+  if (te < 1) te = 1;
+  while (te > 1 && cube_smem(p, te, n_stage, elem_bytes, n_work,
+                             n_mat_rows) > kCubeCtaTarget) {
+    --te;
+  }
+  int threads = (te * p * p + kFibers - 1) / kFibers;
+  threads = (threads + 31) / 32 * 32;
+  if (threads < kCubeMinThreads) threads = kCubeMinThreads;
+  return {te, threads,
+          cube_smem(p, te, n_stage, elem_bytes, n_work, n_mat_rows)};
+}
+
+// Persistent grid: as many CTAs as fit on the card at once, at most one
+// per tile.
+template <typename K>
+static cudaError_t persistent_grid(K kernel, CubeTile t, int n_tiles,
+                                   int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, t.smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        t.threads, t.smem);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
+  return cudaSuccess;
 }
 
 }  // namespace repro

@@ -23,15 +23,30 @@
 // the interpolation moves 537 MB (0.16 ms at 3.35 TB/s) and the gradient
 // 1,074 MB (0.32 ms).
 //
-// Design: one CTA per block of BE elements.  Every value slot of the
-// recipe that carries the element axis (inputs and op results alike) is
-// a p^3 f32 cube per element in shared memory, and the shared (p, p)
-// matrices sit there too, so the chain runs between loading the element
-// inputs (coalesced) and storing the outputs without touching device
-// memory.  Slots are not reused: interpolation and gradient need 4 each
-// (21 KB per element at p = 11).  A contraction applies perm at the
-// store and sums in ascending l with fmaf, so an element's result never
-// depends on BE, E or how a batch is split.
+// Design (common.cuh; the same building blocks as helmholtz.cu):
+// - p is a template parameter (1..16, a switch at launch); the op table
+//   stays runtime data.  Contractions use the register-blocked fiber
+//   routine (kFibers fibers a thread, M rows as float4 broadcasts, one
+//   ascending-l fmaf chain from 0.0f per output, so every bit equals the
+//   parent kernel's and never depends on tiles, E or the split).  The
+//   perm is folded into three output strides a fiber, not a division per
+//   entry.
+// - Shared memory by liveness (gemm.py buffer_table): element inputs are
+//   read where they are staged, in the storage dtype; an op result gets
+//   an f32 work cube (row pitch p + 1 at even p) only if a later op reads
+//   it, and a cube is reused once its slot's last reader has run.  Every
+//   output is stored from registers straight to device memory as its op
+//   produces it, with no staging pass: for the CFD recipes each store
+//   instruction covers runs of p or p^2 consecutive values (interp's last
+//   contraction runs along mode 1, grad's perms put the new axis first).
+//   Interpolation holds 2 work cubes, the gradient none (w is read from
+//   its staging buffer and gx, gy, gz go out from registers).
+// - Persistent grid and cp.async prefetch of the next tile's element
+//   inputs into a second staging buffer, as in helmholtz.cu.
+// - BE: the plan's block_elements stays the wrapper's argument with its
+//   E % BE check (plans equal the reference's) and plays no part in the
+//   launch; the kernel's own tile (cube_tile) depends on p, the dtype
+//   and the recipe's cube counts, and the last tile may be ragged.
 #include <cstdint>
 
 #include "common.cuh"
@@ -45,11 +60,14 @@ constexpr int kMaxSlots = 8;
 constexpr int kMaxMats = 8;
 constexpr int kOpWidth = 10;
 
-// Op table rows.  Slots index element cubes in shared memory; mats index
-// the shared matrices.
+// Op table rows.  Element slots number the element inputs first (slot j
+// is staged input j), then one slot per op; mats index the shared
+// matrices.
 //   contract: {0, dst, src, mat, mode, mat_dim, perm0, perm1, perm2, 0}
 //   ewise:    {1 + code, dst, lhs, rhs, 0, ...}, code in
 //             0 add, 1 sub, 2 mul, 3 div, 4 neg, 5 scale (consts[i])
+// slot_buf gives each op result its work cube, -1 where no later op reads
+// it (n_bufs cubes in all).
 struct GemmChainArgs {
   const void* in[kMaxIn];
   void* out[kMaxOut];
@@ -59,86 +77,236 @@ struct GemmChainArgs {
   int out_slot[kMaxOut];
   int ops[kMaxOps][kOpWidth];
   float consts[kMaxOps];
+  int n_bufs;
+  int slot_buf[kMaxSlots];
 };
 
+__host__ __device__ inline int n_elem_inputs(const GemmChainArgs& a) {
+  int n = 0;
+  for (int j = 0; j < a.n_in; ++j) n += a.in_is_elem[j];
+  return n;
+}
+
+__host__ __device__ inline CubeTile chain_tile(const GemmChainArgs& a,
+                                               int elem_bytes) {
+  return cube_tile(a.p, n_elem_inputs(a), elem_bytes, a.n_bufs,
+                   2 * a.n_mats);
+}
+
+// Stores a contraction's outputs: into its work cube (if any) and into
+// each device-memory output fed by its slot (first one, then the rare
+// others named in `more`), all with the perm folded into the strides.
 template <typename T>
-__global__ void gemm_chain_kernel(const __grid_constant__ GemmChainArgs args) {
-  extern __shared__ float smem[];
-  const int p = args.p, p2 = p * p, p3 = p2 * p;
-  const int n = args.be * p3;
-  float* mats = smem;                      // n_mats x p x p
-  float* slots = smem + args.n_mats * p2;  // n_slots x (be x p^3)
-  const int64_t off = static_cast<int64_t>(blockIdx.x) * n;
+struct ChainStore {
+  float* buf;
+  ModeStrides bm;
+  T* out;  // at this tile
+  ModeStrides om;
+  void* const* outs;
+  int64_t off;
+  int more;
+  __device__ __forceinline__ void operator()(int e, int q0, int q1, int a,
+                                             float y) const {
+    if (buf) buf[at(bm, e, q0, q1, a)] = y;
+    if (out) out[at(om, e, q0, q1, a)] = from_float<T>(y);
+    if (more) {
+      for (int j = 0; j < kMaxOut; ++j) {
+        if (more >> j & 1) {
+          static_cast<T*>(outs[j])[off + at(om, e, q0, q1, a)] =
+              from_float<T>(y);
+        }
+      }
+    }
+  }
+};
+
+// The view of a cube stored with the element axes permuted by perm
+// (o[q] = y[perm[q]]): y-axis perm[q] strides like stored axis q.
+__device__ __forceinline__ CubeView permuted(CubeView v, const int* perm) {
+  int c[3];
+  c[perm[0]] = v.s0;
+  c[perm[1]] = v.s1;
+  c[perm[2]] = v.s2;
+  return {v.elem, c[0], c[1], c[2]};
+}
+
+template <typename T, int P>
+__global__ void __launch_bounds__(kCubeMaxThreads)
+    gemm_chain_kernel(const __grid_constant__ GemmChainArgs args, int E,
+                      int te) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using C = Cube<P>;
+  constexpr int MR = mat_row<P>(), P3 = P * P * P;
+  const int n_tiles = (E + te - 1) / te;
+  const int n_elem = n_elem_inputs(args);
+  // matrix m as M(a, l) = m[l][a] at block 2m, m[a][l] at block 2m + 1
+  float* mats = reinterpret_cast<float*>(smem);
+  unsigned char* stage = smem + round16(2 * args.n_mats * P * MR * 4);
+  const int sb = stage_bytes(te * P3, sizeof(T));  // [buffer][elem input]
+  float* work = reinterpret_cast<float*>(stage + 2 * n_elem * sb);
+  const int wb = round16(te * C::kElem * 4) / 4;
 
   for (int j = 0; j < args.n_in; ++j) {
-    const T* src = static_cast<const T*>(args.in[j]);
-    if (args.in_is_elem[j]) {
-      float* dst = slots + args.in_index[j] * n;
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        dst[i] = to_float(src[off + i]);
+    if (!args.in_is_elem[j]) {
+      const T* m = static_cast<const T*>(args.in[j]);
+      float* rows = mats + 2 * args.in_index[j] * P * MR;
+      load_mat_rows<P>(rows, m, true);
+      load_mat_rows<P>(rows + P * MR, m, false);
+    }
+  }
+
+  const CubeView cube{C::kElem, C::kPlane, C::kRow, 1};
+  const CubeView flat{P3, P * P, P, 1};
+  Held<T> held;
+  auto issue = [&](int tile, int buf) {
+    const int64_t off = static_cast<int64_t>(tile) * te * P3;
+    const int n = min(te, E - tile * te) * P3;
+    for (int j = 0; j < args.n_in; ++j) {
+      if (args.in_is_elem[j]) {
+        const int r = args.in_index[j];
+        stage_async(stage + (buf * n_elem + r) * sb,
+                    static_cast<const T*>(args.in[j]) + off, n, r, held);
       }
+    }
+  };
+  // element slot s < n_elem: staged input s, read in the storage dtype
+  auto staged_in = [&](int s, int buf, int64_t off) {
+    for (int j = 0; j < args.n_in; ++j) {
+      if (args.in_is_elem[j] && args.in_index[j] == s) {
+        return staged(stage + (buf * n_elem + s) * sb,
+                      static_cast<const T*>(args.in[j]) + off);
+      }
+    }
+    return static_cast<const T*>(nullptr);
+  };
+  auto cube_at = [&](int i) {  // tile-linear index -> work-cube offset
+    if constexpr (C::kRow == P) {
+      return i;
     } else {
-      float* dst = mats + args.in_index[j] * p2;
-      for (int i = threadIdx.x; i < p2; i += blockDim.x) {
-        dst[i] = to_float(src[i]);
-      }
+      const int e = i / P3, r = i - e * P3;
+      const int i0 = r / (P * P), r2 = r - i0 * (P * P);
+      const int j = r2 / P;
+      return e * C::kElem + i0 * C::kPlane + j * C::kRow + (r2 - j * P);
     }
-  }
-  __syncthreads();
+  };
 
-  for (int k = 0; k < args.n_ops; ++k) {
-    const int* op = args.ops[k];
-    float* dst = slots + op[1] * n;
-    if (op[0] == 0) {
-      // mat_dim 0: M(a, l) = m[l][a]; mat_dim 1: M(a, l) = m[a][l]
-      const bool dim0 = op[5] == 0;
-      contract_mode(dst, slots + op[2] * n, mats + op[3] * p2,
-                    dim0 ? 1 : p, dim0 ? p : 1, p, args.be, op[4], op[6],
-                    op[7], op[8]);
-      continue;
-    }
-    const float* a = slots + op[2] * n;
-    const float* b = slots + (op[3] >= 0 ? op[3] : op[2]) * n;
-    const int code = op[0] - 1;
-    const float c = args.consts[k];
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      float y;
-      switch (code) {
-        case 0: y = a[i] + b[i]; break;
-        case 1: y = a[i] - b[i]; break;
-        case 2: y = a[i] * b[i]; break;
-        case 3: y = a[i] / b[i]; break;
-        case 4: y = -a[i]; break;
-        default: y = a[i] * c; break;
-      }
-      dst[i] = y;
-    }
+  int tile = blockIdx.x;
+  if (tile < n_tiles) issue(tile, 0);
+  cp_async_commit();
+  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+    const int buf = it & 1;
+    held.flush();  // this tile's head and tail, loaded one step ago
+    const int next = tile + static_cast<int>(gridDim.x);
+    if (next < n_tiles) issue(next, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-  }
+    const int64_t off = static_cast<int64_t>(tile) * te * P3;
+    const int n = min(te, E - tile * te);
 
-  for (int j = 0; j < args.n_out; ++j) {
-    T* dst = static_cast<T*>(args.out[j]);
-    const float* src = slots + args.out_slot[j] * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      dst[off + i] = from_float<T>(src[i]);
+    for (int k = 0; k < args.n_ops; ++k) {
+      const int* op = args.ops[k];
+      const int dst = op[1];
+      float* dbuf = args.slot_buf[dst] >= 0
+                        ? work + args.slot_buf[dst] * wb
+                        : nullptr;
+      int o0 = -1, more = 0;
+      for (int j = 0; j < args.n_out; ++j) {
+        if (args.out_slot[j] != dst) continue;
+        if (o0 < 0) {
+          o0 = j;
+        } else {
+          more |= 1 << j;
+        }
+      }
+      if (!dbuf && o0 < 0) continue;  // a result nothing reads
+      T* out = o0 >= 0 ? static_cast<T*>(args.out[o0]) + off : nullptr;
+      if (op[0] == 0) {
+        const int mode = op[4];
+        const float* rows = mats + (2 * op[3] + op[5]) * P * MR;
+        ChainStore<T> st{dbuf,
+                         mode_strides(permuted(cube, op + 6), mode),
+                         out,
+                         mode_strides(permuted(flat, op + 6), mode),
+                         args.out,
+                         off,
+                         more};
+        const int src = op[2];
+        if (src < n_elem) {
+          contract<P>(staged_in(src, buf, off), flat, mode, rows, n * P * P,
+                      st);
+        } else {
+          contract<P>(work + args.slot_buf[src] * wb, cube, mode, rows,
+                      n * P * P, st);
+        }
+      } else {
+        const int code = op[0] - 1;
+        const float c = args.consts[k];
+        const int sa = op[2], sb2 = op[3] >= 0 ? op[3] : op[2];
+        const T* ta = sa < n_elem ? staged_in(sa, buf, off) : nullptr;
+        const T* tb = sb2 < n_elem ? staged_in(sb2, buf, off) : nullptr;
+        const float* fa = sa < n_elem ? nullptr : work + args.slot_buf[sa] * wb;
+        const float* fb =
+            sb2 < n_elem ? nullptr : work + args.slot_buf[sb2] * wb;
+        for (int i = threadIdx.x; i < n * P3; i += blockDim.x) {
+          const int w = cube_at(i);
+          const float a = ta ? to_float(ta[i]) : fa[w];
+          const float b = tb ? to_float(tb[i]) : fb[w];
+          float y;
+          switch (code) {
+            case 0: y = a + b; break;
+            case 1: y = a - b; break;
+            case 2: y = a * b; break;
+            case 3: y = a / b; break;
+            case 4: y = -a; break;
+            default: y = a * c; break;
+          }
+          if (dbuf) dbuf[w] = y;
+          if (out) out[i] = from_float<T>(y);
+          for (int j = 0; more && j < kMaxOut; ++j) {
+            if (more >> j & 1) {
+              static_cast<T*>(args.out[j])[off + i] = from_float<T>(y);
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+    // outputs that are element inputs as they came in
+    for (int j = 0; j < args.n_out; ++j) {
+      if (args.out_slot[j] >= n_elem) continue;
+      const T* x = staged_in(args.out_slot[j], buf, off);
+      T* y = static_cast<T*>(args.out[j]) + off;
+      for (int i = threadIdx.x; i < n * P3; i += blockDim.x) y[i] = x[i];
     }
   }
 }
 
-template <typename T>
+template <typename T, int P>
 static cudaError_t launch_gemm_chain(const GemmChainArgs& args, int E,
                                      cudaStream_t stream) {
-  const int p = args.p;
-  const size_t smem =
-      sizeof(float) *
-      (static_cast<size_t>(args.n_mats) * p * p +
-       static_cast<size_t>(args.n_slots) * args.be * p * p * p);
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const CubeTile t = chain_tile(args, sizeof(T));
+  if (E <= 0) return cudaSuccess;
+  int grid = 0;
+  cudaError_t err = persistent_grid(gemm_chain_kernel<T, P>, t,
+                                    (E + t.te - 1) / t.te, &grid);
   if (err != cudaSuccess) return err;
-  gemm_chain_kernel<T><<<E / args.be, 256, smem, stream>>>(args);
+  gemm_chain_kernel<T, P><<<grid, t.threads, t.smem, stream>>>(args, E, t.te);
   return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t dispatch_gemm_chain(const GemmChainArgs& args, int E,
+                                       cudaStream_t s) {
+  switch (args.p) {
+#define REPRO_GC_CASE(P) \
+  case P:                \
+    return launch_gemm_chain<T, P>(args, E, s);
+    REPRO_FOR_EACH_P(REPRO_GC_CASE)
+#undef REPRO_GC_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace repro
@@ -154,19 +322,31 @@ extern "C" int repro_gemm_chain_limits(int* out) {
   return 0;
 }
 
+// The kernel's tile for a recipe: {te, threads, shared bytes}, for the
+// wrapper's mirror to be checked against.
+extern "C" int repro_gemm_chain_tile(const repro::GemmChainArgs* args,
+                                     int dtype, int* out) {
+  const repro::CubeTile t = repro::chain_tile(
+      *args, dtype == repro::kBFloat16 ? 2 : 4);
+  out[0] = t.te;
+  out[1] = t.threads;
+  out[2] = t.smem;
+  return 0;
+}
+
 extern "C" int repro_gemm_chain(const repro::GemmChainArgs* args, int E,
                                 int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (args->n_in > repro::kMaxIn || args->n_out > repro::kMaxOut ||
       args->n_ops > repro::kMaxOps || args->n_slots > repro::kMaxSlots ||
-      args->n_mats > repro::kMaxMats) {
+      args->n_mats > repro::kMaxMats || args->n_bufs > repro::kMaxSlots) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == repro::kFloat32) {
-    return repro::launch_gemm_chain<float>(*args, E, s);
+    return repro::dispatch_gemm_chain<float>(*args, E, s);
   }
   if (dtype == repro::kBFloat16) {
-    return repro::launch_gemm_chain<__nv_bfloat16>(*args, E, s);
+    return repro::dispatch_gemm_chain<__nv_bfloat16>(*args, E, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

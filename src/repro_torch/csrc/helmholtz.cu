@@ -14,95 +14,220 @@
 // and writes v once (3 p^3 scalars: 16 KB at p = 11, f32) and does about
 // 12 p^4 + p^3 flops, so the work sits far below the card's
 // flop-per-byte balance: at E = 50,420 and p = 11 that is 805 MB per
-// batch, 0.24 ms at 3.35 TB/s against 0.13 ms of f32 FMA work.
+// batch, 0.24 ms at 3.35 TB/s against 0.13 ms of f32 FMA work.  Shared
+// memory is next: each contraction moves every cube through it once
+// (load a fiber, store its outputs), so the design keeps the other
+// shared-memory traffic small.
 //
-// Design: one CTA per block of BE elements (BE from the plan; the wrapper
-// keeps the reference's E % BE check).  S sits once in shared memory and
-// is read with swapped strides for S^T.  u is loaded coalesced into one
-// shared buffer; the six contractions ping-pong between two shared
-// buffers (u -> t1 -> t2 -> t, r in place, -> ... -> v) so no
-// intermediate ever touches device memory, and D is read once straight
-// from device memory for the Hadamard step.  Every output entry is a
-// p-term fmaf chain in ascending l, so an element's result never depends
-// on BE, E or how a batch is split.  Shared memory is 4 (p^2 + 2 BE p^3)
-// bytes (43 KB at p = 11, BE = 4); above 48 KB the launch needs
-// cudaFuncAttributeMaxDynamicSharedMemorySize, which is set per launch.
-// The plain loop over p is CUDA-core FMA: p = 11 is below the tensor
-// cores' MMA depth and TF32 would break f32 parity.
+// Design (common.cuh):
+// - p is a template parameter (1..16, one instantiation each, chosen by a
+//   switch at launch), so index arithmetic is by constants, once a fiber.
+// - Each thread owns kFibers fibers along the contracted mode: it loads
+//   them into registers once and makes their p outputs, reading the
+//   matrix row M(a, :) as uniform float4 broadcasts (S and S^T are both
+//   kept, rows padded to a multiple of 4), about 0.3 shared loads per FMA
+//   against 2 in a one-output-per-thread loop.  Every output is one fmaf
+//   chain in ascending l from 0.0f, the parent kernel's arithmetic, so
+//   every bit is as before and never depends on tiles, E or the split.
+// - The six contractions ping-pong between two f32 work cubes per element
+//   (row pitch p + 1 at even p against bank conflicts).  The third one
+//   multiplies by D as it stores (r = t * D, one rounding, as before).
+//   The sixth stores to shared memory too, and a coalesced pass writes v:
+//   a direct store along mode 2 would put a warp's lanes p words apart,
+//   eight times the L2 write transactions.
+// - Persistent grid, as many CTAs as fit at once (two an SM at p = 11),
+//   each walking tiles of te elements.  u and D of the next tile are
+//   copied into a second staging buffer by cp.async (16-byte copies of the
+//   aligned middle; the head and tail under 16 bytes by plain loads held
+//   in registers, so any 2- or 4-byte alignment works) while the current
+//   tile computes.  The first contraction reads u from its staging buffer
+//   and the third reads D there, in the storage dtype.
+// - BE: the plan's block_elements (from memory/layout, the reference's
+//   VMEM model) stays the wrapper's argument and keeps its E % BE check,
+//   so plans equal the reference's; it plays no part in the launch.  The
+//   kernel's own tile te (cube_tile: 3 elements at p = 11, f32) fills a
+//   CTA's 2 x 192 fiber slots within 113 KB of shared memory, and the last
+//   tile may be ragged.  Results depend on neither.
+// CUDA-core FMA: p = 11 is below the tensor cores' MMA depth and TF32
+// would break f32 parity.
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace repro {
 
+// Staged element inputs, work cubes and matrix row blocks.
+constexpr int kHhStage = 2, kHhWork = 2, kHhMats = 2;
+
+struct ToCube {  // store y into an f32 work cube
+  float* dst;
+  ModeStrides m;
+  __device__ __forceinline__ void operator()(int e, int q0, int q1, int a,
+                                             float y) const {
+    dst[at(m, e, q0, q1, a)] = y;
+  }
+};
+
 template <typename T>
-__global__ void helmholtz_kernel(const T* __restrict__ S,
-                                 const T* __restrict__ D,
-                                 const T* __restrict__ u, T* __restrict__ v,
-                                 int p, int be) {
-  extern __shared__ float smem[];
-  const int p2 = p * p, p3 = p2 * p;
-  const int n = be * p3;
-  float* s = smem;          // S, p x p
-  float* buf0 = s + p2;     // ping
-  float* buf1 = buf0 + n;   // pong
-  const int64_t off = static_cast<int64_t>(blockIdx.x) * n;
-
-  for (int i = threadIdx.x; i < p2; i += blockDim.x) s[i] = to_float(S[i]);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    buf0[i] = to_float(u[off + i]);
+struct ToCubeTimesD {  // r = t * D, then store
+  float* dst;
+  ModeStrides m;
+  const T* d;
+  ModeStrides dm;
+  __device__ __forceinline__ void operator()(int e, int q0, int q1, int a,
+                                             float y) const {
+    dst[at(m, e, q0, q1, a)] = y * to_float(d[at(dm, e, q0, q1, a)]);
   }
-  __syncthreads();
+};
 
-  // t = (S^T)^{(x)3} u: M(a, l) = S[a][l]
-  contract_mode(buf1, buf0, s, p, 1, p, be, 0, 0, 1, 2);
-  contract_mode(buf0, buf1, s, p, 1, p, be, 1, 0, 1, 2);
-  contract_mode(buf1, buf0, s, p, 1, p, be, 2, 0, 1, 2);
-  // r = D o t, in place
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    buf1[i] *= to_float(D[off + i]);
+template <typename T, int P>
+__global__ void __launch_bounds__(kCubeMaxThreads)
+    helmholtz_kernel(const T* __restrict__ S, const T* __restrict__ D,
+                     const T* __restrict__ u, T* __restrict__ v, int E,
+                     int te) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using C = Cube<P>;
+  constexpr int MR = mat_row<P>(), P3 = P * P * P;
+  const int n_tiles = (E + te - 1) / te;
+  float* s_rows = reinterpret_cast<float*>(smem);  // M(a, l) = S[a][l]
+  float* st_rows = s_rows + P * MR;                // M(a, l) = S[l][a]
+  unsigned char* stage = smem + round16(kHhMats * P * MR * 4);
+  const int sb = stage_bytes(te * P3, sizeof(T));  // [buffer][u, D]
+  float* A = reinterpret_cast<float*>(stage + 2 * kHhStage * sb);
+  float* B = A + round16(te * C::kElem * 4) / 4;
+
+  load_mat_rows<P>(s_rows, S, false);
+  load_mat_rows<P>(st_rows, S, true);
+
+  const CubeView work{C::kElem, C::kPlane, C::kRow, 1};
+  const CubeView flat{P3, P * P, P, 1};
+  Held<T> held;
+  auto issue = [&](int tile, int buf) {
+    const int64_t off = static_cast<int64_t>(tile) * te * P3;
+    const int n = min(te, E - tile * te) * P3;
+    stage_async(stage + (2 * buf) * sb, u + off, n, 0, held);
+    stage_async(stage + (2 * buf + 1) * sb, D + off, n, 1, held);
+  };
+  int tile = blockIdx.x;
+  if (tile < n_tiles) issue(tile, 0);
+  cp_async_commit();
+  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+    const int buf = it & 1;
+    held.flush();  // this tile's head and tail, loaded one step ago
+    const int next = tile + static_cast<int>(gridDim.x);
+    if (next < n_tiles) issue(next, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int64_t off = static_cast<int64_t>(tile) * te * P3;
+    const int n = min(te, E - tile * te);
+    const int nf = n * P * P;
+    const T* xu = staged(stage + (2 * buf) * sb, u + off);
+    const T* xd = staged(stage + (2 * buf + 1) * sb, D + off);
+
+    // t = (S^T)^{(x)3} u: M(a, l) = S[a][l]; r = D o t on the third store
+    contract<P>(xu, flat, 0, s_rows, nf, ToCube{A, mode_strides(work, 0)});
+    __syncthreads();
+    contract<P>(A, work, 1, s_rows, nf, ToCube{B, mode_strides(work, 1)});
+    __syncthreads();
+    contract<P>(B, work, 2, s_rows, nf,
+                ToCubeTimesD<T>{A, mode_strides(work, 2), xd,
+                                mode_strides(flat, 2)});
+    __syncthreads();
+    // v = S^{(x)3} r: M(a, l) = S[l][a]
+    contract<P>(A, work, 0, st_rows, nf, ToCube{B, mode_strides(work, 0)});
+    __syncthreads();
+    contract<P>(B, work, 1, st_rows, nf, ToCube{A, mode_strides(work, 1)});
+    __syncthreads();
+    contract<P>(A, work, 2, st_rows, nf, ToCube{B, mode_strides(work, 2)});
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * P3; i += blockDim.x) {
+      int k = i;
+      if constexpr (C::kRow != P) {
+        const int e = i / P3, r = i - e * P3;
+        const int i0 = r / (P * P), r2 = r - i0 * (P * P);
+        const int j = r2 / P;
+        k = e * C::kElem + i0 * C::kPlane + j * C::kRow + (r2 - j * P);
+      }
+      v[off + i] = from_float<T>(B[k]);
+    }
   }
-  __syncthreads();
-  // v = S^{(x)3} r: M(a, l) = S[l][a]
-  contract_mode(buf0, buf1, s, 1, p, p, be, 0, 0, 1, 2);
-  contract_mode(buf1, buf0, s, 1, p, p, be, 1, 0, 1, 2);
-  contract_mode(buf0, buf1, s, 1, p, p, be, 2, 0, 1, 2);
+}
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    v[off + i] = from_float<T>(buf0[i]);
+template <typename T, int P>
+constexpr CubeTile helmholtz_tile() {
+  return cube_tile(P, kHhStage, sizeof(T), kHhWork, kHhMats);
+}
+
+template <typename T, int P>
+static cudaError_t launch_helmholtz(const void* S, const void* D,
+                                    const void* u, void* v, int E,
+                                    cudaStream_t stream) {
+  constexpr CubeTile t = helmholtz_tile<T, P>();
+  if (E <= 0) return cudaSuccess;
+  int grid = 0;
+  cudaError_t err = persistent_grid(helmholtz_kernel<T, P>, t,
+                                    (E + t.te - 1) / t.te, &grid);
+  if (err != cudaSuccess) return err;
+  helmholtz_kernel<T, P><<<grid, t.threads, t.smem, stream>>>(
+      static_cast<const T*>(S), static_cast<const T*>(D),
+      static_cast<const T*>(u), static_cast<T*>(v), E, t.te);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t dispatch_helmholtz(const void* S, const void* D,
+                                      const void* u, void* v, int E, int p,
+                                      cudaStream_t s) {
+  switch (p) {
+#define REPRO_HH_CASE(P) \
+  case P:                \
+    return launch_helmholtz<T, P>(S, D, u, v, E, s);
+    REPRO_FOR_EACH_P(REPRO_HH_CASE)
+#undef REPRO_HH_CASE
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-static cudaError_t launch_helmholtz(const void* S, const void* D,
-                                    const void* u, void* v, int E, int p,
-                                    int be, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(p) * p +
-                       2 * static_cast<size_t>(be) * p * p * p);
-  cudaError_t err = cudaFuncSetAttribute(
-      helmholtz_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  helmholtz_kernel<T><<<E / be, 256, smem, stream>>>(
-      static_cast<const T*>(S), static_cast<const T*>(D),
-      static_cast<const T*>(u), static_cast<T*>(v), p, be);
-  return cudaGetLastError();
+static CubeTile tile_of(int p) {
+  switch (p) {
+#define REPRO_HH_CASE(P) \
+  case P:                \
+    return helmholtz_tile<T, P>();
+    REPRO_FOR_EACH_P(REPRO_HH_CASE)
+#undef REPRO_HH_CASE
+    default:
+      return {0, 0, 0};
+  }
 }
 
 }  // namespace repro
 
 extern "C" int repro_helmholtz(const void* S, const void* D, const void* u,
-                               void* v, int E, int p, int be, int dtype,
+                               void* v, int E, int p, int dtype,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32) {
-    return repro::launch_helmholtz<float>(S, D, u, v, E, p, be, s);
+    return repro::dispatch_helmholtz<float>(S, D, u, v, E, p, s);
   }
   if (dtype == repro::kBFloat16) {
-    return repro::launch_helmholtz<__nv_bfloat16>(S, D, u, v, E, p, be, s);
+    return repro::dispatch_helmholtz<__nv_bfloat16>(S, D, u, v, E, p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The kernel's tile at p: {te, threads, shared bytes} (zeros for a p it
+// does not take), for the wrapper's mirror to be checked against.
+extern "C" int repro_helmholtz_tile(int p, int dtype, int* out) {
+  const repro::CubeTile t = dtype == repro::kBFloat16
+                                ? repro::tile_of<__nv_bfloat16>(p)
+                                : repro::tile_of<float>(p);
+  out[0] = t.te;
+  out[1] = t.threads;
+  out[2] = t.smem;
+  return 0;
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -1,6 +1,6 @@
 """GEMM-chain kernel class: shared-matrix mode contractions plus
-elementwise ops, fused into one shared-memory-resident CTA per element
-block.  See ``gemm`` (kernel wrapper, plain version, recipe) and ``ops``
+elementwise ops, fused into one kernel whose CTAs keep a tile of elements
+in shared memory while the chain runs.  See ``gemm`` (kernel wrapper, plain version, recipe) and ``ops``
 (block sizing and the emit adapter).  The CHARM-style block candidates
 (``cdse_cdac``) are not ported yet."""
 from . import gemm, ops

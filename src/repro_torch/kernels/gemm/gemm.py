@@ -8,7 +8,8 @@ the gradient stage (three outputs through Dx/Dy/Dz with perms), and any
 single schedule-derived stage.  :func:`gemm_chain` is the port of the
 reference's ``gemm_chain_pallas``: on CUDA tensors it launches
 ``csrc/gemm_chain.cu``, one generic kernel that reads the recipe from a
-small int32 op table; on CPU tensors it runs :func:`gemm_chain_plain`.
+small int32 op table (:func:`op_table`) and its shared-memory cubes from
+:func:`buffer_table`; on CPU tensors it runs :func:`gemm_chain_plain`.
 Both sum every contraction over ``l`` in ascending order in float32, so
 an element's result never depends on the block size or the batch split.
 """
@@ -21,7 +22,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from ..helmholtz.helmholtz import MAX_SHARED_BYTES, contract_mode
+from ..helmholtz.helmholtz import MAX_P, check_shared, contract_mode, cube_tile
 
 DEFAULT_BLOCK_ELEMENTS = 128
 
@@ -167,6 +168,8 @@ class GemmChainArgs(ctypes.Structure):
         ("out_slot", ctypes.c_int * MAX_OUT),
         ("ops", (ctypes.c_int * OP_WIDTH) * MAX_OPS),
         ("consts", ctypes.c_float * MAX_OPS),
+        ("n_bufs", ctypes.c_int),
+        ("slot_buf", ctypes.c_int * MAX_SLOTS),
     ]
 
 
@@ -236,6 +239,78 @@ def op_table(recipe: GemmRecipe):
     return in_index, n_slots, n_mats, ops, consts, out_slot
 
 
+def buffer_table(recipe: GemmRecipe) -> Tuple[List[int], int]:
+    """Shared-memory work cubes by liveness, beside :func:`op_table`.
+
+    Returns ``(slot_buf, n_bufs)``: for each element slot of the op
+    table, the f32 work cube that holds it, or -1.  Element inputs are
+    read where they are staged (-1).  An op result gets a cube only if a
+    later op reads it; a cube is free again once its slot's last reader
+    has run, and an op never writes a cube it reads.  A result that only
+    feeds outputs is stored from registers (-1).  Interpolation takes 2
+    cubes, the gradient stage none."""
+    _, n_slots, _, ops, _, _ = op_table(recipe)
+    last_read: Dict[int, int] = {}
+    for k, row in enumerate(ops):
+        reads = [row[2]] if row[0] == 0 else [row[2], row[3]]
+        for s in reads:
+            if s >= 0:
+                last_read[s] = k
+    slot_buf = [-1] * n_slots
+    busy_until: List[int] = []          # per cube: its slot's last reader
+    for k, row in enumerate(ops):
+        dst = row[1]
+        if last_read.get(dst, -1) <= k:
+            continue
+        free = [b for b, until in enumerate(busy_until) if until < k]
+        b = free[0] if free else len(busy_until)
+        if b == len(busy_until):
+            busy_until.append(0)
+        busy_until[b] = last_read[dst]
+        slot_buf[dst] = b
+    return slot_buf, len(busy_until)
+
+
+def kernel_tile(recipe: GemmRecipe, elem_bytes: int) -> Tuple[int, int, int]:
+    """The kernel's CTA tile for a recipe, ``(te, threads, shared
+    bytes)``: its element inputs staged, :func:`buffer_table`'s work
+    cubes, each matrix as rows of M and of its transpose.  Raises where
+    even one element a tile does not fit a block's shared memory."""
+    _, n_bufs = buffer_table(recipe)
+    n_elem = sum(1 for _, _, is_elem in recipe.inputs if is_elem)
+    n_mats = len(recipe.inputs) - n_elem
+    tile = cube_tile(recipe.p, n_elem, elem_bytes, n_bufs, 2 * n_mats)
+    check_shared(tile[2], f"the GEMM-chain kernel on this recipe at "
+                 f"p={recipe.p}")
+    return tile
+
+
+def chain_args(recipe: GemmRecipe, in_ptrs, out_ptrs, be: int) -> GemmChainArgs:
+    """The kernel's argument block for a recipe: its op table
+    (:func:`op_table`), its work cubes (:func:`buffer_table`) and the
+    device pointers of its inputs and outputs, in recipe order."""
+    in_index, n_slots, n_mats, ops, consts, out_slot = op_table(recipe)
+    slot_buf, n_bufs = buffer_table(recipe)
+    args = GemmChainArgs()
+    for j, ((_, _, is_elem), ptr) in enumerate(zip(recipe.inputs, in_ptrs)):
+        args.inp[j] = ptr
+        args.in_is_elem[j] = int(is_elem)
+        args.in_index[j] = in_index[j]
+    for j, ptr in enumerate(out_ptrs):
+        args.out[j] = ptr
+        args.out_slot[j] = out_slot[j]
+    for k, row in enumerate(ops):
+        for c, v in enumerate(row):
+            args.ops[k][c] = v
+        args.consts[k] = consts[k]
+    args.n_in, args.n_out, args.n_ops = len(in_ptrs), len(out_ptrs), len(ops)
+    args.n_slots, args.n_mats, args.p, args.be = n_slots, n_mats, recipe.p, be
+    args.n_bufs = n_bufs
+    for s, b in enumerate(slot_buf):
+        args.slot_buf[s] = b
+    return args
+
+
 def _check_abi(lib) -> None:
     """The ctypes mirror must match the compiled struct and limits."""
     got = (ctypes.c_int * 7)()
@@ -280,32 +355,16 @@ def gemm_chain(
             raise ValueError(f"input {name!r}: shape {tuple(a.shape)} != {want}")
         if not a.is_contiguous():
             raise ValueError(f"input {name!r} is not contiguous")
-    in_index, n_slots, n_mats, ops, consts, out_slot = op_table(recipe)
-    smem = 4 * (n_mats * recipe.p ** 2 + n_slots * be * recipe.p ** 3)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"block of {be} elements needs {smem} B of shared memory "
-            f"(limit {MAX_SHARED_BYTES}); use a smaller block"
-        )
+    if recipe.p > MAX_P:
+        raise ValueError(f"kernel supports p <= {MAX_P}, got {recipe.p}")
+    kernel_tile(recipe, arrays[0].element_size())
     outs = {
         name: torch.empty((e,) + recipe.slot_shape(slot), dtype=arrays[0].dtype,
                           device=device)
         for name, slot in recipe.outputs
     }
-    args = GemmChainArgs()
-    for j, ((_, _, is_elem), a) in enumerate(zip(recipe.inputs, arrays)):
-        args.inp[j] = a.data_ptr()
-        args.in_is_elem[j] = int(is_elem)
-        args.in_index[j] = in_index[j]
-    for j, (name, _) in enumerate(recipe.outputs):
-        args.out[j] = outs[name].data_ptr()
-        args.out_slot[j] = out_slot[j]
-    for k, row in enumerate(ops):
-        for c, v in enumerate(row):
-            args.ops[k][c] = v
-        args.consts[k] = consts[k]
-    args.n_in, args.n_out, args.n_ops = len(arrays), len(outs), len(ops)
-    args.n_slots, args.n_mats, args.p, args.be = n_slots, n_mats, recipe.p, be
+    args = chain_args(recipe, [a.data_ptr() for a in arrays],
+                      [outs[name].data_ptr() for name, _ in recipe.outputs], be)
     lib = _cuda.library()
     _check_abi(lib)
     err = lib.repro_gemm_chain(

@@ -3,14 +3,17 @@ plain PyTorch version.
 
 :func:`inverse_helmholtz` is the port of the reference's
 ``inverse_helmholtz_pallas``: on CUDA tensors it launches
-``csrc/helmholtz.cu`` (one CTA per block of ``block_elements``
-elements, every intermediate in shared memory); on CPU tensors it runs
+``csrc/helmholtz.cu`` (a persistent grid of CTAs walking tiles of
+elements, every intermediate in shared memory; :func:`cube_tile` mirrors
+its tile and shared memory); on CPU tensors it runs
 :func:`inverse_helmholtz_plain`, which repeats the kernel's arithmetic
 in plain PyTorch.  Both sum each output entry over ``l`` in ascending
 order in float32, so an element's result never depends on the block
 size or on how a batch is split.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -19,6 +22,60 @@ DEFAULT_BLOCK_ELEMENTS = 128
 MAX_P = 16
 #: shared memory one block may use on an H100 (227 KB)
 MAX_SHARED_BYTES = 232_448
+
+
+#: mirrors of common.cuh's CFD tile constants
+CUBE_MAX_THREADS, CUBE_MIN_THREADS, CUBE_FIBERS = 192, 128, 2
+CUBE_CTA_TARGET = 113 * 1024
+
+
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def cube_smem(p: int, te: int, n_stage: int, elem_bytes: int, n_work: int,
+              n_mat_rows: int) -> int:
+    """Shared bytes of a CFD CTA (common.cuh ``cube_smem``): padded matrix
+    rows, two staging buffers per staged element input (16 bytes of
+    slack each, for the copy's alignment), and f32 work cubes with an odd
+    row pitch."""
+    return (_round16(n_mat_rows * p * ((p + 3) & ~3) * 4)
+            + 2 * n_stage * (_round16(te * p ** 3 * elem_bytes) + 16)
+            + n_work * _round16(te * p * p * (p | 1) * 4))
+
+
+def cube_tile(p: int, n_stage: int, elem_bytes: int, n_work: int,
+              n_mat_rows: int) -> Tuple[int, int, int]:
+    """The CFD kernels' CTA tile, ``(te, threads, shared bytes)``
+    (common.cuh ``cube_tile``): te elements fill the CTA's fiber slots
+    and, where they can, keep two CTAs on an SM; it does not depend on
+    the plan's block size."""
+    te = max(1, CUBE_FIBERS * CUBE_MAX_THREADS // (p * p))
+    while te > 1 and cube_smem(p, te, n_stage, elem_bytes, n_work,
+                               n_mat_rows) > CUBE_CTA_TARGET:
+        te -= 1
+    threads = -(-te * p * p // CUBE_FIBERS)
+    threads = max(CUBE_MIN_THREADS, -(-threads // 32) * 32)
+    return te, threads, cube_smem(p, te, n_stage, elem_bytes, n_work,
+                                  n_mat_rows)
+
+
+def check_shared(smem: int, what: str) -> None:
+    """Refuse a launch whose CTA needs more than a block's shared memory."""
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{what} needs {smem} B of shared memory per CTA "
+            f"(limit {MAX_SHARED_BYTES})"
+        )
+
+
+def kernel_tile(p: int, elem_bytes: int) -> Tuple[int, int, int]:
+    """The Helmholtz kernel's tile at p: u and D staged, two work cubes,
+    S and S^T as rows.  Raises where it would not fit (never for
+    p <= MAX_P)."""
+    tile = cube_tile(p, 2, elem_bytes, 2, 2)
+    check_shared(tile[2], f"the Helmholtz kernel at p={p}")
+    return tile
 
 
 def _check_blocks(E: int, block_elements: int) -> int:
@@ -109,19 +166,14 @@ def inverse_helmholtz(
     code = _cuda.dtype_code(u.dtype)
     if p > MAX_P:
         raise ValueError(f"kernel supports p <= {MAX_P}, got {p}")
-    smem = 4 * (p * p + 2 * be * p ** 3)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"block of {be} elements needs {smem} B of shared memory "
-            f"(limit {MAX_SHARED_BYTES}); use a smaller block"
-        )
+    kernel_tile(p, u.element_size())
     if not (S.is_contiguous() and D.is_contiguous() and u.is_contiguous()):
         raise ValueError("the kernel reads contiguous S, D and u")
     v = torch.empty_like(u)
     lib = _cuda.library()
     err = lib.repro_helmholtz(
         S.data_ptr(), D.data_ptr(), u.data_ptr(), v.data_ptr(),
-        u.shape[0], p, be, code, _cuda.stream_handle(device),
+        u.shape[0], p, code, _cuda.stream_handle(device),
     )
     _cuda.check(err, "helmholtz")
     inverse_helmholtz.launches += 1

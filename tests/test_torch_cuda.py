@@ -9,6 +9,8 @@ Without a card every test skips.  Tolerances: float32 within rtol 5e-4
 and atol 5e-4 max|plain| (both sum in float32, the plain version in
 another association of the same ascending-l order); bfloat16 within the
 bounds ``tests/test_kernels.py`` uses (rtol 0.15, atol 0.3 max|plain|).
+The CFD kernels are also held to bitwise equality across block sizes,
+batch splits and input alignments.
 Flash attention: float32 within the same rtol 5e-4 / atol 5e-4
 max|plain|; bfloat16 per element within 8e-3 |plain| (one bfloat16 step
 of the output, where the two float32 values straddle a rounding
@@ -71,52 +73,178 @@ def _uniform(gen, device, *shapes):
     return [torch.rand(s, generator=gen, device=device) * 2 - 1 for s in shapes]
 
 
+def _close(got, want, dtype):
+    """float32 within rtol 5e-4 / atol 5e-4 max|plain|, bfloat16 within
+    rtol 0.15 / atol 0.3 max|plain| (see the module docstring)."""
+    rtol, frac = (5e-4, 5e-4) if dtype == torch.float32 else (0.15, 0.3)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=frac * want.float().abs().max().item())
+
+
+def _off_alignment(t):
+    """A copy of t whose data starts one value past an allocation's
+    alignment (the kernels' staging copies 16-byte chunks and takes the
+    head and tail by plain loads)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+CFD_P = [5, 7, 11, 16]
+CFD_DTYPES = [torch.float32, torch.bfloat16]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,be", [(5, 2), (11, 4)])
-def test_helmholtz_kernel_matches_plain(cuda, p, be):
+@pytest.mark.parametrize("dtype", CFD_DTYPES)
+@pytest.mark.parametrize("p", CFD_P)
+def test_helmholtz_kernel_matches_plain(cuda, p, dtype):
+    """Against the plain version, and bitwise the same whatever the block
+    (BE 1, 2, 4 and E, which the plan may give), split into two calls of
+    E/2, or with inputs off their 16-byte alignment."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     E = 16
-    S, D, u = _uniform(gen, cuda, (p, p), (E, p, p, p), (E, p, p, p))
+    S, D, u = (x.to(dtype) for x in
+               _uniform(gen, cuda, (p, p), (E, p, p, p), (E, p, p, p)))
     before = t_hh.inverse_helmholtz.launches
-    got = t_hh.inverse_helmholtz(S, D, u, block_elements=be)
-    want = t_hh.inverse_helmholtz_plain(S, D, u, block_elements=be)
+    got = t_hh.inverse_helmholtz(S, D, u, block_elements=4)
+    want = t_hh.inverse_helmholtz_plain(S, D, u, block_elements=4)
     torch.cuda.synchronize()
     assert t_hh.inverse_helmholtz.launches == before + 1
-    torch.testing.assert_close(got, want, rtol=5e-4,
-                               atol=5e-4 * want.abs().max().item())
+    assert got.dtype == dtype
+    _close(got, want, dtype)
+    for be in (1, 2, E):
+        assert torch.equal(got, t_hh.inverse_helmholtz(S, D, u, block_elements=be))
     halves = torch.cat([t_hh.inverse_helmholtz(S, D[a:a + E // 2],
                                                u[a:a + E // 2], block_elements=2)
                         for a in (0, E // 2)])
     assert torch.equal(got, halves)
-    got_b = t_hh.inverse_helmholtz(S.bfloat16(), D.bfloat16(), u.bfloat16(),
-                                   block_elements=be)
-    want_b = t_hh.inverse_helmholtz_plain(S.bfloat16(), D.bfloat16(),
-                                          u.bfloat16(), block_elements=be)
-    torch.testing.assert_close(got_b.float(), want_b.float(), rtol=0.15,
-                               atol=0.3 * want_b.float().abs().max().item())
+    shifted = t_hh.inverse_helmholtz(S, _off_alignment(D), _off_alignment(u),
+                                     block_elements=4)
+    assert torch.equal(got, shifted)
+
+
+def _chain_bitwise(recipe, env, got, E):
+    """got equals the same recipe at BE 1 and 2, split into two calls of
+    E/2, and with element inputs off their alignment, bit for bit."""
+    elem = {n for n, _, is_elem in recipe.inputs if is_elem}
+    for be in (1, 2):
+        other = t_gemm.gemm_chain(recipe, env, block_elements=be)
+        assert all(torch.equal(got[k], other[k]) for k in got)
+    parts = [t_gemm.gemm_chain(
+        recipe, {n: (v[a:a + E // 2] if n in elem else v)
+                 for n, v in env.items()}, block_elements=2)
+        for a in (0, E // 2)]
+    for k in got:
+        assert torch.equal(got[k], torch.cat([parts[0][k], parts[1][k]]))
+    shifted = t_gemm.gemm_chain(
+        recipe, {n: (_off_alignment(v) if n in elem else v)
+                 for n, v in env.items()}, block_elements=4)
+    assert all(torch.equal(got[k], shifted[k]) for k in got)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CFD_DTYPES)
+@pytest.mark.parametrize("p", CFD_P)
 @pytest.mark.parametrize("kind", ["interp", "perm", "ewise"])
-def test_gemm_chain_kernel_matches_plain(cuda, kind):
-    p, E = 5, 8
+def test_gemm_chain_kernel_matches_plain(cuda, kind, p, dtype):
+    E = 8
     gen = torch.Generator(device=cuda).manual_seed(0)
-    A, u = _uniform(gen, cuda, (p, p), (E, p, p, p))
+    A, u = (x.to(dtype) for x in _uniform(gen, cuda, (p, p), (E, p, p, p)))
     env = {"A": A, "u": u}
     recipe = gemm_recipes(t_gemm, p)[kind]
     before = t_gemm.gemm_chain.launches
-    got = t_gemm.gemm_chain(recipe, env, block_elements=2)
-    want = t_gemm.gemm_chain_plain(recipe, env, block_elements=2)
+    got = t_gemm.gemm_chain(recipe, env, block_elements=4)
+    want = t_gemm.gemm_chain_plain(recipe, env, block_elements=4)
     torch.cuda.synchronize()
     assert t_gemm.gemm_chain.launches == before + 1
     for k in want:
-        torch.testing.assert_close(got[k], want[k], rtol=5e-4,
-                                   atol=5e-4 * want[k].abs().max().item())
+        assert got[k].dtype == dtype
+        _close(got[k], want[k], dtype)
+    _chain_bitwise(recipe, env, got, E)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CFD_DTYPES)
+def test_gemm_chain_kernel_takes_mixed_recipes(cuda, dtype):
+    """Two element inputs and two matrices, perms on contractions whose
+    results later ops read, ewise ops on staged inputs and on work
+    cubes, one slot feeding two outputs and an input fed straight out."""
+    p, E = 5, 8
+    inputs = (("A", (p, p), False), ("u", (p, p, p), True),
+              ("B", (p, p), False), ("x", (p, p, p), True))
+    recipe = t_gemm.GemmRecipe(p=p, inputs=inputs, ops=(
+        ("contract", 1, 0, 2, 1, (2, 0, 1)), ("ewise", "add", 4, 1, None),
+        ("contract", 5, 2, 0, 0, (1, 2, 0)), ("ewise", "div", 6, 3, None),
+        ("ewise", "neg", 7, -1, None), ("contract", 3, 0, 1, 1, (0, 1, 2))),
+        outputs=(("a", 4), ("b", 5), ("c", 1), ("d", 5), ("f", 8), ("g", 9)))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    env = {name: (torch.rand((E, *shape) if is_elem else shape, generator=gen,
+                             device=cuda) * 2 - 1 + (2 if name == "x" else 0)
+                  ).to(dtype)
+           for name, shape, is_elem in inputs}
+    got = t_gemm.gemm_chain(recipe, env, block_elements=4)
+    want = t_gemm.gemm_chain_plain(recipe, env, block_elements=4)
+    assert set(got) == set(want)
+    for k in want:
+        _close(got[k], want[k], dtype)
+    assert torch.equal(got["c"], env["u"])
+    _chain_bitwise(recipe, env, got, E)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CFD_DTYPES)
+@pytest.mark.parametrize("stage", ["interp", "grad"])
+def test_gemm_chain_kernel_runs_the_pipeline_recipes(cuda, stage, dtype):
+    """The CFD pipeline's own interp and grad recipes at p = 11, as
+    chip_smoke.py's phase 2 gets them."""
+    from repro_torch.cfd import operators
+    from repro_torch.flow import patterns
+
+    system = operators.compile_cfd_pipeline(11, backends="pallas")
+    (program,) = [s.program for s in system.chain.stages if s.name == stage]
+    recipe = patterns.match_gemm_chain(program)
+    E = 12
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    env = {name: (torch.rand((E, *shape) if is_elem else shape, generator=gen,
+                             device=cuda) * 2 - 1).to(dtype)
+           for name, shape, is_elem in recipe.inputs}
+    got = t_gemm.gemm_chain(recipe, env, block_elements=4)
+    want = t_gemm.gemm_chain_plain(recipe, env, block_elements=4)
+    assert set(got) == set(want)
+    for k in want:
+        _close(got[k], want[k], dtype)
+    _chain_bitwise(recipe, env, got, E)
+
+
+@pytest.mark.cuda
+def test_cfd_kernel_tiles_match_the_wrappers_model(cuda):
+    """The tile (elements a step, threads, shared bytes) each built kernel
+    launches with equals the wrappers' pure mirror of it."""
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+
+    lib = _cuda.library()
+    got = (ctypes.c_int * 3)()
+    for dtype in CFD_DTYPES:
+        code, size = _cuda.dtype_code(dtype), torch.tensor([], dtype=dtype).element_size()
+        for p in range(1, t_hh.MAX_P + 1):
+            lib.repro_helmholtz_tile(p, code, got)
+            assert tuple(got) == t_hh.kernel_tile(p, size), (p, dtype)
+            for kind, recipe in gemm_recipes(t_gemm, p).items():
+                args = t_gemm.gemm.chain_args(
+                    recipe, [0] * len(recipe.inputs), [0] * len(recipe.outputs), 1)
+                lib.repro_gemm_chain_tile(ctypes.addressof(args), code, got)
+                assert tuple(got) == t_gemm.gemm.kernel_tile(recipe, size), (
+                    p, kind, dtype)
 
 
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_the_kernels_cannot_take(cuda):
-    """Bad inputs raise in the wrapper before any launch."""
+    """Bad inputs raise in the wrapper before any launch.  The kernels
+    tile elements by their own rule, so a large plan block (p = 16, BE =
+    64) is taken, not refused."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     p, E = 5, 4
     S, D, u = _uniform(gen, cuda, (p, p), (E, p, p, p), (E, p, p, p))
@@ -128,16 +256,25 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         t_hh.inverse_helmholtz(S.double(), D.double(), u.double(),
                                block_elements=2)
+    S17, D17 = _uniform(gen, cuda, (17, 17), (2, 17, 17, 17))
+    with pytest.raises(ValueError, match="p <= 16"):
+        t_hh.inverse_helmholtz(S17, D17, D17, block_elements=2)
+    assert t_hh.inverse_helmholtz.launches == before
     big = 16
     Sb, Db, ub = _uniform(gen, cuda, (big, big), (64, big, big, big),
                           (64, big, big, big))
-    with pytest.raises(ValueError, match="shared memory"):
-        t_hh.inverse_helmholtz(Sb, Db, ub, block_elements=64)
-    assert t_hh.inverse_helmholtz.launches == before
+    got = t_hh.inverse_helmholtz(Sb, Db, ub, block_elements=64)
+    _close(got, t_hh.inverse_helmholtz_plain(Sb, Db, ub, block_elements=64),
+           torch.float32)
     recipe = gemm_recipes(t_gemm, p)["interp"]
+    before = t_gemm.gemm_chain.launches
     with pytest.raises(TypeError, match="one dtype"):
         t_gemm.gemm_chain(recipe, {"A": S.bfloat16(), "u": u},
                           block_elements=2)
+    with pytest.raises(ValueError, match="p <= 16"):
+        t_gemm.gemm_chain(gemm_recipes(t_gemm, 17)["interp"],
+                          {"A": S17, "u": D17}, block_elements=2)
+    assert t_gemm.gemm_chain.launches == before
 
 
 FLASH_CASES = [

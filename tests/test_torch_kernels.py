@@ -202,6 +202,137 @@ def test_gemm_op_table_lowering():
     assert 4 * n_slots * p ** 3 == 21_296
 
 
+def _live_readers(ops):
+    """For each op-table slot, the index of its last reader."""
+    last = {}
+    for k, row in enumerate(ops):
+        for s in ([row[2]] if row[0] == 0 else [row[2], row[3]]):
+            if s >= 0:
+                last[s] = k
+    return last
+
+
+def _chain_recipes(p):
+    """The test recipes and the CFD pipeline's interp and grad stages."""
+    from repro_torch.cfd import operators
+    from repro_torch.flow import patterns
+
+    system = operators.compile_cfd_pipeline(p, backends="pallas",
+                                            device="cpu")
+    out = dict(gemm_recipes(t_gemm, p))
+    for stage in system.chain.stages:
+        recipe = patterns.match_gemm_chain(stage.program)
+        if stage.name in ("interp", "grad"):
+            out[f"pipeline {stage.name}"] = recipe
+    return out
+
+
+@pytest.mark.parametrize("p", [5, 11])
+def test_gemm_buffer_table_reuses_only_dead_cubes(p):
+    """Interpolation holds 2 work cubes (ping-pong), the gradient none (w
+    is read where it is staged and gx, gy, gz go out from registers); no
+    op writes a cube that a slot still to be read holds, and a result
+    that only feeds outputs gets no cube (a direct store)."""
+    recipes = _chain_recipes(p)
+    counts = {k: t_gemm_mod.buffer_table(r)[1] for k, r in recipes.items()}
+    assert counts["interp"] == counts["pipeline interp"] == 2
+    assert counts["pipeline grad"] == 0 and counts["perm"] == 0
+    for name, recipe in recipes.items():
+        _, n_slots, _, ops, _, out_slot = t_gemm_mod.op_table(recipe)
+        slot_buf, n_bufs = t_gemm_mod.buffer_table(recipe)
+        n_elem = sum(1 for _, _, is_elem in recipe.inputs if is_elem)
+        last = _live_readers(ops)
+        assert len(slot_buf) == n_slots
+        assert slot_buf[:n_elem] == [-1] * n_elem          # staged inputs
+        for k, row in enumerate(ops):
+            dst = row[1]
+            if last.get(dst, -1) <= k:                      # output only
+                assert slot_buf[dst] == -1, name
+                assert dst in out_slot or last.get(dst, -1) < 0
+                continue
+            assert 0 <= slot_buf[dst] < n_bufs
+            holders = [s for s in range(n_elem, n_slots)
+                       if s != dst and slot_buf[s] == slot_buf[dst]
+                       and s < dst <= last.get(s, -1)]
+            assert not holders, (name, k, holders)
+        assert n_bufs <= max(1, len(ops))
+
+
+def test_gemm_buffer_table_frees_a_cube_after_its_last_reader():
+    p = 3
+    chain = t_gemm.GemmRecipe(
+        p=p, inputs=(("A", (p, p), False), ("u", (p, p, p), True)),
+        ops=(("contract", 1, 0, 0, 0, (0, 1, 2)),     # table slot 1
+             ("contract", 2, 0, 1, 0, (0, 1, 2)),     # 2 <- 1
+             ("ewise", "add", 3, 2, None),            # 3 <- 2, 1
+             ("ewise", "neg", 4, -1, None),           # 4 <- 3
+             ("ewise", "mul", 5, 3, None)),           # 5 <- 4, 2
+        outputs=(("y", 6),),
+    )
+    slot_buf, n_bufs = t_gemm_mod.buffer_table(chain)
+    # slots 1-4 of the op table are read later, 5 is only the output;
+    # slot 1's cube is free once the add has read it, and the neg's
+    # result takes it
+    assert slot_buf == [-1, 0, 1, 2, 0, -1] and n_bufs == 3
+
+
+def test_kernel_tiles_mirror_the_shared_memory_model():
+    """The Helmholtz kernel's tile fits one CTA at every p it takes (3
+    elements, 192 threads, 97,024 B at p = 11, f32: two CTAs an SM);
+    the plan's block size plays no part."""
+    for elem_bytes in (4, 2):
+        for p in range(1, t_hh.MAX_P + 1):
+            te, threads, smem = t_hh.kernel_tile(p, elem_bytes)
+            assert te >= 1 and 128 <= threads <= 192 and threads % 32 == 0
+            assert smem <= t_hh.MAX_SHARED_BYTES
+            assert smem == t_hh.cube_smem(p, te, 2, elem_bytes, 2, 2)
+            assert te == 1 or smem <= t_hh.CUBE_CTA_TARGET
+            assert te * p * p <= 2 * threads
+    assert t_hh.kernel_tile(11, 4) == (3, 192, 97_024)
+    interp = gemm_recipes(t_gemm, 11)["interp"]
+    assert t_gemm_mod.kernel_tile(interp, 4) == (
+        3, 192, t_hh.cube_smem(11, 3, 1, 4, 2, 2))
+
+
+def _largest_recipe(p, n_elem, n_mats, n_bufs):
+    """A recipe with n_elem element inputs, n_mats matrices and ewise ops
+    that hold n_bufs (0, 1 or 2) work cubes at once."""
+    inputs = tuple((f"M{j}", (p, p), False) for j in range(n_mats)) + tuple(
+        (f"x{j}", (p, p, p), True) for j in range(n_elem))
+    x0, first = n_mats, len(inputs)
+    ops = [("ewise", "neg", x0, -1, None) for _ in range(n_bufs)]
+    if n_bufs < 2:          # out = x0 + (-x0), or -x0 alone
+        ops.append(("ewise", "add", x0, first, None) if n_bufs
+                   else ("ewise", "neg", x0, -1, None))
+    else:                   # out = (-x0) + (-x0): both held at once
+        ops.append(("ewise", "add", first, first + 1, None))
+    return t_gemm.GemmRecipe(p=p, inputs=inputs, ops=tuple(ops),
+                             outputs=(("y", first + len(ops) - 1),))
+
+
+@pytest.mark.parametrize("n_elem,n_mats,n_bufs",
+                         [(7, 1, 0), (6, 2, 1), (5, 1, 1), (4, 4, 2)])
+def test_gemm_kernel_tile_refuses_at_the_shared_memory_limit(
+        n_elem, n_mats, n_bufs):
+    """The kernel's shared bytes are the model's (cube_smem) and the
+    wrapper refuses exactly above the 232,448-B limit.  At p = 16, one
+    element a tile, the op table's static limits (8 inputs, 8 element
+    slots) cap what a recipe can ask for: seven staged float32 inputs
+    and a matrix take the most, 231,648 B, so every recipe that lowers
+    fits."""
+    p = 16
+    recipe = _largest_recipe(p, n_elem, n_mats, n_bufs)
+    t_gemm_mod.op_table(recipe)                      # within the limits
+    assert t_gemm_mod.buffer_table(recipe)[1] == n_bufs
+    smem = t_hh.cube_smem(p, 1, n_elem, 4, n_bufs, 2 * n_mats)
+    assert t_gemm_mod.kernel_tile(recipe, 4) == (1, 128, smem)
+    assert smem <= 231_648 <= t_hh.MAX_SHARED_BYTES
+    t_hh.check_shared(t_hh.MAX_SHARED_BYTES, "a CTA at the limit")
+    over = t_hh.MAX_SHARED_BYTES + 16
+    with pytest.raises(ValueError, match=f"needs {over} B of shared memory"):
+        t_hh.check_shared(over, "a CTA over the limit")
+
+
 def test_gemm_op_table_rejects_what_the_kernel_cannot_run():
     p = 3
     long_chain = t_gemm.GemmRecipe(
