@@ -384,8 +384,41 @@ def phase_kernels(system):
               f"(bf16 {ms_bf16:.3f} ms)  plain {plain_ms:.3f} "
               f"ms{lib_txt}  bound {b_ms:.3f} ms ({b_by})")
         del env, env_b, got, want, parts
+    rows["probes"] = probe_gemm_chain(
+        patterns.match_gemm_chain(progs["interp"]), E, blocks["interp"],
+        uniform)
     torch.cuda.empty_cache()
     return rows
+
+
+def probe_gemm_chain(interp, E, be, uniform) -> dict:
+    """What bounds the GEMM-chain kernel: at interpolation's bytes (u in,
+    one cube out, f32), the kernel with no contraction (a scale), with
+    interpolation's three and with six (interpolation twice).  Time that
+    grows with the contractions is the compute side's; what stays is the
+    memory pipeline's."""
+    from repro_torch.kernels.gemm import gemm
+
+    p = interp.p
+    cube = (p, p, p)
+    copy = gemm.GemmRecipe(p=p, inputs=(("u", cube, True),),
+                           ops=(("ewise", "scale", 0, -1, 1.0),),
+                           outputs=(("y", 1),))
+    six = gemm.GemmRecipe(
+        p=p, inputs=interp.inputs,
+        ops=interp.ops + tuple(
+            (op[0], op[1] + 3) + tuple(op[2:]) for op in interp.ops),
+        outputs=((interp.outputs[0][0], interp.outputs[0][1] + 3),))
+    env = {name: (uniform(E, *shape) if is_elem else uniform(*shape))
+           for name, shape, is_elem in interp.inputs}
+    out = {}
+    for name, recipe in (("0 contractions", copy), ("3 contractions", interp),
+                         ("6 contractions", six)):
+        out[name] = time_ms(
+            lambda: gemm.gemm_chain(recipe, env, block_elements=be), 20)
+    print("probe gemm_chain at interp's bytes (f32): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in out.items()))
+    return out
 
 
 def phase_slice(system):
@@ -802,6 +835,7 @@ def main() -> int:
                        "src/repro/kernels/gemm/gemm.py:204"),
     }
     kernels = []
+    probes = rows.pop("probes")
     for name, shapes in rows.items():
         # one main-path batch: the kernel's calls at each of its shapes
         b_ms = sum(r["bound_ms"] for r in shapes)
@@ -816,6 +850,7 @@ def main() -> int:
             "bound_by": max(shapes, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": sum(libs) if all(x is not None for x in libs) else None,
             "shapes": shapes,
+            **({"probes_ms": probes} if name == "gemm_chain" else {}),
         })
     main_case = flash_rows[0]  # the shape the model path gives the kernel
     kernels.append({
