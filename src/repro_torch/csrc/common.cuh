@@ -72,12 +72,9 @@ __device__ __forceinline__ int key_stop(int r0, int r1, int Tq, int Tk,
 constexpr int kCubeMaxThreads = 192;
 constexpr int kCubeMinThreads = 128;
 constexpr int kFibers = 2;
-// Matrix rows a thread works on at once (kFibers x kRows independent fmaf
-// chains in flight).
-constexpr int kRows = 1;
-// Shared memory per CTA under which two CTAs fit on one SM (228 KB per SM,
-// 1 KB of it reserved per CTA).
-constexpr int kCubeCtaTarget = 113 * 1024;
+// Shared memory per CTA under which three CTAs fit on one SM (228 KB per
+// SM, 1 KB of it reserved per CTA).
+constexpr int kCubeCtaTarget = 75 * 1024;
 
 // An f32 work cube of p x p x p in shared memory.  At even p the row pitch
 // is p + 1: a warp's fibers are 32 consecutive (fixed-index) pairs, and an
@@ -159,31 +156,22 @@ __device__ __forceinline__ void contract(const TS* __restrict__ src,
     // could alias the matrix for the compiler and serialise the rows
     float y[kFibers][P];
 #pragma unroll
-    for (int a0 = 0; a0 < P; a0 += kRows) {
-      float m[kRows][MR];
+    for (int a = 0; a < P; ++a) {
+      float m[MR];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-        for (int c = 0; c < MR; c += 4) {
-          if (a0 + r >= P) break;
-          const float4 q =
-              *reinterpret_cast<const float4*>(mrows + (a0 + r) * MR + c);
-          m[r][c] = q.x;
-          m[r][c + 1] = q.y;
-          m[r][c + 2] = q.z;
-          m[r][c + 3] = q.w;
-        }
+      for (int c = 0; c < MR; c += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(mrows + a * MR + c);
+        m[c] = q.x;
+        m[c + 1] = q.y;
+        m[c + 2] = q.z;
+        m[c + 3] = q.w;
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int s = 0; s < kFibers; ++s) {
+        float acc = 0.0f;
 #pragma unroll
-        for (int s = 0; s < kFibers; ++s) {
-          if (a0 + r >= P) break;
-          float acc = 0.0f;
-#pragma unroll
-          for (int l = 0; l < P; ++l) acc = fmaf(m[r][l], x[s][l], acc);
-          y[s][a0 + r] = acc;
-        }
+        for (int l = 0; l < P; ++l) acc = fmaf(m[l], x[s][l], acc);
+        y[s][a] = acc;
       }
     }
 #pragma unroll
@@ -217,6 +205,8 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// Wait until at most N of this thread's committed cp.async groups are in
+// flight.
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -252,8 +242,8 @@ __device__ __forceinline__ const T* staged(const void* region, const T* g) {
 // region `region` (16-byte aligned; staged(region, g) is value 0):
 // cp.async of 16 bytes for the aligned middle, and plain loads for the
 // head and tail, which threads slot * 2 * (16 / sizeof(T)) + j hold (no
-// over-read: every byte copied lies in [g, g + n)).  Commit the group
-// yourself.
+// over-read: every byte copied lies in [g, g + n)).  Before the values
+// are read: commit and wait for the copies, held.flush() and a barrier.
 template <typename T>
 __device__ __forceinline__ void stage_async(void* region, const T* g, int n,
                                             int slot, Held<T>& held) {
@@ -285,10 +275,10 @@ __device__ __forceinline__ void stage_async(void* region, const T* g, int n,
 }
 
 // The CTA's tile: te elements a step, its thread count and its shared
-// memory, for a CFD kernel at p with `n_stage` staged element inputs
-// (double-buffered, elem_bytes each value), `n_work` f32 work cubes and
-// `n_mat_rows` padded matrix row blocks.  The tile fills a CTA's fibers
-// (kFibers * kCubeMaxThreads) and, where it can, keeps two CTAs on an SM.
+// memory, for a CFD kernel at p with `n_stage` staging buffers (a tile of
+// one element input each, elem_bytes a value), `n_work` f32 work cubes
+// and `n_mat_rows` padded matrix row blocks.  The tile fills a CTA's fibers (kFibers *
+// kCubeMaxThreads) and, where it can, keeps three CTAs on an SM.
 // Mirrored by repro_torch.kernels.helmholtz.helmholtz.cube_tile.
 struct CubeTile {
   int te, threads, smem;
@@ -298,7 +288,7 @@ __host__ __device__ constexpr int cube_smem(int p, int te, int n_stage,
                                             int elem_bytes, int n_work,
                                             int n_mat_rows) {
   return round16(n_mat_rows * p * ((p + 3) & ~3) * 4) +
-         2 * n_stage * stage_bytes(te * p * p * p, elem_bytes) +
+         n_stage * stage_bytes(te * p * p * p, elem_bytes) +
          n_work * round16(te * p * p * (p | 1) * 4);
 }
 

@@ -21,28 +21,41 @@
 // 3 contractions) and the gradient stage (w in, gx/gy/gz out) do about
 // 5 flops per byte moved, far below the card's balance: at E = 50,420
 // the interpolation moves 537 MB (0.16 ms at 3.35 TB/s) and the gradient
-// 1,074 MB (0.32 ms).
+// 1,074 MB (0.32 ms).  On the card the contractions take most of the
+// time all the same (chip_smoke.py's probe: at interpolation's bytes the
+// kernel with no contraction takes about 0.21 ms, each contraction adds
+// about 0.12 ms), as in helmholtz.cu.
 //
 // Design (common.cuh; the same building blocks as helmholtz.cu):
 // - p is a template parameter (1..16, a switch at launch); the op table
 //   stays runtime data.  Contractions use the register-blocked fiber
 //   routine (kFibers fibers a thread, M rows as float4 broadcasts, one
 //   ascending-l fmaf chain from 0.0f per output, so every bit equals the
-//   parent kernel's and never depends on tiles, E or the split).  The
+//   earlier one-output-per-thread kernel's and never depends on tiles, E
+//   or the split).  The
 //   perm is folded into three output strides a fiber, not a division per
 //   entry.
 // - Shared memory by liveness (gemm.py buffer_table): element inputs are
 //   read where they are staged, in the storage dtype; an op result gets
 //   an f32 work cube (row pitch p + 1 at even p) only if a later op reads
-//   it, and a cube is reused once its slot's last reader has run.  Every
-//   output is stored from registers straight to device memory as its op
-//   produces it, with no staging pass: for the CFD recipes each store
+//   it, and a cube is reused once its slot's last reader has run, or by
+//   that reader itself where it writes in place (an ewise op, or a
+//   contraction without a perm: a thread writes back the fibers it
+//   holds in registers).  Every output is stored from registers straight
+//   to device memory as its op produces it, with no staging pass: for
+//   the CFD recipes each store
 //   instruction covers runs of p or p^2 consecutive values (interp's last
 //   contraction runs along mode 1, grad's perms put the new axis first).
-//   Interpolation holds 2 work cubes, the gradient none (w is read from
+//   Interpolation holds 1 work cube, the gradient none (w is read from
 //   its staging buffer and gx, gy, gz go out from registers).
-// - Persistent grid and cp.async prefetch of the next tile's element
-//   inputs into a second staging buffer, as in helmholtz.cu.
+// - Persistent grid; at the top of each tile cp.async starts copying the
+//   next tile's element inputs into a second staging buffer (copies as in
+//   helmholtz.cu).  Two buffers, not helmholtz.cu's one refilled once
+//   read: the gradient reads w in every op, so a buffer refilled after
+//   its last reader would not overlap the copy with any work, and the
+//   kernel's occupancy is bounded by registers, not shared memory (one
+//   buffer, at three CTAs an SM, ran interpolation 15 % and the gradient
+//   10 % slower on the H100).
 // - BE: the plan's block_elements stays the wrapper's argument with its
 //   E % BE check (plans equal the reference's) and plays no part in the
 //   launch; the kernel's own tile (cube_tile) depends on p, the dtype
@@ -89,7 +102,7 @@ __host__ __device__ inline int n_elem_inputs(const GemmChainArgs& a) {
 
 __host__ __device__ inline CubeTile chain_tile(const GemmChainArgs& a,
                                                int elem_bytes) {
-  return cube_tile(a.p, n_elem_inputs(a), elem_bytes, a.n_bufs,
+  return cube_tile(a.p, 2 * n_elem_inputs(a), elem_bytes, a.n_bufs,
                    2 * a.n_mats);
 }
 

@@ -14,10 +14,11 @@
 // and writes v once (3 p^3 scalars: 16 KB at p = 11, f32) and does about
 // 12 p^4 + p^3 flops, so the work sits far below the card's
 // flop-per-byte balance: at E = 50,420 and p = 11 that is 805 MB per
-// batch, 0.24 ms at 3.35 TB/s against 0.13 ms of f32 FMA work.  Shared
-// memory is next: each contraction moves every cube through it once
-// (load a fiber, store its outputs), so the design keeps the other
-// shared-memory traffic small.
+// batch, 0.24 ms at 3.35 TB/s against 0.13 ms of f32 FMA work.  On the
+// card the contractions take most of the time all the same: each output
+// needs its p matrix values delivered from shared memory to registers,
+// shared by only the kFibers fibers a thread holds, and a bfloat16 run,
+// with half the bytes, takes nearly as long as a float32 one.
 //
 // Design (common.cuh):
 // - p is a template parameter (1..16, one instantiation each, chosen by a
@@ -27,26 +28,30 @@
 //   matrix row M(a, :) as uniform float4 broadcasts (S and S^T are both
 //   kept, rows padded to a multiple of 4), about 0.3 shared loads per FMA
 //   against 2 in a one-output-per-thread loop.  Every output is one fmaf
-//   chain in ascending l from 0.0f, the parent kernel's arithmetic, so
-//   every bit is as before and never depends on tiles, E or the split.
-// - The six contractions ping-pong between two f32 work cubes per element
-//   (row pitch p + 1 at even p against bank conflicts).  The third one
+//   chain in ascending l from 0.0f, the arithmetic of the earlier
+//   one-output-per-thread kernel, so every bit is as before and never
+//   depends on tiles, E or the split.
+// - The six contractions run in place in one f32 work cube per element
+//   (row pitch p + 1 at even p against bank conflicts): a thread holds
+//   its fibers in registers and writes its outputs back to those same
+//   fibers, so no other thread's input changes under it.  The third one
 //   multiplies by D as it stores (r = t * D, one rounding, as before).
 //   The sixth stores to shared memory too, and a coalesced pass writes v:
 //   a direct store along mode 2 would put a warp's lanes p words apart,
 //   eight times the L2 write transactions.
-// - Persistent grid, as many CTAs as fit at once (two an SM at p = 11),
-//   each walking tiles of te elements.  u and D of the next tile are
-//   copied into a second staging buffer by cp.async (16-byte copies of the
-//   aligned middle; the head and tail under 16 bytes by plain loads held
-//   in registers, so any 2- or 4-byte alignment works) while the current
-//   tile computes.  The first contraction reads u from its staging buffer
-//   and the third reads D there, in the storage dtype.
+// - Persistent grid, as many CTAs as fit at once (four an SM at p = 11),
+//   each walking tiles of te elements.  The first contraction reads u
+//   from its staging buffer and the third reads D there, in the storage
+//   dtype; as soon as one has been read, cp.async starts copying the next
+//   tile's into the same buffer (16-byte copies of the aligned middle;
+//   the head and tail under 16 bytes by plain loads held in registers,
+//   so any 2- or 4-byte alignment works), so the copies overlap the
+//   remaining contractions with one buffer per input.
 // - BE: the plan's block_elements (from memory/layout, the reference's
 //   VMEM model) stays the wrapper's argument and keeps its E % BE check,
 //   so plans equal the reference's; it plays no part in the launch.  The
 //   kernel's own tile te (cube_tile: 3 elements at p = 11, f32) fills a
-//   CTA's 2 x 192 fiber slots within 113 KB of shared memory, and the last
+//   CTA's 2 x 192 fiber slots within 75 KB of shared memory, and the last
 //   tile may be ragged.  Results depend on neither.
 // CUDA-core FMA: p = 11 is below the tensor cores' MMA depth and TF32
 // would break f32 parity.
@@ -57,7 +62,11 @@
 namespace repro {
 
 // Staged element inputs, work cubes and matrix row blocks.
-constexpr int kHhStage = 2, kHhWork = 2, kHhMats = 2;
+constexpr int kHhStage = 2, kHhWork = 1, kHhMats = 2;
+// CTAs an SM should hold: four at p = 11 (49 KB each) caps registers at
+// 80, which ran 2 % faster on the H100 than three (96 registers) despite
+// a few spilled bytes.
+constexpr int kHhMinCtas = 4;
 
 struct ToCube {  // store y into an f32 work cube
   float* dst;
@@ -81,7 +90,7 @@ struct ToCubeTimesD {  // r = t * D, then store
 };
 
 template <typename T, int P>
-__global__ void __launch_bounds__(kCubeMaxThreads)
+__global__ void __launch_bounds__(kCubeMaxThreads, kHhMinCtas)
     helmholtz_kernel(const T* __restrict__ S, const T* __restrict__ D,
                      const T* __restrict__ u, T* __restrict__ v, int E,
                      int te) {
@@ -92,9 +101,8 @@ __global__ void __launch_bounds__(kCubeMaxThreads)
   float* s_rows = reinterpret_cast<float*>(smem);  // M(a, l) = S[a][l]
   float* st_rows = s_rows + P * MR;                // M(a, l) = S[l][a]
   unsigned char* stage = smem + round16(kHhMats * P * MR * 4);
-  const int sb = stage_bytes(te * P3, sizeof(T));  // [buffer][u, D]
-  float* A = reinterpret_cast<float*>(stage + 2 * kHhStage * sb);
-  float* B = A + round16(te * C::kElem * 4) / 4;
+  const int sb = stage_bytes(te * P3, sizeof(T));  // u, then D
+  float* A = reinterpret_cast<float*>(stage + kHhStage * sb);
 
   load_mat_rows<P>(s_rows, S, false);
   load_mat_rows<P>(st_rows, S, true);
@@ -102,44 +110,46 @@ __global__ void __launch_bounds__(kCubeMaxThreads)
   const CubeView work{C::kElem, C::kPlane, C::kRow, 1};
   const CubeView flat{P3, P * P, P, 1};
   Held<T> held;
-  auto issue = [&](int tile, int buf) {
+  // stage input `which` (0 u, 1 D) of a tile
+  auto issue = [&](int tile, int which) {
     const int64_t off = static_cast<int64_t>(tile) * te * P3;
     const int n = min(te, E - tile * te) * P3;
-    stage_async(stage + (2 * buf) * sb, u + off, n, 0, held);
-    stage_async(stage + (2 * buf + 1) * sb, D + off, n, 1, held);
+    stage_async(stage + which * sb, (which ? D : u) + off, n, which, held);
   };
   int tile = blockIdx.x;
-  if (tile < n_tiles) issue(tile, 0);
-  cp_async_commit();
-  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
-    const int buf = it & 1;
-    held.flush();  // this tile's head and tail, loaded one step ago
-    const int next = tile + static_cast<int>(gridDim.x);
-    if (next < n_tiles) issue(next, buf ^ 1);
+  if (tile < n_tiles) {
+    issue(tile, 0);
+    issue(tile, 1);
+  }
+  for (; tile < n_tiles; tile += gridDim.x) {
     cp_async_commit();
-    cp_async_wait<1>();
+    cp_async_wait<0>();
+    held.flush();
     __syncthreads();
+    const int next = tile + static_cast<int>(gridDim.x);
     const int64_t off = static_cast<int64_t>(tile) * te * P3;
     const int n = min(te, E - tile * te);
     const int nf = n * P * P;
-    const T* xu = staged(stage + (2 * buf) * sb, u + off);
-    const T* xd = staged(stage + (2 * buf + 1) * sb, D + off);
+    const T* xu = staged(stage, u + off);
+    const T* xd = staged(stage + sb, D + off);
 
     // t = (S^T)^{(x)3} u: M(a, l) = S[a][l]; r = D o t on the third store
     contract<P>(xu, flat, 0, s_rows, nf, ToCube{A, mode_strides(work, 0)});
     __syncthreads();
-    contract<P>(A, work, 1, s_rows, nf, ToCube{B, mode_strides(work, 1)});
+    if (next < n_tiles) issue(next, 0);  // u is read: fetch the next one
+    contract<P>(A, work, 1, s_rows, nf, ToCube{A, mode_strides(work, 1)});
     __syncthreads();
-    contract<P>(B, work, 2, s_rows, nf,
+    contract<P>(A, work, 2, s_rows, nf,
                 ToCubeTimesD<T>{A, mode_strides(work, 2), xd,
                                 mode_strides(flat, 2)});
     __syncthreads();
+    if (next < n_tiles) issue(next, 1);  // and D
     // v = S^{(x)3} r: M(a, l) = S[l][a]
-    contract<P>(A, work, 0, st_rows, nf, ToCube{B, mode_strides(work, 0)});
+    contract<P>(A, work, 0, st_rows, nf, ToCube{A, mode_strides(work, 0)});
     __syncthreads();
-    contract<P>(B, work, 1, st_rows, nf, ToCube{A, mode_strides(work, 1)});
+    contract<P>(A, work, 1, st_rows, nf, ToCube{A, mode_strides(work, 1)});
     __syncthreads();
-    contract<P>(A, work, 2, st_rows, nf, ToCube{B, mode_strides(work, 2)});
+    contract<P>(A, work, 2, st_rows, nf, ToCube{A, mode_strides(work, 2)});
     __syncthreads();
     for (int i = threadIdx.x; i < n * P3; i += blockDim.x) {
       int k = i;
@@ -149,7 +159,7 @@ __global__ void __launch_bounds__(kCubeMaxThreads)
         const int j = r2 / P;
         k = e * C::kElem + i0 * C::kPlane + j * C::kRow + (r2 - j * P);
       }
-      v[off + i] = from_float<T>(B[k]);
+      v[off + i] = from_float<T>(A[k]);
     }
   }
 }

@@ -239,6 +239,16 @@ def op_table(recipe: GemmRecipe):
     return in_index, n_slots, n_mats, ops, consts, out_slot
 
 
+def _last_readers(ops) -> Dict[int, int]:
+    """The index of the last op-table row that reads each element slot."""
+    last_read: Dict[int, int] = {}
+    for k, row in enumerate(ops):
+        for s in ([row[2]] if row[0] == 0 else [row[2], row[3]]):
+            if s >= 0:
+                last_read[s] = k
+    return last_read
+
+
 def buffer_table(recipe: GemmRecipe) -> Tuple[List[int], int]:
     """Shared-memory work cubes by liveness, beside :func:`op_table`.
 
@@ -246,23 +256,22 @@ def buffer_table(recipe: GemmRecipe) -> Tuple[List[int], int]:
     table, the f32 work cube that holds it, or -1.  Element inputs are
     read where they are staged (-1).  An op result gets a cube only if a
     later op reads it; a cube is free again once its slot's last reader
-    has run, and an op never writes a cube it reads.  A result that only
-    feeds outputs is stored from registers (-1).  Interpolation takes 2
-    cubes, the gradient stage none."""
+    has run, or for that reader itself where it writes in place: an
+    ewise op (each thread writes the entries it reads) or a contraction
+    without a perm (each thread writes the fibers it reads).  A result
+    that only feeds outputs is stored from registers (-1).
+    Interpolation takes 1 cube, the gradient stage none."""
     _, n_slots, _, ops, _, _ = op_table(recipe)
-    last_read: Dict[int, int] = {}
-    for k, row in enumerate(ops):
-        reads = [row[2]] if row[0] == 0 else [row[2], row[3]]
-        for s in reads:
-            if s >= 0:
-                last_read[s] = k
+    last_read = _last_readers(ops)
     slot_buf = [-1] * n_slots
     busy_until: List[int] = []          # per cube: its slot's last reader
     for k, row in enumerate(ops):
         dst = row[1]
         if last_read.get(dst, -1) <= k:
             continue
-        free = [b for b, until in enumerate(busy_until) if until < k]
+        in_place = row[0] != 0 or list(row[6:9]) == [0, 1, 2]
+        free = [b for b, until in enumerate(busy_until)
+                if until < k or (until == k and in_place)]
         b = free[0] if free else len(busy_until)
         if b == len(busy_until):
             busy_until.append(0)
@@ -273,13 +282,13 @@ def buffer_table(recipe: GemmRecipe) -> Tuple[List[int], int]:
 
 def kernel_tile(recipe: GemmRecipe, elem_bytes: int) -> Tuple[int, int, int]:
     """The kernel's CTA tile for a recipe, ``(te, threads, shared
-    bytes)``: its element inputs staged, :func:`buffer_table`'s work
-    cubes, each matrix as rows of M and of its transpose.  Raises where
+    bytes)``: two staging buffers per element input, :func:`buffer_table`'s
+    work cubes, each matrix as rows of M and of its transpose.  Raises where
     even one element a tile does not fit a block's shared memory."""
     _, n_bufs = buffer_table(recipe)
     n_elem = sum(1 for _, _, is_elem in recipe.inputs if is_elem)
     n_mats = len(recipe.inputs) - n_elem
-    tile = cube_tile(recipe.p, n_elem, elem_bytes, n_bufs, 2 * n_mats)
+    tile = cube_tile(recipe.p, 2 * n_elem, elem_bytes, n_bufs, 2 * n_mats)
     check_shared(tile[2], f"the GEMM-chain kernel on this recipe at "
                  f"p={recipe.p}")
     return tile

@@ -26,7 +26,7 @@ MAX_SHARED_BYTES = 232_448
 
 #: mirrors of common.cuh's CFD tile constants
 CUBE_MAX_THREADS, CUBE_MIN_THREADS, CUBE_FIBERS = 192, 128, 2
-CUBE_CTA_TARGET = 113 * 1024
+CUBE_CTA_TARGET = 75 * 1024
 
 
 def _round16(n: int) -> int:
@@ -36,11 +36,11 @@ def _round16(n: int) -> int:
 def cube_smem(p: int, te: int, n_stage: int, elem_bytes: int, n_work: int,
               n_mat_rows: int) -> int:
     """Shared bytes of a CFD CTA (common.cuh ``cube_smem``): padded matrix
-    rows, two staging buffers per staged element input (16 bytes of
-    slack each, for the copy's alignment), and f32 work cubes with an odd
-    row pitch."""
+    rows, ``n_stage`` staging buffers of a tile of one element input (16
+    bytes of slack each, for the copy's alignment), and f32 work cubes
+    with an odd row pitch."""
     return (_round16(n_mat_rows * p * ((p + 3) & ~3) * 4)
-            + 2 * n_stage * (_round16(te * p ** 3 * elem_bytes) + 16)
+            + n_stage * (_round16(te * p ** 3 * elem_bytes) + 16)
             + n_work * _round16(te * p * p * (p | 1) * 4))
 
 
@@ -48,7 +48,7 @@ def cube_tile(p: int, n_stage: int, elem_bytes: int, n_work: int,
               n_mat_rows: int) -> Tuple[int, int, int]:
     """The CFD kernels' CTA tile, ``(te, threads, shared bytes)``
     (common.cuh ``cube_tile``): te elements fill the CTA's fiber slots
-    and, where they can, keep two CTAs on an SM; it does not depend on
+    and, where they can, keep three CTAs on an SM; it does not depend on
     the plan's block size."""
     te = max(1, CUBE_FIBERS * CUBE_MAX_THREADS // (p * p))
     while te > 1 and cube_smem(p, te, n_stage, elem_bytes, n_work,
@@ -70,10 +70,10 @@ def check_shared(smem: int, what: str) -> None:
 
 
 def kernel_tile(p: int, elem_bytes: int) -> Tuple[int, int, int]:
-    """The Helmholtz kernel's tile at p: u and D staged, two work cubes,
+    """The Helmholtz kernel's tile at p: u and D staged, one work cube,
     S and S^T as rows.  Raises where it would not fit (never for
     p <= MAX_P)."""
-    tile = cube_tile(p, 2, elem_bytes, 2, 2)
+    tile = cube_tile(p, 2, elem_bytes, 1, 2)
     check_shared(tile[2], f"the Helmholtz kernel at p={p}")
     return tile
 
