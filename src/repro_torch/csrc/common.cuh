@@ -87,8 +87,9 @@ struct Cube {
   static constexpr int kElem = P * kPlane;
 };
 
-// Rows of a contraction matrix M(a, l) in shared memory, padded to whole
-// float4s so that a warp reads row a as uniform 16-byte broadcasts.
+// Columns of a contraction matrix M(a, l) in shared memory, padded to
+// whole float4s so that a warp reads column l as uniform 16-byte
+// broadcasts.
 template <int P>
 __host__ __device__ constexpr int mat_row() { return (P + 3) & ~3; }
 
@@ -119,59 +120,62 @@ __device__ __forceinline__ int at(ModeStrides m, int e, int q0, int q1,
 //
 //   y[.., a at mode, ..] = sum_l M(a, l) x[.., l at mode, ..],
 //
-// M(a, l) = mrows[a * mat_row<P>() + l].  A fiber is the p inputs along
+// M(a, l) = mcols[l * mat_row<P>() + a].  A fiber is the p inputs along
 // `mode` at fixed other indices (q0 < q1 by axis, q1 fastest); fiber f is
-// element f / p^2.  Each thread loads kFibers fibers into registers
-// (consecutive threads take neighbouring fibers) and makes their p
-// outputs in registers, each one fmaf chain in ascending l from 0.0f --
-// the sum the reference order fixes, so an output never depends on the
-// tile, E or the batch split.  Then epi(e, q0, q1, a, y) stores each
-// output.  No barrier.
+// element f / p^2.  Each thread owns kFibers fibers (consecutive threads
+// take neighbouring fibers) and keeps their p outputs in registers: at
+// each l it loads x[l] of its fibers and the column M(:, l) as uniform
+// float4 broadcasts, and adds the outer product.  Every output is so one
+// fmaf chain in ascending l from 0.0f -- the sum the reference order
+// fixes, so an output never depends on the tile, E or the batch split.
+// Then epi(e, q0, q1, a, y) stores each output.  No barrier.
 template <int P, typename TS, typename Epi>
 __device__ __forceinline__ void contract(const TS* __restrict__ src,
                                          CubeView v, int mode,
-                                         const float* __restrict__ mrows,
+                                         const float* __restrict__ mcols,
                                          int n_fibers, Epi epi) {
   constexpr int MR = mat_row<P>();
   const ModeStrides ms = mode_strides(v, mode);
   for (int f0 = threadIdx.x; f0 < n_fibers;
        f0 += kFibers * static_cast<int>(blockDim.x)) {
-    float x[kFibers][P];
+    const TS* px[kFibers];
     int e[kFibers], q0[kFibers], q1[kFibers];
     bool on[kFibers];
 #pragma unroll
     for (int s = 0; s < kFibers; ++s) {
-      // a thread past the last fiber reads the last one and stores nothing
       const int f = min(f0 + s * static_cast<int>(blockDim.x), n_fibers - 1);
       on[s] = f0 + s * static_cast<int>(blockDim.x) < n_fibers;
       e[s] = f / (P * P);
       const int r = f - e[s] * (P * P);
       q0[s] = r / P;
       q1[s] = r - q0[s] * P;
-      const TS* px = src + at(ms, e[s], q0[s], q1[s], 0);
-#pragma unroll
-      for (int l = 0; l < P; ++l) x[s][l] = to_float(px[l * ms.sm]);
+      px[s] = src + at(ms, e[s], q0[s], q1[s], 0);
     }
-    // all outputs first, stores after: a store between two rows' loads
-    // could alias the matrix for the compiler and serialise the rows
+    // outer products: y[s][a] += M(a, l) x[s][l], l ascending
     float y[kFibers][P];
 #pragma unroll
-    for (int a = 0; a < P; ++a) {
+    for (int s = 0; s < kFibers; ++s) {
+#pragma unroll
+      for (int a = 0; a < P; ++a) y[s][a] = 0.0f;
+    }
+#pragma unroll
+    for (int l = 0; l < P; ++l) {
+      float x[kFibers];
+#pragma unroll
+      for (int s = 0; s < kFibers; ++s) x[s] = to_float(px[s][l * ms.sm]);
       float m[MR];
 #pragma unroll
       for (int c = 0; c < MR; c += 4) {
-        const float4 q = *reinterpret_cast<const float4*>(mrows + a * MR + c);
+        const float4 q = *reinterpret_cast<const float4*>(mcols + l * MR + c);
         m[c] = q.x;
         m[c + 1] = q.y;
         m[c + 2] = q.z;
         m[c + 3] = q.w;
       }
 #pragma unroll
-      for (int s = 0; s < kFibers; ++s) {
-        float acc = 0.0f;
+      for (int a = 0; a < P; ++a) {
 #pragma unroll
-        for (int l = 0; l < P; ++l) acc = fmaf(m[l], x[s][l], acc);
-        y[s][a] = acc;
+        for (int s = 0; s < kFibers; ++s) y[s][a] = fmaf(m[a], x[s], y[s][a]);
       }
     }
 #pragma unroll
@@ -184,15 +188,16 @@ __device__ __forceinline__ void contract(const TS* __restrict__ src,
 }
 
 // Write M(a, l) = m[a][l] (transpose false) or m[l][a] (true) of a p x p
-// matrix in device memory as padded rows in shared memory.
+// matrix in device memory as padded columns in shared memory (column l at
+// cols + l * mat_row<P>()).
 template <int P, typename T>
-__device__ __forceinline__ void load_mat_rows(float* __restrict__ rows,
+__device__ __forceinline__ void load_mat_cols(float* __restrict__ cols,
                                               const T* __restrict__ m,
                                               bool transpose) {
   constexpr int MR = mat_row<P>();
   for (int i = threadIdx.x; i < P * MR; i += blockDim.x) {
-    const int a = i / MR, l = i - a * MR;
-    rows[i] = l < P ? to_float(transpose ? m[l * P + a] : m[a * P + l]) : 0.0f;
+    const int l = i / MR, a = i - l * MR;
+    cols[i] = a < P ? to_float(transpose ? m[l * P + a] : m[a * P + l]) : 0.0f;
   }
 }
 

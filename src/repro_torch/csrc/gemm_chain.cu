@@ -29,7 +29,7 @@
 // Design (common.cuh; the same building blocks as helmholtz.cu):
 // - p is a template parameter (1..16, a switch at launch); the op table
 //   stays runtime data.  Contractions use the register-blocked fiber
-//   routine (kFibers fibers a thread, M rows as float4 broadcasts, one
+//   routine (kFibers fibers a thread, M columns as float4 broadcasts, one
 //   ascending-l fmaf chain from 0.0f per output, so every bit equals the
 //   earlier one-output-per-thread kernel's and never depends on tiles, E
 //   or the split).  The
@@ -84,7 +84,7 @@ constexpr int kOpWidth = 10;
 struct GemmChainArgs {
   const void* in[kMaxIn];
   void* out[kMaxOut];
-  int n_in, n_out, n_ops, n_slots, n_mats, p, be;
+  int n_in, n_out, n_ops, n_slots, n_mats, p;
   int in_is_elem[kMaxIn];
   int in_index[kMaxIn];  // element slot or matrix index
   int out_slot[kMaxOut];
@@ -136,11 +136,10 @@ struct ChainStore {
 // The view of a cube stored with the element axes permuted by perm
 // (o[q] = y[perm[q]]): y-axis perm[q] strides like stored axis q.
 __device__ __forceinline__ CubeView permuted(CubeView v, const int* perm) {
-  int c[3];
-  c[perm[0]] = v.s0;
-  c[perm[1]] = v.s1;
-  c[perm[2]] = v.s2;
-  return {v.elem, c[0], c[1], c[2]};
+  auto stride = [&](int d) {
+    return perm[0] == d ? v.s0 : perm[1] == d ? v.s1 : v.s2;
+  };
+  return {v.elem, stride(0), stride(1), stride(2)};
 }
 
 template <typename T, int P>
@@ -162,9 +161,9 @@ __global__ void __launch_bounds__(kCubeMaxThreads)
   for (int j = 0; j < args.n_in; ++j) {
     if (!args.in_is_elem[j]) {
       const T* m = static_cast<const T*>(args.in[j]);
-      float* rows = mats + 2 * args.in_index[j] * P * MR;
-      load_mat_rows<P>(rows, m, true);
-      load_mat_rows<P>(rows + P * MR, m, false);
+      float* cols = mats + 2 * args.in_index[j] * P * MR;
+      load_mat_cols<P>(cols, m, true);
+      load_mat_cols<P>(cols + P * MR, m, false);
     }
   }
 
@@ -236,7 +235,7 @@ __global__ void __launch_bounds__(kCubeMaxThreads)
       T* out = o0 >= 0 ? static_cast<T*>(args.out[o0]) + off : nullptr;
       if (op[0] == 0) {
         const int mode = op[4];
-        const float* rows = mats + (2 * op[3] + op[5]) * P * MR;
+        const float* cols = mats + (2 * op[3] + op[5]) * P * MR;
         ChainStore<T> st{dbuf,
                          mode_strides(permuted(cube, op + 6), mode),
                          out,
@@ -246,10 +245,10 @@ __global__ void __launch_bounds__(kCubeMaxThreads)
                          more};
         const int src = op[2];
         if (src < n_elem) {
-          contract<P>(staged_in(src, buf, off), flat, mode, rows, n * P * P,
+          contract<P>(staged_in(src, buf, off), flat, mode, cols, n * P * P,
                       st);
         } else {
-          contract<P>(work + args.slot_buf[src] * wb, cube, mode, rows,
+          contract<P>(work + args.slot_buf[src] * wb, cube, mode, cols,
                       n * P * P, st);
         }
       } else {

@@ -23,12 +23,13 @@
 // Design (common.cuh):
 // - p is a template parameter (1..16, one instantiation each, chosen by a
 //   switch at launch), so index arithmetic is by constants, once a fiber.
-// - Each thread owns kFibers fibers along the contracted mode: it loads
-//   them into registers once and makes their p outputs, reading the
-//   matrix row M(a, :) as uniform float4 broadcasts (S and S^T are both
-//   kept, rows padded to a multiple of 4), about 0.3 shared loads per FMA
-//   against 2 in a one-output-per-thread loop.  Every output is one fmaf
-//   chain in ascending l from 0.0f, the arithmetic of the earlier
+// - Each thread owns kFibers fibers along the contracted mode and keeps
+//   their p outputs in registers: at each l it loads x[l] of its fibers
+//   and the matrix column M(:, l) as uniform float4 broadcasts (S and
+//   S^T are both kept, columns padded to a multiple of 4) and adds the
+//   outer product, about 0.25 shared loads per FMA against 2 in a
+//   one-output-per-thread loop.  Every output is one fmaf chain in
+//   ascending l from 0.0f, the arithmetic of the earlier
 //   one-output-per-thread kernel, so every bit is as before and never
 //   depends on tiles, E or the split.
 // - The six contractions run in place in one f32 work cube per element
@@ -98,14 +99,14 @@ __global__ void __launch_bounds__(kCubeMaxThreads, kHhMinCtas)
   using C = Cube<P>;
   constexpr int MR = mat_row<P>(), P3 = P * P * P;
   const int n_tiles = (E + te - 1) / te;
-  float* s_rows = reinterpret_cast<float*>(smem);  // M(a, l) = S[a][l]
-  float* st_rows = s_rows + P * MR;                // M(a, l) = S[l][a]
+  float* s_cols = reinterpret_cast<float*>(smem);  // M(a, l) = S[a][l]
+  float* st_cols = s_cols + P * MR;                // M(a, l) = S[l][a]
   unsigned char* stage = smem + round16(kHhMats * P * MR * 4);
   const int sb = stage_bytes(te * P3, sizeof(T));  // u, then D
   float* A = reinterpret_cast<float*>(stage + kHhStage * sb);
 
-  load_mat_rows<P>(s_rows, S, false);
-  load_mat_rows<P>(st_rows, S, true);
+  load_mat_cols<P>(s_cols, S, false);
+  load_mat_cols<P>(st_cols, S, true);
 
   const CubeView work{C::kElem, C::kPlane, C::kRow, 1};
   const CubeView flat{P3, P * P, P, 1};
@@ -134,22 +135,22 @@ __global__ void __launch_bounds__(kCubeMaxThreads, kHhMinCtas)
     const T* xd = staged(stage + sb, D + off);
 
     // t = (S^T)^{(x)3} u: M(a, l) = S[a][l]; r = D o t on the third store
-    contract<P>(xu, flat, 0, s_rows, nf, ToCube{A, mode_strides(work, 0)});
+    contract<P>(xu, flat, 0, s_cols, nf, ToCube{A, mode_strides(work, 0)});
     __syncthreads();
     if (next < n_tiles) issue(next, 0);  // u is read: fetch the next one
-    contract<P>(A, work, 1, s_rows, nf, ToCube{A, mode_strides(work, 1)});
+    contract<P>(A, work, 1, s_cols, nf, ToCube{A, mode_strides(work, 1)});
     __syncthreads();
-    contract<P>(A, work, 2, s_rows, nf,
+    contract<P>(A, work, 2, s_cols, nf,
                 ToCubeTimesD<T>{A, mode_strides(work, 2), xd,
                                 mode_strides(flat, 2)});
     __syncthreads();
     if (next < n_tiles) issue(next, 1);  // and D
     // v = S^{(x)3} r: M(a, l) = S[l][a]
-    contract<P>(A, work, 0, st_rows, nf, ToCube{A, mode_strides(work, 0)});
+    contract<P>(A, work, 0, st_cols, nf, ToCube{A, mode_strides(work, 0)});
     __syncthreads();
-    contract<P>(A, work, 1, st_rows, nf, ToCube{A, mode_strides(work, 1)});
+    contract<P>(A, work, 1, st_cols, nf, ToCube{A, mode_strides(work, 1)});
     __syncthreads();
-    contract<P>(A, work, 2, st_rows, nf, ToCube{A, mode_strides(work, 2)});
+    contract<P>(A, work, 2, st_cols, nf, ToCube{A, mode_strides(work, 2)});
     __syncthreads();
     for (int i = threadIdx.x; i < n * P3; i += blockDim.x) {
       int k = i;

@@ -162,7 +162,7 @@ class GemmChainArgs(ctypes.Structure):
         ("out", ctypes.c_void_p * MAX_OUT),
         ("n_in", ctypes.c_int), ("n_out", ctypes.c_int),
         ("n_ops", ctypes.c_int), ("n_slots", ctypes.c_int),
-        ("n_mats", ctypes.c_int), ("p", ctypes.c_int), ("be", ctypes.c_int),
+        ("n_mats", ctypes.c_int), ("p", ctypes.c_int),
         ("in_is_elem", ctypes.c_int * MAX_IN),
         ("in_index", ctypes.c_int * MAX_IN),
         ("out_slot", ctypes.c_int * MAX_OUT),
@@ -294,7 +294,7 @@ def kernel_tile(recipe: GemmRecipe, elem_bytes: int) -> Tuple[int, int, int]:
     return tile
 
 
-def chain_args(recipe: GemmRecipe, in_ptrs, out_ptrs, be: int) -> GemmChainArgs:
+def chain_args(recipe: GemmRecipe, in_ptrs, out_ptrs) -> GemmChainArgs:
     """The kernel's argument block for a recipe: its op table
     (:func:`op_table`), its work cubes (:func:`buffer_table`) and the
     device pointers of its inputs and outputs, in recipe order."""
@@ -313,7 +313,7 @@ def chain_args(recipe: GemmRecipe, in_ptrs, out_ptrs, be: int) -> GemmChainArgs:
             args.ops[k][c] = v
         args.consts[k] = consts[k]
     args.n_in, args.n_out, args.n_ops = len(in_ptrs), len(out_ptrs), len(ops)
-    args.n_slots, args.n_mats, args.p, args.be = n_slots, n_mats, recipe.p, be
+    args.n_slots, args.n_mats, args.p = n_slots, n_mats, recipe.p
     args.n_bufs = n_bufs
     for s, b in enumerate(slot_buf):
         args.slot_buf[s] = b
@@ -373,7 +373,7 @@ def gemm_chain(
         for name, slot in recipe.outputs
     }
     args = chain_args(recipe, [a.data_ptr() for a in arrays],
-                      [outs[name].data_ptr() for name, _ in recipe.outputs], be)
+                      [outs[name].data_ptr() for name, _ in recipe.outputs])
     lib = _cuda.library()
     _check_abi(lib)
     err = lib.repro_gemm_chain(

@@ -234,7 +234,7 @@ def test_cfd_kernel_tiles_match_the_wrappers_model(cuda):
             assert tuple(got) == t_hh.kernel_tile(p, size), (p, dtype)
             for kind, recipe in gemm_recipes(t_gemm, p).items():
                 args = t_gemm.gemm.chain_args(
-                    recipe, [0] * len(recipe.inputs), [0] * len(recipe.outputs), 1)
+                    recipe, [0] * len(recipe.inputs), [0] * len(recipe.outputs))
                 lib.repro_gemm_chain_tile(ctypes.addressof(args), code, got)
                 assert tuple(got) == t_gemm.gemm.kernel_tile(recipe, size), (
                     p, kind, dtype)
