@@ -19,7 +19,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      function: ``torch.einsum`` for interpolation and for the whole
      inverse Helmholtz, held against the plain version first, the faster
      of opt_einsum's path and einsum's own) that call, beside the least
-     time the card could take;
+     time the card could take; and the GEMM-chain kernel at
+     interpolation's bytes with 0, 3 and 6 contractions (a probe that
+     splits memory pipeline from contraction time);
   3. the slice: ``compile_cfd_pipeline(11, backends="pallas")`` and
      ``.run()`` over 8 batches of E elements, with the launch counters
      zeroed just before and read just after; pipelined and serial

@@ -239,16 +239,6 @@ def op_table(recipe: GemmRecipe):
     return in_index, n_slots, n_mats, ops, consts, out_slot
 
 
-def _last_readers(ops) -> Dict[int, int]:
-    """The index of the last op-table row that reads each element slot."""
-    last_read: Dict[int, int] = {}
-    for k, row in enumerate(ops):
-        for s in ([row[2]] if row[0] == 0 else [row[2], row[3]]):
-            if s >= 0:
-                last_read[s] = k
-    return last_read
-
-
 def buffer_table(recipe: GemmRecipe) -> Tuple[List[int], int]:
     """Shared-memory work cubes by liveness, beside :func:`op_table`.
 
@@ -262,7 +252,11 @@ def buffer_table(recipe: GemmRecipe) -> Tuple[List[int], int]:
     that only feeds outputs is stored from registers (-1).
     Interpolation takes 1 cube, the gradient stage none."""
     _, n_slots, _, ops, _, _ = op_table(recipe)
-    last_read = _last_readers(ops)
+    last_read: Dict[int, int] = {}      # element slot -> its last reader
+    for k, row in enumerate(ops):
+        for s in ([row[2]] if row[0] == 0 else [row[2], row[3]]):
+            if s >= 0:
+                last_read[s] = k
     slot_buf = [-1] * n_slots
     busy_until: List[int] = []          # per cube: its slot's last reader
     for k, row in enumerate(ops):
@@ -282,9 +276,10 @@ def buffer_table(recipe: GemmRecipe) -> Tuple[List[int], int]:
 
 def kernel_tile(recipe: GemmRecipe, elem_bytes: int) -> Tuple[int, int, int]:
     """The kernel's CTA tile for a recipe, ``(te, threads, shared
-    bytes)``: two staging buffers per element input, :func:`buffer_table`'s
-    work cubes, each matrix as rows of M and of its transpose.  Raises where
-    even one element a tile does not fit a block's shared memory."""
+    bytes)``: two staging buffers per element input, the work cubes of
+    :func:`buffer_table`, each matrix as columns of M and of its
+    transpose.  Raises where even one element a tile does not fit a
+    block's shared memory."""
     _, n_bufs = buffer_table(recipe)
     n_elem = sum(1 for _, _, is_elem in recipe.inputs if is_elem)
     n_mats = len(recipe.inputs) - n_elem

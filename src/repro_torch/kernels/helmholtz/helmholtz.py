@@ -35,10 +35,10 @@ def _round16(n: int) -> int:
 
 def cube_smem(p: int, te: int, n_stage: int, elem_bytes: int, n_work: int,
               n_mat_rows: int) -> int:
-    """Shared bytes of a CFD CTA (common.cuh ``cube_smem``): padded matrix
-    rows, ``n_stage`` staging buffers of a tile of one element input (16
-    bytes of slack each, for the copy's alignment), and f32 work cubes
-    with an odd row pitch."""
+    """Shared bytes of a CFD CTA (common.cuh ``cube_smem``):
+    ``n_mat_rows`` padded p x p matrix blocks, ``n_stage`` staging buffers
+    of a tile of one element input (16 bytes of slack each, for the
+    copy's alignment), and f32 work cubes with an odd row pitch."""
     return (_round16(n_mat_rows * p * ((p + 3) & ~3) * 4)
             + n_stage * (_round16(te * p ** 3 * elem_bytes) + 16)
             + n_work * _round16(te * p * p * (p | 1) * 4))
@@ -71,8 +71,8 @@ def check_shared(smem: int, what: str) -> None:
 
 def kernel_tile(p: int, elem_bytes: int) -> Tuple[int, int, int]:
     """The Helmholtz kernel's tile at p: u and D staged, one work cube,
-    S and S^T as rows.  Raises where it would not fit (never for
-    p <= MAX_P)."""
+    S and S^T as padded columns.  Raises where it would not fit (never
+    for p <= MAX_P)."""
     tile = cube_tile(p, 2, elem_bytes, 1, 2)
     check_shared(tile[2], f"the Helmholtz kernel at p={p}")
     return tile
