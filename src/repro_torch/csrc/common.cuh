@@ -284,7 +284,7 @@ __device__ __forceinline__ void stage_async(void* region, const T* g, int n,
 // one element input each, elem_bytes a value), `n_work` f32 work cubes
 // and `n_mat_rows` padded matrix row blocks.  The tile fills a CTA's fibers (kFibers *
 // kCubeMaxThreads) and, where it can, keeps three CTAs on an SM.
-// Mirrored by repro_torch.kernels.helmholtz.helmholtz.cube_tile.
+// Mirrored by repro_torch.kernels._cube.cube_tile.
 struct CubeTile {
   int te, threads, smem;
 };

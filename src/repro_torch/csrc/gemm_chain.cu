@@ -49,11 +49,15 @@
 //   Interpolation holds 1 work cube, the gradient none (w is read from
 //   its staging buffer and gx, gy, gz go out from registers).
 // - Persistent grid; at the top of each tile cp.async starts copying the
-//   next tile's element inputs into a second staging buffer (copies as in
-//   helmholtz.cu).  Two buffers, not helmholtz.cu's one refilled once
-//   read: the gradient reads w in every op, so a buffer refilled after
-//   its last reader would not overlap the copy with any work, and the
-//   kernel's occupancy is bounded by registers, not shared memory (one
+//   next tile's element inputs into the other staging buffer (copies as
+//   in helmholtz.cu), before waiting for this tile's, so two tiles' copies
+//   are in flight.  A thread gets there only past the last tile's final
+//   barrier: the one after its last op, or, where inputs are fed
+//   straight out, the one after that copy.  Two buffers, not
+//   helmholtz.cu's one refilled once read: the gradient reads w in every
+//   op, so a buffer refilled after its last reader would not overlap the
+//   copy with any work, and the kernel's occupancy is bounded by
+//   registers, not shared memory (one
 //   buffer, at three CTAs an SM, ran interpolation 15 % and the gradient
 //   10 % slower on the H100).
 // - BE: the plan's block_elements stays the wrapper's argument with its
@@ -208,6 +212,9 @@ __global__ void __launch_bounds__(kCubeMaxThreads)
   for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
     const int buf = it & 1;
     held.flush();  // this tile's head and tail, loaded one step ago
+    // every thread is past the last tile's final barrier, so no thread
+    // reads the other buffer any more: the next tile may go there while
+    // this one's copies land
     const int next = tile + static_cast<int>(gridDim.x);
     if (next < n_tiles) issue(next, buf ^ 1);
     cp_async_commit();
@@ -285,12 +292,16 @@ __global__ void __launch_bounds__(kCubeMaxThreads)
       __syncthreads();
     }
     // outputs that are element inputs as they came in
+    bool fed = false;
     for (int j = 0; j < args.n_out; ++j) {
       if (args.out_slot[j] >= n_elem) continue;
+      fed = true;
       const T* x = staged_in(args.out_slot[j], buf, off);
       T* y = static_cast<T*>(args.out[j]) + off;
       for (int i = threadIdx.x; i < n * P3; i += blockDim.x) y[i] = x[i];
     }
+    // they read this staging buffer, which the next step starts refilling
+    if (fed) __syncthreads();
   }
 }
 

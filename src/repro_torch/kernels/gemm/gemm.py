@@ -22,7 +22,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from ..helmholtz.helmholtz import MAX_P, check_shared, contract_mode, cube_tile
+from .._cube import MAX_P, MAX_SHARED_BYTES, chain_tile
+from ..helmholtz.helmholtz import contract_mode
 
 DEFAULT_BLOCK_ELEMENTS = 128
 
@@ -276,16 +277,19 @@ def buffer_table(recipe: GemmRecipe) -> Tuple[List[int], int]:
 
 def kernel_tile(recipe: GemmRecipe, elem_bytes: int) -> Tuple[int, int, int]:
     """The kernel's CTA tile for a recipe, ``(te, threads, shared
-    bytes)``: two staging buffers per element input, the work cubes of
-    :func:`buffer_table`, each matrix as columns of M and of its
-    transpose.  Raises where even one element a tile does not fit a
-    block's shared memory."""
+    bytes)`` (``_cube.chain_tile`` with the work cubes of
+    :func:`buffer_table`).  Raises where even one element a tile does not
+    fit a block's shared memory: at p = 16 in float32, a recipe with
+    eight element inputs (two staging buffers of 16,400 B each)."""
     _, n_bufs = buffer_table(recipe)
     n_elem = sum(1 for _, _, is_elem in recipe.inputs if is_elem)
     n_mats = len(recipe.inputs) - n_elem
-    tile = cube_tile(recipe.p, 2 * n_elem, elem_bytes, n_bufs, 2 * n_mats)
-    check_shared(tile[2], f"the GEMM-chain kernel on this recipe at "
-                 f"p={recipe.p}")
+    tile = chain_tile(recipe.p, n_elem, n_mats, n_bufs, elem_bytes)
+    if tile[2] > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"the GEMM-chain kernel on this recipe at p={recipe.p} needs "
+            f"{tile[2]} B of shared memory per CTA (limit {MAX_SHARED_BYTES})"
+        )
     return tile
 
 

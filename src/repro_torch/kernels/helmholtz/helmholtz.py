@@ -4,7 +4,7 @@ plain PyTorch version.
 :func:`inverse_helmholtz` is the port of the reference's
 ``inverse_helmholtz_pallas``: on CUDA tensors it launches
 ``csrc/helmholtz.cu`` (a persistent grid of CTAs walking tiles of
-elements, every intermediate in shared memory; :func:`cube_tile` mirrors
+elements, every intermediate in shared memory; ``kernels._cube`` mirrors
 its tile and shared memory); on CPU tensors it runs
 :func:`inverse_helmholtz_plain`, which repeats the kernel's arithmetic
 in plain PyTorch.  Both sum each output entry over ``l`` in ascending
@@ -13,69 +13,11 @@ size or on how a batch is split.
 """
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 
+from .._cube import MAX_P
+
 DEFAULT_BLOCK_ELEMENTS = 128
-#: largest p the kernel's index arithmetic and shared-memory plan cover
-MAX_P = 16
-#: shared memory one block may use on an H100 (227 KB)
-MAX_SHARED_BYTES = 232_448
-
-
-#: mirrors of common.cuh's CFD tile constants
-CUBE_MAX_THREADS, CUBE_MIN_THREADS, CUBE_FIBERS = 192, 128, 2
-CUBE_CTA_TARGET = 75 * 1024
-
-
-def _round16(n: int) -> int:
-    return (n + 15) & ~15
-
-
-def cube_smem(p: int, te: int, n_stage: int, elem_bytes: int, n_work: int,
-              n_mat_rows: int) -> int:
-    """Shared bytes of a CFD CTA (common.cuh ``cube_smem``):
-    ``n_mat_rows`` padded p x p matrix blocks, ``n_stage`` staging buffers
-    of a tile of one element input (16 bytes of slack each, for the
-    copy's alignment), and f32 work cubes with an odd row pitch."""
-    return (_round16(n_mat_rows * p * ((p + 3) & ~3) * 4)
-            + n_stage * (_round16(te * p ** 3 * elem_bytes) + 16)
-            + n_work * _round16(te * p * p * (p | 1) * 4))
-
-
-def cube_tile(p: int, n_stage: int, elem_bytes: int, n_work: int,
-              n_mat_rows: int) -> Tuple[int, int, int]:
-    """The CFD kernels' CTA tile, ``(te, threads, shared bytes)``
-    (common.cuh ``cube_tile``): te elements fill the CTA's fiber slots
-    and, where they can, keep three CTAs on an SM; it does not depend on
-    the plan's block size."""
-    te = max(1, CUBE_FIBERS * CUBE_MAX_THREADS // (p * p))
-    while te > 1 and cube_smem(p, te, n_stage, elem_bytes, n_work,
-                               n_mat_rows) > CUBE_CTA_TARGET:
-        te -= 1
-    threads = -(-te * p * p // CUBE_FIBERS)
-    threads = max(CUBE_MIN_THREADS, -(-threads // 32) * 32)
-    return te, threads, cube_smem(p, te, n_stage, elem_bytes, n_work,
-                                  n_mat_rows)
-
-
-def check_shared(smem: int, what: str) -> None:
-    """Refuse a launch whose CTA needs more than a block's shared memory."""
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"{what} needs {smem} B of shared memory per CTA "
-            f"(limit {MAX_SHARED_BYTES})"
-        )
-
-
-def kernel_tile(p: int, elem_bytes: int) -> Tuple[int, int, int]:
-    """The Helmholtz kernel's tile at p: u and D staged, one work cube,
-    S and S^T as padded columns.  Raises where it would not fit (never
-    for p <= MAX_P)."""
-    tile = cube_tile(p, 2, elem_bytes, 1, 2)
-    check_shared(tile[2], f"the Helmholtz kernel at p={p}")
-    return tile
 
 
 def _check_blocks(E: int, block_elements: int) -> int:
@@ -166,7 +108,6 @@ def inverse_helmholtz(
     code = _cuda.dtype_code(u.dtype)
     if p > MAX_P:
         raise ValueError(f"kernel supports p <= {MAX_P}, got {p}")
-    kernel_tile(p, u.element_size())
     if not (S.is_contiguous() and D.is_contiguous() and u.is_contiguous()):
         raise ValueError("the kernel reads contiguous S, D and u")
     v = torch.empty_like(u)

@@ -13,6 +13,7 @@ import torch
 from repro.cfd import reference
 from repro.kernels import gemm as r_gemm
 from repro.kernels.helmholtz import ops as r_hh_ops
+from repro_torch.kernels import _cube
 from repro_torch.kernels import gemm as t_gemm
 from repro_torch.kernels.gemm import gemm as t_gemm_mod
 from repro_torch.kernels.helmholtz import helmholtz as t_hh
@@ -285,28 +286,34 @@ def test_gemm_buffer_table_frees_a_cube_after_its_last_reader():
 
 def test_kernel_tiles_mirror_the_shared_memory_model():
     """The Helmholtz kernel's tile fits one CTA at every p it takes (3
-    elements, 192 threads, 49,040 B at p = 11, f32: four CTAs an SM);
-    the plan's block size plays no part."""
+    elements, 192 threads, 49,040 B at p = 11, f32: four CTAs an SM), so
+    its wrapper has nothing to refuse; the plan's block size plays no
+    part."""
     for elem_bytes in (4, 2):
-        for p in range(1, t_hh.MAX_P + 1):
-            te, threads, smem = t_hh.kernel_tile(p, elem_bytes)
+        for p in range(1, _cube.MAX_P + 1):
+            te, threads, smem = _cube.helmholtz_tile(p, elem_bytes)
             assert te >= 1 and 128 <= threads <= 192 and threads % 32 == 0
-            assert smem <= t_hh.MAX_SHARED_BYTES
-            assert smem == t_hh.cube_smem(p, te, 2, elem_bytes, 1, 2)
-            assert te == 1 or smem <= t_hh.CUBE_CTA_TARGET
+            assert smem <= _cube.MAX_SHARED_BYTES
+            assert smem == _cube.cube_smem(p, te, 2, elem_bytes, 1, 2)
+            assert te == 1 or smem <= _cube.CUBE_CTA_TARGET
             assert te * p * p <= 2 * threads
-    assert t_hh.kernel_tile(11, 4) == (3, 192, 49_040)
+    assert _cube.helmholtz_tile(11, 4) == (3, 192, 49_040)
     interp = gemm_recipes(t_gemm, 11)["interp"]
     assert t_gemm_mod.kernel_tile(interp, 4) == (
-        3, 192, t_hh.cube_smem(11, 3, 2, 4, 1, 2))
+        3, 192, _cube.cube_smem(11, 3, 2, 4, 1, 2))
 
 
 def _largest_recipe(p, n_elem, n_mats, n_bufs):
     """A recipe with n_elem element inputs, n_mats matrices and ewise ops
-    that hold n_bufs (0, 1 or 2) work cubes at once."""
+    that hold n_bufs (0, 1 or 2) work cubes at once; with n_bufs None, no
+    op at all, every element input fed straight out."""
     inputs = tuple((f"M{j}", (p, p), False) for j in range(n_mats)) + tuple(
         (f"x{j}", (p, p, p), True) for j in range(n_elem))
     x0, first = n_mats, len(inputs)
+    if n_bufs is None:
+        return t_gemm.GemmRecipe(
+            p=p, inputs=inputs, ops=(),
+            outputs=tuple((f"y{j}", x0 + j) for j in range(n_elem)))
     ops = [("ewise", "neg", x0, -1, None) for _ in range(n_bufs)]
     if n_bufs < 2:          # out = x0 + (-x0), or -x0 alone
         ops.append(("ewise", "add", x0, first, None) if n_bufs
@@ -318,26 +325,33 @@ def _largest_recipe(p, n_elem, n_mats, n_bufs):
 
 
 @pytest.mark.parametrize("n_elem,n_mats,n_bufs",
-                         [(7, 1, 0), (6, 2, 1), (5, 1, 1), (4, 4, 2)])
+                         [(7, 1, 0), (6, 2, 1), (5, 1, 1), (4, 4, 2),
+                          (8, 0, None)])
 def test_gemm_kernel_tile_refuses_at_the_shared_memory_limit(
         n_elem, n_mats, n_bufs):
     """The kernel's shared bytes are the model's (cube_smem) and the
     wrapper refuses exactly above the 232,448-B limit.  At p = 16, one
     element a tile, the op table's static limits (8 inputs, 8 element
     slots) cap what a recipe can ask for: seven float32 inputs (two
-    staging buffers of 16,400 B each) and a matrix (2,048 B) take the
-    most, 231,648 B, so every recipe that lowers fits."""
+    staging buffers of 16,400 B each) and a matrix (2,048 B) fit, at
+    231,648 B; eight float32 inputs fed straight out take 262,400 B and
+    are refused, and fit in bfloat16."""
     p = 16
     recipe = _largest_recipe(p, n_elem, n_mats, n_bufs)
     t_gemm_mod.op_table(recipe)                      # within the limits
-    assert t_gemm_mod.buffer_table(recipe)[1] == n_bufs
-    smem = t_hh.cube_smem(p, 1, 2 * n_elem, 4, n_bufs, 2 * n_mats)
-    assert t_gemm_mod.kernel_tile(recipe, 4) == (1, 128, smem)
-    assert smem <= 231_648 <= t_hh.MAX_SHARED_BYTES
-    t_hh.check_shared(t_hh.MAX_SHARED_BYTES, "a CTA at the limit")
-    over = t_hh.MAX_SHARED_BYTES + 16
-    with pytest.raises(ValueError, match=f"needs {over} B of shared memory"):
-        t_hh.check_shared(over, "a CTA over the limit")
+    assert t_gemm_mod.buffer_table(recipe)[1] == (n_bufs or 0)
+    smem = _cube.cube_smem(p, 1, 2 * n_elem, 4, n_bufs or 0, 2 * n_mats)
+    assert (smem > _cube.MAX_SHARED_BYTES) == (n_elem == 8)
+    if smem <= _cube.MAX_SHARED_BYTES:
+        assert smem <= 231_648
+        assert t_gemm_mod.kernel_tile(recipe, 4) == (1, 128, smem)
+    else:
+        assert smem == 262_400
+        with pytest.raises(ValueError, match=f"needs {smem} B of shared memory"):
+            t_gemm_mod.kernel_tile(recipe, 4)
+    half = _cube.cube_smem(p, 1, 2 * n_elem, 2, n_bufs or 0, 2 * n_mats)
+    assert t_gemm_mod.kernel_tile(recipe, 2) == (1, 128, half)
+    assert half <= _cube.MAX_SHARED_BYTES
 
 
 def test_gemm_op_table_rejects_what_the_kernel_cannot_run():
