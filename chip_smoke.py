@@ -28,6 +28,22 @@ Phases (any failure exits non-zero, and no result line is printed):
      zeroed just before and read just after; pipelined and serial
      checksums bitwise equal; 64 elements of batch 0 against the float64
      numpy oracles;
+  F. the paper's Fig. 2 path: ``run_simulation(SimConfig(p=11,
+     backend="pallas"))`` on the h100-sxm plan (E = 67,226, BE = 2) over
+     4 batches, launch counters zeroed just before and read just after;
+     K = 1 and K = 0 checksums bitwise equal; the ``xla`` and ``staged``
+     backends' checksums at the same E within rtol 1e-4; 64 elements of
+     batch 0 through ``batched_fn`` against the float64 oracle; the
+     kernel timed at this shape;
+  Q. fixed point: the Inverse Helmholtz at p = 11 through
+     ``api.compile_cfdlang`` at Q24.40 (E = 33,613) and Q8.24
+     (E = 67,226), ``xla`` and ``staged``, one batch encoded on the host
+     and run on the card: 16 elements bitwise equal to the same code on
+     the CPU, ``xla`` bitwise equal to ``staged``, MSE against the float64
+     oracle within 100x the paper's (9.39e-22, 3.58e-12);
+  D. the single-operator design-space sweep on the card: ``explore`` over
+     xla/staged/pallas at float32 on one card, the top three measured and
+     the cost correction fitted;
   4. the flash-attention kernels against their plain version at the
      model path's shape (B = 4, Hq = 16, Hkv = 8, T = 4096, d = 128,
      causal): bfloat16 on the tensor-core (wgmma) route, float32 on the
@@ -51,6 +67,7 @@ with a non-zero code before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -100,6 +117,15 @@ LOGIT_ATOL_FRAC, LOGIT_MIN_ARGMAX = 0.05, 0.9
 #: left-to-right path is the sequence of mode contractions
 INTERP_EINSUM = "elmn,il,jm,kn->eijk"
 HELMHOLTZ_EINSUM = "eabc,la,mb,nc,elmn,li,mj,nk->eijk"
+#: the Fig. 2 path: batches of the run
+FIG2_BATCHES = 4
+#: checksums of the xla / staged backends against the kernel's: float32
+#: sums of the same 4 x 67,226 x 1,331 values in other orders
+FIG2_CHECKSUM_RTOL = 1e-4
+#: fixed point: elements compared bitwise with the CPU; the paper's MSEs
+FIXED_CPU_ELEMENTS = 16
+PAPER_MSE = {"fixed64_q24.40": 9.39e-22, "fixed32_q8.24": 3.58e-12}
+MSE_SLACK = 100.0
 #: the flash-attention kernel of each route
 FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "fma": "src/repro_torch/csrc/flash_attention.cu"}
@@ -508,6 +534,242 @@ def phase_slice(system):
     return res, launches
 
 
+def phase_fig2():
+    """The paper's Fig. 2 path: the single-operator simulation driver on
+    the Helmholtz kernel, with the launch counters read around it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.cfd import operators, reference, simulation
+    from repro_torch.kernels.helmholtz import helmholtz
+    from repro_torch.memory import pipeline as mempipe
+
+    p, seed = 11, 0
+    dev = torch.device("cuda", 0)
+    cfg = simulation.SimConfig(p=p, backend="pallas", seed=seed)
+    plan = simulation.plan_config(cfg)
+    E, be = plan.batch_elements, plan.block_elements
+    if plan.target.name != "h100-sxm" or (E, be) != (67_226, 2):
+        fail(f"Fig. 2 plan: {plan.target.name} E={E} BE={be}; want h100-sxm "
+             "E=67226 BE=2")
+    zero_counts()
+    res = simulation.run_simulation(cfg, plan=plan, max_batches=FIG2_BATCHES)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if res.batches != FIG2_BATCHES or launches != {
+            "helmholtz": FIG2_BATCHES, "gemm_chain": 0, "flash_attention": 0}:
+        fail(f"Fig. 2 path ran {res.batches} batches with launches "
+             f"{launches}; want {FIG2_BATCHES} helmholtz launches only")
+    if not np.isfinite(res.checksum):
+        fail(f"Fig. 2 checksum {res.checksum} is not finite")
+    eps = res.elements / res.wall_s
+    gflops = simulation.achieved_gflops(res, p)
+    print(f"fig2: {res.batches} batches x {E} elements (BE={be}, K="
+          f"{plan.prefetch_depth}) in {res.wall_s:.3f} s: {eps:.0f} "
+          f"elements/s, {gflops:.1f} GFLOPS (Eq. 2) | launches {launches} | "
+          f"checksum {res.checksum!r}")
+    serial_cfg = simulation.SimConfig(p=p, backend="pallas", seed=seed,
+                                      prefetch_depth=0)
+    serial = simulation.run_simulation(
+        serial_cfg, plan=simulation.plan_config(serial_cfg),
+        max_batches=FIG2_BATCHES)
+    if serial.checksum != res.checksum:
+        fail(f"Fig. 2: K=0 checksum {serial.checksum!r} != K=1 "
+             f"{res.checksum!r}")
+    print(f"  K=0: {serial.wall_s:.3f} s, checksum bitwise equal")
+    others = {}
+    for backend in ("xla", "staged"):
+        other = simulation.run_simulation(
+            simulation.SimConfig(p=p, backend=backend, seed=seed,
+                                 batch_elements=E),
+            max_batches=FIG2_BATCHES)
+        rel = abs(other.checksum - res.checksum) / abs(res.checksum)
+        if other.elements != res.elements or rel > FIG2_CHECKSUM_RTOL:
+            fail(f"Fig. 2 {backend}: checksum {other.checksum!r} over "
+                 f"{other.elements} elements vs the kernel's {res.checksum!r}"
+                 f" (rel {rel:.2e} > {FIG2_CHECKSUM_RTOL})")
+        others[backend] = dict(wall_s=other.wall_s, checksum=other.checksum,
+                               rel=rel)
+        print(f"  {backend}: {other.wall_s:.3f} s, checksum {other.checksum!r}"
+              f" (rel {rel:.2e})")
+
+    # batch 0 through the compiled operator, against the float64 oracle
+    t = time.perf_counter()
+    b0 = next(simulation._batch_generator(p, E, 1, seed))
+    synth_s = time.perf_counter() - t
+    S = np.random.default_rng(seed + 2 ** 31).uniform(-1, 1, (p, p)).astype(
+        np.float32)
+    stager = mempipe.HostStager(dev, slots=1)
+    stager(b0).arrays()  # the first call also allocates the pinned slot
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    staged = stager(b0).arrays()
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t
+    compiled = operators.build_inverse_helmholtz(p, backend="pallas", plan=plan)
+    v = compiled.batched_fn({"S": S, **b0})["v"]
+    m = CHECK_ELEMENTS
+    oracle = reference.inverse_helmholtz_batch(
+        S.astype(np.float64), b0["D"][:m].astype(np.float64),
+        b0["u"][:m].astype(np.float64))
+    err = compare(v[:m].cpu().double(), torch.from_numpy(oracle), F32_RTOL,
+                  F32_ATOL_FRAC, "fig2 v vs float64 oracle")
+    print(f"  one batch: {res.wall_s / res.batches:.3f} s wall, host "
+          f"synthesis {synth_s:.3f} s, pin + copy to the card {stage_s:.3f} s"
+          f" ({sum(x.nbytes for x in b0.values()) / 2**20:.1f} MiB) | v[:{m}]"
+          f" vs float64 oracle: max|err| {err:.3e}")
+
+    # the kernel at this path's shape, beside its plain version and einsum
+    S_d = torch.from_numpy(S).to(dev)
+    D_d, u_d = staged["D"], staged["u"]
+    got = helmholtz.inverse_helmholtz(S_d, D_d, u_d, block_elements=be)
+    want = helmholtz.inverse_helmholtz_plain(S_d, D_d, u_d, block_elements=be)
+    kerr = compare(got, want, F32_RTOL, F32_ATOL_FRAC, "helmholtz fig2 f32")
+    if not torch.equal(got, v):
+        fail("fig2: the kernel called directly differs from batched_fn's v")
+    ms = time_ms(lambda: helmholtz.inverse_helmholtz(S_d, D_d, u_d,
+                                                     block_elements=be), 20)
+    plain_ms = time_ms(lambda: helmholtz.inverse_helmholtz_plain(
+        S_d, D_d, u_d, block_elements=be), 3)
+    library_ms, lib_txt = einsum_ms(HELMHOLTZ_EINSUM,
+                                    (u_d, S_d, S_d, S_d, D_d, S_d, S_d, S_d),
+                                    want, "helmholtz fig2")
+    b_ms, b_by = bound(nbytes(S_d, D_d, u_d, got),
+                       E * compiled.program.total_flops())
+    print(f"helmholtz  E={E} BE={be} (fig2): f32 max|err| {kerr:.3e} | kernel "
+          f"{ms:.3f} ms  plain {plain_ms:.3f} ms  {lib_txt}  bound "
+          f"{b_ms:.3f} ms ({b_by})")
+    row = dict(stage="fig2", block_elements=be, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+               max_abs_err=kerr)
+    stats = dict(E=E, block_elements=be, batches=res.batches,
+                 wall_s=res.wall_s, wall_per_batch_s=res.wall_s / res.batches,
+                 synth_s=synth_s, stage_s=stage_s, elements_per_s=eps,
+                 gflops_eq2=gflops, checksum=res.checksum,
+                 serial_wall_s=serial.wall_s, oracle_max_abs_err=err,
+                 backends=others)
+    inputs = dict(S=S, D=b0["D"], u=b0["u"], oracle=oracle)
+    del got, want, staged, D_d, u_d, v
+    torch.cuda.empty_cache()
+    return row, stats, launches, inputs
+
+
+def phase_fixed(inputs):
+    """The paper's fixed-point formats on the card: batch 0 of the Fig. 2
+    stream, encoded on the host, through ``api.compile_cfdlang``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import api, dsl
+    from repro_torch.core.precision import FIXED32, FIXED64
+    from repro_torch.memory import channels, dse
+
+    p = 11
+    src = dsl.INVERSE_HELMHOLTZ_SRC.format(p=p)
+    oracle = inputs["oracle"]
+    m, c = oracle.shape[0], FIXED_CPU_ELEMENTS
+    out = {}
+    for pol in (FIXED64, FIXED32):
+        E = dse.make_plan(p, target=channels.H100_SXM,
+                          policy=pol.name).batch_elements
+        t = time.perf_counter()
+        enc = {"S": pol.encode(inputs["S"]),
+               "D": pol.encode(inputs["D"][:E]),
+               "u": pol.encode(inputs["u"][:E])}
+        encode_s = time.perf_counter() - t
+        dev_in = {k: v.cuda() for k, v in enc.items()}
+        results = {}
+        for backend in ("xla", "staged"):
+            fn = api.compile_cfdlang(src, element_vars=("u", "D", "v"),
+                                     policy=pol, backend=backend)
+            fn.batched_fn(dev_in)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            v = fn.batched_fn(dev_in)["v"]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() - base
+            if v.dtype != pol.storage_dtype or tuple(v.shape) != (E, p, p, p):
+                fail(f"{pol.name} {backend}: v {v.dtype} {tuple(v.shape)}")
+            cpu = api.compile_cfdlang(src, element_vars=("u", "D", "v"),
+                                      policy=pol, backend=backend,
+                                      device="cpu")
+            want = cpu.batched_fn({k: (x if k == "S" else x[:c])
+                                   for k, x in enc.items()})["v"]
+            if not torch.equal(v[:c].cpu(), want):
+                fail(f"{pol.name} {backend}: the card's first {c} elements "
+                     "differ bitwise from the CPU's")
+            results[backend] = v
+            out[f"{pol.name} {backend}"] = dict(
+                E=E, s=secs, elements_per_s=E / secs, peak_bytes=peak,
+                encode_s=encode_s)
+            print(f"{pol.name} {backend}: E={E} one batch {secs:.3f} s, "
+                  f"{E / secs:.0f} elements/s, peak device memory "
+                  f"{peak / 2**30:.2f} GiB above the inputs (encode on the "
+                  f"host {encode_s:.3f} s); first {c} elements bitwise equal "
+                  "to the CPU")
+        if not torch.equal(results["xla"], results["staged"]):
+            fail(f"{pol.name}: xla and staged differ bitwise")
+        got = pol.decode(results["xla"][:m].cpu()).numpy()
+        mse = float(np.mean((got - oracle) ** 2))
+        limit = PAPER_MSE[pol.name] * MSE_SLACK
+        if not (0 < mse < limit):
+            fail(f"{pol.name}: MSE {mse:.3e} vs the float64 oracle, want "
+                 f"(0, {limit:.3e})")
+        # one product's rounding, in units of the last place: fmul of
+        # 2**20 pairs in [-1, 1] against the float64 product of the same
+        # decoded values (exact to 2**-53 relative)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        a, b = (pol.encode(torch.rand(1 << 20, generator=gen, device="cuda",
+                                      dtype=torch.float64) * 2 - 1)
+                for _ in range(2))
+        ulp = (pol.decode(pol.fmul(a, b)) - pol.decode(a) * pol.decode(b)) * (
+            pol.scale)
+        rounding = dict(mean_ulp=ulp.mean().item(), min_ulp=ulp.min().item(),
+                        max_ulp=ulp.max().item())
+        out[pol.name] = dict(mse=mse, paper_mse=PAPER_MSE[pol.name],
+                             product_rounding=rounding)
+        print(f"{pol.name}: xla == staged bitwise; MSE over {m} elements "
+              f"{mse:.3e} (paper {PAPER_MSE[pol.name]:.2e}, limit "
+              f"{limit:.2e}); one product's error {rounding['mean_ulp']:+.4f}"
+              f" ulp on average, in [{rounding['min_ulp']:+.4f}, "
+              f"{rounding['max_ulp']:+.4f}]")
+        del results, dev_in, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dse():
+    """The single-operator design-space sweep, the top three measured on
+    the card and the cost correction fitted."""
+    from repro_torch.memory import channels, dse
+
+    space = dse.DesignSpace(backends=("xla", "staged", "pallas"),
+                            policies=("float32",), cu_counts=(1,))
+    t = time.perf_counter()
+    cands = dse.explore(11, target=channels.H100_SXM, n_eq=2_000_000,
+                        space=space, measure_top=3, measure_batches=2,
+                        calibrate=True)
+    secs = time.perf_counter() - t
+    measured = [c for c in cands if c.verified]
+    if len(measured) != 3 or not all(c.measured_s_per_element > 0
+                                     for c in measured):
+        fail(f"DSE: {len(measured)} candidates measured, want the top three")
+    corr = dse.fit_correction(cands)
+    print(f"dse: {len(cands)} candidates in {secs:.1f} s")
+    print(dse.format_ranking(cands, 8))
+    print(f"  correction {corr}")
+    return dict(seconds=secs, n_candidates=len(cands),
+                correction=dataclasses.asdict(corr),
+                measured=[dict(backend=c.plan.backend, E=c.plan.batch_elements,
+                               K=c.plan.prefetch_depth,
+                               predicted_s_per_element=c.predicted_s_per_element,
+                               measured_s_per_element=c.measured_s_per_element)
+                          for c in measured])
+
+
 def visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
     """(query, key) pairs the attention must form: with ``causal`` and
     queries aligned to the end of the keys, row i sees
@@ -829,6 +1091,15 @@ def main() -> int:
               "MiB/batch")
         rows = phase_kernels(system)
         _, launches = phase_slice(system)
+        t_new = time.perf_counter()
+        fig2_row, fig2, fig2_launches, fig2_inputs = phase_fig2()
+        rows["helmholtz"].append(fig2_row)
+        launches["helmholtz"] += fig2_launches["helmholtz"]
+        fixed = phase_fixed(fig2_inputs)
+        del fig2_inputs
+        dse_stats = phase_dse()
+        new_s = time.perf_counter() - t_new
+        print(f"phases F, Q and D: {new_s:.1f} s")
         flash_rows = phase_flash()
         model = phase_model()
     except SmokeFailure as e:
@@ -871,6 +1142,8 @@ def main() -> int:
         "shapes": flash_rows,
     })
     print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"fig2": fig2, "fixed_point": fixed, "dse": dse_stats,
+                      "new_phases_s": new_s}))
     print(json.dumps({"model": model}))
     print(card)
     print(json.dumps({"kernels": kernels}))

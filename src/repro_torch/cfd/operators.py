@@ -1,21 +1,137 @@
-"""The paper's CFD application, built through the DSL-to-executable flow.
+"""The paper's three CFD operators, built through the DSL-to-executable
+flow (core.api), with selectable backend/precision -- the per-kernel
+equivalent of the Olympus "Optimize" step -- and the composed
+application.
 
-:data:`CFD_PIPELINE_SRC` is the whole pipeline -- interpolation ->
-gradient -> inverse Helmholtz -- as one CFDlang program, and
-:func:`compile_cfd_pipeline` compiles it through ``repro_torch.flow``
-at the paper's operator-granularity cuts: the generic tool flow derives
-the stage programs, the inter-stage residency, and (for ``pallas``
-stages) the dispatch to the hand-written CUDA kernels.  The
-single-operator builders of the reference (``build_inverse_helmholtz``
-and friends, the Fig. 2 path) are not ported yet.
+:func:`build_inverse_helmholtz` (the Fig. 2 operator),
+:func:`build_interpolation` and :func:`build_gradient` compile one
+operator each; their callables run on the CUDA card unless
+``device="cpu"`` is given.  :data:`CFD_PIPELINE_SRC` is the whole
+pipeline -- interpolation -> gradient -> inverse Helmholtz -- as one
+CFDlang program, and :func:`compile_cfd_pipeline` compiles it through
+``repro_torch.flow`` at the paper's operator-granularity cuts: the
+generic tool flow derives the stage programs, the inter-stage residency,
+and (for ``pallas`` stages) the dispatch to the hand-written CUDA
+kernels.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
 from .. import flow
+from ..core import api, dsl
+from ..core.emit import CompiledProgram
+from ..kernels.helmholtz import ops as helmholtz_ops
 from ..memory.chain import ChainPlan, ProgramChain
 from ..memory.plan import MemoryPlan
+
+
+def pallas_block_elements(
+    p: int,
+    plan: Optional[MemoryPlan] = None,
+    *,
+    vmem_bytes: Optional[int] = None,
+    bytes_per_scalar: int = 4,
+) -> int:
+    """Resolve the Helmholtz kernel's block size from a MemoryPlan.
+
+    The plan already carries the on-chip-budgeted block
+    (``block_elements``, a divisor of its E); without one, the block is
+    derived directly from the given on-chip capacity, and with neither
+    the kernel default stands.
+    """
+    if plan is not None and plan.block_elements:
+        return plan.block_elements
+    if vmem_bytes is not None:
+        return helmholtz_ops.block_elements_for_vmem(
+            p, vmem_bytes, bytes_per_scalar=bytes_per_scalar
+        )
+    return helmholtz_ops.DEFAULT_BLOCK_ELEMENTS
+
+
+def build_inverse_helmholtz(
+    p: int = 11,
+    *,
+    policy="float32",
+    backend: str = "xla",
+    optimize: bool = True,
+    max_groups: Optional[int] = None,
+    block_elements: Optional[int] = None,
+    plan: Optional[MemoryPlan] = None,
+    device=None,
+) -> CompiledProgram:
+    """Compile the Inverse Helmholtz operator (paper Fig. 2).
+
+    backend:
+      * ``xla``    -- factorized einsum chain, one plain PyTorch function.
+      * ``staged`` -- one callable per scheduled group (dataflow view).
+      * ``pallas`` -- the fused CUDA kernel (``csrc/helmholtz.cu``; its
+        plain PyTorch version on CPU tensors).  Its ``block_elements``
+        defaults to the plan's on-chip-budgeted block when a MemoryPlan
+        is given (explicit ``block_elements`` still wins).
+    """
+    pallas_impl = None
+    if backend == "pallas":
+        be = (
+            block_elements if block_elements is not None
+            else pallas_block_elements(p, plan)
+        )
+        pallas_impl = helmholtz_ops.make_pallas_impl(block_elements=be)
+    return api.compile_cfdlang(
+        dsl.INVERSE_HELMHOLTZ_SRC.format(p=p),
+        element_vars=("u", "D", "v"),
+        policy=policy,
+        optimize=optimize,
+        backend=backend,
+        max_groups=max_groups,
+        pallas_impl=pallas_impl,
+        device=device,
+    )
+
+
+def build_interpolation(
+    n: int = 11,
+    m: int = 11,
+    *,
+    policy="float32",
+    backend: str = "xla",
+    optimize: bool = True,
+    max_groups: Optional[int] = None,
+    device=None,
+) -> CompiledProgram:
+    """Compile the interpolation operator ``v = (A (x) A (x) A) u``."""
+    return api.compile_cfdlang(
+        dsl.INTERPOLATION_SRC.format(n=n, m=m),
+        element_vars=("u", "v"),
+        policy=policy,
+        optimize=optimize,
+        backend=backend,
+        max_groups=max_groups,
+        device=device,
+    )
+
+
+def build_gradient(
+    nx: int = 8,
+    ny: int = 7,
+    nz: int = 6,
+    *,
+    policy="float32",
+    backend: str = "xla",
+    optimize: bool = True,
+    max_groups: Optional[int] = None,
+    device=None,
+) -> CompiledProgram:
+    """Compile the gradient operator (``gx``, ``gy``, ``gz``)."""
+    return api.compile_cfdlang(
+        dsl.GRADIENT_SRC.format(nx=nx, ny=ny, nz=nz),
+        element_vars=("u", "gx", "gy", "gz"),
+        policy=policy,
+        optimize=optimize,
+        backend=backend,
+        max_groups=max_groups,
+        device=device,
+    )
 
 
 def chain_stage_block_elements(

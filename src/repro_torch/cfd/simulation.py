@@ -1,11 +1,13 @@
-"""Element-batched chain driver -- the Olympus system/host layer on one
-CUDA card.
+"""Element-batched simulation drivers -- the Olympus system/host layer
+on one CUDA card.
 
 Implements the paper's section 3.1 quantities:
 
   * **batch**: ``E`` elements processed per dispatch, sized by an explicit
-    :class:`repro_torch.memory.chain.ChainPlan` -- the driver holds no
-    hardcoded batch size.
+    :class:`repro_torch.memory.MemoryPlan` (one operator,
+    :func:`run_simulation`, the paper's Fig. 2 flow) or
+    :class:`repro_torch.memory.chain.ChainPlan` (the whole pipeline,
+    :func:`run_chain`) -- the drivers hold no hardcoded batch size.
   * **N_b = N_eq / E** batches.
   * **transfer pipelining**: batch k+K..k+1 transfer host->device (pinned
     buffers, a side CUDA stream) while batch k computes, through the
@@ -13,10 +15,12 @@ Implements the paper's section 3.1 quantities:
     ping/pong channel pair of Fig. 14a; K=0 is the serial baseline).
 
 The synthetic data follows the reference's numpy streams exactly
-(``seed + b`` per batch, ``seed + 2**31 + k`` per shared operand over
-the sorted shared names), so at equal E and seed both packages see the
-same inputs.  The single-operator Fig. 2 driver (``run_simulation``) and
-the reference's multi-device placement execution are not ported yet.
+(``seed + b`` per batch; ``seed + 2**31`` for the Fig. 2 operator's S,
+``seed + 2**31 + k`` per shared operand of a chain over the sorted
+shared names), so at equal E and seed both packages see the same
+inputs.  CU replication and the reference's multi-device placement
+execution are not ported: a plan for more than one CU or device warns
+and runs on the one card.
 """
 from __future__ import annotations
 
@@ -28,10 +32,14 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from ..core.precision import FixedPointPolicy
 from ..memory import chain as memchain
 from ..memory import channels as memchannels
+from ..memory import dse as memdse
 from ..memory import pipeline as mempipe
 from ..memory.placement import DeviceTopology
+from ..memory.plan import MemoryPlan
+from .operators import build_inverse_helmholtz, flops_per_element
 
 
 def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -42,6 +50,188 @@ def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
         k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
         for k, v in arrays.items()
     }
+
+
+@dataclasses.dataclass
+class SimConfig:
+    p: int = 11
+    n_eq: int = 2_000_000          # paper: 2M elements simulated
+    #: E -- None lets the MemoryPlan auto-size it from the channel model
+    batch_elements: Optional[int] = None
+    policy: str = "float32"
+    backend: str = "xla"
+    double_buffer: bool = True
+    #: K batches staged ahead; None derives it from ``double_buffer``
+    prefetch_depth: Optional[int] = None
+    seed: int = 0
+
+    @property
+    def depth(self) -> int:
+        if self.prefetch_depth is not None:
+            return self.prefetch_depth
+        return 1 if self.double_buffer else 0
+
+    @property
+    def n_batches(self) -> int:
+        if self.batch_elements is None:
+            raise ValueError(
+                "batch_elements unset -- resolve a MemoryPlan first "
+                "(simulation.plan_config) or set it explicitly"
+            )
+        return self.n_eq // self.batch_elements
+
+    def bytes_per_element(self, bytes_per_scalar: int = 4) -> int:
+        # u, D in; v out  (S shared, amortized)
+        return 3 * self.p ** 3 * bytes_per_scalar
+
+    @classmethod
+    def batch_for_channel(cls, p: int, channel_bytes: int = 256 * 2 ** 20,
+                          bytes_per_scalar: int = 4) -> int:
+        """The paper's E: elements whose I/O fits one HBM channel."""
+        return channel_bytes // (3 * p ** 3 * bytes_per_scalar)
+
+
+def plan_config(
+    cfg: SimConfig,
+    *,
+    target: Optional[memchannels.MemoryTarget] = None,
+    cu_count: int = 1,
+    device=None,
+) -> MemoryPlan:
+    """Resolve the memory architecture for this simulation config.
+
+    Explicit ``cfg.batch_elements`` is honored; otherwise the planner
+    auto-sizes E against the target's pseudo-channel capacity.  Without
+    a ``target`` the datasheet of ``device`` (the CUDA card unless
+    ``"cpu"``) is used.
+    """
+    return memdse.make_plan(
+        cfg.p,
+        target=(target if target is not None
+                else memchannels.detect_target(device)),
+        policy=cfg.policy,
+        backend=cfg.backend,
+        batch_elements=cfg.batch_elements,
+        prefetch_depth=cfg.depth,
+        cu_count=cu_count,
+        n_eq=cfg.n_eq,
+    )
+
+
+def _batch_generator(
+    p: int, batch_elements: int, n_batches: int, seed: int
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Deterministic, resumable synthetic element stream ([-1,1] data,
+    matching the paper's range normalization)."""
+    for b in range(n_batches):
+        rng = np.random.default_rng(seed + b)
+        yield {
+            "D": rng.uniform(-1, 1, (batch_elements, p, p, p)).astype(np.float32),
+            "u": rng.uniform(-1, 1, (batch_elements, p, p, p)).astype(np.float32),
+        }
+
+
+@dataclasses.dataclass
+class SimResult:
+    batches: int
+    elements: int
+    wall_s: float
+    checksum: float
+    plan: Optional[MemoryPlan] = None
+    #: the device the run executed on
+    device: str = ""
+
+    @property
+    def gflops(self) -> float:
+        """Elements per second times 1e-9, as the reference computes it;
+        :func:`achieved_gflops` is the paper's Eq. (2) rate."""
+        return 0.0 if self.wall_s == 0 else (
+            self.elements * 1e-9 / self.wall_s
+        )
+
+
+def run_simulation(
+    cfg: SimConfig,
+    *,
+    device=None,
+    max_batches: Optional[int] = None,
+    S: Optional[np.ndarray] = None,
+    plan: Optional[MemoryPlan] = None,
+    tracer=None,
+) -> SimResult:
+    """Run the batched Inverse-Helmholtz simulation under a MemoryPlan.
+
+    The plan supplies E, the prefetch depth and the kernel's block; pass
+    one explicitly (e.g. a DSE winner) or let :func:`plan_config` derive
+    it.  ``device`` is the CUDA card unless ``"cpu"`` is passed.
+    Returns wall time and a checksum (the sum of every ``v``); GFLOPS
+    by the paper's op-count model is :func:`achieved_gflops`.
+
+    Under a fixed-point policy the inputs are encoded on the host, as
+    the paper's host code does, and the checksum sums the decoded
+    outputs.  ``tracer`` is not ported yet and must be None.
+    """
+    if tracer is not None:
+        raise NotImplementedError("run_simulation(tracer=...) is not ported yet")
+    dev = memchannels.resolve_device(device)
+    if plan is None:
+        plan = plan_config(cfg, device=dev)
+    if plan.cu_count > 1:
+        warnings.warn(
+            f"run_simulation: the plan replicates {plan.cu_count} CUs; "
+            f"executing on the one device {dev}.",
+            RuntimeWarning,
+        )
+    E = plan.batch_elements
+    compiled = build_inverse_helmholtz(
+        cfg.p, policy=cfg.policy, backend=cfg.backend, plan=plan, device=dev,
+    )
+    pol = compiled.policy
+    rng = np.random.default_rng(cfg.seed + 2 ** 31)
+    if S is None:
+        S = rng.uniform(-1, 1, (cfg.p, cfg.p)).astype(np.float32)
+
+    n_total = cfg.n_eq // E
+    n = n_total if max_batches is None else min(max_batches, n_total)
+    batches = _batch_generator(cfg.p, E, n, cfg.seed)
+    if isinstance(pol, FixedPointPolicy):
+        S_dev = pol.encode(S).to(dev)
+        batches = ({k: pol.encode(v).numpy() for k, v in b.items()}
+                   for b in batches)
+
+        def reduce_fn(out):
+            return torch.sum(pol.decode(out["v"]))
+    else:
+        S_dev = torch.from_numpy(np.ascontiguousarray(S)).to(dev)
+
+        def reduce_fn(out):
+            return torch.sum(out["v"])
+
+    def compute(staged: mempipe.Staged):
+        return compiled.batched_fn({"S": S_dev, **staged.arrays()})
+
+    t0 = time.perf_counter()
+    sums = mempipe.run_pipelined(
+        compute,
+        batches,
+        stage_fn=mempipe.HostStager(dev, slots=plan.prefetch_depth + 1),
+        depth=plan.prefetch_depth,
+        reduce_fn=reduce_fn,
+    )
+    wall = time.perf_counter() - t0
+    checksum = 0.0
+    for s in sums:
+        checksum += float(s)
+    return SimResult(
+        batches=n, elements=n * E, wall_s=wall, checksum=checksum, plan=plan,
+        device=str(dev),
+    )
+
+
+def achieved_gflops(res: SimResult, p: int) -> float:
+    """GFLOPS under the paper's Eq. (2)-(3) accounting."""
+    n_op = res.elements * flops_per_element(p)
+    return n_op / res.wall_s / 1e9 if res.wall_s > 0 else 0.0
 
 
 @dataclasses.dataclass

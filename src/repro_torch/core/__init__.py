@@ -3,10 +3,11 @@
 DSL front-end (`dsl`), value-based tensor IR (`ir`), middle-end rewrites
 (`rewrite`: contraction factorization / CSE), dataflow-group scheduling
 (`schedule`), buffer-liveness sharing (`liveness`), scalar precision
-policies (`precision`), and the PyTorch backend (`emit`).
+policies (`precision`), and the PyTorch backend (`emit`, `api`).
 """
-from . import dsl, emit, ir, liveness, precision, rewrite, schedule
+from . import api, dsl, emit, ir, liveness, precision, rewrite, schedule
 
 __all__ = [
-    "dsl", "emit", "ir", "liveness", "precision", "rewrite", "schedule",
+    "api", "dsl", "emit", "ir", "liveness", "precision", "rewrite",
+    "schedule",
 ]

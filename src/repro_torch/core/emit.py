@@ -8,25 +8,31 @@ reference package's, so plans and reports compare byte for byte:
     einsum runs through ``torch.einsum`` with an explicit leading batch
     letter on its element-dependent operands (the reference vmaps a
     per-element function instead).
+  * ``staged``  -- one plain callable *per scheduled group*, executed in
+    sequence with materialized intermediates: the FIFO-streamed
+    dataflow CU the per-stage analyses inspect.
   * ``pallas``  -- the batched program is a hand-written CUDA kernel
     (``repro_torch.kernels``), handed in as ``pallas_impl`` by the
     flow's pattern dispatch.  On a CPU tensor the kernel's wrapper runs
     its plain PyTorch version.
 
-The ``staged`` backend (one callable per scheduled group) is not ported
-yet.  float32 never runs as TF32: compiling a program turns TF32 off
-for cuBLAS and cuDNN.
+Under a fixed-point policy inputs stay in their encoded integer form,
+binary einsums go to ``policy.contract`` and element-wise ops to its
+``fadd``/``fsub``/``fmul``/``fdiv``, so results equal the reference's
+bit for bit.  float32 never runs as TF32: compiling a program turns
+TF32 off for cuBLAS and cuDNN.  The reference's ``jit`` and
+``donate_args`` have no PyTorch meaning and are left out.
 """
 from __future__ import annotations
 
 import dataclasses
 import string
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
 from . import ir
-from .precision import FloatPolicy
+from .precision import FixedPointPolicy, FloatPolicy
 from .schedule import Schedule, schedule as make_schedule
 
 _LETTERS = string.ascii_letters
@@ -77,14 +83,56 @@ def pin_float32_precision() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _eval_einsum(node: ir.Einsum, args, batched, policy: FloatPolicy):
+def _eval_einsum_float(node: ir.Einsum, args, batched, policy: FloatPolicy):
     spec = _batched_spec(node, batched)
     acc = policy.torch_accum_dtype
     out = torch.einsum(spec, *[a.to(acc) for a in args])
     return out.to(policy.torch_dtype)
 
 
-def _eval_ewise(node: ir.Ewise, args):
+def _einsum_unary(spec: str, x: torch.Tensor) -> torch.Tensor:
+    """A one-operand einsum (transpose, diagonal, reduce) spelled with
+    ``diagonal``/``sum``/``permute``, so integers never reach an einsum
+    kernel.  Integer sums wrap in the input's width, as XLA's do."""
+    ins, out = spec.split("->")
+    letters = list(ins)
+    while len(set(letters)) < len(letters):
+        c = next(c for c in letters if letters.count(c) > 1)
+        i = letters.index(c)
+        j = letters.index(c, i + 1)
+        x = torch.diagonal(x, dim1=i, dim2=j)  # the diagonal goes last
+        letters = [l for k, l in enumerate(letters) if k not in (i, j)] + [c]
+    summed = [k for k, c in enumerate(letters) if c not in out]
+    if summed:
+        x = x.sum(dim=summed).to(x.dtype)
+        letters = [c for c in letters if c in out]
+    return x.permute([letters.index(c) for c in out])
+
+
+def _eval_einsum_fixed(node: ir.Einsum, args, batched, policy: FixedPointPolicy):
+    spec = _batched_spec(node, batched)
+    if len(args) == 1:
+        return _einsum_unary(spec, args[0])
+    if len(args) == 2:
+        return policy.contract(args[0], args[1], spec)
+    # n-ary: the rewriter normally factorizes these away
+    raise ir.IRError(
+        "fixed-point backend requires factorized (binary) einsums; "
+        "run rewrite.optimize first"
+    )
+
+
+def _eval_ewise(node: ir.Ewise, args, policy):
+    if isinstance(policy, FixedPointPolicy):
+        if node.op == "add":
+            return policy.fadd(*args)
+        if node.op == "sub":
+            return policy.fsub(*args)
+        if node.op == "mul":
+            return policy.fmul(*args)
+        if node.op == "div":
+            return policy.fdiv(*args)
+        raise ir.IRError(f"fixed-point ewise {node.op} unsupported")
     a = args[0]
     if node.op == "add":
         return a + args[1]
@@ -101,49 +149,78 @@ def _eval_ewise(node: ir.Ewise, args):
     raise ir.IRError(f"unknown ewise op {node.op}")
 
 
-def _run(prog: ir.Program, env: Dict[str, torch.Tensor], policy,
-         element_axis: bool) -> Dict[str, torch.Tensor]:
-    """Evaluate ``prog``; with ``element_axis`` the element-marked inputs
-    carry a leading batch axis and so does every output (values that do
-    not depend on an element input are broadcast to it, as vmap does)."""
-    if not isinstance(policy, FloatPolicy):
-        raise NotImplementedError(f"policy {policy!r} is not ported yet")
-    elem = set(prog.element_vars) if element_axis else set()
-    vals: Dict[int, torch.Tensor] = {}
-    batched = set()
-    n_batch = None
-    for name, inp in prog.inputs.items():
-        if name not in env:
-            raise KeyError(f"missing input {name!r}")
-        x = torch.as_tensor(env[name]).to(policy.torch_dtype)
-        vals[inp.uid] = x
-        if name in elem:
-            batched.add(inp.uid)
-            n_batch = x.shape[0]
-
-    for node in prog.toposort():
+def _eval_nodes(nodes, vals: Dict[int, torch.Tensor], batched: Set[int],
+                policy) -> None:
+    """Evaluate ``nodes`` in order into ``vals``; a node is batched (has
+    the leading element axis) when any operand is, and then joins
+    ``batched``."""
+    fixed = isinstance(policy, FixedPointPolicy)
+    for node in nodes:
         if node.uid in vals:
             continue
         ops = node.operands()
         args = [vals[o.uid] for o in ops]
         flags = [o.uid in batched for o in ops]
         if isinstance(node, ir.Einsum):
-            vals[node.uid] = _eval_einsum(node, args, flags, policy)
+            if fixed:
+                vals[node.uid] = _eval_einsum_fixed(node, args, flags, policy)
+            else:
+                vals[node.uid] = _eval_einsum_float(node, args, flags, policy)
         elif isinstance(node, ir.Ewise):
             # the batch axis leads, so broadcasting lines up the rest
-            vals[node.uid] = _eval_ewise(node, args)
+            vals[node.uid] = _eval_ewise(node, args, policy)
         else:
             raise ir.IRError(f"cannot evaluate {node!r}")
         if any(flags):
             batched.add(node.uid)
 
+
+def _load_inputs(prog: ir.Program, env, policy, element_axis: bool, device):
+    """Input tensors by uid (a float policy casts them to its dtype; a
+    fixed-point one leaves the encoded integers as given), on ``device``
+    when one is set; the uids carrying an element axis; its length."""
+    elem = set(prog.element_vars) if element_axis else set()
+    vals: Dict[int, torch.Tensor] = {}
+    batched: Set[int] = set()
+    n_batch = None
+    for name, inp in prog.inputs.items():
+        if name not in env:
+            raise KeyError(f"missing input {name!r}")
+        x = torch.as_tensor(env[name], device=device)
+        if isinstance(policy, FloatPolicy):
+            x = x.to(policy.torch_dtype)
+        elif x.dtype != policy.storage_dtype:
+            raise TypeError(
+                f"input {name!r} is {x.dtype}; policy {policy.name} takes "
+                f"{policy.storage_dtype} (encode it with policy.encode)"
+            )
+        vals[inp.uid] = x
+        if name in elem:
+            batched.add(inp.uid)
+            n_batch = x.shape[0]
+    return vals, batched, n_batch
+
+
+def _outputs(prog: ir.Program, vals, batched, n_batch):
+    """The named outputs; with an element axis, values that do not depend
+    on an element input are broadcast to it, as vmap does."""
     out = {}
     for name, n in prog.outputs.items():
         v = vals[n.uid]
-        if element_axis and n.uid not in batched and n_batch is not None:
+        if n_batch is not None and n.uid not in batched:
             v = v.expand((n_batch,) + tuple(v.shape))
         out[name] = v
     return out
+
+
+def _run(prog: ir.Program, env: Dict[str, torch.Tensor], policy,
+         element_axis: bool, device=None) -> Dict[str, torch.Tensor]:
+    """Evaluate ``prog``; with ``element_axis`` the element-marked inputs
+    carry a leading batch axis and so does every output."""
+    vals, batched, n_batch = _load_inputs(prog, env, policy, element_axis,
+                                          device)
+    _eval_nodes(prog.toposort(), vals, batched, policy)
+    return _outputs(prog, vals, batched, n_batch)
 
 
 def evaluate(
@@ -166,6 +243,7 @@ class CompiledProgram:
 
     ``element_fn``  -- single-element callable (dict -> dict).
     ``batched_fn``  -- over the leading element axis of element vars.
+    ``stage_fns``   -- per-group callables (staged backend only).
     """
 
     program: ir.Program
@@ -173,10 +251,52 @@ class CompiledProgram:
     element_fn: Callable[..., Dict[str, torch.Tensor]]
     batched_fn: Callable[..., Dict[str, torch.Tensor]]
     schedule: Optional[Schedule] = None
+    stage_fns: Optional[List[Callable]] = None
     backend: str = "xla"
 
     def __call__(self, **env):
         return self.batched_fn(env)
+
+
+def _staged_callables(
+    prog: ir.Program, sched: Schedule, policy, device
+) -> Tuple[List[Callable], Callable, Callable]:
+    """One callable per schedule group, list in and list out; the
+    element and batched drivers thread the live values between them.
+
+    ``stage(args, element_axis=False)``: with ``element_axis`` the
+    element-dependent streams among ``args`` carry the leading element
+    axis, and so do such outputs."""
+    dep = prog.element_dependent_uids()
+    stage_fns: List[Callable] = []
+    stage_sigs: List[Tuple[List[int], List[int]]] = []
+    for group in sched.groups:
+        in_uids = [n.uid for n in group.in_streams]
+        out_uids = [n.uid for n in group.out_streams]
+
+        def stage(args, element_axis: bool = False, *,
+                  _nodes=tuple(group.nodes), _in=tuple(in_uids),
+                  _out=tuple(out_uids)):
+            vals: Dict[int, torch.Tensor] = dict(zip(_in, args))
+            batched = {u for u in _in if u in dep} if element_axis else set()
+            _eval_nodes(_nodes, vals, batched, policy)
+            return [vals[u] for u in _out]
+
+        stage_fns.append(stage)
+        stage_sigs.append((in_uids, out_uids))
+
+    def drive(env, element_axis: bool):
+        live, batched, n_batch = _load_inputs(prog, env, policy,
+                                              element_axis, device)
+        for fn, (in_uids, out_uids) in zip(stage_fns, stage_sigs):
+            outs = fn([live[u] for u in in_uids], element_axis)
+            live.update(zip(out_uids, outs))
+        if element_axis:
+            batched = {u for u in live if u in dep}
+        return _outputs(prog, live, batched, n_batch)
+
+    return (stage_fns, lambda env: drive(env, False),
+            lambda env: drive(env, True))
 
 
 def compile_program(
@@ -187,20 +307,29 @@ def compile_program(
     vmem_budget: Optional[int] = None,
     max_groups: Optional[int] = None,
     pallas_impl: Optional[Callable] = None,
+    device=None,
 ) -> CompiledProgram:
     """Compile an IR program to an executable (the Olympus entry point).
 
     ``pallas_impl``: a callable ``(env) -> outputs`` implementing the
     whole batched program as a hand-written kernel; used when
-    ``backend='pallas'``.
+    ``backend='pallas'``.  The kernels compute in floating point, so a
+    fixed-point policy runs on ``xla`` or ``staged`` only.
+
+    ``device``: where the callables put their inputs before computing
+    (``None``: they compute where the inputs lie).
     """
-    if backend not in ("xla", "pallas"):
-        if backend == "staged":
-            raise NotImplementedError("backend 'staged' is not ported yet")
+    if backend not in ("xla", "staged", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
+    if backend == "pallas" and isinstance(policy, FixedPointPolicy):
+        raise ValueError(
+            f"backend 'pallas' computes in floating point; policy "
+            f"{policy.name} runs on 'xla' or 'staged'"
+        )
     pin_float32_precision()
+    device = torch.device(device) if device is not None else None
     sched = None
-    if vmem_budget is not None or max_groups is not None:
+    if backend == "staged" or vmem_budget is not None or max_groups is not None:
         kwargs = {}
         if vmem_budget is not None:
             kwargs["vmem_budget"] = vmem_budget
@@ -208,16 +337,30 @@ def compile_program(
             kwargs["max_groups"] = max_groups
         sched = make_schedule(prog, bytes_per_scalar=policy.bits // 8, **kwargs)
 
+    if backend == "staged":
+        stage_fns, element, batched = _staged_callables(prog, sched, policy,
+                                                        device)
+        return CompiledProgram(
+            program=prog, policy=policy, element_fn=element,
+            batched_fn=batched, schedule=sched, stage_fns=stage_fns,
+            backend=backend,
+        )
+
     def element(env):
-        return _run(prog, env, policy, element_axis=False)
+        return _run(prog, env, policy, element_axis=False, device=device)
 
     if backend == "pallas":
         if pallas_impl is None:
             raise ValueError("backend='pallas' requires pallas_impl")
-        batched = pallas_impl
+        if device is None:
+            batched = pallas_impl
+        else:
+            def batched(env):
+                return pallas_impl({k: torch.as_tensor(v, device=device)
+                                    for k, v in env.items()})
     else:
         def batched(env):
-            return _run(prog, env, policy, element_axis=True)
+            return _run(prog, env, policy, element_axis=True, device=device)
 
     return CompiledProgram(
         program=prog, policy=policy, element_fn=element,

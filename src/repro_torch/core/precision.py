@@ -1,21 +1,26 @@
 """Scalar-type policies (the `base2` dialect analogue) on torch dtypes.
 
 The paper treats the scalar representation as a compiler knob: double,
-then fixed-point ap_fixed<64,24> (Q24.40) and ap_fixed<32,8> (Q8.24).
-This module carries the float ladder (f64/f32/bf16).  bf16 stores in
+then fixed-point ap_fixed<64,24> (Q24.40) and ap_fixed<32,8> (Q8.24),
+validated at MSE 9.39e-22 and 3.58e-12 on [-1, 1]-normalized CFD data.
+This module carries the float ladder (f64/f32/bf16; bf16 stores in
 bfloat16 and accumulates every contraction in float32, as the reference
-policy does.
+policy does) and both Q-formats in torch integer arithmetic.
 
-The fixed-point policies are not ported yet: their 64-bit multiply
-shifts unsigned 64-bit limbs, and torch has no ``>>`` on uint64, so
-they need a signed-limb rewrite that stays bit-exact against the
-reference.  Asking for one by name raises :class:`NotImplementedError`.
+Fixed point is integer arithmetic, so every result equals the
+reference's bit for bit: products round to nearest at the same bit,
+sums wrap modulo the storage width exactly as XLA's do, and any order
+or chunking of an integer sum gives the same bits.  As in the paper,
+the conversion from/to double lives on the host side of the boundary
+(``encode``/``decode``), and the compute graph stays in integer form.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 
@@ -49,29 +54,233 @@ class FloatPolicy:
         return self.torch_dtype.itemsize * 8
 
 
-Policy = FloatPolicy
+#: Values one fixed-point contraction broadcasts at once (one chunk):
+#: 2**24 int64 values are 128 MiB, and the limb arithmetic of a chunk
+#: keeps about four such tensors alive.
+CONTRACT_CHUNK_VALUES = 1 << 24
+
+
+def _as_float64(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float64)
+    return torch.from_numpy(np.asarray(x, dtype=np.float64))
+
+
+def _split64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An int64 tensor as (high 32-bit limb, signed; low limb in
+    [0, 2**32))."""
+    return x >> 32, x & 0xFFFFFFFF
+
+
+def _fmul64(a_limbs, b_limbs, f: int) -> torch.Tensor:
+    """``a * b / 2**f`` of two int64 values from their limbs
+    (:func:`_split64`), bit for bit the reference's 32/32 limb product:
+    the low-limb product floored, the cross term rounded to nearest, so
+    a result lies within [-1.5, +0.5] units of the exact product.
+
+    The reference forms ``al * bl`` in uint64; it reaches
+    2**64 - 2**33 + 1, past int64, and torch has no shift on uint64.  So
+    ``bl`` is split into 16-bit halves: ``al * bl1 < 2**48`` and
+    ``floor(al * bl / 2**f) = (al * bl1 + (al * bl0 >> 16)) >> (f - 16)``.
+    No single product exceeds 2**63; the cross-term sum, the shifted high
+    product and the final sum wrap modulo 2**64, as XLA's int64 does
+    (exact while decoded magnitudes stay below 2**23 for Q24.40)."""
+    if f <= 32:
+        raise ValueError(f"the 64-bit multiply needs frac_bits > 32, got {f}")
+    ah, al = a_limbs
+    bh, bl = b_limbs
+    lo = al * (bl & 0xFFFF)
+    lo >>= 16
+    lo += al * (bl >> 16)
+    lo >>= f - 16
+    cross = ah * bl
+    cross += al * bh
+    shift = f - 32
+    cross += 1 << (shift - 1)
+    cross >>= shift
+    hi = ah * bh
+    hi <<= 64 - f
+    hi += cross
+    hi += lo
+    return hi
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedPointPolicy:
+    """Qm.n fixed point: ``total_bits`` storage with ``frac_bits`` fraction.
+
+    The paper's formats:
+      * fixed64 = Q24.40 -> FixedPointPolicy(64, 40)
+      * fixed32 = Q8.24  -> FixedPointPolicy(32, 24)
+
+    Values are assumed range-normalized (|x| bounded by the integer part),
+    matching the paper's observation that the physical quantities can be
+    rescaled into [-1, 1].
+    """
+
+    total_bits: int = 32
+    frac_bits: int = 24
+
+    def __post_init__(self) -> None:
+        if self.total_bits not in (32, 64):
+            raise ValueError("fixed point storage must be int32 or int64")
+        if not 0 < self.frac_bits < self.total_bits:
+            raise ValueError("frac_bits out of range")
+
+    @property
+    def name(self) -> str:
+        m = self.total_bits - self.frac_bits
+        return f"fixed{self.total_bits}_q{m}.{self.frac_bits}"
+
+    @property
+    def is_fixed_point(self) -> bool:
+        return True
+
+    @property
+    def bits(self) -> int:
+        return self.total_bits
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        return torch.int32 if self.total_bits == 32 else torch.int64
+
+    @property
+    def scale(self) -> float:
+        return float(2 ** self.frac_bits)
+
+    # -- host-side conversions (paper: done in host code, saves FPGA area) --
+    def encode(self, x) -> torch.Tensor:
+        """Round ``x * 2**frac_bits`` half to even (as ``jnp.round``)
+        into the storage dtype; a tensor keeps its device, anything else
+        becomes a CPU tensor.  Out-of-range values saturate and NaN
+        becomes 0, as XLA's float-to-integer conversion does."""
+        scaled = torch.round(_as_float64(x) * self.scale).nan_to_num(nan=0.0)
+        top = 2.0 ** (self.total_bits - 1)
+        q = scaled.clamp(-top, math.nextafter(top, 0.0)).to(self.storage_dtype)
+        return q.masked_fill(scaled >= top, torch.iinfo(self.storage_dtype).max)
+
+    def decode(self, q) -> torch.Tensor:
+        return torch.as_tensor(q).to(torch.float64) / self.scale
+
+    # -- device-side arithmetic ---------------------------------------------
+    def fadd(self, a, b):
+        return a + b
+
+    def fsub(self, a, b):
+        return a - b
+
+    def fmul(self, a, b):
+        """(a * b) >> frac_bits with a wide intermediate, round-to-nearest.
+
+        int32 storage: exact via an int64 intermediate, wrapped back to
+        int32.  int64 storage: the 128-bit product from limbs, see
+        :func:`_fmul64`."""
+        f = self.frac_bits
+        if self.total_bits == 32:
+            wide = a.to(torch.int64) * b.to(torch.int64)
+            wide += 1 << (f - 1)  # round to nearest
+            wide >>= f
+            return wide.to(torch.int32)
+        return _fmul64(_split64(a), _split64(b), f)
+
+    def fdiv(self, a, b):
+        """int32: ``(a << frac_bits) // b``, floor division as ``jnp``'s
+        ``//``.  int64: through a float64 reciprocal of ``b`` (the
+        reference's documented approximation), in its operation order."""
+        if self.total_bits == 32:
+            wide = a.to(torch.int64) << self.frac_bits
+            q = torch.div(wide, b.to(torch.int64), rounding_mode="floor")
+            return q.to(torch.int32)
+        rec = 1.0 / (b.to(torch.float64) / self.scale)
+        return self.encode(self.decode(a) * rec)
+
+    def contract(self, a, b, subscripts: str):
+        """Fixed-point binary einsum: per-product rescale, then integer sum.
+
+        Products are shifted *before* accumulation so partial sums stay
+        in range (the HLS flow sizes its accumulators identically).  As
+        in the reference, each product is formed on the union index space
+        of both operands and summed; no integer GEMM is used (the card
+        has none).  Chunk rule: the union space is cut along its largest
+        kept (output) index into pieces of at most
+        :data:`CONTRACT_CHUNK_VALUES` values (never less than one index
+        value), so no more than one chunk's broadcast exists at a time.
+        Each output entry is computed whole inside one chunk, so chunking
+        never changes a bit."""
+        in_spec, out_spec = subscripts.split("->")
+        sa, sb = in_spec.split(",")
+        union = sa + "".join(c for c in sb if c not in sa)
+        dims: Dict[str, int] = {}
+        for c, d in zip(sa, a.shape):
+            dims[c] = d
+        for c, d in zip(sb, b.shape):
+            dims[c] = d
+
+        def expand(x, s):
+            perm = [s.index(c) for c in union if c in s]
+            shape = tuple(dims[c] if c in s else 1 for c in union)
+            return x.permute(perm).reshape(shape)
+
+        if self.total_bits == 32:
+            ea = expand(a.to(torch.int64), sa)
+            eb = expand(b.to(torch.int64), sb)
+        else:
+            ea = _split64(expand(a, sa))
+            eb = _split64(expand(b, sb))
+
+        kept = [i for i, c in enumerate(union) if c in out_spec]
+        sum_axes = [i for i, c in enumerate(union) if c not in out_spec]
+
+        def products(pa, pb):
+            if self.total_bits == 32:
+                prod = pa * pb
+                prod += 1 << (self.frac_bits - 1)
+                prod >>= self.frac_bits
+            else:
+                prod = _fmul64(pa, pb, self.frac_bits)
+            # int64 sums wrap modulo 2**64; the int32 cast wraps modulo
+            # 2**32: the reference's wrapping int32 sum of products
+            return prod.sum(dim=sum_axes) if sum_axes else prod
+
+        if not kept:  # a full reduction: one output, one chunk
+            return products(ea, eb).to(self.storage_dtype)
+        n_union = math.prod(dims[c] for c in union)
+        axis = max(kept, key=lambda i: dims[union[i]])
+        extent = dims[union[axis]]
+        step = max(1, CONTRACT_CHUNK_VALUES // (n_union // extent))
+        out = torch.empty([dims[union[i]] for i in kept],
+                          dtype=self.storage_dtype, device=a.device)
+        pos = kept.index(axis)
+
+        def part(x, i0, n):
+            if isinstance(x, torch.Tensor):
+                return x if x.shape[axis] == 1 else x.narrow(axis, i0, n)
+            return [part(t, i0, n) for t in x]
+
+        for i0 in range(0, extent, step):
+            n = min(step, extent - i0)
+            out.narrow(pos, i0, n).copy_(
+                products(part(ea, i0, n), part(eb, i0, n)))
+        remaining = [c for c in union if c in out_spec]
+        return out.permute([remaining.index(c) for c in out_spec])
+
+
+Policy = Union[FloatPolicy, FixedPointPolicy]
 
 F64 = FloatPolicy("float64")
 F32 = FloatPolicy("float32")
 BF16 = FloatPolicy("bfloat16", accum_dtype="float32")
+FIXED64 = FixedPointPolicy(64, 40)  # the paper's ap_fixed<64,24> (Q24.40)
+FIXED32 = FixedPointPolicy(32, 24)  # the paper's ap_fixed<32,8>  (Q8.24)
 
-POLICIES = {p.name: p for p in (F64, F32, BF16)}
-
-#: The paper's fixed-point formats (reference names), not ported yet.
-FIXED_POINT_NAMES = ("fixed64_q24.40", "fixed32_q8.24")
+POLICIES = {p.name: p for p in (F64, F32, BF16, FIXED64, FIXED32)}
 
 
-def get_policy(name: str) -> FloatPolicy:
-    """The policy registered under ``name``.
-
-    Raises :class:`NotImplementedError` for the fixed-point formats and
-    :class:`ValueError` for names no package knows."""
+def get_policy(name: str) -> Policy:
+    """The policy registered under ``name``; :class:`ValueError` for
+    names no package knows."""
     if name in POLICIES:
         return POLICIES[name]
-    if name in FIXED_POINT_NAMES:
-        raise NotImplementedError(
-            f"fixed-point policy {name!r} is not ported yet"
-        )
     raise ValueError(f"unknown policy {name!r}; known: {sorted(POLICIES)}")
 
 

@@ -15,8 +15,8 @@ hand-written builder code:
      decides which cross-stage values stay device-resident and which
      cross the host link;
   5. **backend**     -- each stage is compiled by ``core.emit`` (plain
-     PyTorch ``xla``, or a hand-written CUDA kernel via structural
-     pattern dispatch, ``flow.patterns``);
+     PyTorch ``xla`` or ``staged``, or a hand-written CUDA kernel via
+     structural pattern dispatch, ``flow.patterns``);
   6. **memory**      -- the derived :class:`ProgramChain` is planned by
      ``memory.plan_chain``; a kernel stage without a pinned block runs
      at the block its plan sized against the card's shared memory.
@@ -522,8 +522,13 @@ def compile(
         raise FlowError(f"unknown fuse mode {fuse!r}; use 'auto' or 'off'")
     try:
         pol = get_policy(policy) if isinstance(policy, str) else policy
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         raise FlowError(str(e)) from e
+    if pol.is_fixed_point and "pallas" in (backends or (backend,)):
+        raise FlowError(
+            f"the CUDA kernels compute in floating point; policy "
+            f"{pol.name} runs on 'xla' or 'staged' stages"
+        )
     bps = pol.bits // 8
     target = resolve_target(target, device)
 

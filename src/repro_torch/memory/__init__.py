@@ -14,10 +14,11 @@ runs, and what it is predicted to cost.
   chain     -- multi-operator ProgramChain planning (inter-stage streams
                stay resident on the device; one co-sized E)
   placement -- stage CU groups over an explicit device topology
-  dse       -- the analytic cost model and the single-operator plan
+  dse       -- the analytic cost model, the single-operator plan, its
+               design-space sweep and the measured cost correction
   plan      -- the MemoryPlan dataclasses and the Fig.-14-style report
 
-Stage fusion and the design-space sweeps are not ported yet.
+Stage fusion and the chain design-space sweeps are not ported yet.
 """
 from . import chain, channels, dse, layout, pipeline, placement, plan
 from .chain import (ChainPlan, ChainStage, PipelineSpec, ProgramChain,
@@ -27,7 +28,8 @@ from .channels import (ALVEO_U280, CPU_HOST, H100_SXM, TPU_V5E,
                        resolve_device, resolve_target)
 from .placement import (DeviceTopology, PlacementError, PlacementPlan,
                         StagePlacement, place_chain)
-from .dse import make_plan, predict_cost
+from .dse import (Candidate, CostCorrection, DesignSpace, explore,
+                  make_plan, pareto_front, predict_cost)
 from .plan import BufferSpec, CostBreakdown, MemoryPlan
 
 __all__ = [
@@ -38,7 +40,8 @@ __all__ = [
     "DeviceTopology", "PlacementError", "PlacementPlan", "StagePlacement",
     "place_chain",
     "PipelineSpec", "derive_pipeline",
-    "make_plan", "predict_cost",
+    "make_plan", "predict_cost", "explore", "pareto_front",
+    "DesignSpace", "Candidate", "CostCorrection",
     "ProgramChain", "ChainStage", "ChainPlan", "plan_chain",
     "fit_contention",
     "BufferSpec", "CostBreakdown", "MemoryPlan",

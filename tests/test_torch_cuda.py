@@ -14,6 +14,10 @@ differ only where their float32 values straddle a rounding boundary).
 The CFD kernels are also held to bitwise equality across block sizes,
 batch splits and input alignments, and over batches large enough that
 every CTA of their persistent grids walks several tiles.
+The fixed-point formats are integer arithmetic: their contractions,
+limb products and whole operators on the card equal the CPU's bit for
+bit.  run_simulation's checksums on the card match the CPU's within
+rel 1e-4 (float32 sums in other orders), K = 0 and K = 1 bitwise.
 Flash attention: float32 within the same rtol 5e-4 / atol 5e-4
 max|plain|; bfloat16 per element within 8e-3 |plain| (one bfloat16 step
 of the output, where the two float32 values straddle a rounding
@@ -25,7 +29,10 @@ float32 order can round a p to the other bfloat16 neighbour.
 import pytest
 import torch
 
-from repro_torch.core.precision import matmul_f32
+from repro_torch.cfd import simulation as t_simulation
+from repro_torch.core import api, dsl as t_dsl
+from repro_torch.core import precision as t_prec
+from repro_torch.core.precision import FIXED32, FIXED64, matmul_f32
 from repro_torch.kernels import _cube
 from repro_torch.kernels import gemm as t_gemm
 from repro_torch.kernels.attention import attention as t_attn
@@ -546,3 +553,58 @@ def test_matmul_f32_keeps_bf16_products_in_float32(cuda):
         matmul_f32(a, bt[0])
     with pytest.raises(TypeError, match="operands of"):
         matmul_f32(a, w.float())
+
+
+def _limb_edges():
+    """Q24.40 values at the 64-bit multiply's limb edges: high limb
+    +-(2**31 - 1) and -2**31, low limb 2**32 - 1, the int64 extremes."""
+    hi = [2 ** 31 - 1, -(2 ** 31 - 1), -2 ** 31, 0, 1, -1]
+    lo = [2 ** 32 - 1, 0, 1, 2 ** 31]
+    vals = {(h << 32) | l for h in hi for l in lo} | {2 ** 63 - 1, -2 ** 63}
+    return torch.tensor(sorted(vals), dtype=torch.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", [FIXED32, FIXED64], ids=lambda p: p.name)
+def test_fixed_point_contract_on_the_card_equals_cpu(cuda, pol, monkeypatch):
+    """Limb products, shifts and wrapping integer sums on CUDA tensors
+    give the CPU's bits, whole and in chunks."""
+    gen = torch.Generator().manual_seed(5)
+    a = pol.encode(torch.rand(64, 11, 11, 11, generator=gen, dtype=torch.float64) * 2 - 1)
+    b = pol.encode(torch.rand(11, 11, generator=gen, dtype=torch.float64) * 2 - 1)
+    want = pol.contract(a, b, "Zabc,da->Zdbc")
+    got = pol.contract(a.to(cuda), b.to(cuda), "Zabc,da->Zdbc")
+    assert got.device.type == "cuda" and got.cpu().equal(want)
+    monkeypatch.setattr(t_prec, "CONTRACT_CHUNK_VALUES", 1 << 12)
+    assert pol.contract(a.to(cuda), b.to(cuda), "Zabc,da->Zdbc").cpu().equal(want)
+    if pol is FIXED64:
+        x, y = torch.meshgrid(_limb_edges(), _limb_edges(), indexing="ij")
+        assert pol.fmul(x.to(cuda), y.to(cuda)).cpu().equal(pol.fmul(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["xla", "staged"])
+@pytest.mark.parametrize("pol", [FIXED32, FIXED64], ids=lambda p: p.name)
+def test_fixed_point_helmholtz_on_the_card_equals_cpu(cuda, pol, backend):
+    src = t_dsl.INVERSE_HELMHOLTZ_SRC.format(p=7)
+    gen = torch.Generator().manual_seed(6)
+    env = {k: pol.encode(torch.rand(*shape, generator=gen, dtype=torch.float64) * 2 - 1)
+           for k, shape in (("S", (7, 7)), ("D", (40, 7, 7, 7)), ("u", (40, 7, 7, 7)))}
+    kw = dict(element_vars=("u", "D", "v"), policy=pol, backend=backend)
+    got = api.compile_cfdlang(src, **kw).batched_fn(env)["v"]
+    want = api.compile_cfdlang(src, device="cpu", **kw).batched_fn(env)["v"]
+    assert got.device.type == "cuda" and got.cpu().equal(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pallas", "xla", "staged"])
+def test_run_simulation_on_the_card_matches_cpu(cuda, backend):
+    cfg = t_simulation.SimConfig(p=5, n_eq=3 * 96, batch_elements=96,
+                                 backend=backend, seed=2)
+    got = t_simulation.run_simulation(cfg)
+    serial = t_simulation.run_simulation(
+        t_simulation.SimConfig(**{**cfg.__dict__, "prefetch_depth": 0}))
+    want = t_simulation.run_simulation(cfg, device="cpu")
+    assert got.device.startswith("cuda") and got.batches == 3
+    assert serial.checksum == got.checksum
+    assert got.checksum == pytest.approx(want.checksum, rel=1e-4)

@@ -185,5 +185,31 @@ def test_not_ported_knobs_raise():
     chain = t_operators.build_cfd_chain(3, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         t_chain.plan_chain(chain, target=channels.CPU_HOST, max_stages=1)
-    with pytest.raises(t_flow.FlowError, match="not ported"):
-        t_flow.compile(src, target="cpu-host", policy="fixed32_q8.24")
+    # the fixed-point policies compile now, but never onto a float kernel
+    with pytest.raises(t_flow.FlowError, match="floating point"):
+        t_flow.compile(src, target="cpu-host", policy="fixed32_q8.24",
+                       backends=("xla", "xla", "pallas"))
+
+
+FLOW_CASES = {
+    "fixed32": dict(policy="fixed32_q8.24"),
+    "fixed64-staged": dict(policy="fixed64_q24.40", backend="staged"),
+    "mixed-staged": dict(backends=("staged", "xla", "staged")),
+    "fixed32-staged-cpu": dict(policy="fixed32_q8.24", backend="staged",
+                               target="cpu-host"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLOW_CASES))
+def test_flow_fixed_point_and_staged_match_reference(case):
+    """``flow.compile`` with a fixed-point policy or staged stages gives
+    the reference's plan, plan signature and report."""
+    kw = {"target": "alveo-u280", "stages": t_operators.CFD_PIPELINE_STAGES,
+          "batch_elements": 256, **FLOW_CASES[case]}
+    src = t_operators.CFD_PIPELINE_SRC.format(p=5)
+    want = r_build.compile(src, **kw)
+    got = t_flow.compile(src, **kw)
+    assert got.backends == want.backends
+    assert got.plan.signature == want.plan.signature
+    assert got.report() == want.report()
+    assert [s.compiled.backend for s in got.chain.stages] == list(got.backends)
