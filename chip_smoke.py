@@ -44,6 +44,23 @@ Phases (any failure exits non-zero, and no result line is printed):
   D. the single-operator design-space sweep on the card: ``explore`` over
      xla/staged/pallas at float32 on one card, the top three measured and
      the cost correction fitted;
+  X. stage fusion and the chain DSE at p = 11 on the h100-sxm plans
+     (n_eq = 2,000,000): the named cuts planned with ``max_stages=2``
+     (interp+grad, E = 50,420) and ``max_stages=1`` (all three, E =
+     40,335, a recipe of 15 element slots), and the 13-stage auto
+     schedule compiled with ``fuse="auto"`` (three stages); every fused
+     stage compiled to ``pallas``; one batch of each, counters zeroed
+     just before and read just after (5 GEMM-chain launches, 1
+     Helmholtz), with gy, gz and v bitwise equal to the unfused chains'
+     on the same inputs (the fully fused v against the unfused chain
+     whose Helmholtz stage runs its recipe on the GEMM-chain kernel,
+     since the Helmholtz kernel contracts the modes in another order,
+     and within rtol 5e-4 / atol 5e-4 max|ref| of the Helmholtz
+     kernel's); each fused recipe on the kernel against its plain
+     version at phase 2's tolerance, timed beside the unfused stages it
+     replaces (at the same E), its plain version and its bound; then
+     ``explore_chain`` over all 27 backend combinations of the all-kernel
+     chain, the top three measured and the cost correction fitted;
   4. the flash-attention kernels against their plain version at the
      model path's shape (B = 4, Hq = 16, Hkv = 8, T = 4096, d = 128,
      causal): bfloat16 on the tensor-core (wgmma) route, float32 on the
@@ -117,6 +134,9 @@ LOGIT_ATOL_FRAC, LOGIT_MIN_ARGMAX = 0.05, 0.9
 #: left-to-right path is the sequence of mode contractions
 INTERP_EINSUM = "elmn,il,jm,kn->eijk"
 HELMHOLTZ_EINSUM = "eabc,la,mb,nc,elmn,li,mj,nk->eijk"
+#: the auto schedule's last fused stage (s8..s12): t0 contracted in mode
+#: 1, D as a Hadamard factor, then S transposed in every mode
+HELMHOLTZ_TAIL_EINSUM = "eazc,bz,eabc,ai,bj,ck->eijk"
 #: the Fig. 2 path: batches of the run
 FIG2_BATCHES = 4
 #: checksums of the xla / staged backends against the kernel's: float32
@@ -126,6 +146,8 @@ FIG2_CHECKSUM_RTOL = 1e-4
 FIXED_CPU_ELEMENTS = 16
 PAPER_MSE = {"fixed64_q24.40": 9.39e-22, "fixed32_q8.24": 3.58e-12}
 MSE_SLACK = 100.0
+#: phase X: the problem size the fusion and chain-DSE plans assume
+FUSION_N_EQ = 2_000_000
 #: the flash-attention kernel of each route
 FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "fma": "src/repro_torch/csrc/flash_attention.cu"}
@@ -770,6 +792,251 @@ def phase_dse():
                           for c in measured])
 
 
+def _stage_env(prog, E, gen):
+    """Uniform inputs in [-1, 1) on the card for one stage program."""
+    import torch
+
+    elem = set(prog.element_vars)
+    return {name: torch.rand(((E,) + tuple(node.shape)) if name in elem
+                             else tuple(node.shape), generator=gen,
+                             device="cuda") * 2 - 1
+            for name, node in prog.inputs.items()}
+
+
+def _time_stage(prog, E, gen):
+    """CUDA-event ms of the kernel a stage program dispatches to, alone."""
+    from repro_torch.flow import patterns
+
+    impl = patterns.pallas_impl_for(prog, block_elements=1)
+    if impl is None:
+        fail(f"no kernel matches stage program with inputs {list(prog.inputs)}")
+    env = _stage_env(prog, E, gen)
+    return time_ms(lambda: impl(env), 20)
+
+
+def _run_one_batch(chain, plan, elems):
+    """One batch of ``chain`` with the element inputs ``elems`` (by bare
+    name), outputs collected on the host by bare name."""
+    from repro_torch.cfd import simulation
+
+    inputs = {f"{s.name}.{n}": elems[n]
+              for i, s in enumerate(chain.stages)
+              for n, _ in chain.host_element_inputs(i)}
+    res = simulation.run_chain(chain, plan, inputs=inputs, max_batches=1,
+                               collect_outputs=True)
+    if res.batches != 1 or res.elements != plan.batch_elements:
+        fail(f"fused run: {res.batches} batches of {res.elements} elements")
+    return {q.split(".", 1)[1]: v for q, v in res.outputs.items()}, res
+
+
+def phase_fusion():
+    """Phase X: stage fusion and the chain DSE at p = 11 on the h100-sxm
+    plans -- every fused stage on the GEMM-chain kernel, bitwise against
+    the unfused chains, timed beside the kernels it replaces and its
+    bound; then ``explore_chain`` with the top three measured."""
+    import numpy as np
+    import torch
+
+    from repro_torch import flow
+    from repro_torch.cfd import operators
+    from repro_torch.flow import patterns
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.gemm import ops as gemm_ops
+    from repro_torch.memory import chain as mchain
+    from repro_torch.memory import channels, dse
+
+    p, n_eq, H = 11, FUSION_N_EQ, channels.H100_SXM
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    named = operators.build_cfd_chain(p, backends="pallas", target=H)
+    base = mchain.plan_chain(named, target=H, n_eq=n_eq)
+    plans = {k: mchain.plan_chain(named, target=H, n_eq=n_eq, max_stages=k)
+             for k in (2, 1)}
+    src = operators.CFD_PIPELINE_SRC.format(p=p)
+    auto = flow.compile(src, target=H, backend="pallas", n_eq=n_eq)
+    auto_fused = flow.compile(src, target=H, backend="pallas", n_eq=n_eq,
+                              fuse="auto")
+    want_groups = {
+        2: (("interp", "grad"), ("helmholtz",)),
+        1: (("interp", "grad", "helmholtz"),),
+        "auto": (("s0", "s1", "s2"), ("s3", "s4", "s5", "s6", "s7"),
+                 ("s8", "s9", "s10", "s11", "s12")),
+    }
+    got_groups = {k: plans[k].fusion.groups for k in (2, 1)}
+    got_groups["auto"] = auto_fused.plan.fusion.groups
+    if got_groups != want_groups or base.batch_elements != 50_420:
+        fail(f"fusion decisions {got_groups} (E={base.batch_elements}); "
+             f"want {want_groups} at E=50420")
+    fused_chains = {2: plans[2].fusion.chain, 1: plans[1].fusion.chain,
+                    "auto": auto_fused.chain}
+    for k, chain in fused_chains.items():
+        for s in chain.stages:
+            if s.backend != "pallas":
+                fail(f"fused stage {s.name} ({k}) compiled to {s.backend}")
+    predicted = {"named": base.cost.t_pipelined, "max_stages=2":
+                 plans[2].cost.t_pipelined, "max_stages=1":
+                 plans[1].cost.t_pipelined, "auto 13": auto.plan.cost.t_pipelined,
+                 "auto fused": auto_fused.plan.cost.t_pipelined}
+    print("fusion: planner ms/batch " + ", ".join(
+        f"{k} {v * 1e3:.3f}" for k, v in predicted.items()) +
+        f" | E {base.batch_elements}, max_stages=1 E "
+        f"{plans[1].batch_elements}, auto fused E "
+        f"{auto_fused.plan.batch_elements}")
+
+    # -- one batch of each, outputs bitwise against the unfused chains ----
+    E0 = base.batch_elements
+    rng = np.random.default_rng(11)
+    elems = {q: rng.uniform(-1, 1, (E0, p, p, p)).astype(np.float32)
+             for q in ("u", "D")}
+    want, _ = _run_one_batch(named, base, elems)
+    # the unfused chain with its Helmholtz stage on the GEMM-chain kernel:
+    # the recipe contracts the modes in the program's order (0, 2, 1),
+    # the Helmholtz kernel in 0, 1, 2, so their v differ by rounding
+    hh = named.stages[2]
+    hh_recipe = patterns.match_gemm_chain(hh.program)
+    on_chain = mchain.ProgramChain(list(named.stages[:2]) + [
+        mchain.ChainStage(hh.name, dataclasses.replace(
+            hh.compiled, batched_fn=gemm_ops.make_pallas_impl(hh_recipe, 1)),
+            dict(hh.bindings))])
+    want_gemm, _ = _run_one_batch(on_chain, base, elems)
+    auto_base = mchain.plan_chain(auto.chain, target=H, batch_elements=E0,
+                                  n_eq=E0)
+    zero_counts()
+    got = {k: _run_one_batch(fused_chains[k], plans[k], elems)
+           for k in (2, 1)}
+    got["auto"] = _run_one_batch(auto_fused.chain, auto_fused.plan, elems)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches != {"gemm_chain": 5, "helmholtz": 1, "flash_attention": 0}:
+        fail(f"fused runs launched {launches}; want 5 gemm_chain (1 + 1 + "
+             "3 fused stages) and 1 helmholtz")
+    want_auto, _ = _run_one_batch(
+        mchain.chain_at_plan_blocks(auto.chain, auto_base), auto_base, elems)
+    v_err = {}
+    for k, (outs, _) in got.items():
+        n = next(iter(outs.values())).shape[0]
+        for q in ("gy", "gz", "v"):
+            ref = want_auto if k == "auto" else (
+                want_gemm if (k == 1 and q == "v") else want)
+            if not np.isfinite(outs[q]).all():
+                fail(f"fused {k}: {q} is not finite")
+            if not np.array_equal(outs[q], ref[q][:n]):
+                fail(f"fused {k}: {q} differs bitwise from the unfused chain")
+        v_err[k] = compare(torch.from_numpy(outs["v"]),
+                           torch.from_numpy(want["v"][:n]), F32_RTOL,
+                           F32_ATOL_FRAC, f"fused {k} v vs the Helmholtz kernel's")
+    print(f"fusion: one batch each, gy/gz/v bitwise equal to the unfused "
+          f"chains (max_stages=1: v bitwise equal with the Helmholtz stage on "
+          f"the GEMM-chain kernel; against the Helmholtz kernel's v max|err| "
+          f"{v_err[1]:.3e}) | launches {launches}")
+    del want, want_gemm, want_auto, got, elems
+
+    # -- each fused recipe on the kernel against its plain version, timed
+    #    beside the unfused stages it replaces and its bound --------------
+    members = {s.name: s.program for s in named.stages}
+    members.update({s.name: s.program for s in auto.chain.stages})
+    rows = []
+    for k in (2, 1, "auto"):
+        plan = auto_fused.plan if k == "auto" else plans[k]
+        E = plan.batch_elements
+        for s in fused_chains[k].stages:
+            if "+" not in s.name:
+                continue
+            recipe = patterns.match_gemm_chain(s.program)
+            _, n_slots, _, _, _, _ = gemm.op_table(recipe)
+            env = _stage_env(s.program, E, gen)
+            got = gemm.gemm_chain(recipe, env, block_elements=1)
+            ref = gemm.gemm_chain_plain(recipe, env, block_elements=1)
+            torch.cuda.synchronize()
+            err = max(compare(got[q], ref[q], F32_RTOL, F32_ATOL_FRAC,
+                              f"fused {s.name} {q}") for q in got)
+            ms = time_ms(lambda: gemm.gemm_chain(recipe, env,
+                                                 block_elements=1), 20)
+            plain_ms = time_ms(lambda: gemm.gemm_chain_plain(
+                recipe, env, block_elements=1), 3)
+            unfused = sum(_time_stage(members[m], E, gen)
+                          for m in s.name.split("+"))
+            b_ms, b_by = bound(nbytes(*env.values(), *got.values()),
+                               E * s.program.total_flops())
+            library_ms, lib_txt = None, ""
+            if s.name == "s0+s1+s2":   # interpolation: one einsum call
+                (mat,) = [n for n, _, is_e in recipe.inputs if not is_e]
+                (x,) = [n for n, _, is_e in recipe.inputs if is_e]
+                A = env[mat]
+                library_ms, lib_txt = einsum_ms(
+                    INTERP_EINSUM, (env[x], A, A, A),
+                    ref[recipe.outputs[0][0]], s.name)
+                lib_txt = "  " + lib_txt
+            elif s.name == "s8+s9+s10+s11+s12":   # one output, v
+                S = env["S"]
+                library_ms, lib_txt = einsum_ms(
+                    HELMHOLTZ_TAIL_EINSUM, (env["t0"], S, env["D"], S, S, S),
+                    ref["v"], s.name)
+                lib_txt = "  " + lib_txt
+            rows.append(dict(stage=s.name, plan=str(k), E=E,
+                             element_slots=n_slots, ms=ms, plain_ms=plain_ms,
+                             unfused_ms=unfused, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms, max_abs_err=err))
+            print(f"gemm_chain {s.name} E={E} ({n_slots} element slots): "
+                  f"f32 max|err| {err:.3e} | kernel {ms:.3f} ms  unfused "
+                  f"stages {unfused:.3f} ms  plain {plain_ms:.3f} ms"
+                  f"{lib_txt}  bound {b_ms:.3f} ms ({b_by})")
+            del env, got, ref
+    # device time an element of each configuration's kernels (the chain's
+    # batches are host-bound; this is what the planner's roofline prices)
+    by_stage = {r["stage"]: r for r in rows}
+    t_unfused = sum(_time_stage(members[m], E0, gen)
+                    for m in ("interp", "grad", "helmholtz"))
+    device_us = {
+        "named": t_unfused / E0 * 1e3,
+        "max_stages=2": (by_stage["interp+grad"]["ms"]
+                         + _time_stage(members["helmholtz"], E0, gen))
+        / E0 * 1e3,
+        "max_stages=1": by_stage["interp+grad+helmholtz"]["ms"]
+        / plans[1].batch_elements * 1e3,
+    }
+    print("fusion: kernel time an element (us) " + ", ".join(
+        f"{k} {v:.5f}" for k, v in device_us.items()) +
+        " | planner (us) " + ", ".join(
+        f"{k} {predicted[k] / pl.batch_elements * 1e6:.5f}" for k, pl in
+        (("named", base), ("max_stages=2", plans[2]),
+         ("max_stages=1", plans[1]))))
+    torch.cuda.empty_cache()
+
+    # -- the chain DSE on the card -----------------------------------------
+    # all 27 backend combinations, so that the compiled all-kernel chain is
+    # among the candidates (the default keeps the first 16 only)
+    space = dse.ChainDesignSpace(backends=("xla", "staged", "pallas"),
+                                 cu_counts=(1,), max_backend_combos=27)
+    t = time.perf_counter()
+    cands = dse.explore_chain(named, target=H, n_eq=n_eq, space=space,
+                              measure_top=3, measure_batches=2,
+                              calibrate=True)
+    secs = time.perf_counter() - t
+    measured = [c for c in cands if c.verified]
+    if len(measured) != 3 or not all(c.measured_s_per_element > 0
+                                     for c in measured):
+        fail(f"chain DSE: {len(measured)} candidates measured, want three")
+    corr = dse.fit_correction(cands)
+    print(f"chain dse: {len(cands)} candidates in {secs:.1f} s")
+    print(dse.format_chain_ranking(cands, 8))
+    print(f"  correction {corr}")
+    dse_stats = dict(
+        seconds=secs, n_candidates=len(cands),
+        correction=dataclasses.asdict(corr),
+        measured=[dict(backends=[sp.backend for sp in c.plan.stages],
+                       E=c.plan.batch_elements,
+                       K=[sp.prefetch_depth for sp in c.plan.stages],
+                       predicted_s_per_element=c.predicted_s_per_element,
+                       measured_s_per_element=c.measured_s_per_element)
+                  for c in measured])
+    stats = dict(groups={str(k): v for k, v in got_groups.items()},
+                 predicted_ms_per_batch={k: v * 1e3
+                                         for k, v in predicted.items()},
+                 device_us_per_element=device_us, v_err_full_fusion=v_err[1],
+                 launches=launches, chain_dse=dse_stats)
+    return rows, stats, launches
+
+
 def visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
     """(query, key) pairs the attention must form: with ``causal`` and
     queries aligned to the end of the keys, row i sees
@@ -1100,6 +1367,12 @@ def main() -> int:
         dse_stats = phase_dse()
         new_s = time.perf_counter() - t_new
         print(f"phases F, Q and D: {new_s:.1f} s")
+        t_x = time.perf_counter()
+        fused_rows, fusion, fused_launches = phase_fusion()
+        for name in ("gemm_chain", "helmholtz"):
+            launches[name] += fused_launches[name]
+        fusion_s = time.perf_counter() - t_x
+        print(f"phase X: {fusion_s:.1f} s")
         flash_rows = phase_flash()
         model = phase_model()
     except SmokeFailure as e:
@@ -1128,7 +1401,8 @@ def main() -> int:
             "bound_by": max(shapes, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": sum(libs) if all(x is not None for x in libs) else None,
             "shapes": shapes,
-            **({"probes_ms": probes} if name == "gemm_chain" else {}),
+            **({"probes_ms": probes, "fused_shapes": fused_rows}
+               if name == "gemm_chain" else {}),
         })
     main_case = flash_rows[0]  # the shape the model path gives the kernel
     kernels.append({
@@ -1143,7 +1417,8 @@ def main() -> int:
     })
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"fig2": fig2, "fixed_point": fixed, "dse": dse_stats,
-                      "new_phases_s": new_s}))
+                      "new_phases_s": new_s, "fusion": fusion,
+                      "fusion_s": fusion_s}))
     print(json.dumps({"model": model}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -73,9 +73,12 @@ namespace repro {
 constexpr int kMaxIn = 8;
 constexpr int kMaxOut = 8;
 constexpr int kMaxOps = 32;
-constexpr int kMaxSlots = 8;
 constexpr int kMaxMats = 8;
 constexpr int kOpWidth = 10;
+// Element slots: every element input and every op result has one, so a
+// recipe within the other limits always fits.  A slot is only an index
+// (shared memory follows the work cubes, n_bufs <= n_slots).
+constexpr int kMaxSlots = kMaxIn + kMaxOps;
 
 // Op table rows.  Element slots number the element inputs first (slot j
 // is staged input j), then one slot per op; mats index the shared

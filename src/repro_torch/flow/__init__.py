@@ -10,10 +10,10 @@ memory architecture, with no hand-written per-operator code::
     result = system.run(max_batches=4)       # on the CUDA card
 
   build     -- compile(): parse -> rewrite -> schedule -> stage
-               extraction -> chain -> plan
+               extraction -> chain -> plan (optionally fused and swept)
   patterns  -- structural dispatch of matched stages to the CUDA kernels
-
-The command-line entry point is not ported yet.
+  cli       -- ``python -m repro_torch.flow prog.cfd [--fuse auto] [--dse]
+               [--run] [--device cpu]``
 """
 from . import build, patterns
 from .build import CompiledSystem, FlowError, StreamInfo, compile, resolve_target

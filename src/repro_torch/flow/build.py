@@ -18,16 +18,17 @@ hand-written builder code:
      PyTorch ``xla`` or ``staged``, or a hand-written CUDA kernel via
      structural pattern dispatch, ``flow.patterns``);
   6. **memory**      -- the derived :class:`ProgramChain` is planned by
-     ``memory.plan_chain``; a kernel stage without a pinned block runs
-     at the block its plan sized against the card's shared memory.
+     ``memory.plan_chain`` (optionally fused by ``memory.fusion`` and
+     swept by ``dse.explore_chain``); a kernel stage without a pinned
+     block runs at the block its plan sized against the card's shared
+     memory.
 
 The result is a :class:`CompiledSystem`: per-stage callables, the
 :class:`ChainPlan`, and a human-readable system report -- the generated-
 architecture description the paper's flow emits, byte for byte the
 reference's.  ``CompiledSystem.run`` executes the artifact through the
-K-deep chain pipeline driver.  The design-space sweep (``dse``), stage
-fusion (``fuse='auto'``), measured block tuning (``tune_blocks``) and
-the profile store (``profile``) are not ported yet and raise
+K-deep chain pipeline driver.  Measured block tuning (``tune_blocks``)
+and the profile store (``profile``) are not ported yet and raise
 :class:`FlowError`.
 """
 from __future__ import annotations
@@ -40,7 +41,10 @@ from ..core.schedule import (Group, Schedule, schedule as make_schedule,
                              stage_partition)
 from ..core.precision import get_policy
 from ..memory import channels
-from ..memory.chain import ChainPlan, ChainStage, ProgramChain, plan_chain
+from ..memory.chain import (ChainPlan, ChainStage, ProgramChain,
+                            chain_at_plan_blocks, plan_chain)
+from ..memory.fusion import FusionSpec, fuse_chain_auto
+from ..memory.fusion import _collapse, _collapse_backends
 from ..memory.placement import DeviceTopology
 from . import patterns
 
@@ -361,10 +365,11 @@ class CompiledSystem:
     streams: Tuple[StreamInfo, ...]
     sharing: Dict[str, "liveness.SharingPlan"]
     stage_groups: Tuple[Group, ...]
+    candidates: Optional[list] = None   # ChainCandidate ranking (dse=True)
 
     @property
     def stage_names(self) -> Tuple[str, ...]:
-        """Planned stage names, in execution order."""
+        """Planned stage names, in execution order (post-fusion)."""
         return tuple(s.name for s in self.chain.stages)
 
     def run(self, **kwargs):
@@ -384,10 +389,22 @@ class CompiledSystem:
         elem = set(prog.element_vars)
         n_elem_in = sum(1 for n in prog.inputs if n in elem)
         bps = self.schedule.bytes_per_scalar
-        fusion_line = (
-            "  fusion: off (fuse='auto' merges stages whose handoff "
-            "the cost model prices above their combined roofline)"
-        )
+        fu = self.plan.fusion
+        if fu is None:
+            fusion_line = (
+                "  fusion: off (fuse='auto' merges stages whose handoff "
+                "the cost model prices above their combined roofline)"
+            )
+        elif fu.fused:
+            fusion_line = (
+                f"  fusion: {fu.mode} ({fu.n_stages_before} -> "
+                f"{fu.n_stages_after} stages)"
+            )
+        else:
+            fusion_line = (
+                f"  fusion: {fu.mode} (kept all {fu.n_stages_after} "
+                "stages)"
+            )
         lines = [
             f"repro.flow system: {self.name}",
             "  pipeline: DSL source -> teil IR -> schedule -> chain -> "
@@ -459,6 +476,8 @@ def compile(
     n_eq: Optional[int] = None,
     channel_bytes: Optional[int] = None,
     dse: bool = False,
+    dse_space=None,
+    measure_top: int = 0,
     profile=None,
     fuse: Optional[str] = None,
     tune_blocks: bool = False,
@@ -500,12 +519,28 @@ def compile(
             :class:`~repro_torch.memory.placement.DeviceTopology`.
         n_eq: Total equations/elements the plan should assume.
         channel_bytes: Override the target's pseudo-channel capacity.
-        dse, profile, fuse, tune_blocks: Not ported yet; anything but
-            the defaults (``fuse='off'`` aside) raises.
+        dse: Sweep chain design points (``dse.explore_chain``) and adopt
+            the best feasible plan, recompiling stages if the winning
+            backends, policy or blocks differ.
+        dse_space: A :class:`~repro_torch.memory.dse.ChainDesignSpace`
+            restricting that sweep.
+        measure_top: Verify the k best candidates by measurement on
+            ``device`` (the CUDA card unless ``"cpu"``).
+        fuse: ``'auto'`` makes the stage count itself a design axis:
+            after scheduling, adjacent stages are greedily merged
+            whenever the planner prices the device-resident handoff
+            between them above the fused stage's combined roofline
+            (:mod:`repro_torch.memory.fusion`); merged stages re-enter
+            kernel pattern matching.  Explicit ``stages`` cuts are
+            barriers -- fusion never merges across a named cut.
+            ``'off'``/``None`` keeps every boundary.
+        profile, tune_blocks: Not ported yet (ROADMAP queue 1, items 9
+            and 6); anything but the defaults raises.
 
     Returns:
         A :class:`CompiledSystem`: per-stage callables, the
-        :class:`~repro_torch.memory.chain.ChainPlan`, and the derivation
+        :class:`~repro_torch.memory.chain.ChainPlan` (``plan.fusion`` records
+        the fusion decision when ``fuse`` ran), and the derivation
         record rendered by :meth:`CompiledSystem.report`.
 
     Raises:
@@ -513,12 +548,13 @@ def compile(
             malformed stage cuts, non-element outputs, or a knob that is
             not ported yet.
     """
-    for flag, given in (("dse", dse), ("profile", profile is not None),
-                        ("tune_blocks", tune_blocks),
-                        ("fuse='auto'", fuse == "auto")):
+    for flag, given, item in (("profile", profile is not None, 9),
+                              ("tune_blocks", tune_blocks, 6)):
         if given:
-            raise FlowError(f"{flag} is not ported yet")
-    if fuse not in (None, "off"):
+            raise FlowError(
+                f"{flag} is not ported yet (ROADMAP queue 1, item {item})"
+            )
+    if fuse not in (None, "off", "auto"):
         raise FlowError(f"unknown fuse mode {fuse!r}; use 'auto' or 'off'")
     try:
         pol = get_policy(policy) if isinstance(policy, str) else policy
@@ -602,20 +638,130 @@ def compile(
         channel_bytes=channel_bytes,
     )
 
+    fusion_spec = None
+    if fuse == "auto":
+        if stages is not None or len(chain.stages) == 1:
+            # every explicit named cut is a barrier: fusion is a no-op
+            fusion_spec = FusionSpec(
+                mode="auto",
+                groups=tuple((s.name,) for s in chain.stages),
+                n_stages_before=len(chain.stages),
+                n_stages_after=len(chain.stages),
+                t_unfused=plan.cost.t_pipelined,
+                t_fused=plan.cost.t_pipelined,
+                saved_handoff_bytes=0,
+                barriers=(
+                    tuple(s.name for s in chain.stages)
+                    if stages is not None else ()
+                ),
+            )
+        else:
+            decision = fuse_chain_auto(
+                chain, mode="auto", target=target, policy=pol.name,
+                backends=effective, batch_elements=batch_elements,
+                prefetch_depth=prefetch_depth, cu_count=cu_count,
+                topology=topology, n_eq=n_eq, channel_bytes=channel_bytes,
+            ).fusion
+            fusion_spec = dataclasses.replace(decision, chain=None)
+            if decision.fused:
+                # rebuild the flow's own stages over the merged
+                # partition, so streams/groups/reports stay native and
+                # the merged programs re-enter kernel pattern matching
+                idx_of = {pname: i for i, (pname, _) in enumerate(parts)}
+                groups_idx = [
+                    tuple(idx_of[n] for n in g) for g in decision.groups
+                ]
+                topo_pos = {
+                    n.uid: i for i, n in enumerate(prog.toposort())
+                }
+                parts = [
+                    (
+                        "+".join(names),
+                        sorted(
+                            (n for i in g for n in parts[i][1]),
+                            key=lambda n: topo_pos[n.uid],
+                        ),
+                    )
+                    for g, names in zip(groups_idx, decision.groups)
+                ]
+                stage_specs, streams = _extract_stages(prog, parts, bps)
+                prefetch_depth = _collapse(prefetch_depth, groups_idx)
+                cu_count = _collapse(cu_count, groups_idx)
+                chain_stages, effective = _compile_stages(
+                    stage_specs, pol,
+                    _collapse_backends(list(backends), groups_idx),
+                    stage_blocks,
+                )
+                chain = ProgramChain(chain_stages)
+                plan = plan_chain(
+                    chain, target=target, policy=pol.name,
+                    backends=effective, batch_elements=batch_elements,
+                    prefetch_depth=prefetch_depth, cu_count=cu_count,
+                    topology=topology, n_eq=n_eq,
+                    channel_bytes=channel_bytes,
+                )
+                fusion_spec = dataclasses.replace(
+                    fusion_spec, t_fused=plan.cost.t_pipelined
+                )
+
+    candidates = None
+    if dse:
+        from ..memory import dse as dse_mod  # lazy: dse measures via cfd
+
+        space = dse_space or dse_mod.ChainDesignSpace(policies=(pol.name,))
+        candidates = dse_mod.explore_chain(
+            chain, target=target, n_eq=n_eq if n_eq else 1 << 16,
+            space=space, topology=topology, measure_top=measure_top,
+            device=device,
+        )
+        winner = next((c for c in candidates if c.plan.feasible), None)
+        if winner is not None:
+            plan = winner.plan
+            won = tuple(sp.backend for sp in plan.stages)
+            won_pol = (
+                get_policy(plan.policy) if plan.policy != pol.name else pol
+            )
+            # the reference bakes a kernel stage's block into its compiled
+            # kernel, so a winner that differs only in E/block (same
+            # backends + policy) still recompiles there; the decision is
+            # kept so that plans and reports stay equal
+            blocks_stale = any(
+                be == "pallas" and sp.block_elements
+                and st.name not in stage_blocks
+                for st, be, sp in zip(stage_specs, effective, plan.stages)
+            )
+            if won != effective or won_pol is not pol or blocks_stale:
+                blocks = dict(stage_blocks)
+                for sp in plan.stages:
+                    if sp.block_elements:
+                        blocks.setdefault(sp.name, sp.block_elements)
+                chain_stages, effective = _compile_stages(
+                    stage_specs, won_pol, won, blocks
+                )
+                chain = ProgramChain(chain_stages)
+                pol = won_pol
+            if won != effective:
+                # the winning combo asked for a kernel no stage matches
+                # (e.g. 'pallas' on a stage no kernel class covers):
+                # re-plan at the winner's design point with the backends
+                # that actually compiled, so plan and executable agree
+                plan = plan_chain(
+                    chain, target=target, policy=pol.name,
+                    backends=effective,
+                    batch_elements=plan.batch_elements,
+                    placement=plan.placement, n_eq=n_eq,
+                    channel_bytes=channel_bytes,
+                )
+
     # a kernel stage without a pinned block runs at the block its plan
     # sized against the target's on-chip memory (a divisor of E), so the
     # executable and the plan agree on BE
-    planned_blocks = {
-        sp.name: sp.block_elements
-        for sp, be in zip(plan.stages, effective)
-        if be == "pallas" and sp.block_elements
-        and sp.name not in stage_blocks
-    }
-    if planned_blocks:
-        chain_stages, effective = _compile_stages(
-            stage_specs, pol, effective, {**planned_blocks, **stage_blocks}
+    chain = chain_at_plan_blocks(chain, plan, pinned=stage_blocks)
+
+    if fusion_spec is not None:
+        plan = dataclasses.replace(
+            plan, fusion=dataclasses.replace(fusion_spec, chain=chain)
         )
-        chain = ProgramChain(chain_stages)
 
     sharing = liveness.plan_program(
         [s.group for s in stage_specs], bytes_per_scalar=bps
@@ -625,4 +771,5 @@ def compile(
         program=prog, schedule=sched, chain=chain, plan=plan,
         backends=effective, streams=tuple(streams), sharing=sharing,
         stage_groups=tuple(s.group for s in stage_specs),
+        candidates=candidates,
     )

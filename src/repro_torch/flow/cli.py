@@ -1,0 +1,245 @@
+"""Command-line entry point for the tool flow::
+
+    python -m repro_torch.flow prog.cfd --target h100-sxm --dse
+
+Reads a CFDlang source file, compiles it end-to-end (parse -> rewrite ->
+schedule -> chain -> plan), and prints the generated-architecture report.
+``--run`` additionally executes a smoke run of the planned system on
+synthetic data through the chain pipeline driver.  ``--device`` names
+where runs and measurements execute and which datasheet a missing
+``--target`` detects: the CUDA card (``cuda``, the default) or the host
+(``cpu``, whose kernel stages run their plain PyTorch versions).
+
+``--trace``, ``--profile``, ``--metrics`` and ``--tune-blocks`` are not
+ported yet: each exits 2 naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional, Sequence
+
+from ..core.dsl import ParseError
+from ..core.ir import IRError
+from ..memory.channels import resolve_device
+from . import build
+
+
+def _parse_args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.flow",
+        description="CFDlang source -> planned, executable memory "
+        "architecture (the paper's automated tool flow).",
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        epilog=(
+            "per-stage vectors:\n"
+            "  --cu-count and --prefetch-depth accept one int for the\n"
+            "  whole chain or a comma-separated per-stage vector, e.g.\n"
+            "  '--cu-count 1,2,1' gives the middle stage two CUs and\n"
+            "  '--prefetch-depth 2,1,1' runs stage 0 two host batches\n"
+            "  ahead. Vector length must match the planned stage count\n"
+            "  (after --fuse auto merges, one entry per ORIGINAL stage;\n"
+            "  merged stages take the max of their members).\n"
+            "\n"
+            "the reference package's CLI tour (repro.flow takes the\n"
+            "same flags): docs/CLI.md\n"
+        ),
+    )
+    ap.add_argument("source", help="CFDlang program file ('-' for stdin)")
+    ap.add_argument("--target", default=None,
+                    help="memory datasheet (h100-sxm, alveo-u280, tpu-v5e, "
+                    "cpu-host; default: detect on --device)")
+    ap.add_argument("--policy", default="float32")
+    ap.add_argument("--backend", default="xla",
+                    help="stage backend: xla | staged | pallas "
+                    "(pallas: the hand-written CUDA kernels; falls back to "
+                    "xla when no kernel matches)")
+    ap.add_argument("--backends", default=None,
+                    help="comma-separated per-stage backends")
+    ap.add_argument("--element-vars", default="",
+                    help="comma-separated element vars (for sources "
+                    "without 'elem' markers)")
+    ap.add_argument("--max-stages", type=int, default=None,
+                    help="collapse the schedule to at most this many "
+                    "stages (paper's 1/2/3/7-module sweeps)")
+    ap.add_argument("--fuse", choices=("auto", "off"), default=None,
+                    help="'auto' makes the stage count a design axis: "
+                    "adjacent stages merge whenever the planner prices "
+                    "their HBM handoff above the fused roofline "
+                    "(explicit cuts are never merged across)")
+    ap.add_argument("--tune-blocks", action="store_true",
+                    help="measure candidate block sizes per kernel stage "
+                    "(not ported yet: ROADMAP queue 1, item 6)")
+    ap.add_argument("--batch-elements", type=int, default=None,
+                    help="override E (default: planner auto-sizes + pads)")
+    ap.add_argument("--prefetch-depth", default="1",
+                    help="dispatch-ring depth per stage: one int "
+                    "(chain-wide) or a comma-separated per-stage vector")
+    ap.add_argument("--cu-count", default="1",
+                    help="CUs per stage: one int (chain-wide) or a "
+                    "comma-separated per-stage vector")
+    ap.add_argument("--devices", default=None,
+                    help="device topology the stage CU groups are "
+                    "placed on: a size like '4', a heterogeneous spec "
+                    "like 'cpu:2,tpu:4' (each group priced against its "
+                    "own datasheet), or 0 to detect the local CUDA "
+                    "device pool (default: just enough for the widest "
+                    "stage)")
+    ap.add_argument("--n-eq", type=int, default=None)
+    ap.add_argument("--dse", action="store_true",
+                    help="sweep chain design points, adopt the best "
+                    "feasible plan, and print the ranking")
+    ap.add_argument("--run", action="store_true",
+                    help="execute a smoke run on synthetic data")
+    ap.add_argument("--max-batches", type=int, default=2,
+                    help="batches for --run (default 2)")
+    ap.add_argument("--serial-stages", action="store_true",
+                    help="force the back-to-back stage schedule for "
+                    "--run (the paper's baseline; default: the plan's "
+                    "pipeline mode)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where --run and --dse measurements execute, and "
+                    "what a missing --target detects: the CUDA card "
+                    "(default) or the host, whose kernel stages run their "
+                    "plain PyTorch versions")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="trace the executed run (not ported yet: ROADMAP "
+                    "queue 1, item 9)")
+    ap.add_argument("--profile", default=None, nargs="?", const="",
+                    metavar="PATH",
+                    help="persistent profile store (not ported yet: "
+                    "ROADMAP queue 1, item 9)")
+    ap.add_argument("--metrics", default=None, metavar="OUT.json",
+                    help="meter the executed run (not ported yet: ROADMAP "
+                    "queue 1, item 9)")
+    return ap.parse_args(argv)
+
+
+#: flags of the reference's CLI whose machinery is not ported yet, with
+#: the ROADMAP queue-1 item that ports it
+NOT_PORTED = (
+    ("--trace", "trace", 9),
+    ("--profile", "profile", 9),
+    ("--metrics", "metrics", 9),
+    ("--tune-blocks", "tune_blocks", 6),
+)
+
+
+def _parse_devices(raw):
+    """``None`` -> None; ``"4"`` -> 4; ``"cpu:2,tpu:4"`` passes through
+    as a heterogeneous topology spec for ``build.compile`` to parse."""
+    if raw is None:
+        return None
+    raw = str(raw).strip()
+    try:
+        return int(raw)
+    except ValueError:
+        return raw
+
+
+def _parse_per_stage(raw, flag: str):
+    """``"2"`` -> 2; ``"2,1,1"`` -> [2, 1, 1]; junk -> ValueError naming
+    the flag (both --cu-count and --prefetch-depth accept either)."""
+    try:
+        parts = [c.strip() for c in str(raw).split(",")]
+        return (int(parts[0]) if len(parts) == 1
+                else [int(c) for c in parts])
+    except ValueError:
+        raise ValueError(f"bad {flag} {raw!r}") from None
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """CLI driver: compile/plan, then --dse/--run as requested.  Exit 0
+    ok, 2 usage error (a flag that is not ported yet among them); a
+    failure while running propagates."""
+    args = _parse_args(argv)
+    for flag, attr, item in NOT_PORTED:
+        value = getattr(args, attr)
+        if value is not None and value is not False:
+            print(
+                f"error: {flag} is not ported to repro_torch yet (ROADMAP "
+                f"queue 1, item {item})",
+                file=sys.stderr,
+            )
+            return 2
+    try:
+        if args.source == "-":
+            source = sys.stdin.read()
+            prog_name = "stdin"
+        else:
+            with open(args.source) as f:
+                source = f.read()
+            prog_name = args.source.rsplit("/", 1)[-1]
+            if prog_name.endswith(".cfd"):
+                prog_name = prog_name[:-4]
+    except OSError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    element_vars = tuple(
+        v.strip() for v in args.element_vars.split(",") if v.strip()
+    )
+    backends = None
+    if args.backends:
+        backends = tuple(b.strip() for b in args.backends.split(","))
+    try:
+        cu_count = _parse_per_stage(args.cu_count, "--cu-count")
+        prefetch_depth = _parse_per_stage(
+            args.prefetch_depth, "--prefetch-depth"
+        )
+        devices = _parse_devices(args.devices)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.device == "cuda" and (args.target is None or args.run):
+        try:
+            resolve_device("cuda")
+        except RuntimeError as e:
+            print(f"error: {e} (--device cpu)", file=sys.stderr)
+            return 2
+    try:
+        system = build.compile(
+            source,
+            name=prog_name,
+            element_vars=element_vars,
+            target=args.target,
+            policy=args.policy,
+            backend=args.backend,
+            backends=backends,
+            max_stages=args.max_stages,
+            batch_elements=args.batch_elements,
+            prefetch_depth=prefetch_depth,
+            cu_count=cu_count,
+            devices=devices,
+            n_eq=args.n_eq,
+            dse=args.dse,
+            fuse=args.fuse,
+            device=args.device,
+        )
+    except (ParseError, build.FlowError, IRError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    print(system.report())
+    if args.dse and system.candidates is not None:
+        from ..memory.dse import format_chain_ranking
+
+        print()
+        print("dse ranking (top 10):")
+        print(format_chain_ranking(system.candidates, limit=10))
+    if args.run:
+        res = system.run(
+            max_batches=args.max_batches,
+            pipeline_stages=False if args.serial_stages else None,
+            device=args.device,
+        )
+        print()
+        print(
+            f"ran {res.batches} batches x {res.plan.batch_elements} "
+            f"elements in {res.wall_s:.3f}s "
+            f"({'stage-pipelined' if res.pipelined_stages else 'serial'} "
+            "schedule)"
+        )
+        for q, v in sorted(res.checksums.items()):
+            print(f"  checksum {q} = {v:.6g}")
+    return 0

@@ -153,7 +153,11 @@ def gemm_chain_plain(
 # the CUDA kernel's argument block (mirrors GemmChainArgs in gemm_chain.cu)
 # ---------------------------------------------------------------------------
 
-MAX_IN, MAX_OUT, MAX_OPS, MAX_SLOTS, MAX_MATS, OP_WIDTH = 8, 8, 32, 8, 8, 10
+MAX_IN, MAX_OUT, MAX_OPS, MAX_MATS, OP_WIDTH = 8, 8, 32, 8, 10
+#: element slots: one per element input and one per op result, so every
+#: recipe within the other limits lowers (a slot is only an index; shared
+#: memory follows :func:`buffer_table`'s work cubes)
+MAX_SLOTS = MAX_IN + MAX_OPS
 _EWISE_CODE = {op: i for i, op in enumerate(EWISE_OPS)}
 
 

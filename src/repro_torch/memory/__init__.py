@@ -13,27 +13,32 @@ runs, and what it is predicted to cost.
                K-deep, stage-skewed dispatch rings
   chain     -- multi-operator ProgramChain planning (inter-stage streams
                stay resident on the device; one co-sized E)
+  fusion    -- cost-driven stage fusion: the stage count as a DSE axis
   placement -- stage CU groups over an explicit device topology
-  dse       -- the analytic cost model, the single-operator plan, its
-               design-space sweep and the measured cost correction
+  dse       -- the analytic cost model, the single-operator plan, the
+               single-operator and chain design-space sweeps and the
+               measured cost correction
   plan      -- the MemoryPlan dataclasses and the Fig.-14-style report
-
-Stage fusion and the chain design-space sweeps are not ported yet.
 """
-from . import chain, channels, dse, layout, pipeline, placement, plan
+from . import chain, channels, dse, fusion, layout, pipeline, placement, plan
 from .chain import (ChainPlan, ChainStage, PipelineSpec, ProgramChain,
-                    derive_pipeline, fit_contention, plan_chain)
+                    chain_at_plan_blocks, derive_pipeline, fit_contention,
+                    plan_chain)
+from .fusion import FusionSpec, fuse_chain, fuse_chain_auto
 from .channels import (ALVEO_U280, CPU_HOST, H100_SXM, TPU_V5E,
                        MemoryTarget, UnknownTargetError, detect_target,
                        resolve_device, resolve_target)
 from .placement import (DeviceTopology, PlacementError, PlacementPlan,
                         StagePlacement, place_chain)
-from .dse import (Candidate, CostCorrection, DesignSpace, explore,
-                  make_plan, pareto_front, predict_cost)
+from .dse import (Candidate, ChainCandidate, ChainDesignSpace,
+                  CostCorrection, DesignSpace, explore, explore_chain,
+                  fit_correction, format_chain_ranking, make_plan,
+                  measure_chain_plan, pareto_front, predict_cost)
 from .plan import BufferSpec, CostBreakdown, MemoryPlan
 
 __all__ = [
-    "chain", "channels", "dse", "layout", "pipeline", "placement", "plan",
+    "chain", "channels", "dse", "fusion", "layout", "pipeline",
+    "placement", "plan",
     "MemoryTarget", "ALVEO_U280", "TPU_V5E", "CPU_HOST", "H100_SXM",
     "detect_target", "resolve_device", "UnknownTargetError",
     "resolve_target",
@@ -42,7 +47,10 @@ __all__ = [
     "PipelineSpec", "derive_pipeline",
     "make_plan", "predict_cost", "explore", "pareto_front",
     "DesignSpace", "Candidate", "CostCorrection",
+    "ChainCandidate", "ChainDesignSpace", "explore_chain",
+    "fit_correction", "format_chain_ranking", "measure_chain_plan",
     "ProgramChain", "ChainStage", "ChainPlan", "plan_chain",
-    "fit_contention",
+    "chain_at_plan_blocks", "fit_contention",
+    "FusionSpec", "fuse_chain", "fuse_chain_auto",
     "BufferSpec", "CostBreakdown", "MemoryPlan",
 ]

@@ -27,7 +27,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Collection, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 from ..core import ir
 from ..core.emit import CompiledProgram
@@ -778,6 +779,40 @@ def snap_stage_elements(e: int, requested: int, cu: int) -> int:
     return cu if e % cu == 0 else e
 
 
+def chain_at_plan_blocks(
+    chain: ProgramChain, plan: ChainPlan, *, pinned: Collection[str] = ()
+) -> ProgramChain:
+    """The chain with every kernel (``pallas``) stage recompiled at the
+    block ``plan`` sized for it; other stages, and the stages named in
+    ``pinned`` (a caller's own blocks), are kept as they are.
+
+    The CFD kernels choose their own CTA tile, so the block reaches them
+    only as the wrappers' ``E % block`` check (ROADMAP fault 8).  A
+    stage compiled at another block -- a merged stage's default, or a
+    plan swept to another E -- would refuse the plan's batches; at the
+    plan's block it runs them, on the same kernel and recipe."""
+    from ..flow import patterns  # lazy: flow builds on memory
+
+    if len(plan.stages) != len(chain.stages):
+        raise ChainError(
+            f"plan has {len(plan.stages)} stages, chain has "
+            f"{len(chain.stages)}"
+        )
+    stages = []
+    for s, sp in zip(chain.stages, plan.stages):
+        compiled = s.compiled
+        impl = None
+        if (s.backend == "pallas" and sp.block_elements
+                and s.name not in pinned):
+            impl = patterns.pallas_impl_for(
+                s.program, block_elements=sp.block_elements
+            )
+        if impl is not None:  # None: a kernel of the caller's own, kept
+            compiled = dataclasses.replace(compiled, batched_fn=impl)
+        stages.append(ChainStage(s.name, compiled, dict(s.bindings)))
+    return ProgramChain(stages)
+
+
 def _scale_cost(cost: CostBreakdown, m: int) -> CostBreakdown:
     """A stage running ``m`` sub-batches per chain batch pays every cost
     term ``m`` times (including dispatch overhead -- sub-batching is not
@@ -815,10 +850,18 @@ def plan_chain(
 ) -> ChainPlan:
     """Plan one memory architecture for a whole ProgramChain.
 
-    ``fuse='auto'`` / ``max_stages`` (cost-driven stage fusion) and
-    ``profile`` (measured-contention re-pricing) are not ported yet and
-    raise :class:`NotImplementedError`; ``fuse_barriers`` is accepted
-    for signature parity.
+    ``fuse='auto'`` makes the stage count itself a design axis: the
+    cost-driven fusion pass (:mod:`repro_torch.memory.fusion`) greedily
+    merges adjacent stages whenever the device-resident handoff between
+    them costs more than the fused stage's combined roofline, then plans
+    the fused chain (the returned plan carries the decision as
+    ``plan.fusion``).  ``max_stages`` forces least-harm merges down to a
+    stage budget (``max_stages=1`` fully fuses) and implies fusion unless
+    ``fuse='off'``; ``fuse_barriers`` names stages whose downstream
+    boundary must survive (the flow's explicit named cuts).
+    ``profile`` (measured-contention re-pricing) needs the profile store,
+    which is not ported yet (ROADMAP queue 1, item 9), and raises
+    :class:`NotImplementedError`.
 
     ``backends`` overrides each stage's backend for planning (the DSE
     sweeps hypothetical per-stage backends this way); ``prefetch_depth``
@@ -853,17 +896,41 @@ def plan_chain(
 
     if fuse not in (None, "off", "auto"):
         raise ValueError(f"unknown fuse mode {fuse!r}; use 'auto' or 'off'")
+    if profile is not None:
+        raise NotImplementedError(
+            "profile-store contention fitting (profile=) is not ported yet "
+            "(ROADMAP queue 1, item 9)"
+        )
     if fuse != "off" and (
         fuse == "auto"
         or (max_stages is not None and max_stages < len(chain.stages))
     ):
-        raise NotImplementedError(
-            "cost-driven stage fusion (fuse='auto' / max_stages) is not "
-            "ported yet"
-        )
-    if profile is not None:
-        raise NotImplementedError(
-            "profile-store contention fitting (profile=) is not ported yet"
+        from .fusion import fuse_chain_auto  # lazy: fusion imports chain
+
+        if placement is not None:
+            raise ValueError(
+                "an explicit placement is per-stage and cannot survive "
+                "fusion; pass a topology instead"
+            )
+        if stage_groups is not None or stage_batch_elements is not None:
+            raise ValueError(
+                "per-stage groups/batch sizes cannot survive fusion; "
+                "plan the fused chain first, then pin stages"
+            )
+        return fuse_chain_auto(
+            chain,
+            mode="auto",
+            max_stages=max_stages,
+            barriers=tuple(fuse_barriers),
+            target=target,
+            policy=policy,
+            backends=backends,
+            batch_elements=batch_elements,
+            prefetch_depth=prefetch_depth,
+            cu_count=cu_count,
+            topology=topology,
+            n_eq=n_eq,
+            channel_bytes=channel_bytes,
         )
 
     target = target if target is not None else detect_target()

@@ -175,14 +175,12 @@ def resolve_device(device=None):
     explicitly (``device="cpu"``), never as a silent fallback."""
     import torch
 
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run "
-                "the plain PyTorch paths on the host"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run "
+            "the plain PyTorch paths on the host"
+        )
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device

@@ -1,5 +1,5 @@
 """Design-space exploration over memory architectures (CHARM-style CDSE)
-for one operator.
+for one operator or a whole chain.
 
 Sweeps the planner's knobs -- backend, precision policy, batch size E,
 prefetch depth K, CU replication -- and scores every candidate plan with
@@ -9,8 +9,10 @@ list plus the Pareto front over (predicted time, resident device
 memory); the top candidates can be *verified by measurement* through
 the real simulation driver on the card (:func:`measure_plan`), and the
 measured/predicted ratios fit a per-term :class:`CostCorrection` --
-the paper's predict-then-build loop.  The chain sweeps
-(``explore_chain``, the placement searches) are not ported yet.
+the paper's predict-then-build loop.  :func:`explore_chain` sweeps a
+whole ProgramChain the same way (per-stage backends, E, joint per-stage
+placements found by branch and bound, optional stage fusion first) and
+verifies its leaders through the chain driver (:func:`measure_chain_plan`).
 
 The model is deliberately monotone: more bandwidth or more FLOP/s never
 predicts a slower plan, so sweeps over hypothetical machines
@@ -413,6 +415,578 @@ def explore(
     return cands
 
 
+# ---------------------------------------------------------------------------
+# chain exploration (multi-operator programs)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainDesignSpace:
+    """Sweep axes for a ProgramChain: per-stage backends are crossed
+    (every combination up to ``max_backend_combos``), E divisors divide
+    the co-sized chain E, and ``prefetch_depths`` x ``cu_counts`` form
+    the *per-stage* placement menu: besides the chain-wide uniform
+    sweep, :func:`explore_chain` searches joint per-stage
+    ``(cu_count, prefetch_depth)`` vectors over the topology, keeping
+    the ``max_placements`` best under a monotone-pruned frontier."""
+
+    backends: Tuple[str, ...] = ("xla", "staged")
+    policies: Tuple[str, ...] = ("float32",)
+    batch_divisors: Tuple[int, ...] = (1, 2, 4)
+    prefetch_depths: Tuple[int, ...] = (0, 1, 2)
+    cu_counts: Tuple[int, ...] = (1,)
+    max_backend_combos: int = 16
+    #: joint per-stage placements kept per (policy, backends, E) point
+    max_placements: int = 16
+    #: branch-and-bound expansion cap (safety valve for deep chains)
+    max_search_nodes: int = 20000
+
+
+@dataclasses.dataclass
+class ChainCandidate:
+    """One explored chain design point (ranked like Candidate; the
+    ``plan`` attribute makes :func:`pareto_front` and the measured-
+    feedback :func:`apply_correction` work unchanged -- ``ChainCost``
+    exposes the bottleneck stage's dominating term as its
+    ``bottleneck``)."""
+
+    plan: "chain_mod.ChainPlan"
+    predicted_s_per_element: float
+    measured_s_per_element: Optional[float] = None
+    #: prediction after the measured-feedback correction (calibrate=True)
+    corrected_s_per_element: Optional[float] = None
+
+    @property
+    def verified(self) -> bool:
+        """True once this design point has a measured run behind it."""
+        return self.measured_s_per_element is not None
+
+
+def measure_chain_plan(
+    chain: "chain_mod.ProgramChain",
+    plan: "chain_mod.ChainPlan",
+    *,
+    max_batches: int = 4,
+    device=None,
+) -> Optional[float]:
+    """Verify a chain plan by running the real pipeline driver on
+    ``device`` (the CUDA card unless ``"cpu"``); seconds per element.
+
+    Returns None only where ``run_chain`` cannot run the plan as
+    planned, so that a measurement never belongs to another
+    configuration: the placement spans more than one device (element
+    sharding across cards is not ported yet, ROADMAP queue 1, item 8),
+    the plan gives stages their own batch sizes (re-blocking handoffs,
+    the same item), or its backends or policy differ from the compiled
+    chain's.  Kernel stages run at the blocks the plan sized
+    (:func:`~repro_torch.memory.chain.chain_at_plan_blocks`).  Every
+    other failure -- a kernel that does not build or launch -- propagates.
+    """
+    from ..cfd.simulation import run_chain  # lazy: no cycle
+    from .chain import chain_at_plan_blocks
+
+    if plan.placement.devices_used[-1] >= 1:
+        return None
+    if plan.stage_batch_elements and not plan.uniform_batch:
+        return None
+    compiled_backends = tuple(s.backend for s in chain.stages)
+    if tuple(sp.backend for sp in plan.stages) != compiled_backends:
+        return None  # would measure a different program than planned
+    if any(s.compiled.policy.name != plan.policy for s in chain.stages):
+        return None  # run_chain runs the compiled policy, not the plan's
+    dev = resolve_device(device)
+    runnable = chain_at_plan_blocks(chain, plan)
+    run_chain(runnable, plan, max_batches=1, device=dev)  # warm-up
+    res = run_chain(runnable, plan, max_batches=max_batches, device=dev)
+    return res.wall_s / res.elements
+
+
+def _search_stage_placements(
+    stage_costs: Sequence[CostBreakdown],
+    space: ChainDesignSpace,
+    topology,
+    batch_elements: int,
+) -> List[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
+    """Branch-and-bound over joint per-stage ``(cu, depth)`` vectors.
+
+    ``stage_costs`` are the per-stage cost terms at ``cu=1`` (from one
+    reference plan); a stage's device terms scale as ``1/cu`` and its
+    contention comes from the topology assignment, so candidate vectors
+    are scored without re-planning.  The frontier prune is *monotone*:
+    extending a partial vector can only raise its max per-stage time,
+    and every final score (back-to-back sum, or contended steady state)
+    is bounded below by that max -- so a partial vector whose optimistic
+    max already matches the k-th best completed score cannot improve the
+    kept set and its whole subtree is cut.  Returns the up-to-
+    ``max_placements`` best ``(cu_counts, prefetch_depths)`` vectors.
+    """
+    from .placement import place_chain
+
+    n = len(stage_costs)
+    # branch on cu only: the proxy score depends on depths solely
+    # through "is any inter-stage ring open", so enumerating per-stage
+    # depth permutations would burn the node budget |depths|-fold on
+    # score-identical siblings.  Depth shapes are attached at the
+    # leaves instead (serial / staging-only / uniform pipelined) and
+    # priced exactly by plan_chain afterwards.
+    opts: List[List[Tuple[float, int]]] = []
+    for c in stage_costs:
+        o: List[Tuple[float, int]] = []
+        for cu in sorted(set(space.cu_counts)):
+            if cu < 1 or cu > topology.n_devices or batch_elements % cu:
+                continue
+            t = max(c.t_host, max(c.t_compute, c.t_hbm) / cu) + c.t_overhead
+            o.append((t, cu))
+        if not o:
+            o = [(
+                max(c.t_host, max(c.t_compute, c.t_hbm)) + c.t_overhead, 1,
+            )]
+        o.sort()
+        opts.append(o)
+
+    def score(cus: Tuple[int, ...], pipelined: bool) -> float:
+        place = place_chain(topology, cus, 1, n_stages=n)
+        cont = place.contention
+        b2b, steady = 0.0, 0.0
+        for i, c in enumerate(stage_costs):
+            dev = max(c.t_compute, c.t_hbm) / place.cu_counts[i]
+            b2b += max(c.t_host, dev) + c.t_overhead
+            steady = max(
+                steady, max(c.t_host, cont[i] * dev) + c.t_overhead
+            )
+        return min(b2b, steady) if pipelined and n > 1 else b2b
+
+    K = max(1, space.max_placements)
+    best: List[Tuple[float, Tuple[int, ...]]] = []
+    visited = 0
+
+    def dfs(i: int, cus: List[int], partial_max: float) -> None:
+        nonlocal visited
+        visited += 1
+        if visited > space.max_search_nodes:
+            return
+        if len(best) >= K and partial_max >= best[-1][0]:
+            return  # monotone prune: no completion can beat the kept set
+        if i == n:
+            vec = tuple(cus)
+            best.append((score(vec, pipelined=True), vec))
+            best.sort(key=lambda x: x[0])
+            del best[K:]
+            return
+        for t, cu in opts[i]:
+            cus.append(cu)
+            dfs(i + 1, cus, max(partial_max, t))
+            cus.pop()
+
+    dfs(0, [], 0.0)
+
+    # canonical depth shapes per kept cu vector: pure serial, staging-
+    # only (host rings deep, stages back-to-back -- a non-uniform
+    # vector), and uniform pipelined at each positive swept depth
+    positive = sorted({d for d in space.prefetch_depths if d > 0})
+    shapes: List[Tuple[Tuple[int, ...], bool]] = []
+    if 0 in space.prefetch_depths:
+        shapes.append(((0,) * n, False))
+    if positive:
+        shapes.append(((max(positive),) + (0,) * (n - 1), False))
+        shapes += [((d,) * n, True) for d in positive]
+    if not shapes:
+        shapes = [((0,) * n, False)]
+    scored = [
+        (score(cus, pipelined), cus, depths)
+        for _, cus in best
+        for depths, pipelined in shapes
+    ]
+    scored.sort(key=lambda x: x[0])
+    # fair truncation across depth shapes: keep the best vectors of
+    # every schedule shape, not K copies of the uniform-pipelined one
+    # -- the proxy cannot price fill/residency, so the exact planner
+    # must see serial and staging-only candidates too
+    buckets = [
+        [s for s in scored if s[2] == depths] for depths, _ in shapes
+    ]
+    kept: List[Tuple[float, Tuple[int, ...], Tuple[int, ...]]] = []
+    while len(kept) < K and any(buckets):
+        for b in buckets:
+            if b and len(kept) < K:
+                kept.append(b.pop(0))
+    kept.sort(key=lambda x: x[0])
+    return [(cus, depths) for _, cus, depths in kept]
+
+
+def _search_hetero_placements(
+    group_costs: Dict[int, Sequence[CostBreakdown]],
+    space: ChainDesignSpace,
+    topology,
+    batch_elements: int,
+) -> List[Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...],
+                Tuple[int, ...]]]:
+    """Branch-and-bound over joint per-stage ``(group, cu, E_s)``
+    assignments on a heterogeneous topology.
+
+    ``group_costs[gi]`` holds the per-stage cost terms of a reference
+    plan with every stage pinned to kind group ``gi`` at ``cu=1`` and
+    the chain E -- so each stage's candidate options are priced against
+    the datasheet it would actually land on.  An option's proxy time is
+    ``max(t_host, dev/cu) + m * t_overhead`` with ``m = E / E_s`` (a
+    smaller E_s buys nothing in the proxy but lets small-memory groups
+    pass the exact planner's residency/VMEM checks, which is why it is
+    an axis at all).  The prune is the same monotone argument as the
+    homogeneous search: every completed score is bounded below by the
+    partial per-stage max.  Depth shapes are attached at the leaves and
+    re-block costs are left to the exact planner -- the frontier is a
+    menu, ``plan_chain`` is the judge.  Returns up to ``max_placements``
+    ``(cu_counts, prefetch_depths, stage_groups, stage_elements)``.
+    """
+    from . import chain as chain_mod  # lazy: chain imports predict_cost
+    from .placement import place_chain
+
+    if not group_costs:
+        return []
+    n = len(next(iter(group_costs.values())))
+    e = batch_elements
+    divisors = sorted({max(1, int(d)) for d in space.batch_divisors})
+
+    # per-stage option menu: (proxy time, group, cu, E_s), best first,
+    # truncated so deep chains cannot blow up the search tree
+    opts: List[List[Tuple[float, int, int, int]]] = []
+    for i in range(n):
+        o: Dict[Tuple[int, int, int], float] = {}
+        for gi, costs in sorted(group_costs.items()):
+            c = costs[i]
+            size = topology.groups[gi].n_devices
+            dev = max(c.t_compute, c.t_hbm)
+            for cu in sorted(set(space.cu_counts)):
+                if cu < 1 or cu > size or e % cu:
+                    continue
+                for d in divisors:
+                    e_s = chain_mod.snap_stage_elements(
+                        e, max(1, e // d), cu
+                    )
+                    m = max(1, e // e_s)
+                    t = max(c.t_host, dev / cu) + m * c.t_overhead
+                    key = (gi, cu, e_s)
+                    if key not in o or t < o[key]:
+                        o[key] = t
+        lst = sorted((t, gi, cu, es) for (gi, cu, es), t in o.items())
+        if not lst:
+            gi = min(group_costs)
+            c = group_costs[gi][i]
+            lst = [(
+                max(c.t_host, max(c.t_compute, c.t_hbm)) + c.t_overhead,
+                gi, 1, e,
+            )]
+        opts.append(lst[:12])
+
+    def score(
+        gis: Tuple[int, ...], cus: Tuple[int, ...],
+        es: Tuple[int, ...], pipelined: bool,
+    ) -> float:
+        place = place_chain(
+            topology, cus, 1, n_stages=n, stage_groups=gis
+        )
+        cont = place.contention
+        b2b, steady = 0.0, 0.0
+        for i in range(n):
+            c = group_costs[gis[i]][i]
+            m = max(1, e // es[i])
+            dev = max(c.t_compute, c.t_hbm) / place.cu_counts[i]
+            b2b += max(c.t_host, dev) + m * c.t_overhead
+            steady = max(
+                steady, max(c.t_host, cont[i] * dev) + m * c.t_overhead
+            )
+        return min(b2b, steady) if pipelined and n > 1 else b2b
+
+    K = max(1, space.max_placements)
+    best: List[Tuple[float, Tuple[int, ...], Tuple[int, ...],
+                     Tuple[int, ...]]] = []
+    visited = 0
+
+    def dfs(
+        i: int, gis: List[int], cus: List[int], es: List[int],
+        partial_max: float,
+    ) -> None:
+        nonlocal visited
+        visited += 1
+        if visited > space.max_search_nodes:
+            return
+        if len(best) >= K and partial_max >= best[-1][0]:
+            return  # monotone prune, as in the homogeneous search
+        if i == n:
+            g, c, s = tuple(gis), tuple(cus), tuple(es)
+            best.append((score(g, c, s, pipelined=True), g, c, s))
+            best.sort(key=lambda x: x[0])
+            del best[K:]
+            return
+        for t, gi, cu, e_s in opts[i]:
+            gis.append(gi); cus.append(cu); es.append(e_s)
+            dfs(i + 1, gis, cus, es, max(partial_max, t))
+            gis.pop(); cus.pop(); es.pop()
+
+    dfs(0, [], [], [], 0.0)
+
+    positive = sorted({d for d in space.prefetch_depths if d > 0})
+    shapes: List[Tuple[Tuple[int, ...], bool]] = []
+    if 0 in space.prefetch_depths:
+        shapes.append(((0,) * n, False))
+    if positive:
+        shapes.append(((max(positive),) + (0,) * (n - 1), False))
+        shapes += [((d,) * n, True) for d in positive]
+    if not shapes:
+        shapes = [((0,) * n, False)]
+    scored = [
+        (score(gis, cus, es, pipelined), cus, depths, gis, es)
+        for _, gis, cus, es in best
+        for depths, pipelined in shapes
+    ]
+    scored.sort(key=lambda x: x[0])
+    buckets = [
+        [s for s in scored if s[2] == depths] for depths, _ in shapes
+    ]
+    kept: List = []
+    while len(kept) < K and any(buckets):
+        for b in buckets:
+            if b and len(kept) < K:
+                kept.append(b.pop(0))
+    kept.sort(key=lambda x: x[0])
+    return [(cus, depths, gis, es) for _, cus, depths, gis, es in kept]
+
+
+def explore_chain(
+    chain: "chain_mod.ProgramChain",
+    *,
+    target: Optional[MemoryTarget] = None,
+    n_eq: int = 1 << 16,
+    space: Optional[ChainDesignSpace] = None,
+    topology=None,
+    measure_top: int = 0,
+    measure_batches: int = 4,
+    calibrate: bool = False,
+    profile=None,
+    fuse: Optional[str] = None,
+    max_stages: Optional[int] = None,
+    fuse_barriers: Sequence[str] = (),
+    device=None,
+) -> List[ChainCandidate]:
+    """Sweep chain plans: per-stage backend combinations and *joint
+    per-stage placements* under one shared (divisor-scaled) E.
+
+    ``fuse='auto'`` (or a ``max_stages`` budget below the stage count)
+    first runs the cost-driven fusion pass
+    (:func:`repro_torch.memory.fusion.fuse_chain_auto`) with default knobs and
+    then sweeps the *fused* chain -- so every candidate shares one stage
+    structure and the ranking stays homogeneous; each candidate's plan
+    carries the fusion decision as ``plan.fusion``.  ``fuse_barriers``
+    names stages whose downstream boundary fusion must keep.
+
+    Every
+    (policy, backends, E) point contributes the classic chain-wide
+    uniform (cu, depth) grid plus the ``max_placements`` best joint
+    per-stage vectors found by :func:`_search_stage_placements` over
+    ``topology`` (default: just enough devices for the largest swept CU
+    count).  Ranked best-first with infeasible plans last, exactly like
+    :func:`explore`.  Depth>0 candidates are priced with the
+    contention-aware cross-batch overlap term
+    (``ChainCost.t_overlapped``: slowest contended stage + amortized
+    fill/drain), so replication and stage pipelining competing for the
+    same devices is weighed exactly as the executor delivers it.
+
+    On a heterogeneous topology (kind groups with their own datasheets)
+    the joint search instead co-varies per-stage ``(group, cu, E_s)``
+    via :func:`_search_hetero_placements`; every kind group's
+    single-group uniform grid is also swept explicitly, so the winner is
+    never worse than the best homogeneous-restricted plan on the same
+    device budget.
+
+    ``measure_top`` verifies the k best feasible candidates whose
+    planned backends and policy match the chain's compiled ones by
+    running the real ``run_chain`` driver on ``device`` (the CUDA card
+    unless ``"cpu"``; without a ``target``, also the datasheet planned
+    for); candidates it cannot run as planned are skipped
+    (:func:`measure_chain_plan`).
+    ``calibrate`` additionally fits the per-term :class:`CostCorrection`
+    from those measured runs (each ratio attributed to the bottleneck
+    stage's dominating term) and re-ranks every candidate by its
+    corrected prediction.
+
+    ``profile`` (warm-starting from the per-machine profile store) is
+    not ported yet (ROADMAP queue 1, item 9) and raises
+    :class:`NotImplementedError`."""
+    import itertools
+
+    from . import chain as chain_mod  # local: chain imports predict_cost
+    from .placement import DeviceTopology
+
+    if profile is not None:
+        raise NotImplementedError(
+            "explore_chain(profile=...) needs the profile store, which is "
+            "not ported yet (ROADMAP queue 1, item 9)"
+        )
+    if calibrate and not measure_top:
+        raise ValueError(
+            "calibrate=True fits the correction from measured runs; "
+            "set measure_top > 0"
+        )
+    target = target if target is not None else detect_target(device)
+    space = space or ChainDesignSpace()
+    if topology is None:
+        topology = DeviceTopology.homogeneous(max(1, max(space.cu_counts)))
+    hetero = len(topology.groups) > 1
+
+    fusion_spec = None
+    if fuse == "auto" or (
+        fuse != "off" and max_stages is not None
+        and max_stages < len(chain.stages)
+    ):
+        from .fusion import fuse_chain_auto  # lazy: fusion imports chain
+
+        fused_plan = fuse_chain_auto(
+            chain, mode="auto", max_stages=max_stages,
+            barriers=tuple(fuse_barriers), target=target,
+            topology=topology, n_eq=n_eq,
+        )
+        fusion_spec = fused_plan.fusion
+        chain = fusion_spec.chain
+    n_stages = len(chain.stages)
+
+    combos = list(
+        itertools.islice(
+            itertools.product(space.backends, repeat=n_stages),
+            space.max_backend_combos,
+        )
+    )
+    sched_cache: Dict = {}  # (stage idx, bps) -> Schedule, shared by all points
+    cands: List[ChainCandidate] = []
+    for policy in space.policies:
+        bps = get_policy(policy).bits // 8
+        auto_e = chain.auto_batch_elements(
+            target, bytes_per_scalar=bps, n_eq=n_eq
+        )
+        stage_caps = [
+            layout.vmem_block_elements(
+                s.program, target, bytes_per_scalar=bps
+            )
+            for s in chain.stages
+        ]
+        auto_e, _ = layout.pad_batch_for_block(
+            auto_e, max(stage_caps), limit=n_eq, caps=stage_caps
+        )
+        e_cands = sorted({max(1, auto_e // d) for d in space.batch_divisors})
+        for backends in combos:
+            for e in e_cands:
+                def make_plan_at(cus, depths, groups=None, stage_es=None):
+                    return chain_mod.plan_chain(
+                        chain, target=target, policy=policy,
+                        backends=backends, batch_elements=e,
+                        prefetch_depth=list(depths), cu_count=list(cus),
+                        topology=topology, n_eq=n_eq,
+                        stage_groups=(
+                            list(groups) if groups is not None else None
+                        ),
+                        stage_batch_elements=(
+                            list(stage_es) if stage_es is not None
+                            else None
+                        ),
+                        _sched_cache=sched_cache,
+                    )
+
+                # reference plan: per-stage cost terms at cu=1 feed the
+                # placement search (device terms scale as 1/cu)
+                ref = make_plan_at((1,) * n_stages, (1,) * n_stages)
+                vectors = {
+                    ((1,) * n_stages, (1,) * n_stages, None, None): ref,
+                }
+                # the classic chain-wide uniform sweep is kept verbatim
+                for depth in space.prefetch_depths:
+                    for cu in space.cu_counts:
+                        cu = max(1, min(cu, topology.n_devices))
+                        vectors.setdefault(
+                            ((cu,) * n_stages, (depth,) * n_stages,
+                             None, None),
+                            None,
+                        )
+                if hetero:
+                    # per-group references: every stage priced on each
+                    # kind group's own datasheet at cu=1
+                    group_refs = {
+                        gi: make_plan_at(
+                            (1,) * n_stages, (1,) * n_stages,
+                            groups=(gi,) * n_stages,
+                        )
+                        for gi in range(len(topology.groups))
+                    }
+                    # single-group-restricted uniforms are explicit
+                    # candidates, so the heterogeneous winner can never
+                    # rank behind the best homogeneous-restricted plan
+                    # on the same device budget
+                    for gi, gspec in enumerate(topology.groups):
+                        for depth in space.prefetch_depths:
+                            for cu in space.cu_counts:
+                                cu = max(1, min(cu, gspec.n_devices))
+                                vectors.setdefault(
+                                    ((cu,) * n_stages,
+                                     (depth,) * n_stages,
+                                     (gi,) * n_stages, None),
+                                    None,
+                                )
+                    # plus the joint per-stage (group, cu, E_s) frontier
+                    for cus, depths, gis, es in _search_hetero_placements(
+                        {
+                            gi: [sp.cost for sp in r.stages]
+                            for gi, r in group_refs.items()
+                        },
+                        space, topology, e,
+                    ):
+                        vectors.setdefault((cus, depths, gis, es), None)
+                else:
+                    # the joint per-stage frontier over the topology
+                    for cus, depths in _search_stage_placements(
+                        [sp.cost for sp in ref.stages], space, topology, e
+                    ):
+                        vectors.setdefault((cus, depths, None, None), None)
+                for (cus, depths, gis, es), plan in vectors.items():
+                    if plan is None:
+                        plan = make_plan_at(
+                            cus, depths, groups=gis, stage_es=es
+                        )
+                    if fusion_spec is not None:
+                        plan = dataclasses.replace(
+                            plan, fusion=fusion_spec
+                        )
+                    cands.append(
+                        ChainCandidate(
+                            plan=plan,
+                            predicted_s_per_element=(
+                                plan.cost.t_pipelined
+                                / plan.batch_elements
+                            ),
+                        )
+                    )
+    cands.sort(
+        key=lambda c: (
+            not c.plan.feasible,
+            c.predicted_s_per_element,
+            c.plan.resident_bytes,
+        )
+    )
+    if measure_top:
+        measured = 0
+        for c in cands:
+            if measured >= measure_top:
+                break
+            if not c.plan.feasible:
+                continue
+            got = measure_chain_plan(
+                chain, c.plan, max_batches=measure_batches, device=device
+            )
+            if got is not None:
+                c.measured_s_per_element = got
+                measured += 1
+        if calibrate:
+            apply_correction(cands, fit_correction(cands))
+    return cands
+
+
 def pareto_front(cands: Sequence[Candidate]) -> List[Candidate]:
     """Feasible candidates not dominated in (predicted time, resident
     bytes): the plan menu the operator actually chooses from."""
@@ -442,18 +1016,16 @@ def measure_plan(
     """Verify a plan by running the real driver on ``device`` (the CUDA
     card unless ``"cpu"``); seconds per element.
 
-    Returns None only when the plan replicates more CUs than there are
-    local devices (CUDA cards; the host counts as one).  Every other
-    failure -- a kernel that does not build or launch, a policy the
-    backend cannot run -- propagates."""
-    import torch
-
+    Returns None only when the plan replicates more than one CU:
+    ``run_simulation`` runs on one card until element sharding is ported
+    (ROADMAP queue 1, item 8), so such a time would belong to another
+    configuration.  Every other failure -- a kernel that does not build
+    or launch, a policy the backend cannot run -- propagates."""
     from ..cfd.simulation import SimConfig, run_simulation  # lazy: no cycle
 
-    dev = resolve_device(device)
-    n_local = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if plan.cu_count > n_local:
+    if plan.cu_count > 1:
         return None
+    dev = resolve_device(device)
     cfg = SimConfig(
         p=p, n_eq=n_eq or plan.batch_elements * max_batches,
         batch_elements=plan.batch_elements, policy=plan.policy,
@@ -489,6 +1061,46 @@ def _measure_candidates(
         if got is not None:
             c.measured_s_per_element = got
             measured += 1
+
+
+def format_chain_ranking(
+    cands: Sequence[ChainCandidate], limit: int = 10
+) -> str:
+    """Compact leaderboard for chain sweeps (per-stage backends and
+    per-stage (cu, depth) placements)."""
+    hdr = (
+        f"{'#':>3} {'backends':<28} {'policy':<10} {'E':>8} "
+        f"{'K':<8} {'CU':<8} "
+        f"{'pred us/elem':>13} {'meas us/elem':>13} "
+        f"{'resident MiB':>13} {'feasible':>9}"
+    )
+    lines = [hdr, "-" * len(hdr)]
+
+    def vec(vals):
+        s = ",".join(str(v) for v in vals)
+        if len(set(vals)) == 1:
+            s = str(vals[0])
+        return s if len(s) <= 8 else s[:5] + "..."
+
+    for i, c in enumerate(cands[:limit]):
+        p = c.plan
+        meas = (
+            f"{c.measured_s_per_element * 1e6:13.4f}"
+            if c.measured_s_per_element is not None else f"{'-':>13}"
+        )
+        backends = ",".join(sp.backend for sp in p.stages)
+        if len(backends) > 28:
+            backends = backends[:25] + "..."
+        lines.append(
+            f"{i:>3} {backends:<28} {p.policy:<10} {p.batch_elements:>8} "
+            f"{vec([sp.prefetch_depth for sp in p.stages]):<8} "
+            f"{vec(list(p.cu_counts)):<8} "
+            f"{c.predicted_s_per_element * 1e6:>13.4f} "
+            f"{meas} {p.resident_bytes / 2**20:>13.1f} "
+            f"{'yes' if p.feasible else 'no':>9}"
+        )
+    return "\n".join(lines)
+
 
 
 def format_ranking(cands: Sequence[Candidate], limit: int = 10) -> str:

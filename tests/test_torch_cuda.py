@@ -239,6 +239,103 @@ def test_gemm_chain_kernel_runs_the_pipeline_recipes(cuda, stage, dtype):
     _chain_bitwise(recipe, env, got, E)
 
 
+def fused_recipes(p):
+    """The GEMM-chain recipes of the fused stages the planner makes on the
+    h100-sxm datasheet at p (n_eq = 2,000,000): a two-stage budget on the
+    named cuts, and the fully fused chain (15 element slots)."""
+    from repro_torch.cfd import operators
+    from repro_torch.flow import patterns
+    from repro_torch.memory import chain as mchain
+    from repro_torch.memory.channels import H100_SXM
+
+    named = operators.build_cfd_chain(p, backends="pallas", target=H100_SXM)
+    out = {}
+    for k in (2, 1):
+        plan = mchain.plan_chain(named, target=H100_SXM, n_eq=2_000_000,
+                                 max_stages=k)
+        for s in plan.fusion.chain.stages:
+            if "+" in s.name:
+                out[s.name] = patterns.match_gemm_chain(s.program)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CFD_DTYPES)
+@pytest.mark.parametrize("p", [5, 11, 16])
+def test_gemm_chain_kernel_runs_the_fused_recipes(cuda, p, dtype):
+    """Every fused stage's recipe launches (the fully fused one needs 15
+    element slots) and matches the plain version, bitwise the same
+    across blocks, splits and alignments."""
+    recipes = fused_recipes(p)
+    assert "interp+grad+helmholtz" in recipes
+    E = 12
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for name, recipe in recipes.items():
+        env = _recipe_env(recipe, E, dtype, gen, cuda)
+        before = t_gemm.gemm_chain.launches
+        got = t_gemm.gemm_chain(recipe, env, block_elements=4)
+        want = t_gemm.gemm_chain_plain(recipe, env, block_elements=4)
+        torch.cuda.synchronize()
+        assert t_gemm.gemm_chain.launches == before + 1, name
+        assert set(got) == set(want)
+        for k in want:
+            _close(got[k], want[k], dtype)
+        _chain_bitwise(recipe, env, got, E)
+
+
+@pytest.mark.cuda
+def test_fused_chains_on_the_card_are_bitwise_the_unfused(cuda):
+    """At p = 11 on the card: interp+grad fused gives gy, gz and v bit
+    for bit as the unfused chain; the fully fused chain gives gy and gz
+    so, and v bit for bit as the unfused chain whose Helmholtz stage runs
+    its own recipe on the GEMM-chain kernel (the Helmholtz kernel
+    contracts the modes in another order)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.cfd import operators
+    from repro_torch.flow import patterns
+    from repro_torch.kernels.gemm import ops as gemm_ops
+    from repro_torch.memory import chain as mchain
+    from repro_torch.memory import fusion
+    from repro_torch.memory.channels import H100_SXM
+
+    p, E = 11, 64
+    named = operators.build_cfd_chain(p, backends="pallas", target=H100_SXM)
+    rng = np.random.default_rng(0)
+    elems = {q: rng.uniform(-1, 1, (E, p, p, p)).astype(np.float32)
+             for q in ("u", "D")}
+
+    def run(chain, plan):
+        inputs = {f"{s.name}.{n}": elems[n]
+                  for i, s in enumerate(chain.stages)
+                  for n, _ in chain.host_element_inputs(i)}
+        res = t_simulation.run_chain(chain, plan, inputs=inputs,
+                                     collect_outputs=True)
+        return {q.split(".", 1)[1]: v for q, v in res.outputs.items()}
+
+    base = mchain.plan_chain(named, target=H100_SXM, batch_elements=E,
+                             n_eq=E)
+    want = run(mchain.chain_at_plan_blocks(named, base), base)
+    hh = named.stages[2]
+    on_chain = mchain.ProgramChain(list(named.stages[:2]) + [mchain.ChainStage(
+        hh.name, dataclasses.replace(
+            hh.compiled, batched_fn=gemm_ops.make_pallas_impl(
+                patterns.match_gemm_chain(hh.program), 1)),
+        dict(hh.bindings))])
+    want_gemm = run(on_chain, base)
+    for groups, ref in (([(0, 1), (2,)], want), ([(0, 1, 2)], want_gemm)):
+        fused = fusion.fuse_chain(named, groups)
+        plan = mchain.plan_chain(fused, target=H100_SXM, batch_elements=E,
+                                 n_eq=E)
+        before = t_gemm.gemm_chain.launches
+        got = run(mchain.chain_at_plan_blocks(fused, plan), plan)
+        assert t_gemm.gemm_chain.launches == before + 1
+        for q in ("gy", "gz", "v"):
+            assert np.array_equal(got[q], ref[q]), (groups, q)
+
+
 @pytest.mark.cuda
 def test_cfd_kernel_tiles_match_the_wrappers_model(cuda):
     """The tile (elements a step, threads, shared bytes) each built kernel

@@ -331,11 +331,10 @@ def test_gemm_kernel_tile_refuses_at_the_shared_memory_limit(
         n_elem, n_mats, n_bufs):
     """The kernel's shared bytes are the model's (cube_smem) and the
     wrapper refuses exactly above the 232,448-B limit.  At p = 16, one
-    element a tile, the op table's static limits (8 inputs, 8 element
-    slots) cap what a recipe can ask for: seven float32 inputs (two
-    staging buffers of 16,400 B each) and a matrix (2,048 B) fit, at
-    231,648 B; eight float32 inputs fed straight out take 262,400 B and
-    are refused, and fit in bfloat16."""
+    element a tile: seven float32 inputs (two staging buffers of 16,400 B
+    each) and a matrix (2,048 B) fit, at 231,648 B; eight float32 inputs
+    fed straight out take 262,400 B and are refused, and fit in
+    bfloat16."""
     p = 16
     recipe = _largest_recipe(p, n_elem, n_mats, n_bufs)
     t_gemm_mod.op_table(recipe)                      # within the limits
@@ -355,14 +354,24 @@ def test_gemm_kernel_tile_refuses_at_the_shared_memory_limit(
 
 
 def test_gemm_op_table_rejects_what_the_kernel_cannot_run():
+    """Every element input and op result has an element slot, and the
+    slot limit is MAX_IN + MAX_OPS, so a recipe is refused only for its
+    inputs, outputs, ops or matrices: 32 ops (33 slots) lower, 33 do
+    not."""
     p = 3
-    long_chain = t_gemm.GemmRecipe(
-        p=p, inputs=(("A", (p, p), False), ("u", (p, p, p), True)),
-        ops=tuple(("ewise", "neg", k + 1, -1, None) for k in range(8)),
-        outputs=(("y", 9),),
-    )
+
+    def chain(n_ops):
+        return t_gemm.GemmRecipe(
+            p=p, inputs=(("A", (p, p), False), ("u", (p, p, p), True)),
+            ops=tuple(("ewise", "neg", k + 1, -1, None)
+                      for k in range(n_ops)),
+            outputs=(("y", n_ops + 1),),
+        )
+
+    assert t_gemm_mod.MAX_SLOTS == t_gemm_mod.MAX_IN + t_gemm_mod.MAX_OPS
+    assert t_gemm_mod.op_table(chain(32))[1] == 33
     with pytest.raises(ValueError, match="static limits"):
-        t_gemm_mod.op_table(long_chain)
+        t_gemm_mod.op_table(chain(33))
     rank2 = t_gemm.GemmRecipe(
         p=p, inputs=(("A", (p, p), False), ("u", (p, p), True)),
         ops=(("ewise", "neg", 1, -1, None),), outputs=(("y", 2),),

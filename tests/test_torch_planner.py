@@ -177,14 +177,20 @@ def test_detect_target_needs_the_card_unless_cpu_is_asked():
 
 
 def test_not_ported_knobs_raise():
+    """Stage fusion and the chain DSE are ported; measured block tuning
+    and the profile store are not, and raise naming their ROADMAP item."""
     src = t_operators.CFD_PIPELINE_SRC.format(p=3)
-    for kw in (dict(dse=True), dict(fuse="auto"), dict(tune_blocks=True),
-               dict(profile=True)):
-        with pytest.raises(t_flow.FlowError, match="not ported"):
+    for kw, item in ((dict(tune_blocks=True), "item 6"),
+                     (dict(profile=True), "item 9")):
+        with pytest.raises(t_flow.FlowError, match=f"not ported.*{item}"):
             t_flow.compile(src, target="cpu-host", **kw)
     chain = t_operators.build_cfd_chain(3, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        t_chain.plan_chain(chain, target=channels.CPU_HOST, max_stages=1)
+        t_chain.plan_chain(chain, target=channels.CPU_HOST, profile=True)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        dse.explore_chain(chain, target=channels.CPU_HOST, profile=True)
+    assert len(t_chain.plan_chain(chain, target=channels.CPU_HOST,
+                                  max_stages=1).stages) == 1
     # the fixed-point policies compile now, but never onto a float kernel
     with pytest.raises(t_flow.FlowError, match="floating point"):
         t_flow.compile(src, target="cpu-host", policy="fixed32_q8.24",
@@ -213,3 +219,110 @@ def test_flow_fixed_point_and_staged_match_reference(case):
     assert got.plan.signature == want.plan.signature
     assert got.report() == want.report()
     assert [s.compiled.backend for s in got.chain.stages] == list(got.backends)
+
+
+# ---------------------------------------------------------------------------
+# the flow CLI (python -m repro_torch.flow)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("example", ["inverse_helmholtz", "cfd_pipeline"])
+def test_flow_cli_matches_golden(example):
+    """``python -m repro_torch.flow examples/<x>.cfd --target alveo-u280``
+    prints the reference CLI's golden report byte for byte."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.flow",
+         str(ROOT / "examples" / f"{example}.cfd"), "--target", "alveo-u280"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout == _golden(f"flow_{example}.txt")
+
+
+CLI_CASES = {
+    "fuse-auto": ["--target", "tpu-v5e", "--fuse", "auto", "--n-eq", "16384"],
+    "max-stages-pallas": ["--target", "alveo-u280", "--max-stages", "3",
+                          "--backend", "pallas"],
+    "dse": ["--target", "alveo-u280", "--dse", "--n-eq", "65536"],
+    "devices-hetero": ["--target", "alveo-u280", "--devices", "cpu:1,alveo:2",
+                       "--cu-count", "1", "--prefetch-depth", "2"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLI_CASES))
+def test_flow_cli_reports_match_reference(case, capsys):
+    """--fuse, --max-stages, --dse and --devices print the reference
+    CLI's text (the port's own --device flag aside)."""
+    from repro.flow import cli as r_cli
+    from repro_torch.flow import cli as t_cli
+
+    src = str(ROOT / "examples" / "cfd_pipeline.cfd")
+    assert r_cli.main([src, *CLI_CASES[case]]) == 0
+    want = capsys.readouterr().out
+    assert t_cli.main([src, *CLI_CASES[case], "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == want
+
+
+def test_flow_cli_runs_on_the_cpu_when_asked(capsys):
+    from repro_torch.flow import cli as t_cli
+
+    src = str(ROOT / "examples" / "inverse_helmholtz.cfd")
+    assert t_cli.main([src, "--device", "cpu", "--backend", "pallas",
+                       "--max-stages", "3", "--run", "--n-eq", "64"]) == 0
+    out = capsys.readouterr().out
+    assert "ran 2 batches x" in out and "checksum" in out
+
+
+@pytest.mark.parametrize("args,msg", [
+    (["--trace", "t.json"], "--trace is not ported.*item 9"),
+    (["--profile"], "--profile is not ported.*item 9"),
+    (["--metrics", "m.json"], "--metrics is not ported.*item 9"),
+    (["--tune-blocks"], "--tune-blocks is not ported.*item 6"),
+    (["--target", "alveo-u28"], "did you mean"),
+    (["--target", "cpu-host", "--fuse", "auto", "--cu-count", "x"],
+     "bad --cu-count"),
+], ids=["trace", "profile", "metrics", "tune-blocks", "target", "cu-count"])
+def test_flow_cli_exit_2(args, msg, capsys):
+    import re
+
+    from repro_torch.flow import cli as t_cli
+
+    src = str(ROOT / "examples" / "cfd_pipeline.cfd")
+    assert t_cli.main([src, *args]) == 2
+    assert re.search(msg, capsys.readouterr().err)
+
+
+def test_flow_cli_exit_2_on_bad_sources_and_a_missing_card(tmp_path, capsys):
+    from repro_torch.flow import cli as t_cli
+
+    empty = tmp_path / "empty.cfd"
+    empty.write_text("")
+    assert t_cli.main([str(empty), "--target", "cpu-host"]) == 2
+    assert "error:" in capsys.readouterr().err
+    assert t_cli.main([str(tmp_path / "missing.cfd")]) == 2
+    assert "error:" in capsys.readouterr().err
+    if not torch.cuda.is_available():
+        src = str(ROOT / "examples" / "cfd_pipeline.cfd")
+        assert t_cli.main([src]) == 2          # detect needs the card
+        assert "--device cpu" in capsys.readouterr().err
+        assert t_cli.main([src, "--target", "h100-sxm", "--run"]) == 2
+        assert "--device cpu" in capsys.readouterr().err
+
+
+def test_docstring_lint_clean_on_the_ports_planner_packages():
+    """Every public name of the port's flow and memory packages (the
+    fusion, chain-DSE and CLI modules among them) is documented, by the
+    lint the reference's planner packages pass."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "docstring_lint", ROOT / "tools" / "docstring_lint.py")
+    lint = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lint)
+    violations = lint.lint_paths([ROOT / "src" / "repro_torch" / "flow",
+                                  ROOT / "src" / "repro_torch" / "memory"])
+    assert violations == [], violations
