@@ -10,7 +10,8 @@ Phases (any failure exits non-zero, and no result line is printed):
   1. versions, the card's name and power limit, and the build of every
      CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a);
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes the slice gives it (p = 11, the planner's E, its blocks):
+     shapes the slice gives it (p = 11, E = 50,420, the plan's blocks:
+     each CFD kernel's own tile, 3 elements a CTA step):
      float32 within rtol 5e-4 / atol 5e-4 max|plain|, and in bfloat16
      within one bfloat16 step (rtol 2^-7 / atol 1e-3 max|plain|; timed
      too: half the bytes for the same arithmetic, a probe of what bounds
@@ -23,13 +24,16 @@ Phases (any failure exits non-zero, and no result line is printed):
      time the card could take; and the GEMM-chain kernel at
      interpolation's bytes with 0, 3 and 6 contractions (a probe that
      splits memory pipeline from contraction time);
-  3. the slice: ``compile_cfd_pipeline(11, backends="pallas")`` and
+  3. the slice: ``compile_cfd_pipeline(11, backends="pallas",
+     batch_elements=50_420)`` (the E of earlier runs: the planner's own
+     is 50,419, no longer padded to a block) and
      ``.run()`` over 8 batches of E elements, with the launch counters
      zeroed just before and read just after; pipelined and serial
      checksums bitwise equal; 64 elements of batch 0 against the float64
      numpy oracles;
   F. the paper's Fig. 2 path: ``run_simulation(SimConfig(p=11,
-     backend="pallas"))`` on the h100-sxm plan (E = 67,226, BE = 2) over
+     backend="pallas"))`` on the h100-sxm plan (E = 67,226, BE = 3, the
+     kernel's tile) over
      4 batches, launch counters zeroed just before and read just after;
      K = 1 and K = 0 checksums bitwise equal; the ``xla`` and ``staged``
      backends' checksums at the same E within rtol 1e-4; 64 elements of
@@ -40,13 +44,15 @@ Phases (any failure exits non-zero, and no result line is printed):
      (E = 67,226), ``xla`` and ``staged``, one batch encoded on the host
      and run on the card: 16 elements bitwise equal to the same code on
      the CPU, ``xla`` bitwise equal to ``staged``, MSE against the float64
-     oracle within 100x the paper's (9.39e-22, 3.58e-12);
+     oracle within 100x the paper's (9.39e-22, 3.58e-12); the peak device
+     memory above the inputs, beside the 3.38 / 3.14 GiB measured while
+     ``core.emit`` kept every intermediate (commit 775a332);
   D. the single-operator design-space sweep on the card: ``explore`` over
      xla/staged/pallas at float32 on one card, the top three measured and
      the cost correction fitted;
   X. stage fusion and the chain DSE at p = 11 on the h100-sxm plans
      (n_eq = 2,000,000): the named cuts planned with ``max_stages=2``
-     (interp+grad, E = 50,420) and ``max_stages=1`` (all three, E =
+     (interp+grad, E = 50,419) and ``max_stages=1`` (all three, E =
      40,335, a recipe of 15 element slots), and the 13-stage auto
      schedule compiled with ``fuse="auto"`` (three stages); every fused
      stage compiled to ``pallas``; one batch of each, counters zeroed
@@ -61,6 +67,18 @@ Phases (any failure exits non-zero, and no result line is printed):
      replaces (at the same E), its plain version and its bound; then
      ``explore_chain`` over all 27 backend combinations of the all-kernel
      chain, the top three measured and the cost correction fitted;
+  B. blocks at p = 11, float32: (a) each CFD kernel at every tile it
+     launches with (te = 1 .. its largest) -- the Helmholtz kernel at the
+     chain's and Fig. 2's shapes, the GEMM-chain kernel on interp and
+     grad -- bitwise against its default tile, its default against the
+     plain version at phase 2's tolerance, a ragged E = 50,419 bitwise
+     against the whole batch's first 50,419 elements, the time of each
+     tile beside the bound; (b) ``flow.compile(..., tune_blocks=True)``
+     on the card, each stage's candidates, times and winner; (c) one
+     batch of the named chain from arrays at per-stage E = (E, E/2, E/4)
+     and (E/4, E, E/2), E = 50,420, counters zeroed just before and read
+     just after, bitwise against the uniform serial run, each stage's
+     kernel time at its E_s, and ``measure_chain_plan`` on the second;
   4. the flash-attention kernels against their plain version at the
      model path's shape (B = 4, Hq = 16, Hkv = 8, T = 4096, d = 128,
      causal): bfloat16 on the tensor-core (wgmma) route, float32 on the
@@ -137,8 +155,9 @@ HELMHOLTZ_EINSUM = "eabc,la,mb,nc,elmn,li,mj,nk->eijk"
 #: the auto schedule's last fused stage (s8..s12): t0 contracted in mode
 #: 1, D as a Hadamard factor, then S transposed in every mode
 HELMHOLTZ_TAIL_EINSUM = "eazc,bz,eabc,ai,bj,ck->eijk"
-#: the Fig. 2 path: batches of the run
+#: the Fig. 2 path: batches of the run, and the plan's batch
 FIG2_BATCHES = 4
+FIG2_E = 67_226
 #: checksums of the xla / staged backends against the kernel's: float32
 #: sums of the same 4 x 67,226 x 1,331 values in other orders
 FIG2_CHECKSUM_RTOL = 1e-4
@@ -148,6 +167,15 @@ PAPER_MSE = {"fixed64_q24.40": 9.39e-22, "fixed32_q8.24": 3.58e-12}
 MSE_SLACK = 100.0
 #: phase X: the problem size the fusion and chain-DSE plans assume
 FUSION_N_EQ = 2_000_000
+#: phase 3: the batch of earlier runs, whose checksums it repeats (the
+#: planner's own E is 50,419 since E is not padded to a block)
+SLICE_E = 50_420
+#: E of phase B's alveo-u280 plan (its VMEM blocks divide it)
+REF_TARGET_E = 4096
+#: phase Q: device memory above the inputs (GiB) while core.emit kept
+#: every intermediate to the end (commit 775a332; NVIDIA H100 80GB HBM3,
+#: 700 W), before it freed each after its last reader
+KEEP_ALL_PEAK_GIB = {"fixed64_q24.40": 3.38, "fixed32_q8.24": 3.14}
 #: the flash-attention kernel of each route
 FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "fma": "src/repro_torch/csrc/flash_attention.cu"}
@@ -319,7 +347,6 @@ def phase_kernels(system):
     from repro_torch.flow import patterns
     from repro_torch.kernels.gemm import gemm
     from repro_torch.kernels.helmholtz import helmholtz
-    from repro_torch.memory.layout import largest_divisor_leq
 
     dev = torch.device("cuda", 0)
     plan = system.plan
@@ -337,8 +364,7 @@ def phase_kernels(system):
     def split_calls(fn, E, be):
         """fn(lo, hi, be) on both halves, concatenated (bitwise check)."""
         half = E // 2
-        be2 = largest_divisor_leq(half, be)
-        return be2, lambda: fn(0, half, be2), lambda: fn(half, E, be2)
+        return be, lambda: fn(0, half, be), lambda: fn(half, E, be)
 
     # -- helmholtz -----------------------------------------------------------
     be = blocks["helmholtz"]
@@ -571,9 +597,9 @@ def phase_fig2():
     cfg = simulation.SimConfig(p=p, backend="pallas", seed=seed)
     plan = simulation.plan_config(cfg)
     E, be = plan.batch_elements, plan.block_elements
-    if plan.target.name != "h100-sxm" or (E, be) != (67_226, 2):
+    if plan.target.name != "h100-sxm" or (E, be) != (FIG2_E, 3):
         fail(f"Fig. 2 plan: {plan.target.name} E={E} BE={be}; want h100-sxm "
-             "E=67226 BE=2")
+             "E=67226 BE=3 (the Helmholtz kernel's tile)")
     zero_counts()
     res = simulation.run_simulation(cfg, plan=plan, max_batches=FIG2_BATCHES)
     torch.cuda.synchronize()
@@ -729,9 +755,10 @@ def phase_fixed(inputs):
                 encode_s=encode_s)
             print(f"{pol.name} {backend}: E={E} one batch {secs:.3f} s, "
                   f"{E / secs:.0f} elements/s, peak device memory "
-                  f"{peak / 2**30:.2f} GiB above the inputs (encode on the "
-                  f"host {encode_s:.3f} s); first {c} elements bitwise equal "
-                  "to the CPU")
+                  f"{peak / 2**30:.2f} GiB above the inputs (keeping every "
+                  f"intermediate: {KEEP_ALL_PEAK_GIB[pol.name]:.2f}; encode "
+                  f"on the host {encode_s:.3f} s); first {c} elements bitwise "
+                  "equal to the CPU")
         if not torch.equal(results["xla"], results["staged"]):
             fail(f"{pol.name}: xla and staged differ bitwise")
         got = pol.decode(results["xla"][:m].cpu()).numpy()
@@ -807,7 +834,7 @@ def _time_stage(prog, E, gen):
     """CUDA-event ms of the kernel a stage program dispatches to, alone."""
     from repro_torch.flow import patterns
 
-    impl = patterns.pallas_impl_for(prog, block_elements=1)
+    impl = patterns.pallas_impl_for(prog)
     if impl is None:
         fail(f"no kernel matches stage program with inputs {list(prog.inputs)}")
     env = _stage_env(prog, E, gen)
@@ -863,9 +890,9 @@ def phase_fusion():
     }
     got_groups = {k: plans[k].fusion.groups for k in (2, 1)}
     got_groups["auto"] = auto_fused.plan.fusion.groups
-    if got_groups != want_groups or base.batch_elements != 50_420:
+    if got_groups != want_groups or base.batch_elements != 50_419:
         fail(f"fusion decisions {got_groups} (E={base.batch_elements}); "
-             f"want {want_groups} at E=50420")
+             f"want {want_groups} at E=50419")
     fused_chains = {2: plans[2].fusion.chain, 1: plans[1].fusion.chain,
                     "auto": auto_fused.chain}
     for k, chain in fused_chains.items():
@@ -895,7 +922,7 @@ def phase_fusion():
     hh_recipe = patterns.match_gemm_chain(hh.program)
     on_chain = mchain.ProgramChain(list(named.stages[:2]) + [
         mchain.ChainStage(hh.name, dataclasses.replace(
-            hh.compiled, batched_fn=gemm_ops.make_pallas_impl(hh_recipe, 1)),
+            hh.compiled, batched_fn=gemm_ops.make_pallas_impl(hh_recipe)),
             dict(hh.bindings))])
     want_gemm, _ = _run_one_batch(on_chain, base, elems)
     auto_base = mchain.plan_chain(auto.chain, target=H, batch_elements=E0,
@@ -909,8 +936,7 @@ def phase_fusion():
     if launches != {"gemm_chain": 5, "helmholtz": 1, "flash_attention": 0}:
         fail(f"fused runs launched {launches}; want 5 gemm_chain (1 + 1 + "
              "3 fused stages) and 1 helmholtz")
-    want_auto, _ = _run_one_batch(
-        mchain.chain_at_plan_blocks(auto.chain, auto_base), auto_base, elems)
+    want_auto, _ = _run_one_batch(auto.chain, auto_base, elems)
     v_err = {}
     for k, (outs, _) in got.items():
         n = next(iter(outs.values())).shape[0]
@@ -944,15 +970,13 @@ def phase_fusion():
             recipe = patterns.match_gemm_chain(s.program)
             _, n_slots, _, _, _, _ = gemm.op_table(recipe)
             env = _stage_env(s.program, E, gen)
-            got = gemm.gemm_chain(recipe, env, block_elements=1)
-            ref = gemm.gemm_chain_plain(recipe, env, block_elements=1)
+            got = gemm.gemm_chain(recipe, env)
+            ref = gemm.gemm_chain_plain(recipe, env)
             torch.cuda.synchronize()
             err = max(compare(got[q], ref[q], F32_RTOL, F32_ATOL_FRAC,
                               f"fused {s.name} {q}") for q in got)
-            ms = time_ms(lambda: gemm.gemm_chain(recipe, env,
-                                                 block_elements=1), 20)
-            plain_ms = time_ms(lambda: gemm.gemm_chain_plain(
-                recipe, env, block_elements=1), 3)
+            ms = time_ms(lambda: gemm.gemm_chain(recipe, env), 20)
+            plain_ms = time_ms(lambda: gemm.gemm_chain_plain(recipe, env), 3)
             unfused = sum(_time_stage(members[m], E, gen)
                           for m in s.name.split("+"))
             b_ms, b_by = bound(nbytes(*env.values(), *got.values()),
@@ -1035,6 +1059,240 @@ def phase_fusion():
                  device_us_per_element=device_us, v_err_full_fusion=v_err[1],
                  launches=launches, chain_dse=dse_stats)
     return rows, stats, launches
+
+
+def _tile_sweep(what, run, want, E, b_ms):
+    """One CFD kernel at every tile it launches with: ``run(te, n)`` gives
+    its outputs for the first ``n`` elements at tile ``te`` (None: the
+    default).  Each tile's outputs are bitwise the default's, the
+    default's within phase 2's tolerance of the plain version ``want``,
+    and a ragged n = E - 1 bitwise the whole batch's first E - 1; times
+    of each tile beside the bound."""
+    import torch
+
+    base = run(None, E)
+    torch.cuda.synchronize()
+    err = max(compare(base[k], want[k], F32_RTOL, F32_ATOL_FRAC,
+                      f"{what} default tile vs plain") for k in want)
+    ragged = run(None, E - 1)
+    for k in base:
+        if not torch.equal(ragged[k], base[k][:E - 1]):
+            fail(f"{what}: E={E - 1} differs bitwise from the first "
+                 f"{E - 1} elements of E={E}")
+    del ragged
+    ms = {}
+    for te in range(1, 1 + run.max_te):
+        got = run(te, E)
+        for k in base:
+            if not torch.equal(got[k], base[k]):
+                fail(f"{what}: te={te} differs bitwise from the default tile")
+        del got
+        ms[te] = time_ms(lambda: run(te, E), 20)
+    print(f"blocks {what} E={E}: te " + ", ".join(
+        f"{te} {t:.3f} ms" for te, t in ms.items()) +
+        f" (default {run.default_te}) | bitwise equal, ragged E={E - 1} "
+        f"bitwise, f32 max|err| {err:.3e} | bound {b_ms:.3f} ms")
+    return dict(E=E, default_te=run.default_te, ms=ms, bound_ms=b_ms,
+                max_abs_err=err)
+
+
+def phase_blocks():
+    """Phase B: the CFD kernels at every tile they launch with, the block
+    tuner on the card, and per-stage batch sizes with re-blocking."""
+    import numpy as np
+    import torch
+
+    from repro_torch import flow
+    from repro_torch.cfd import operators
+    from repro_torch.flow import patterns
+    from repro_torch.kernels import _cube
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.helmholtz import helmholtz
+    from repro_torch.memory import chain as mchain
+    from repro_torch.memory import channels, dse
+    from repro_torch.memory import pipeline as mempipe
+
+    p, E, H = 11, SLICE_E, channels.H100_SXM
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+
+    # -- (a) every legal tile --------------------------------------------
+    named = operators.build_cfd_chain(p, backends="pallas", target=H)
+    progs = {s.name: s.program for s in named.stages}
+    tiles = {}
+    S = uniform(p, p)
+    for what, n in (("helmholtz", E), ("helmholtz fig2", FIG2_E)):
+        D, u = uniform(n, p, p, p), uniform(n, p, p, p)
+
+        def run(te, k, D=D, u=u):
+            return {"v": helmholtz.inverse_helmholtz(S, D[:k], u[:k],
+                                                     block_elements=te)}
+
+        run.default_te, _, _ = _cube.helmholtz_tile(p, 4)
+        run.max_te = _cube.helmholtz_max_tile(p, 4)
+        want = {"v": helmholtz.inverse_helmholtz_plain(S, D, u)}
+        b_ms, _ = bound(nbytes(S, D, u, want["v"]),
+                        n * progs["helmholtz"].total_flops())
+        tiles[what] = _tile_sweep(what, run, want, n, b_ms)
+        del D, u, want
+    for stage in ("interp", "grad"):
+        recipe = patterns.match_gemm_chain(progs[stage])
+        elem = {nm for nm, _, is_elem in recipe.inputs if is_elem}
+        env = {nm: (uniform(E, *shape) if is_elem else uniform(*shape))
+               for nm, shape, is_elem in recipe.inputs}
+
+        def run(te, k, env=env, recipe=recipe, elem=elem):
+            return gemm.gemm_chain(
+                recipe, {nm: (v[:k] if nm in elem else v)
+                         for nm, v in env.items()}, block_elements=te)
+
+        run.default_te = gemm.kernel_tile(recipe, 4)[0]
+        run.max_te = gemm.kernel_max_tile(recipe, 4)
+        want = gemm.gemm_chain_plain(recipe, env)
+        b_ms, _ = bound(nbytes(*env.values(), *want.values()),
+                        E * progs[stage].total_flops())
+        tiles[stage] = _tile_sweep(stage, run, want, E, b_ms)
+        del env, want
+    torch.cuda.empty_cache()
+
+    # -- (b) the block tuner on the card ---------------------------------
+    t = time.perf_counter()
+    tuned = flow.compile(operators.CFD_PIPELINE_SRC.format(p=p),
+                         stages=operators.CFD_PIPELINE_STAGES, target=H,
+                         backend="pallas", n_eq=FUSION_N_EQ,
+                         tune_blocks=True)
+    tune_s = time.perf_counter() - t
+    tuning = {}
+    for sp in tuned.plan.stages:
+        tu = tuned.tuning.get(sp.name)
+        if tu is None or [be for be, _, _ in tu.candidates] != [1, 2, 3]:
+            fail(f"tune_blocks: stage {sp.name} candidates "
+                 f"{tu and tu.candidates}; want the tiles 1, 2, 3")
+        if sp.block_elements != tu.block_elements:
+            fail(f"tune_blocks: plan block {sp.block_elements} for "
+                 f"{sp.name}, winner {tu.block_elements}")
+        tuning[sp.name] = dict(E=tu.batch_elements,
+                               winner=tu.block_elements,
+                               ms={be: s * 1e3 for be, _, s in tu.candidates},
+                               klass={be: k for be, k, _ in tu.candidates})
+        print(f"tune_blocks {sp.name} E={tu.batch_elements}: " + ", ".join(
+            f"te {be} ({k}) {s * 1e3:.3f} ms" for be, k, s in tu.candidates)
+            + f" -> {tu.block_elements}")
+    print(f"tune_blocks: compile with tuning {tune_s:.1f} s")
+
+    # -- (c) per-stage batch sizes, re-blocked on the card ---------------
+    rng = np.random.default_rng(13)
+    elems = {q: rng.uniform(-1, 1, (E, p, p, p)).astype(np.float32)
+             for q in ("u", "D")}
+    base = mchain.plan_chain(named, target=H, batch_elements=E, n_eq=E,
+                             prefetch_depth=0)
+    want, _ = _run_one_batch_serial(named, base, elems)
+    envs = {s.name: _stage_env(s.program, E, gen) for s in named.stages}
+    impls = {s.name: patterns.pallas_impl_for(s.program)
+             for s in named.stages}
+    uniform_ms = {n: time_ms(lambda n=n: impls[n](envs[n]), 20)
+                  for n in impls}
+    launches = {"gemm_chain": 0, "helmholtz": 0, "flash_attention": 0}
+    reblock = {}
+    for es in ((E, E // 2, E // 4), (E // 4, E, E // 2)):
+        plan = mchain.plan_chain(named, target=H, batch_elements=E, n_eq=E,
+                                 stage_batch_elements=es)
+        if plan.stage_batch_elements != es:
+            fail(f"per-stage E {es} planned as {plan.stage_batch_elements}")
+        zero_counts()
+        got, _ = _run_one_batch(named, plan, elems)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect = {"gemm_chain": E // es[0] + E // es[1],
+                  "helmholtz": E // es[2], "flash_attention": 0}
+        if counts != expect:
+            fail(f"per-stage E {es}: launches {counts}, want {expect}")
+        for name in launches:
+            launches[name] += counts[name]
+        for q in want:
+            if not np.array_equal(got[q], want[q]):
+                fail(f"per-stage E {es}: {q} differs bitwise from the "
+                     "uniform serial run")
+        # a re-blocked kernel stage writes into slices of the batch's
+        # outputs (out=, as run_chain does); torch.cat timed beside it
+        stage_ms, cat_ms = {}, {}
+        for s, e_s in zip(named.stages, es):
+            keys = tuple(s.program.element_vars)
+            shapes = {n: tuple(v.shape) for n, v in s.program.outputs.items()}
+            fn = mempipe.reblock_batched_fn(impls[s.name], keys, e_s,
+                                            outputs=shapes)
+            cat = mempipe.reblock_batched_fn(impls[s.name], keys, e_s)
+            one = impls[s.name](envs[s.name])
+            for q, v in fn(envs[s.name]).items():
+                if not torch.equal(v, one[q]):
+                    fail(f"re-blocked {s.name} at E_s {e_s}: {q} differs "
+                         "bitwise from the whole batch")
+            del one
+            stage_ms[s.name] = time_ms(lambda: fn(envs[s.name]), 20)
+            cat_ms[s.name] = time_ms(lambda: cat(envs[s.name]), 20)
+        reblock[str(es)] = dict(stage_ms=stage_ms, cat_ms=cat_ms,
+                                launches=counts,
+                                predicted_s_per_element=(
+                                    plan.cost.t_pipelined / E),
+                                t_reblock_ms=[r * 1e3 for r in
+                                              plan.cost.t_reblock])
+        print(f"per-stage E {es}: bitwise equal to the uniform serial run |"
+              " kernel ms " + ", ".join(
+                  f"{n} {stage_ms[n]:.3f} (uniform {uniform_ms[n]:.3f}, "
+                  f"torch.cat {cat_ms[n]:.3f})"
+                  for n in stage_ms) + f" | launches {counts} | planner "
+              f"re-block ms {reblock[str(es)]['t_reblock_ms']}")
+    # the chain DSE's verification of such a plan: two batches of host
+    # synthesis through run_chain (one warm-up)
+    secs = dse.measure_chain_plan(named, plan, max_batches=1)
+    if not (isinstance(secs, float) and secs > 0):
+        fail(f"measure_chain_plan on per-stage E {es} gave {secs!r}")
+    reblock[str(es)]["measured_s_per_element"] = secs
+    print(f"measure_chain_plan at per-stage E {es}: {secs * 1e6:.3f} "
+          f"us/element (predicted {plan.cost.t_pipelined / E * 1e6:.3f})")
+    del envs, want
+
+    # -- (e) a plan for a reference datasheet runs on the card -----------
+    # alveo-u280's blocks are VMEM blocks (512 here), no CUDA tile: the
+    # plan keeps them and the kernels launch at their default tile
+    kw = dict(stages=operators.CFD_PIPELINE_STAGES, backend="pallas",
+              batch_elements=REF_TARGET_E, n_eq=REF_TARGET_E)
+    src = operators.CFD_PIPELINE_SRC.format(p=p)
+    alveo = flow.compile(src, target=channels.ALVEO_U280, **kw)
+    h100 = flow.compile(src, target=H, **kw)
+    ref_blocks = [sp.block_elements for sp in alveo.plan.stages]
+    if min(ref_blocks) <= 3:
+        fail(f"alveo-u280 plan blocks {ref_blocks}: want VMEM blocks")
+    small = {q: v[:REF_TARGET_E] for q, v in elems.items()}
+    got, _ = _run_one_batch(alveo.chain, alveo.plan, small)
+    want, _ = _run_one_batch(h100.chain, h100.plan, small)
+    for q in want:
+        if not np.array_equal(got[q], want[q]):
+            fail(f"alveo-u280 plan on the card: {q} differs bitwise from "
+                 "the h100-sxm plan's")
+    print(f"alveo-u280 plan (blocks {ref_blocks}) on the card at E "
+          f"{REF_TARGET_E}: bitwise the h100-sxm plan's outputs")
+    del elems, small, got, want
+    torch.cuda.empty_cache()
+    stats = dict(tiles=tiles, tuning=tuning, tune_s=tune_s,
+                 uniform_stage_ms=uniform_ms, per_stage_e=reblock,
+                 reference_target_blocks=ref_blocks)
+    return stats, launches
+
+
+def _run_one_batch_serial(chain, plan, elems):
+    """:func:`_run_one_batch` on the serial schedule (the reference run
+    that per-stage batch sizes are held against)."""
+    from repro_torch.cfd import simulation
+
+    inputs = {f"{s.name}.{n}": elems[n]
+              for i, s in enumerate(chain.stages)
+              for n, _ in chain.host_element_inputs(i)}
+    res = simulation.run_chain(chain, plan, inputs=inputs, max_batches=1,
+                               collect_outputs=True, pipeline_stages=False)
+    return {q.split(".", 1)[1]: v for q, v in res.outputs.items()}, res
 
 
 def visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
@@ -1349,11 +1607,16 @@ def main() -> int:
         card = phase_setup()
         from repro_torch.cfd import operators
 
-        system = operators.compile_cfd_pipeline(11, backends="pallas")
+        natural = operators.compile_cfd_pipeline(11, backends="pallas")
+        system = operators.compile_cfd_pipeline(11, backends="pallas",
+                                                batch_elements=SLICE_E)
         if system.target.name != "h100-sxm":
             fail(f"planned for {system.target.name}, want h100-sxm")
-        print(f"plan: E={system.plan.batch_elements}  blocks "
-              f"{[sp.block_elements for sp in system.plan.stages]}  "
+        blocks = [sp.block_elements for sp in system.plan.stages]
+        if blocks != [3, 3, 3]:
+            fail(f"plan blocks {blocks}; want each kernel's tile, 3")
+        print(f"plan: E={system.plan.batch_elements} (the planner's own "
+              f"{natural.plan.batch_elements})  blocks {blocks}  "
               f"host stream {system.plan.host_stream_bytes / 2**20:.1f} "
               "MiB/batch")
         rows = phase_kernels(system)
@@ -1373,6 +1636,12 @@ def main() -> int:
             launches[name] += fused_launches[name]
         fusion_s = time.perf_counter() - t_x
         print(f"phase X: {fusion_s:.1f} s")
+        t_b = time.perf_counter()
+        blocks_stats, block_launches = phase_blocks()
+        for name in ("gemm_chain", "helmholtz"):
+            launches[name] += block_launches[name]
+        blocks_s = time.perf_counter() - t_b
+        print(f"phase B: {blocks_s:.1f} s")
         flash_rows = phase_flash()
         model = phase_model()
     except SmokeFailure as e:
@@ -1403,6 +1672,9 @@ def main() -> int:
             "shapes": shapes,
             **({"probes_ms": probes, "fused_shapes": fused_rows}
                if name == "gemm_chain" else {}),
+            "tiles": {k: v for k, v in blocks_stats["tiles"].items()
+                      if k.startswith(name) or (
+                          name == "gemm_chain" and k in ("interp", "grad"))},
         })
     main_case = flash_rows[0]  # the shape the model path gives the kernel
     kernels.append({
@@ -1418,7 +1690,8 @@ def main() -> int:
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"fig2": fig2, "fixed_point": fixed, "dse": dse_stats,
                       "new_phases_s": new_s, "fusion": fusion,
-                      "fusion_s": fusion_s}))
+                      "fusion_s": fusion_s, "blocks": blocks_stats,
+                      "blocks_s": blocks_s}))
     print(json.dumps({"model": model}))
     print(card)
     print(json.dumps({"kernels": kernels}))

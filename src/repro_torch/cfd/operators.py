@@ -23,6 +23,7 @@ from ..core import api, dsl
 from ..core.emit import CompiledProgram
 from ..kernels.helmholtz import ops as helmholtz_ops
 from ..memory.chain import ChainPlan, ProgramChain
+from ..memory.layout import kernel_tiles
 from ..memory.plan import MemoryPlan
 
 
@@ -32,13 +33,13 @@ def pallas_block_elements(
     *,
     vmem_bytes: Optional[int] = None,
     bytes_per_scalar: int = 4,
-) -> int:
+) -> Optional[int]:
     """Resolve the Helmholtz kernel's block size from a MemoryPlan.
 
-    The plan already carries the on-chip-budgeted block
-    (``block_elements``, a divisor of its E); without one, the block is
-    derived directly from the given on-chip capacity, and with neither
-    the kernel default stands.
+    The plan already carries the block (on the H100 the kernel's tile,
+    elsewhere the on-chip-budgeted divisor of its E); without one, the
+    block is derived directly from the given on-chip capacity, and with
+    neither it is None: the kernel's own default tile.
     """
     if plan is not None and plan.block_elements:
         return plan.block_elements
@@ -46,7 +47,7 @@ def pallas_block_elements(
         return helmholtz_ops.block_elements_for_vmem(
             p, vmem_bytes, bytes_per_scalar=bytes_per_scalar
         )
-    return helmholtz_ops.DEFAULT_BLOCK_ELEMENTS
+    return None
 
 
 def build_inverse_helmholtz(
@@ -67,15 +68,17 @@ def build_inverse_helmholtz(
       * ``staged`` -- one callable per scheduled group (dataflow view).
       * ``pallas`` -- the fused CUDA kernel (``csrc/helmholtz.cu``; its
         plain PyTorch version on CPU tensors).  Its ``block_elements``
-        defaults to the plan's on-chip-budgeted block when a MemoryPlan
-        is given (explicit ``block_elements`` still wins).
+        (the kernel's tile) defaults to the plan's block when the plan
+        is for a card the kernels run on; on the reference's targets
+        that block is a VMEM block, which stays in the plan while the
+        kernel launches at its default tile.  An explicit
+        ``block_elements`` still wins.
     """
     pallas_impl = None
     if backend == "pallas":
-        be = (
-            block_elements if block_elements is not None
-            else pallas_block_elements(p, plan)
-        )
+        be = block_elements
+        if be is None and plan is not None and kernel_tiles(plan.target):
+            be = pallas_block_elements(p, plan)
         pallas_impl = helmholtz_ops.make_pallas_impl(block_elements=be)
     return api.compile_cfdlang(
         dsl.INVERSE_HELMHOLTZ_SRC.format(p=p),

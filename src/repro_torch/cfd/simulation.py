@@ -336,6 +336,11 @@ def run_chain(
     a deterministic synthetic stream; ``shared`` supplies the
     batch-invariant operands by bare name (synthesized when omitted).
 
+    A plan with per-stage batch sizes (``plan.stage_batch_elements``)
+    runs each such stage over E_s sub-batches of the chain batch
+    (``memory.pipeline.reblock_batched_fn``), bitwise-equal to the
+    uniform run.
+
     ``collect_outputs`` returns the concatenated chain outputs; by
     default only a checksum per output crosses back.  ``tracer``,
     ``monitor`` and ``metrics`` are not ported yet and must be None.
@@ -361,10 +366,6 @@ def run_chain(
             f"run_chain: plan backends {planned} differ from the "
             f"compiled chain's {compiled}; executing the compiled chain.",
             RuntimeWarning,
-        )
-    if plan.stage_batch_elements and not plan.uniform_batch:
-        raise NotImplementedError(
-            "per-stage batch sizes (re-blocking handoffs) are not ported yet"
         )
     if plan.placement.devices_used[-1] >= 1:
         warnings.warn(
@@ -420,8 +421,26 @@ def run_chain(
         for n, _ in chain.chain_outputs(i)
     ]
 
+    # per-stage E_s: a plan may run some stages at a smaller batch than
+    # the chain E -- the re-blocking handoff slices the chain batch into
+    # E_s sub-batches on the device; a kernel stage writes each into its
+    # slice of the chain batch's outputs, any other stage's outputs are
+    # concatenated (bitwise-equal to the full-batch call: elements are
+    # independent)
+    stage_es = [plan.stage_e(i) for i in range(len(plan.stages))]
+    if len(stage_es) != len(chain.stages):
+        stage_es = [E] * len(chain.stages)
+
     def make_stage_fn(i: int, s: memchain.ChainStage):
         batched_fn = s.compiled.batched_fn
+        if 0 < stage_es[i] < E:
+            batched_fn = mempipe.reblock_batched_fn(
+                batched_fn, tuple(s.program.element_vars), stage_es[i],
+                outputs=(
+                    {n: tuple(v.shape) for n, v in s.program.outputs.items()}
+                    if s.backend == "pallas" else None
+                ),
+            )
 
         def run_stage(staged: mempipe.Staged, carry):
             live: Dict[str, torch.Tensor] = dict(carry) if carry else {}

@@ -149,30 +149,48 @@ def _eval_ewise(node: ir.Ewise, args, policy):
     raise ir.IRError(f"unknown ewise op {node.op}")
 
 
+def last_readers(steps: Sequence[Sequence[int]]) -> Dict[int, int]:
+    """For each uid that ``steps`` read (step ``i`` reads the uids in
+    ``steps[i]``), the index of the last step that reads it."""
+    last: Dict[int, int] = {}
+    for i, uids in enumerate(steps):
+        for u in uids:
+            last[u] = i
+    return last
+
+
 def _eval_nodes(nodes, vals: Dict[int, torch.Tensor], batched: Set[int],
-                policy) -> None:
+                policy, keep: Set[int]) -> None:
     """Evaluate ``nodes`` in order into ``vals``; a node is batched (has
     the leading element axis) when any operand is, and then joins
-    ``batched``."""
+    ``batched``.  A value not in ``keep`` leaves ``vals`` right after its
+    last reader among ``nodes``, so its memory is freed while the rest
+    of the program runs (the reference's XLA frees dead values the same
+    way)."""
     fixed = isinstance(policy, FixedPointPolicy)
-    for node in nodes:
-        if node.uid in vals:
-            continue
+    todo = [n for n in nodes if n.uid not in vals]
+    last = last_readers([[o.uid for o in n.operands()] for n in todo])
+    for i, node in enumerate(todo):
         ops = node.operands()
         args = [vals[o.uid] for o in ops]
         flags = [o.uid in batched for o in ops]
         if isinstance(node, ir.Einsum):
             if fixed:
-                vals[node.uid] = _eval_einsum_fixed(node, args, flags, policy)
+                out = _eval_einsum_fixed(node, args, flags, policy)
             else:
-                vals[node.uid] = _eval_einsum_float(node, args, flags, policy)
+                out = _eval_einsum_float(node, args, flags, policy)
         elif isinstance(node, ir.Ewise):
             # the batch axis leads, so broadcasting lines up the rest
-            vals[node.uid] = _eval_ewise(node, args, policy)
+            out = _eval_ewise(node, args, policy)
         else:
             raise ir.IRError(f"cannot evaluate {node!r}")
+        del args
+        vals[node.uid] = out
         if any(flags):
             batched.add(node.uid)
+        for o in ops:
+            if last[o.uid] == i and o.uid not in keep:
+                vals.pop(o.uid, None)
 
 
 def _load_inputs(prog: ir.Program, env, policy, element_axis: bool, device):
@@ -219,7 +237,8 @@ def _run(prog: ir.Program, env: Dict[str, torch.Tensor], policy,
     carry a leading batch axis and so does every output."""
     vals, batched, n_batch = _load_inputs(prog, env, policy, element_axis,
                                           device)
-    _eval_nodes(prog.toposort(), vals, batched, policy)
+    _eval_nodes(prog.toposort(), vals, batched, policy,
+                {v.uid for v in prog.outputs.values()})
     return _outputs(prog, vals, batched, n_batch)
 
 
@@ -279,18 +298,27 @@ def _staged_callables(
                   _out=tuple(out_uids)):
             vals: Dict[int, torch.Tensor] = dict(zip(_in, args))
             batched = {u for u in _in if u in dep} if element_axis else set()
-            _eval_nodes(_nodes, vals, batched, policy)
+            _eval_nodes(_nodes, vals, batched, policy, set(_out))
             return [vals[u] for u in _out]
 
         stage_fns.append(stage)
         stage_sigs.append((in_uids, out_uids))
 
+    keep = {v.uid for v in prog.outputs.values()}
+    last = last_readers([ins for ins, _ in stage_sigs])
+
     def drive(env, element_axis: bool):
         live, batched, n_batch = _load_inputs(prog, env, policy,
                                               element_axis, device)
-        for fn, (in_uids, out_uids) in zip(stage_fns, stage_sigs):
+        for i, (fn, (in_uids, out_uids)) in enumerate(
+                zip(stage_fns, stage_sigs)):
             outs = fn([live[u] for u in in_uids], element_axis)
             live.update(zip(out_uids, outs))
+            del outs
+            # a stream leaves once its last group has read it
+            for u in in_uids:
+                if last[u] == i and u not in keep:
+                    live.pop(u, None)
         if element_axis:
             batched = {u for u in live if u in dep}
         return _outputs(prog, live, batched, n_batch)
@@ -313,7 +341,9 @@ def compile_program(
 
     ``pallas_impl``: a callable ``(env) -> outputs`` implementing the
     whole batched program as a hand-written kernel; used when
-    ``backend='pallas'``.  The kernels compute in floating point, so a
+    ``backend='pallas'``.  The port's kernel adapters also take
+    ``out=``, the tensors to write the outputs into, which the batched
+    fn passes on.  The kernels compute in floating point, so a
     fixed-point policy runs on ``xla`` or ``staged`` only.
 
     ``device``: where the callables put their inputs before computing
@@ -355,9 +385,9 @@ def compile_program(
         if device is None:
             batched = pallas_impl
         else:
-            def batched(env):
+            def batched(env, **kw):
                 return pallas_impl({k: torch.as_tensor(v, device=device)
-                                    for k, v in env.items()})
+                                    for k, v in env.items()}, **kw)
     else:
         def batched(env):
             return _run(prog, env, policy, element_axis=True, device=device)

@@ -75,6 +75,8 @@ constexpr int kFibers = 2;
 // Shared memory per CTA under which three CTAs fit on one SM (228 KB per
 // SM, 1 KB of it reserved per CTA).
 constexpr int kCubeCtaTarget = 75 * 1024;
+// Shared memory one block may use on an H100 (227 KB).
+constexpr int kMaxSharedBytes = 232448;
 
 // An f32 work cube of p x p x p in shared memory.  At even p the row pitch
 // is p + 1: a warp's fibers are 32 consecutive (fixed-index) pairs, and an
@@ -279,12 +281,12 @@ __device__ __forceinline__ void stage_async(void* region, const T* g, int n,
   }
 }
 
-// The CTA's tile: te elements a step, its thread count and its shared
-// memory, for a CFD kernel at p with `n_stage` staging buffers (a tile of
-// one element input each, elem_bytes a value), `n_work` f32 work cubes
-// and `n_mat_rows` padded matrix row blocks.  The tile fills a CTA's fibers (kFibers *
-// kCubeMaxThreads) and, where it can, keeps three CTAs on an SM.
-// Mirrored by repro_torch.kernels._cube.cube_tile.
+// The CTA's tile: te elements a step (the plan's block size), its thread
+// count and its shared memory, for a CFD kernel at p with `n_stage`
+// staging buffers (a tile of one element input each, elem_bytes a value),
+// `n_work` f32 work cubes and `n_mat_rows` padded matrix row blocks.
+// Threads follow te: kFibers fibers a thread, whole warps, at least
+// kCubeMinThreads.  Mirrored by repro_torch.kernels._cube.
 struct CubeTile {
   int te, threads, smem;
 };
@@ -297,20 +299,42 @@ __host__ __device__ constexpr int cube_smem(int p, int te, int n_stage,
          n_work * round16(te * p * p * (p | 1) * 4);
 }
 
-__host__ __device__ constexpr CubeTile cube_tile(int p, int n_stage,
-                                                 int elem_bytes, int n_work,
-                                                 int n_mat_rows) {
-  int te = kFibers * kCubeMaxThreads / (p * p);
-  if (te < 1) te = 1;
-  while (te > 1 && cube_smem(p, te, n_stage, elem_bytes, n_work,
-                             n_mat_rows) > kCubeCtaTarget) {
-    --te;
-  }
+__host__ __device__ constexpr int cube_threads(int p, int te) {
   int threads = (te * p * p + kFibers - 1) / kFibers;
   threads = (threads + 31) / 32 * 32;
-  if (threads < kCubeMinThreads) threads = kCubeMinThreads;
-  return {te, threads,
+  return threads < kCubeMinThreads ? kCubeMinThreads : threads;
+}
+
+// The tile at te; te <= 0 takes the default, which fills a CTA's fibers
+// (kFibers * kCubeMaxThreads) and, where it can, keeps three CTAs on an
+// SM.
+__host__ __device__ constexpr CubeTile cube_tile(int p, int n_stage,
+                                                 int elem_bytes, int n_work,
+                                                 int n_mat_rows, int te = 0) {
+  if (te <= 0) {
+    te = kFibers * kCubeMaxThreads / (p * p);
+    if (te < 1) te = 1;
+    while (te > 1 && cube_smem(p, te, n_stage, elem_bytes, n_work,
+                               n_mat_rows) > kCubeCtaTarget) {
+      --te;
+    }
+  }
+  return {te, cube_threads(p, te),
           cube_smem(p, te, n_stage, elem_bytes, n_work, n_mat_rows)};
+}
+
+// The largest te a CFD kernel launches with: at most kCubeMaxThreads
+// threads (its __launch_bounds__) and one block's shared memory; 0 where
+// not even one element fits.
+__host__ __device__ constexpr int cube_max_tile(int p, int n_stage,
+                                                int elem_bytes, int n_work,
+                                                int n_mat_rows) {
+  int te = kFibers * kCubeMaxThreads / (p * p);
+  while (te > 0 && cube_smem(p, te, n_stage, elem_bytes, n_work,
+                             n_mat_rows) > kMaxSharedBytes) {
+    --te;
+  }
+  return te;
 }
 
 // Persistent grid: as many CTAs as fit on the card at once, at most one

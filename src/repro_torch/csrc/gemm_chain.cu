@@ -60,10 +60,11 @@
 //   registers, not shared memory (one
 //   buffer, at three CTAs an SM, ran interpolation 15 % and the gradient
 //   10 % slower on the H100).
-// - BE: the plan's block_elements stays the wrapper's argument with its
-//   E % BE check (plans equal the reference's) and plays no part in the
-//   launch; the kernel's own tile (cube_tile) depends on p, the dtype
-//   and the recipe's cube counts, and the last tile may be ragged.
+// - BE: the plan's block_elements is te, the elements a CTA takes a step
+//   (cube_tile: threads follow te; the default depends on p, the dtype
+//   and the recipe's cube counts).  The launch refuses a te above
+//   cube_max_tile, and the last tile may be ragged, so E need not be a
+//   multiple of te.
 #include <cstdint>
 
 #include "common.cuh"
@@ -108,9 +109,15 @@ __host__ __device__ inline int n_elem_inputs(const GemmChainArgs& a) {
 }
 
 __host__ __device__ inline CubeTile chain_tile(const GemmChainArgs& a,
-                                               int elem_bytes) {
+                                               int elem_bytes, int te) {
   return cube_tile(a.p, 2 * n_elem_inputs(a), elem_bytes, a.n_bufs,
-                   2 * a.n_mats);
+                   2 * a.n_mats, te);
+}
+
+__host__ __device__ inline int chain_max_tile(const GemmChainArgs& a,
+                                              int elem_bytes) {
+  return cube_max_tile(a.p, 2 * n_elem_inputs(a), elem_bytes, a.n_bufs,
+                       2 * a.n_mats);
 }
 
 // Stores a contraction's outputs: into its work cube (if any) and into
@@ -309,9 +316,10 @@ __global__ void __launch_bounds__(kCubeMaxThreads)
 }
 
 template <typename T, int P>
-static cudaError_t launch_gemm_chain(const GemmChainArgs& args, int E,
+static cudaError_t launch_gemm_chain(const GemmChainArgs& args, int E, int te,
                                      cudaStream_t stream) {
-  const CubeTile t = chain_tile(args, sizeof(T));
+  const CubeTile t = chain_tile(args, sizeof(T), te);
+  if (t.te > chain_max_tile(args, sizeof(T))) return cudaErrorInvalidValue;
   if (E <= 0) return cudaSuccess;
   int grid = 0;
   cudaError_t err = persistent_grid(gemm_chain_kernel<T, P>, t,
@@ -323,11 +331,11 @@ static cudaError_t launch_gemm_chain(const GemmChainArgs& args, int E,
 
 template <typename T>
 static cudaError_t dispatch_gemm_chain(const GemmChainArgs& args, int E,
-                                       cudaStream_t s) {
+                                       int te, cudaStream_t s) {
   switch (args.p) {
 #define REPRO_GC_CASE(P) \
   case P:                \
-    return launch_gemm_chain<T, P>(args, E, s);
+    return launch_gemm_chain<T, P>(args, E, te, s);
     REPRO_FOR_EACH_P(REPRO_GC_CASE)
 #undef REPRO_GC_CASE
     default:
@@ -348,20 +356,23 @@ extern "C" int repro_gemm_chain_limits(int* out) {
   return 0;
 }
 
-// The kernel's tile for a recipe: {te, threads, shared bytes}, for the
-// wrapper's mirror to be checked against.
+// The kernel's tile for a recipe at te (te <= 0: the default): {te,
+// threads, shared bytes, largest te}, for the wrapper's mirror to be
+// checked against.
 extern "C" int repro_gemm_chain_tile(const repro::GemmChainArgs* args,
-                                     int dtype, int* out) {
-  const repro::CubeTile t = repro::chain_tile(
-      *args, dtype == repro::kBFloat16 ? 2 : 4);
+                                     int dtype, int te, int* out) {
+  const int eb = dtype == repro::kBFloat16 ? 2 : 4;
+  const repro::CubeTile t = repro::chain_tile(*args, eb, te);
   out[0] = t.te;
   out[1] = t.threads;
   out[2] = t.smem;
+  out[3] = repro::chain_max_tile(*args, eb);
   return 0;
 }
 
+// te: the elements a CTA takes a step; te <= 0 takes the kernel's default.
 extern "C" int repro_gemm_chain(const repro::GemmChainArgs* args, int E,
-                                int dtype, void* stream) {
+                                int dtype, int te, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (args->n_in > repro::kMaxIn || args->n_out > repro::kMaxOut ||
       args->n_ops > repro::kMaxOps || args->n_slots > repro::kMaxSlots ||
@@ -369,10 +380,10 @@ extern "C" int repro_gemm_chain(const repro::GemmChainArgs* args, int E,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == repro::kFloat32) {
-    return repro::dispatch_gemm_chain<float>(*args, E, s);
+    return repro::dispatch_gemm_chain<float>(*args, E, te, s);
   }
   if (dtype == repro::kBFloat16) {
-    return repro::dispatch_gemm_chain<__nv_bfloat16>(*args, E, s);
+    return repro::dispatch_gemm_chain<__nv_bfloat16>(*args, E, te, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -48,12 +48,13 @@
 //   the head and tail under 16 bytes by plain loads held in registers,
 //   so any 2- or 4-byte alignment works), so the copies overlap the
 //   remaining contractions with one buffer per input.
-// - BE: the plan's block_elements (from memory/layout, the reference's
-//   VMEM model) stays the wrapper's argument and keeps its E % BE check,
-//   so plans equal the reference's; it plays no part in the launch.  The
-//   kernel's own tile te (cube_tile: 3 elements at p = 11, f32) fills a
-//   CTA's 2 x 192 fiber slots within 75 KB of shared memory, and the last
-//   tile may be ragged.  Results depend on neither.
+// - BE: the plan's block_elements is te, the elements a CTA takes a step
+//   (cube_tile: threads follow te; without a block, 3 elements at
+//   p = 11, f32, fill a CTA's 2 x 192 fiber slots within 75 KB of shared
+//   memory).  The launch refuses a te above cube_max_tile (more than 192
+//   threads or one block's shared memory), and the last tile may be
+//   ragged, so E need not be a multiple of te.  Results depend on
+//   neither.
 // CUDA-core FMA: p = 11 is below the tensor cores' MMA depth and TF32
 // would break f32 parity.
 #include <cstdint>
@@ -166,15 +167,21 @@ __global__ void __launch_bounds__(kCubeMaxThreads, kHhMinCtas)
 }
 
 template <typename T, int P>
-constexpr CubeTile helmholtz_tile() {
-  return cube_tile(P, kHhStage, sizeof(T), kHhWork, kHhMats);
+constexpr CubeTile helmholtz_tile(int te) {
+  return cube_tile(P, kHhStage, sizeof(T), kHhWork, kHhMats, te);
+}
+
+template <typename T, int P>
+constexpr int helmholtz_max_tile() {
+  return cube_max_tile(P, kHhStage, sizeof(T), kHhWork, kHhMats);
 }
 
 template <typename T, int P>
 static cudaError_t launch_helmholtz(const void* S, const void* D,
-                                    const void* u, void* v, int E,
+                                    const void* u, void* v, int E, int te,
                                     cudaStream_t stream) {
-  constexpr CubeTile t = helmholtz_tile<T, P>();
+  const CubeTile t = helmholtz_tile<T, P>(te);
+  if (t.te > helmholtz_max_tile<T, P>()) return cudaErrorInvalidValue;
   if (E <= 0) return cudaSuccess;
   int grid = 0;
   cudaError_t err = persistent_grid(helmholtz_kernel<T, P>, t,
@@ -189,11 +196,11 @@ static cudaError_t launch_helmholtz(const void* S, const void* D,
 template <typename T>
 static cudaError_t dispatch_helmholtz(const void* S, const void* D,
                                       const void* u, void* v, int E, int p,
-                                      cudaStream_t s) {
+                                      int te, cudaStream_t s) {
   switch (p) {
 #define REPRO_HH_CASE(P) \
   case P:                \
-    return launch_helmholtz<T, P>(S, D, u, v, E, s);
+    return launch_helmholtz<T, P>(S, D, u, v, E, te, s);
     REPRO_FOR_EACH_P(REPRO_HH_CASE)
 #undef REPRO_HH_CASE
     default:
@@ -201,43 +208,54 @@ static cudaError_t dispatch_helmholtz(const void* S, const void* D,
   }
 }
 
+// {te, threads, shared bytes, largest te} at p (zeros for a p the kernel
+// does not take)
 template <typename T>
-static CubeTile tile_of(int p) {
+static void tile_of(int p, int te, int* out) {
+  CubeTile t{0, 0, 0};
+  int max_te = 0;
   switch (p) {
-#define REPRO_HH_CASE(P) \
-  case P:                \
-    return helmholtz_tile<T, P>();
+#define REPRO_HH_CASE(P)               \
+  case P:                              \
+    t = helmholtz_tile<T, P>(te);      \
+    max_te = helmholtz_max_tile<T, P>(); \
+    break;
     REPRO_FOR_EACH_P(REPRO_HH_CASE)
 #undef REPRO_HH_CASE
     default:
-      return {0, 0, 0};
+      break;
   }
+  out[0] = t.te;
+  out[1] = t.threads;
+  out[2] = t.smem;
+  out[3] = max_te;
 }
 
 }  // namespace repro
 
+// te: the elements a CTA takes a step; te <= 0 takes the kernel's default.
 extern "C" int repro_helmholtz(const void* S, const void* D, const void* u,
-                               void* v, int E, int p, int dtype,
+                               void* v, int E, int p, int dtype, int te,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32) {
-    return repro::dispatch_helmholtz<float>(S, D, u, v, E, p, s);
+    return repro::dispatch_helmholtz<float>(S, D, u, v, E, p, te, s);
   }
   if (dtype == repro::kBFloat16) {
-    return repro::dispatch_helmholtz<__nv_bfloat16>(S, D, u, v, E, p, s);
+    return repro::dispatch_helmholtz<__nv_bfloat16>(S, D, u, v, E, p, te, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The kernel's tile at p: {te, threads, shared bytes} (zeros for a p it
-// does not take), for the wrapper's mirror to be checked against.
-extern "C" int repro_helmholtz_tile(int p, int dtype, int* out) {
-  const repro::CubeTile t = dtype == repro::kBFloat16
-                                ? repro::tile_of<__nv_bfloat16>(p)
-                                : repro::tile_of<float>(p);
-  out[0] = t.te;
-  out[1] = t.threads;
-  out[2] = t.smem;
+// The kernel's tile at p and te (te <= 0: the default): {te, threads,
+// shared bytes, largest te}, for the wrapper's mirror to be checked
+// against.
+extern "C" int repro_helmholtz_tile(int p, int dtype, int te, int* out) {
+  if (dtype == repro::kBFloat16) {
+    repro::tile_of<__nv_bfloat16>(p, te, out);
+  } else {
+    repro::tile_of<float>(p, te, out);
+  }
   return 0;
 }
 

@@ -19,17 +19,20 @@ hand-written builder code:
      structural pattern dispatch, ``flow.patterns``);
   6. **memory**      -- the derived :class:`ProgramChain` is planned by
      ``memory.plan_chain`` (optionally fused by ``memory.fusion`` and
-     swept by ``dse.explore_chain``); a kernel stage without a pinned
-     block runs at the block its plan sized against the card's shared
-     memory.
+     swept by ``dse.explore_chain``); on the H100 a kernel stage
+     without a pinned block runs at the block its plan carries, the CUDA
+     kernel's tile (on the reference's datasheets the plan's block is a
+     VMEM block and the kernel takes its default tile), and
+     ``tune_blocks`` times the kernel's candidate tiles and keeps the
+     fastest.
 
 The result is a :class:`CompiledSystem`: per-stage callables, the
 :class:`ChainPlan`, and a human-readable system report -- the generated-
 architecture description the paper's flow emits, byte for byte the
 reference's.  ``CompiledSystem.run`` executes the artifact through the
-K-deep chain pipeline driver.  Measured block tuning (``tune_blocks``)
-and the profile store (``profile``) are not ported yet and raise
-:class:`FlowError`.
+K-deep chain pipeline driver.  The profile store (``profile``), where
+the reference deposits the tuner's winners, is not ported yet and
+raises :class:`FlowError`.
 """
 from __future__ import annotations
 
@@ -40,9 +43,8 @@ from ..core import dsl, emit, ir, liveness, rewrite
 from ..core.schedule import (Group, Schedule, schedule as make_schedule,
                              stage_partition)
 from ..core.precision import get_policy
-from ..memory import channels
-from ..memory.chain import (ChainPlan, ChainStage, ProgramChain,
-                            chain_at_plan_blocks, plan_chain)
+from ..memory import channels, layout
+from ..memory.chain import ChainPlan, ChainStage, ProgramChain, plan_chain
 from ..memory.fusion import FusionSpec, fuse_chain_auto
 from ..memory.fusion import _collapse, _collapse_backends
 from ..memory.placement import DeviceTopology
@@ -343,6 +345,202 @@ def _compile_stages(
     return chain_stages, tuple(effective)
 
 
+def _at_blocks(
+    chain: ProgramChain,
+    stages: List[_Stage],
+    policy,
+    backends: Sequence[str],
+    blocks: Mapping[str, int],
+) -> ProgramChain:
+    """The chain with every kernel stage compiled at its block in
+    ``blocks`` (absent: the kernel's default tile); other stages kept."""
+    out = []
+    for st, cs, backend in zip(stages, chain.stages, backends):
+        if backend == "pallas":
+            (cs,), _ = _compile_stages([st], policy, [backend], blocks)
+        out.append(cs)
+    return ProgramChain(out)
+
+
+def _plan_at_blocks(
+    plan: ChainPlan,
+    stages: List[_Stage],
+    backends: Sequence[str],
+    blocks: Mapping[str, int],
+    policy,
+    target: channels.MemoryTarget,
+) -> ChainPlan:
+    """The plan with the stages named in ``blocks`` at those blocks (and
+    their on-chip bytes: a kernel stage's CTA shared memory on the
+    H100)."""
+    bps = policy.bits // 8
+    stage_plans = []
+    for i, (sp, st, backend) in enumerate(zip(plan.stages, stages, backends)):
+        if sp.name in blocks and blocks[sp.name] != sp.block_elements:
+            blk, ws = layout.stage_block(
+                st.program, target, plan.stage_e(i), bytes_per_scalar=bps,
+                kernel=backend == "pallas" and not policy.is_fixed_point,
+                te=blocks[sp.name],
+            )
+            sp = dataclasses.replace(
+                sp, block_elements=blk, block_working_set_bytes=ws
+            )
+        stage_plans.append(sp)
+    return dataclasses.replace(plan, stages=tuple(stage_plans))
+
+
+@dataclasses.dataclass(frozen=True)
+class StageTuning:
+    """What ``tune_blocks`` measured for one kernel stage: each candidate
+    block with its class and its best time (seconds for one batch of
+    the stage's E), and the winner."""
+
+    stage: str
+    batch_elements: int
+    candidates: Tuple[Tuple[int, str, float], ...]  # (block, klass, s)
+    block_elements: int
+    #: the blocks are the CUDA kernel's tiles (else the reference's
+    #: VMEM blocks, timed off the card on a reference datasheet)
+    kernel_tile: bool = True
+
+    def describe(self) -> str:
+        """One report line: every candidate's time, the winner starred."""
+        times = "  ".join(
+            f"{be}{'*' if be == self.block_elements else ''}"
+            f"({klass}) {t * 1e3:.3f}ms"
+            for be, klass, t in self.candidates
+        )
+        return f"    {self.stage:<12} E={self.batch_elements}  {times}"
+
+
+def _block_candidates(
+    prog: ir.Program,
+    target: channels.MemoryTarget,
+    policy,
+    e: int,
+    *,
+    card: bool,
+) -> List[Tuple[int, str]]:
+    """``(block, class)`` candidates for one kernel stage at batch ``e``.
+
+    Where the blocks are timed on the card, or planned for it (``card``),
+    they are the CUDA kernel's own tiles, ``te = 1 .. max_tile``
+    (``kernels.gemm.card_tile_candidates``), so no block is timed that
+    the card cannot launch.  Otherwise they are the reference's: the
+    CHARM-style tile classes (``kernels.gemm.tile_candidates``) for a
+    GEMM-chain stage, else the power-of-two blocks under the stage's
+    VMEM cap; both divide E."""
+    from ..kernels import gemm
+
+    bps = policy.bits // 8
+    if card:
+        max_te = patterns.kernel_tile_for(prog, bps)[3]
+        return [
+            (te, klass) for te, klass, _ in gemm.card_tile_candidates(
+                lambda te: patterns.kernel_tile_for(prog, bps, te)[:3],
+                max_te, batch_elements=e,
+            )
+        ]
+    recipe = patterns.match_gemm_chain(prog)
+    if recipe is not None:
+        klass = {
+            c.block_elements: c.klass for c in gemm.tile_candidates(
+                recipe, vmem_bytes=target.vmem_bytes,
+                peak_flops=target.peak_flops, hbm_bandwidth=target.hbm_bw,
+                bytes_per_scalar=bps, batch_elements=e,
+            )
+        }
+    else:
+        cap = layout.vmem_block_elements(prog, target, bytes_per_scalar=bps)
+        klass, be = {}, 1
+        while be <= min(cap, e):
+            if e % be == 0:
+                klass[be] = "-"
+            be *= 2
+    return sorted((b, k) for b, k in klass.items() if b <= e and e % b == 0)
+
+
+def _tune_stage_blocks(
+    stage_specs: List[_Stage],
+    effective: Sequence[str],
+    plan: ChainPlan,
+    policy,
+    target: channels.MemoryTarget,
+    device,
+) -> Dict[str, StageTuning]:
+    """Measured block-size autotuning for the plan's kernel stages.
+
+    For each ``pallas`` stage with at least two candidate blocks
+    (:func:`_block_candidates`: the kernel's tiles on the H100 datasheet
+    or wherever ``device`` is a card, else the reference's VMEM blocks),
+    each candidate is compiled and timed on
+    synthetic data at the stage's batch size, made on ``device`` from a
+    ``torch.Generator`` seeded 0: one warm-up call, then the best of
+    three (CUDA events on the current stream on the card,
+    ``time.perf_counter`` on the CPU).  The fastest wins.  A candidate
+    that fails to build or launch raises.  Returns ``{stage name:
+    StageTuning}``; the reference also deposits the winners in its
+    profile store, which is not ported yet (ROADMAP queue 1, item 9).
+    """
+    import torch
+
+    dev = channels.resolve_device(device)
+    card = layout.kernel_tiles(target) or dev.type == "cuda"
+    out: Dict[str, StageTuning] = {}
+    for i, (st, backend) in enumerate(zip(stage_specs, effective)):
+        if backend != "pallas":
+            continue
+        e = plan.stage_e(i)
+        cands = _block_candidates(st.program, target, policy, e, card=card)
+        if len(cands) < 2:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(0)
+        elem = set(st.program.element_vars)
+        env = {
+            n: torch.randn(
+                ((e,) + tuple(v.shape)) if n in elem else tuple(v.shape),
+                generator=gen, device=dev, dtype=torch.float32,
+            ).to(policy.torch_dtype)
+            for n, v in st.program.inputs.items()
+        }
+        times = []
+        for be, klass in cands:
+            fn = emit.compile_program(
+                st.program, policy=policy, backend="pallas",
+                pallas_impl=patterns.pallas_impl_for(
+                    st.program, block_elements=be),
+            ).batched_fn
+            _timed(fn, env, dev)  # warm-up: builds and loads the kernels
+            times.append((be, klass, min(_timed(fn, env, dev)
+                                         for _ in range(3))))
+        best = min(times, key=lambda c: c[2])
+        out[st.name] = StageTuning(
+            stage=st.name, batch_elements=e, candidates=tuple(times),
+            block_elements=best[0], kernel_tile=card,
+        )
+    return out
+
+
+def _timed(fn, env, dev) -> float:
+    """Seconds of one call: CUDA events on the current stream on the
+    card, the host clock (the outputs are ready on return) on the CPU."""
+    import time
+
+    import torch
+
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(env)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    fn(env)
+    return time.perf_counter() - t0
+
+
 # ---------------------------------------------------------------------------
 # the compiled artifact
 # ---------------------------------------------------------------------------
@@ -366,6 +564,8 @@ class CompiledSystem:
     sharing: Dict[str, "liveness.SharingPlan"]
     stage_groups: Tuple[Group, ...]
     candidates: Optional[list] = None   # ChainCandidate ranking (dse=True)
+    #: per-stage block measurements (tune_blocks=True)
+    tuning: Optional[Dict[str, StageTuning]] = None
 
     @property
     def stage_names(self) -> Tuple[str, ...]:
@@ -446,6 +646,10 @@ class CompiledSystem:
                 f"{s.bytes_per_element:>8}  {route}"
             )
         lines += ["", self.plan.report()]
+        if self.tuning:
+            lines += ["", "  tuned blocks (block(class) best of 3, "
+                      "* the winner):"]
+            lines += [t.describe() for t in self.tuning.values()]
         return "\n".join(lines)
 
 
@@ -505,6 +709,8 @@ def compile(
             fall back to ``xla`` (plain PyTorch) when nothing fits.
         stage_blocks: Per-stage ``block_elements`` pins for kernel
             stages; an unpinned kernel stage runs at its plan's block.
+            On the H100 a block is the CUDA kernel's tile (elements a
+            CTA step), and the plan carries the pins.
         optimize: Run the middle-end rewrites (factorize/CSE) first.
         max_stages: With ``stages=None``, cap the schedule's stage
             count.
@@ -534,8 +740,15 @@ def compile(
             kernel pattern matching.  Explicit ``stages`` cuts are
             barriers -- fusion never merges across a named cut.
             ``'off'``/``None`` keeps every boundary.
-        profile, tune_blocks: Not ported yet (ROADMAP queue 1, items 9
-            and 6); anything but the defaults raises.
+        profile: Not ported yet (ROADMAP queue 1, item 9); anything
+            but None raises.
+        tune_blocks: Measure the candidate blocks of every kernel stage
+            on ``device`` and run each at the fastest (on the card the
+            CUDA kernel's legal tiles, timed with CUDA events);
+            ``CompiledSystem.tuning`` records what was measured.  The
+            plan carries the winners where they are its kind of block:
+            tiles on the H100 datasheet, VMEM blocks timed off the card
+            on a reference datasheet.
 
     Returns:
         A :class:`CompiledSystem`: per-stage callables, the
@@ -548,12 +761,10 @@ def compile(
             malformed stage cuts, non-element outputs, or a knob that is
             not ported yet.
     """
-    for flag, given, item in (("profile", profile is not None, 9),
-                              ("tune_blocks", tune_blocks, 6)):
-        if given:
-            raise FlowError(
-                f"{flag} is not ported yet (ROADMAP queue 1, item {item})"
-            )
+    if profile is not None:
+        raise FlowError(
+            "profile is not ported yet (ROADMAP queue 1, item 9)"
+        )
     if fuse not in (None, "off", "auto"):
         raise FlowError(f"unknown fuse mode {fuse!r}; use 'auto' or 'off'")
     try:
@@ -721,22 +932,10 @@ def compile(
             won_pol = (
                 get_policy(plan.policy) if plan.policy != pol.name else pol
             )
-            # the reference bakes a kernel stage's block into its compiled
-            # kernel, so a winner that differs only in E/block (same
-            # backends + policy) still recompiles there; the decision is
-            # kept so that plans and reports stay equal
-            blocks_stale = any(
-                be == "pallas" and sp.block_elements
-                and st.name not in stage_blocks
-                for st, be, sp in zip(stage_specs, effective, plan.stages)
-            )
-            if won != effective or won_pol is not pol or blocks_stale:
-                blocks = dict(stage_blocks)
-                for sp in plan.stages:
-                    if sp.block_elements:
-                        blocks.setdefault(sp.name, sp.block_elements)
+            # kernel stages move to the winner's blocks below
+            if won != effective or won_pol is not pol:
                 chain_stages, effective = _compile_stages(
-                    stage_specs, won_pol, won, blocks
+                    stage_specs, won_pol, won, stage_blocks
                 )
                 chain = ProgramChain(chain_stages)
                 pol = won_pol
@@ -753,10 +952,36 @@ def compile(
                     channel_bytes=channel_bytes,
                 )
 
-    # a kernel stage without a pinned block runs at the block its plan
-    # sized against the target's on-chip memory (a divisor of E), so the
-    # executable and the plan agree on BE
-    chain = chain_at_plan_blocks(chain, plan, pinned=stage_blocks)
+    tuning = None
+    if tune_blocks:
+        tuning = _tune_stage_blocks(
+            stage_specs, effective, plan, pol, target, device
+        )
+    tuned = tuning or {}
+    if layout.kernel_tiles(target):
+        # the plan's block is the tile the stage's kernel launches with:
+        # a pin, a winner, else the block the plan carries
+        blocks = {**stage_blocks,
+                  **{n: t.block_elements for n, t in tuned.items()}}
+        plan = _plan_at_blocks(
+            plan, stage_specs, effective, blocks, pol, target
+        )
+        for sp, backend in zip(plan.stages, effective):
+            if backend == "pallas" and sp.block_elements:
+                blocks.setdefault(sp.name, sp.block_elements)
+    else:
+        # a reference datasheet's blocks (pins, the plan's, winners timed
+        # off the card) are VMEM blocks: the plan keeps them, and a
+        # kernel launches at its default tile or at one timed on the card
+        plan = _plan_at_blocks(
+            plan, stage_specs, effective,
+            {n: t.block_elements for n, t in tuned.items()
+             if not t.kernel_tile},
+            pol, target,
+        )
+        blocks = {n: t.block_elements for n, t in tuned.items()
+                  if t.kernel_tile}
+    chain = _at_blocks(chain, stage_specs, pol, effective, blocks)
 
     if fusion_spec is not None:
         plan = dataclasses.replace(
@@ -771,5 +996,5 @@ def compile(
         program=prog, schedule=sched, chain=chain, plan=plan,
         backends=effective, streams=tuple(streams), sharing=sharing,
         stage_groups=tuple(s.group for s in stage_specs),
-        candidates=candidates,
+        candidates=candidates, tuning=tuning,
     )

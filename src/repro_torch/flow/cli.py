@@ -10,8 +10,11 @@ where runs and measurements execute and which datasheet a missing
 ``--target`` detects: the CUDA card (``cuda``, the default) or the host
 (``cpu``, whose kernel stages run their plain PyTorch versions).
 
-``--trace``, ``--profile``, ``--metrics`` and ``--tune-blocks`` are not
-ported yet: each exits 2 naming the ROADMAP item that ports it.
+``--tune-blocks`` times each kernel stage at its candidate blocks on
+``--device`` (on the H100 datasheet, the CUDA kernel's legal tiles) and
+runs it at the fastest; the report lists every candidate's time.
+``--trace``, ``--profile`` and ``--metrics`` are not ported yet: each
+exits 2 naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -69,7 +72,7 @@ def _parse_args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
                     "(explicit cuts are never merged across)")
     ap.add_argument("--tune-blocks", action="store_true",
                     help="measure candidate block sizes per kernel stage "
-                    "(not ported yet: ROADMAP queue 1, item 6)")
+                    "on --device and run each at the fastest")
     ap.add_argument("--batch-elements", type=int, default=None,
                     help="override E (default: planner auto-sizes + pads)")
     ap.add_argument("--prefetch-depth", default="1",
@@ -121,7 +124,6 @@ NOT_PORTED = (
     ("--trace", "trace", 9),
     ("--profile", "profile", 9),
     ("--metrics", "metrics", 9),
-    ("--tune-blocks", "tune_blocks", 6),
 )
 
 
@@ -191,7 +193,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    if args.device == "cuda" and (args.target is None or args.run):
+    if args.device == "cuda" and (args.target is None or args.run
+                                  or args.tune_blocks):
         try:
             resolve_device("cuda")
         except RuntimeError as e:
@@ -214,6 +217,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             n_eq=args.n_eq,
             dse=args.dse,
             fuse=args.fuse,
+            tune_blocks=args.tune_blocks,
             device=args.device,
         )
     except (ParseError, build.FlowError, IRError, ValueError) as e:

@@ -23,6 +23,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 from ..core import dsl, ir, rewrite
 from ..core.emit import einsum_spec
+from ..kernels import _cube
 from ..kernels import gemm as gemm_kernels
 from ..kernels.helmholtz import ops as helmholtz_ops
 
@@ -213,7 +214,9 @@ def pallas_impl_for(
     block_elements: Optional[int] = None,
 ) -> Optional[Callable]:
     """A batched ``pallas_impl`` for ``core.emit.compile_program``, or
-    None when no hand-written kernel matches the program.
+    None when no hand-written kernel matches the program.  The kernel
+    launches at ``block_elements`` elements a CTA step (None: its
+    default tile, :func:`kernel_tile_for`).
 
     Dispatch order: the fused Inverse-Helmholtz kernel first (its two
     ping-pong buffers are tighter than the generic chain's slots), then
@@ -222,30 +225,37 @@ def pallas_impl_for(
     matched = match_inverse_helmholtz(prog)
     if matched is not None:
         rename, out_name = matched
-        inner = helmholtz_ops.make_pallas_impl(
-            block_elements=(
-                block_elements if block_elements
-                else helmholtz_ops.DEFAULT_BLOCK_ELEMENTS
-            )
-        )
+        inner = helmholtz_ops.make_pallas_impl(block_elements=block_elements)
 
-        def impl(env):
-            out = inner({
+        def impl(env, out=None):
+            res = inner({
                 "S": env[rename["S"]],
                 "D": env[rename["D"]],
                 "u": env[rename["u"]],
-            })
-            return {out_name: out["v"]}
+            }, out=None if out is None else {"v": out[out_name]})
+            return {out_name: res["v"]}
 
         return impl
 
     recipe = match_gemm_chain(prog)
     if recipe is None:
         return None
-    return gemm_kernels.make_pallas_impl(
-        recipe,
-        block_elements=(
-            block_elements if block_elements
-            else gemm_kernels.DEFAULT_BLOCK_ELEMENTS
-        ),
-    )
+    return gemm_kernels.make_pallas_impl(recipe, block_elements=block_elements)
+
+
+def kernel_tile_for(
+    prog: ir.Program, elem_bytes: int, te: Optional[int] = None
+) -> Optional[Tuple[int, int, int, int]]:
+    """The CTA tile of the kernel :func:`pallas_impl_for` dispatches
+    ``prog`` to, at ``te`` elements a step or (None) the kernel's
+    default: ``(te, threads, shared bytes, largest te)``.  None when no
+    kernel matches."""
+    if match_inverse_helmholtz(prog) is not None:
+        p = next(iter(prog.outputs.values())).shape[0]
+        return (*_cube.helmholtz_tile(p, elem_bytes, te),
+                _cube.helmholtz_max_tile(p, elem_bytes))
+    recipe = match_gemm_chain(prog)
+    if recipe is None:
+        return None
+    return (*gemm_kernels.gemm.kernel_tile(recipe, elem_bytes, te),
+            gemm_kernels.gemm.kernel_max_tile(recipe, elem_bytes))

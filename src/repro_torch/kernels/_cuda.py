@@ -114,13 +114,13 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.repro_helmholtz.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.repro_helmholtz.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.repro_helmholtz.restype = ci
-        lib.repro_helmholtz_tile.argtypes = [ci, ci, vp]
+        lib.repro_helmholtz_tile.argtypes = [ci, ci, ci, vp]
         lib.repro_helmholtz_tile.restype = ci
-        lib.repro_gemm_chain_tile.argtypes = [vp, ci, vp]
+        lib.repro_gemm_chain_tile.argtypes = [vp, ci, ci, vp]
         lib.repro_gemm_chain_tile.restype = ci
-        lib.repro_gemm_chain.argtypes = [vp, ci, ci, vp]
+        lib.repro_gemm_chain.argtypes = [vp, ci, ci, ci, vp]
         lib.repro_gemm_chain.restype = ci
         lib.repro_gemm_chain_limits.argtypes = [vp]
         lib.repro_gemm_chain_limits.restype = ci

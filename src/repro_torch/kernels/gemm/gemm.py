@@ -12,20 +12,22 @@ small int32 op table (:func:`op_table`) and its shared-memory cubes from
 :func:`buffer_table`; on CPU tensors it runs :func:`gemm_chain_plain`.
 Both sum every contraction over ``l`` in ascending order in float32, so
 an element's result never depends on the block size or the batch split.
+``block_elements`` is the kernel's tile ``te``, the elements a CTA takes
+a step (None: the kernel's default, :func:`kernel_tile`); any E runs at
+any legal tile, the last one ragged.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .._cube import MAX_P, MAX_SHARED_BYTES, chain_tile
+from .._cube import (MAX_P, MAX_SHARED_BYTES, chain_max_tile, chain_tile,
+                     check_te)
 from ..helmholtz.helmholtz import contract_mode
-
-DEFAULT_BLOCK_ELEMENTS = 128
 
 #: ewise ops the kernel (and the matcher) accept.
 EWISE_OPS = ("add", "sub", "mul", "div", "neg", "scale")
@@ -116,7 +118,7 @@ def apply_recipe(recipe: GemmRecipe, vals: List[torch.Tensor]) -> List[torch.Ten
     return vals
 
 
-def _batch_and_block(recipe: GemmRecipe, arrays, block_elements: int):
+def _batch(recipe: GemmRecipe, arrays) -> int:
     e = next(
         (a.shape[0] for (_, _, is_elem), a in zip(recipe.inputs, arrays)
          if is_elem),
@@ -124,23 +126,20 @@ def _batch_and_block(recipe: GemmRecipe, arrays, block_elements: int):
     )
     if e is None:
         raise ValueError("recipe has no element input")
-    be = min(block_elements, e)
-    if be < 1 or e % be != 0:
-        raise ValueError(f"element count {e} not divisible by block {be}")
-    return e, be
+    return e
 
 
 def gemm_chain_plain(
     recipe: GemmRecipe,
     env: Dict[str, torch.Tensor],
     *,
-    block_elements: int = DEFAULT_BLOCK_ELEMENTS,
+    block_elements: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of the kernel.  Outputs take the dtype of the
-    recipe's first input, as in the reference; ``block_elements`` must
-    divide E, exactly as for the kernel."""
+    recipe's first input, as in the reference; they do not depend on
+    ``block_elements`` (the kernel's tile)."""
     arrays = [env[name] for name, _, _ in recipe.inputs]
-    _batch_and_block(recipe, arrays, block_elements)
+    _batch(recipe, arrays)
     vals = apply_recipe(recipe, [a.to(torch.float32) for a in arrays])
     out_dtype = arrays[0].dtype
     return {
@@ -279,22 +278,36 @@ def buffer_table(recipe: GemmRecipe) -> Tuple[List[int], int]:
     return slot_buf, len(busy_until)
 
 
-def kernel_tile(recipe: GemmRecipe, elem_bytes: int) -> Tuple[int, int, int]:
-    """The kernel's CTA tile for a recipe, ``(te, threads, shared
-    bytes)`` (``_cube.chain_tile`` with the work cubes of
-    :func:`buffer_table`).  Raises where even one element a tile does not
-    fit a block's shared memory: at p = 16 in float32, a recipe with
-    eight element inputs (two staging buffers of 16,400 B each)."""
+def _cube_counts(recipe: GemmRecipe) -> Tuple[int, int, int]:
+    """(element inputs, matrices, work cubes) of a recipe on the kernel."""
     _, n_bufs = buffer_table(recipe)
     n_elem = sum(1 for _, _, is_elem in recipe.inputs if is_elem)
-    n_mats = len(recipe.inputs) - n_elem
-    tile = chain_tile(recipe.p, n_elem, n_mats, n_bufs, elem_bytes)
-    if tile[2] > MAX_SHARED_BYTES:
+    return n_elem, len(recipe.inputs) - n_elem, n_bufs
+
+
+def kernel_tile(recipe: GemmRecipe, elem_bytes: int,
+                te: Optional[int] = None) -> Tuple[int, int, int]:
+    """The kernel's CTA tile for a recipe, ``(te, threads, shared
+    bytes)``, at ``te`` or (None) its default (``_cube.chain_tile`` with
+    the work cubes of :func:`buffer_table`).  Raises where even one
+    element a tile does not fit a block's shared memory: at p = 16 in
+    float32, a recipe with eight element inputs (two staging buffers of
+    16,400 B each)."""
+    n_elem, n_mats, n_bufs = _cube_counts(recipe)
+    tile = chain_tile(recipe.p, n_elem, n_mats, n_bufs, elem_bytes, te)
+    if te is None and tile[2] > MAX_SHARED_BYTES:
         raise ValueError(
             f"the GEMM-chain kernel on this recipe at p={recipe.p} needs "
             f"{tile[2]} B of shared memory per CTA (limit {MAX_SHARED_BYTES})"
         )
     return tile
+
+
+def kernel_max_tile(recipe: GemmRecipe, elem_bytes: int) -> int:
+    """The largest ``te`` the kernel launches with for a recipe (0 where
+    not even one element fits)."""
+    n_elem, n_mats, n_bufs = _cube_counts(recipe)
+    return chain_max_tile(recipe.p, n_elem, n_mats, n_bufs, elem_bytes)
 
 
 def chain_args(recipe: GemmRecipe, in_ptrs, out_ptrs) -> GemmChainArgs:
@@ -339,20 +352,42 @@ def gemm_chain(
     recipe: GemmRecipe,
     env: Dict[str, torch.Tensor],
     *,
-    block_elements: int = DEFAULT_BLOCK_ELEMENTS,
+    block_elements: Optional[int] = None,
+    out: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Run one recipe.  ``env`` maps the recipe's input names to tensors
     (element tensors batched on axis 0).  CUDA tensors launch the kernel
-    (or raise); CPU tensors run the plain version.
-    ``gemm_chain.launches`` counts kernel launches."""
+    at ``block_elements`` elements a CTA step (None: its default tile),
+    refusing a tile it cannot launch with before the launch; CPU tensors
+    run the plain version.  ``out`` maps every output name to a
+    contiguous tensor of its batched shape and the inputs' dtype (a
+    slice of a larger batch's output, say), which receives it and is
+    returned.  ``gemm_chain.launches`` counts kernel launches."""
     arrays = [env[name] for name, _, _ in recipe.inputs]
-    e, be = _batch_and_block(recipe, arrays, block_elements)
+    e = _batch(recipe, arrays)
     devices = {a.device for a in arrays}
+    if out is not None:
+        if set(out) != {name for name, _ in recipe.outputs}:
+            raise ValueError(f"out names {sorted(out)} are not the recipe's "
+                             f"outputs {[n for n, _ in recipe.outputs]}")
+        for name, slot in recipe.outputs:
+            o = out[name]
+            want = (e,) + recipe.slot_shape(slot)
+            if (tuple(o.shape) != want or o.dtype != arrays[0].dtype
+                    or not o.is_contiguous()):
+                raise ValueError(
+                    f"out {name!r} must be contiguous {arrays[0].dtype} "
+                    f"{want}, got {o.dtype} {tuple(o.shape)}")
+            devices.add(o.device)
     if len(devices) != 1:
-        raise ValueError(f"recipe inputs lie on different devices: {devices}")
+        raise ValueError(f"recipe inputs and outputs lie on different "
+                         f"devices: {devices}")
     (device,) = devices
     if device.type == "cpu":
-        return gemm_chain_plain(recipe, env, block_elements=be)
+        res = gemm_chain_plain(recipe, env, block_elements=block_elements)
+        if out is None:
+            return res
+        return {name: out[name].copy_(res[name]) for name, _ in recipe.outputs}
     if device.type != "cuda":
         raise ValueError(f"no GEMM-chain kernel for device {device}")
     from .. import _cuda
@@ -369,8 +404,11 @@ def gemm_chain(
             raise ValueError(f"input {name!r} is not contiguous")
     if recipe.p > MAX_P:
         raise ValueError(f"kernel supports p <= {MAX_P}, got {recipe.p}")
-    kernel_tile(recipe, arrays[0].element_size())
-    outs = {
+    eb = arrays[0].element_size()
+    default_te = kernel_tile(recipe, eb)[0]  # raises where nothing fits
+    te = block_elements or default_te
+    check_te("GEMM-chain", recipe.p, te, kernel_max_tile(recipe, eb))
+    outs = out if out is not None else {
         name: torch.empty((e,) + recipe.slot_shape(slot), dtype=arrays[0].dtype,
                           device=device)
         for name, slot in recipe.outputs
@@ -380,7 +418,7 @@ def gemm_chain(
     lib = _cuda.library()
     _check_abi(lib)
     err = lib.repro_gemm_chain(
-        ctypes.addressof(args), e, code, _cuda.stream_handle(device)
+        ctypes.addressof(args), e, code, te, _cuda.stream_handle(device)
     )
     _cuda.check(err, "gemm_chain")
     gemm_chain.launches += 1

@@ -10,8 +10,9 @@ per-block shared memory in place of a TPU core's VMEM.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
-from .gemm import DEFAULT_BLOCK_ELEMENTS, GemmRecipe, gemm_chain
+from .gemm import GemmRecipe, gemm_chain
 
 
 def block_working_set_bytes(
@@ -57,11 +58,13 @@ def block_elements_for_vmem(
 
 def make_pallas_impl(
     recipe: GemmRecipe,
-    block_elements: int = DEFAULT_BLOCK_ELEMENTS,
+    block_elements: Optional[int] = None,
 ):
-    """Adapter for ``core.emit.compile_program(backend='pallas')``."""
+    """Adapter for ``core.emit.compile_program(backend='pallas')``; the
+    kernel launches at ``block_elements`` (None: its default tile) and
+    writes into ``out`` where given (``gemm_chain``)."""
 
-    def batched_fn(env):
-        return gemm_chain(recipe, env, block_elements=block_elements)
+    def batched_fn(env, out=None):
+        return gemm_chain(recipe, env, block_elements=block_elements, out=out)
 
     return batched_fn

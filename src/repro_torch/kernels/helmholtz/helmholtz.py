@@ -10,21 +10,18 @@ its tile and shared memory); on CPU tensors it runs
 in plain PyTorch.  Both sum each output entry over ``l`` in ascending
 order in float32, so an element's result never depends on the block
 size or on how a batch is split.
+
+``block_elements`` is the kernel's tile ``te``, the elements a CTA takes
+a step (None: the kernel's default, ``_cube.helmholtz_tile``); any E
+runs at any legal tile, the last one ragged.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from .._cube import MAX_P
-
-DEFAULT_BLOCK_ELEMENTS = 128
-
-
-def _check_blocks(E: int, block_elements: int) -> int:
-    be = min(block_elements, E)
-    if be < 1 or E % be != 0:
-        raise ValueError(f"element count {E} not divisible by block {be}")
-    return be
+from .._cube import MAX_P, check_te, helmholtz_max_tile, helmholtz_tile
 
 
 def _check_shapes(S, D, u) -> int:
@@ -37,6 +34,16 @@ def _check_shapes(S, D, u) -> int:
             f"u {tuple(u.shape)}"
         )
     return p
+
+
+def _check_out(name: str, out: torch.Tensor, like: torch.Tensor) -> None:
+    """``out`` must be a contiguous tensor of ``like``'s shape and dtype."""
+    if (tuple(out.shape) != tuple(like.shape) or out.dtype != like.dtype
+            or not out.is_contiguous()):
+        raise ValueError(
+            f"out {name!r} must be contiguous {like.dtype} "
+            f"{tuple(like.shape)}, got {out.dtype} {tuple(out.shape)}"
+        )
 
 
 def contract_mode(x: torch.Tensor, M: torch.Tensor, mode: int) -> torch.Tensor:
@@ -58,13 +65,12 @@ def inverse_helmholtz_plain(
     D: torch.Tensor,
     u: torch.Tensor,
     *,
-    block_elements: int = DEFAULT_BLOCK_ELEMENTS,
+    block_elements: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: ``v = (S (x)3) (D o (S^T (x)3)
-    u)`` per element, float32 accumulation, stored in ``u.dtype``.
-    ``block_elements`` must divide E, exactly as for the kernel."""
+    u)`` per element, float32 accumulation, stored in ``u.dtype``.  The
+    result does not depend on ``block_elements`` (the kernel's tile)."""
     _check_shapes(S, D, u)
-    _check_blocks(u.shape[0], block_elements)
     f32 = torch.float32
     s = S.to(f32)
     t = u.to(f32)
@@ -82,20 +88,29 @@ def inverse_helmholtz(
     D: torch.Tensor,
     u: torch.Tensor,
     *,
-    block_elements: int = DEFAULT_BLOCK_ELEMENTS,
+    block_elements: Optional[int] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Batched fused Inverse Helmholtz.  S: (p, p); D, u: (E, p, p, p).
 
-    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
-    version.  ``inverse_helmholtz.launches`` counts kernel launches."""
+    CUDA tensors launch the kernel at ``block_elements`` elements a CTA
+    step (None: its default tile), refusing a tile it cannot launch with
+    before the launch; CPU tensors run the plain version.  ``out``, a
+    contiguous tensor like ``u`` (a slice of a larger batch's output,
+    say), receives ``v`` and is returned.
+    ``inverse_helmholtz.launches`` counts kernel launches."""
     p = _check_shapes(S, D, u)
-    be = _check_blocks(u.shape[0], block_elements)
     devices = {S.device, D.device, u.device}
+    if out is not None:
+        _check_out("v", out, u)
+        devices.add(out.device)
     if len(devices) != 1:
-        raise ValueError(f"S, D and u lie on different devices: {devices}")
+        raise ValueError(f"S, D, u and out lie on different devices: "
+                         f"{devices}")
     device = u.device
     if device.type == "cpu":
-        return inverse_helmholtz_plain(S, D, u, block_elements=be)
+        v = inverse_helmholtz_plain(S, D, u, block_elements=block_elements)
+        return v if out is None else out.copy_(v)
     if device.type != "cuda":
         raise ValueError(f"no Inverse-Helmholtz kernel for device {device}")
     from .. import _cuda
@@ -110,11 +125,14 @@ def inverse_helmholtz(
         raise ValueError(f"kernel supports p <= {MAX_P}, got {p}")
     if not (S.is_contiguous() and D.is_contiguous() and u.is_contiguous()):
         raise ValueError("the kernel reads contiguous S, D and u")
-    v = torch.empty_like(u)
+    eb = u.element_size()
+    te = block_elements or helmholtz_tile(p, eb)[0]
+    check_te("Inverse-Helmholtz", p, te, helmholtz_max_tile(p, eb))
+    v = torch.empty_like(u) if out is None else out
     lib = _cuda.library()
     err = lib.repro_helmholtz(
         S.data_ptr(), D.data_ptr(), u.data_ptr(), v.data_ptr(),
-        u.shape[0], p, code, _cuda.stream_handle(device),
+        u.shape[0], p, code, te, _cuda.stream_handle(device),
     )
     _cuda.check(err, "helmholtz")
     inverse_helmholtz.launches += 1

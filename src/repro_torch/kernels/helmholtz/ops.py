@@ -9,7 +9,9 @@ memory in place of a TPU core's VMEM.
 """
 from __future__ import annotations
 
-from .helmholtz import DEFAULT_BLOCK_ELEMENTS, inverse_helmholtz
+from typing import Optional
+
+from .helmholtz import inverse_helmholtz
 
 
 def block_working_set_bytes(
@@ -42,12 +44,15 @@ def block_elements_for_vmem(
     return be
 
 
-def make_pallas_impl(block_elements: int = DEFAULT_BLOCK_ELEMENTS):
-    """Adapter for ``core.emit.compile_program(backend='pallas')``."""
+def make_pallas_impl(block_elements: Optional[int] = None):
+    """Adapter for ``core.emit.compile_program(backend='pallas')``; the
+    kernel launches at ``block_elements`` (None: its default tile) and
+    writes ``v`` into ``out["v"]`` where given."""
 
-    def batched_fn(env):
+    def batched_fn(env, out=None):
         v = inverse_helmholtz(
             env["S"], env["D"], env["u"], block_elements=block_elements,
+            out=None if out is None else out["v"],
         )
         return {"v": v}
 

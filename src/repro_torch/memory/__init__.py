@@ -22,8 +22,7 @@ runs, and what it is predicted to cost.
 """
 from . import chain, channels, dse, fusion, layout, pipeline, placement, plan
 from .chain import (ChainPlan, ChainStage, PipelineSpec, ProgramChain,
-                    chain_at_plan_blocks, derive_pipeline, fit_contention,
-                    plan_chain)
+                    derive_pipeline, fit_contention, plan_chain)
 from .fusion import FusionSpec, fuse_chain, fuse_chain_auto
 from .channels import (ALVEO_U280, CPU_HOST, H100_SXM, TPU_V5E,
                        MemoryTarget, UnknownTargetError, detect_target,
@@ -50,7 +49,7 @@ __all__ = [
     "ChainCandidate", "ChainDesignSpace", "explore_chain",
     "fit_correction", "format_chain_ranking", "measure_chain_plan",
     "ProgramChain", "ChainStage", "ChainPlan", "plan_chain",
-    "chain_at_plan_blocks", "fit_contention",
+    "fit_contention",
     "FusionSpec", "fuse_chain", "fuse_chain_auto",
     "BufferSpec", "CostBreakdown", "MemoryPlan",
 ]

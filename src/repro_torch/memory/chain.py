@@ -27,8 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import (Collection, Dict, List, Optional, Sequence, Tuple,
-                    Union)
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from ..core import ir
 from ..core.emit import CompiledProgram
@@ -779,40 +778,6 @@ def snap_stage_elements(e: int, requested: int, cu: int) -> int:
     return cu if e % cu == 0 else e
 
 
-def chain_at_plan_blocks(
-    chain: ProgramChain, plan: ChainPlan, *, pinned: Collection[str] = ()
-) -> ProgramChain:
-    """The chain with every kernel (``pallas``) stage recompiled at the
-    block ``plan`` sized for it; other stages, and the stages named in
-    ``pinned`` (a caller's own blocks), are kept as they are.
-
-    The CFD kernels choose their own CTA tile, so the block reaches them
-    only as the wrappers' ``E % block`` check (ROADMAP fault 8).  A
-    stage compiled at another block -- a merged stage's default, or a
-    plan swept to another E -- would refuse the plan's batches; at the
-    plan's block it runs them, on the same kernel and recipe."""
-    from ..flow import patterns  # lazy: flow builds on memory
-
-    if len(plan.stages) != len(chain.stages):
-        raise ChainError(
-            f"plan has {len(plan.stages)} stages, chain has "
-            f"{len(chain.stages)}"
-        )
-    stages = []
-    for s, sp in zip(chain.stages, plan.stages):
-        compiled = s.compiled
-        impl = None
-        if (s.backend == "pallas" and sp.block_elements
-                and s.name not in pinned):
-            impl = patterns.pallas_impl_for(
-                s.program, block_elements=sp.block_elements
-            )
-        if impl is not None:  # None: a kernel of the caller's own, kept
-            compiled = dataclasses.replace(compiled, batched_fn=impl)
-        stages.append(ChainStage(s.name, compiled, dict(s.bindings)))
-    return ProgramChain(stages)
-
-
 def _scale_cost(cost: CostBreakdown, m: int) -> CostBreakdown:
     """A stage running ``m`` sub-batches per chain batch pays every cost
     term ``m`` times (including dispatch overhead -- sub-batching is not
@@ -988,7 +953,7 @@ def plan_chain(
         # cap (caps are powers of two, so every stage's divides too);
         # all caps are passed so a small-cap stage cannot stay starved
         caps = [
-            layout.vmem_block_elements(
+            layout.batch_block_cap(
                 s.program, stage_ts[i], bytes_per_scalar=bps
             )
             for i, s in enumerate(chain.stages)
@@ -1160,19 +1125,17 @@ def plan_chain(
             ),
             m,
         )
-        blk_cap = layout.vmem_block_elements(
-            prog, stage_t, bytes_per_scalar=bps
+        blk, blk_ws = layout.stage_block(
+            prog, stage_t, e_s, bytes_per_scalar=bps,
+            kernel=backend == "pallas" and not pol.is_fixed_point,
         )
-        blk = layout.largest_divisor_leq(e_s, blk_cap)
         stage_plans.append(
             StagePlan(
                 name=stage.name, backend=backend, prefetch_depth=depth,
                 flops_per_element=prog.total_flops(),
                 buffers=tuple(bufs), cost=cost,
                 block_elements=blk,
-                block_working_set_bytes=layout.block_working_set_bytes(
-                    prog, blk, bytes_per_scalar=bps
-                ),
+                block_working_set_bytes=blk_ws,
                 cu_count=place.stages[i].cu_count,
                 devices=place.stages[i].devices,
                 batch_elements=e_s,

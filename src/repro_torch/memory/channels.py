@@ -133,6 +133,15 @@ H100_SXM = MemoryTarget(
 
 TARGETS = {t.name: t for t in (ALVEO_U280, TPU_V5E, CPU_HOST, H100_SXM)}
 
+#: datasheets of a card the port's CUDA kernels run on.  There a kernel
+#: stage's block is the kernel's tile ``te`` (the elements a CTA takes a
+#: step, legal from 1 to the kernel's largest) and the kernels walk a
+#: ragged last tile, so E is not padded to it.  On every other datasheet
+#: the block is the reference's VMEM block, a divisor of E that the
+#: plan models and the CUDA kernels never launch with
+#: (``memory.layout.kernel_tiles`` reads this set).
+KERNEL_TILE_TARGETS = frozenset({H100_SXM.name})
+
 
 class UnknownTargetError(ValueError):
     """A target name that matches no datasheet (after normalization)."""

@@ -132,7 +132,6 @@ def make_plan(
     if sched is None and backend == "staged":
         sched = make_schedule(prog, bytes_per_scalar=bps)
 
-    blk_cap = layout.vmem_block_elements(prog, target, bytes_per_scalar=bps)
     pad = 0
     if batch_elements is not None:
         e = batch_elements
@@ -143,7 +142,10 @@ def make_plan(
         )
         # auto-sized E is padded to a block multiple so a prime-ish
         # channel quotient never forces the Pallas block divisor tiny
-        e, pad = layout.pad_batch_for_block(e, blk_cap, limit=n_eq)
+        e, pad = layout.pad_batch_for_block(
+            e, layout.batch_block_cap(prog, target, bytes_per_scalar=bps),
+            limit=n_eq,
+        )
     e = max(1, int(e))
     if n_eq is not None:
         e = min(e, max(1, n_eq))  # a batch never exceeds the problem
@@ -163,9 +165,12 @@ def make_plan(
     )
 
     # on-chip block: largest divisor of E whose fused-kernel working set
-    # fits the VMEM budget (drives the Pallas kernel's block_elements)
-    blk = layout.largest_divisor_leq(e, blk_cap)
-    blk_ws = layout.block_working_set_bytes(prog, blk, bytes_per_scalar=bps)
+    # fits the VMEM budget (drives the Pallas kernel's block_elements);
+    # on the H100 a kernel plan's block is the CUDA kernel's tile
+    blk, blk_ws = layout.stage_block(
+        prog, target, e, bytes_per_scalar=bps,
+        kernel=backend == "pallas" and not pol.is_fixed_point,
+    )
 
     feasible, reason = True, ""
     resident = sum(b.resident_bytes for b in bufs)
@@ -368,7 +373,7 @@ def explore(
         # candidate batch stays block-composite
         auto_e, _ = layout.pad_batch_for_block(
             auto_e,
-            layout.vmem_block_elements(prog, target, bytes_per_scalar=bps),
+            layout.batch_block_cap(prog, target, bytes_per_scalar=bps),
             limit=n_eq,
         )
         e_cands = sorted({max(1, auto_e // d) for d in space.batch_divisors})
@@ -475,19 +480,16 @@ def measure_chain_plan(
     Returns None only where ``run_chain`` cannot run the plan as
     planned, so that a measurement never belongs to another
     configuration: the placement spans more than one device (element
-    sharding across cards is not ported yet, ROADMAP queue 1, item 8),
-    the plan gives stages their own batch sizes (re-blocking handoffs,
-    the same item), or its backends or policy differ from the compiled
-    chain's.  Kernel stages run at the blocks the plan sized
-    (:func:`~repro_torch.memory.chain.chain_at_plan_blocks`).  Every
-    other failure -- a kernel that does not build or launch -- propagates.
+    sharding across cards is not ported yet, ROADMAP queue 1, item 8b),
+    or its backends or policy differ from the compiled chain's.  A plan
+    with per-stage batch sizes runs its re-blocking handoffs on the one
+    device.  Kernel stages run at the tiles the chain was compiled with
+    (on the H100, the blocks the plan carries).  Every other failure --
+    a kernel that does not build or launch -- propagates.
     """
     from ..cfd.simulation import run_chain  # lazy: no cycle
-    from .chain import chain_at_plan_blocks
 
     if plan.placement.devices_used[-1] >= 1:
-        return None
-    if plan.stage_batch_elements and not plan.uniform_batch:
         return None
     compiled_backends = tuple(s.backend for s in chain.stages)
     if tuple(sp.backend for sp in plan.stages) != compiled_backends:
@@ -495,9 +497,8 @@ def measure_chain_plan(
     if any(s.compiled.policy.name != plan.policy for s in chain.stages):
         return None  # run_chain runs the compiled policy, not the plan's
     dev = resolve_device(device)
-    runnable = chain_at_plan_blocks(chain, plan)
-    run_chain(runnable, plan, max_batches=1, device=dev)  # warm-up
-    res = run_chain(runnable, plan, max_batches=max_batches, device=dev)
+    run_chain(chain, plan, max_batches=1, device=dev)  # warm-up
+    res = run_chain(chain, plan, max_batches=max_batches, device=dev)
     return res.wall_s / res.elements
 
 
@@ -863,7 +864,7 @@ def explore_chain(
             target, bytes_per_scalar=bps, n_eq=n_eq
         )
         stage_caps = [
-            layout.vmem_block_elements(
+            layout.batch_block_cap(
                 s.program, target, bytes_per_scalar=bps
             )
             for s in chain.stages

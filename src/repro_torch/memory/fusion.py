@@ -310,13 +310,13 @@ def fuse_chain_auto(
     group-wise as stages merge.  Returns the fused chain's
     :class:`~repro_torch.memory.chain.ChainPlan` with a :class:`FusionSpec`
     attached (``plan.fusion``), spec'd against the unfused baseline; its
-    ``chain``'s kernel stages run at the blocks the plan sized
-    (:func:`~repro_torch.memory.chain.chain_at_plan_blocks`).
+    ``chain``'s kernel stages run at their kernel's default tile, which
+    is the block the plan carries on the H100.
     ``profile`` (measured-contention re-pricing) needs the profile store,
     which is not ported yet (ROADMAP queue 1, item 9), and raises
     :class:`NotImplementedError`.
     """
-    from .chain import chain_at_plan_blocks, plan_chain
+    from .chain import plan_chain
 
     if profile is not None:
         raise NotImplementedError(
@@ -390,6 +390,6 @@ def fuse_chain_auto(
             - cur_plan.resident_stream_bytes,
         ),
         barriers=tuple(sorted(barrier_set)),
-        chain=chain_at_plan_blocks(cur_chain, cur_plan),
+        chain=cur_chain,
     )
     return dataclasses.replace(cur_plan, fusion=spec)

@@ -16,7 +16,9 @@ Performs the paper's section-3 sizing decisions explicitly:
     (ping/pong copies for a K-deep prefetch) over the pseudo-channels.
   * **VMEM block sizing** -- the largest per-dispatch element block whose
     working set fits the target's on-chip memory, which is what drives
-    the Pallas kernel's ``block_elements`` (the paper's PLM sizing).
+    the Pallas kernel's ``block_elements`` (the paper's PLM sizing).  On
+    the H100 a kernel stage's block is the CUDA kernel's tile instead
+    (:func:`stage_block`), and E is not padded to it.
 
 ``ProgramChain`` planning (``memory.chain``) reuses these primitives with
 a shared :class:`ChannelAllocator` so all stages of a multi-operator
@@ -28,7 +30,9 @@ from typing import List, Optional, Sequence, Tuple
 
 from ..core import ir
 from ..core.schedule import Schedule
-from .channels import MemoryTarget, channels_for, pad_to_burst
+from .channels import (
+    KERNEL_TILE_TARGETS, MemoryTarget, channels_for, pad_to_burst,
+)
 from .plan import BufferSpec
 
 
@@ -284,3 +288,55 @@ def largest_divisor_leq(n: int, bound: int) -> int:
                 best = max(best, n // d)
         d += 1
     return best
+
+
+# ---------------------------------------------------------------------------
+# the H100: the plan's block is the CUDA kernel's tile
+# ---------------------------------------------------------------------------
+
+def kernel_tiles(target: MemoryTarget) -> bool:
+    """True where the plan's block is the CUDA kernels' tile
+    (``channels.KERNEL_TILE_TARGETS`` says why)."""
+    return target.name in KERNEL_TILE_TARGETS
+
+
+def batch_block_cap(
+    prog: ir.Program, target: MemoryTarget, *, bytes_per_scalar: int
+) -> int:
+    """The block an auto-sized batch is padded to a multiple of: the
+    VMEM block on the reference's targets (a Pallas grid needs it to
+    divide E), 1 on the H100, whose kernels walk a ragged last tile."""
+    if kernel_tiles(target):
+        return 1
+    return vmem_block_elements(
+        prog, target, bytes_per_scalar=bytes_per_scalar
+    )
+
+
+def stage_block(
+    prog: ir.Program,
+    target: MemoryTarget,
+    batch_elements: int,
+    *,
+    bytes_per_scalar: int,
+    kernel: bool,
+    te: Optional[int] = None,
+) -> Tuple[int, int]:
+    """A stage's block and its on-chip bytes, ``(BE, working set)``.
+
+    A ``kernel`` stage (a float ``pallas`` stage) on the H100 takes the
+    tile of the CUDA kernel ``flow.patterns`` matches -- ``te`` or the
+    kernel's default -- and its CTA's shared bytes.  Everywhere else BE
+    is the reference's: the largest divisor of E whose working set fits
+    the VMEM block cap."""
+    if kernel and kernel_tiles(target):
+        from ..flow import patterns  # lazy: flow builds on memory
+
+        tile = patterns.kernel_tile_for(prog, bytes_per_scalar, te)
+        if tile is not None:
+            return tile[0], tile[2]
+    cap = vmem_block_elements(prog, target, bytes_per_scalar=bytes_per_scalar)
+    blk = te or largest_divisor_leq(batch_elements, cap)
+    return blk, block_working_set_bytes(
+        prog, blk, bytes_per_scalar=bytes_per_scalar
+    )

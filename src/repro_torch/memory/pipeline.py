@@ -26,17 +26,71 @@ dispatch ring per stage, handing device-resident inter-stage values from
 producer to consumer without host round-trips.  Both build on
 :class:`StagePipelineDriver`, the reentrant feed/tick state machine.
 
+:func:`reblock_batched_fn` is the re-blocking handoff of a plan with
+per-stage batch sizes: a stage runs its own E_s inside the chain batch.
+
 Tracing, metrics, straggler monitoring, per-batch error capture and the
 multi-device ``place_fns`` hook of the reference are not ported yet.
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional,
-                    Sequence, Tuple, Union)
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Mapping,
+                    Optional, Sequence, Tuple, Union)
 
 import numpy as np
 import torch
+
+
+def reblock_batched_fn(
+    fn: Callable[..., Dict[str, Any]],
+    element_keys: Sequence[str],
+    sub_elements: int,
+    *,
+    outputs: Optional[Mapping[str, Tuple[int, ...]]] = None,
+) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
+    """Re-blocking handoff: run a batched dict->dict stage fn at its own
+    (smaller) E_s inside a chain batch of E elements.
+
+    The wrapper slices every element-keyed tensor along dim 0 into
+    ``sub_elements`` chunks (views, on the device) and runs ``fn`` per
+    chunk (shared operands pass through whole); the handoff never leaves
+    the device.  With ``outputs`` (each output's per-element shape) the
+    wrapper allocates the chain batch's outputs once, in the dtype and on
+    the device of the element inputs, and ``fn`` writes each chunk into
+    its slice through ``out=`` (the kernel adapters take it), so no copy
+    is made; without, the chunks' outputs are joined with ``torch.cat``,
+    a copy of every output.  Elements are independent along the batch
+    axis and the kernels sum in a fixed order, so the result is
+    bitwise-equal to one full-batch call; only the dispatch granularity
+    changes.  A batch no larger than ``sub_elements`` calls ``fn``
+    untouched."""
+    keys = frozenset(element_keys)
+    sub = max(1, int(sub_elements))
+
+    def reblocked(env: Dict[str, Any]) -> Dict[str, Any]:
+        first = next((env[k] for k in env if k in keys), None)
+        n = None if first is None else first.shape[0]
+        if n is None or n <= sub:
+            return fn(env)
+        chunks = [
+            (lo, {k: (v[lo:lo + sub] if k in keys else v)
+                  for k, v in env.items()})
+            for lo in range(0, n, sub)
+        ]
+        if outputs is None:
+            outs = [fn(c) for _, c in chunks]
+            return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        full = {
+            k: torch.empty((n,) + tuple(shape), dtype=first.dtype,
+                           device=first.device)
+            for k, shape in outputs.items()
+        }
+        for lo, c in chunks:
+            fn(c, out={k: v[lo:lo + sub] for k, v in full.items()})
+        return full
+
+    return reblocked
 
 
 def prefetch(

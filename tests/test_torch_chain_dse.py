@@ -12,6 +12,7 @@ for a plan it cannot run as planned, and lets every other failure
 through.
 """
 import dataclasses
+import re
 
 import pytest
 
@@ -19,9 +20,11 @@ from repro import flow as r_flow
 from repro.cfd import operators as r_operators
 from repro.memory import channels as r_channels
 from repro.memory import dse as r_dse
+from repro.memory import layout as r_layout
 from repro.memory.placement import DeviceTopology as RTopology
 from repro_torch import flow as t_flow
 from repro_torch.cfd import operators as t_operators
+from repro_torch.flow import patterns as t_patterns
 from repro_torch.memory import chain as t_chain
 from repro_torch.memory import channels as t_channels
 from repro_torch.memory import dse as t_dse
@@ -33,6 +36,38 @@ def _r_target(name):
         return r_channels.MemoryTarget(
             **dataclasses.asdict(t_channels.H100_SXM))
     return r_channels.resolve_target(name)
+
+
+def _plan_like_the_port(target, monkeypatch):
+    """On the H100 datasheet the port pads no batch to a VMEM block (its
+    CUDA kernels walk a ragged last tile): have the reference plan so
+    too, so that both sweep the same E."""
+    if target == "h100-sxm":
+        monkeypatch.setattr(r_layout, "pad_batch_for_block",
+                            lambda e, *a, **kw: (e, 0))
+
+
+_BLOCK = re.compile(r"BE=\d+ \(vmem ws [\d.]+ MiB\)")
+
+
+def _report(plan):
+    """A plan's report, with each stage's block masked on the H100, where
+    the port's kernel stages carry their CUDA kernel's tile and the
+    reference a VMEM block (:func:`_assert_kernel_tiles` checks those)."""
+    text = plan.report()
+    return _BLOCK.sub("BE=*", text) if plan.target.name == "h100-sxm" \
+        else text
+
+
+def _assert_kernel_tiles(plan, chain):
+    """On the H100 each kernel stage's block is its CUDA kernel's tile."""
+    if plan.target.name != "h100-sxm":
+        return
+    for sp, s in zip(plan.stages, chain.stages):
+        tile = t_patterns.kernel_tile_for(s.program, 4)
+        if sp.backend == "pallas" and tile is not None:
+            assert (sp.block_elements, sp.block_working_set_bytes) == (
+                tile[0], tile[2]), sp.name
 
 
 def _key(c):
@@ -63,14 +98,18 @@ SWEEPS = {
 }
 
 
-def _sweep(name):
+def _sweep(name, monkeypatch):
     target, n_eq, space, topo, kw = SWEEPS[name]
     t_topo = TTopology.parse(topo) if topo else None
     r_topo = RTopology.parse(topo) if topo else None
+    _plan_like_the_port(target, monkeypatch)
+    chain = t_operators.build_cfd_chain(5, backends="pallas", device="cpu")
     got = t_dse.explore_chain(
-        t_operators.build_cfd_chain(5, backends="pallas", device="cpu"),
-        target=t_channels.resolve_target(target), n_eq=n_eq,
+        chain, target=t_channels.resolve_target(target), n_eq=n_eq,
         space=t_dse.ChainDesignSpace(**space), topology=t_topo, **kw)
+    if not kw:
+        for c in got[:3]:
+            _assert_kernel_tiles(c.plan, chain)
     want = r_dse.explore_chain(
         r_operators.build_cfd_chain(5, backends="pallas"),
         target=_r_target(target), n_eq=n_eq,
@@ -79,14 +118,14 @@ def _sweep(name):
 
 
 @pytest.mark.parametrize("name", sorted(SWEEPS))
-def test_explore_chain_ranking_matches_reference(name):
-    got, want = _sweep(name)
+def test_explore_chain_ranking_matches_reference(name, monkeypatch):
+    got, want = _sweep(name, monkeypatch)
     assert len(got) == len(want) > 0
     assert [_key(c) for c in got] == [_key(c) for c in want]
     assert (t_dse.format_chain_ranking(got, limit=len(got))
             == r_dse.format_chain_ranking(want, limit=len(want)))
-    assert [c.plan.report() for c in got[:3]] == \
-        [c.plan.report() for c in want[:3]]
+    assert [_report(c.plan) for c in got[:3]] == \
+        [_report(c.plan) for c in want[:3]]
     if SWEEPS[name][4]:
         assert all(c.plan.fusion is not None for c in got)
     if name.startswith("hetero"):
@@ -144,10 +183,10 @@ def _small_space(**kw):
 
 
 def test_measure_chain_plan_runs_the_plan_or_says_why_not():
-    """A positive time for a runnable plan (its kernel stages at the
-    plan's blocks, here E = 45 with the kernel's default block 128); None
-    for a placement on two devices, for per-stage batch sizes, and for
-    backends other than the compiled chain's."""
+    """A positive time for a runnable plan (E = 45, a multiple of no
+    kernel block: the last tile is ragged) and for one with per-stage
+    batch sizes (re-blocked on the one device); None for a placement on
+    two devices and for backends other than the compiled chain's."""
     chain = t_operators.build_cfd_chain(5, backends="pallas", device="cpu")
     t = t_channels.CPU_HOST
     plan = t_chain.plan_chain(chain, target=t, batch_elements=45, n_eq=90)
@@ -162,7 +201,9 @@ def test_measure_chain_plan_runs_the_plan_or_says_why_not():
         topology=TTopology.parse("cpu:1,alveo:1"), stage_groups=(0, 0, 0),
         stage_batch_elements=(16, 48, 48))
     assert not reblocked.uniform_batch
-    assert t_dse.measure_chain_plan(chain, reblocked, device="cpu") is None
+    got = t_dse.measure_chain_plan(chain, reblocked, max_batches=2,
+                                   device="cpu")
+    assert got is not None and got > 0
     other = t_chain.plan_chain(chain, target=t, batch_elements=45, n_eq=90,
                                backends=("xla", "pallas", "pallas"))
     assert t_dse.measure_chain_plan(chain, other, device="cpu") is None
@@ -270,10 +311,12 @@ DSE_FLOW_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(DSE_FLOW_CASES))
-def test_flow_dse_matches_reference(case):
+def test_flow_dse_matches_reference(case, monkeypatch):
     """flow.compile(dse=True) adopts the reference's winner: equal
-    report, plan signature, backends and ranking."""
+    report, plan signature, backends and ranking (on the H100 with the
+    port's unpadded E, and its kernel stages at their CUDA tiles)."""
     kw = dict(DSE_FLOW_CASES[case])
+    _plan_like_the_port(kw["target"], monkeypatch)
     src = t_operators.CFD_PIPELINE_SRC.format(p=5)
     got = t_flow.compile(src, dse=True, **kw)
     r_kw = {**kw, "target": _r_target(kw["target"])}
@@ -281,7 +324,12 @@ def test_flow_dse_matches_reference(case):
                           dse=True, **r_kw)
     assert got.backends == want.backends
     assert got.plan.signature == want.plan.signature
-    assert got.report() == want.report()
+    if kw["target"] == "h100-sxm":
+        _assert_kernel_tiles(got.plan, got.chain)
+        assert _BLOCK.sub("BE=*", got.report()) == \
+            _BLOCK.sub("BE=*", want.report())
+    else:
+        assert got.report() == want.report()
     assert [_key(c) for c in got.candidates] == \
         [_key(c) for c in want.candidates]
     assert [s.compiled.backend for s in got.chain.stages] == \

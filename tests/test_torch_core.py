@@ -198,3 +198,50 @@ def test_port_imports_neither_jax_nor_reference():
             if top in ("jax", "jaxlib", "repro"):
                 bad.append(f"{path.relative_to(ROOT)}: {mod}")
     assert not bad, "port modules import JAX or the reference: " + ", ".join(bad)
+
+
+@pytest.mark.parametrize("policy", ["float32", "fixed32_q8.24"])
+@pytest.mark.parametrize("backend", ["xla", "staged"])
+def test_emit_frees_each_intermediate_after_its_last_reader(
+        backend, policy, monkeypatch, rng):
+    """A value leaves the program's working set right after its last
+    reader: while the Inverse Helmholtz chain runs (six contractions,
+    each read once), no more than two contraction results are alive at
+    a time, and the first is gone before the last contraction starts.
+    The outputs are bitwise those of an evaluation that keeps every
+    value."""
+    import weakref
+
+    p, E = 4, 3
+    pol = get_policy(policy)
+    prog = t_operators.build_inverse_helmholtz(p, device="cpu").program
+    c = t_emit.compile_program(prog, policy=pol, backend=backend)
+    x = rng.uniform(-1, 1, (E, p, p, p))
+    env = {"S": rng.uniform(-1, 1, (p, p)), "D": x, "u": x[::-1].copy()}
+    if pol.is_fixed_point:
+        env = {k: pol.encode(v) for k, v in env.items()}
+    else:
+        env = {k: torch.as_tensor(v, dtype=torch.float32)
+               for k, v in env.items()}
+    einsum = ("_eval_einsum_fixed" if pol.is_fixed_point
+              else "_eval_einsum_float")
+    produced, alive_at = [], []
+    inner = getattr(t_emit, einsum)
+
+    def spy(node, args, batched, policy):
+        alive_at.append(sum(r() is not None for r in produced))
+        out = inner(node, args, batched, policy)
+        if out.dim() == 4:          # batched contraction results
+            produced.append(weakref.ref(out))
+        return out
+
+    monkeypatch.setattr(t_emit, einsum, spy)
+    got = c.batched_fn(env)["v"]
+    assert len(produced) == 6
+    assert max(alive_at) <= 2 and alive_at[-1] <= 1
+    assert produced[0]() is None
+    monkeypatch.setattr(t_emit, einsum, inner)
+    vals, batched, _ = t_emit._load_inputs(prog, env, pol, True, None)
+    t_emit._eval_nodes(prog.toposort(), vals, batched, pol,
+                       {n.uid for n in prog.toposort()})
+    assert torch.equal(got, vals[prog.outputs["v"].uid])

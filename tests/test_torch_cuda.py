@@ -11,9 +11,11 @@ another association of the same ascending-l order); bfloat16 within one
 bfloat16 step, rtol 2^-7, plus atol 1e-3 max|plain| (both compute in
 float32 from the same bfloat16 inputs and round once, so two results
 differ only where their float32 values straddle a rounding boundary).
-The CFD kernels are also held to bitwise equality across block sizes,
-batch splits and input alignments, and over batches large enough that
-every CTA of their persistent grids walks several tiles.
+The CFD kernels are also held to bitwise equality across every tile they
+launch with (te = 1 .. max_tile elements a CTA step), batch splits,
+ragged batches and input alignments, and over batches large enough that
+every CTA of their persistent grids walks several tiles; a tile above
+max_tile is refused before the launch.
 The fixed-point formats are integer arithmetic: their contractions,
 limb products and whole operators on the card equal the CPU's bit for
 bit.  run_simulation's checksums on the card match the CPU's within
@@ -92,6 +94,14 @@ def _close(got, want, dtype):
                                atol=frac * want.float().abs().max().item())
 
 
+def _tiles(p, dtype, recipe=None):
+    """Every tile the kernel launches with: te = 1 .. its largest."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    top = (_cube.helmholtz_max_tile(p, size) if recipe is None
+           else t_gemm.gemm.kernel_max_tile(recipe, size))
+    return range(1, top + 1)
+
+
 def _off_alignment(t):
     """A copy of t whose data starts one value past an allocation's
     alignment (the kernels' staging copies 16-byte chunks and takes the
@@ -110,47 +120,48 @@ CFD_DTYPES = [torch.float32, torch.bfloat16]
 @pytest.mark.parametrize("dtype", CFD_DTYPES)
 @pytest.mark.parametrize("p", CFD_P)
 def test_helmholtz_kernel_matches_plain(cuda, p, dtype):
-    """Against the plain version, and bitwise the same whatever the block
-    (BE 1, 2, 4 and E, which the plan may give), split into two calls of
-    E/2, or with inputs off their 16-byte alignment."""
+    """Against the plain version, and bitwise the same whatever the tile
+    (every te the kernel launches with), split into two calls of E/2, or
+    with inputs off their 16-byte alignment."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     E = 16
     S, D, u = (x.to(dtype) for x in
                _uniform(gen, cuda, (p, p), (E, p, p, p), (E, p, p, p)))
     before = t_hh.inverse_helmholtz.launches
-    got = t_hh.inverse_helmholtz(S, D, u, block_elements=4)
-    want = t_hh.inverse_helmholtz_plain(S, D, u, block_elements=4)
+    got = t_hh.inverse_helmholtz(S, D, u)
+    want = t_hh.inverse_helmholtz_plain(S, D, u)
     torch.cuda.synchronize()
     assert t_hh.inverse_helmholtz.launches == before + 1
     assert got.dtype == dtype
     _close(got, want, dtype)
-    for be in (1, 2, E):
+    for be in _tiles(p, dtype):
         assert torch.equal(got, t_hh.inverse_helmholtz(S, D, u, block_elements=be))
     halves = torch.cat([t_hh.inverse_helmholtz(S, D[a:a + E // 2],
-                                               u[a:a + E // 2], block_elements=2)
+                                               u[a:a + E // 2])
                         for a in (0, E // 2)])
     assert torch.equal(got, halves)
-    shifted = t_hh.inverse_helmholtz(S, _off_alignment(D), _off_alignment(u),
-                                     block_elements=4)
+    shifted = t_hh.inverse_helmholtz(S, _off_alignment(D), _off_alignment(u))
     assert torch.equal(got, shifted)
 
 
 def _chain_bitwise(recipe, env, got, E):
-    """got equals the same recipe at BE 1 and 2, split into two calls of
-    E/2, and with element inputs off their alignment, bit for bit."""
+    """got equals the same recipe at every tile the kernel launches with,
+    split into two calls of E/2, and with element inputs off their
+    alignment, bit for bit."""
     elem = {n for n, _, is_elem in recipe.inputs if is_elem}
-    for be in (1, 2):
+    dtype = next(iter(env.values())).dtype
+    for be in _tiles(recipe.p, dtype, recipe):
         other = t_gemm.gemm_chain(recipe, env, block_elements=be)
         assert all(torch.equal(got[k], other[k]) for k in got)
     parts = [t_gemm.gemm_chain(
         recipe, {n: (v[a:a + E // 2] if n in elem else v)
-                 for n, v in env.items()}, block_elements=2)
+                 for n, v in env.items()})
         for a in (0, E // 2)]
     for k in got:
         assert torch.equal(got[k], torch.cat([parts[0][k], parts[1][k]]))
     shifted = t_gemm.gemm_chain(
         recipe, {n: (_off_alignment(v) if n in elem else v)
-                 for n, v in env.items()}, block_elements=4)
+                 for n, v in env.items()})
     assert all(torch.equal(got[k], shifted[k]) for k in got)
 
 
@@ -165,8 +176,8 @@ def test_gemm_chain_kernel_matches_plain(cuda, kind, p, dtype):
     env = {"A": A, "u": u}
     recipe = gemm_recipes(t_gemm, p)[kind]
     before = t_gemm.gemm_chain.launches
-    got = t_gemm.gemm_chain(recipe, env, block_elements=4)
-    want = t_gemm.gemm_chain_plain(recipe, env, block_elements=4)
+    got = t_gemm.gemm_chain(recipe, env)
+    want = t_gemm.gemm_chain_plain(recipe, env)
     torch.cuda.synchronize()
     assert t_gemm.gemm_chain.launches == before + 1
     for k in want:
@@ -205,8 +216,8 @@ def test_gemm_chain_kernel_takes_mixed_recipes(cuda, dtype):
     recipe = mixed_recipe(p)
     env = _recipe_env(recipe, E, dtype,
                       torch.Generator(device=cuda).manual_seed(2), cuda)
-    got = t_gemm.gemm_chain(recipe, env, block_elements=4)
-    want = t_gemm.gemm_chain_plain(recipe, env, block_elements=4)
+    got = t_gemm.gemm_chain(recipe, env)
+    want = t_gemm.gemm_chain_plain(recipe, env)
     assert set(got) == set(want)
     for k in want:
         _close(got[k], want[k], dtype)
@@ -231,8 +242,8 @@ def test_gemm_chain_kernel_runs_the_pipeline_recipes(cuda, stage, dtype):
     env = {name: (torch.rand((E, *shape) if is_elem else shape, generator=gen,
                              device=cuda) * 2 - 1).to(dtype)
            for name, shape, is_elem in recipe.inputs}
-    got = t_gemm.gemm_chain(recipe, env, block_elements=4)
-    want = t_gemm.gemm_chain_plain(recipe, env, block_elements=4)
+    got = t_gemm.gemm_chain(recipe, env)
+    want = t_gemm.gemm_chain_plain(recipe, env)
     assert set(got) == set(want)
     for k in want:
         _close(got[k], want[k], dtype)
@@ -273,8 +284,8 @@ def test_gemm_chain_kernel_runs_the_fused_recipes(cuda, p, dtype):
     for name, recipe in recipes.items():
         env = _recipe_env(recipe, E, dtype, gen, cuda)
         before = t_gemm.gemm_chain.launches
-        got = t_gemm.gemm_chain(recipe, env, block_elements=4)
-        want = t_gemm.gemm_chain_plain(recipe, env, block_elements=4)
+        got = t_gemm.gemm_chain(recipe, env)
+        want = t_gemm.gemm_chain_plain(recipe, env)
         torch.cuda.synchronize()
         assert t_gemm.gemm_chain.launches == before + 1, name
         assert set(got) == set(want)
@@ -317,7 +328,7 @@ def test_fused_chains_on_the_card_are_bitwise_the_unfused(cuda):
 
     base = mchain.plan_chain(named, target=H100_SXM, batch_elements=E,
                              n_eq=E)
-    want = run(mchain.chain_at_plan_blocks(named, base), base)
+    want = run(named, base)
     hh = named.stages[2]
     on_chain = mchain.ProgramChain(list(named.stages[:2]) + [mchain.ChainStage(
         hh.name, dataclasses.replace(
@@ -330,7 +341,7 @@ def test_fused_chains_on_the_card_are_bitwise_the_unfused(cuda):
         plan = mchain.plan_chain(fused, target=H100_SXM, batch_elements=E,
                                  n_eq=E)
         before = t_gemm.gemm_chain.launches
-        got = run(mchain.chain_at_plan_blocks(fused, plan), plan)
+        got = run(fused, plan)
         assert t_gemm.gemm_chain.launches == before + 1
         for q in ("gy", "gz", "v"):
             assert np.array_equal(got[q], ref[q]), (groups, q)
@@ -339,32 +350,40 @@ def test_fused_chains_on_the_card_are_bitwise_the_unfused(cuda):
 @pytest.mark.cuda
 def test_cfd_kernel_tiles_match_the_wrappers_model(cuda):
     """The tile (elements a step, threads, shared bytes) each built kernel
-    launches with equals the wrappers' pure mirror of it."""
+    launches with, by default and at every te up to one past its largest,
+    and that largest te (``max_tile``), equal the wrappers' pure mirror."""
     import ctypes
 
     from repro_torch.kernels import _cuda
 
     lib = _cuda.library()
-    got = (ctypes.c_int * 3)()
+    got = (ctypes.c_int * 4)()
     for dtype in CFD_DTYPES:
         code, size = _cuda.dtype_code(dtype), torch.tensor([], dtype=dtype).element_size()
         for p in range(1, _cube.MAX_P + 1):
-            lib.repro_helmholtz_tile(p, code, got)
-            assert tuple(got) == _cube.helmholtz_tile(p, size), (p, dtype)
+            top = _cube.helmholtz_max_tile(p, size)
+            for te in [None, *range(1, top + 2)]:
+                lib.repro_helmholtz_tile(p, code, te or 0, got)
+                assert tuple(got) == (*_cube.helmholtz_tile(p, size, te),
+                                      top), (p, dtype, te)
             for kind, recipe in gemm_recipes(t_gemm, p).items():
                 args = t_gemm.gemm.chain_args(
                     recipe, [0] * len(recipe.inputs), [0] * len(recipe.outputs))
-                lib.repro_gemm_chain_tile(ctypes.addressof(args), code, got)
-                assert tuple(got) == t_gemm.gemm.kernel_tile(recipe, size), (
-                    p, kind, dtype)
+                top = t_gemm.gemm.kernel_max_tile(recipe, size)
+                for te in [None, *range(1, top + 2)]:
+                    lib.repro_gemm_chain_tile(ctypes.addressof(args), code,
+                                              te or 0, got)
+                    assert tuple(got) == (
+                        *t_gemm.gemm.kernel_tile(recipe, size, te), top), (
+                        p, kind, dtype, te)
 
 
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_the_kernels_cannot_take(cuda):
-    """Bad inputs raise in the wrapper before any launch.  The kernels
-    tile elements by their own rule, so a large plan block (p = 16, BE =
-    64) is taken, not refused; what the shared-memory model refuses (at
-    p = 16, eight float32 element inputs) is, and runs in bfloat16."""
+    """Bad inputs raise in the wrapper before any launch: a block above
+    the kernel's largest tile among them (p = 16 takes te = 1 only: 256
+    fibers fill 128 threads), and what the shared-memory model refuses
+    (at p = 16, eight float32 element inputs), which runs in bfloat16."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     p, E = 5, 4
     S, D, u = _uniform(gen, cuda, (p, p), (E, p, p, p), (E, p, p, p))
@@ -383,9 +402,13 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     big = 16
     Sb, Db, ub = _uniform(gen, cuda, (big, big), (64, big, big, big),
                           (64, big, big, big))
-    got = t_hh.inverse_helmholtz(Sb, Db, ub, block_elements=64)
-    _close(got, t_hh.inverse_helmholtz_plain(Sb, Db, ub, block_elements=64),
-           torch.float32)
+    before = t_hh.inverse_helmholtz.launches
+    for bad in (2, 64):
+        with pytest.raises(ValueError, match="1..1 elements"):
+            t_hh.inverse_helmholtz(Sb, Db, ub, block_elements=bad)
+    assert t_hh.inverse_helmholtz.launches == before
+    got = t_hh.inverse_helmholtz(Sb, Db, ub, block_elements=1)
+    _close(got, t_hh.inverse_helmholtz_plain(Sb, Db, ub), torch.float32)
     recipe = gemm_recipes(t_gemm, p)["interp"]
     before = t_gemm.gemm_chain.launches
     with pytest.raises(TypeError, match="one dtype"):
@@ -403,7 +426,10 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_take(cuda):
         t_gemm.gemm_chain(wide, env, block_elements=2)
     assert t_gemm.gemm_chain.launches == before
     env = {k: v.bfloat16() for k, v in env.items()}
-    got = t_gemm.gemm_chain(wide, env, block_elements=2)
+    with pytest.raises(ValueError, match="1..1 elements"):
+        t_gemm.gemm_chain(wide, env, block_elements=2)
+    assert t_gemm.gemm_chain.launches == before
+    got = t_gemm.gemm_chain(wide, env)
     assert all(torch.equal(got[f"y{j}"], env[f"x{j}"]) for j in range(8))
 
 
@@ -454,9 +480,8 @@ def test_cfd_kernels_walk_many_tiles_per_cta(cuda, kind, p, dtype):
         E = _many_tiles_E(_cube.helmholtz_tile(p, size)[0])
         S, D, u = (x.to(dtype) for x in
                    _uniform(gen, cuda, (p, p), (E, p, p, p), (E, p, p, p)))
-        got = t_hh.inverse_helmholtz(S, D, u, block_elements=2)
-        _close(got, t_hh.inverse_helmholtz_plain(S, D, u, block_elements=2),
-               dtype)
+        got = t_hh.inverse_helmholtz(S, D, u)
+        _close(got, t_hh.inverse_helmholtz_plain(S, D, u), dtype)
         halves = torch.cat([t_hh.inverse_helmholtz(
             S, D[a:a + E // 2], u[a:a + E // 2], block_elements=1)
             for a in (0, E // 2)])
@@ -465,8 +490,8 @@ def test_cfd_kernels_walk_many_tiles_per_cta(cuda, kind, p, dtype):
     recipe = _many_tiles_recipe(kind, p)
     E = _many_tiles_E(t_gemm.gemm.kernel_tile(recipe, size)[0])
     env = _recipe_env(recipe, E, dtype, gen, cuda)
-    got = t_gemm.gemm_chain(recipe, env, block_elements=2)
-    want = t_gemm.gemm_chain_plain(recipe, env, block_elements=2)
+    got = t_gemm.gemm_chain(recipe, env)
+    want = t_gemm.gemm_chain_plain(recipe, env)
     assert set(got) == set(want)
     for k in want:
         _close(got[k], want[k], dtype)
@@ -705,3 +730,154 @@ def test_run_simulation_on_the_card_matches_cpu(cuda, backend):
     assert got.device.startswith("cuda") and got.batches == 3
     assert serial.checksum == got.checksum
     assert got.checksum == pytest.approx(want.checksum, rel=1e-4)
+
+
+def _pipeline_programs(p):
+    """The pipeline's three stage programs at p, by stage name."""
+    from repro_torch.cfd import operators
+
+    system = operators.compile_cfd_pipeline(p, backends="pallas",
+                                            device="cpu")
+    return {s.name: s.program for s in system.chain.stages}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CFD_DTYPES)
+@pytest.mark.parametrize("p", [5, 11])
+@pytest.mark.parametrize("stage", ["interp", "grad", "helmholtz"])
+def test_cfd_kernels_at_every_legal_tile_equal_the_default(cuda, stage, p,
+                                                            dtype):
+    """Each CFD kernel on its pipeline stage launches at every te from 1
+    to its largest (3 at p = 11, 15 at p = 5, float32) on a ragged E, and
+    each gives the default tile's bits; one past the largest is refused
+    before the launch."""
+    from repro_torch.flow import patterns
+
+    prog = _pipeline_programs(p)[stage]
+    size = torch.tensor([], dtype=dtype).element_size()
+    default_te, _, _, top = patterns.kernel_tile_for(prog, size)
+    E = 4 * top + 3
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    elem = set(prog.element_vars)
+    env = {n: (torch.rand(((E,) if n in elem else ()) + tuple(v.shape),
+                          generator=gen, device=cuda) * 2 - 1).to(dtype)
+           for n, v in prog.inputs.items()}
+    counter = (t_hh.inverse_helmholtz if stage == "helmholtz"
+               else t_gemm.gemm_chain)
+    before = counter.launches
+    want = patterns.pallas_impl_for(prog)(env)
+    for te in range(1, top + 1):
+        got = patterns.pallas_impl_for(prog, block_elements=te)(env)
+        assert all(torch.equal(got[k], want[k]) for k in want), te
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1 + top
+    with pytest.raises(ValueError, match=f"1..{top} elements"):
+        patterns.pallas_impl_for(prog, block_elements=top + 1)(env)
+    assert counter.launches == before + 1 + top
+    if (p, dtype) == (11, torch.float32):
+        assert (default_te, top) == (3, 3)
+    if (p, dtype) == (5, torch.float32):
+        assert top == 15
+
+
+@pytest.mark.cuda
+def test_tune_blocks_on_the_card_picks_a_legal_tile(cuda):
+    """flow.compile(tune_blocks=True) on the card times each stage's
+    legal tiles with CUDA events and runs the winners, bitwise the
+    untuned chain's outputs."""
+    import numpy as np
+
+    from repro_torch import flow
+    from repro_torch.cfd import operators
+
+    p, E = 11, 256
+    src = operators.CFD_PIPELINE_SRC.format(p=p)
+    kw = dict(stages=operators.CFD_PIPELINE_STAGES, target="h100-sxm",
+              backend="pallas", batch_elements=E, n_eq=E)
+    tuned = flow.compile(src, tune_blocks=True, **kw)
+    plain = flow.compile(src, **kw)
+    for sp in tuned.plan.stages:
+        t = tuned.tuning[sp.name]
+        assert [be for be, _, _ in t.candidates] == [1, 2, 3]
+        assert sp.block_elements == t.block_elements in (1, 2, 3)
+        assert all(s > 0 for _, _, s in t.candidates)
+    rng = np.random.default_rng(0)
+    inputs = {"interp.u": rng.uniform(-1, 1, (E, p, p, p)).astype(np.float32),
+              "helmholtz.D": rng.uniform(-1, 1, (E, p, p, p)).astype(np.float32)}
+    got = tuned.run(inputs=inputs, collect_outputs=True).outputs
+    want = plain.run(inputs=inputs, collect_outputs=True).outputs
+    assert all(np.array_equal(got[q], want[q]) for q in want)
+
+
+@pytest.mark.cuda
+def test_reference_target_plans_run_and_tune_on_the_card(cuda):
+    """A plan for alveo-u280 (VMEM blocks of 512 at p = 11, no CUDA
+    tile) compiles, runs and is measured on the card, its kernels at
+    their default tile; tune_blocks times the kernels' tiles there and
+    leaves the plan's blocks; run_simulation takes such a plan."""
+    import numpy as np
+
+    from repro_torch import flow
+    from repro_torch.cfd import operators
+    from repro_torch.memory import dse
+    from repro_torch.memory.channels import ALVEO_U280
+
+    p, E = 11, 512
+    src = operators.CFD_PIPELINE_SRC.format(p=p)
+    kw = dict(stages=operators.CFD_PIPELINE_STAGES, target="alveo-u280",
+              backend="pallas", batch_elements=E, n_eq=E)
+    plain = flow.compile(src, **kw)
+    tuned = flow.compile(src, tune_blocks=True, **kw)
+    blocks = [sp.block_elements for sp in plain.plan.stages]
+    assert blocks == [512] * 3
+    assert [sp.block_elements for sp in tuned.plan.stages] == blocks
+    for t in tuned.tuning.values():
+        assert t.kernel_tile
+        assert [be for be, _, _ in t.candidates] == [1, 2, 3]
+        assert t.block_elements in (1, 2, 3)
+    rng = np.random.default_rng(0)
+    inputs = {"interp.u": rng.uniform(-1, 1, (E, p, p, p)).astype(np.float32),
+              "helmholtz.D": rng.uniform(-1, 1, (E, p, p, p)).astype(np.float32)}
+    got = tuned.run(inputs=inputs, collect_outputs=True).outputs
+    want = plain.run(inputs=inputs, collect_outputs=True).outputs
+    assert all(np.array_equal(got[q], want[q]) for q in want)
+    secs = dse.measure_chain_plan(plain.chain, plain.plan, max_batches=1)
+    assert secs is not None and secs > 0
+    cfg = t_simulation.SimConfig(p=p, backend="pallas", n_eq=E)
+    plan = t_simulation.plan_config(cfg, target=ALVEO_U280)
+    assert plan.block_elements == 512
+    res = t_simulation.run_simulation(cfg, plan=plan, max_batches=1)
+    assert res.elements == E and np.isfinite(res.checksum)
+
+
+@pytest.mark.cuda
+def test_per_stage_batches_on_the_card_are_bitwise_uniform(cuda):
+    """run_chain at per-stage E (E, E/2, E/4) and (E/4, E, E/2) on the
+    card gives the uniform serial run's bits; measure_chain_plan times
+    such a plan."""
+    import numpy as np
+
+    from repro_torch.cfd import operators
+    from repro_torch.memory import chain as mchain
+    from repro_torch.memory import dse
+    from repro_torch.memory.channels import H100_SXM
+
+    p, E = 11, 96
+    chain = operators.build_cfd_chain(p, backends="pallas", target=H100_SXM)
+    rng = np.random.default_rng(1)
+    inputs = {"interp.u": rng.uniform(-1, 1, (2 * E, p, p, p)).astype(np.float32),
+              "helmholtz.D": rng.uniform(-1, 1, (2 * E, p, p, p)).astype(np.float32)}
+    base = mchain.plan_chain(chain, target=H100_SXM, batch_elements=E,
+                             n_eq=2 * E, prefetch_depth=0)
+    want = t_simulation.run_chain(chain, base, inputs=inputs,
+                                  collect_outputs=True,
+                                  pipeline_stages=False).outputs
+    for es in ((E, E // 2, E // 4), (E // 4, E, E // 2)):
+        plan = mchain.plan_chain(chain, target=H100_SXM, batch_elements=E,
+                                 n_eq=2 * E, stage_batch_elements=es)
+        assert plan.stage_batch_elements == es
+        got = t_simulation.run_chain(chain, plan, inputs=inputs,
+                                     collect_outputs=True).outputs
+        assert all(np.array_equal(got[q], want[q]) for q in want), es
+        secs = dse.measure_chain_plan(chain, plan, max_batches=2)
+        assert secs is not None and secs > 0

@@ -118,9 +118,13 @@ def test_pallas_block_from_plan():
     assert t_operators.pallas_block_elements(11, plan) == plan.block_elements
     assert r_operators.pallas_block_elements(
         11, r_plan) == t_operators.pallas_block_elements(11, r_plan)
-    for kw in (dict(vmem_bytes=232_448), dict(vmem_bytes=16 << 20), {}):
+    for kw in (dict(vmem_bytes=232_448), dict(vmem_bytes=16 << 20)):
         assert t_operators.pallas_block_elements(
             7, **kw) == r_operators.pallas_block_elements(7, **kw)
+    # with neither, the reference's Pallas default (128) is no CUDA tile:
+    # the port leaves the block to the kernel's own default tile
+    assert t_operators.pallas_block_elements(7) is None
+    assert r_operators.pallas_block_elements(7) == 128
 
 
 def test_simconfig_and_plan_config_match_reference():
@@ -143,6 +147,12 @@ def test_simconfig_and_plan_config_match_reference():
     h = t_simulation.plan_config(t_simulation.SimConfig(p=11),
                                  target=t_channels.H100_SXM)
     assert (h.batch_elements, h.block_elements) == (67_226, 2)
+    # on the pallas backend the block is the Helmholtz kernel's tile
+    k = t_simulation.plan_config(
+        t_simulation.SimConfig(p=11, backend="pallas"),
+        target=t_channels.H100_SXM)
+    assert (k.batch_elements, k.block_elements,
+            k.block_working_set_bytes) == (67_226, 3, 49_040)
 
 
 SIM_CASES = [
@@ -227,7 +237,9 @@ def test_run_simulation_needs_the_card_unless_cpu_is_asked():
 
 def test_pallas_path_launches_the_kernel_wrapper(monkeypatch):
     """On CPU tensors the pallas backend runs the kernel's plain version
-    through the kernel's wrapper, at the plan's block."""
+    through the kernel's wrapper: at the plan's block on the H100, whose
+    plan carries the kernel's tile, and at the kernel's default tile
+    (None) on a reference datasheet, whose block is a VMEM block."""
     calls = []
     inner = t_hh.inverse_helmholtz_plain
 
@@ -238,9 +250,14 @@ def test_pallas_path_launches_the_kernel_wrapper(monkeypatch):
     monkeypatch.setattr(t_hh, "inverse_helmholtz_plain", spy)
     cfg = t_simulation.SimConfig(p=5, n_eq=48, batch_elements=16,
                                  backend="pallas")
-    plan = t_simulation.plan_config(cfg, target=t_channels.CPU_HOST)
-    t_simulation.run_simulation(cfg, plan=plan, device="cpu")
-    assert calls == [((16, 5, 5, 5), plan.block_elements)] * 3
+    for target, want in ((t_channels.H100_SXM, "plan"),
+                         (t_channels.CPU_HOST, None)):
+        calls.clear()
+        plan = t_simulation.plan_config(cfg, target=target)
+        assert plan.block_elements
+        t_simulation.run_simulation(cfg, plan=plan, device="cpu")
+        be = plan.block_elements if want == "plan" else None
+        assert calls == [((16, 5, 5, 5), be)] * 3, target.name
 
 
 EXPLORE_CASES = {

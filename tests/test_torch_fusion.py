@@ -12,6 +12,7 @@ and 16 in float32 and bfloat16 (the card-side launch is in
 ``test_torch_cuda.py``).
 """
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from repro.memory import chain as r_chain
 from repro.memory import channels as r_channels
 from repro.memory import dse as r_dse
 from repro.memory import fusion as r_fusion
+from repro.memory import layout as r_layout
 from repro_torch import flow as t_flow
 from repro_torch.cfd import operators as t_operators
 from repro_torch.cfd import simulation as t_simulation
@@ -46,6 +48,21 @@ def _r_target(name):
         return r_channels.MemoryTarget(
             **dataclasses.asdict(t_channels.H100_SXM))
     return r_channels.resolve_target(name)
+
+
+_BLOCK = re.compile(r"BE=\d+ \(vmem ws [\d.]+ MiB\)")
+
+
+def _plan_like_the_port(target, monkeypatch):
+    """On the H100 datasheet the port pads no batch to a VMEM block (its
+    CUDA kernels walk a ragged last tile), and its kernel stages carry
+    the kernel's tile: have the reference plan without the padding, and
+    return the report view that masks each stage's block there."""
+    if target != "h100-sxm":
+        return lambda plan: plan.report()
+    monkeypatch.setattr(r_layout, "pad_batch_for_block",
+                        lambda e, *a, **kw: (e, 0))
+    return lambda plan: _BLOCK.sub("BE=*", plan.report())
 
 
 def _run(sim, chain, plan, inputs_by_var, shared, **kw):
@@ -230,10 +247,12 @@ def _spec_view(spec):
 
 @pytest.mark.parametrize("target", ["alveo-u280", "tpu-v5e", "h100-sxm"])
 @pytest.mark.parametrize("row", sorted(ROWS))
-def test_fusion_decisions_match_reference(row, target):
+def test_fusion_decisions_match_reference(row, target, monkeypatch):
     """Equal FusionSpecs, plan signatures and fused GEMM recipes at the
-    paper's p = 11 and n_eq = 2,000,000."""
+    paper's p = 11 and n_eq = 2,000,000; on the H100 each fused kernel
+    stage's block is its kernel's tile."""
     p, n_eq = 11, 2_000_000
+    report = _plan_like_the_port(target, monkeypatch)
     t_plan = t_chain.plan_chain(
         _chains(T_PKG, p, row), target=t_channels.resolve_target(target),
         n_eq=n_eq, **ROWS[row])
@@ -242,8 +261,13 @@ def test_fusion_decisions_match_reference(row, target):
         **ROWS[row])
     assert _spec_view(t_plan.fusion) == _spec_view(r_plan.fusion)
     assert t_plan.signature == r_plan.signature
-    assert t_plan.report() == r_plan.report()
+    assert report(t_plan) == report(r_plan)
     t_stages, r_stages = t_plan.fusion.chain.stages, r_plan.fusion.chain.stages
+    if target == "h100-sxm":
+        for sp, s in zip(t_plan.stages, t_stages):
+            tile = t_patterns.kernel_tile_for(s.program, 4)
+            if sp.backend == "pallas" and tile is not None:
+                assert sp.block_elements == tile[0], s.name
     assert [s.name for s in t_stages] == [s.name for s in r_stages]
     for t_s, r_s in zip(t_stages, r_stages):
         assert t_s.backend == r_s.backend
@@ -256,10 +280,11 @@ def test_fusion_decisions_match_reference(row, target):
 
 def test_fusion_on_the_h100_table():
     """What the h100-sxm datasheet decides at p = 11, n_eq = 2,000,000:
-    the named cuts stay (8.831 ms a batch), a two-stage budget merges
-    interp+grad (12.957), a one-stage budget fuses all (17.306, E =
-    40,335), and the 13-stage auto schedule fuses to three stages
-    (48.415 -> 8.831); every fused stage stays on the kernel."""
+    the named cuts stay (8.831 ms a batch, E = 50,419, not padded), a
+    two-stage budget merges interp+grad (12.957), a one-stage budget
+    fuses all (17.306, E = 40,335), and the 13-stage auto schedule fuses
+    to three stages (48.415 -> 8.831); every fused stage stays on the
+    kernel."""
     p, n_eq, h100 = 11, 2_000_000, t_channels.H100_SXM
     named = T_PKG["chain"](p)
     got = {}
@@ -272,15 +297,15 @@ def test_fusion_on_the_h100_table():
                                               n_eq=n_eq, fuse="auto")
     want = {
         "named-auto": ((("interp",), ("grad",), ("helmholtz",)), 8.831,
-                       8.831, 50_420),
+                       8.831, 50_419),
         "named-max2": ((("interp", "grad"), ("helmholtz",)), 8.831, 12.957,
-                       50_420),
+                       50_419),
         "named-max1": ((("interp", "grad", "helmholtz"),), 8.831, 17.306,
                        40_335),
         "auto-schedule": ((("s0", "s1", "s2"),
                            ("s3", "s4", "s5", "s6", "s7"),
                            ("s8", "s9", "s10", "s11", "s12")), 48.415,
-                          8.831, 50_420),
+                          8.831, 50_419),
     }
     for row, (groups, t0, t1, e) in want.items():
         spec = got[row].fusion
@@ -341,9 +366,9 @@ def test_fuse_auto_cost_monotonic():
 
 
 def test_fused_chain_runs_at_its_plan_blocks(rng):
-    """The fused chain a plan carries runs the plan's own batches: its
-    kernel stages take the block the plan sized (a merged stage would
-    otherwise keep the kernel's default block, which need not divide E)."""
+    """The fused chain a plan carries runs the plan's own batches: E = 45
+    divides neither the plan's block nor the kernel's default tile, and
+    the kernels walk a ragged last tile."""
     p, n = 5, 90
     chain = t_operators.build_cfd_chain(p, backends="pallas", device="cpu")
     plan = t_chain.plan_chain(chain, target=t_channels.CPU_HOST,
@@ -354,17 +379,17 @@ def test_fused_chain_runs_at_its_plan_blocks(rng):
                device="cpu")
     base = t_chain.plan_chain(chain, target=t_channels.CPU_HOST,
                               batch_elements=45, n_eq=n)
-    want = _run(t_simulation, _helmholtz_on_gemm_chain(
-        t_chain.chain_at_plan_blocks(chain, base)), base, elems, shared,
-        device="cpu")
+    want = _run(t_simulation, _helmholtz_on_gemm_chain(chain), base, elems,
+                shared, device="cpu")
     for out_var in ("gy", "gz", "v"):
         assert np.array_equal(got[out_var], want[out_var]), out_var
 
 
 def test_flow_compile_runs_kernel_stages_at_plan_or_pinned_blocks(
         monkeypatch, rng):
-    """flow.compile gives a kernel stage the block its plan sized, unless
-    the caller pinned one in stage_blocks, which it keeps."""
+    """flow.compile gives a kernel stage the block its plan carries -- on
+    the H100 its CUDA kernel's tile -- unless the caller pinned one in
+    stage_blocks, which it keeps and the H100 plan carries."""
     from repro_torch.kernels.helmholtz import helmholtz as t_hh
 
     p, E = 11, 16
@@ -372,10 +397,10 @@ def test_flow_compile_runs_kernel_stages_at_plan_or_pinned_blocks(
         t_operators.CFD_PIPELINE_SRC.format(p=p),
         stages=t_operators.CFD_PIPELINE_STAGES, target=t_channels.H100_SXM,
         backend="pallas", batch_elements=E, n_eq=E,
-        stage_blocks={"interp": 8})
+        stage_blocks={"interp": 2})
     planned = {sp.name: sp.block_elements for sp in system.plan.stages}
-    # none of them is the pin or E, the kernels' default block clipped
-    assert planned == {"interp": 4, "grad": 2, "helmholtz": 4}
+    # the pin, and the kernels' default tiles at p = 11 (not E)
+    assert planned == {"interp": 2, "grad": 3, "helmholtz": 3}
     calls = {}
     gemm_plain, hh_plain = t_gemm.gemm_chain_plain, t_hh.inverse_helmholtz_plain
 
@@ -393,7 +418,7 @@ def test_flow_compile_runs_kernel_stages_at_plan_or_pinned_blocks(
     elems, shared = _cfd_data(rng, p, E)
     _run(t_simulation, system.chain, system.plan, elems, shared,
          device="cpu")
-    assert calls == {"interp": {8}, "grad": {planned["grad"]},
+    assert calls == {"interp": {2}, "grad": {planned["grad"]},
                      "helmholtz": {planned["helmholtz"]}}
 
 

@@ -72,14 +72,17 @@ def test_helmholtz_plain_bf16(rng):
 
 
 def test_helmholtz_rejects_ragged_blocks(rng):
+    """A block that does not divide E is no longer refused: the kernel
+    walks a ragged last tile, and E = 6 at block 4 gives the bits of the
+    whole batch at every block."""
     p = 5
     S = _t(rng.uniform(-1, 1, (p, p)).astype(np.float32))
     D = _t(rng.uniform(-1, 1, (6, p, p, p)).astype(np.float32))
     u = _t(rng.uniform(-1, 1, (6, p, p, p)).astype(np.float32))
-    with pytest.raises(ValueError, match="not divisible"):
-        t_hh.inverse_helmholtz_plain(S, D, u, block_elements=4)
-    with pytest.raises(ValueError, match="not divisible"):
-        t_hh.inverse_helmholtz(S, D, u, block_elements=4)
+    whole = t_hh.inverse_helmholtz_plain(S, D, u)
+    for fn in (t_hh.inverse_helmholtz_plain, t_hh.inverse_helmholtz):
+        for be in (4, 5, 6, 15):
+            assert torch.equal(fn(S, D, u, block_elements=be), whole)
 
 
 def test_helmholtz_wrapper_on_cpu_runs_plain_without_launch(rng):
@@ -164,13 +167,18 @@ def test_gemm_chain_plain_is_block_and_batch_invariant(rng):
 
 
 def test_gemm_chain_rejects_ragged_blocks(rng):
+    """A block that does not divide E is no longer refused: the kernel
+    walks a ragged last tile, and E = 6 at block 4 gives the bits of the
+    whole batch at every block."""
     p = 3
     A = _t(rng.uniform(-1, 1, (p, p)).astype(np.float32))
     u = _t(rng.uniform(-1, 1, (6, p, p, p)).astype(np.float32))
     recipe = gemm_recipes(t_gemm, p)["interp"]
+    whole = t_gemm.gemm_chain_plain(recipe, {"A": A, "u": u})["w"]
     for fn in (t_gemm.gemm_chain_plain, t_gemm.gemm_chain):
-        with pytest.raises(ValueError, match="not divisible"):
-            fn(recipe, {"A": A, "u": u}, block_elements=4)
+        for be in (4, 5, 6, 42):
+            got = fn(recipe, {"A": A, "u": u}, block_elements=be)["w"]
+            assert torch.equal(got, whole)
 
 
 def test_gemm_chain_wrapper_on_cpu_runs_plain_without_launch(rng):
@@ -285,10 +293,9 @@ def test_gemm_buffer_table_frees_a_cube_after_its_last_reader():
 
 
 def test_kernel_tiles_mirror_the_shared_memory_model():
-    """The Helmholtz kernel's tile fits one CTA at every p it takes (3
-    elements, 192 threads, 49,040 B at p = 11, f32: four CTAs an SM), so
-    its wrapper has nothing to refuse; the plan's block size plays no
-    part."""
+    """The Helmholtz kernel's default tile fits one CTA at every p it
+    takes (3 elements, 192 threads, 49,040 B at p = 11, f32: four CTAs
+    an SM), so its wrapper has nothing to refuse without a block."""
     for elem_bytes in (4, 2):
         for p in range(1, _cube.MAX_P + 1):
             te, threads, smem = _cube.helmholtz_tile(p, elem_bytes)

@@ -137,14 +137,18 @@ def test_pallas_dispatch_matches_reference_backends():
 
 
 def test_h100_plan_for_the_slice():
-    """The H100 datasheet plans the slice: E = 50,420, blocks 4 / 2 / 4,
-    1,292.5 MiB per batch over the host link, feasible."""
+    """The H100 datasheet plans the slice: E = 50,419 (not padded: the
+    kernels walk a ragged last tile), blocks 3 / 3 / 3 (each the tile
+    its CUDA kernel launches with, and its CTA's shared bytes), 1,292.5
+    MiB per batch over the host link, feasible."""
     system = t_operators.compile_cfd_pipeline(11, backends="pallas",
                                               target="h100-sxm")
     plan = system.plan
     assert plan.target is channels.H100_SXM and plan.feasible
-    assert plan.batch_elements == 50_420
-    assert [sp.block_elements for sp in plan.stages] == [4, 2, 4]
+    assert plan.batch_elements == 50_419 and plan.batch_pad_elements == 0
+    assert [sp.block_elements for sp in plan.stages] == [3, 3, 3]
+    assert [sp.block_working_set_bytes for sp in plan.stages] == [
+        49_040, 35_168, 49_040]
     assert round(plan.host_stream_bytes / 2 ** 20, 1) == 1292.5
     assert plan.pipeline.pipelined
     assert system.backends == ("pallas",) * 3
@@ -177,13 +181,13 @@ def test_detect_target_needs_the_card_unless_cpu_is_asked():
 
 
 def test_not_ported_knobs_raise():
-    """Stage fusion and the chain DSE are ported; measured block tuning
-    and the profile store are not, and raise naming their ROADMAP item."""
+    """Stage fusion, the chain DSE and measured block tuning are ported;
+    the profile store is not, and raises naming its ROADMAP item, with
+    or without block tuning (the reference deposits the winners there)."""
     src = t_operators.CFD_PIPELINE_SRC.format(p=3)
-    for kw, item in ((dict(tune_blocks=True), "item 6"),
-                     (dict(profile=True), "item 9")):
-        with pytest.raises(t_flow.FlowError, match=f"not ported.*{item}"):
-            t_flow.compile(src, target="cpu-host", **kw)
+    for kw in (dict(profile=True), dict(profile=True, tune_blocks=True)):
+        with pytest.raises(t_flow.FlowError, match="not ported.*item 9"):
+            t_flow.compile(src, target="cpu-host", device="cpu", **kw)
     chain = t_operators.build_cfd_chain(3, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         t_chain.plan_chain(chain, target=channels.CPU_HOST, profile=True)
@@ -281,7 +285,8 @@ def test_flow_cli_runs_on_the_cpu_when_asked(capsys):
     (["--trace", "t.json"], "--trace is not ported.*item 9"),
     (["--profile"], "--profile is not ported.*item 9"),
     (["--metrics", "m.json"], "--metrics is not ported.*item 9"),
-    (["--tune-blocks"], "--tune-blocks is not ported.*item 6"),
+    # the tuner's winners would go to the profile store: not ported
+    (["--tune-blocks", "--profile"], "--profile is not ported.*item 9"),
     (["--target", "alveo-u28"], "did you mean"),
     (["--target", "cpu-host", "--fuse", "auto", "--cu-count", "x"],
      "bad --cu-count"),
