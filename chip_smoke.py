@@ -45,8 +45,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      and run on the card: 16 elements bitwise equal to the same code on
      the CPU, ``xla`` bitwise equal to ``staged``, MSE against the float64
      oracle within 100x the paper's (9.39e-22, 3.58e-12); the peak device
-     memory above the inputs, beside the 3.38 / 3.14 GiB measured while
-     ``core.emit`` kept every intermediate (commit 775a332);
+     memory above the inputs, beside the 2.67 / 2.33 GiB measured while
+     ``core.precision`` widened whole operands (commit 93b3fea) and the
+     3.38 / 3.14 GiB while ``core.emit`` kept every intermediate (commit
+     775a332);
   D. the single-operator design-space sweep on the card: ``explore`` over
      xla/staged/pallas at float32 on one card, the top three measured and
      the cost correction fitted;
@@ -79,6 +81,28 @@ Phases (any failure exits non-zero, and no result line is printed):
      and (E/4, E, E/2), E = 50,420, counters zeroed just before and read
      just after, bitwise against the uniform serial run, each stage's
      kernel time at its E_s, and ``measure_chain_plan`` on the second;
+  S. serving, tracing, metrics and the profile store on the named p = 11
+     chain planned on h100-sxm (E = 50,419): ``PlanCache.get_or_compile``
+     twice (a hit; ``plan_chain`` not called again); a ``ServeEngine``
+     (K from the plan, ``max_wait_s=0.05``, a tracer, a metrics registry,
+     an SLO tracker, a latency tracker) takes 16 requests of 2,000-18,000
+     elements drawn from seed 0 and one of 60,000, their rows made before
+     the first submit, then ``drain()``, counters zeroed just before the
+     first submit and read just after the drain; every request's gy, gz
+     and v bitwise equal to serving it alone; elements/s over the
+     window, request latency p50/p99 (queue and execute), waves, pad rows
+     and the device's busy share (CUDA-event dispatch time over the
+     window); the metrics snapshot checked and reconciled with the
+     trace's serve counters; then ``run_chain`` traced over 4 batches of
+     the served rows with a ``StepMonitor`` (counters zeroed and read
+     around it): the Chrome JSON through ``python -m repro_torch.trace``,
+     channel-byte counters exactly 4 x host_stream_bytes, the stable
+     attribution equal to the same plan's on the CPU, each stage's
+     CUDA-event time a batch beside phase 2's kernel time; finally
+     ``flow.compile(tune_blocks=True, profile=store)`` and the traced
+     run recorded into a store in a temporary directory: its keys carry
+     the card's fingerprint, and ``plan_chain(profile=store)`` fits
+     contention;
   4. the flash-attention kernels against their plain version at the
      model path's shape (B = 4, Hq = 16, Hkv = 8, T = 4096, d = 128,
      causal): bfloat16 on the tensor-core (wgmma) route, float32 on the
@@ -176,6 +200,18 @@ REF_TARGET_E = 4096
 #: every intermediate to the end (commit 775a332; NVIDIA H100 80GB HBM3,
 #: 700 W), before it freed each after its last reader
 KEEP_ALL_PEAK_GIB = {"fixed64_q24.40": 3.38, "fixed32_q8.24": 3.14}
+#: phase Q: the same peaks once emit freed each intermediate, while
+#: core.precision still widened whole operands (commit 93b3fea; NVIDIA
+#: H100 80GB HBM3, 700 W)
+WHOLE_WIDEN_PEAK_GIB = {"fixed64_q24.40": 2.67, "fixed32_q8.24": 2.33}
+#: phase S: the served chain's E (the planner's own on h100-sxm), the
+#: requests (16 drawn from seed 0 in [2,000, 18,000] elements, one of
+#: 60,000 spanning two waves), the coalescing latency knob, and the
+#: batches of the traced run_chain
+SERVE_P, SERVE_E = 11, 50_419
+SERVE_REQUESTS, SERVE_SIZES, SERVE_BIG = 16, (2_000, 18_000), 60_000
+SERVE_MAX_WAIT_S = 0.05
+TRACE_BATCHES = 4
 #: the flash-attention kernel of each route
 FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "fma": "src/repro_torch/csrc/flash_attention.cu"}
@@ -755,10 +791,11 @@ def phase_fixed(inputs):
                 encode_s=encode_s)
             print(f"{pol.name} {backend}: E={E} one batch {secs:.3f} s, "
                   f"{E / secs:.0f} elements/s, peak device memory "
-                  f"{peak / 2**30:.2f} GiB above the inputs (keeping every "
-                  f"intermediate: {KEEP_ALL_PEAK_GIB[pol.name]:.2f}; encode "
-                  f"on the host {encode_s:.3f} s); first {c} elements bitwise "
-                  "equal to the CPU")
+                  f"{peak / 2**30:.2f} GiB above the inputs (widening whole "
+                  f"operands: {WHOLE_WIDEN_PEAK_GIB[pol.name]:.2f}; keeping "
+                  f"every intermediate: {KEEP_ALL_PEAK_GIB[pol.name]:.2f}; "
+                  f"encode on the host {encode_s:.3f} s); first {c} elements "
+                  "bitwise equal to the CPU")
         if not torch.equal(results["xla"], results["staged"]):
             fail(f"{pol.name}: xla and staged differ bitwise")
         got = pol.decode(results["xla"][:m].cpu()).numpy()
@@ -1579,6 +1616,251 @@ def logit_agreement(got, want, what: str) -> dict:
     return out
 
 
+def phase_serve(kernel_rows):
+    """Phase S: the serving engine, tracing, metrics and the profile store
+    on the named p = 11 chain (``compile_cfd_pipeline(11,
+    backends="pallas")`` planned on h100-sxm, E = 50,419)."""
+    import os
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch import metrics, trace
+    from repro_torch.cfd import operators, simulation
+    from repro_torch.flow import build
+    from repro_torch.memory import chain as mchain
+    from repro_torch.memory.channels import H100_SXM
+    from repro_torch.runtime.monitor import RequestLatency, StepMonitor
+    from repro_torch.serve import PlanCache, ServeEngine
+
+    p = SERVE_P
+    src = operators.CFD_PIPELINE_SRC.format(p=p)
+    kw = dict(name=f"cfd_pipeline_p{p}", stages=operators.CFD_PIPELINE_STAGES,
+              backends=("pallas",) * 3)
+    out = {}
+
+    # -- the plan cache: a repeat compile never plans again ----------------
+    tracer, reg = trace.Tracer(), metrics.MetricsRegistry()
+    planned = []
+    real_plan_chain = build.plan_chain
+
+    def spy(*a, **k):
+        planned.append(1)
+        return real_plan_chain(*a, **k)
+
+    cache = PlanCache(tracer=tracer, metrics=reg)
+    build.plan_chain = spy
+    try:
+        t = time.perf_counter()
+        system = cache.get_or_compile(src, **kw)
+        compile_s = time.perf_counter() - t
+        n_planned = len(planned)
+        again = cache.get_or_compile(src, **kw)
+    finally:
+        build.plan_chain = real_plan_chain
+    if again is not system or (cache.hits, cache.misses) != (1, 1) or (
+            len(planned) != n_planned):
+        fail(f"plan cache: hits {cache.hits} misses {cache.misses}, "
+             f"plan_chain calls {n_planned} -> {len(planned)}")
+    plan = system.plan
+    E = plan.batch_elements
+    if (plan.target.name, E) != ("h100-sxm", SERVE_E):
+        fail(f"served plan {plan.target.name} E={E}; want h100-sxm "
+             f"E={SERVE_E}")
+    print(f"serve: plan cache hit on the repeat compile (compile "
+          f"{compile_s:.1f} s, plan_chain called {n_planned}x), E={E}")
+
+    # -- requests, made before the first submit ----------------------------
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(SERVE_SIZES[0], SERVE_SIZES[1] + 1,
+                         SERVE_REQUESTS).tolist() + [SERVE_BIG]
+    probe = ServeEngine(system, seed=0)
+    specs = sorted(probe.in_specs.items())
+    del probe
+    reqs = [{q: rng.uniform(-1, 1, (n,) + shape).astype(np.float32)
+             for q, shape in specs} for n in sizes]
+    total = sum(sizes)
+
+    # -- serve: coalesced waves through the ring ----------------------------
+    lat = RequestLatency()
+    slo = metrics.SLOTracker(5.0, 0.01, registry=reg)
+    engine = ServeEngine(system, max_wait_s=SERVE_MAX_WAIT_S, tracer=tracer,
+                         metrics=reg, slo=slo, latency=lat, seed=0)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = tracer.clock()
+    served = [engine.submit(r) for r in reqs]
+    engine.drain()
+    torch.cuda.synchronize()
+    t1 = tracer.clock()
+    launches = read_counts()
+    failed = [r.rid for r in served if r.error is not None]
+    if failed:
+        fail(f"serve: requests {failed} failed: {served[failed[0]].error!r}")
+    st = engine.stats
+    waves = st["waves"]
+    if launches != {"gemm_chain": 2 * waves, "helmholtz": waves,
+                    "flash_attention": 0}:
+        fail(f"serve: {waves} waves with launches {launches}")
+    if st["pad_elements"] != waves * E - total:
+        fail(f"serve: pad {st['pad_elements']} != {waves} x {E} - {total}")
+    wall = t1 - t0
+    disp = [s for s in tracer.spans if s.cat == "dispatch"]
+    busy = sum(s.duration for s in disp if t0 <= s.t0 and s.t1 <= t1)
+    if any("host_s" not in s.args for s in disp):
+        fail("serve: a dispatch span carries no CUDA-event time")
+
+    def pct(xs, q):
+        return float(np.percentile(np.asarray(xs), q))
+
+    total_s = [r.completed_s - r.submitted_s for r in served]
+    queue_s = [r.admitted_s - r.submitted_s for r in served]
+    exec_s = [r.completed_s - r.admitted_s for r in served]
+    out["serve"] = dict(
+        requests=len(served), elements=total, waves=waves,
+        pad_elements=st["pad_elements"], ticks=st["ticks"], wall_s=wall,
+        elements_per_s=total / wall, busy_share=busy / wall,
+        device_busy_s=busy,
+        latency_s={"p50": pct(total_s, 50), "p99": pct(total_s, 99)},
+        queue_s={"p50": pct(queue_s, 50), "p99": pct(queue_s, 99)},
+        execute_s={"p50": pct(exec_s, 50), "p99": pct(exec_s, 99)},
+        launches=launches, slo=slo.verdict()["verdict"])
+    print(f"serve: {len(served)} requests ({total} elements) in {waves} waves "
+          f"(pad {st['pad_elements']}) in {wall:.3f} s: {total / wall:.0f} "
+          f"elements/s | latency p50 {pct(total_s, 50):.3f} s p99 "
+          f"{pct(total_s, 99):.3f} s (queue p50 {pct(queue_s, 50):.3f} / p99 "
+          f"{pct(queue_s, 99):.3f}, execute p50 {pct(exec_s, 50):.3f} / p99 "
+          f"{pct(exec_s, 99):.3f}) | device busy {busy * 1e3:.1f} ms = "
+          f"{100 * busy / wall:.2f} % of the window | launches {launches}")
+
+    # each request alone through the same system: bit for bit
+    serial = ServeEngine(system, seed=0)
+    for r, inp in zip(served, reqs):
+        one = serial.submit(inp)
+        serial.drain()
+        if one.error is not None:
+            fail(f"serve: r{r.rid} alone failed: {one.error!r}")
+        for q in engine.out_names:
+            if not np.array_equal(r.outputs[q], one.outputs[q]):
+                fail(f"serve: r{r.rid} output {q} differs from serving it "
+                     "alone")
+            if not np.isfinite(r.outputs[q]).all():
+                fail(f"serve: r{r.rid} output {q} is not finite")
+        r.outputs = None
+    print(f"serve: every request's gy, gz and v bitwise equal to serving it "
+          f"alone")
+
+    # metrics: structure, the serving invariants, and the trace's counters
+    snap = reg.snapshot()
+    metrics.check_structure(snap)
+    checked = metrics.check_snapshot(snap, trace.to_chrome(tracer))
+    if "trace-reconciliation" not in checked:
+        fail(f"metrics: checks run {checked}, want trace-reconciliation")
+    print(f"metrics: {len(snap['metrics'])} series, checks {checked}")
+    out["metrics"] = dict(series=len(snap["metrics"]), checks=checked)
+    del served, serial, engine, cache
+
+    # -- trace: run_chain over the served rows, CUDA-event stage times ------
+    rows = {q: np.concatenate([r[q] for r in reqs])[:TRACE_BATCHES * E]
+            for q, _ in specs}
+    del reqs
+    ttr = trace.Tracer()
+    zero_counts()
+    res = simulation.run_chain(system.chain, plan, inputs=rows,
+                               max_batches=TRACE_BATCHES, tracer=ttr,
+                               monitor=StepMonitor())
+    torch.cuda.synchronize()
+    trace_launches = read_counts()
+    if res.batches != TRACE_BATCHES or trace_launches != {
+            "gemm_chain": 2 * TRACE_BATCHES, "helmholtz": TRACE_BATCHES,
+            "flash_attention": 0}:
+        fail(f"trace: {res.batches} batches, launches {trace_launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/run_chain.json"
+        trace.write_chrome(ttr, path)
+        env = {**os.environ, "PYTHONPATH": str(SRC)}
+        chk = subprocess.run([sys.executable, "-m", "repro_torch.trace", path],
+                             capture_output=True, text=True, env=env,
+                             timeout=120)
+        if chk.returncode != 0:
+            fail(f"python -m repro_torch.trace: {chk.stdout}{chk.stderr}")
+        ch = sum(ttr.totals("channel_bytes").values())
+        if ch != TRACE_BATCHES * plan.host_stream_bytes:
+            fail(f"trace: channel bytes {ch} != {TRACE_BATCHES} x "
+                 f"{plan.host_stream_bytes}")
+        stable = trace.attribution_report(ttr, plan, stable_only=True)
+        # the same plan on the host: its stages run on torch.einsum (the
+        # kernels' plain versions would take minutes at this size), which
+        # changes no span of the stable section
+        cpu_chain = operators.build_cfd_chain(p, device="cpu")
+        cpu_tr = trace.Tracer()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            simulation.run_chain(cpu_chain, plan, inputs=rows,
+                                 max_batches=TRACE_BATCHES, tracer=cpu_tr,
+                                 device="cpu")
+        cpu_stable = trace.attribution_report(cpu_tr, plan, stable_only=True)
+        if stable != cpu_stable:
+            fail(f"trace: stable attribution differs from the CPU's:\n"
+                 f"{stable}\n--- cpu ---\n{cpu_stable}")
+        a = trace.attribute(ttr, plan)
+        kernel_ms = {"interp": kernel_rows["gemm_chain"][0]["ms"],
+                     "grad": kernel_rows["gemm_chain"][1]["ms"],
+                     "helmholtz": kernel_rows["helmholtz"][0]["ms"]}
+        stages = {}
+        for s in a.stages:
+            traced = s.measured_s_per_batch * 1e3
+            host = [sp.args["host_s"] for sp in ttr.spans
+                    if sp.cat == "dispatch" and sp.args["stage"] == s.index]
+            stages[s.name] = dict(traced_ms=traced, kernel_ms=kernel_ms[s.name],
+                                  ratio=traced / kernel_ms[s.name],
+                                  host_ms=1e3 * sum(host) / len(host))
+        print(f"trace: {res.batches} batches, schema ok, channel bytes = "
+              f"{TRACE_BATCHES} x host_stream_bytes, stable attribution = "
+              f"the CPU's | per-stage device ms/batch (CUDA events) vs phase "
+              "2's kernel: " + ", ".join(
+                  f"{k} {v['traced_ms']:.3f} vs {v['kernel_ms']:.3f} "
+                  f"(x{v['ratio']:.3f}; host {v['host_ms']:.3f} ms to launch)"
+                  for k, v in stages.items()))
+        print(trace.attribution_report(ttr, plan))
+        out["trace"] = dict(batches=res.batches, wall_s=res.wall_s,
+                            stages=stages, launches=trace_launches,
+                            stragglers=list(res.straggler_batches))
+
+        # -- profile: tuner winners and the traced stages into a store -----
+        store = trace.ProfileStore(path=f"{tmp}/profile.json")
+        fp = trace.machine_fingerprint()
+        if store.fingerprint != fp or fp == trace.machine_fingerprint("cpu"):
+            fail(f"profile: store fingerprint {store.fingerprint}, card's {fp}")
+        tuned = operators.compile_cfd_pipeline(p, backends="pallas",
+                                               tune_blocks=True, profile=store)
+        n_stage = store.record_trace(ttr, plan)
+        doc = json.loads(pathlib.Path(store.path).read_text())
+        keys = list(doc["entries"])
+        samples = [s for v in doc["entries"].values() for s in v]
+        tune = [s for s in samples if s.get("scope") == "tune"]
+        if not keys or any(not k.startswith(f"{fp}/h100-sxm/") for k in keys):
+            fail(f"profile: keys {keys} do not carry the card's fingerprint")
+        if len(tune) != len(tuned.tuning or {}) or not tune:
+            fail(f"profile: {len(tune)} tune samples for "
+                 f"{len(tuned.tuning or {})} tuned stages")
+        fitted = mchain.plan_chain(system.chain, target=H100_SXM,
+                                   profile=store)
+        if not fitted.cost.contention_fit:
+            fail("profile: plan_chain(profile=store) fitted no contention")
+        print(f"profile: {len(tune)} tune + {n_stage} traced samples under "
+              f"fingerprint {fp}; contention fitted "
+              f"{list(fitted.cost.contention_fit)}")
+        out["profile"] = dict(fingerprint=fp, tune_samples=len(tune),
+                              trace_samples=n_stage,
+                              contention_fit=list(fitted.cost.contention_fit))
+    launches = {k: launches[k] + trace_launches[k] for k in launches}
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1642,6 +1924,12 @@ def main() -> int:
             launches[name] += block_launches[name]
         blocks_s = time.perf_counter() - t_b
         print(f"phase B: {blocks_s:.1f} s")
+        t_s = time.perf_counter()
+        serve_stats, serve_launches = phase_serve(rows)
+        for name in ("gemm_chain", "helmholtz"):
+            launches[name] += serve_launches[name]
+        serve_stats["seconds"] = time.perf_counter() - t_s
+        print(f"phase S: {serve_stats['seconds']:.1f} s")
         flash_rows = phase_flash()
         model = phase_model()
     except SmokeFailure as e:
@@ -1693,6 +1981,7 @@ def main() -> int:
                       "fusion_s": fusion_s, "blocks": blocks_stats,
                       "blocks_s": blocks_s}))
     print(json.dumps({"model": model}))
+    print(json.dumps({"serve": serve_stats}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

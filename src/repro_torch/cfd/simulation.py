@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -169,10 +169,13 @@ def run_simulation(
 
     Under a fixed-point policy the inputs are encoded on the host, as
     the paper's host code does, and the checksum sums the decoded
-    outputs.  ``tracer`` is not ported yet and must be None.
+    outputs.
+
+    ``tracer`` (``repro_torch.trace.Tracer``; None = off) records the
+    staging/dispatch/sync spans of the K-deep engine (the dispatch spans
+    in the card's own times on a CUDA device) plus per-channel host byte
+    counters from the plan's buffer table.
     """
-    if tracer is not None:
-        raise NotImplementedError("run_simulation(tracer=...) is not ported yet")
     dev = memchannels.resolve_device(device)
     if plan is None:
         plan = plan_config(cfg, device=dev)
@@ -210,13 +213,31 @@ def run_simulation(
     def compute(staged: mempipe.Staged):
         return compiled.batched_fn({"S": S_dev, **staged.arrays()})
 
+    stage = mempipe.HostStager(dev, slots=plan.prefetch_depth + 1)
+    if tracer:
+        from ..trace.attribution import (COUNTER_CHANNEL_BYTES,
+                                         host_channel_bytes)
+
+        ch_bytes = {
+            str(c): float(b)
+            for c, b in host_channel_bytes(plan.buffers).items()
+        }
+        stager = stage
+
+        def stage(batch):
+            tracer.bump(COUNTER_CHANNEL_BYTES, ch_bytes)
+            return stager(batch)
+
     t0 = time.perf_counter()
     sums = mempipe.run_pipelined(
         compute,
         batches,
-        stage_fn=mempipe.HostStager(dev, slots=plan.prefetch_depth + 1),
+        stage_fn=stage,
         depth=plan.prefetch_depth,
         reduce_fn=reduce_fn,
+        tracer=tracer,
+        stage_name=plan.operator,
+        device=dev,
     )
     wall = time.perf_counter() - t0
     checksum = 0.0
@@ -250,6 +271,9 @@ class ChainResult:
     pipelined_stages: bool = False
     #: the device the run executed on
     device: str = ""
+    #: batch indices the StepMonitor flagged as stragglers (empty when no
+    #: monitor was passed or nothing was flagged)
+    straggler_batches: Tuple[int, ...] = ()
 
 
 def _chain_batch_inputs(
@@ -303,6 +327,65 @@ def _shared_host(
     return out
 
 
+def chain_stage_fns(
+    chain: memchain.ProgramChain,
+    plan: memchain.ChainPlan,
+    shared_dev: Dict[str, torch.Tensor],
+) -> List[Callable]:
+    """The chain's stages as ``fn(staged, carry)`` for the pipeline
+    driver: stage ``i`` reads its bound streams from the carry (the
+    device-resident handoff), its shared operands from ``shared_dev`` and
+    its host streams from the staged batch, and returns the carry with
+    its outputs added under ``"stage.output"``.
+
+    A plan may run some stages at a smaller batch than the chain E
+    (per-stage E_s): the re-blocking handoff slices the chain batch into
+    E_s sub-batches on the device; a kernel stage writes each into its
+    slice of the chain batch's outputs, any other stage's outputs are
+    concatenated (bitwise-equal to the full-batch call: elements are
+    independent)."""
+    E = plan.batch_elements
+    stage_es = [plan.stage_e(i) for i in range(len(plan.stages))]
+    if len(stage_es) != len(chain.stages):
+        stage_es = [E] * len(chain.stages)
+
+    def make_stage_fn(i: int, s: memchain.ChainStage):
+        batched_fn = s.compiled.batched_fn
+        if 0 < stage_es[i] < E:
+            batched_fn = mempipe.reblock_batched_fn(
+                batched_fn, tuple(s.program.element_vars), stage_es[i],
+                outputs=(
+                    {n: tuple(v.shape) for n, v in s.program.outputs.items()}
+                    if s.backend == "pallas" else None
+                ),
+            )
+
+        def run_stage(staged: mempipe.Staged, carry):
+            live: Dict[str, torch.Tensor] = dict(carry) if carry else {}
+            env: Dict[str, torch.Tensor] = {}
+            host = None
+            for name in s.program.inputs:
+                if name in chain.resolved[i]:
+                    p_idx, out_name = chain.resolved[i][name]
+                    env[name] = live[
+                        f"{chain.stages[p_idx].name}.{out_name}"
+                    ]
+                elif name in shared_dev:
+                    env[name] = shared_dev[name]
+                else:
+                    if host is None:
+                        host = staged.arrays()
+                    env[name] = host[f"{s.name}.{name}"]
+            outs = batched_fn(env)
+            for out_name, val in outs.items():
+                live[f"{s.name}.{out_name}"] = val
+            return live
+
+        return run_stage
+
+    return [make_stage_fn(i, s) for i, s in enumerate(chain.stages)]
+
+
 def run_chain(
     chain: memchain.ProgramChain,
     plan: Optional[memchain.ChainPlan] = None,
@@ -342,13 +425,20 @@ def run_chain(
     uniform run.
 
     ``collect_outputs`` returns the concatenated chain outputs; by
-    default only a checksum per output crosses back.  ``tracer``,
-    ``monitor`` and ``metrics`` are not ported yet and must be None.
+    default only a checksum per output crosses back.
+
+    ``tracer`` (``repro_torch.trace.Tracer``; None = off) records the
+    full span hierarchy -- chain run -> per-stage slot -> dispatch (in
+    the card's own times on a CUDA device) -- plus per-channel host byte,
+    pad-element and CU-occupancy counters from the plan, ready for
+    ``repro_torch.trace.attribution``.  ``monitor`` (a
+    ``runtime.StepMonitor``) watches per-batch retire times; flagged
+    batches are annotated on their sync spans and reported in
+    ``ChainResult.straggler_batches``.  ``metrics`` (a
+    ``repro_torch.metrics`` registry) records the driver's always-on
+    per-stage dispatch/stall histograms keyed by the plan signature.
+    None changes results.
     """
-    for label, given in (("tracer", tracer), ("monitor", monitor),
-                         ("metrics", metrics)):
-        if given is not None:
-            raise NotImplementedError(f"run_chain({label}=...) is not ported yet")
     dev = memchannels.resolve_device(device)
     if n_eq is None and inputs:
         # the data bounds the problem -- derive n_eq before planning so
@@ -421,52 +511,7 @@ def run_chain(
         for n, _ in chain.chain_outputs(i)
     ]
 
-    # per-stage E_s: a plan may run some stages at a smaller batch than
-    # the chain E -- the re-blocking handoff slices the chain batch into
-    # E_s sub-batches on the device; a kernel stage writes each into its
-    # slice of the chain batch's outputs, any other stage's outputs are
-    # concatenated (bitwise-equal to the full-batch call: elements are
-    # independent)
-    stage_es = [plan.stage_e(i) for i in range(len(plan.stages))]
-    if len(stage_es) != len(chain.stages):
-        stage_es = [E] * len(chain.stages)
-
-    def make_stage_fn(i: int, s: memchain.ChainStage):
-        batched_fn = s.compiled.batched_fn
-        if 0 < stage_es[i] < E:
-            batched_fn = mempipe.reblock_batched_fn(
-                batched_fn, tuple(s.program.element_vars), stage_es[i],
-                outputs=(
-                    {n: tuple(v.shape) for n, v in s.program.outputs.items()}
-                    if s.backend == "pallas" else None
-                ),
-            )
-
-        def run_stage(staged: mempipe.Staged, carry):
-            live: Dict[str, torch.Tensor] = dict(carry) if carry else {}
-            env: Dict[str, torch.Tensor] = {}
-            host = None
-            for name in s.program.inputs:
-                if name in chain.resolved[i]:
-                    p_idx, out_name = chain.resolved[i][name]
-                    env[name] = live[
-                        f"{chain.stages[p_idx].name}.{out_name}"
-                    ]
-                elif name in shared_dev:
-                    env[name] = shared_dev[name]
-                else:
-                    if host is None:
-                        host = staged.arrays()
-                    env[name] = host[f"{s.name}.{name}"]
-            outs = batched_fn(env)
-            for out_name, val in outs.items():
-                live[f"{s.name}.{out_name}"] = val
-            return live
-
-        return run_stage
-
-    stage_fns = [make_stage_fn(i, s) for i, s in enumerate(chain.stages)]
-
+    stage_fns = chain_stage_fns(chain, plan, shared_dev)
     if collect_outputs:
         def reduce_fn(live):
             return {q: live[q] for q in out_names}
@@ -474,15 +519,64 @@ def run_chain(
         def reduce_fn(live):
             return {q: torch.sum(live[q]) for q in out_names}
 
+    stage_batch = mempipe.HostStager(dev, slots=depths[0] + 1)
+    if tracer:
+        from ..trace.attribution import (COUNTER_CHANNEL_BYTES,
+                                         COUNTER_OCCUPANCY,
+                                         COUNTER_PAD_ELEMENTS,
+                                         host_channel_bytes)
+
+        tracer.meta.update({
+            "chain": plan.chain, "target": plan.target.name,
+            "policy": plan.policy, "signature": plan.signature,
+            "batch_elements": E,
+        })
+        tracer.bump(COUNTER_OCCUPANCY, {
+            sp.name: float(sp.cu_count) for sp in plan.stages
+        })
+        ch_bytes = {
+            str(c): float(b)
+            for c, b in host_channel_bytes(plan.buffers).items()
+        }
+        pad = plan.batch_pad_elements
+        stager = stage_batch
+
+        def stage_batch(batch):
+            tracer.bump(COUNTER_CHANNEL_BYTES, ch_bytes)
+            if pad:
+                tracer.bump(COUNTER_PAD_ELEMENTS, {"pad": float(pad)})
+            return stager(batch)
+
+    m_count0 = monitor.count if monitor is not None else 0
+    m_flags0 = len(monitor.flags) if monitor is not None else 0
+    root = (tracer.begin("run_chain", "run", 0, chain=plan.chain,
+                         batches=n, batch_elements=E,
+                         pipelined=bool(pipeline_stages))
+            if tracer else None)
     t0 = time.perf_counter()
     per_batch = mempipe.run_stage_pipelined(
         stage_fns,
         _chain_batch_inputs(chain, E, n, seed, inputs),
-        stage_fn=mempipe.HostStager(dev, slots=depths[0] + 1),
+        stage_fn=stage_batch,
         depths=depths,
         reduce_fn=reduce_fn,
+        tracer=tracer,
+        monitor=monitor,
+        stage_names=[s.name for s in chain.stages],
+        metrics=metrics,
+        metrics_labels={"plan": plan.signature[:12]} if metrics else None,
+        device=dev,
     )
     wall = time.perf_counter() - t0
+    if root is not None:
+        tracer.end(root)
+    stragglers: Tuple[int, ...] = ()
+    if monitor is not None:
+        # monitor counts are 1-based record() calls; one call per retired
+        # batch in batch order, on top of whatever the monitor saw before
+        stragglers = tuple(
+            c - 1 - m_count0 for c in monitor.flags[m_flags0:]
+        )
 
     checksums: Dict[str, float] = {q: 0.0 for q in out_names}
     outputs: Optional[Dict[str, np.ndarray]] = None
@@ -501,5 +595,5 @@ def run_chain(
     return ChainResult(
         batches=n, elements=n * E, wall_s=wall, checksums=checksums,
         plan=plan, outputs=outputs, pipelined_stages=bool(pipeline_stages),
-        device=str(dev),
+        device=str(dev), straggler_batches=stragglers,
     )

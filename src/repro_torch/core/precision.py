@@ -54,7 +54,8 @@ class FloatPolicy:
         return self.torch_dtype.itemsize * 8
 
 
-#: Values one fixed-point contraction broadcasts at once (one chunk):
+#: Values one fixed-point contraction broadcasts at once (one chunk),
+#: and the slice an elementwise multiply or divide widens at once:
 #: 2**24 int64 values are 128 MiB, and the limb arithmetic of a chunk
 #: keeps about four such tensors alive.
 CONTRACT_CHUNK_VALUES = 1 << 24
@@ -169,30 +170,58 @@ class FixedPointPolicy:
     def fsub(self, a, b):
         return a - b
 
+    def _elementwise(self, fn, a, b):
+        """``fn(a, b)`` over the broadcast of ``a`` and ``b``, in slices of
+        dim 0 of at most :data:`CONTRACT_CHUNK_VALUES` values (never less
+        than one row) written into one storage-dtype output, so an
+        operand is widened a slice at a time, never whole.  Each output
+        entry is computed alone, so the slicing never changes a bit."""
+        if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)):
+            return fn(a, b)
+        a, b = torch.broadcast_tensors(a, b)
+        if a.dim() == 0 or a.numel() <= CONTRACT_CHUNK_VALUES:
+            return fn(a, b)
+        out = torch.empty(a.shape, dtype=self.storage_dtype, device=a.device)
+        step = max(1, CONTRACT_CHUNK_VALUES // (a.numel() // a.shape[0]))
+        for i0 in range(0, a.shape[0], step):
+            n = min(step, a.shape[0] - i0)
+            out.narrow(0, i0, n).copy_(fn(a.narrow(0, i0, n),
+                                          b.narrow(0, i0, n)))
+        return out
+
     def fmul(self, a, b):
         """(a * b) >> frac_bits with a wide intermediate, round-to-nearest.
 
         int32 storage: exact via an int64 intermediate, wrapped back to
         int32.  int64 storage: the 128-bit product from limbs, see
-        :func:`_fmul64`."""
+        :func:`_fmul64`.  Widened in slices (:meth:`_elementwise`)."""
         f = self.frac_bits
         if self.total_bits == 32:
-            wide = a.to(torch.int64) * b.to(torch.int64)
-            wide += 1 << (f - 1)  # round to nearest
-            wide >>= f
-            return wide.to(torch.int32)
-        return _fmul64(_split64(a), _split64(b), f)
+            def mul(x, y):
+                wide = x.to(torch.int64) * y.to(torch.int64)
+                wide += 1 << (f - 1)  # round to nearest
+                wide >>= f
+                return wide.to(torch.int32)
+        else:
+            def mul(x, y):
+                return _fmul64(_split64(x), _split64(y), f)
+        return self._elementwise(mul, a, b)
 
     def fdiv(self, a, b):
         """int32: ``(a << frac_bits) // b``, floor division as ``jnp``'s
         ``//``.  int64: through a float64 reciprocal of ``b`` (the
-        reference's documented approximation), in its operation order."""
+        reference's documented approximation), in its operation order.
+        Widened in slices (:meth:`_elementwise`)."""
         if self.total_bits == 32:
-            wide = a.to(torch.int64) << self.frac_bits
-            q = torch.div(wide, b.to(torch.int64), rounding_mode="floor")
-            return q.to(torch.int32)
-        rec = 1.0 / (b.to(torch.float64) / self.scale)
-        return self.encode(self.decode(a) * rec)
+            def div(x, y):
+                wide = x.to(torch.int64) << self.frac_bits
+                q = torch.div(wide, y.to(torch.int64), rounding_mode="floor")
+                return q.to(torch.int32)
+        else:
+            def div(x, y):
+                rec = 1.0 / (y.to(torch.float64) / self.scale)
+                return self.encode(self.decode(x) * rec)
+        return self._elementwise(div, a, b)
 
     def contract(self, a, b, subscripts: str):
         """Fixed-point binary einsum: per-product rescale, then integer sum.
@@ -204,9 +233,10 @@ class FixedPointPolicy:
         has none).  Chunk rule: the union space is cut along its largest
         kept (output) index into pieces of at most
         :data:`CONTRACT_CHUNK_VALUES` values (never less than one index
-        value), so no more than one chunk's broadcast exists at a time.
-        Each output entry is computed whole inside one chunk, so chunking
-        never changes a bit."""
+        value), so no more than one chunk's broadcast exists at a time;
+        an operand is widened (int64, or limbs) per chunk, after it is
+        narrowed, never whole.  Each output entry is computed whole
+        inside one chunk, so chunking never changes a bit."""
         in_spec, out_spec = subscripts.split("->")
         sa, sb = in_spec.split(",")
         union = sa + "".join(c for c in sb if c not in sa)
@@ -219,15 +249,14 @@ class FixedPointPolicy:
         def expand(x, s):
             perm = [s.index(c) for c in union if c in s]
             shape = tuple(dims[c] if c in s else 1 for c in union)
-            return x.permute(perm).reshape(shape)
+            return x.permute(perm).reshape(shape)  # a view: unit dims only
 
-        if self.total_bits == 32:
-            ea = expand(a.to(torch.int64), sa)
-            eb = expand(b.to(torch.int64), sb)
-        else:
-            ea = _split64(expand(a, sa))
-            eb = _split64(expand(b, sb))
+        def widen(x):
+            if self.total_bits == 32:
+                return x.to(torch.int64)
+            return _split64(x)
 
+        ea, eb = expand(a, sa), expand(b, sb)
         kept = [i for i, c in enumerate(union) if c in out_spec]
         sum_axes = [i for i, c in enumerate(union) if c not in out_spec]
 
@@ -243,7 +272,7 @@ class FixedPointPolicy:
             return prod.sum(dim=sum_axes) if sum_axes else prod
 
         if not kept:  # a full reduction: one output, one chunk
-            return products(ea, eb).to(self.storage_dtype)
+            return products(widen(ea), widen(eb)).to(self.storage_dtype)
         n_union = math.prod(dims[c] for c in union)
         axis = max(kept, key=lambda i: dims[union[i]])
         extent = dims[union[axis]]
@@ -251,16 +280,19 @@ class FixedPointPolicy:
         out = torch.empty([dims[union[i]] for i in kept],
                           dtype=self.storage_dtype, device=a.device)
         pos = kept.index(axis)
+        # an operand the chunk axis does not cut is widened once; the
+        # others are narrowed to the chunk first, then widened, so no
+        # widened copy of a whole operand exists
+        whole = [widen(x) if x.shape[axis] == 1 else None for x in (ea, eb)]
 
-        def part(x, i0, n):
-            if isinstance(x, torch.Tensor):
-                return x if x.shape[axis] == 1 else x.narrow(axis, i0, n)
-            return [part(t, i0, n) for t in x]
+        def part(j, x, i0, n):
+            return whole[j] if whole[j] is not None else widen(
+                x.narrow(axis, i0, n))
 
         for i0 in range(0, extent, step):
             n = min(step, extent - i0)
             out.narrow(pos, i0, n).copy_(
-                products(part(ea, i0, n), part(eb, i0, n)))
+                products(part(0, ea, i0, n), part(1, eb, i0, n)))
         remaining = [c for c in union if c in out_spec]
         return out.permute([remaining.index(c) for c in out_spec])
 

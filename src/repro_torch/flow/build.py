@@ -30,9 +30,10 @@ The result is a :class:`CompiledSystem`: per-stage callables, the
 :class:`ChainPlan`, and a human-readable system report -- the generated-
 architecture description the paper's flow emits, byte for byte the
 reference's.  ``CompiledSystem.run`` executes the artifact through the
-K-deep chain pipeline driver.  The profile store (``profile``), where
-the reference deposits the tuner's winners, is not ported yet and
-raises :class:`FlowError`.
+K-deep chain pipeline driver.  :func:`cache_key` (over
+:func:`program_fingerprint` and :func:`topology_fingerprint`) keys the
+serving layer's plan cache, equal to the reference's for the same
+source and knobs.
 """
 from __future__ import annotations
 
@@ -74,6 +75,117 @@ def resolve_target(
         return channels.resolve_target(target, device)
     except channels.UnknownTargetError as e:
         raise FlowError(str(e)) from e
+
+
+# ---------------------------------------------------------------------------
+# compile-identity fingerprints (the serving layer's plan-cache key)
+# ---------------------------------------------------------------------------
+
+
+def program_fingerprint(prog: ir.Program) -> str:
+    """Canonical sha1 of a program's structure.
+
+    Node uids and einsum index ids are process-global fresh counters, so
+    two parses of the same source produce different raw objects; this
+    renumbers both (nodes in topological order, einsum ids per node in
+    first-use order) so equal graphs hash equal while any structural
+    change -- shapes, ops, bindings, outputs, element marking -- does
+    not.  Fingerprint the *post-rewrite* program to key a plan cache:
+    sources that optimize to the same graph then share one entry.
+    """
+    import hashlib
+
+    topo = prog.toposort()
+    num = {n.uid: i for i, n in enumerate(topo)}
+    parts: List[str] = []
+    for n in topo:
+        if isinstance(n, ir.Input):
+            parts.append(f"in:{n.name}:{tuple(n.shape)}")
+        elif isinstance(n, ir.Einsum):
+            ids: Dict[int, int] = {}
+
+            def ren(j: int) -> int:
+                return ids.setdefault(j, len(ids))
+
+            subs = ";".join(
+                ",".join(str(ren(j)) for j in s) for s in n.in_subs
+            )
+            out = ",".join(str(ren(j)) for j in n.out_subs)
+            ops = ",".join(str(num[o.uid]) for o in n.ops)
+            parts.append(f"ein:{ops}:{subs}->{out}:{tuple(n.shape)}")
+        elif isinstance(n, ir.Ewise):
+            ops = ",".join(str(num[o.uid]) for o in n.operands())
+            parts.append(f"ew:{n.op}:{ops}:{n.const}:{tuple(n.shape)}")
+        else:  # future node kinds still hash deterministically
+            ops = ",".join(str(num[o.uid]) for o in n.operands())
+            parts.append(f"{type(n).__name__}:{ops}:{tuple(n.shape)}")
+    parts.append("outs:" + ",".join(
+        f"{name}={num[v.uid]}" for name, v in sorted(prog.outputs.items())
+    ))
+    parts.append("elem:" + ",".join(sorted(prog.element_vars)))
+    return hashlib.sha1("|".join(parts).encode()).hexdigest()
+
+
+def topology_fingerprint(
+    devices: Union[None, int, str, DeviceTopology],
+) -> str:
+    """The cache-key view of ``compile(devices=...)``: what machine the
+    placement was co-scheduled for.  ``0`` (detect) counts the local
+    CUDA cards *now*, so a cache entry can never leak across pool
+    changes.
+    Heterogeneous specs (``"cpu:2,tpu:4"`` strings or explicit
+    :class:`DeviceTopology` values) hash their full per-group layout via
+    ``spec_string()`` -- two fleets with the same device count but
+    different kind mixes never share a plan-cache entry."""
+    if devices is None:
+        return "auto"
+    if isinstance(devices, DeviceTopology):
+        return devices.spec_string()
+    if isinstance(devices, str):
+        return DeviceTopology.parse(devices).spec_string()
+    if devices == 0:
+        t = DeviceTopology.detect()
+        return t.spec_string()
+    return f"{devices}xgeneric"
+
+
+def cache_key(
+    source: str,
+    *,
+    element_vars: Sequence[str] = (),
+    target: Union[None, str, channels.MemoryTarget] = None,
+    policy: Union[str, object] = "float32",
+    optimize: bool = True,
+    devices: Union[None, int, str, DeviceTopology] = None,
+    **kwargs,
+) -> str:
+    """The plan-cache key for one :func:`compile` call: ``(sha of the
+    post-rewrite program, target name, policy, topology fingerprint)``
+    plus a digest of every remaining compile knob, ``/``-joined.
+
+    Runs only the front/middle-end (parse + rewrite) -- the expensive
+    planning/DSE work is exactly what a cache hit skips.  Knobs that are
+    ``None`` (the compile defaults) are excluded from the digest, so
+    spelling a default out does not split the cache; the serving layer
+    passes one normalized kwarg dict for the rest.  ``device`` is a knob
+    like any other: a system compiled for the host never answers a
+    compile call for the card.
+    """
+    import hashlib
+
+    pol = policy if isinstance(policy, str) else policy.name
+    tgt = resolve_target(target, kwargs.get("device"))
+    prog = dsl.parse(source, element_vars=element_vars)
+    if optimize:
+        prog = rewrite.optimize(prog)
+    extra = hashlib.sha1(repr(sorted(
+        (k, repr(v)) for k, v in kwargs.items()
+        if v is not None and k not in ("name", "profile")
+    )).encode()).hexdigest()[:12]
+    return "/".join([
+        program_fingerprint(prog), tgt.name, pol,
+        topology_fingerprint(devices), extra,
+    ])
 
 
 # ---------------------------------------------------------------------------
@@ -467,6 +579,7 @@ def _tune_stage_blocks(
     policy,
     target: channels.MemoryTarget,
     device,
+    profile=None,
 ) -> Dict[str, StageTuning]:
     """Measured block-size autotuning for the plan's kernel stages.
 
@@ -479,8 +592,11 @@ def _tune_stage_blocks(
     three (CUDA events on the current stream on the card,
     ``time.perf_counter`` on the CPU).  The fastest wins.  A candidate
     that fails to build or launch raises.  Returns ``{stage name:
-    StageTuning}``; the reference also deposits the winners in its
-    profile store, which is not ported yet (ROADMAP queue 1, item 9).
+    StageTuning}``.  With a ``profile`` store the winners (with their
+    predicted-vs-measured sample) are deposited in it, keyed by the
+    plan's signature and by ``device``'s fingerprint
+    (:meth:`~repro_torch.trace.ProfileStore.for_device`), so later
+    sessions start from the measured choice.
     """
     import torch
 
@@ -518,6 +634,24 @@ def _tune_stage_blocks(
             stage=st.name, batch_elements=e, candidates=tuple(times),
             block_elements=best[0], kernel_tile=card,
         )
+    if out and profile is not None:
+        from ..trace.profile import ProfileStore  # lazy: no import cycle
+
+        store = ProfileStore.open(profile)
+        if store is not None:
+            sp_by_name = {sp.name: sp for sp in plan.stages}
+            store.for_device(dev).record(target.name, plan.signature, [
+                {
+                    "name": f"tune:{name}",
+                    "scope": "tune",
+                    "predicted_s": max(c.t_compute, c.t_hbm, c.t_host),
+                    "measured_s": min(t for _, _, t in tune.candidates),
+                    "block_elements": tune.block_elements,
+                }
+                for name, tune in out.items()
+                if name in sp_by_name
+                for c in (sp_by_name[name].cost,)
+            ])
     return out
 
 
@@ -578,13 +712,21 @@ class CompiledSystem:
         pipelined (one dispatch ring per stage) or run back-to-back
         (pass ``pipeline_stages=False`` to force the serial baseline;
         see ``repro_torch.cfd.simulation.run_chain`` for all arguments,
-        ``device`` among them: the CUDA card unless ``"cpu"``)."""
+        ``device`` among them: the CUDA card unless ``"cpu"``).
+        ``tracer=repro_torch.trace.Tracer()`` records the run's
+        span/counter trace; ``monitor=runtime.StepMonitor()`` watches for
+        straggler batches -- both pass straight through to
+        ``run_chain``."""
         from ..cfd.simulation import run_chain  # lazy: cfd builds on flow
 
         return run_chain(self.chain, self.plan, **kwargs)
 
-    def report(self) -> str:
-        """The generated-architecture description (golden-checked)."""
+    def report(self, tracer=None) -> str:
+        """The generated-architecture description (golden-checked).
+
+        Pass the tracer of a completed ``run(tracer=...)`` to append the
+        ``measured:`` section -- the per-stage predicted-vs-measured
+        attribution table (``repro_torch.trace.attribution_report``)."""
         prog = self.program
         elem = set(prog.element_vars)
         n_elem_in = sum(1 for n in prog.inputs if n in elem)
@@ -650,6 +792,10 @@ class CompiledSystem:
             lines += ["", "  tuned blocks (block(class) best of 3, "
                       "* the winner):"]
             lines += [t.describe() for t in self.tuning.values()]
+        if tracer:
+            from ..trace.attribution import attribution_report
+
+            lines += ["", attribution_report(tracer, self.plan)]
         return "\n".join(lines)
 
 
@@ -740,8 +886,12 @@ def compile(
             kernel pattern matching.  Explicit ``stages`` cuts are
             barriers -- fusion never merges across a named cut.
             ``'off'``/``None`` keeps every boundary.
-        profile: Not ported yet (ROADMAP queue 1, item 9); anything
-            but None raises.
+        profile: Profile store (store, path, or ``True``) that
+            warm-starts the DSE ranking (``dse=True``), exactly
+            ``explore_chain(profile=...)``; also receives the
+            ``tune_blocks`` winners keyed by the plan signature.  Keyed
+            for ``device`` where one is given (host samples never feed
+            a card plan).
         tune_blocks: Measure the candidate blocks of every kernel stage
             on ``device`` and run each at the fastest (on the card the
             CUDA kernel's legal tiles, timed with CUDA events);
@@ -758,13 +908,8 @@ def compile(
 
     Raises:
         FlowError: On parse errors, unknown targets/policies/backends,
-            malformed stage cuts, non-element outputs, or a knob that is
-            not ported yet.
+            malformed stage cuts, or non-element outputs.
     """
-    if profile is not None:
-        raise FlowError(
-            "profile is not ported yet (ROADMAP queue 1, item 9)"
-        )
     if fuse not in (None, "off", "auto"):
         raise FlowError(f"unknown fuse mode {fuse!r}; use 'auto' or 'off'")
     try:
@@ -923,7 +1068,7 @@ def compile(
         candidates = dse_mod.explore_chain(
             chain, target=target, n_eq=n_eq if n_eq else 1 << 16,
             space=space, topology=topology, measure_top=measure_top,
-            device=device,
+            profile=profile, device=device,
         )
         winner = next((c for c in candidates if c.plan.feasible), None)
         if winner is not None:
@@ -955,7 +1100,7 @@ def compile(
     tuning = None
     if tune_blocks:
         tuning = _tune_stage_blocks(
-            stage_specs, effective, plan, pol, target, device
+            stage_specs, effective, plan, pol, target, device, profile
         )
     tuned = tuning or {}
     if layout.kernel_tiles(target):

@@ -13,12 +13,18 @@ where runs and measurements execute and which datasheet a missing
 ``--tune-blocks`` times each kernel stage at its candidate blocks on
 ``--device`` (on the H100 datasheet, the CUDA kernel's legal tiles) and
 runs it at the fastest; the report lists every candidate's time.
-``--trace``, ``--profile`` and ``--metrics`` are not ported yet: each
-exits 2 naming the ROADMAP item that ports it.
+``--trace OUT.json`` runs the system traced, writes the Chrome trace and
+prints the ``measured:`` attribution (on the card the stage spans carry
+the device's own times); ``--profile [PATH]`` records that trace, the
+tuner's winners or the DSE's measurements into the profile store (and
+warm-starts ``--dse`` from it); ``--metrics OUT.json`` meters the run and
+writes the snapshot.  An output path whose directory does not exist
+exits 2 before anything runs.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import Optional, Sequence
 
@@ -106,25 +112,24 @@ def _parse_args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
                     "(default) or the host, whose kernel stages run their "
                     "plain PyTorch versions")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
-                    help="trace the executed run (not ported yet: ROADMAP "
-                    "queue 1, item 9)")
+                    help="trace the executed run and write Chrome-trace "
+                    "JSON viewable in Perfetto (implies --run); also "
+                    "prints the measured: pred-vs-measured attribution "
+                    "(stage spans in the card's own times on --device "
+                    "cuda)")
     ap.add_argument("--profile", default=None, nargs="?", const="",
                     metavar="PATH",
-                    help="persistent profile store (not ported yet: "
-                    "ROADMAP queue 1, item 9)")
+                    help="persistent profile store (default path, or "
+                    "$REPRO_TORCH_PROFILE, when PATH is omitted): with "
+                    "--trace, record the traced run into it; with "
+                    "--dse, warm-start the ranking from it; with "
+                    "--tune-blocks, record the winners; requires at "
+                    "least one of the three")
     ap.add_argument("--metrics", default=None, metavar="OUT.json",
-                    help="meter the executed run (not ported yet: ROADMAP "
-                    "queue 1, item 9)")
+                    help="meter the executed run (repro_torch.metrics) "
+                    "and write the snapshot JSON (implies --run; "
+                    "validate with python -m repro_torch.metrics)")
     return ap.parse_args(argv)
-
-
-#: flags of the reference's CLI whose machinery is not ported yet, with
-#: the ROADMAP queue-1 item that ports it
-NOT_PORTED = (
-    ("--trace", "trace", 9),
-    ("--profile", "profile", 9),
-    ("--metrics", "metrics", 9),
-)
 
 
 def _parse_devices(raw):
@@ -151,19 +156,10 @@ def _parse_per_stage(raw, flag: str):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    """CLI driver: compile/plan, then --dse/--run as requested.  Exit 0
-    ok, 2 usage error (a flag that is not ported yet among them); a
-    failure while running propagates."""
+    """CLI driver: compile/plan, then --dse/--run/--trace/--metrics as
+    requested.  Exit 0 ok, 2 usage error; a failure while running
+    propagates."""
     args = _parse_args(argv)
-    for flag, attr, item in NOT_PORTED:
-        value = getattr(args, attr)
-        if value is not None and value is not False:
-            print(
-                f"error: {flag} is not ported to repro_torch yet (ROADMAP "
-                f"queue 1, item {item})",
-                file=sys.stderr,
-            )
-            return 2
     try:
         if args.source == "-":
             source = sys.stdin.read()
@@ -193,7 +189,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    if args.device == "cuda" and (args.target is None or args.run
+    if (args.profile is not None and not args.trace and not args.dse
+            and not args.tune_blocks):
+        # a silently inert flag is worse than an error: recording needs a
+        # traced run, warm-starting needs a DSE sweep or a block tune
+        print(
+            "error: --profile does nothing without --trace (record the "
+            "run), --dse (warm-start the ranking), or --tune-blocks "
+            "(record the winners)",
+            file=sys.stderr,
+        )
+        return 2
+    for flag, path in (("--trace", args.trace), ("--metrics", args.metrics)):
+        if path and not os.path.isdir(os.path.dirname(os.path.abspath(path))):
+            print(f"error: {flag} {path}: no such directory",
+                  file=sys.stderr)
+            return 2
+    profile = (args.profile or True) if args.profile is not None else None
+    run = args.run or args.trace or args.metrics
+    if args.device == "cuda" and (args.target is None or run
                                   or args.tune_blocks):
         try:
             resolve_device("cuda")
@@ -218,6 +232,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             dse=args.dse,
             fuse=args.fuse,
             tune_blocks=args.tune_blocks,
+            profile=(
+                profile if (args.dse or args.tune_blocks) else None
+            ),
             device=args.device,
         )
     except (ParseError, build.FlowError, IRError, ValueError) as e:
@@ -231,11 +248,23 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print()
         print("dse ranking (top 10):")
         print(format_chain_ranking(system.candidates, limit=10))
-    if args.run:
+    if run:
+        tracer = None
+        if args.trace:
+            from .. import trace as trace_mod
+
+            tracer = trace_mod.Tracer()
+        metrics = None
+        if args.metrics:
+            from .. import metrics as metrics_mod
+
+            metrics = metrics_mod.MetricsRegistry()
         res = system.run(
             max_batches=args.max_batches,
             pipeline_stages=False if args.serial_stages else None,
             device=args.device,
+            tracer=tracer,
+            metrics=metrics,
         )
         print()
         print(
@@ -246,4 +275,32 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         )
         for q, v in sorted(res.checksums.items()):
             print(f"  checksum {q} = {v:.6g}")
+        if tracer is not None:
+            trace_mod.write_chrome(
+                tracer, args.trace, metadata={"source": prog_name}
+            )
+            print()
+            print(
+                f"trace written to {args.trace} "
+                "(load in Perfetto / chrome://tracing)"
+            )
+            print()
+            print(trace_mod.attribution_report(tracer, system.plan))
+            if args.profile is not None:
+                store = trace_mod.ProfileStore(
+                    path=args.profile or None).for_device(args.device)
+                got = store.record_trace(tracer, system.plan)
+                print()
+                print(
+                    f"profile: recorded {got} samples -> {store.path}"
+                )
+        if metrics is not None:
+            from ..metrics import write_snapshot
+
+            snap = write_snapshot(metrics, args.metrics)
+            print()
+            print(
+                f"metrics written to {args.metrics} "
+                f"({len(snap['metrics'])} series)"
+            )
     return 0

@@ -489,7 +489,12 @@ def fit_contention(
     ``k_est = (measured - t_overhead) / max(t_compute, t_hbm)``.  Only
     samples with device-bound evidence count -- when
     ``measured - t_overhead <= t_host`` the host link hides the device
-    terms and the measurement says nothing about ``k``.  Per stage the
+    terms and the measurement says nothing about ``k``.  A sample with
+    ``clock == "device"`` was timed by the card's own events around the
+    stage's work (the pipeline driver on a CUDA device): it holds
+    neither the host link, which runs on another stream, nor the host's
+    dispatch overhead, so it is device evidence as it stands,
+    ``k_est = measured / max(t_compute, t_hbm)``.  Per stage the
     estimates combine by geometric mean (ratios), clamped to >= 1.0
     (devices cannot be less than uncontended).  Stages without usable
     samples get 0.0, meaning "keep the structural count".  Returns ()
@@ -508,7 +513,8 @@ def fit_contention(
             continue
         if not isinstance(m, (int, float)) or m <= 0:
             continue
-        by_stage.setdefault(scope[len("stage:"):], []).append(float(m))
+        by_stage.setdefault(scope[len("stage:"):], []).append(
+            (float(m), s.get("clock") == "device"))
 
     fit: List[float] = []
     for i, nm in enumerate(stage_names):
@@ -516,7 +522,10 @@ def fit_contention(
         dev = max(c.t_compute, c.t_hbm)
         ks: List[float] = []
         if dev > 0:
-            for m in by_stage.get(nm, ()):
+            for m, device_clock in by_stage.get(nm, ()):
+                if device_clock:
+                    ks.append(m / dev)
+                    continue
                 dev_part = m - c.t_overhead
                 if dev_part <= c.t_host:
                     continue        # host-bound sample: no evidence on k
@@ -527,6 +536,32 @@ def fit_contention(
         else:
             fit.append(0.0)
     return tuple(fit) if any(k > 0.0 for k in fit) else ()
+
+
+def apply_profile_contention(plan: "ChainPlan", profile) -> "ChainPlan":
+    """Re-price a plan's steady-state times from measured contention.
+
+    ``profile`` is anything :meth:`repro_torch.trace.ProfileStore.open`
+    accepts (a store, a path, ``True`` for the default location).  Pulls
+    the store's current-epoch stage samples for the plan's signature
+    (target-wide fallback) and swaps the fitted multipliers into the
+    plan's :class:`ChainCost`.  A cold store -- or one with only
+    host-bound / chain-level samples -- returns the plan unchanged.
+    """
+    from ..trace.profile import ProfileStore  # lazy: no import cycle
+
+    store = ProfileStore.open(profile)
+    if store is None:
+        return plan
+    samples = store.samples(plan.target.name, plan.signature)
+    fit = fit_contention(
+        plan.cost, [sp.name for sp in plan.stages], samples
+    )
+    if not fit:
+        return plan
+    return dataclasses.replace(
+        plan, cost=dataclasses.replace(plan.cost, contention_fit=fit)
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -824,9 +859,10 @@ def plan_chain(
     stage budget (``max_stages=1`` fully fuses) and implies fusion unless
     ``fuse='off'``; ``fuse_barriers`` names stages whose downstream
     boundary must survive (the flow's explicit named cuts).
-    ``profile`` (measured-contention re-pricing) needs the profile store,
-    which is not ported yet (ROADMAP queue 1, item 9), and raises
-    :class:`NotImplementedError`.
+    ``profile`` (a :class:`~repro_torch.trace.ProfileStore`, a path, or
+    ``True`` for the default store) re-prices the plan's per-stage
+    contention from this machine's measured stage samples
+    (:func:`apply_profile_contention`).
 
     ``backends`` overrides each stage's backend for planning (the DSE
     sweeps hypothetical per-stage backends this way); ``prefetch_depth``
@@ -861,11 +897,6 @@ def plan_chain(
 
     if fuse not in (None, "off", "auto"):
         raise ValueError(f"unknown fuse mode {fuse!r}; use 'auto' or 'off'")
-    if profile is not None:
-        raise NotImplementedError(
-            "profile-store contention fitting (profile=) is not ported yet "
-            "(ROADMAP queue 1, item 9)"
-        )
     if fuse != "off" and (
         fuse == "auto"
         or (max_stages is not None and max_stages < len(chain.stages))
@@ -896,6 +927,7 @@ def plan_chain(
             topology=topology,
             n_eq=n_eq,
             channel_bytes=channel_bytes,
+            profile=profile,
         )
 
     target = target if target is not None else detect_target()
@@ -1218,4 +1250,6 @@ def plan_chain(
         plan = dataclasses.replace(
             plan, feasible=False, infeasible_reason=reason
         )
+    if profile is not None:
+        plan = apply_profile_contention(plan, profile)
     return plan

@@ -32,6 +32,14 @@ from .channels import MemoryTarget, detect_target, resolve_device
 from .plan import (CostBreakdown, MemoryPlan, channels_used,
                    hbm_stream_bytes, host_stream_bytes)
 
+#: Cost-model epoch.  Bump this whenever the analytic model's terms
+#: change meaning (new term, re-derived constant, different bottleneck
+#: attribution): ``trace.ProfileStore`` stamps every recorded sample
+#: with the epoch and a ``correction()`` refit ignores samples recorded
+#: under any other epoch, so measured/predicted ratios from an obsolete
+#: model can never steer the current one.
+COST_MODEL_VERSION = 1
+
 #: Throughput of each scalar policy relative to the target's native
 #: matmul peak (TPU: bf16 MXU; f32 runs at half rate, f64 and the
 #: integer-emulated fixed-point formats far below).
@@ -810,19 +818,20 @@ def explore_chain(
     stage's dominating term) and re-ranks every candidate by its
     corrected prediction.
 
-    ``profile`` (warm-starting from the per-machine profile store) is
-    not ported yet (ROADMAP queue 1, item 9) and raises
-    :class:`NotImplementedError`."""
+    ``profile`` warm-starts the ranking from the persistent per-machine
+    profile store (``repro_torch.trace.ProfileStore``): pass a store, a
+    path, or ``True`` for the default location.  The store's correction
+    for this target is applied to every candidate *before* any
+    measurement (so ``measure_top`` verifies the profile-corrected top),
+    and the measured candidates are recorded back into it.  With a
+    ``device``, the store is keyed for that device
+    (:meth:`~repro_torch.trace.ProfileStore.for_device`): host samples
+    never rank a card's plans."""
     import itertools
 
     from . import chain as chain_mod  # local: chain imports predict_cost
     from .placement import DeviceTopology
 
-    if profile is not None:
-        raise NotImplementedError(
-            "explore_chain(profile=...) needs the profile store, which is "
-            "not ported yet (ROADMAP queue 1, item 9)"
-        )
     if calibrate and not measure_top:
         raise ValueError(
             "calibrate=True fits the correction from measured runs; "
@@ -970,6 +979,17 @@ def explore_chain(
             c.plan.resident_bytes,
         )
     )
+    store = None
+    if profile is not None:
+        from ..trace.profile import ProfileStore  # lazy: no import cycle
+
+        store = ProfileStore.open(profile)
+        if store is not None and device is not None:
+            store = store.for_device(device)
+    if store is not None:
+        corr = store.correction(target.name)
+        if corr.n_samples:
+            apply_correction(cands, corr)
     if measure_top:
         measured = 0
         for c in cands:
@@ -983,6 +1003,14 @@ def explore_chain(
             if got is not None:
                 c.measured_s_per_element = got
                 measured += 1
+        if store is not None and measured:
+            for c in cands:
+                if c.measured_s_per_element is not None:
+                    store.record_measurement(
+                        c.plan, c.predicted_s_per_element,
+                        c.measured_s_per_element, scope="dse", save=False,
+                    )
+            store.save()
         if calibrate:
             apply_correction(cands, fit_correction(cands))
     return cands

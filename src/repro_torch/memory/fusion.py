@@ -312,17 +312,10 @@ def fuse_chain_auto(
     attached (``plan.fusion``), spec'd against the unfused baseline; its
     ``chain``'s kernel stages run at their kernel's default tile, which
     is the block the plan carries on the H100.
-    ``profile`` (measured-contention re-pricing) needs the profile store,
-    which is not ported yet (ROADMAP queue 1, item 9), and raises
-    :class:`NotImplementedError`.
+    ``profile`` re-prices the returned plan's contention from measured
+    stage samples (:func:`~repro_torch.memory.chain.apply_profile_contention`).
     """
-    from .chain import plan_chain
-
-    if profile is not None:
-        raise NotImplementedError(
-            "fuse_chain_auto(profile=...) needs the profile store, which "
-            "is not ported yet (ROADMAP queue 1, item 9)"
-        )
+    from .chain import apply_profile_contention, plan_chain
 
     n = len(chain.stages)
     barrier_set = set(barriers)
@@ -392,4 +385,7 @@ def fuse_chain_auto(
         barriers=tuple(sorted(barrier_set)),
         chain=cur_chain,
     )
-    return dataclasses.replace(cur_plan, fusion=spec)
+    plan = dataclasses.replace(cur_plan, fusion=spec)
+    if profile is not None:
+        plan = apply_profile_contention(plan, profile)
+    return plan

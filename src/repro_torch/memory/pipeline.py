@@ -29,17 +29,37 @@ producer to consumer without host round-trips.  Both build on
 :func:`reblock_batched_fn` is the re-blocking handoff of a plan with
 per-stage batch sizes: a stage runs its own E_s inside the chain batch.
 
-Tracing, metrics, straggler monitoring, per-batch error capture and the
-multi-device ``place_fns`` hook of the reference are not ported yet.
+Both drivers take the reference's observers: a ``tracer`` (span per
+staging, dispatch slot and retire sync, on one track per stage), a
+``monitor`` (retire cadence, straggler flags) and a ``metrics``
+registry (per-stage dispatch histograms, stall counters).  A CUDA launch
+returns once the kernel is queued, so with a tracer on the card each
+(stage, batch) slot is bracketed by a CUDA event pair on the compute
+stream, read when the batch retires, and its spans carry the device's
+times (the host-clock duration stays as the ``host_s`` arg); no launch
+is synchronised for it.  :class:`StagePipelineDriver` can capture a
+batch's host-side failure (``capture_errors``) instead of raising.  The
+multi-device ``place_fns`` hook of the reference is not ported.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from typing import (Any, Callable, Dict, Iterable, Iterator, List, Mapping,
                     Optional, Sequence, Tuple, Union)
 
 import numpy as np
 import torch
+
+# Span categories (the ``repro_torch.trace.attribution`` vocabulary).  The
+# tracer is duck-typed -- any object with begin/end/span/name_track/bump,
+# falsy when disabled -- so this module never imports
+# ``repro_torch.trace`` and the executors stay import-light.
+_CAT_SLOT = "slot"
+_CAT_DISPATCH = "dispatch"
+_CAT_STAGE_HOST = "stage-host"
+_CAT_SYNC = "sync"
+_HOST_TRACK = 0
 
 
 def reblock_batched_fn(
@@ -207,6 +227,75 @@ def to_host(value: Any) -> Any:
     return value
 
 
+class _DeviceClock:
+    """Device times for traced dispatch spans on a CUDA card.
+
+    An anchor event is recorded on the idle compute stream (after one
+    synchronise, when the clock is made) beside a reading of the
+    tracer's clock; each traced slot records a start and an end event
+    on the compute stream.  :meth:`resolve` runs when the slot's batch
+    retires -- its work has finished by then -- and moves the slot's
+    spans onto the device timeline: ``t0``/``t1`` become the anchor's
+    host time plus each event's elapsed time from the anchor, and the
+    host-clock duration is kept as the ``host_s`` arg.  Events on one
+    stream complete in order, so one stage's spans stay disjoint and a
+    slot and its dispatch span share one interval: the trace still
+    nests.  The driver makes the stream wait for a staged batch's host
+    copy before it records a slot's start event, so the interval is the
+    stage's own work, not the copy it waits for."""
+
+    def __init__(self, tracer, device: torch.device) -> None:
+        self.device = device
+        torch.cuda.synchronize(device)
+        self._anchor = torch.cuda.Event(enable_timing=True)
+        self._anchor.record(torch.cuda.current_stream(device))
+        self._t_anchor = tracer.clock()
+        self._pending: Dict[int, List[Tuple[Any, Any, Tuple[Any, ...]]]] = {}
+
+    def mark(self) -> torch.cuda.Event:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def close(self, k: int, start: torch.cuda.Event, spans) -> None:
+        """Record the end event of batch ``k``'s slot, opened by ``start``."""
+        self._pending.setdefault(k, []).append(
+            (start, self.mark(), tuple(spans)))
+
+    def resolve(self, k: int) -> None:
+        for start, end, spans in self._pending.pop(k, ()):
+            end.synchronize()
+            t0 = self._t_anchor + self._anchor.elapsed_time(start) / 1e3
+            t1 = self._t_anchor + self._anchor.elapsed_time(end) / 1e3
+            for sp in spans:
+                sp.args["host_s"] = sp.duration
+                sp.t0, sp.t1 = t0, t1
+
+
+def _device_clock(tracer, device) -> Optional[_DeviceClock]:
+    """A :class:`_DeviceClock` for a tracer on a CUDA device, else None
+    (the host clock is the only clock on the CPU)."""
+    if not tracer or device is None:
+        return None
+    dev = torch.device(device)
+    return _DeviceClock(tracer, dev) if dev.type == "cuda" else None
+
+
+def _traced_stage_fn(stage_fn: Callable[[Any], Any], tracer) -> Callable:
+    """Wrap the staging fn so each host->device stage gets a host-track
+    span (batch index = call order, which is staging order)."""
+    counter = [0]
+
+    def staged(item: Any) -> Any:
+        j = counter[0]
+        counter[0] += 1
+        with tracer.span(f"stage b{j}", _CAT_STAGE_HOST, _HOST_TRACK,
+                         batch=j):
+            return stage_fn(item)
+
+    return staged
+
+
 def run_pipelined(
     compute_fn: Callable[[Any], Any],
     batches: Iterable[Any],
@@ -215,6 +304,9 @@ def run_pipelined(
     depth: int = 1,
     reduce_fn: Optional[Callable[[Any], Any]] = None,
     defer_sync: Optional[bool] = None,
+    tracer=None,
+    stage_name: str = "compute",
+    device=None,
 ) -> List[Any]:
     """Run every batch through ``compute_fn`` with K-deep staging.
 
@@ -225,23 +317,55 @@ def run_pipelined(
     ``defer_sync`` delays each host sync by one batch so compute k+1 is
     enqueued before blocking on k (defaults to on whenever ``depth > 0``;
     forcing it off gives the paper's serial baseline).
+
+    ``tracer`` (a ``repro_torch.trace.Tracer``; None/NULL = off) records
+    one staging span per batch on the host track, one dispatch span per
+    batch on track 1, and one sync span per retire; with ``device`` a
+    CUDA device the dispatch spans carry the device's times.  Results
+    are identical either way (spans only observe).
     """
     if defer_sync is None:
         defer_sync = depth > 0
+    clock = _device_clock(tracer, device)
+    if tracer:
+        tracer.name_track(_HOST_TRACK, "host")
+        tracer.name_track(1, stage_name)
+        stage_fn = _traced_stage_fn(stage_fn, tracer)
+
+    def sync_get(value: Any, j: int) -> Any:
+        if not tracer:
+            return to_host(value)
+        with tracer.span(f"sync b{j}", _CAT_SYNC, _HOST_TRACK, batch=j):
+            got = to_host(value)
+        if clock is not None:
+            clock.resolve(j)
+        return got
+
     results: List[Any] = []
-    pending = None
-    for staged in prefetch(batches, stage_fn, depth):
+    pending: Optional[Tuple[Any, int]] = None
+    for j, staged in enumerate(prefetch(batches, stage_fn, depth)):
+        sp = (tracer.begin(f"b{j}", _CAT_DISPATCH, 1, batch=j)
+              if tracer else None)
+        start = None
+        if clock is not None:
+            if isinstance(staged, Staged):
+                staged.arrays()  # the stream waits for the copy first
+            start = clock.mark()
         out = compute_fn(staged)
         if reduce_fn is not None:
             out = reduce_fn(out)
+        if sp is not None:
+            if clock is not None:
+                clock.close(j, start, (sp,))
+            tracer.end(sp)
         if not defer_sync:
-            results.append(to_host(out))
+            results.append(sync_get(out, j))
             continue
         if pending is not None:
-            results.append(to_host(pending))
-        pending = out
+            results.append(sync_get(*pending))
+        pending = (out, j)
     if pending is not None:
-        results.append(to_host(pending))
+        results.append(sync_get(*pending))
     return results
 
 
@@ -269,6 +393,12 @@ def run_stage_pipelined(
     depths: Union[int, Sequence[int]] = 1,
     reduce_fn: Optional[Callable[[Any], Any]] = None,
     defer_sync: Optional[bool] = None,
+    tracer=None,
+    monitor=None,
+    stage_names: Optional[Sequence[str]] = None,
+    metrics=None,
+    metrics_labels: Optional[Dict[str, str]] = None,
+    device=None,
 ) -> List[Any]:
     """Run every batch through a chain of stages, cross-batch pipelined.
 
@@ -291,10 +421,26 @@ def run_stage_pipelined(
     Every batch still passes through every stage exactly once with
     identical inputs, so results are bitwise-equal to the serial
     schedule -- only the dispatch interleaving changes.
+
+    ``tracer`` (``repro_torch.trace.Tracer``; None/NULL = off) gives each
+    stage its own track: every (stage, batch) dispatch becomes a *slot*
+    span carrying ``stage``/``batch``/``tick`` args, with the stage-fn
+    dispatch as its child; host staging and retire syncs land on the
+    host track.  On a CUDA ``device`` the slot and dispatch spans carry
+    the device's times (see the module docstring).  ``monitor`` (a
+    ``runtime.StepMonitor``) is fed the wall time between consecutive
+    batch retirements; flagged steps annotate the retire's sync span
+    with ``straggler=True``.  ``metrics`` (a ``repro_torch.metrics``
+    registry; None/NULL = off) records per-stage dispatch time
+    histograms (host clock: the launch, on the card), stall counters and
+    a tick histogram, labeled with ``metrics_labels``.  All only
+    observe -- per-batch results are identical with or without them.
     """
     driver = StagePipelineDriver(
         stage_fns, stage_fn=stage_fn, depths=depths, reduce_fn=reduce_fn,
-        defer_sync=defer_sync,
+        defer_sync=defer_sync, tracer=tracer, monitor=monitor,
+        stage_names=stage_names, metrics=metrics,
+        metrics_labels=metrics_labels, device=device,
     )
     it = iter(batches)
     while True:
@@ -310,6 +456,16 @@ def run_stage_pipelined(
     return [v for _, v in driver.take()]
 
 
+class _Poison:
+    """A captured per-batch failure riding the carry slot: downstream
+    stages skip the batch and retire delivers the error in its place."""
+
+    __slots__ = ("error",)
+
+    def __init__(self, error: BaseException) -> None:
+        self.error = error
+
+
 class StagePipelineDriver:
     """The skewed dispatch ring of :func:`run_stage_pipelined` as a
     reentrant feed/tick state machine.
@@ -318,7 +474,27 @@ class StagePipelineDriver:
     ``i`` dispatches batch ``k`` once (a) stage ``i-1`` has finished it
     and (b) ``skews[i]`` ticks have passed since entry -- so a ring that
     went idle resumes with the same per-stage skew for the batches that
-    follow, no global restart.  Failures propagate to the caller.
+    follow, no global restart.  A long-running caller (the
+    ``repro_torch.serve`` engine) interleaves :meth:`feed` and
+    :meth:`tick` as admission waves arrive.
+
+    ``capture_errors=True`` turns the batch-job raise-through into
+    per-batch delivery: a host-side failure while staging, dispatching
+    or reducing a batch (a refused tile, a shape error, an injected
+    fault) poisons that batch's record, downstream stages skip it, and
+    :meth:`take` yields ``(k, exception)`` for it -- the ring itself
+    never wedges.  A fault on the card is different: it is sticky, every
+    later CUDA call of the process fails with it, so no batch after it
+    can be right.  On a CUDA ``device`` the driver therefore synchronises
+    once after each captured failure and lets a device fault propagate,
+    and the retire sync (``.cpu()``, where an asynchronous device fault
+    surfaces) is never captured.  The default (``False``) propagates
+    everything, exactly like the batch driver.
+
+    ``tracer``, ``monitor``, ``stage_names``, ``metrics`` and
+    ``metrics_labels`` are :func:`run_stage_pipelined`'s observers;
+    ``device`` is where the stages run (CUDA event timing of traced
+    spans on a card).
     """
 
     def __init__(
@@ -329,6 +505,13 @@ class StagePipelineDriver:
         depths: Union[int, Sequence[int]] = 1,
         reduce_fn: Optional[Callable[[Any], Any]] = None,
         defer_sync: Optional[bool] = None,
+        tracer=None,
+        monitor=None,
+        stage_names: Optional[Sequence[str]] = None,
+        capture_errors: bool = False,
+        metrics=None,
+        metrics_labels: Optional[Dict[str, str]] = None,
+        device=None,
     ) -> None:
         stage_fns = list(stage_fns)
         n_stages = len(stage_fns)
@@ -346,12 +529,63 @@ class StagePipelineDriver:
             raise ValueError(f"stage depths must be >= 0, got {depths}")
         if defer_sync is None:
             defer_sync = any(d > 0 for d in depths)
+        names = (list(stage_names) if stage_names
+                 else [f"stage{i}" for i in range(n_stages)])
+        if len(names) != n_stages:
+            raise ValueError(
+                f"need {n_stages} stage names, got {len(names)}"
+            )
+        if tracer:
+            tracer.name_track(_HOST_TRACK, "host")
+            for i, nm in enumerate(names):
+                tracer.name_track(1 + i, nm)
+            stage_fn = _traced_stage_fn(stage_fn, tracer)
         self.stage_fns = stage_fns
         self.stage_fn = stage_fn
         self.depths = depths
         self.skews = stage_skews(depths)
         self.reduce_fn = reduce_fn
         self.defer_sync = defer_sync
+        self.tracer = tracer
+        self.monitor = monitor
+        self.names = names
+        self.capture_errors = capture_errors
+        self.device = torch.device(device) if device is not None else None
+        self._clock = _device_clock(tracer, self.device)
+        # -- always-on metrics (duck-typed like the tracer: this module
+        # never imports repro_torch.metrics; a falsy registry -- None or
+        # NULL_REGISTRY -- costs one check here and nothing per tick) ----
+        self._m_tick = self._m_dispatch = self._m_stall = None
+        if metrics:
+            lab = dict(metrics_labels or {})
+            self._m_tick = metrics.histogram(
+                "pipeline_tick_seconds",
+                "One driver tick: enter/dispatch-all-stages/retire.", **lab)
+            self._m_dispatch = [
+                metrics.histogram(
+                    "pipeline_stage_dispatch_seconds",
+                    "One (stage, batch) dispatch slot, handoff included.",
+                    stage=nm, **lab)
+                for nm in names
+            ]
+            # the reference's reshard-handoff series, kept so the two
+            # packages expose the same series; one device never reshards
+            for nm in names:
+                metrics.histogram(
+                    "pipeline_stage_handoff_seconds",
+                    "Cross-group reshard of the HBM-resident handoff.",
+                    stage=nm, **lab)
+            self._m_stall = [
+                {
+                    reason: metrics.counter(
+                        "pipeline_stall_total",
+                        "Skipped stage dispatches by cause: ring skew "
+                        "not yet satisfied, or producer stage behind.",
+                        stage=nm, reason=reason, **lab)
+                    for reason in ("skew", "producer")
+                }
+                for nm in names
+            ]
         # -- ring state ------------------------------------------------------
         self._staged: deque = deque()       # staged, not yet entered
         #: batch k -> [staged, carry]; held from entry until retire (the
@@ -366,6 +600,9 @@ class StagePipelineDriver:
         self._pending: deque = deque()      # deferred (value, k) syncs
         self._out: deque = deque()          # retired (k, result) in order
         self._closed = False
+        self._last_retire = (
+            [time.perf_counter()] if monitor is not None else None
+        )
 
     # -- feeding -------------------------------------------------------------
     @property
@@ -395,7 +632,12 @@ class StagePipelineDriver:
         if self._closed:
             raise RuntimeError("driver is closed")
         k = self._accepted
-        self._staged.append(self.stage_fn(item))
+        try:
+            self._staged.append(self.stage_fn(item))
+        except Exception as e:
+            if not self._keeps():
+                raise
+            self._staged.append(_Poison(e))
         self._accepted += 1
         return k
 
@@ -403,16 +645,31 @@ class StagePipelineDriver:
         """No more batches will be fed; remaining ticks drain the ring."""
         self._closed = True
 
+    def _keeps(self) -> bool:
+        """Whether a host-side failure just caught is kept for its batch:
+        only under ``capture_errors``, and on a card only while the card
+        reports no fault (a sticky fault raises from the synchronise)."""
+        if not self.capture_errors:
+            return False
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return True
+
     # -- the tick ------------------------------------------------------------
     def tick(self) -> bool:
         """Advance the ring one tick: enter at most one staged batch,
         give every stage its one skew-scheduled dispatch, retire at most
         one finished batch.  Returns False once nothing progressed (ring
         dry -- feed more or stop)."""
+        tick_t0 = time.perf_counter() if self._m_tick is not None else 0.0
         progressed = False
         if self._staged:
             k = self._entered
-            self._records[k] = [self._staged.popleft(), None]
+            staged = self._staged.popleft()
+            if isinstance(staged, _Poison):
+                self._records[k] = [None, staged]
+            else:
+                self._records[k] = [staged, None]
             self._entry_tick[k] = self._t
             self._entered += 1
             progressed = True
@@ -422,13 +679,23 @@ class StagePipelineDriver:
             if k not in self._records or k >= self._entered:
                 continue
             if t - self._entry_tick[k] < self.skews[i]:
+                if self._m_stall is not None:
+                    self._m_stall[i]["skew"].inc()
                 continue  # ring depth: stage i lags entry by skews[i]
             if i > 0 and self._done[i - 1] <= k:
+                if self._m_stall is not None:
+                    self._m_stall[i]["producer"].inc()
                 continue  # producer stage hasn't finished this batch
             self._done[i] = k + 1
             progressed = True
             rec = self._records[k]
-            rec[1] = fn(rec[0], rec[1])
+            if isinstance(rec[1], _Poison):
+                continue  # upstream failure: skip, deliver at retire
+            slot_t0 = (time.perf_counter()
+                       if self._m_dispatch is not None else 0.0)
+            self._dispatch(i, fn, rec, k, t)
+            if self._m_dispatch is not None:
+                self._m_dispatch[i].observe(time.perf_counter() - slot_t0)
         k = self._retire_next
         if k in self._records and self._done[-1] > k:
             rec = self._records.pop(k)
@@ -440,26 +707,103 @@ class StagePipelineDriver:
             while self._pending:
                 self._flush_one()
         self._t += 1
+        if self._m_tick is not None:
+            self._m_tick.observe(time.perf_counter() - tick_t0)
         return progressed
+
+    def _dispatch(self, i: int, fn, rec: List[Any], k: int, t: int) -> None:
+        """Stage ``i`` of batch ``k``: ``rec[1]`` becomes its carry (or a
+        :class:`_Poison` with the failure under ``capture_errors``)."""
+        tracer = self.tracer
+        if not tracer:
+            try:
+                rec[1] = fn(rec[0], rec[1])
+            except Exception as e:
+                if not self._keeps():
+                    raise
+                rec[1] = _Poison(e)
+            return
+        slot = tracer.begin(f"b{k}", _CAT_SLOT, 1 + i, stage=i, batch=k,
+                            tick=t)
+        start = None
+        if self._clock is not None:
+            if isinstance(rec[0], Staged):
+                # the stream waits for the batch's host copy before the
+                # start event: a span holds the stage's own device work
+                rec[0].arrays()
+            start = self._clock.mark()
+        disp = tracer.begin(self.names[i], _CAT_DISPATCH, 1 + i, stage=i,
+                            batch=k)
+        try:
+            rec[1] = fn(rec[0], rec[1])
+        except Exception as e:
+            if not self._keeps():
+                raise
+            rec[1] = _Poison(e)
+        finally:
+            tracer.end(disp)
+            if self._clock is not None:
+                self._clock.close(k, start, (slot, disp))
+            tracer.end(slot)
 
     # -- retire / sync -------------------------------------------------------
     def _retire(self, carry: Any, k: int) -> None:
-        value = self.reduce_fn(carry) if self.reduce_fn is not None else carry
+        if isinstance(carry, _Poison):
+            self._deliver_error(carry.error, k)
+            return
+        try:
+            value = (self.reduce_fn(carry)
+                     if self.reduce_fn is not None else carry)
+        except Exception as e:
+            if not self._keeps():
+                raise
+            self._deliver_error(e, k)
+            return
         if not self.defer_sync:
-            self._out.append((k, to_host(value)))
+            self._deliver_sync(value, k)
             return
         self._pending.append((value, k))
         if len(self._pending) > 1:
             self._flush_one()
 
     def _flush_one(self) -> None:
-        value, k = self._pending.popleft()
-        self._out.append((k, to_host(value)))
+        self._deliver_sync(*self._pending.popleft())
+
+    def _deliver_error(self, error: BaseException, k: int) -> None:
+        if self._clock is not None:
+            self._clock.resolve(k)
+        self._out.append((k, error))
+
+    def _deliver_sync(self, value: Any, k: int) -> None:
+        self._out.append((k, self._sync_get(value, k)))
+
+    def _sync_get(self, value: Any, k: int) -> Any:
+        tracer = self.tracer
+        sp = (tracer.begin(f"sync b{k}", _CAT_SYNC, _HOST_TRACK, batch=k)
+              if tracer else None)
+        try:
+            got = to_host(value)
+        except Exception:
+            if sp is not None:
+                tracer.end(sp)  # the trace stays well formed
+            raise
+        if self.monitor is not None:
+            now = time.perf_counter()
+            flagged = self.monitor.record(now - self._last_retire[0])
+            self._last_retire[0] = now
+            if flagged and sp is not None:
+                sp.args["straggler"] = True
+        if sp is not None:
+            tracer.end(sp)
+        if self._clock is not None:
+            self._clock.resolve(k)
+        return got
 
     # -- results -------------------------------------------------------------
     def take(self) -> List[Tuple[int, Any]]:
         """Drain the delivered results: ``(batch index, realized value)``
-        pairs in batch order."""
+        pairs in batch order (the value is the captured exception for a
+        poisoned batch under ``capture_errors``)."""
         out = list(self._out)
         self._out.clear()
         return out

@@ -1,5 +1,7 @@
-"""Runtime of the port: the losses (``losses``).  The training and
-serving loops of the reference are not ported yet."""
-from . import losses
+"""Runtime of the port: the losses (``losses``) and the step/request
+monitors (``monitor``: :class:`~repro_torch.runtime.monitor.StepMonitor`,
+:class:`~repro_torch.runtime.monitor.RequestLatency`).  The reference's
+training loop is not ported yet."""
+from . import losses, monitor
 
-__all__ = ["losses"]
+__all__ = ["losses", "monitor"]

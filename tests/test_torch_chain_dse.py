@@ -162,13 +162,18 @@ def test_placement_searches_match_reference():
     assert got == want and len(got) == 5
 
 
-def test_explore_chain_validation():
+def test_explore_chain_validation(tmp_path):
     chain = t_operators.build_cfd_chain(5, device="cpu")
     with pytest.raises(ValueError, match="measure_top"):
         t_dse.explore_chain(chain, target=t_channels.CPU_HOST,
                             calibrate=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_dse.explore_chain(chain, target=t_channels.CPU_HOST, profile=True)
+    # a cold profile store leaves the ranking as it is
+    cold = t_dse.explore_chain(chain, target=t_channels.CPU_HOST)
+    warm = t_dse.explore_chain(chain, target=t_channels.CPU_HOST,
+                               profile=str(tmp_path / "p.json"))
+    assert [c.plan.signature for c in warm] == [
+        c.plan.signature for c in cold]
+    assert all(c.corrected_s_per_element is None for c in warm)
 
 
 # ---------------------------------------------------------------------------

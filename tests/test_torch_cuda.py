@@ -881,3 +881,203 @@ def test_per_stage_batches_on_the_card_are_bitwise_uniform(cuda):
         assert all(np.array_equal(got[q], want[q]) for q in want), es
         secs = dse.measure_chain_plan(chain, plan, max_batches=2)
         assert secs is not None and secs > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", [FIXED32, FIXED64], ids=lambda p: p.name)
+def test_fixed_point_contract_peak_falls_with_chunked_widening(cuda, pol):
+    """The chunked widening holds no widened copy of the whole batched
+    operand: the peak above the inputs falls below that of widening the
+    whole operand first, with the same bits."""
+    gen = torch.Generator().manual_seed(6)
+    a = pol.encode(torch.rand(4096, 11, 11, 11, generator=gen,
+                              dtype=torch.float64) * 2 - 1).to(cuda)
+    b = pol.encode(torch.rand(11, 11, generator=gen,
+                              dtype=torch.float64) * 2 - 1).to(cuda)
+    spec = "Zabc,da->Zdbc"
+
+    def whole(x, y):
+        """``contract`` as it was before: the whole operands widened (an
+        int64 cast, or limbs) first, then the products in chunks."""
+        in_spec, out_spec = spec.split("->")
+        sa, sb = in_spec.split(",")
+        union = sa + "".join(c for c in sb if c not in sa)
+        dims = {**dict(zip(sa, x.shape)), **dict(zip(sb, y.shape))}
+
+        def expand(t, s_):
+            return t.permute([s_.index(c) for c in union if c in s_]).reshape(
+                tuple(dims[c] if c in s_ else 1 for c in union))
+
+        if pol.total_bits == 32:
+            ea, eb = expand(x.to(torch.int64), sa), expand(y.to(torch.int64), sb)
+        else:
+            ea, eb = t_prec._split64(expand(x, sa)), t_prec._split64(expand(y, sb))
+        kept = [i for i, c in enumerate(union) if c in out_spec]
+        sums = [i for i, c in enumerate(union) if c not in out_spec]
+        axis = max(kept, key=lambda i: dims[union[i]])
+        extent = dims[union[axis]]
+        n_union = 1
+        for c in union:
+            n_union *= dims[c]
+        step = max(1, t_prec.CONTRACT_CHUNK_VALUES // (n_union // extent))
+        out = torch.empty([dims[union[i]] for i in kept],
+                          dtype=pol.storage_dtype, device=x.device)
+
+        def part(t, i0, n):
+            if isinstance(t, torch.Tensor):
+                return t if t.shape[axis] == 1 else t.narrow(axis, i0, n)
+            return [part(u, i0, n) for u in t]
+
+        for i0 in range(0, extent, step):
+            n = min(step, extent - i0)
+            pa, pb = part(ea, i0, n), part(eb, i0, n)
+            if pol.total_bits == 32:
+                prod = pa * pb
+                prod += 1 << (pol.frac_bits - 1)
+                prod >>= pol.frac_bits
+            else:
+                prod = t_prec._fmul64(pa, pb, pol.frac_bits)
+            out.narrow(kept.index(axis), i0, n).copy_(prod.sum(dim=sums))
+        remaining = [c for c in union if c in out_spec]
+        return out.permute([remaining.index(c) for c in out_spec])
+
+    def peak(fn):
+        torch.cuda.synchronize(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        out = fn()
+        torch.cuda.synchronize(cuda)
+        return torch.cuda.max_memory_allocated(cuda) - base, out
+
+    chunked, got = peak(lambda: pol.contract(a, b, spec))
+    widened, want = peak(lambda: whole(a, b))
+    assert torch.equal(got, want)
+    operand = a.numel() * 8 * (1 if pol.total_bits == 32 else 2)
+    assert chunked + operand // 2 < widened, (chunked, widened, operand)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", [FIXED32, FIXED64], ids=lambda p: p.name)
+def test_fixed_point_fmul_peak_falls_with_slices(cuda, pol, monkeypatch):
+    """The elementwise multiply widens a slice at a time: the peak above
+    the inputs falls below that of widening both whole operands (one
+    slice as large as the tensor), with the same bits."""
+    gen = torch.Generator().manual_seed(7)
+    a, b = (pol.encode(torch.rand(16384, 11, 11, 11, generator=gen,
+                                  dtype=torch.float64) * 2 - 1).to(cuda)
+            for _ in range(2))
+
+    def peak():
+        torch.cuda.synchronize(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        out = pol.fmul(a, b)
+        torch.cuda.synchronize(cuda)
+        return torch.cuda.max_memory_allocated(cuda) - base, out
+
+    monkeypatch.setattr(t_prec, "CONTRACT_CHUNK_VALUES", 1 << 22)
+    sliced, got = peak()
+    monkeypatch.setattr(t_prec, "CONTRACT_CHUNK_VALUES", 1 << 40)
+    whole, want = peak()
+    assert torch.equal(got, want)
+    assert 2 * sliced < whole, (sliced, whole)
+
+
+def _card_chain(cuda, p=5, e=64, n=3):
+    import numpy as np
+
+    from repro_torch.cfd import operators
+    from repro_torch.memory import chain as mchain
+    from repro_torch.memory.channels import H100_SXM
+
+    chain = operators.build_cfd_chain(p, backends="pallas", target=H100_SXM)
+    plan = mchain.plan_chain(chain, target=H100_SXM, batch_elements=e,
+                             n_eq=n * e, prefetch_depth=1)
+    rng = np.random.default_rng(4)
+    inputs = {q: rng.uniform(-1, 1, (n * e, p, p, p)).astype(np.float32)
+              for q in ("interp.u", "helmholtz.D")}
+    return chain, plan, inputs
+
+
+@pytest.mark.cuda
+def test_traced_spans_carry_cuda_event_durations(cuda):
+    """With a tracer on the card every slot and dispatch span holds the
+    CUDA events' interval (the host clock's duration kept as host_s),
+    the trace stays schema-valid, and the attribution sums device time."""
+    from repro_torch import trace
+    from repro_torch.trace.attribution import CAT_DISPATCH, CAT_SLOT
+
+    chain, plan, inputs = _card_chain(cuda)
+    tracer = trace.Tracer()
+    t_simulation.run_chain(chain, plan, inputs=inputs, tracer=tracer,
+                           pipeline_stages=True)
+    assert trace.validate(trace.to_chrome(tracer)) == []
+    slots = [s for s in tracer.spans if s.cat == CAT_SLOT]
+    disp = [s for s in tracer.spans if s.cat == CAT_DISPATCH]
+    assert len(slots) == len(disp) == 3 * len(plan.stages)
+    for s, d in zip(slots, disp):
+        assert "host_s" in s.args and "host_s" in d.args
+        assert (s.t0, s.t1) == (d.t0, d.t1) and d.duration > 0
+    for i in range(len(plan.stages)):   # one stream: a stage's spans in order
+        mine = sorted((s.t0, s.t1) for s in disp if s.args["stage"] == i)
+        assert all(a[1] <= b[0] for a, b in zip(mine, mine[1:]))
+    a = trace.attribute(tracer, plan)
+    assert [st.measured_s for st in a.stages] == pytest.approx(
+        [sum(d.duration for d in disp if d.args["stage"] == i)
+         for i in range(len(plan.stages))])
+    assert [s["clock"] for s in trace.samples_from_trace(tracer, plan)
+            if s["scope"].startswith("stage:")] == ["device"] * 3
+
+
+@pytest.mark.cuda
+def test_tracer_off_is_bitwise_identical_on_the_card(cuda):
+    from repro_torch import metrics, trace
+    from repro_torch.runtime.monitor import StepMonitor
+
+    chain, plan, inputs = _card_chain(cuda)
+    kw = dict(inputs=inputs, collect_outputs=True, pipeline_stages=True)
+    plain = t_simulation.run_chain(chain, plan, **kw)
+    seen = t_simulation.run_chain(chain, plan, tracer=trace.Tracer(),
+                                  monitor=StepMonitor(),
+                                  metrics=metrics.MetricsRegistry(), **kw)
+    for q, v in plain.outputs.items():
+        assert (seen.outputs[q] == v).all(), q
+
+
+@pytest.mark.cuda
+def test_engine_stage_error_poisons_only_its_wave_on_the_card(cuda):
+    """A host-side stage error on the card is captured for its wave (the
+    card reports no fault); the other requests are served bitwise equal
+    to serial runs."""
+    import numpy as np
+
+    from repro_torch.cfd import operators
+    from repro_torch.serve import ServeEngine
+
+    e = 32
+    system = operators.compile_cfd_pipeline(5, backends="pallas",
+                                            batch_elements=e, n_eq=2 * e)
+    eng = ServeEngine(system, seed=0)
+    q0 = sorted(eng.in_specs)[0]
+    orig = eng.driver.stage_fns[0]
+
+    def boom(staged, carry):
+        if float(staged.arrays()[q0][0].flatten()[0]) == 777.0:
+            raise RuntimeError("injected stage failure")
+        return orig(staged, carry)
+
+    eng.driver.stage_fns[0] = boom
+    rng = np.random.default_rng(2)
+    reqs = [{q: rng.uniform(-1, 1, (e,) + s).astype(np.float32)
+             for q, s in sorted(eng.in_specs.items())} for _ in range(3)]
+    reqs[1][q0][:] = 777.0
+    served = [eng.submit(r) for r in reqs]
+    eng.drain()
+    assert "injected" in str(served[1].error)
+    serial = ServeEngine(system, seed=0)
+    for i in (0, 2):
+        assert served[i].error is None
+        one = serial.submit(reqs[i])
+        serial.drain()
+        for q in eng.out_names:
+            assert np.array_equal(served[i].outputs[q], one.outputs[q])

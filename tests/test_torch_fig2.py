@@ -227,8 +227,11 @@ def test_run_simulation_needs_the_card_unless_cpu_is_asked():
             t_simulation.run_simulation(cfg)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             t_operators.build_inverse_helmholtz(3)
-    with pytest.raises(NotImplementedError, match="tracer"):
-        t_simulation.run_simulation(cfg, device="cpu", tracer=object())
+    from repro_torch import trace
+
+    tracer = trace.Tracer()
+    t_simulation.run_simulation(cfg, device="cpu", tracer=tracer)
+    assert [s.name for s in tracer.spans] == ["stage b0", "b0", "sync b0"]
     plan = t_simulation.plan_config(cfg, target=t_channels.CPU_HOST, cu_count=2)
     with pytest.warns(RuntimeWarning, match="2 CUs"):
         res = t_simulation.run_simulation(cfg, plan=plan, device="cpu")

@@ -422,14 +422,17 @@ def test_flow_compile_runs_kernel_stages_at_plan_or_pinned_blocks(
                      "helmholtz": {planned["helmholtz"]}}
 
 
-def test_fuse_auto_profile_needs_the_profile_store():
+def test_fuse_auto_profile_needs_the_profile_store(tmp_path):
+    """Fusion under a profile store: a cold store changes nothing."""
     chain = t_operators.build_cfd_chain(3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_fusion.fuse_chain_auto(chain, target=t_channels.CPU_HOST,
-                                 profile=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_chain.plan_chain(chain, target=t_channels.CPU_HOST, fuse="auto",
-                           profile=True)
+    store = str(tmp_path / "p.json")
+    cold = t_fusion.fuse_chain_auto(chain, target=t_channels.CPU_HOST)
+    warm = t_fusion.fuse_chain_auto(chain, target=t_channels.CPU_HOST,
+                                    profile=store)
+    assert warm.signature == cold.signature
+    assert warm.report() == cold.report()
+    assert t_chain.plan_chain(chain, target=t_channels.CPU_HOST, fuse="auto",
+                              profile=store).report() == cold.report()
 
 
 # ---------------------------------------------------------------------------

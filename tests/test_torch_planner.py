@@ -180,19 +180,21 @@ def test_detect_target_needs_the_card_unless_cpu_is_asked():
             t_operators.compile_cfd_pipeline(5)
 
 
-def test_not_ported_knobs_raise():
-    """Stage fusion, the chain DSE and measured block tuning are ported;
-    the profile store is not, and raises naming its ROADMAP item, with
-    or without block tuning (the reference deposits the winners there)."""
+def test_not_ported_knobs_raise(tmp_path):
+    """Stage fusion, the chain DSE, measured block tuning and the profile
+    store are ported: a profile (with or without block tuning) compiles,
+    and a cold store plans as no store does."""
     src = t_operators.CFD_PIPELINE_SRC.format(p=3)
-    for kw in (dict(profile=True), dict(profile=True, tune_blocks=True)):
-        with pytest.raises(t_flow.FlowError, match="not ported.*item 9"):
-            t_flow.compile(src, target="cpu-host", device="cpu", **kw)
+    store = str(tmp_path / "p.json")
+    plain = t_flow.compile(src, target="cpu-host", device="cpu")
+    for kw in (dict(profile=store), dict(profile=store, tune_blocks=True)):
+        got = t_flow.compile(src, target="cpu-host", device="cpu", **kw)
+        assert got.plan.signature == plain.plan.signature
     chain = t_operators.build_cfd_chain(3, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_chain.plan_chain(chain, target=channels.CPU_HOST, profile=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dse.explore_chain(chain, target=channels.CPU_HOST, profile=True)
+    assert t_chain.plan_chain(chain, target=channels.CPU_HOST,
+                              profile=store).report() == t_chain.plan_chain(
+        chain, target=channels.CPU_HOST).report()
+    assert dse.explore_chain(chain, target=channels.CPU_HOST, profile=store)
     assert len(t_chain.plan_chain(chain, target=channels.CPU_HOST,
                                   max_stages=1).stages) == 1
     # the fixed-point policies compile now, but never onto a float kernel
@@ -282,11 +284,13 @@ def test_flow_cli_runs_on_the_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("args,msg", [
-    (["--trace", "t.json"], "--trace is not ported.*item 9"),
-    (["--profile"], "--profile is not ported.*item 9"),
-    (["--metrics", "m.json"], "--metrics is not ported.*item 9"),
-    # the tuner's winners would go to the profile store: not ported
-    (["--tune-blocks", "--profile"], "--profile is not ported.*item 9"),
+    # an output path whose directory is missing fails before the run
+    (["--trace", "no_such_dir/t.json"], "--trace .*no such directory"),
+    # --profile records a trace, the tuner's winners or a DSE: alone (or
+    # with a plain --run) it would do nothing
+    (["--profile"], "--profile does nothing without --trace"),
+    (["--metrics", "no_such_dir/m.json"], "--metrics .*no such directory"),
+    (["--run", "--profile"], "--profile does nothing without --trace"),
     (["--target", "alveo-u28"], "did you mean"),
     (["--target", "cpu-host", "--fuse", "auto", "--cu-count", "x"],
      "bad --cu-count"),

@@ -189,6 +189,91 @@ def test_contract_matches_reference(r_pol, t_pol, spec, sa, sb,
     _equal(want, t_pol.contract(qa, qb, spec))
 
 
+def _contract_widened_whole(pol, a, b, subscripts):
+    """``contract`` as it was before its widening was chunked: each whole
+    operand cast to int64 (Q8.24) or split into limbs (Q24.40) first,
+    the products unchunked -- the bits the chunked version must keep."""
+    in_spec, out_spec = subscripts.split("->")
+    sa, sb = in_spec.split(",")
+    union = sa + "".join(c for c in sb if c not in sa)
+    dims = {**dict(zip(sa, a.shape)), **dict(zip(sb, b.shape))}
+
+    def expand(x, s):
+        perm = [s.index(c) for c in union if c in s]
+        return x.permute(perm).reshape(
+            tuple(dims[c] if c in s else 1 for c in union))
+
+    sum_axes = [i for i, c in enumerate(union) if c not in out_spec]
+    if pol.total_bits == 32:
+        prod = expand(a.to(torch.int64), sa) * expand(b.to(torch.int64), sb)
+        prod += 1 << (pol.frac_bits - 1)
+        prod >>= pol.frac_bits
+    else:
+        prod = t_prec._fmul64(t_prec._split64(expand(a, sa)),
+                              t_prec._split64(expand(b, sb)), pol.frac_bits)
+    out = (prod.sum(dim=sum_axes) if sum_axes else prod).to(
+        pol.storage_dtype)
+    remaining = [c for c in union if c in out_spec]
+    return out.permute([remaining.index(c) for c in out_spec])
+
+
+@pytest.mark.parametrize("chunk", [None, 7, 1], ids=["default", "7", "1"])
+@pytest.mark.parametrize("spec,sa,sb", CONTRACT_SPECS,
+                         ids=[s[0] for s in CONTRACT_SPECS])
+@pytest.mark.parametrize("pol", [FIXED64, FIXED32], ids=["q24.40", "q8.24"])
+def test_contract_chunked_widening_bitwise(pol, spec, sa, sb, chunk,
+                                           monkeypatch):
+    """Widening each chunk after narrowing it gives the bits of widening
+    the whole operands first, at every chunk size."""
+    rng = np.random.default_rng(8)
+    qa = pol.encode(rng.uniform(-4, 4, sa))
+    qb = pol.encode(rng.uniform(-4, 4, sb))
+    want = _contract_widened_whole(pol, qa, qb, spec)
+    if chunk is not None:
+        monkeypatch.setattr(t_prec, "CONTRACT_CHUNK_VALUES", chunk)
+    got = pol.contract(qa, qb, spec)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_contract_never_widens_a_whole_operand(monkeypatch):
+    """Q24.40: the limb split sees one chunk of the batched operand at a
+    time (and the small operand the chunk axis does not cut, once)."""
+    seen = []
+    real = t_prec._split64
+
+    def spy(x):
+        seen.append(x.numel())
+        return real(x)
+
+    monkeypatch.setattr(t_prec, "_split64", spy)
+    monkeypatch.setattr(t_prec, "CONTRACT_CHUNK_VALUES", 5 * 5 * 5 * 5)
+    rng = np.random.default_rng(2)
+    u = FIXED64.encode(rng.uniform(-1, 1, (12, 5, 5, 5)))
+    s_ = FIXED64.encode(rng.uniform(-1, 1, (5, 5)))
+    FIXED64.contract(u, s_, "Zabc,da->Zdbc")
+    assert seen.count(25) == 1            # the shared matrix, whole, once
+    assert max(seen) == 125 and len(seen) == 13  # one element per chunk
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 1 << 40], ids=["1", "7", "whole"])
+@pytest.mark.parametrize("pol", [FIXED64, FIXED32], ids=["q24.40", "q8.24"])
+def test_fmul_fdiv_slices_bitwise(pol, chunk, monkeypatch):
+    """The elementwise multiply and divide widen their operands a dim-0
+    slice at a time: every slice size gives the bits of the whole, with
+    broadcasting, and the reference's."""
+    rng = np.random.default_rng(9)
+    a, b = rng.uniform(-3, 3, (6, 4, 5)), rng.uniform(0.5, 3, (4, 5))
+    qa, qb = pol.encode(a), pol.encode(b)
+    r_pol = {FIXED64: r_prec.FIXED64, FIXED32: r_prec.FIXED32}[pol]
+    want_mul = _ref(lambda x, y: r_pol.fmul(r_pol.encode(x), r_pol.encode(y)),
+                    a, b)
+    want_div = _ref(lambda x, y: r_pol.fdiv(r_pol.encode(x), r_pol.encode(y)),
+                    a, b)
+    monkeypatch.setattr(t_prec, "CONTRACT_CHUNK_VALUES", chunk)
+    _equal(want_mul, pol.fmul(qa, qb))
+    _equal(want_div, pol.fdiv(qa, qb))
+
+
 def test_contract32_wraps_like_reference():
     """Products near the int32 edge: the int32 sum wraps modulo 2**32 in
     both packages."""

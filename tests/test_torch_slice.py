@@ -132,5 +132,13 @@ def test_to_device_and_default_device():
 
 
 def test_run_chain_rejects_observers_not_ported(port_system):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_system.run(device="cpu", max_batches=1, tracer=object())
+    """The observers are ported: a traced, metered, monitored run gives
+    the unobserved run's checksums, bit for bit."""
+    from repro_torch import metrics, trace
+    from repro_torch.runtime.monitor import StepMonitor
+
+    plain = port_system.run(device="cpu", max_batches=2)
+    observed = port_system.run(device="cpu", max_batches=2,
+                               tracer=trace.Tracer(), monitor=StepMonitor(),
+                               metrics=metrics.MetricsRegistry())
+    assert observed.checksums == plain.checksums
