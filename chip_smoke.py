@@ -103,6 +103,21 @@ Phases (any failure exits non-zero, and no result line is printed):
      run recorded into a store in a temporary directory: its keys carry
      the card's fingerprint, and ``plan_chain(profile=store)`` fits
      contention;
+  M. element-axis placement over the device pool [cuda:0, cuda:0] (two
+     slots on the one card): the named chain at p = 11 planned on
+     h100-sxm for two devices with cu_count (1, 2, 1) (E = 50,418, the
+     planner's E snapped to shard evenly; interp on slot 0, grad sharded
+     over slots 1 and 0, Helmholtz on slot 1) over 4 batches of given
+     rows, outputs collected, counters zeroed just before and read just
+     after: every output bitwise the serial one-slot run at that E, each
+     kernel launched batches x shards times; both traced again for each
+     stage's and each handoff's device time a batch; the reference's
+     two-kind case (h100:1,alveo:1, stage groups (0, 1, 1), E_s (E/2, E,
+     E)) bitwise; Fig. 2 with two CUs, its checksum within rel 1e-4 of
+     phase F's; ``measure_chain_plan`` on the placed plan; phase S's 17
+     requests served over the pool (E = 50,418), each bitwise its
+     one-slot answer; with two cards the chain once more over [cuda:0,
+     cuda:1], else a line saying it was not done;
   4. the flash-attention kernels against their plain version at the
      model path's shape (B = 4, Hq = 16, Hkv = 8, T = 4096, d = 128,
      causal): bfloat16 on the tensor-core (wgmma) route, float32 on the
@@ -212,6 +227,11 @@ SERVE_P, SERVE_E = 11, 50_419
 SERVE_REQUESTS, SERVE_SIZES, SERVE_BIG = 16, (2_000, 18_000), 60_000
 SERVE_MAX_WAIT_S = 0.05
 TRACE_BATCHES = 4
+#: phase M: the placed chain's width, per-stage CU counts (interp on slot
+#: 0, grad sharded over slots 1 and 0, Helmholtz on slot 1) and batches;
+#: a checksum over two slots sums per-shard sums: another float32 order
+PLACE_P, PLACE_CUS, PLACE_BATCHES = 11, (1, 2, 1), 4
+CHAIN_CHECKSUM_RTOL = 1e-4
 #: the flash-attention kernel of each route
 FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "fma": "src/repro_torch/csrc/flash_attention.cu"}
@@ -1616,6 +1636,25 @@ def logit_agreement(got, want, what: str) -> dict:
     return out
 
 
+def serve_requests(chain, sizes=None):
+    """Phase S's requests for ``chain``: 16 sizes drawn from seed 0 in
+    SERVE_SIZES and one of SERVE_BIG (or ``sizes``), each request's rows
+    of every host stream drawn from the same generator; returns the
+    streams' (name, shape) pairs, sorted, and the requests."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    if sizes is None:
+        sizes = rng.integers(SERVE_SIZES[0], SERVE_SIZES[1] + 1,
+                             SERVE_REQUESTS).tolist() + [SERVE_BIG]
+    specs = sorted((f"{s.name}.{n}", tuple(node.shape))
+                   for i, s in enumerate(chain.stages)
+                   for n, node in chain.host_element_inputs(i))
+    reqs = [{q: rng.uniform(-1, 1, (n,) + shape).astype(np.float32)
+             for q, shape in specs} for n in sizes]
+    return specs, reqs
+
+
 def phase_serve(kernel_rows):
     """Phase S: the serving engine, tracing, metrics and the profile store
     on the named p = 11 chain (``compile_cfd_pipeline(11,
@@ -1673,14 +1712,8 @@ def phase_serve(kernel_rows):
           f"{compile_s:.1f} s, plan_chain called {n_planned}x), E={E}")
 
     # -- requests, made before the first submit ----------------------------
-    rng = np.random.default_rng(0)
-    sizes = rng.integers(SERVE_SIZES[0], SERVE_SIZES[1] + 1,
-                         SERVE_REQUESTS).tolist() + [SERVE_BIG]
-    probe = ServeEngine(system, seed=0)
-    specs = sorted(probe.in_specs.items())
-    del probe
-    reqs = [{q: rng.uniform(-1, 1, (n,) + shape).astype(np.float32)
-             for q, shape in specs} for n in sizes]
+    specs, reqs = serve_requests(system.chain)
+    sizes = [next(iter(r.values())).shape[0] for r in reqs]
     total = sum(sizes)
 
     # -- serve: coalesced waves through the ring ----------------------------
@@ -1861,6 +1894,287 @@ def phase_serve(kernel_rows):
     return out, launches
 
 
+def _stage_ms(tracer, n_batches):
+    """Per-stage device ms a batch of a traced chain run: its dispatch
+    spans, and its cross-group reshard (handoff) spans."""
+    out = {}
+    for sp in tracer.spans:
+        if sp.cat in ("dispatch", "handoff"):
+            for what, secs in ((sp.cat, sp.duration),
+                               ("host", sp.args.get("host_s", 0.0))):
+                key = (what, sp.args["stage"])
+                out[key] = out.get(key, 0.0) + secs * 1e3 / n_batches
+    return out
+
+
+def phase_placement(fig2_checksum, slice_batch_s, *, p=PLACE_P, e=None,
+                    dev=None):
+    """Phase M: element-axis placement and CU replication over the device
+    pool [dev, dev] (two slots on one card), the named chain at ``p``.
+
+    The chain is planned on h100-sxm for ``DeviceTopology.homogeneous(2)``
+    with cu_count (1, 2, 1) (E the planner's, snapped to shard evenly;
+    ``e`` overrides it), run over 4 batches with its outputs collected,
+    bitwise against the serial one-slot run at that E, each kernel
+    launched once a shard; both runs are traced again for the device time
+    of each stage and handoff.  Then the reference's two-kind case
+    (h100:1,alveo:1, stage groups (0, 1, 1), E_s (E/2, E, E)), Fig. 2 with
+    two CUs (the checksum within rel 1e-4 of phase F's one-slot run),
+    ``measure_chain_plan`` on the placed plan, phase S's requests served
+    on the pool (each bitwise its one-slot answer), and with two cards the
+    chain over [cuda:0, cuda:1]."""
+    import numpy as np
+    import torch
+
+    from repro_torch import trace
+    from repro_torch.cfd import operators, simulation
+    from repro_torch.memory import chain as mchain
+    from repro_torch.memory import dse
+    from repro_torch.memory.channels import H100_SXM
+    from repro_torch.memory.placement import DeviceTopology
+    from repro_torch.serve import ServeEngine
+
+    dev = dev if dev is not None else torch.device("cuda", 0)
+    card = dev.type == "cuda"
+    pool = [dev, dev]
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    out = {"pool": [str(d) for d in pool]}
+    system = operators.compile_cfd_pipeline(
+        p, backends="pallas", target="h100-sxm", device=dev,
+        cu_count=PLACE_CUS, devices=DeviceTopology.homogeneous(2),
+        **({} if e is None else {"batch_elements": e}))
+    chain, plan = system.chain, system.plan
+    E = plan.batch_elements
+    groups = plan.placement.device_groups
+    shards = [len(g) for g in groups]
+    if E % 2 or groups != ((0,), (1, 0), (1,)):
+        fail(f"placed plan: E={E} groups {groups}; want an even E and "
+             "groups ((0,), (1, 0), (1,))")
+    n = PLACE_BATCHES
+    inputs = {
+        q: np.concatenate([b[q] for b in simulation._chain_batch_inputs(
+            chain, E, n, 0, None)])
+        for q in ("interp.u", "helmholtz.D")
+    }
+    base_plan = mchain.plan_chain(chain, target=H100_SXM, batch_elements=E,
+                                  n_eq=n * E, prefetch_depth=0)
+
+    # -- the chain over [dev, dev], bitwise the serial one-slot run -------
+    t = time.perf_counter()
+    base = simulation.run_chain(chain, base_plan, inputs=inputs,
+                                collect_outputs=True, devices=[dev],
+                                pipeline_stages=False)
+    sync()
+    one_s = time.perf_counter() - t
+    sync()
+    zero_counts()
+    t = time.perf_counter()
+    res = simulation.run_chain(chain, plan, inputs=inputs,
+                               collect_outputs=True, devices=pool)
+    sync()
+    two_s = time.perf_counter() - t
+    launches = read_counts()
+    want = {"gemm_chain": n * (shards[0] + shards[1]),
+            "helmholtz": n * shards[2], "flash_attention": 0}
+    if card and launches != want:
+        fail(f"placed chain: launches {launches}; want batches x shards "
+             f"{want}")
+    if res.placement_groups != groups or res.devices != tuple(
+            str(d) for d in pool) or res.batches != n:
+        fail(f"placed chain ran groups {res.placement_groups} on "
+             f"{res.devices}, {res.batches} batches")
+    for q, v in base.outputs.items():
+        if not np.array_equal(res.outputs[q], v):
+            fail(f"placed chain: {q} differs from the one-slot run")
+        if not np.isfinite(v).all():
+            fail(f"placed chain: {q} is not finite")
+    del res
+    print(f"placement: chain p={p} E={E} on {out['pool']} groups "
+          f"{list(groups)} (cu {list(PLACE_CUS)}): {n} batches bitwise the "
+          f"serial one-slot run | launches {launches} = batches x shards "
+          f"{shards} | wall/batch (rows given, outputs collected) "
+          f"{two_s / n:.3f} s vs one slot serial {one_s / n:.3f} s vs phase "
+          f"3's {slice_batch_s:.3f} s (synthesis included)")
+    out["chain"] = dict(E=E, groups=[list(g) for g in groups],
+                        launches=launches, wall_per_batch_s=two_s / n,
+                        one_slot_serial_wall_per_batch_s=one_s / n,
+                        slice_wall_per_batch_s=slice_batch_s)
+    total = dict(launches)
+
+    # -- where a batch's device time goes: stages and handoffs, traced ----
+    one_plan = mchain.plan_chain(chain, target=H100_SXM, batch_elements=E,
+                                 n_eq=n * E)
+    timed = {}
+    for name, pl, pl_pool in (("one slot", one_plan, [dev]),
+                              ("two slots", plan, pool)):
+        tr = trace.Tracer()
+        r = simulation.run_chain(chain, pl, inputs=inputs, devices=pl_pool,
+                                 tracer=tr)
+        sync()
+        trace.assert_valid(tr)
+        ms = _stage_ms(tr, n)
+        timed[name] = dict(
+            wall_per_batch_s=r.wall_s / n,
+            stage_ms={chain.stages[i].name: ms.get(("dispatch", i), 0.0)
+                      for i in range(3)},
+            handoff_ms={chain.stages[i].name: ms.get(("handoff", i), 0.0)
+                        for i in range(3)},
+            host_ms={chain.stages[i].name: ms.get(("host", i), 0.0)
+                     for i in range(3)})
+        if name == "one slot":
+            want_sums = r.checksums
+        else:
+            for q, v in want_sums.items():
+                if abs(r.checksums[q] - v) > CHAIN_CHECKSUM_RTOL * abs(v):
+                    fail(f"placed chain: checksum {q} {r.checksums[q]!r} vs "
+                         f"one slot {v!r}")
+    two = timed["two slots"]
+    busy = sum(two["stage_ms"].values()) + sum(two["handoff_ms"].values())
+    hand = sum(two["handoff_ms"].values())
+    out["traced"] = dict(timed, handoff_share=hand / busy if busy else 0.0)
+    for name, v in timed.items():
+        print(f"  traced {name}: wall/batch {v['wall_per_batch_s']:.3f} s | "
+              "device ms/batch " + ", ".join(
+                  f"{k} {v['stage_ms'][k]:.3f}" + (
+                      f" (+ reshard {v['handoff_ms'][k]:.3f})"
+                      if v["handoff_ms"][k] else "")
+                  for k in v["stage_ms"]) + " | host ms/batch to launch "
+              + ", ".join(f"{k} {x:.3f}" for k, x in v["host_ms"].items()))
+    print(f"  handoffs: {hand:.3f} ms of {busy:.3f} ms device time a batch "
+          f"({100 * out['traced']['handoff_share']:.1f} %); checksums within "
+          f"rel {CHAIN_CHECKSUM_RTOL} of one slot")
+
+    # -- the reference's two-kind case -------------------------------------
+    hplan = mchain.plan_chain(
+        chain, target=H100_SXM, batch_elements=E, n_eq=2 * E,
+        prefetch_depth=(2, 1, 1), cu_count=1,
+        topology=DeviceTopology.parse("h100:1,alveo:1"),
+        stage_groups=(0, 1, 1), stage_batch_elements=(E // 2, E, E))
+    kinds = [hplan.placement.stage_kind(i) for i in range(3)]
+    if not hplan.feasible or kinds != ["h100-sxm", "alveo-u280",
+                                       "alveo-u280"]:
+        fail(f"two-kind plan: feasible {hplan.feasible}, kinds {kinds}")
+    zero_counts()
+    h = simulation.run_chain(chain, hplan, inputs=inputs, max_batches=2,
+                             collect_outputs=True, devices=pool)
+    sync()
+    h_launches = read_counts()
+    if card and h_launches != {"gemm_chain": 2 * 3, "helmholtz": 2,
+                               "flash_attention": 0}:
+        fail(f"two-kind chain: launches {h_launches}")
+    if h.placement_groups != ((0,), (1,), (1,)):
+        fail(f"two-kind chain ran groups {h.placement_groups}")
+    for q, v in base.outputs.items():
+        if not np.array_equal(h.outputs[q], v[:2 * E]):
+            fail(f"two-kind chain: {q} differs from the one-slot run")
+    print(f"  two kinds {kinds}, E_s {list(hplan.stage_batch_elements)}: "
+          f"groups {list(h.placement_groups)}, 2 batches bitwise the "
+          f"one-slot run | launches {h_launches}")
+    out["two_kind"] = dict(kinds=kinds, stage_e=list(hplan.stage_batch_elements),
+                           groups=[list(g) for g in h.placement_groups],
+                           launches=h_launches)
+    for k in total:
+        total[k] += h_launches[k]
+    del h
+
+    # -- several cards -------------------------------------------------------
+    if card and torch.cuda.device_count() >= 2:
+        cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+        x = simulation.run_chain(chain, plan, inputs=inputs,
+                                 collect_outputs=True, devices=cards)
+        for q, v in base.outputs.items():
+            if not np.array_equal(x.outputs[q], v):
+                fail(f"cross-card chain: {q} differs from the one-slot run")
+        print(f"phase M: cross-card run over {[str(c) for c in cards]}: "
+              f"groups {list(x.placement_groups)}, bitwise the one-slot run, "
+              f"{x.wall_s / x.batches:.3f} s a batch")
+        out["cross_card"] = dict(wall_per_batch_s=x.wall_s / x.batches)
+        del x
+    else:
+        print("phase M: cross-card run not done (1 card)")
+        out["cross_card"] = None
+    del base, inputs
+
+    # -- Fig. 2 with two CUs -------------------------------------------------
+    cfg = simulation.SimConfig(p=p, backend="pallas", seed=0,
+                               **({} if e is None else {"batch_elements": e}))
+    zero_counts()
+    f = simulation.run_simulation(cfg, devices=pool, max_batches=FIG2_BATCHES)
+    sync()
+    f_launches = read_counts()
+    rel = abs(f.checksum - fig2_checksum) / abs(fig2_checksum)
+    if card and f_launches != {"helmholtz": 2 * FIG2_BATCHES,
+                               "gemm_chain": 0, "flash_attention": 0}:
+        fail(f"Fig. 2 over two slots: launches {f_launches}")
+    if f.plan.cu_count != 2 or rel > FIG2_CHECKSUM_RTOL:
+        fail(f"Fig. 2 over two slots: cu {f.plan.cu_count}, checksum "
+             f"{f.checksum!r} vs one slot {fig2_checksum!r} (rel {rel:.2e})")
+    print(f"  fig2 with 2 CUs: E={f.plan.batch_elements}, {f.batches} batches "
+          f"in {f.wall_s:.3f} s | launches {f_launches} | checksum "
+          f"{f.checksum!r} (rel {rel:.2e} to one slot)")
+    out["fig2"] = dict(E=f.plan.batch_elements, wall_s=f.wall_s,
+                       checksum=f.checksum, rel=rel, launches=f_launches)
+    for k in total:
+        total[k] += f_launches[k]
+
+    # -- the DSE measures the placed plan --------------------------------------
+    secs = dse.measure_chain_plan(chain, plan, max_batches=1, devices=pool)
+    if secs is None or not secs > 0:
+        fail(f"measure_chain_plan on the placed plan gave {secs}")
+    print(f"  measure_chain_plan on the placed plan: {secs * 1e6:.3f} "
+          "us/element")
+    out["dse_us_per_element"] = secs * 1e6
+
+    # -- phase S's requests on the pool ----------------------------------------
+    served_sys = operators.compile_cfd_pipeline(
+        p, backends="pallas", target="h100-sxm", device=dev, batch_elements=E)
+    specs, reqs = serve_requests(
+        served_sys.chain, sizes=None if e is None else [3, E, 2 * E + 1, 5])
+    engine = ServeEngine(served_sys, seed=0, devices=pool,
+                         max_wait_s=SERVE_MAX_WAIT_S)
+    sync()
+    zero_counts()
+    t = time.perf_counter()
+    served = [engine.submit(r) for r in reqs]
+    engine.drain()
+    sync()
+    serve_s = time.perf_counter() - t
+    s_launches = read_counts()
+    waves = engine.stats["waves"]
+    if card and s_launches != {"gemm_chain": 2 * 2 * waves,
+                               "helmholtz": 2 * waves, "flash_attention": 0}:
+        fail(f"serve over two slots: {waves} waves, launches {s_launches}")
+    alone = ServeEngine(served_sys, seed=0, devices=[dev])
+    for r, inp in zip(served, reqs):
+        if r.error is not None:
+            fail(f"serve over two slots: r{r.rid} failed: {r.error!r}")
+        one = alone.submit(inp)
+        alone.drain()
+        for q in engine.out_names:
+            if not np.array_equal(r.outputs[q], one.outputs[q]):
+                fail(f"serve over two slots: r{r.rid} {q} differs from its "
+                     "one-slot answer")
+        r.outputs = None
+    elems = sum(next(iter(r.values())).shape[0] for r in reqs)
+    print(f"  serve: {len(reqs)} requests ({elems} elements) in {waves} waves "
+          f"over {out['pool']} in {serve_s:.3f} s ({elems / serve_s:.0f} "
+          f"elements/s), each bitwise its one-slot answer | launches "
+          f"{s_launches}")
+    out["serve"] = dict(requests=len(reqs), elements=elems, waves=waves,
+                        wall_s=serve_s, elements_per_s=elems / serve_s,
+                        launches=s_launches)
+    for k in total:
+        total[k] += s_launches[k]
+    del engine, alone, served, reqs
+    if card:
+        torch.cuda.empty_cache()
+    return out, total
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1902,7 +2216,7 @@ def main() -> int:
               f"host stream {system.plan.host_stream_bytes / 2**20:.1f} "
               "MiB/batch")
         rows = phase_kernels(system)
-        _, launches = phase_slice(system)
+        slice_res, launches = phase_slice(system)
         t_new = time.perf_counter()
         fig2_row, fig2, fig2_launches, fig2_inputs = phase_fig2()
         rows["helmholtz"].append(fig2_row)
@@ -1930,6 +2244,13 @@ def main() -> int:
             launches[name] += serve_launches[name]
         serve_stats["seconds"] = time.perf_counter() - t_s
         print(f"phase S: {serve_stats['seconds']:.1f} s")
+        t_m = time.perf_counter()
+        place_stats, place_launches = phase_placement(
+            fig2["checksum"], slice_res.wall_s / slice_res.batches)
+        for name in ("gemm_chain", "helmholtz"):
+            launches[name] += place_launches[name]
+        place_stats["seconds"] = time.perf_counter() - t_m
+        print(f"phase M: {place_stats['seconds']:.1f} s")
         flash_rows = phase_flash()
         model = phase_model()
     except SmokeFailure as e:
@@ -1982,6 +2303,7 @@ def main() -> int:
                       "blocks_s": blocks_s}))
     print(json.dumps({"model": model}))
     print(json.dumps({"serve": serve_stats}))
+    print(json.dumps({"placement": place_stats}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Element-batched simulation drivers -- the Olympus system/host layer
-on one CUDA card.
+on CUDA cards.
 
 Implements the paper's section 3.1 quantities:
 
@@ -8,26 +8,39 @@ Implements the paper's section 3.1 quantities:
     :func:`run_simulation`, the paper's Fig. 2 flow) or
     :class:`repro_torch.memory.chain.ChainPlan` (the whole pipeline,
     :func:`run_chain`) -- the drivers hold no hardcoded batch size.
-  * **N_b = N_eq / E** batches.
+  * **N_b = N_eq / E** batches, **I = N_b / N_cu** iterations, where the
+    CU count is the number of slots of the device pool the element axis
+    is sharded over (CU replication == data parallelism over elements).
   * **transfer pipelining**: batch k+K..k+1 transfer host->device (pinned
-    buffers, a side CUDA stream) while batch k computes, through the
-    generic engine in ``repro_torch.memory.pipeline`` (K=1 is the
+    buffers, a side CUDA stream a card) while batch k computes, through
+    the generic engine in ``repro_torch.memory.pipeline`` (K=1 is the
     ping/pong channel pair of Fig. 14a; K=0 is the serial baseline).
+
+The device pool (``devices=``, :func:`~repro_torch.memory.channels.resolve_devices`)
+stands in for the reference's element mesh: an ordered list of slots,
+every visible card by default, one CPU slot with ``device="cpu"``; an
+entry may repeat (``[cuda:0, cuda:0]`` is two slots on one card).  A
+batch is sharded over a group of slots in contiguous equal chunks of
+dim 0 (``memory.pipeline.element_chunks``), each shard runs the stage's
+kernels on its slot's device, and outputs are gathered in slot order, so
+collected outputs are bitwise those of one slot; a checksum sums the
+per-shard sums, in another order than one slot's sum.  :func:`run_chain`
+runs a plan's placement with one dispatch ring per device group and
+re-shards each handoff that crosses groups; :func:`run_simulation`
+replicates the operator over the whole pool.
 
 The synthetic data follows the reference's numpy streams exactly
 (``seed + b`` per batch; ``seed + 2**31`` for the Fig. 2 operator's S,
 ``seed + 2**31 + k`` per shared operand of a chain over the sorted
 shared names), so at equal E and seed both packages see the same
-inputs.  CU replication and the reference's multi-device placement
-execution are not ported: a plan for more than one CU or device warns
-and runs on the one card.
+inputs.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 import warnings
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +63,14 @@ def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
         k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
         for k, v in arrays.items()
     }
+
+
+def replicate(arrays: Dict[str, np.ndarray],
+              devices) -> Dict[torch.device, Dict[str, torch.Tensor]]:
+    """Batch-invariant operands put once on each distinct device of the
+    slots ``devices`` (the reference's replicated ``P()`` layout; slots
+    that name one card share its copy)."""
+    return {dev: to_device(arrays, dev) for dev in dict.fromkeys(devices)}
 
 
 @dataclasses.dataclass
@@ -138,8 +159,10 @@ class SimResult:
     wall_s: float
     checksum: float
     plan: Optional[MemoryPlan] = None
-    #: the device the run executed on
+    #: the device of the pool's first slot
     device: str = ""
+    #: every slot of the pool the run replicated the operator over
+    devices: Tuple[str, ...] = ()
 
     @property
     def gflops(self) -> float:
@@ -153,6 +176,7 @@ class SimResult:
 def run_simulation(
     cfg: SimConfig,
     *,
+    devices=None,
     device=None,
     max_batches: Optional[int] = None,
     S: Optional[np.ndarray] = None,
@@ -163,9 +187,14 @@ def run_simulation(
 
     The plan supplies E, the prefetch depth and the kernel's block; pass
     one explicitly (e.g. a DSE winner) or let :func:`plan_config` derive
-    it.  ``device`` is the CUDA card unless ``"cpu"`` is passed.
-    Returns wall time and a checksum (the sum of every ``v``); GFLOPS
-    by the paper's op-count model is :func:`achieved_gflops`.
+    it, with one CU per slot of the pool.  ``devices`` is the pool the
+    operator is replicated over (every visible card by default;
+    ``device`` is the one-slot shorthand, ``"cpu"`` for the host): each
+    batch is sharded over all its slots, as the reference shards it over
+    its element mesh, and a plan that asks for more CUs than the pool
+    has warns and runs on the pool.  Returns wall time and a checksum
+    (the sum of every ``v``, as per-shard sums); GFLOPS by the paper's
+    op-count model is :func:`achieved_gflops`.
 
     Under a fixed-point policy the inputs are encoded on the host, as
     the paper's host code does, and the checksum sums the decoded
@@ -173,23 +202,26 @@ def run_simulation(
 
     ``tracer`` (``repro_torch.trace.Tracer``; None = off) records the
     staging/dispatch/sync spans of the K-deep engine (the dispatch spans
-    in the card's own times on a CUDA device) plus per-channel host byte
+    in the card's own times on one CUDA card) plus per-channel host byte
     counters from the plan's buffer table.
     """
-    dev = memchannels.resolve_device(device)
+    pool = memchannels.resolve_devices(devices, device)
     if plan is None:
-        plan = plan_config(cfg, device=dev)
-    if plan.cu_count > 1:
+        plan = plan_config(cfg, cu_count=len(pool), device=pool[0])
+    if plan.cu_count > len(pool):
         warnings.warn(
-            f"run_simulation: the plan replicates {plan.cu_count} CUs; "
-            f"executing on the one device {dev}.",
+            f"run_simulation: the plan replicates {plan.cu_count} CUs but "
+            f"the pool has {len(pool)} slot(s); executing on the pool.",
             RuntimeWarning,
         )
     E = plan.batch_elements
-    compiled = build_inverse_helmholtz(
-        cfg.p, policy=cfg.policy, backend=cfg.backend, plan=plan, device=dev,
-    )
-    pol = compiled.policy
+    compiled = {
+        dev: build_inverse_helmholtz(cfg.p, policy=cfg.policy,
+                                     backend=cfg.backend, plan=plan,
+                                     device=dev)
+        for dev in dict.fromkeys(pool)
+    }
+    pol = compiled[pool[0]].policy
     rng = np.random.default_rng(cfg.seed + 2 ** 31)
     if S is None:
         S = rng.uniform(-1, 1, (cfg.p, cfg.p)).astype(np.float32)
@@ -198,22 +230,28 @@ def run_simulation(
     n = n_total if max_batches is None else min(max_batches, n_total)
     batches = _batch_generator(cfg.p, E, n, cfg.seed)
     if isinstance(pol, FixedPointPolicy):
-        S_dev = pol.encode(S).to(dev)
+        S_host = pol.encode(S).numpy()
         batches = ({k: pol.encode(v).numpy() for k, v in b.items()}
                    for b in batches)
 
         def reduce_fn(out):
-            return torch.sum(pol.decode(out["v"]))
+            return tuple(torch.sum(pol.decode(v)) for v in out)
     else:
-        S_dev = torch.from_numpy(np.ascontiguousarray(S)).to(dev)
+        S_host = S
 
         def reduce_fn(out):
-            return torch.sum(out["v"])
+            return tuple(torch.sum(v) for v in out)
+    S_dev = replicate({"S": S_host}, pool)
 
     def compute(staged: mempipe.Staged):
-        return compiled.batched_fn({"S": S_dev, **staged.arrays()})
+        shards = staged.shards()
+        return tuple(
+            compiled[dev].batched_fn({"S": S_dev[dev]["S"],
+                                      **{k: v[j] for k, v in shards.items()}})["v"]
+            for j, dev in enumerate(pool)
+        )
 
-    stage = mempipe.HostStager(dev, slots=plan.prefetch_depth + 1)
+    stage = mempipe.HostStager(pool, slots=plan.prefetch_depth + 1)
     if tracer:
         from ..trace.attribution import (COUNTER_CHANNEL_BYTES,
                                          host_channel_bytes)
@@ -237,15 +275,16 @@ def run_simulation(
         reduce_fn=reduce_fn,
         tracer=tracer,
         stage_name=plan.operator,
-        device=dev,
+        device=pool,
     )
     wall = time.perf_counter() - t0
     checksum = 0.0
-    for s in sums:
-        checksum += float(s)
+    for per_shard in sums:
+        for s in per_shard:
+            checksum += float(s)
     return SimResult(
         batches=n, elements=n * E, wall_s=wall, checksum=checksum, plan=plan,
-        device=str(dev),
+        device=str(pool[0]), devices=tuple(str(d) for d in pool),
     )
 
 
@@ -269,8 +308,14 @@ class ChainResult:
     #: whether stages were cross-batch pipelined (one dispatch ring per
     #: stage) or run back-to-back per batch (the serial baseline)
     pipelined_stages: bool = False
-    #: the device the run executed on
+    #: the device of the pool's first slot
     device: str = ""
+    #: per-stage groups of pool slots (indices) the run executed on, as
+    #: the plan placed them (None when the placement degenerated to one
+    #: group over the whole pool)
+    placement_groups: Optional[Tuple[Tuple[int, ...], ...]] = None
+    #: every slot of the pool
+    devices: Tuple[str, ...] = ()
     #: batch indices the StepMonitor flagged as stragglers (empty when no
     #: monitor was passed or nothing was flagged)
     straggler_batches: Tuple[int, ...] = ()
@@ -330,30 +375,36 @@ def _shared_host(
 def chain_stage_fns(
     chain: memchain.ProgramChain,
     plan: memchain.ChainPlan,
-    shared_dev: Dict[str, torch.Tensor],
+    shared: Dict[torch.device, Dict[str, torch.Tensor]],
+    stage_devices: Sequence[Sequence[torch.device]],
 ) -> List[Callable]:
     """The chain's stages as ``fn(staged, carry)`` for the pipeline
-    driver: stage ``i`` reads its bound streams from the carry (the
-    device-resident handoff), its shared operands from ``shared_dev`` and
-    its host streams from the staged batch, and returns the carry with
-    its outputs added under ``"stage.output"``.
+    driver.  Stage ``i`` runs once per slot of its group
+    ``stage_devices[i]``, on that shard of the batch: it reads its bound
+    streams from the carry (the device-resident handoff, already laid
+    over its slots), its shared operands from ``shared[device]`` (one
+    copy a distinct device, :func:`replicate`) and its host streams from
+    the staged batch's shards, and returns the carry with its outputs
+    added under ``"stage.output"`` as one tensor a slot.
 
     A plan may run some stages at a smaller batch than the chain E
-    (per-stage E_s): the re-blocking handoff slices the chain batch into
-    E_s sub-batches on the device; a kernel stage writes each into its
-    slice of the chain batch's outputs, any other stage's outputs are
-    concatenated (bitwise-equal to the full-batch call: elements are
-    independent)."""
+    (per-stage E_s): inside each shard the re-blocking handoff slices the
+    shard into sub-batches of ``E_s`` split over the group on the device;
+    a kernel stage writes each into its slice of the shard's outputs, any
+    other stage's outputs are concatenated (bitwise-equal to the
+    full-batch call: elements are independent)."""
     E = plan.batch_elements
     stage_es = [plan.stage_e(i) for i in range(len(plan.stages))]
     if len(stage_es) != len(chain.stages):
         stage_es = [E] * len(chain.stages)
 
     def make_stage_fn(i: int, s: memchain.ChainStage):
+        devs = tuple(stage_devices[i])
         batched_fn = s.compiled.batched_fn
         if 0 < stage_es[i] < E:
             batched_fn = mempipe.reblock_batched_fn(
-                batched_fn, tuple(s.program.element_vars), stage_es[i],
+                batched_fn, tuple(s.program.element_vars),
+                -(-stage_es[i] // len(devs)),
                 outputs=(
                     {n: tuple(v.shape) for n, v in s.program.outputs.items()}
                     if s.backend == "pallas" else None
@@ -361,24 +412,26 @@ def chain_stage_fns(
             )
 
         def run_stage(staged: mempipe.Staged, carry):
-            live: Dict[str, torch.Tensor] = dict(carry) if carry else {}
-            env: Dict[str, torch.Tensor] = {}
+            live: Dict[str, Tuple[torch.Tensor, ...]] = (
+                dict(carry) if carry else {})
             host = None
-            for name in s.program.inputs:
-                if name in chain.resolved[i]:
-                    p_idx, out_name = chain.resolved[i][name]
-                    env[name] = live[
-                        f"{chain.stages[p_idx].name}.{out_name}"
-                    ]
-                elif name in shared_dev:
-                    env[name] = shared_dev[name]
-                else:
-                    if host is None:
-                        host = staged.arrays()
-                    env[name] = host[f"{s.name}.{name}"]
-            outs = batched_fn(env)
-            for out_name, val in outs.items():
-                live[f"{s.name}.{out_name}"] = val
+            outs = []
+            for j, dev in enumerate(devs):
+                env: Dict[str, torch.Tensor] = {}
+                for name in s.program.inputs:
+                    if name in chain.resolved[i]:
+                        p_idx, out_name = chain.resolved[i][name]
+                        env[name] = live[
+                            f"{chain.stages[p_idx].name}.{out_name}"][j]
+                    elif name in shared[dev]:
+                        env[name] = shared[dev][name]
+                    else:
+                        if host is None:
+                            host = staged.shards()
+                        env[name] = host[f"{s.name}.{name}"][j]
+                outs.append(batched_fn(env))
+            for out_name in outs[0]:
+                live[f"{s.name}.{out_name}"] = tuple(o[out_name] for o in outs)
             return live
 
         return run_stage
@@ -386,11 +439,30 @@ def chain_stage_fns(
     return [make_stage_fn(i, s) for i, s in enumerate(chain.stages)]
 
 
+def chain_stage_slots(
+    chain: memchain.ProgramChain,
+    plan: memchain.ChainPlan,
+    n_slots: int,
+) -> Optional[List[Tuple[int, ...]]]:
+    """Per-stage groups of pool slot indices where the plan's placement
+    runs as placed on a pool of ``n_slots`` slots, else None: the
+    placement needs more slots than the pool has, its stage count differs
+    from the compiled chain's, or every stage sits on the one slot 0 (the
+    reference's degenerate cases, which run one group over the whole
+    pool)."""
+    place = plan.placement
+    if (place.n_stages != len(chain.stages)
+            or mempipe.placement_meshes(place, range(n_slots)) is None):
+        return None
+    return [tuple(sp.devices) for sp in place.stages]
+
+
 def run_chain(
     chain: memchain.ProgramChain,
     plan: Optional[memchain.ChainPlan] = None,
     *,
     n_eq: Optional[int] = None,
+    devices=None,
     device=None,
     max_batches: Optional[int] = None,
     seed: int = 0,
@@ -413,19 +485,32 @@ def run_chain(
     back-to-back per batch -- the paper's baseline, bitwise-equal to the
     pipelined schedule.  ``pipeline_stages`` overrides the plan's mode.
 
-    ``device`` is the CUDA card unless ``"cpu"`` is passed (then every
-    kernel stage runs its plain PyTorch version).  Host-streamed inputs
-    come from ``inputs`` (full numpy arrays, qualified "stage.input") or
-    a deterministic synthetic stream; ``shared`` supplies the
+    ``devices`` is the device pool (every visible card by default;
+    ``device`` is the one-slot shorthand, and on ``"cpu"`` every kernel
+    stage runs its plain PyTorch version); without a plan, the chain is
+    planned with one CU per slot on the pool's topology.  A plan whose
+    placement fits the pool runs as placed: each stage shards its element
+    batch over its own group of slots (one dispatch ring per group), its
+    host streams are staged to that group, the shared operands are put
+    once per distinct device, and every stream that crosses groups is
+    re-sharded onto the consumer's slots before it is read
+    (``memory.pipeline.reshard``, a ``handoff`` span under the tracer).
+    Every degenerate placement (every stage on one slot, a plan for more
+    devices than the pool has -- which warns -- or a stage-count mismatch)
+    runs one group over the whole pool.  Host-streamed inputs come from
+    ``inputs`` (full numpy arrays, qualified "stage.input") or a
+    deterministic synthetic stream; ``shared`` supplies the
     batch-invariant operands by bare name (synthesized when omitted).
 
     A plan with per-stage batch sizes (``plan.stage_batch_elements``)
     runs each such stage over E_s sub-batches of the chain batch
-    (``memory.pipeline.reblock_batched_fn``), bitwise-equal to the
-    uniform run.
+    (``memory.pipeline.reblock_batched_fn``, inside each shard),
+    bitwise-equal to the uniform run.
 
-    ``collect_outputs`` returns the concatenated chain outputs; by
-    default only a checksum per output crosses back.
+    ``collect_outputs`` returns the concatenated chain outputs (the
+    shards gathered in slot order: bitwise a one-slot run's); by default
+    only a checksum per output crosses back, the sum of its per-shard
+    sums.
 
     ``tracer`` (``repro_torch.trace.Tracer``; None = off) records the
     full span hierarchy -- chain run -> per-stage slot -> dispatch (in
@@ -439,15 +524,16 @@ def run_chain(
     per-stage dispatch/stall histograms keyed by the plan signature.
     None changes results.
     """
-    dev = memchannels.resolve_device(device)
+    pool = memchannels.resolve_devices(devices, device)
     if n_eq is None and inputs:
         # the data bounds the problem -- derive n_eq before planning so
         # the auto-sized E can never exceed what the arrays hold
         n_eq = min(v.shape[0] for v in inputs.values())
     if plan is None:
         plan = memchain.plan_chain(
-            chain, target=memchannels.detect_target(dev),
-            topology=DeviceTopology.from_torch([dev]), n_eq=n_eq,
+            chain, target=memchannels.detect_target(pool[0]),
+            cu_count=len(pool), topology=DeviceTopology.from_torch(pool),
+            n_eq=n_eq,
         )
     planned = tuple(sp.backend for sp in plan.stages)
     compiled = tuple(s.backend for s in chain.stages)
@@ -457,11 +543,11 @@ def run_chain(
             f"compiled chain's {compiled}; executing the compiled chain.",
             RuntimeWarning,
         )
-    if plan.placement.devices_used[-1] >= 1:
+    if plan.placement.devices_used[-1] >= len(pool):
         warnings.warn(
             f"run_chain: plan placement spans "
-            f"{plan.placement.topology.n_devices} device(s); executing on "
-            f"the one device {dev}.",
+            f"{plan.placement.topology.n_devices} device(s) but only "
+            f"{len(pool)} are local; executing on the local pool instead.",
             RuntimeWarning,
         )
     E = plan.batch_elements
@@ -504,22 +590,56 @@ def run_chain(
     n_total = max(1, n_eq // E)
     n = n_total if max_batches is None else min(max_batches, n_total)
 
-    shared_dev = to_device(_shared_host(chain, seed, shared), dev)
+    # placement execution: one dispatch ring per group of pool slots
+    groups = chain_stage_slots(chain, plan, len(pool))
+    slots = groups or [tuple(range(len(pool)))] * len(chain.stages)
+    stage_devs = [tuple(pool[j] for j in g) for g in slots]
+    shared_dev = replicate(_shared_host(chain, seed, shared),
+                           [d for devs in stage_devs for d in devs])
     out_names = [
         f"{s.name}.{n}"
         for i, s in enumerate(chain.stages)
         for n, _ in chain.chain_outputs(i)
     ]
 
-    stage_fns = chain_stage_fns(chain, plan, shared_dev)
+    stage_fns = chain_stage_fns(chain, plan, shared_dev, stage_devs)
+    # multi-group handoff: before stage i consumes a batch, re-shard the
+    # device-resident streams it reads from producers on other groups
+    place_fns = None
+    if groups is not None:
+        def make_place_fn(i: int):
+            moves = sorted(
+                f"{chain.stages[p].name}.{out}"
+                for p, out in chain.resolved[i].values()
+                if slots[p] != slots[i]
+            )
+            if not moves:
+                return None
+
+            def place(staged, carry):
+                carry = dict(carry) if carry else {}
+                for q in moves:
+                    carry[q] = mempipe.reshard(carry[q], stage_devs[i])
+                return staged, carry
+
+            return place
+
+        place_fns = [make_place_fn(i) for i in range(len(chain.stages))]
     if collect_outputs:
         def reduce_fn(live):
             return {q: live[q] for q in out_names}
     else:
         def reduce_fn(live):
-            return {q: torch.sum(live[q]) for q in out_names}
+            return {q: tuple(torch.sum(x) for x in live[q])
+                    for q in out_names}
 
-    stage_batch = mempipe.HostStager(dev, slots=depths[0] + 1)
+    #: qualified host stream -> the slots of the stage that reads it
+    layout = {
+        f"{s.name}.{n}": stage_devs[i]
+        for i, s in enumerate(chain.stages)
+        for n, _ in chain.host_element_inputs(i)
+    }
+    stage_batch = mempipe.HostStager(pool, slots=depths[0] + 1, layout=layout)
     if tracer:
         from ..trace.attribution import (COUNTER_CHANNEL_BYTES,
                                          COUNTER_OCCUPANCY,
@@ -560,12 +680,13 @@ def run_chain(
         stage_fn=stage_batch,
         depths=depths,
         reduce_fn=reduce_fn,
+        place_fns=place_fns,
         tracer=tracer,
         monitor=monitor,
         stage_names=[s.name for s in chain.stages],
         metrics=metrics,
         metrics_labels={"plan": plan.signature[:12]} if metrics else None,
-        device=dev,
+        device=pool,
     )
     wall = time.perf_counter() - t0
     if root is not None:
@@ -583,7 +704,7 @@ def run_chain(
     if collect_outputs:
         outputs = {}
         for q in out_names:
-            t = torch.cat([b[q] for b in per_batch])
+            t = torch.cat([x for b in per_batch for x in b[q]])
             # numpy has no bfloat16: such outputs come back as float32
             outputs[q] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         for q in out_names:
@@ -591,9 +712,11 @@ def run_chain(
     else:
         for b in per_batch:
             for q, v in b.items():
-                checksums[q] += float(v)
+                checksums[q] += sum(float(x) for x in v)
     return ChainResult(
         batches=n, elements=n * E, wall_s=wall, checksums=checksums,
         plan=plan, outputs=outputs, pipelined_stages=bool(pipeline_stages),
-        device=str(dev), straggler_batches=stragglers,
+        device=str(pool[0]), straggler_batches=stragglers,
+        placement_groups=tuple(groups) if groups is not None else None,
+        devices=tuple(str(d) for d in pool),
     )

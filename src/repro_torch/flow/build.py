@@ -712,7 +712,9 @@ class CompiledSystem:
         pipelined (one dispatch ring per stage) or run back-to-back
         (pass ``pipeline_stages=False`` to force the serial baseline;
         see ``repro_torch.cfd.simulation.run_chain`` for all arguments,
-        ``device`` among them: the CUDA card unless ``"cpu"``).
+        ``devices`` among them: the device pool the plan's placement runs
+        over, every visible card by default; ``device`` is the one-slot
+        shorthand, ``"cpu"`` for the host).
         ``tracer=repro_torch.trace.Tracer()`` records the run's
         span/counter trace; ``monitor=runtime.StepMonitor()`` watches for
         straggler batches -- both pass straight through to

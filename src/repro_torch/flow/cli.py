@@ -8,7 +8,11 @@ schedule -> chain -> plan), and prints the generated-architecture report.
 synthetic data through the chain pipeline driver.  ``--device`` names
 where runs and measurements execute and which datasheet a missing
 ``--target`` detects: the CUDA card (``cuda``, the default) or the host
-(``cpu``, whose kernel stages run their plain PyTorch versions).
+(``cpu``, whose kernel stages run their plain PyTorch versions).  With
+``cuda`` a ``--run`` executes over every visible card, as the
+reference's over ``jax.devices()``: a ``--devices`` / ``--cu-count``
+plan runs as placed where there are enough cards, and on one group over
+them otherwise.
 
 ``--tune-blocks`` times each kernel stage at its candidate blocks on
 ``--device`` (on the H100 datasheet, the CUDA kernel's legal tiles) and
@@ -259,10 +263,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             from .. import metrics as metrics_mod
 
             metrics = metrics_mod.MetricsRegistry()
+        # the pool: every visible card (a --devices / --cu-count plan
+        # runs as placed where they are enough), or one host slot
         res = system.run(
             max_batches=args.max_batches,
             pipeline_stages=False if args.serial_stages else None,
-            device=args.device,
+            device="cpu" if args.device == "cpu" else None,
             tracer=tracer,
             metrics=metrics,
         )

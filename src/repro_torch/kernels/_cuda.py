@@ -10,6 +10,7 @@ loaded.  Nothing is built when this module is imported: the first
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,7 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (
@@ -157,8 +158,14 @@ def dtype_code(dtype) -> int:
     return codes[dtype]
 
 
-def stream_handle(device) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``device``, as a C pointer."""
+@contextlib.contextmanager
+def launch_on(device) -> Iterator[ctypes.c_void_p]:
+    """The device guard of every launch: ``device`` (the tensors' card) is
+    the current CUDA device inside the block, so a kernel that reads
+    ``cudaGetDevice`` (the persistent grids size themselves by its SM
+    count) runs on it; yields PyTorch's current stream on ``device`` as
+    a C pointer."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        yield ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

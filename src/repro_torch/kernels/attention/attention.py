@@ -98,11 +98,11 @@ def flash_attention(
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             G, Tq, Tk, d, n_q_heads, n_kv_heads, int(causal),
             ctypes.c_float(scale), bq, bk)
-    stream = _cuda.stream_handle(device)
-    if kernel == "wgmma":
-        err = lib.repro_flash_attention_sm90(*args, stream)
-    else:
-        err = lib.repro_flash_attention(*args, code, stream)
+    with _cuda.launch_on(device) as stream:
+        if kernel == "wgmma":
+            err = lib.repro_flash_attention_sm90(*args, stream)
+        else:
+            err = lib.repro_flash_attention(*args, code, stream)
     _cuda.check(err, f"flash_attention ({kernel})")
     flash_attention.launches += 1
     flash_attention.launches_by_route[kernel] += 1

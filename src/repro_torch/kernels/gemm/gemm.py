@@ -417,9 +417,8 @@ def gemm_chain(
                       [outs[name].data_ptr() for name, _ in recipe.outputs])
     lib = _cuda.library()
     _check_abi(lib)
-    err = lib.repro_gemm_chain(
-        ctypes.addressof(args), e, code, te, _cuda.stream_handle(device)
-    )
+    with _cuda.launch_on(device) as stream:
+        err = lib.repro_gemm_chain(ctypes.addressof(args), e, code, te, stream)
     _cuda.check(err, "gemm_chain")
     gemm_chain.launches += 1
     return outs

@@ -130,10 +130,11 @@ def inverse_helmholtz(
     check_te("Inverse-Helmholtz", p, te, helmholtz_max_tile(p, eb))
     v = torch.empty_like(u) if out is None else out
     lib = _cuda.library()
-    err = lib.repro_helmholtz(
-        S.data_ptr(), D.data_ptr(), u.data_ptr(), v.data_ptr(),
-        u.shape[0], p, code, te, _cuda.stream_handle(device),
-    )
+    with _cuda.launch_on(device) as stream:
+        err = lib.repro_helmholtz(
+            S.data_ptr(), D.data_ptr(), u.data_ptr(), v.data_ptr(),
+            u.shape[0], p, code, te, stream,
+        )
     _cuda.check(err, "helmholtz")
     inverse_helmholtz.launches += 1
     return v

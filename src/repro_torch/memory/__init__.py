@@ -26,7 +26,7 @@ from .chain import (ChainPlan, ChainStage, PipelineSpec, ProgramChain,
 from .fusion import FusionSpec, fuse_chain, fuse_chain_auto
 from .channels import (ALVEO_U280, CPU_HOST, H100_SXM, TPU_V5E,
                        MemoryTarget, UnknownTargetError, detect_target,
-                       resolve_device, resolve_target)
+                       resolve_device, resolve_devices, resolve_target)
 from .placement import (DeviceTopology, PlacementError, PlacementPlan,
                         StagePlacement, place_chain)
 from .dse import (Candidate, ChainCandidate, ChainDesignSpace,
@@ -39,7 +39,8 @@ __all__ = [
     "chain", "channels", "dse", "fusion", "layout", "pipeline",
     "placement", "plan",
     "MemoryTarget", "ALVEO_U280", "TPU_V5E", "CPU_HOST", "H100_SXM",
-    "detect_target", "resolve_device", "UnknownTargetError",
+    "detect_target", "resolve_device", "resolve_devices",
+    "UnknownTargetError",
     "resolve_target",
     "DeviceTopology", "PlacementError", "PlacementPlan", "StagePlacement",
     "place_chain",

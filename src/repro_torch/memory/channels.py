@@ -195,6 +195,35 @@ def resolve_device(device=None):
     return device
 
 
+def resolve_devices(devices=None, device=None):
+    """The device pool an entry point runs on: the ordered list of slots
+    it shards the element axis over -- the port's counterpart of the
+    reference's element mesh (``mesh=``).
+
+    ``devices`` lists the slots (torch devices or their names); an entry
+    may repeat, as the reference's forced host devices are several
+    devices on one CPU, so ``["cpu", "cpu"]`` is a two-slot pool on the
+    host and ``["cuda:0", "cuda:0"]`` one on a single card.  ``device``
+    is the one-slot shorthand.  With neither, the pool is every visible
+    CUDA card, as the reference's mesh defaults to ``jax.devices()``; it
+    raises when there is none (never a silent fallback to the CPU)."""
+    import torch
+
+    if devices is not None and device is not None:
+        raise ValueError("pass a pool (devices=) or one device (device=), "
+                         "not both")
+    if device is not None:
+        return [resolve_device(device)]
+    if devices is None:
+        resolve_device(None)  # raises without a card
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    pool = [resolve_device(d) for d in devices]
+    if not pool:
+        raise ValueError("a device pool needs at least one slot")
+    return pool
+
+
 def detect_target(device=None) -> MemoryTarget:
     """The datasheet of the device an entry point runs on.
 

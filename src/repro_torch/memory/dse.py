@@ -28,7 +28,7 @@ from ..core import dsl, ir, rewrite
 from ..core.precision import get_policy
 from ..core.schedule import Schedule, schedule as make_schedule
 from . import layout
-from .channels import MemoryTarget, detect_target, resolve_device
+from .channels import MemoryTarget, detect_target, resolve_devices
 from .plan import (CostBreakdown, MemoryPlan, channels_used,
                    hbm_stream_bytes, host_stream_bytes)
 
@@ -349,15 +349,18 @@ def explore(
     measure_batches: int = 4,
     operator_name: Optional[str] = None,
     calibrate: bool = False,
+    devices=None,
     device=None,
 ) -> List[Candidate]:
     """Sweep the design space; return candidates ranked best-first.
 
     Infeasible plans rank after all feasible ones (kept for the report).
     ``measure_top`` verifies the k best measurable candidates against the
-    real simulation driver on ``device`` (the CUDA card unless
-    ``"cpu"``; without a ``target``, also the datasheet planned for) and
-    stores seconds/element alongside the prediction.  ``calibrate``
+    real simulation driver over the device pool ``devices`` (every
+    visible card by default; ``device`` is the one-slot shorthand,
+    ``"cpu"`` for the host; without a ``target``, the first slot's
+    datasheet is planned for) and stores seconds/element alongside the
+    prediction (:func:`measure_plan`).  ``calibrate``
     additionally fits the measured-feedback :class:`CostCorrection` from
     those runs and re-ranks every candidate by its corrected prediction.
     """
@@ -366,7 +369,8 @@ def explore(
             "calibrate=True fits the correction from measured runs; "
             "set measure_top > 0"
         )
-    target = target if target is not None else detect_target(device)
+    target = (target if target is not None
+              else detect_target(resolve_devices(devices, device)[0]))
     space = space or DesignSpace()
     prog, name = _resolve_program(p_or_prog, operator_name)
 
@@ -421,7 +425,7 @@ def explore(
     if measure_top:
         _measure_candidates(
             cands, p_or_prog, measure_top, n_eq=n_eq,
-            max_batches=measure_batches, device=device,
+            max_batches=measure_batches, devices=devices, device=device,
         )
         if calibrate:
             apply_correction(cands, fit_correction(cands))
@@ -475,38 +479,59 @@ class ChainCandidate:
         return self.measured_s_per_element is not None
 
 
+def _pool_size(devices, device) -> int:
+    """The slots of the caller's pool, counted without touching a device
+    where the caller names them (one for ``device=``, the list's length
+    for ``devices=``): a plan too big for them is refused before any
+    device is asked for."""
+    if device is not None:
+        return 1
+    if devices is not None:
+        return len(list(devices))
+    return len(resolve_devices())
+
+
 def measure_chain_plan(
     chain: "chain_mod.ProgramChain",
     plan: "chain_mod.ChainPlan",
     *,
     max_batches: int = 4,
+    devices=None,
     device=None,
 ) -> Optional[float]:
-    """Verify a chain plan by running the real pipeline driver on
-    ``device`` (the CUDA card unless ``"cpu"``); seconds per element.
+    """Verify a chain plan by running the real pipeline driver over the
+    device pool ``devices`` (every visible card by default; ``device`` is
+    the one-slot shorthand, ``"cpu"`` for the host); seconds per element.
 
     Returns None only where ``run_chain`` cannot run the plan as
     planned, so that a measurement never belongs to another
-    configuration: the placement spans more than one device (element
-    sharding across cards is not ported yet, ROADMAP queue 1, item 8b),
-    or its backends or policy differ from the compiled chain's.  A plan
-    with per-stage batch sizes runs its re-blocking handoffs on the one
-    device.  Kernel stages run at the tiles the chain was compiled with
-    (on the H100, the blocks the plan carries).  Every other failure --
-    a kernel that does not build or launch -- propagates.
+    configuration: the placement needs more slots than the pool has
+    (``run_chain`` would fall back to one group), a stage group's batch
+    does not shard evenly over it (the reference's run raises there, and
+    it returns None), or the plan's backends or policy differ from the
+    compiled chain's.  A placed plan runs each stage on its own group of
+    slots, re-sharding the handoffs between groups; one with per-stage
+    batch sizes re-blocks inside each shard.  Kernel stages run at the
+    tiles the chain was compiled with (on the H100, the blocks the plan
+    carries).  Every other failure -- a kernel that does not build or
+    launch -- propagates.
     """
-    from ..cfd.simulation import run_chain  # lazy: no cycle
+    from ..cfd.simulation import chain_stage_slots, run_chain  # lazy: no cycle
 
-    if plan.placement.devices_used[-1] >= 1:
+    if plan.placement.devices_used[-1] >= _pool_size(devices, device):
         return None
     compiled_backends = tuple(s.backend for s in chain.stages)
     if tuple(sp.backend for sp in plan.stages) != compiled_backends:
         return None  # would measure a different program than planned
     if any(s.compiled.policy.name != plan.policy for s in chain.stages):
         return None  # run_chain runs the compiled policy, not the plan's
-    dev = resolve_device(device)
-    run_chain(chain, plan, max_batches=1, device=dev)  # warm-up
-    res = run_chain(chain, plan, max_batches=max_batches, device=dev)
+    pool = resolve_devices(devices, device)
+    groups = (chain_stage_slots(chain, plan, len(pool))
+              or [range(len(pool))])
+    if any(plan.batch_elements % len(g) for g in groups):
+        return None
+    run_chain(chain, plan, max_batches=1, devices=pool)  # warm-up
+    res = run_chain(chain, plan, max_batches=max_batches, devices=pool)
     return res.wall_s / res.elements
 
 
@@ -775,6 +800,7 @@ def explore_chain(
     fuse: Optional[str] = None,
     max_stages: Optional[int] = None,
     fuse_barriers: Sequence[str] = (),
+    devices=None,
     device=None,
 ) -> List[ChainCandidate]:
     """Sweep chain plans: per-stage backend combinations and *joint
@@ -809,10 +835,12 @@ def explore_chain(
 
     ``measure_top`` verifies the k best feasible candidates whose
     planned backends and policy match the chain's compiled ones by
-    running the real ``run_chain`` driver on ``device`` (the CUDA card
-    unless ``"cpu"``; without a ``target``, also the datasheet planned
-    for); candidates it cannot run as planned are skipped
-    (:func:`measure_chain_plan`).
+    running the real ``run_chain`` driver over the device pool
+    ``devices`` (every visible card by default; ``device`` is the
+    one-slot shorthand, ``"cpu"`` for the host; without a ``target``, the
+    first slot's datasheet is planned for): a multi-device candidate
+    runs as placed where the pool has its slots, and candidates it
+    cannot run as planned are skipped (:func:`measure_chain_plan`).
     ``calibrate`` additionally fits the per-term :class:`CostCorrection`
     from those measured runs (each ratio attributed to the bottleneck
     stage's dominating term) and re-ranks every candidate by its
@@ -824,9 +852,9 @@ def explore_chain(
     for this target is applied to every candidate *before* any
     measurement (so ``measure_top`` verifies the profile-corrected top),
     and the measured candidates are recorded back into it.  With a
-    ``device``, the store is keyed for that device
-    (:meth:`~repro_torch.trace.ProfileStore.for_device`): host samples
-    never rank a card's plans."""
+    ``device`` (or ``devices``: their first slot), the store is keyed for
+    that device (:meth:`~repro_torch.trace.ProfileStore.for_device`):
+    host samples never rank a card's plans."""
     import itertools
 
     from . import chain as chain_mod  # local: chain imports predict_cost
@@ -837,7 +865,8 @@ def explore_chain(
             "calibrate=True fits the correction from measured runs; "
             "set measure_top > 0"
         )
-    target = target if target is not None else detect_target(device)
+    target = (target if target is not None
+              else detect_target(resolve_devices(devices, device)[0]))
     space = space or ChainDesignSpace()
     if topology is None:
         topology = DeviceTopology.homogeneous(max(1, max(space.cu_counts)))
@@ -984,8 +1013,9 @@ def explore_chain(
         from ..trace.profile import ProfileStore  # lazy: no import cycle
 
         store = ProfileStore.open(profile)
-        if store is not None and device is not None:
-            store = store.for_device(device)
+        key = device if devices is None else list(devices)[0]
+        if store is not None and key is not None:
+            store = store.for_device(key)
     if store is not None:
         corr = store.correction(target.name)
         if corr.n_samples:
@@ -998,7 +1028,8 @@ def explore_chain(
             if not c.plan.feasible:
                 continue
             got = measure_chain_plan(
-                chain, c.plan, max_batches=measure_batches, device=device
+                chain, c.plan, max_batches=measure_batches,
+                devices=devices, device=device,
             )
             if got is not None:
                 c.measured_s_per_element = got
@@ -1040,28 +1071,35 @@ def measure_plan(
     *,
     n_eq: Optional[int] = None,
     max_batches: int = 4,
+    devices=None,
     device=None,
 ) -> Optional[float]:
-    """Verify a plan by running the real driver on ``device`` (the CUDA
-    card unless ``"cpu"``); seconds per element.
+    """Verify a plan by running the real driver over the device pool
+    ``devices`` (every visible card by default; ``device`` is the
+    one-slot shorthand, ``"cpu"`` for the host); seconds per element.
 
-    Returns None only when the plan replicates more than one CU:
-    ``run_simulation`` runs on one card until element sharding is ported
-    (ROADMAP queue 1, item 8), so such a time would belong to another
-    configuration.  Every other failure -- a kernel that does not build
+    ``run_simulation`` replicates the operator over every slot of the
+    pool, as the reference's over its element mesh.  Returns None only
+    when the plan replicates more CUs than the pool has slots (such a
+    time would belong to another configuration) or its batch does not
+    shard evenly over the pool (the reference's run raises there, and it
+    returns None).  Every other failure -- a kernel that does not build
     or launch, a policy the backend cannot run -- propagates."""
     from ..cfd.simulation import SimConfig, run_simulation  # lazy: no cycle
 
-    if plan.cu_count > 1:
+    if plan.cu_count > _pool_size(devices, device):
         return None
-    dev = resolve_device(device)
+    pool = resolve_devices(devices, device)
+    if plan.batch_elements % len(pool):
+        return None
     cfg = SimConfig(
         p=p, n_eq=n_eq or plan.batch_elements * max_batches,
         batch_elements=plan.batch_elements, policy=plan.policy,
         backend=plan.backend, prefetch_depth=plan.prefetch_depth,
     )
-    run_simulation(cfg, plan=plan, max_batches=1, device=dev)  # warm-up
-    res = run_simulation(cfg, plan=plan, max_batches=max_batches, device=dev)
+    run_simulation(cfg, plan=plan, max_batches=1, devices=pool)  # warm-up
+    res = run_simulation(cfg, plan=plan, max_batches=max_batches,
+                         devices=pool)
     return res.wall_s / res.elements if res.elements else None
 
 
@@ -1072,6 +1110,7 @@ def _measure_candidates(
     *,
     n_eq: int,
     max_batches: int,
+    devices=None,
     device=None,
 ) -> None:
     if not isinstance(p_or_prog, int):
@@ -1085,7 +1124,7 @@ def _measure_candidates(
         got = measure_plan(
             c.plan, p_or_prog,
             n_eq=min(n_eq, c.plan.batch_elements * max_batches),
-            max_batches=max_batches, device=device,
+            max_batches=max_batches, devices=devices, device=device,
         )
         if got is not None:
             c.measured_s_per_element = got

@@ -29,17 +29,32 @@ producer to consumer without host round-trips.  Both build on
 :func:`reblock_batched_fn` is the re-blocking handoff of a plan with
 per-stage batch sizes: a stage runs its own E_s inside the chain batch.
 
+Element-axis placement runs over a *device pool*: an ordered list of
+slots (torch devices; an entry may repeat, so ``[cuda:0, cuda:0]`` is
+two slots on one card and ``["cpu", "cpu"]`` two on the host), the
+port's counterpart of the reference's element mesh.  A stage's element
+batch is split over its group of slots in contiguous equal chunks of
+dim 0 (:func:`element_chunks`, the layout of the reference's
+``P("elements")``), one shard a slot; :class:`HostStager` copies each
+shard to its slot through one pinned ring per distinct card, and
+:func:`reshard` re-lays a device-resident stream over another group.
+:func:`placement_meshes` maps a :class:`~repro_torch.memory.placement.PlacementPlan`
+onto the pool, and the drivers' ``place_fns`` hook re-shards the
+handoff before a stage on another group consumes it: one dispatch ring
+per device group.
+
 Both drivers take the reference's observers: a ``tracer`` (span per
-staging, dispatch slot and retire sync, on one track per stage), a
-``monitor`` (retire cadence, straggler flags) and a ``metrics``
-registry (per-stage dispatch histograms, stall counters).  A CUDA launch
-returns once the kernel is queued, so with a tracer on the card each
-(stage, batch) slot is bracketed by a CUDA event pair on the compute
-stream, read when the batch retires, and its spans carry the device's
-times (the host-clock duration stays as the ``host_s`` arg); no launch
-is synchronised for it.  :class:`StagePipelineDriver` can capture a
-batch's host-side failure (``capture_errors``) instead of raising.  The
-multi-device ``place_fns`` hook of the reference is not ported.
+staging, dispatch slot, cross-group reshard and retire sync, on one
+track per stage), a ``monitor`` (retire cadence, straggler flags) and a
+``metrics`` registry (per-stage dispatch and reshard histograms, stall
+counters).  A CUDA launch returns once the kernel is queued, so with a
+tracer on one card each (stage, batch) slot is bracketed by CUDA events
+on the compute stream, read when the batch retires, and its spans carry
+the device's times (the host-clock duration stays as the ``host_s``
+arg); no launch is synchronised for it.  A pool over several cards has
+no one stream to read, so its spans keep the host clock.
+:class:`StagePipelineDriver` can capture a batch's host-side failure
+(``capture_errors``) instead of raising.
 """
 from __future__ import annotations
 
@@ -57,9 +72,84 @@ import torch
 # ``repro_torch.trace`` and the executors stay import-light.
 _CAT_SLOT = "slot"
 _CAT_DISPATCH = "dispatch"
+_CAT_HANDOFF = "handoff"
 _CAT_STAGE_HOST = "stage-host"
 _CAT_SYNC = "sync"
 _HOST_TRACK = 0
+
+
+def element_chunks(n: int, parts: int) -> List[Tuple[int, int]]:
+    """``[lo, hi)`` of each of ``parts`` contiguous equal chunks of ``n``
+    rows: the layout of the reference's ``P("elements")`` sharding.
+    Raises when ``parts`` does not divide ``n``, as the reference's
+    ``device_put`` does for such a batch."""
+    if parts < 1 or n % parts:
+        raise ValueError(
+            f"a batch of {n} elements does not shard evenly over {parts} "
+            "slots; plan an E that the group sizes divide"
+        )
+    c = n // parts
+    return [(j * c, (j + 1) * c) for j in range(parts)]
+
+
+def _slot_devices(devices) -> Tuple[torch.device, ...]:
+    """One device or a sequence of slot devices, as a tuple."""
+    if isinstance(devices, (str, torch.device)):
+        return (torch.device(devices),)
+    return tuple(torch.device(d) for d in devices)
+
+
+def reshard(shards: Sequence[torch.Tensor],
+            devices: Sequence) -> Tuple[torch.Tensor, ...]:
+    """Element shards re-laid over the slots ``devices``: chunk ``j`` of
+    :func:`element_chunks` on ``devices[j]``.  A layout that already
+    matches comes back as it is; otherwise each new chunk is the rows of
+    the old shards it covers -- a view where one shard on the same
+    device covers it (no copy), else the pieces moved to its device and
+    joined with ``torch.cat``.  Rows keep their order, so gathering the
+    result gives the same batch bit for bit."""
+    devs = _slot_devices(devices)
+    if tuple(s.device for s in shards) == devs:
+        return tuple(shards)
+    src, lo = [], 0
+    for s in shards:
+        src.append((lo, lo + s.shape[0], s))
+        lo += s.shape[0]
+    out = []
+    for (a, b), dev in zip(element_chunks(lo, len(devs)), devs):
+        pieces = [s[max(a, s_lo) - s_lo:min(b, s_hi) - s_lo].to(dev)
+                  for s_lo, s_hi, s in src if max(a, s_lo) < min(b, s_hi)]
+        out.append(pieces[0] if len(pieces) == 1 else torch.cat(pieces))
+    return tuple(out)
+
+
+def placement_meshes(
+    placement, devices: Optional[Sequence[Any]] = None
+) -> Optional[List[Tuple[Any, ...]]]:
+    """Per-stage groups of pool slots for a PlacementPlan.
+
+    Maps each stage's topology device ids onto the pool ``devices``
+    (default :func:`~repro_torch.memory.channels.resolve_devices`: every
+    visible card).  Returns None when the placement does not fit the
+    pool (more devices than slots) or is the degenerate single-group
+    case (every stage on the one slot 0) -- callers then fall back to one
+    group over the whole pool, which is bitwise-identical by
+    construction.  Slots are told apart by their index, not by the
+    device they name: ``[cuda:0, cuda:0]`` is two slots."""
+    if placement is None:
+        return None
+    if devices is None:
+        from .channels import resolve_devices  # lazy: channels imports torch
+
+        devices = resolve_devices()
+    devices = list(devices)
+    used = placement.devices_used
+    if not used or used[-1] >= len(devices):
+        return None  # placement planned for a bigger machine than this
+    if (len({sp.devices for sp in placement.stages}) == 1
+            and len(placement.stages[0].devices) == 1):
+        return None  # every stage on one slot: the single-group path
+    return [tuple(devices[d] for d in sp.devices) for sp in placement.stages]
 
 
 def reblock_batched_fn(
@@ -136,83 +226,124 @@ def prefetch(
 
 
 class Staged:
-    """One staged batch: device tensors by name, plus the event their
-    host->device copy records (None on the CPU).  :meth:`arrays` makes the
-    caller's current stream wait for that copy before handing them out."""
+    """One staged batch: per name, its element shards (one tensor per slot
+    of the group that reads it), plus the events their host->device
+    copies record, one per card (none on the CPU).  :meth:`shards` makes
+    each card's current stream wait for its copy before handing them
+    out; :meth:`arrays` is the one-slot view."""
 
-    __slots__ = ("_arrays", "_ready")
+    __slots__ = ("_shards", "_ready")
 
-    def __init__(self, arrays: Dict[str, torch.Tensor],
-                 ready: Optional[torch.cuda.Event] = None) -> None:
-        self._arrays = arrays
-        self._ready = ready
+    def __init__(self, shards: Dict[str, Tuple[torch.Tensor, ...]],
+                 ready: Sequence[Tuple[torch.device,
+                                       torch.cuda.Event]] = ()) -> None:
+        self._shards = shards
+        self._ready = tuple(ready)
+
+    def shards(self) -> Dict[str, Tuple[torch.Tensor, ...]]:
+        """The shards by name, once each card's current stream waits for
+        their copy."""
+        for device, event in self._ready:
+            torch.cuda.current_stream(device).wait_event(event)
+        return self._shards
 
     def arrays(self) -> Dict[str, torch.Tensor]:
-        """The device tensors, once the current stream waits for their copy."""
-        if self._ready is not None:
-            device = next(iter(self._arrays.values())).device
-            torch.cuda.current_stream(device).wait_event(self._ready)
-        return self._arrays
+        """The device tensors by name, for a batch staged to one slot."""
+        got = self.shards()
+        if any(len(v) != 1 for v in got.values()):
+            raise ValueError("the batch is sharded over several slots; "
+                             "read shards()")
+        return {k: v[0] for k, v in got.items()}
 
 
-class HostStager:
-    """Host batches (dicts of numpy arrays) to device tensors.
+class _PinnedRing:
+    """One card's ring of pinned host buffers and its copy stream."""
 
-    On a CUDA device each batch is copied into one slot of a ring of
-    pinned host buffers, then to freshly allocated device tensors with a
-    ``non_blocking`` copy on a side stream; the copy's event is recorded
-    so the consumer's stream waits for it (:meth:`Staged.arrays`).  A
-    pinned slot is refilled only after its previous copy's event has
-    completed, and each device tensor is marked as used by the compute
-    stream (``record_stream``) so the caching allocator never hands its
-    memory out while a kernel may still read it.  On the CPU a batch
-    becomes tensors that share the numpy arrays' memory.
-    """
+    def __init__(self, device: torch.device, slots: int) -> None:
+        self.device = device
+        self.slots: List[Optional[Tuple[Dict[Tuple[str, int], torch.Tensor],
+                                        torch.cuda.Event]]] = (
+            [None] * max(1, slots))
+        self.next = 0
+        self.copy_stream = torch.cuda.Stream(device)
 
-    def __init__(self, device, slots: int = 2) -> None:
-        self.device = torch.device(device)
-        self._cuda = self.device.type == "cuda"
-        self._slots: List[Optional[Tuple[Dict[str, torch.Tensor],
-                                         torch.cuda.Event]]] = (
-            [None] * max(1, slots)
-        )
-        self._next = 0
-        self.copy_stream = torch.cuda.Stream(self.device) if self._cuda else None
-
-    def __call__(self, batch: Dict[str, np.ndarray]) -> Staged:
-        if not self._cuda:
-            return Staged({
-                k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in batch.items()
-            })
-        j = self._next
-        self._next = (j + 1) % len(self._slots)
-        held = self._slots[j]
-        pinned: Dict[str, torch.Tensor] = {}
+    def copy(self, parts, out) -> torch.cuda.Event:
+        """Copy each ``(name, shard, rows)`` of ``parts`` through the next
+        pinned slot to a fresh tensor on the card, into ``out[name][shard]``;
+        returns the event the copies record."""
+        j = self.next
+        self.next = (j + 1) % len(self.slots)
+        held = self.slots[j]
+        pinned: Dict[Tuple[str, int], torch.Tensor] = {}
         if held is not None:
             held[1].synchronize()  # the slot's last copy has left the host
             pinned = held[0]
-        host = {k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in batch.items()}
-        for k, h in host.items():
-            buf = pinned.get(k)
+        fresh: Dict[Tuple[str, int], torch.Tensor] = {}
+        for name, shard, rows in parts:
+            h = torch.from_numpy(np.ascontiguousarray(rows))
+            buf = pinned.get((name, shard))
             if buf is None or buf.shape != h.shape or buf.dtype != h.dtype:
-                pinned[k] = torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
-            pinned[k].copy_(h)
+                buf = torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
+            buf.copy_(h)
+            fresh[(name, shard)] = buf
         compute = torch.cuda.current_stream(self.device)
-        dev: Dict[str, torch.Tensor] = {}
         with torch.cuda.stream(self.copy_stream):
-            for k, buf in pinned.items():
-                if k not in host:
-                    continue
+            for (name, shard), buf in fresh.items():
                 d = torch.empty(buf.shape, dtype=buf.dtype, device=self.device)
                 d.copy_(buf, non_blocking=True)
                 d.record_stream(compute)
-                dev[k] = d
+                out[name][shard] = d
             ready = torch.cuda.Event()
             ready.record(self.copy_stream)
-        self._slots[j] = (pinned, ready)
-        return Staged(dev, ready)
+        self.slots[j] = (fresh, ready)
+        return ready
+
+
+class HostStager:
+    """Host batches (dicts of numpy arrays) to element shards on the slots
+    of a device pool.
+
+    ``devices`` is one device or a sequence of slots; every name is split
+    over them (:func:`element_chunks`) unless ``layout`` gives the name
+    its own slots (a chain stages each host stream to the group of the
+    stage that reads it).  Shards bound for a CUDA card go through that
+    card's ring of pinned host buffers -- one ring a card, however many
+    slots name it, so repeated slots pin no more than the batch -- and on
+    to freshly allocated device tensors with ``non_blocking`` copies on
+    the ring's side stream; the copy's event is recorded so the
+    consumer's stream waits for it (:meth:`Staged.shards`).  A pinned
+    slot is refilled only after its previous copy's event has completed,
+    and each device tensor is marked as used by the card's compute stream
+    (``record_stream``) so the caching allocator never hands its memory
+    out while a kernel may still read it.  On the CPU a shard is a
+    tensor that shares the numpy array's memory.
+    """
+
+    def __init__(self, devices, slots: int = 2, *,
+                 layout: Optional[Mapping[str, Sequence]] = None) -> None:
+        self.devices = _slot_devices(devices)
+        self.layout = {k: _slot_devices(v) for k, v in (layout or {}).items()}
+        cards = dict.fromkeys(
+            d for devs in (self.devices, *self.layout.values())
+            for d in devs if d.type == "cuda")
+        self._rings = {d: _PinnedRing(d, slots) for d in cards}
+
+    def __call__(self, batch: Dict[str, np.ndarray]) -> Staged:
+        out: Dict[str, List[Optional[torch.Tensor]]] = {}
+        to_card: Dict[torch.device, List[Tuple[str, int, np.ndarray]]] = {}
+        for name, v in batch.items():
+            devs = self.layout.get(name, self.devices)
+            out[name] = [None] * len(devs)
+            chunks = element_chunks(v.shape[0], len(devs))
+            for j, ((lo, hi), dev) in enumerate(zip(chunks, devs)):
+                rows = v if len(devs) == 1 else v[lo:hi]
+                if dev.type == "cuda":
+                    to_card.setdefault(dev, []).append((name, j, rows))
+                else:
+                    out[name][j] = torch.from_numpy(np.ascontiguousarray(rows))
+        ready = [(dev, self._rings[dev].copy(parts, out))
+                 for dev, parts in to_card.items()]
+        return Staged({k: tuple(v) for k, v in out.items()}, ready)
 
 
 def to_host(value: Any) -> Any:
@@ -259,8 +390,13 @@ class _DeviceClock:
 
     def close(self, k: int, start: torch.cuda.Event, spans) -> None:
         """Record the end event of batch ``k``'s slot, opened by ``start``."""
-        self._pending.setdefault(k, []).append(
-            (start, self.mark(), tuple(spans)))
+        self.interval(k, start, self.mark(), spans)
+
+    def interval(self, k: int, start: torch.cuda.Event,
+                 end: torch.cuda.Event, spans) -> None:
+        """Give ``spans`` of batch ``k`` the device interval between two
+        recorded events."""
+        self._pending.setdefault(k, []).append((start, end, tuple(spans)))
 
     def resolve(self, k: int) -> None:
         for start, end, spans in self._pending.pop(k, ()):
@@ -272,13 +408,23 @@ class _DeviceClock:
                 sp.t0, sp.t1 = t0, t1
 
 
+def _physical(device) -> Tuple[torch.device, ...]:
+    """The distinct devices of one device or a pool, in order (none for
+    None)."""
+    if device is None:
+        return ()
+    return tuple(dict.fromkeys(_slot_devices(device)))
+
+
 def _device_clock(tracer, device) -> Optional[_DeviceClock]:
-    """A :class:`_DeviceClock` for a tracer on a CUDA device, else None
-    (the host clock is the only clock on the CPU)."""
-    if not tracer or device is None:
+    """A :class:`_DeviceClock` for a tracer on one CUDA card (``device``
+    is a device or a pool whose slots all name it), else None: the host
+    clock is the only clock on the CPU, and a pool over several cards has
+    no one stream to read."""
+    devs = _physical(device)
+    if not tracer or len(devs) != 1 or devs[0].type != "cuda":
         return None
-    dev = torch.device(device)
-    return _DeviceClock(tracer, dev) if dev.type == "cuda" else None
+    return _DeviceClock(tracer, devs[0])
 
 
 def _traced_stage_fn(stage_fn: Callable[[Any], Any], tracer) -> Callable:
@@ -320,9 +466,10 @@ def run_pipelined(
 
     ``tracer`` (a ``repro_torch.trace.Tracer``; None/NULL = off) records
     one staging span per batch on the host track, one dispatch span per
-    batch on track 1, and one sync span per retire; with ``device`` a
-    CUDA device the dispatch spans carry the device's times.  Results
-    are identical either way (spans only observe).
+    batch on track 1, and one sync span per retire; with ``device`` one
+    CUDA card (or a pool of slots on it) the dispatch spans carry the
+    device's times.  Results are identical either way (spans only
+    observe).
     """
     if defer_sync is None:
         defer_sync = depth > 0
@@ -349,7 +496,7 @@ def run_pipelined(
         start = None
         if clock is not None:
             if isinstance(staged, Staged):
-                staged.arrays()  # the stream waits for the copy first
+                staged.shards()  # the stream waits for the copy first
             start = clock.mark()
         out = compute_fn(staged)
         if reduce_fn is not None:
@@ -393,6 +540,8 @@ def run_stage_pipelined(
     depths: Union[int, Sequence[int]] = 1,
     reduce_fn: Optional[Callable[[Any], Any]] = None,
     defer_sync: Optional[bool] = None,
+    place_fns: Optional[Sequence[Optional[Callable[[Any, Any],
+                                                   Any]]]] = None,
     tracer=None,
     monitor=None,
     stage_names: Optional[Sequence[str]] = None,
@@ -422,23 +571,33 @@ def run_stage_pipelined(
     identical inputs, so results are bitwise-equal to the serial
     schedule -- only the dispatch interleaving changes.
 
+    ``place_fns`` is the multi-device hook: ``place_fns[i](staged,
+    carry)`` runs right before stage i consumes a batch and returns the
+    ``(staged, carry)`` pair moved onto stage i's device group (e.g.
+    :func:`reshard` of the device-resident handoff onto the consumer's
+    slots).  ``None`` entries (or ``place_fns=None``) leave the record
+    untouched -- the single-group path.
+
     ``tracer`` (``repro_torch.trace.Tracer``; None/NULL = off) gives each
     stage its own track: every (stage, batch) dispatch becomes a *slot*
-    span carrying ``stage``/``batch``/``tick`` args, with the stage-fn
-    dispatch as its child; host staging and retire syncs land on the
-    host track.  On a CUDA ``device`` the slot and dispatch spans carry
-    the device's times (see the module docstring).  ``monitor`` (a
-    ``runtime.StepMonitor``) is fed the wall time between consecutive
-    batch retirements; flagged steps annotate the retire's sync span
-    with ``straggler=True``.  ``metrics`` (a ``repro_torch.metrics``
-    registry; None/NULL = off) records per-stage dispatch time
-    histograms (host clock: the launch, on the card), stall counters and
-    a tick histogram, labeled with ``metrics_labels``.  All only
-    observe -- per-batch results are identical with or without them.
+    span carrying ``stage``/``batch``/``tick`` args, with the reshard
+    handoff and the stage-fn dispatch as its children; host staging and
+    retire syncs land on the host track.  On one CUDA card (``device``:
+    the card, or the pool of slots on it) the slot, handoff and dispatch
+    spans carry the device's times (see the module docstring).
+    ``monitor`` (a ``runtime.StepMonitor``) is fed the wall time between
+    consecutive batch retirements; flagged steps annotate the retire's
+    sync span with ``straggler=True``.  ``metrics`` (a
+    ``repro_torch.metrics`` registry; None/NULL = off) records per-stage
+    dispatch and reshard time histograms (host clock: the launch, on the
+    card), stall counters and a tick histogram, labeled with
+    ``metrics_labels``.  All only observe -- per-batch results are
+    identical with or without them.
     """
     driver = StagePipelineDriver(
         stage_fns, stage_fn=stage_fn, depths=depths, reduce_fn=reduce_fn,
-        defer_sync=defer_sync, tracer=tracer, monitor=monitor,
+        defer_sync=defer_sync, place_fns=place_fns, tracer=tracer,
+        monitor=monitor,
         stage_names=stage_names, metrics=metrics,
         metrics_labels=metrics_labels, device=device,
     )
@@ -491,10 +650,12 @@ class StagePipelineDriver:
     surfaces) is never captured.  The default (``False``) propagates
     everything, exactly like the batch driver.
 
+    ``place_fns`` is :func:`run_stage_pipelined`'s multi-device hook;
     ``tracer``, ``monitor``, ``stage_names``, ``metrics`` and
-    ``metrics_labels`` are :func:`run_stage_pipelined`'s observers;
-    ``device`` is where the stages run (CUDA event timing of traced
-    spans on a card).
+    ``metrics_labels`` are its observers; ``device`` is where the stages
+    run, one device or the pool's slots (CUDA event timing of traced
+    spans on one card; every card of the pool is synchronised after a
+    captured failure).
     """
 
     def __init__(
@@ -505,6 +666,8 @@ class StagePipelineDriver:
         depths: Union[int, Sequence[int]] = 1,
         reduce_fn: Optional[Callable[[Any], Any]] = None,
         defer_sync: Optional[bool] = None,
+        place_fns: Optional[Sequence[Optional[Callable[[Any, Any],
+                                                       Any]]]] = None,
         tracer=None,
         monitor=None,
         stage_names: Optional[Sequence[str]] = None,
@@ -517,6 +680,10 @@ class StagePipelineDriver:
         n_stages = len(stage_fns)
         if n_stages == 0:
             raise ValueError("need at least one stage")
+        if place_fns is not None and len(place_fns) != n_stages:
+            raise ValueError(
+                f"need {n_stages} place fns, got {len(place_fns)}"
+            )
         if isinstance(depths, int):
             depths = [depths] * n_stages
         else:
@@ -546,16 +713,19 @@ class StagePipelineDriver:
         self.skews = stage_skews(depths)
         self.reduce_fn = reduce_fn
         self.defer_sync = defer_sync
+        self.place_fns = place_fns
         self.tracer = tracer
         self.monitor = monitor
         self.names = names
         self.capture_errors = capture_errors
-        self.device = torch.device(device) if device is not None else None
-        self._clock = _device_clock(tracer, self.device)
+        #: where the stages run: one device or the pool's slots
+        self.device = device
+        self._clock = _device_clock(tracer, device)
         # -- always-on metrics (duck-typed like the tracer: this module
         # never imports repro_torch.metrics; a falsy registry -- None or
         # NULL_REGISTRY -- costs one check here and nothing per tick) ----
         self._m_tick = self._m_dispatch = self._m_stall = None
+        self._m_handoff = None
         if metrics:
             lab = dict(metrics_labels or {})
             self._m_tick = metrics.histogram(
@@ -568,13 +738,13 @@ class StagePipelineDriver:
                     stage=nm, **lab)
                 for nm in names
             ]
-            # the reference's reshard-handoff series, kept so the two
-            # packages expose the same series; one device never reshards
-            for nm in names:
+            self._m_handoff = [
                 metrics.histogram(
                     "pipeline_stage_handoff_seconds",
                     "Cross-group reshard of the HBM-resident handoff.",
                     stage=nm, **lab)
+                for nm in names
+            ]
             self._m_stall = [
                 {
                     reason: metrics.counter(
@@ -651,8 +821,9 @@ class StagePipelineDriver:
         reports no fault (a sticky fault raises from the synchronise)."""
         if not self.capture_errors:
             return False
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in _physical(self.device):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return True
 
     # -- the tick ------------------------------------------------------------
@@ -714,37 +885,63 @@ class StagePipelineDriver:
     def _dispatch(self, i: int, fn, rec: List[Any], k: int, t: int) -> None:
         """Stage ``i`` of batch ``k``: ``rec[1]`` becomes its carry (or a
         :class:`_Poison` with the failure under ``capture_errors``)."""
+        place = self.place_fns[i] if self.place_fns is not None else None
         tracer = self.tracer
         if not tracer:
             try:
+                if place is not None:
+                    self._place(i, place, rec)
                 rec[1] = fn(rec[0], rec[1])
             except Exception as e:
                 if not self._keeps():
                     raise
                 rec[1] = _Poison(e)
             return
+        clock = self._clock
         slot = tracer.begin(f"b{k}", _CAT_SLOT, 1 + i, stage=i, batch=k,
                             tick=t)
-        start = None
-        if self._clock is not None:
+        start = mid = None
+        if clock is not None:
             if isinstance(rec[0], Staged):
                 # the stream waits for the batch's host copy before the
                 # start event: a span holds the stage's own device work
-                rec[0].arrays()
-            start = self._clock.mark()
-        disp = tracer.begin(self.names[i], _CAT_DISPATCH, 1 + i, stage=i,
-                            batch=k)
+                rec[0].shards()
+            start = mid = clock.mark()
+        disp = None
         try:
+            if place is not None:
+                hand = tracer.begin(f"reshard b{k}", _CAT_HANDOFF, 1 + i,
+                                    stage=i, batch=k)
+                try:
+                    self._place(i, place, rec)
+                finally:
+                    tracer.end(hand)
+                    if clock is not None:
+                        mid = clock.mark()
+                        clock.interval(k, start, mid, (hand,))
+            disp = tracer.begin(self.names[i], _CAT_DISPATCH, 1 + i,
+                                stage=i, batch=k)
             rec[1] = fn(rec[0], rec[1])
         except Exception as e:
             if not self._keeps():
                 raise
             rec[1] = _Poison(e)
         finally:
-            tracer.end(disp)
-            if self._clock is not None:
-                self._clock.close(k, start, (slot, disp))
+            end = clock.mark() if clock is not None else None
+            if disp is not None:
+                tracer.end(disp)
+                if clock is not None:
+                    clock.interval(k, mid, end, (disp,))
+            if clock is not None:
+                clock.interval(k, start, end, (slot,))
             tracer.end(slot)
+
+    def _place(self, i: int, place, rec: List[Any]) -> None:
+        """Run stage ``i``'s place fn on the batch record, metered."""
+        t0 = time.perf_counter() if self._m_handoff is not None else 0.0
+        rec[0], rec[1] = place(rec[0], rec[1])
+        if self._m_handoff is not None:
+            self._m_handoff[i].observe(time.perf_counter() - t0)
 
     # -- retire / sync -------------------------------------------------------
     def _retire(self, carry: Any, k: int) -> None:

@@ -9,9 +9,10 @@ mixed element counts, drains, and reports cache/coalescing/latency
 stats.  ``--smoke`` additionally re-serves every request one at a time
 through a second engine and fails loudly unless the coalesced outputs
 are bitwise-identical to the per-request serial runs -- the CI gate.
-``--device`` is where the waves run: the CUDA card (``cuda``, the
-default; exit 2 without one) or the host (``cpu``, whose kernel stages
-run their plain PyTorch versions).
+``--device`` is where the waves run: the CUDA cards (``cuda``, the
+default; each wave is sharded over every visible card, as the
+reference's over ``jax.devices()``; exit 2 without one) or the host
+(``cpu``, whose kernel stages run their plain PyTorch versions).
 """
 from __future__ import annotations
 
@@ -180,10 +181,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     )
 
     latency = RequestLatency()
+    # the pool: every visible card, or one host slot
+    pool_device = "cpu" if args.device == "cpu" else None
     engine = ServeEngine(
         system, window=args.window, max_wait_s=args.max_wait_s,
         tracer=tracer, latency=latency, seed=args.seed,
-        metrics=metrics, slo=slo, device=args.device,
+        metrics=metrics, slo=slo, device=pool_device,
     )
     request_inputs = _synth_requests(engine, args.requests, args.seed)
     served = [engine.submit(inp) for inp in request_inputs]
@@ -219,7 +222,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     ok = True
     if args.smoke:
-        serial = ServeEngine(system, seed=args.seed, device=args.device)
+        serial = ServeEngine(system, seed=args.seed, device=pool_device)
         mismatches = 0
         for r, inp in zip(served, request_inputs):
             ref = serial.submit(inp)

@@ -31,14 +31,17 @@ propagate out of :meth:`ServeEngine.submit`, :meth:`~ServeEngine.poll`
 or :meth:`~ServeEngine.drain`: it ends the run loudly instead of marking
 one wave.  A process that must keep serving restarts.
 
-Execution is ``cfd.simulation.run_chain``'s on one device (the CUDA
-card unless ``device="cpu"``): the shared operands are put on the device
-once, each wave's element rows go through the pinned
-:class:`~repro_torch.memory.pipeline.HostStager` ring, the stages run
-the chain's kernels, and each wave's outputs come back whole and are
-sliced per request.  The kernels and the plain stages compute every
-element alone, in a fixed order, so engine outputs are bitwise-identical
-to per-request serial runs of the same system.
+Execution is ``cfd.simulation.run_chain``'s over one group: the device
+pool (``devices=``; every visible card by default, ``device`` the
+one-slot shorthand, ``"cpu"`` for the host), as the reference serves
+over its whole element mesh.  The shared operands are put once on each
+distinct device, each wave's element rows are sharded over the pool's
+slots through the pinned :class:`~repro_torch.memory.pipeline.HostStager`
+ring (one ring a card), every stage runs the chain's kernels on each
+shard, and each wave's outputs are joined in slot order on the first
+slot's device, come back whole and are sliced per request.  The kernels and the plain stages
+compute every element alone, in a fixed order, so engine outputs are
+bitwise-identical to per-request serial runs of the same system.
 """
 from __future__ import annotations
 
@@ -49,9 +52,18 @@ import numpy as np
 import torch
 
 from ..memory import chain as memchain
-from ..memory.channels import resolve_device
+from ..memory.channels import resolve_devices
 from ..memory.pipeline import HostStager, StagePipelineDriver
 from .queue import AdmissionQueue, ServeRequest, Wave
+
+
+def _join(shards):
+    """A wave's output shards as one tensor on the first slot's device
+    (the shard itself for one slot): the join runs on the card, so one
+    copy brings the wave back, as on one slot."""
+    if len(shards) == 1:
+        return shards[0]
+    return torch.cat([s.to(shards[0].device) for s in shards])
 
 
 class Backpressure(RuntimeError):
@@ -90,7 +102,9 @@ class ServeEngine:
     and the serving counters; ``monitor``/``latency`` observe retire
     cadence and request latency.  ``seed`` fixes the synthesized
     batch-invariant shared operands (pass ``shared`` to pin them).
-    ``device`` is where the waves run: the CUDA card unless ``"cpu"``.
+    ``devices`` is the pool each wave is element-sharded over (every
+    visible card by default; the plan's E must shard evenly over it);
+    ``device`` is the one-slot shorthand (``"cpu"`` for the host).
 
     ``metrics`` (a :class:`repro_torch.metrics.MetricsRegistry`; None or
     :data:`~repro_torch.metrics.NULL_REGISTRY` = off) turns on the always-on
@@ -108,12 +122,14 @@ class ServeEngine:
                  tracer=None, monitor=None, latency=None, seed: int = 0,
                  shared: Optional[Dict[str, np.ndarray]] = None,
                  clock=time.monotonic, metrics=None, slo=None,
-                 device=None) -> None:
+                 devices=None, device=None) -> None:
         # lazy: cfd builds on flow
-        from ..cfd.simulation import _shared_host, chain_stage_fns
+        from ..cfd.simulation import _shared_host, chain_stage_fns, replicate
 
         self.system = system
-        self.device = dev = resolve_device(device)
+        #: the slots each wave is sharded over, and the first one's device
+        self.devices = pool = resolve_devices(devices, device)
+        self.device = pool[0]
         chain: memchain.ProgramChain = system.chain
         plan: memchain.ChainPlan = system.plan
         self.chain = chain
@@ -210,16 +226,11 @@ class ServeEngine:
             for n, _ in chain.chain_outputs(i)
         ]
 
-        # -- the execution substrate: run_chain's, on one device ----------
+        # -- the execution substrate: run_chain's, one group over the pool -
         self.shared_host: Dict[str, np.ndarray] = _shared_host(
             chain, seed, shared)
-        shared_dev: Dict[str, torch.Tensor] = {}
-        for name, h in self.shared_host.items():
-            t = torch.from_numpy(np.ascontiguousarray(h))
-            if dev.type == "cuda":
-                t = t.pin_memory()
-            shared_dev[name] = t.to(dev, non_blocking=True)
-        stager = HostStager(dev, slots=depths[0] + 1)
+        shared_dev = replicate(self.shared_host, pool)
+        stager = HostStager(pool, slots=depths[0] + 1)
 
         def stage_batch(batch):
             if tracer:
@@ -239,17 +250,18 @@ class ServeEngine:
 
         out_names = self.out_names
         self.driver = StagePipelineDriver(
-            chain_stage_fns(chain, plan, shared_dev),
+            chain_stage_fns(chain, plan, shared_dev,
+                            [pool] * len(chain.stages)),
             stage_fn=stage_batch,
             depths=depths,
-            reduce_fn=lambda live: {q: live[q] for q in out_names},
+            reduce_fn=lambda live: {q: _join(live[q]) for q in out_names},
             tracer=tracer,
             monitor=monitor,
             stage_names=[s.name for s in chain.stages],
             capture_errors=True,
             metrics=metrics,
             metrics_labels={"plan": plan.signature[:12]},
-            device=dev,
+            device=pool,
         )
 
         self.queue = AdmissionQueue(E, max_wait_s=max_wait_s, clock=clock,

@@ -14,6 +14,7 @@ through.
 import dataclasses
 import re
 
+import numpy as np
 import pytest
 
 from repro import flow as r_flow
@@ -24,6 +25,7 @@ from repro.memory import layout as r_layout
 from repro.memory.placement import DeviceTopology as RTopology
 from repro_torch import flow as t_flow
 from repro_torch.cfd import operators as t_operators
+from repro_torch.cfd import simulation as t_simulation
 from repro_torch.flow import patterns as t_patterns
 from repro_torch.memory import chain as t_chain
 from repro_torch.memory import channels as t_channels
@@ -214,6 +216,32 @@ def test_measure_chain_plan_runs_the_plan_or_says_why_not():
     assert t_dse.measure_chain_plan(chain, other, device="cpu") is None
 
 
+def test_measure_chain_plan_times_a_placement_on_a_two_slot_pool():
+    """The two-device placement of the test above (at an E that shards
+    over its group) on two host slots: a time, not None, bitwise the
+    serial one-slot outputs; an E its group does not divide gives None,
+    as the reference's raising run does."""
+    chain = t_operators.build_cfd_chain(5, backends="pallas", device="cpu")
+    t = t_channels.CPU_HOST
+    wide = t_chain.plan_chain(chain, target=t, batch_elements=48, n_eq=96,
+                              cu_count=(1, 2, 1))
+    got = t_dse.measure_chain_plan(chain, wide, max_batches=2,
+                                   devices=["cpu", "cpu"])
+    assert got is not None and got > 0
+    placed = t_simulation.run_chain(chain, wide, collect_outputs=True,
+                                    devices=["cpu", "cpu"])
+    assert placed.placement_groups == ((0,), (1, 0), (1,))
+    with pytest.warns(RuntimeWarning, match="are local"):
+        one = t_simulation.run_chain(chain, wide, collect_outputs=True,
+                                     device="cpu", pipeline_stages=False)
+    for q, v in one.outputs.items():
+        assert np.array_equal(v, placed.outputs[q]), q
+    odd = t_chain.plan_chain(chain, target=t, batch_elements=45, n_eq=90,
+                             cu_count=(1, 2, 1))
+    assert t_dse.measure_chain_plan(chain, odd,
+                                    devices=["cpu", "cpu"]) is None
+
+
 def test_measure_chain_plan_skips_another_policy():
     """run_chain runs the compiled policy, so a plan at another policy is
     not measured: in a two-policy sweep only float32 candidates (the
@@ -286,16 +314,22 @@ def test_explore_chain_measures_and_calibrates_on_the_cpu():
 
 
 def test_measure_plan_refuses_more_than_one_cu(monkeypatch):
-    """run_simulation runs on one card, so a plan replicating CUs is not
-    measured, however many cards the machine has."""
+    """A one-slot pool (``device=``) cannot replicate two CUs, however
+    many cards the machine has, so such a plan is not measured there;
+    a two-slot pool runs it (run_simulation shards each batch over the
+    pool, as the reference over its element mesh)."""
     import torch
 
     plan = t_dse.make_plan(5, target=t_channels.CPU_HOST, batch_elements=8,
                            n_eq=16, cu_count=2)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    for device in ("cpu", "cuda", None):
+    for device in ("cpu", "cuda"):
         assert t_dse.measure_plan(plan, 5, max_batches=1,
                                   device=device) is None
+    assert t_dse.measure_plan(plan, 5, max_batches=1,
+                              devices=["cpu"]) is None
+    got = t_dse.measure_plan(plan, 5, max_batches=1, devices=["cpu", "cpu"])
+    assert got is not None and got > 0
 
 
 # ---------------------------------------------------------------------------

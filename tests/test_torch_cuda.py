@@ -27,6 +27,10 @@ boundary) + 1e-4 max|plain| (their float32 difference near zero) + the
 plain version's p bound, 2^-8 sum_j p_j |v_j| / l, on the wgmma route:
 it rounds p to bfloat16 for the PV product, and scores summed in another
 float32 order can round a p to the other bfloat16 neighbour.
+Placement: a chain placed over the pool [cuda:0, cuda:0] gives the
+one-slot run's bits, each kernel launched once a shard; with two cards
+the kernels launch on their tensors' card and the chain over [cuda:0,
+cuda:1] gives the same bits (skipped with one card).
 """
 import pytest
 import torch
@@ -1081,3 +1085,120 @@ def test_engine_stage_error_poisons_only_its_wave_on_the_card(cuda):
         serial.drain()
         for q in eng.out_names:
             assert np.array_equal(served[i].outputs[q], one.outputs[q])
+
+
+# ---------------------------------------------------------------------------
+# element-axis placement over a device pool
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def two_cards():
+    """Two CUDA cards, or a skip where there are fewer."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _placed_plan(chain, e, n):
+    from repro_torch.memory import chain as mchain
+    from repro_torch.memory.channels import H100_SXM
+    from repro_torch.memory.placement import DeviceTopology
+
+    return mchain.plan_chain(chain, target=H100_SXM, batch_elements=e,
+                             n_eq=n * e, prefetch_depth=1,
+                             cu_count=(1, 2, 1),
+                             topology=DeviceTopology.homogeneous(2))
+
+
+@pytest.mark.cuda
+def test_two_slot_chain_on_one_card_is_bitwise_one_slot(cuda):
+    """A placement over the pool [cuda:0, cuda:0] (grad sharded over both
+    slots, each handoff re-sharded) gives the one-slot serial run's bits,
+    launches each kernel once a shard, and traces its handoffs in device
+    time."""
+    import numpy as np
+
+    from repro_torch import trace
+    from repro_torch.memory import chain as mchain
+    from repro_torch.memory.channels import H100_SXM
+
+    chain, _, inputs = _card_chain(cuda)
+    e, n = 64, 3
+    plan = _placed_plan(chain, e, n)
+    base = mchain.plan_chain(chain, target=H100_SXM, batch_elements=e,
+                             n_eq=n * e, prefetch_depth=0)
+    want = t_simulation.run_chain(chain, base, inputs=inputs,
+                                  collect_outputs=True, devices=[cuda],
+                                  pipeline_stages=False).outputs
+    t_gemm.gemm_chain.launches = t_hh.inverse_helmholtz.launches = 0
+    tracer = trace.Tracer()
+    got = t_simulation.run_chain(chain, plan, inputs=inputs,
+                                 collect_outputs=True, devices=[cuda, cuda],
+                                 tracer=tracer)
+    torch.cuda.synchronize()
+    assert got.placement_groups == ((0,), (1, 0), (1,))
+    assert (t_gemm.gemm_chain.launches, t_hh.inverse_helmholtz.launches) == (
+        3 * n, n)
+    for q in want:
+        assert np.array_equal(got.outputs[q], want[q]), q
+    assert trace.validate(trace.to_chrome(tracer)) == []
+    hand = [s for s in tracer.spans if s.cat == "handoff"]
+    assert len(hand) == 2 * n and all("host_s" in s.args for s in hand)
+
+
+@pytest.mark.cuda
+def test_launch_guard_yields_the_current_stream(cuda):
+    """Inside a side stream's context a launch takes that stream, on the
+    tensors' card."""
+    from repro_torch.kernels import _cuda
+
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        with _cuda.launch_on(cuda) as handle:
+            assert handle.value == side.cuda_stream
+            assert torch.cuda.current_device() == cuda.index
+
+
+@pytest.mark.cuda
+def test_device_guard_launches_on_the_tensors_card(two_cards):
+    """With cuda:0 current, the CFD kernels on tensors of cuda:1 launch
+    there (their grids sized by that card, its stream) and equal the
+    plain version; the current device is left as it was.  The chain over
+    the pool [cuda:0, cuda:1] gives the one-card run's bits."""
+    import numpy as np
+
+    from repro_torch.memory import chain as mchain
+    from repro_torch.memory.channels import H100_SXM
+
+    c0, c1 = two_cards
+    torch.cuda.set_device(c0)
+    p, e = 11, 96
+    gen = torch.Generator().manual_seed(5)
+    S, D, u = (torch.rand(sh, generator=gen) * 2 - 1
+               for sh in ((p, p), (e, p, p, p), (e, p, p, p)))
+    want = t_hh.inverse_helmholtz_plain(S, D, u)
+    got = t_hh.inverse_helmholtz(S.to(c1), D.to(c1), u.to(c1))
+    assert got.device == c1 and torch.cuda.current_device() == c0.index
+    torch.testing.assert_close(got.cpu(), want, rtol=5e-4,
+                               atol=5e-4 * want.abs().max().item())
+    rec = gemm_recipes(t_gemm, p)["interp"]
+    env = {"A": S, "u": u}
+    plain = t_gemm.gemm_chain_plain(rec, env)
+    on1 = t_gemm.gemm_chain(rec, {k: v.to(c1) for k, v in env.items()})
+    assert on1["w"].device == c1
+    torch.testing.assert_close(on1["w"].cpu(), plain["w"], rtol=5e-4,
+                               atol=5e-4 * plain["w"].abs().max().item())
+
+    chain, _, inputs = _card_chain(c0)
+    plan = _placed_plan(chain, 64, 3)
+    base = mchain.plan_chain(chain, target=H100_SXM, batch_elements=64,
+                             n_eq=192, prefetch_depth=0)
+    want = t_simulation.run_chain(chain, base, inputs=inputs,
+                                  collect_outputs=True, devices=[c0],
+                                  pipeline_stages=False).outputs
+    got = t_simulation.run_chain(chain, plan, inputs=inputs,
+                                 collect_outputs=True, devices=[c0, c1])
+    assert got.placement_groups == ((0,), (1, 0), (1,))
+    for q in want:
+        assert np.array_equal(got.outputs[q], want[q]), q

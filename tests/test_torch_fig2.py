@@ -2,6 +2,8 @@
 CPU: the single-operator builders on every backend, the staged backend's
 stage callables, ``run_simulation`` over the same numpy streams, and the
 single-operator design-space sweep with its measured cost correction."""
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -238,6 +240,21 @@ def test_run_simulation_needs_the_card_unless_cpu_is_asked():
     assert res.batches == 1
 
 
+def test_run_simulation_runs_two_cus_on_a_two_slot_pool():
+    """The plan of the test above on a pool of two host slots: no
+    warning, each batch sharded over both, the checksum the one slot's
+    within the per-shard summation order."""
+    cfg = t_simulation.SimConfig(p=3, n_eq=8, batch_elements=8)
+    plan = t_simulation.plan_config(cfg, target=t_channels.CPU_HOST, cu_count=2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        res = t_simulation.run_simulation(cfg, plan=plan,
+                                          devices=["cpu", "cpu"])
+    assert res.batches == 1 and res.devices == ("cpu", "cpu")
+    base = t_simulation.run_simulation(cfg, device="cpu")
+    assert res.checksum == pytest.approx(base.checksum, rel=1e-4)
+
+
 def test_pallas_path_launches_the_kernel_wrapper(monkeypatch):
     """On CPU tensors the pallas backend runs the kernel's plain version
     through the kernel's wrapper: at the plan's block on the H100, whose
@@ -362,3 +379,19 @@ def test_measure_plan_propagates_errors(monkeypatch):
                       space=t_dse.DesignSpace(backends=("pallas",),
                                               policies=("float32",)),
                       measure_top=1, measure_batches=1)
+
+
+def test_measure_plan_times_two_cus_on_a_two_slot_pool(monkeypatch):
+    """The wide plan of test_measure_plan_propagates_errors on two host
+    slots: a time, not None; the kernel's error still propagates there."""
+    wide = t_dse.make_plan(5, target=t_channels.CPU_HOST, batch_elements=16,
+                           cu_count=2, backend="pallas")
+    got = t_dse.measure_plan(wide, 5, max_batches=1, devices=["cpu", "cpu"])
+    assert got is not None and got > 0
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("helmholtz: kernel launch failed")
+
+    monkeypatch.setattr(t_hh, "inverse_helmholtz_plain", broken)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        t_dse.measure_plan(wide, 5, max_batches=1, devices=["cpu", "cpu"])
