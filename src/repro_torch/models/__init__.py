@@ -1,13 +1,13 @@
-"""Model zoo of the port: the decoder families ``dense`` and ``vlm``
-(``transformer``), their ``layers``, the ``api`` facade, and ``convert``
-for params made by the reference."""
-from . import api, config, convert, layers, transformer
+"""Model zoo of the port: the decoder families ``dense``, ``moe`` and
+``vlm`` (``transformer``, with the MoE FFN in ``moe``), their ``layers``,
+the ``api`` facade, and ``convert`` for params made by the reference."""
+from . import api, config, convert, layers, moe, transformer
 from .api import Model, build_model
 from .config import MambaConfig, ModelConfig, MoEConfig, XLSTMConfig
 from .convert import params_from_jax
 
 __all__ = [
-    "api", "config", "convert", "layers", "transformer", "Model",
+    "api", "config", "convert", "layers", "moe", "transformer", "Model",
     "build_model", "params_from_jax", "MambaConfig", "ModelConfig",
     "MoEConfig", "XLSTMConfig",
 ]

@@ -1,7 +1,7 @@
 """Unified model facade: ``build_model(cfg)`` -> :class:`Model` with init /
 forward / prefill / decode, dispatching on the architecture family.
 
-This slice ports the decoder families ``dense`` and ``vlm``.  The model
+The decoder families ``dense``, ``moe`` and ``vlm`` are ported.  The model
 runs on ``device`` (default: the CUDA card; ``device="cpu"`` for the
 plain paths); ``init`` draws params from an explicit ``torch.Generator``
 on that device, and inputs are moved to it.
@@ -21,7 +21,6 @@ Params = Dict[str, Any]
 
 #: families of the reference not ported yet, and their ROADMAP item
 NOT_PORTED = {
-    "moe": "ROADMAP queue 1, item 10 (MoE)",
     "hybrid_jamba": "ROADMAP queue 1, item 11 (hybrid and SSM)",
     "ssm_xlstm": "ROADMAP queue 1, item 11 (hybrid and SSM)",
     "encdec": "ROADMAP queue 1, item 12 (encoder-decoder)",
@@ -55,25 +54,30 @@ def build_model(cfg: ModelConfig, *, attn_impl: str = "auto",
         raise NotImplementedError(
             f"model family {fam!r} is not ported yet: {NOT_PORTED[fam]}"
         )
-    if fam not in ("dense", "vlm"):
+    if fam not in ("dense", "moe", "vlm"):
         raise ValueError(f"unknown family {fam!r}")
     dev = resolve_device(device)
 
     def tokens_of(batch):
         return torch.as_tensor(batch["tokens"], device=dev)
 
-    def fwd(params, batch):
+    # moe_capacity: the global slots per expert of every MoE block in the
+    # call (default: from the call's token count); dense blocks ignore it
+    def fwd(params, batch, moe_capacity=None):
         return transformer.decoder_forward(
-            params, tokens_of(batch), cfg, attn_impl=attn_impl)
+            params, tokens_of(batch), cfg, attn_impl=attn_impl,
+            moe_capacity=moe_capacity)
 
-    def prefill(params, batch, cache):
-        return transformer.decoder_prefill(params, tokens_of(batch), cache, cfg)
+    def prefill(params, batch, cache, moe_capacity=None):
+        return transformer.decoder_prefill(
+            params, tokens_of(batch), cache, cfg, moe_capacity=moe_capacity)
 
-    def decode(params, token, cache, cache_index):
+    def decode(params, token, cache, cache_index, moe_capacity=None):
         if isinstance(cache_index, torch.Tensor):
             cache_index = cache_index.to(dev)
         return transformer.decoder_decode_step(
-            params, torch.as_tensor(token, device=dev), cache, cache_index, cfg)
+            params, torch.as_tensor(token, device=dev), cache, cache_index,
+            cfg, moe_capacity=moe_capacity)
 
     return Model(
         cfg=cfg,

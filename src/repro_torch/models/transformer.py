@@ -1,10 +1,10 @@
-"""Decoder-only transformer (dense / VLM families).
+"""Decoder-only transformer (dense / MoE / VLM families).
 
 Block params are stacked along a leading ``n_layers`` axis, as the
 reference stacks them with ``jax.vmap``; :func:`_scan_blocks` is a Python
 loop over the layers in place of ``lax.scan``.  The encoder-decoder
 (whisper) and xLSTM stacks of the reference's module are not ported yet
-(ROADMAP queue 1, items 11 and 12), nor is the MoE FFN (item 10).
+(ROADMAP queue 1, items 11 and 12).
 
 ``cfg.remat`` matters only to training (it wraps the reference's scan
 body in ``jax.checkpoint``); these forward passes ignore it.
@@ -16,29 +16,29 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from . import layers
+from . import layers, moe as moe_mod
 from .config import ModelConfig
 
 Params = Dict[str, Any]
 
 
 # =============================================================================
-# Uniform decoder block (dense FFN)
+# Uniform decoder block (dense or MoE FFN)
 # =============================================================================
 
 def block_init(gen, cfg: ModelConfig, dtype, *, lead: Tuple[int, ...] = (),
                device=None) -> Params:
-    if cfg.family == "moe" or (cfg.moe is not None and cfg.moe.layout == "all"):
-        raise NotImplementedError(
-            "MoE FFN blocks are not ported yet (ROADMAP queue 1, item 10)"
-        )
     kw = dict(lead=lead, device=device)
-    return {
+    p = {
         "ln1": layers.norm_init(cfg.d_model, cfg.norm, dtype, **kw),
         "attn": layers.attention_init(gen, cfg, dtype, **kw),
         "ln2": layers.norm_init(cfg.d_model, cfg.norm, dtype, **kw),
-        "mlp": layers.mlp_init(gen, cfg, dtype, **kw),
     }
+    if cfg.family == "moe" or (cfg.moe is not None and cfg.moe.layout == "all"):
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype, **kw)
+    else:
+        p["mlp"] = layers.mlp_init(gen, cfg, dtype, **kw)
+    return p
 
 
 def block_apply(
@@ -50,6 +50,7 @@ def block_apply(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_index=None,
     attn_impl: str = "auto",
+    moe_capacity: Optional[int] = None,
 ):
     h = layers.norm_apply(p["ln1"], x, cfg.norm, cfg.norm_eps)
     a, new_cache = layers.attention_apply(
@@ -58,11 +59,15 @@ def block_apply(
     )
     x = x + a
     h = layers.norm_apply(p["ln2"], x, cfg.norm, cfg.norm_eps)
-    return x + layers.mlp_apply(p["mlp"], h, cfg), new_cache
+    if "moe" in p:
+        f = moe_mod.moe_apply(p["moe"], h, cfg, capacity=moe_capacity)
+    else:
+        f = layers.mlp_apply(p["mlp"], h, cfg)
+    return x + f, new_cache
 
 
 # =============================================================================
-# Decoder-only model (dense | vlm)
+# Decoder-only model (dense | moe | vlm)
 # =============================================================================
 
 def decoder_init(cfg: ModelConfig, generator: Optional[torch.Generator], *,
@@ -92,7 +97,7 @@ def _layer(tree, i: int):
 
 
 def _scan_blocks(params_blocks, x, cfg, *, positions, attn_impl,
-                 caches=None, cache_index=None):
+                 moe_capacity=None, caches=None, cache_index=None):
     """The blocks in order over stacked params (and stacked caches, which
     are written in place, if serving)."""
     for i in range(cfg.n_layers):
@@ -100,6 +105,7 @@ def _scan_blocks(params_blocks, x, cfg, *, positions, attn_impl,
             _layer(params_blocks, i), x, cfg, positions=positions,
             cache=None if caches is None else _layer(caches, i),
             cache_index=cache_index, attn_impl=attn_impl,
+            moe_capacity=moe_capacity,
         )
     return x, caches
 
@@ -114,6 +120,7 @@ def decoder_forward(
     cfg: ModelConfig,
     *,
     attn_impl: str = "auto",
+    moe_capacity: Optional[int] = None,
 ) -> torch.Tensor:
     """float32 logits (B, T, V); cache-less, so every layer's attention
     goes through the flash kernel on the card."""
@@ -121,7 +128,7 @@ def decoder_forward(
     x = layers.embed_apply(params["embed"], tokens, cfg)
     x, _ = _scan_blocks(
         params["blocks"], x, cfg, positions=_positions(B, T, x.device),
-        attn_impl=attn_impl,
+        attn_impl=attn_impl, moe_capacity=moe_capacity,
     )
     x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
     return layers.unembed_apply(params["embed"], params.get("head"), x, cfg)
@@ -142,13 +149,15 @@ def decoder_prefill(
     cfg: ModelConfig,
     *,
     attn_impl: str = "auto",
+    moe_capacity: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Params]:
     """Run the prompt; returns (last-position logits, filled cache)."""
     B, T = tokens.shape
     x = layers.embed_apply(params["embed"], tokens, cfg)
     x, new_caches = _scan_blocks(
         params["blocks"], x, cfg, positions=_positions(B, T, x.device),
-        attn_impl=attn_impl, caches=cache, cache_index=0,
+        attn_impl=attn_impl, moe_capacity=moe_capacity, caches=cache,
+        cache_index=0,
     )
     x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
     logits = layers.unembed_apply(
@@ -163,6 +172,8 @@ def decoder_decode_step(
     cache: Params,
     cache_index,                       # int / 0-d: write position; (B,): per slot
     cfg: ModelConfig,
+    *,
+    moe_capacity: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Params]:
     B = token.shape[0]
     x = layers.embed_apply(params["embed"], token[:, None], cfg)
@@ -172,7 +183,7 @@ def decoder_decode_step(
         positions = torch.full((B, 1), int(cache_index), device=x.device)
     x, new_caches = _scan_blocks(
         params["blocks"], x, cfg, positions=positions, attn_impl="xla",
-        caches=cache, cache_index=cache_index,
+        moe_capacity=moe_capacity, caches=cache, cache_index=cache_index,
     )
     x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
     logits = layers.unembed_apply(

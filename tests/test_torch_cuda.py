@@ -31,6 +31,10 @@ Placement: a chain placed over the pool [cuda:0, cuda:0] gives the
 one-slot run's bits, each kernel launched once a shard; with two cards
 the kernels launch on their tensors' card and the chain over [cuda:0,
 cuda:1] gives the same bits (skipped with one card).
+MoE: ``moe_apply`` on the card equals the CPU's within rtol 1e-5 and
+atol 1e-5 max|CPU| (float32 sums in another order; the scatter mode's
+atomic adds in none) with the same kept assignments, so the sort, search
+and gathers of the dispatch behave on CUDA as on the CPU.
 """
 import pytest
 import torch
@@ -1202,3 +1206,44 @@ def test_device_guard_launches_on_the_tensors_card(two_cards):
     assert got.placement_groups == ((0,), (1, 0), (1,))
     for q in want:
         assert np.array_equal(got.outputs[q], want[q]), q
+
+
+@pytest.mark.cuda
+def test_moe_apply_on_the_card_matches_the_cpu(cuda):
+    """olmoe's smoke config in float32, the same params and tokens on the
+    card and the CPU, a capacity that drops about half of the
+    assignments, 1 and 4 groups and both combine modes: the same kept
+    assignments and outputs within rtol 1e-5 / atol 1e-5 max|CPU|."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = configs.get_smoke("olmoe-1b-7b")
+    gen = torch.Generator().manual_seed(0)
+    p_cpu = moe.moe_init(gen, cfg, torch.float32)
+    p_dev = {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.to(cuda))
+             for k, v in p_cpu.items()}
+    x = torch.randn(4, 64, cfg.d_model, generator=gen)
+    capacity, made = 32, 4 * 64 * cfg.moe.top_k
+    saved = (moe._NUM_GROUPS, moe._EP_SPEC, moe.COMBINE_MODE)
+    tf32, torch.backends.cuda.matmul.allow_tf32 = (
+        torch.backends.cuda.matmul.allow_tf32, False)
+    try:
+        for groups in (1, 4):
+            moe.set_ep_sharding(None, (), num_groups=groups)
+            xt = x.reshape(groups, -1, cfg.d_model)
+            kept = moe._route(p_cpu, xt, cfg, capacity)[4]
+            kept_dev = moe._route(p_dev, xt.to(cuda), cfg, capacity)[4]
+            assert torch.equal(kept_dev.cpu(), kept)
+            assert 0.3 < kept.sum().item() / made < 0.8
+            for mode in ("gather", "scatter"):
+                moe.COMBINE_MODE = mode
+                want = moe.moe_apply(p_cpu, x, cfg, capacity=capacity)
+                got = moe.moe_apply(p_dev, x.to(cuda), cfg, capacity=capacity)
+                assert got.device == cuda
+                torch.testing.assert_close(
+                    got.cpu(), want, rtol=1e-5,
+                    atol=1e-5 * want.abs().max().item())
+    finally:
+        moe._NUM_GROUPS, moe._EP_SPEC, moe.COMBINE_MODE = saved
+        torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -2,10 +2,12 @@
 
 For the five dense and vlm smoke configs (internlm2, qwen2 with QKV bias,
 qwen3 with qk-norm and an explicit head dim, command-r-plus with
-layernorm and tied embeddings, chameleon), the reference initialises the
-params from a PRNG key, :func:`params_from_jax` carries them over, and
-both packages run the same seeded numpy tokens.  Everything is float32
-(the reference's bfloat16 einsums do not execute on this CPU).
+layernorm and tied embeddings, chameleon) and the two MoE ones (olmoe,
+64 experts cut to 8, top 2; dbrx with layernorm and GQA, 4 experts, top
+2), the reference initialises the params from a PRNG key,
+:func:`params_from_jax` carries them over, and both packages run the
+same seeded numpy tokens.  Everything is float32 (the reference's
+bfloat16 einsums do not execute on this CPU).
 
 Tolerance rtol = atol = 2e-4 on logits of order 1: both sides accumulate
 in float32 through two layers and the vocab projection, in another
@@ -28,7 +30,8 @@ from repro_torch.runtime import losses as t_losses
 from repro.runtime import losses as r_losses
 
 ARCHS = ["internlm2-1.8b", "qwen2-7b", "qwen3-14b", "command-r-plus-104b",
-         "chameleon-34b"]
+         "chameleon-34b", "olmoe-1b-7b", "dbrx-132b"]
+MOE_ARCHS = ["olmoe-1b-7b", "dbrx-132b"]
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
@@ -82,13 +85,16 @@ def test_forward_matches_reference(arch, impl, rng):
 def test_prefill_and_decode_match_reference(arch, rng):
     """Prefill, scalar decode steps, then one per-slot step with every
     sequence at its own position; logits within TOL of the reference and
-    of the port's own teacher-forced forward."""
+    of the port's own teacher-forced forward.  MoE capacity depends on a
+    call's token count, so the forward gets one slot per token (a
+    token's top-k experts are distinct: nothing drops), as prefill (its
+    B * P tokens fit the default 8 slots) and decode already have."""
     r_model, r_params, t_model, t_params = _pair(arch)
     cfg = t_model.cfg
     B, T, P = 2, 6, 4
     tokens = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
     tt = torch.from_numpy(tokens).long()
-    full = _np(t_model.forward(t_params, {"tokens": tt}))
+    full = _np(t_model.forward(t_params, {"tokens": tt}, moe_capacity=B * T))
 
     r_cache = r_model.init_cache(B, T + 4)
     t_cache = t_model.init_cache(B, T + 4)
@@ -168,8 +174,90 @@ def test_params_from_jax_rejects_mismatches():
         params_from_jax(cfg, bad, device="cpu")
 
 
+def test_params_from_jax_carries_the_moe_leaves():
+    """Every MoE leaf of the reference (``blocks/moe/router/w`` and the
+    three expert stacks, each with a leading layer axis) arrives with
+    its values; a missing ``w_down`` is named."""
+    for arch in MOE_ARCHS:
+        cfg = t_configs.get_smoke(arch)
+        good = jax.tree_util.tree_map(np.asarray, _reference_params(arch))
+        got = params_from_jax(cfg, good, device="cpu")["blocks"]
+        assert "mlp" not in got
+        L, E, d = cfg.n_layers, cfg.moe.n_experts, cfg.d_model
+        ff = cfg.moe.d_ff_expert
+        for path, shape in ((("router", "w"), (L, d, E)),
+                            (("w_gate",), (L, E, d, ff)),
+                            (("w_up",), (L, E, d, ff)),
+                            (("w_down",), (L, E, ff, d))):
+            t, r = got["moe"], good["blocks"]["moe"]
+            for key in path:
+                t, r = t[key], r[key]
+            assert tuple(t.shape) == shape, path
+            np.testing.assert_array_equal(t.numpy(), r)
+        bad = dict(good, blocks=dict(good["blocks"],
+                                     moe=dict(good["blocks"]["moe"])))
+        del bad["blocks"]["moe"]["w_down"]
+        with pytest.raises(ValueError, match="blocks/moe: keys"):
+            params_from_jax(cfg, bad, device="cpu")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_capacity_reaches_every_block(arch, rng, monkeypatch):
+    """``moe_capacity`` on forward, prefill and (scalar and per-slot)
+    decode reaches every layer's MoE block; where it forces drops
+    (forward and prefill at 8 slots for 2 x 32 tokens) the logits still
+    match the reference given the same capacity, and differ from the
+    default capacity's."""
+    r_model, r_params, t_model, t_params = _pair(arch)
+    cfg = t_model.cfg
+    L, B, T, cap = cfg.n_layers, 2, 32, 8
+    from repro_torch.models import moe as t_moe
+
+    seen, apply = [], t_moe.moe_apply          # each block's capacity
+
+    def spy(p, x, cfg, *, capacity=None):
+        seen.append(capacity)
+        return apply(p, x, cfg, capacity=capacity)
+
+    monkeypatch.setattr(t_moe, "moe_apply", spy)
+    tokens = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+    tt = torch.from_numpy(tokens).long()
+
+    want = np.asarray(r_model.forward(r_params, {"tokens": jnp.asarray(tokens)},
+                                      moe_capacity=cap))
+    got = _np(t_model.forward(t_params, {"tokens": tt}, moe_capacity=cap))
+    np.testing.assert_allclose(got, want, **TOL)
+    assert seen == [cap] * L
+    free = _np(t_model.forward(t_params, {"tokens": tt}, moe_capacity=B * T))
+    assert np.abs(free - got).max() > 1e-3        # the drops changed logits
+
+    r_cache, t_cache = r_model.init_cache(B, T + 2), t_model.init_cache(B, T + 2)
+    r_lg, r_cache = r_model.prefill(r_params, {"tokens": jnp.asarray(tokens)},
+                                    r_cache, moe_capacity=cap)
+    seen.clear()
+    t_lg, t_cache = t_model.prefill(t_params, {"tokens": tt}, t_cache,
+                                    moe_capacity=cap)
+    np.testing.assert_allclose(_np(t_lg), np.asarray(r_lg), **TOL)
+    assert seen == [cap] * L
+
+    tok = tokens[:, -1]
+    r_lg, r_cache = r_model.decode_step(r_params, jnp.asarray(tok), r_cache,
+                                        jnp.int32(T), moe_capacity=cap)
+    seen.clear()
+    t_lg, t_cache = t_model.decode_step(t_params, torch.from_numpy(tok).long(),
+                                        t_cache, T, moe_capacity=cap)
+    np.testing.assert_allclose(_np(t_lg), np.asarray(r_lg), **TOL)
+    idx = np.array([T + 1, T], np.int32)
+    r_lg, _ = r_model.decode_step(r_params, jnp.asarray(tok), r_cache,
+                                  jnp.asarray(idx), moe_capacity=cap)
+    t_lg, _ = t_model.decode_step(t_params, torch.from_numpy(tok).long(),
+                                  t_cache, torch.from_numpy(idx).long(),
+                                  moe_capacity=cap)
+    np.testing.assert_allclose(_np(t_lg), np.asarray(r_lg), **TOL)
+    assert seen == [cap] * (2 * L)
+
+
 @pytest.mark.parametrize("arch,item", [
-    ("olmoe-1b-7b", "item 10"), ("dbrx-132b", "item 10"),
     ("jamba-1.5-large-398b", "item 11"), ("xlstm-125m", "item 11"),
     ("whisper-tiny", "item 12"),
 ])
@@ -181,8 +269,9 @@ def test_build_model_raises_for_families_not_ported(arch, item):
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default is that card")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        build_model(t_configs.get_smoke("internlm2-1.8b"))
+    for arch in ("internlm2-1.8b", "olmoe-1b-7b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(t_configs.get_smoke(arch))
 
 
 def test_cache_layout_matches_reference():
