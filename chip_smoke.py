@@ -154,6 +154,23 @@ Phases (any failure exits non-zero, and no result line is printed):
      Logits are held by phase 5's bounds; where a router near-tie sent a
      position to other experts in the two runs, the max|diff| bound holds
      on the positions routed alike and the argmax bound on all;
+  R. the xLSTM: ``mlstm_apply``, ``mlstm_apply_chunked`` and
+     ``slstm_apply`` on the card against the CPU (xlstm-125m's smoke
+     config in float32, with and without a carried state: within rtol
+     1e-5 / atol 1e-5 max|CPU|); ``build_model(configs.get("xlstm-125m"))``
+     whole (12 layers: 9 mLSTM, 3 sLSTM; bfloat16, random weights from
+     generator seed 0) against the same code on the CPU on (2, 128)
+     tokens, at ``MLSTM_CHUNK`` None and 64; a scoring forward of (4,
+     4096) on the exact recurrent scan (at (4, 1024) if a timed (4, 256)
+     forward says (4, 4096) would take over 60 s) and one on chunks of 64,
+     their logits held against each other; the chunked forward profiled,
+     the recurrent loops' launches and kernel time a step (profiles at
+     8 and 16 steps, differenced) multiplied out, an sLSTM and a chunked
+     mLSTM layer timed alone; prefill of (4, 512) and 32 greedy decode
+     steps on the recurrent state against the teacher-forced forward,
+     prefill and one decode step profiled.  Logits by phase 5's bounds;
+     the path reaches no kernel of the port (counters zeroed just before
+     each forward, prefill and decode, all 0 just after);
   6. one JSON line describing every kernel (the flash row's launches
      are phase 5's and phase E's scoring forwards'), then the result line.
 
@@ -264,6 +281,23 @@ DBRX_ARCH, DBRX_LAYERS, DBRX_BATCH = "dbrx-132b", 2, 2
 #: order (the scatter mode's atomics in none)
 MOE_CHECK_SHAPE, MOE_CHECK_CAPACITY = (4, 64), 32
 MOE_CARD_RTOL = 1e-5
+#: phase R: xlstm-125m whole at its published widths; the chunked
+#: forward's chunk width (it divides SCORE_LEN and PROMPT_LEN)
+XLSTM_ARCH, XLSTM_CHUNK = "xlstm-125m", 64
+#: phase R: the recurrent forward runs at (4, SCORE_LEN) unless a timed
+#: (4, XLSTM_PROBE_LEN) forward, multiplied out, says it would take more
+#: than XLSTM_RECURRENT_LIMIT_S; then at (4, XLSTM_SHORT_LEN)
+XLSTM_PROBE_LEN, XLSTM_RECURRENT_LIMIT_S, XLSTM_SHORT_LEN = 256, 60.0, 1024
+#: phase R: the blocks on the card against the CPU (smoke config,
+#: float32, (2, XLSTM_CHECK_LEN) inputs, a state from a first (2, 64)
+#: call): rtol, and atol of that fraction of max|CPU| -- float32 sums and
+#: scans in another order; and the full-width model on the card against
+#: the same code on the CPU on (2, XLSTM_CHECK_LEN) tokens, by phase 5's
+#: logit bounds
+XLSTM_CARD_RTOL, XLSTM_CHECK_LEN = 1e-5, 128
+#: phase R: the step counts whose profiles are differenced for the
+#: launches and kernel time one step of a recurrent loop takes
+XLSTM_STEP_PROFILE = (8, 16)
 #: the flash-attention kernel of each route
 FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "fma": "src/repro_torch/csrc/flash_attention.cu"}
@@ -1865,24 +1899,353 @@ def phase_experts() -> dict:
     return stats
 
 
+def xlstm_card_vs_cpu() -> dict:
+    """``mlstm_apply``, ``mlstm_apply_chunked`` and ``slstm_apply`` on the
+    card against the CPU: xlstm-125m's smoke config in float32, the same
+    params and (2, XLSTM_CHECK_LEN) inputs on both, without a state and
+    with the state a first (2, 64) call on the CPU left; outputs and new
+    states within XLSTM_CARD_RTOL (rtol, and atol of that fraction of
+    max|CPU|)."""
+    import functools
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import ssm
+
+    cfg = configs.get_smoke(XLSTM_ARCH)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    applies = {"mlstm_apply": ssm.mlstm_apply,
+               "mlstm_apply_chunked": functools.partial(
+                   ssm.mlstm_apply_chunked, chunk=XLSTM_CHUNK),
+               "slstm_apply": ssm.slstm_apply}
+    out = {}
+    for name, apply in applies.items():
+        kind = "slstm" if name == "slstm_apply" else "mlstm"
+        init = ssm.slstm_init if kind == "slstm" else ssm.mlstm_init
+        p_cpu = init(gen, cfg, torch.float32)
+        p_dev = {k: {kk: vv.to(dev) for kk, vv in v.items()}
+                 for k, v in p_cpu.items()}
+        x = torch.randn(2, XLSTM_CHECK_LEN, cfg.d_model, generator=gen)
+        _, carried = apply(p_cpu, torch.randn(2, 64, cfg.d_model, generator=gen),
+                           cfg, state=ssm.xlstm_init_state(cfg, 2, kind))
+        for st in (None, carried):
+            what = f"{name} {'with' if st else 'without'} state"
+            want, want_st = apply(p_cpu, x, cfg, state=st)
+            got, got_st = apply(p_dev, x.to(dev), cfg, state=None if st is None
+                                else {k: v.to(dev) for k, v in st.items()})
+            err = compare(got.cpu(), want, XLSTM_CARD_RTOL, XLSTM_CARD_RTOL,
+                          what)
+            for k in (want_st or {}):
+                err = max(err, compare(got_st[k].cpu(), want_st[k],
+                                       XLSTM_CARD_RTOL, XLSTM_CARD_RTOL,
+                                       f"{what}: new state {k}"))
+            out[what] = err
+    print(f"xLSTM blocks on the card vs the CPU ({cfg.arch_id}, float32, "
+          f"(2, {XLSTM_CHECK_LEN}), chunk {XLSTM_CHUNK}; max|err| over the "
+          "output and new state): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in out.items()))
+    return out
+
+
+def per_step(fn_of_len, what: str) -> dict:
+    """What one step of a recurrent loop costs on the card: ``fn_of_len``
+    profiled at the two lengths of XLSTM_STEP_PROFILE, differenced --
+    kernels a step, their device time a step, and the rest (the
+    launches outside the loop, at the shorter length)."""
+    t0, t1 = XLSTM_STEP_PROFILE
+    fn_of_len(t0)  # warm-up
+
+    def totals(n):
+        kernels = profiled_kernels(lambda: fn_of_len(n))
+        return (sum(e.count for e in kernels),
+                sum(e.self_device_time_total for e in kernels) / 1e6)
+
+    (n0, d0), (n1, d1) = totals(t0), totals(t1)
+    if not n0 < n1:
+        fail(f"{what}: the profiler saw {n0} and {n1} kernels at T = {t0} "
+             f"and {t1}")
+    out = dict(launches_per_step=(n1 - n0) / (t1 - t0),
+               device_s_per_step=(d1 - d0) / (t1 - t0))
+    out["other_launches"] = n0 - t0 * out["launches_per_step"]
+    print(f"  {what}: {out['launches_per_step']:.1f} launches and "
+          f"{out['device_s_per_step'] * 1e6:.1f} us of kernels a step "
+          f"(profiles at T = {t0} and {t1}); {out['other_launches']:.0f} "
+          "launches outside the loop")
+    return out
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _xlstm_forward(model, params, tokens, chunk, what: str):
+    """One scoring forward at ``MLSTM_CHUNK = chunk``, counters zeroed
+    just before and read just after (the path reaches no kernel of the
+    port), its logits checked; returns (logits, seconds, its peak device
+    memory in GiB above what was allocated before it)."""
+    import torch
+    from repro_torch.models import ssm
+
+    ssm.MLSTM_CHUNK = chunk
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t = time.perf_counter()
+    logits = model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    launches = read_counts()
+    if any(launches.values()):
+        fail(f"{what} launched {launches}: the xLSTM path reaches no kernel")
+    if logits.shape != (*tokens.shape, model.cfg.vocab) or (
+            logits.dtype != torch.float32) or not torch.isfinite(logits).all():
+        fail(f"{what}: logits {tuple(logits.shape)} {logits.dtype}, or not "
+             "finite")
+    return logits, secs, peak
+
+
+def phase_xlstm() -> dict:
+    """Phase R: the xLSTM.  Its blocks on the card against the CPU;
+    xlstm-125m whole (bf16, seed 0, nothing cut) against the same code on
+    the CPU on a short input; a scoring forward of (4, 4096) on the exact
+    recurrent scan and on chunks of XLSTM_CHUNK, held against each other;
+    then prefill of (4, 512) and greedy decode on the O(1) state against
+    the teacher-forced forward.  ``MLSTM_CHUNK`` is restored at the end."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import build_model, layers, ssm
+    from repro_torch.runtime import losses
+
+    dev = torch.device("cuda", 0)
+    stats = {"card_vs_cpu": xlstm_card_vs_cpu()}
+    cfg = configs.get(XLSTM_ARCH)
+    model = build_model(cfg)
+    if model.device.type != "cuda":
+        fail(f"build_model placed {cfg.arch_id} on {model.device}")
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params = sum(x.numel() for x in leaves)
+    n_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    kinds = [ssm.xlstm_block_kind(i, cfg) for i in range(cfg.n_layers)]
+    print(f"model {cfg.arch_id}: {cfg.n_layers} layers ({kinds.count('mlstm')}"
+          f" mLSTM, {kinds.count('slstm')} sLSTM), d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd}, vocab {cfg.vocab}: "
+          f"{n_params / 1e6:.3f} M params ({n_bytes / 1e6:.1f} MB "
+          f"{cfg.param_dtype}), init {time.perf_counter() - t:.1f} s")
+    stats.update(params=n_params)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (SCORE_BATCH, SCORE_LEN),
+                           generator=gen, device=dev)
+    saved = ssm.MLSTM_CHUNK
+    try:
+        # the same code on the CPU, full width, a short input
+        short = tokens[:2, :XLSTM_CHECK_LEN]
+        cpu_model = build_model(cfg, device="cpu")
+        cpu_params = _tree_to(params, "cpu")
+        for chunk in (None, XLSTM_CHUNK):
+            ssm.MLSTM_CHUNK = chunk
+            want = cpu_model.forward(cpu_params, {"tokens": short.cpu()})
+            got = model.forward(params, {"tokens": short})
+            stats[f"vs_cpu_chunk_{chunk}"] = logit_agreement(
+                got.cpu(), want, f"{cfg.arch_id} on the card vs the CPU, "
+                f"(2, {XLSTM_CHECK_LEN}) tokens, MLSTM_CHUNK = {chunk}")
+        del cpu_model, cpu_params, want, got
+
+        # scoring: warm up both paths, then decide the recurrent length
+        warm = tokens[:, :2 * XLSTM_CHUNK]
+        for chunk in (None, XLSTM_CHUNK):
+            _xlstm_forward(model, params, warm, chunk, "warm-up")
+        _, probe_s, _ = _xlstm_forward(model, params,
+                                       tokens[:, :XLSTM_PROBE_LEN], None,
+                                       "probe forward")
+        guess = probe_s * SCORE_LEN / XLSTM_PROBE_LEN
+        rec_len = SCORE_LEN if guess <= XLSTM_RECURRENT_LIMIT_S else (
+            XLSTM_SHORT_LEN)
+        print(f"  recurrent forward ({SCORE_BATCH}, {XLSTM_PROBE_LEN}) "
+              f"{probe_s:.3f} s: at ({SCORE_BATCH}, {SCORE_LEN}) about "
+              f"{guess:.1f} s, so it runs at ({SCORE_BATCH}, {rec_len})")
+        rec, rec_s, rec_peak = _xlstm_forward(
+            model, params, tokens[:, :rec_len], None, "recurrent forward")
+        n_rec = SCORE_BATCH * rec_len
+        loss = losses.next_token_loss(rec, tokens[:, :rec_len]).item()
+        if not math.isfinite(loss):
+            fail(f"{cfg.arch_id} next-token loss {loss}")
+        chunked, chk_s, chk_peak = _xlstm_forward(
+            model, params, tokens, XLSTM_CHUNK, "chunked forward")
+        n_tok = SCORE_BATCH * SCORE_LEN
+        print(f"{cfg.arch_id} scoring forward, recurrent (MLSTM_CHUNK = None)"
+              f" ({SCORE_BATCH}, {rec_len}): {rec_s:.3f} s, "
+              f"{n_rec / rec_s:.0f} tokens/s, peak memory {rec_peak:.2f} GiB "
+              "above its inputs,"
+              f" next-token loss {loss:.4f} (ln V = {math.log(cfg.vocab):.4f};"
+              f" the tied embedding at scale 1 gives logits of std about "
+              f"sqrt(d))")
+        print(f"{cfg.arch_id} scoring forward, chunked (MLSTM_CHUNK = "
+              f"{XLSTM_CHUNK}) ({SCORE_BATCH}, {SCORE_LEN}): {chk_s:.3f} s, "
+              f"{n_tok / chk_s:.0f} tokens/s, peak memory {chk_peak:.2f} GiB "
+              "above its inputs")
+        stats.update(
+            recurrent=dict(len=rec_len, probe_s=probe_s, guess_s=guess,
+                           forward_s=rec_s, tokens_per_s=n_rec / rec_s,
+                           peak_gib=rec_peak, loss=loss),
+            chunked=dict(len=SCORE_LEN, chunk=XLSTM_CHUNK, forward_s=chk_s,
+                         tokens_per_s=n_tok / chk_s, peak_gib=chk_peak),
+            chunked_vs_recurrent=logit_agreement(
+                chunked[:, :rec_len], rec,
+                f"{cfg.arch_id} chunked vs recurrent forward logits "
+                f"({SCORE_BATCH}, {rec_len})"))
+        del rec, chunked
+        torch.cuda.empty_cache()
+
+        # where the time goes: the chunked forward profiled; the recurrent
+        # loops' cost a step, multiplied out; the layers timed alone
+        ssm.MLSTM_CHUNK = XLSTM_CHUNK
+        stats["chunked"]["profile"] = device_profile(
+            lambda: model.forward(params, {"tokens": tokens}),
+            f"{cfg.arch_id} chunked forward ({SCORE_BATCH}, {SCORE_LEN})")
+        ssm.MLSTM_CHUNK = None
+        blk = params["blocks"]
+        h = layers.norm_apply(blk[1]["ln"], layers.embed_apply(
+            params["embed"], tokens, cfg), cfg.norm, cfg.norm_eps)
+        steps = {
+            "forward": per_step(lambda n: model.forward(
+                params, {"tokens": tokens[:, :n]}), "recurrent forward"),
+            "mlstm": per_step(lambda n: ssm.mlstm_apply(
+                blk[1]["core"], h[:, :n], cfg), "one mLSTM layer"),
+            "slstm": per_step(lambda n: ssm.slstm_apply(
+                blk[0]["core"], h[:, :n], cfg), "one sLSTM layer"),
+        }
+        fw = steps["forward"]
+        launches = fw["other_launches"] + rec_len * fw["launches_per_step"]
+        dev_s = rec_len * fw["device_s_per_step"]
+        stats["recurrent"].update(
+            per_step=steps, launches=launches, device_s_steps=dev_s,
+            busy_share=dev_s / rec_s, s_per_launch=rec_s / launches)
+        print(f"  recurrent forward ({SCORE_BATCH}, {rec_len}), multiplied "
+              f"out: {launches:.0f} launches, {dev_s:.3f} s of kernels in the"
+              f" loops, busy share {dev_s / rec_s:.3f}, {rec_s / launches * 1e6:.1f}"
+              " us of wall a launch")
+        layer_s = {}
+        for name, fn in (("slstm", lambda: ssm.slstm_apply(
+                              blk[0]["core"], h, cfg)),
+                         ("mlstm_chunked", lambda: ssm.mlstm_apply_chunked(
+                              blk[1]["core"], h, cfg, chunk=XLSTM_CHUNK))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            layer_s[name] = time.perf_counter() - t
+        s_share = (kinds.count("slstm") * layer_s["slstm"]) / (
+            kinds.count("slstm") * layer_s["slstm"]
+            + kinds.count("mlstm") * layer_s["mlstm_chunked"])
+        stats["chunked"].update(layer_s=layer_s, slstm_share=s_share)
+        print(f"  one layer alone at ({SCORE_BATCH}, {SCORE_LEN}): sLSTM "
+              f"{layer_s['slstm']:.3f} s, chunked mLSTM "
+              f"{layer_s['mlstm_chunked']:.3f} s: the sLSTM layers take "
+              f"{s_share:.3f} of the chunked forward's layer time")
+        # the forward's peak memory against the tied unembedding's alone
+        x = layers.embed_apply(params["embed"], tokens, cfg)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lg = layers.unembed_apply(params["embed"], None, x, cfg)
+        torch.cuda.synchronize()
+        unembed_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        stats["unembed_peak_gib"] = unembed_gib
+        print(f"  the tied unembedding alone at ({SCORE_BATCH}, {SCORE_LEN}): "
+              f"{unembed_gib:.2f} GiB above its input, its f32 logits "
+              f"{lg.numel() * 4 / 2**30:.2f} GiB")
+        del h, x, lg
+
+        # serving on the recurrent state
+        B = SCORE_BATCH
+        prompt = tokens[:, :PROMPT_LEN]
+        zero_counts()
+        states = model.init_cache(B, PROMPT_LEN + DECODE_STEPS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, states = model.prefill(params, {"tokens": prompt}, states)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        steps, fed = [lg], []
+        t = time.perf_counter()
+        for i in range(DECODE_STEPS):
+            tok = steps[-1].argmax(-1)
+            fed.append(tok)
+            lg, states = model.decode_step(params, tok, states, PROMPT_LEN + i)
+            steps.append(lg)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+        serve_launches = read_counts()
+        if any(serve_launches.values()):
+            fail(f"{cfg.arch_id} prefill/decode launched {serve_launches}")
+        seq = torch.cat([prompt, torch.stack(fed, dim=1)], dim=1)
+        full = model.forward(params, {"tokens": seq})
+        forced = full[:, PROMPT_LEN - 1:PROMPT_LEN + DECODE_STEPS]
+        print(f"  serving {cfg.arch_id}: prefill ({B}, {PROMPT_LEN}) "
+              f"{prefill_s:.3f} s, {DECODE_STEPS} decode steps {decode_s:.3f} s"
+              f" = {B * DECODE_STEPS / decode_s:.1f} tokens/s")
+        stats.update(
+            prefill_s=prefill_s, decode_s=decode_s,
+            decode_tokens_per_s=B * DECODE_STEPS / decode_s,
+            vs_forced=logit_agreement(
+                torch.stack(steps, dim=1), forced,
+                f"{cfg.arch_id} decode logits vs teacher-forced forward"),
+            prefill_profile=device_profile(
+                lambda: model.prefill(params, {"tokens": prompt},
+                                      model.init_cache(B, PROMPT_LEN)),
+                f"{cfg.arch_id} prefill ({B}, {PROMPT_LEN}), recurrent"),
+            decode_profile=device_profile(
+                lambda: model.decode_step(params, fed[-1], states, 0),
+                f"{cfg.arch_id} one decode step"))
+    finally:
+        ssm.MLSTM_CHUNK = saved
+    del model, params, tokens, states, full, forced, steps, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def profiled_kernels(fn):
+    """The CUDA kernels ``torch.profiler`` records in one call of ``fn``,
+    summed by name (``key_averages``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
 def device_profile(fn, what: str):
     """Where ``fn``'s time goes on the card: its wall time without the
     profiler, then the kernels ``torch.profiler`` records in a second
     call -- their summed device time, its share of that wall time (one
     stream, so kernels do not overlap), and the largest kernels."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = profiled_kernels(fn)
     dev_s = sum(e.self_device_time_total for e in kernels) / 1e6
     if dev_s == 0:
         print(f"  {what}: wall {wall:.4f} s; the profiler saw no device "
@@ -2545,8 +2908,8 @@ def phase_placement(fig2_checksum, slice_batch_s, *, p=PLACE_P, e=None,
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree
@@ -2630,6 +2993,10 @@ def main() -> int:
         experts = phase_experts()
         experts["seconds"] = time.perf_counter() - t_e
         print(f"phase E: {experts['seconds']:.1f} s")
+        t_r = time.perf_counter()
+        xlstm = phase_xlstm()
+        xlstm["seconds"] = time.perf_counter() - t_r
+        print(f"phase R: {xlstm['seconds']:.1f} s")
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -2681,6 +3048,7 @@ def main() -> int:
                       "blocks_s": blocks_s}))
     print(json.dumps({"model": model}))
     print(json.dumps({"experts": experts}))
+    print(json.dumps({"xlstm": xlstm}))
     print(json.dumps({"serve": serve_stats}))
     print(json.dumps({"placement": place_stats}))
     print(card)

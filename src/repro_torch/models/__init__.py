@@ -1,13 +1,15 @@
 """Model zoo of the port: the decoder families ``dense``, ``moe`` and
-``vlm`` (``transformer``, with the MoE FFN in ``moe``), their ``layers``,
-the ``api`` facade, and ``convert`` for params made by the reference."""
-from . import api, config, convert, layers, moe, transformer
+``vlm`` (``transformer``, with the MoE FFN in ``moe``) and the xLSTM
+(``transformer``, with its recurrent blocks in ``ssm``), their
+``layers``, the ``api`` facade, and ``convert`` for params made by the
+reference."""
+from . import api, config, convert, layers, moe, ssm, transformer
 from .api import Model, build_model
 from .config import MambaConfig, ModelConfig, MoEConfig, XLSTMConfig
 from .convert import params_from_jax
 
 __all__ = [
-    "api", "config", "convert", "layers", "moe", "transformer", "Model",
+    "api", "config", "convert", "layers", "moe", "ssm", "transformer", "Model",
     "build_model", "params_from_jax", "MambaConfig", "ModelConfig",
     "MoEConfig", "XLSTMConfig",
 ]

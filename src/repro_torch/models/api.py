@@ -1,10 +1,11 @@
 """Unified model facade: ``build_model(cfg)`` -> :class:`Model` with init /
 forward / prefill / decode, dispatching on the architecture family.
 
-The decoder families ``dense``, ``moe`` and ``vlm`` are ported.  The model
-runs on ``device`` (default: the CUDA card; ``device="cpu"`` for the
-plain paths); ``init`` draws params from an explicit ``torch.Generator``
-on that device, and inputs are moved to it.
+The decoder families ``dense``, ``moe`` and ``vlm`` and the recurrent
+``ssm_xlstm`` are ported.  The model runs on ``device`` (default: the
+CUDA card; ``device="cpu"`` for the plain paths); ``init`` draws params
+from an explicit ``torch.Generator`` on that device, and inputs are
+moved to it.
 """
 from __future__ import annotations
 
@@ -21,8 +22,7 @@ Params = Dict[str, Any]
 
 #: families of the reference not ported yet, and their ROADMAP item
 NOT_PORTED = {
-    "hybrid_jamba": "ROADMAP queue 1, item 11 (hybrid and SSM)",
-    "ssm_xlstm": "ROADMAP queue 1, item 11 (hybrid and SSM)",
+    "hybrid_jamba": "ROADMAP queue 1, item 11b (hybrid: jamba and Mamba)",
     "encdec": "ROADMAP queue 1, item 12 (encoder-decoder)",
 }
 
@@ -54,12 +54,15 @@ def build_model(cfg: ModelConfig, *, attn_impl: str = "auto",
         raise NotImplementedError(
             f"model family {fam!r} is not ported yet: {NOT_PORTED[fam]}"
         )
-    if fam not in ("dense", "moe", "vlm"):
+    if fam not in ("dense", "moe", "vlm", "ssm_xlstm"):
         raise ValueError(f"unknown family {fam!r}")
     dev = resolve_device(device)
 
     def tokens_of(batch):
         return torch.as_tensor(batch["tokens"], device=dev)
+
+    if fam == "ssm_xlstm":
+        return _xlstm_model(cfg, dev, tokens_of)
 
     # moe_capacity: the global slots per expert of every MoE block in the
     # call (default: from the call's token count); dense blocks ignore it
@@ -87,6 +90,39 @@ def build_model(cfg: ModelConfig, *, attn_impl: str = "auto",
         forward=fwd,
         init_cache=lambda batch, max_len: transformer.decoder_init_cache(
             cfg, batch, max_len, device=dev),
+        prefill=prefill,
+        decode_step=decode,
+    )
+
+
+def _xlstm_model(cfg: ModelConfig, dev: torch.device, tokens_of) -> Model:
+    """The xLSTM: its cache is the list of per-layer recurrent states
+    (``max_len`` is ignored), prefill and decode return the last
+    position's logits and new states, and decode ignores ``cache_index``
+    (the state knows its position).  ``moe_capacity`` is accepted and
+    ignored, as by the reference."""
+    def fwd(params, batch, moe_capacity=None):
+        return transformer.xlstm_forward(params, tokens_of(batch), cfg)
+
+    def prefill(params, batch, cache, moe_capacity=None):
+        logits, states = transformer.xlstm_forward(
+            params, tokens_of(batch), cfg, states=cache)
+        return logits[:, -1], states
+
+    def decode(params, token, cache, cache_index, moe_capacity=None):
+        token = torch.as_tensor(token, device=dev)
+        logits, states = transformer.xlstm_forward(
+            params, token[:, None], cfg, states=cache)
+        return logits[:, -1], states
+
+    return Model(
+        cfg=cfg,
+        device=dev,
+        init=lambda generator: transformer.xlstm_init(
+            cfg, generator, device=dev),
+        forward=fwd,
+        init_cache=lambda batch, max_len: transformer.xlstm_init_states(
+            cfg, batch, device=dev),
         prefill=prefill,
         decode_step=decode,
     )

@@ -3,9 +3,12 @@
 The reference's ``decoder_init`` returns a nested dict of arrays whose
 layout the port keeps: dense weights are ``(d_in, d_out)``, every leaf
 under ``blocks`` has a leading ``n_layers`` axis (``jax.vmap`` stacks
-them), and a tied head (``tie_embeddings``) has no ``head`` entry.  So
-the conversion is a copy of every leaf, checked against the shapes and
-dtypes :func:`~.transformer.decoder_init` gives the same config.
+them), and a tied head (``tie_embeddings``) has no ``head`` entry.  Its
+``xlstm_init`` keeps ``blocks`` a list, one ``{"ln", "core"}`` dict a
+layer, whose ``core`` keys differ by the layer's kind.  So the
+conversion is a copy of every leaf, checked against the tree, shapes and
+dtypes :func:`~.transformer.decoder_init` (or
+:func:`~.transformer.xlstm_init`) gives the same config.
 """
 from __future__ import annotations
 
@@ -27,6 +30,15 @@ def _leaf(arr) -> torch.Tensor:
 
 
 def _convert(got, want, path: str, device, bad: List[str]):
+    if isinstance(want, list):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            have = (f"{len(got)} items" if isinstance(got, (list, tuple))
+                    else type(got).__name__)
+            bad.append(f"{path or '<root>'}: {have}, want a list of "
+                       f"{len(want)}")
+            return None
+        return [_convert(g, w, f"{path}/{i}", device, bad)
+                for i, (g, w) in enumerate(zip(got, want))]
     if isinstance(want, dict):
         if not isinstance(got, dict) or set(got) != set(want):
             keys = sorted(got) if isinstance(got, dict) else type(got).__name__
@@ -48,7 +60,9 @@ def params_from_jax(cfg: ModelConfig, params: Dict[str, Any], *,
     arrays (numpy or anything ``np.asarray`` takes); raises ``ValueError``
     listing every missing key or mismatched shape or dtype."""
     dev = resolve_device(device)
-    want = transformer.decoder_init(cfg, None, device="meta")
+    init = (transformer.xlstm_init if cfg.family == "ssm_xlstm"
+            else transformer.decoder_init)
+    want = init(cfg, None, device="meta")
     bad: List[str] = []
     out = _convert(params, want, "", dev, bad)
     if bad:

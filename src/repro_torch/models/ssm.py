@@ -1,0 +1,254 @@
+"""Recurrent blocks of the xLSTM (sLSTM + mLSTM): the xLSTM half of the
+reference's ``models/ssm.py``, step for step.
+
+The recurrences are data-dependent over time.  The reference runs them
+with ``lax.scan``; here each scan is a Python loop over the steps (or,
+for the chunkwise mLSTM, over the chunks) in eager PyTorch.  Decode is
+O(1): the "cache" is the fixed-size recurrent state.  Every apply returns
+new states and never writes into the ones it was given.
+
+Dtypes follow the reference: q, k and v come out of the compute dtype
+(``k`` is scaled by 1/sqrt(hd) in it), the gates from float32 products,
+and the scans carry ``C``, ``n`` and ``m`` in float32.
+
+The Mamba (S6) half of the reference's module, which the jamba hybrid
+uses, is not ported yet (ROADMAP queue 1, item 11b).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import layers
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+State = Dict[str, torch.Tensor]
+
+#: Chunkwise-parallel mLSTM switch (None = exact recurrent scan).  With a
+#: chunk width W the matrix memory C is read and written once per chunk
+#: instead of once per step; :func:`~.transformer.xlstm_forward` takes the
+#: chunked path only for sequences longer than W.
+MLSTM_CHUNK = None
+
+#: sLSTM's initial stabilizer: ``exp(f + m - m_new)`` is exactly 0 on the
+#: first step from it, whatever the carried c and n hold
+SLSTM_M0 = -1e30
+
+
+def mlstm_init(gen, cfg: ModelConfig, dtype, *, device=None) -> Params:
+    d, hd, H = cfg.d_model, cfg.hd, cfg.n_heads
+    kw = dict(device=device)
+    return {
+        "wq": layers.dense_init(gen, d, H * hd, dtype, **kw),
+        "wk": layers.dense_init(gen, d, H * hd, dtype, **kw),
+        "wv": layers.dense_init(gen, d, H * hd, dtype, **kw),
+        "wi": layers.dense_init(gen, d, H, dtype, bias=True, **kw),
+        "wf": layers.dense_init(gen, d, H, dtype, bias=True, **kw),
+        "wo": layers.dense_init(gen, H * hd, d, dtype, **kw,
+                                scale=1.0 / math.sqrt(H * hd * 2 * cfg.n_layers)),
+    }
+
+
+def _mlstm_qkv_gates(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """q, k, v as (B, T, H, hd) in the compute dtype (k scaled by
+    1/sqrt(hd) there) and the float32 gate pre-activations (B, T, H)."""
+    B, T, _ = x.shape
+    hd, H = cfg.hd, cfg.n_heads
+    cd = layers.torch_dtype(cfg.compute_dtype)
+    q = layers.dense_apply(p["wq"], x, cd).reshape(B, T, H, hd)
+    k = layers.dense_apply(p["wk"], x, cd).reshape(B, T, H, hd) / math.sqrt(hd)
+    v = layers.dense_apply(p["wv"], x, cd).reshape(B, T, H, hd)
+    i_pre = layers.dense_apply(p["wi"], x, torch.float32)
+    f_pre = layers.dense_apply(p["wf"], x, torch.float32)
+    return q, k, v, i_pre, f_pre
+
+
+def _mlstm_state(state: Optional[State], cfg: ModelConfig, B: int, device):
+    if state is None:
+        s = xlstm_init_state(cfg, B, "mlstm", device=device)
+        return s["C"], s["n"], s["m"]
+    return state["C"], state["n"], state["m"]
+
+
+def _mlstm_out(p: Params, h: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
+               state: Optional[State], C, n, m):
+    cd = layers.torch_dtype(cfg.compute_dtype)
+    out = layers.dense_apply(p["wo"], h.to(cd), cd)
+    new_state = {"C": C, "n": n, "m": m} if state is not None else None
+    return out.to(x.dtype), new_state
+
+
+def mlstm_apply(
+    p: Params,
+    x: torch.Tensor,                 # (B, T, d)
+    cfg: ModelConfig,
+    *,
+    state: Optional[State] = None,
+) -> Tuple[torch.Tensor, Optional[State]]:
+    """The exact recurrent mLSTM, one step at a time."""
+    B, T, _ = x.shape
+    hd, H = cfg.hd, cfg.n_heads
+    q, k, v, i_pre, f_pre = _mlstm_qkv_gates(p, x, cfg)
+    C, n, m = _mlstm_state(state, cfg, B, x.device)
+    qs, ks, vs = q.float(), k.float(), v.float()
+    fs = F.logsigmoid(f_pre)        # log(sigmoid) underflows where this does not
+    hs = []
+    for t in range(T):
+        qt, kt, vt = qs[:, t], ks[:, t], vs[:, t]    # (B, H, hd)
+        it, fm = i_pre[:, t], fs[:, t] + m           # (B, H)
+        m_new = torch.maximum(fm, it)                # stabilizer
+        i_g = torch.exp(it - m_new)
+        f_g = torch.exp(fm - m_new)
+        C = f_g[..., None, None] * C + i_g[..., None, None] * (
+            kt[..., :, None] * vt[..., None, :])
+        n = f_g[..., None] * n + i_g[..., None] * kt
+        num = torch.einsum("bhkv,bhk->bhv", C, qt)
+        den = torch.einsum("bhk,bhk->bh", n, qt).abs()
+        hs.append(num / torch.clamp(den, min=1.0)[..., None])
+        m = m_new
+    h = torch.stack(hs, dim=1).reshape(B, T, H * hd)
+    return _mlstm_out(p, h, x, cfg, state, C, n, m)
+
+
+def _mlstm_chunk_body(q, k, v, i_pre, f_log, C, n, m, *, W: int):
+    """One chunk of the chunkwise-parallel stabilized mLSTM.
+
+    q/k/v: (B, H, W, hd) f32; i_pre/f_log: (B, H, W); carry (C, n, m).
+    Exactly equivalent to W recurrent steps (same stabilizer convention:
+    the carried C/n are scaled by exp(-m)).
+    """
+    Fc = torch.cumsum(f_log, dim=-1)                     # (B,H,W)
+    a = i_pre - Fc
+    M = torch.maximum(m[..., None], torch.cummax(a, dim=-1).values)
+    # intra-chunk scores with per-(t,s) decay, causal within the chunk
+    S = torch.einsum("bhtd,bhsd->bhts", q, k)
+    decay = torch.exp(a[..., None, :] - M[..., :, None])  # (B,H,t,s)
+    tri = torch.tril(torch.ones((W, W), dtype=torch.bool, device=q.device))
+    St = torch.where(tri, S * decay, 0.0)
+    num = torch.einsum("bhts,bhsv->bhtv", St, v)
+    den = St.sum(dim=-1)                                 # (B,H,t)
+    # inter-chunk (previous state) contribution
+    inter_w = torch.exp(m[..., None] - M)                # (B,H,t)
+    num = num + inter_w[..., None] * torch.einsum("bhkv,bhtk->bhtv", C, q)
+    den = den + inter_w * torch.einsum("bhk,bhtk->bht", n, q)
+    h = num / torch.clamp(den.abs(), min=1.0)[..., None]
+    # end-of-chunk state update (C/n touched ONCE per chunk)
+    M_W = M[..., -1]
+    F_W = Fc[..., -1]
+    w_s = torch.exp(a - M_W[..., None])                  # (B,H,s)
+    carry_w = torch.exp(m - M_W)
+    C_new = torch.einsum("bhs,bhsk,bhsv->bhkv", w_s, k, v) \
+        + carry_w[..., None, None] * C
+    n_new = torch.einsum("bhs,bhsk->bhk", w_s, k) + carry_w[..., None] * n
+    m_new = F_W + M_W
+    return h, (C_new, n_new, m_new)
+
+
+def mlstm_apply_chunked(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    chunk: int,
+    state: Optional[State] = None,
+) -> Tuple[torch.Tensor, Optional[State]]:
+    """The mLSTM in chunks of ``chunk`` steps; a ``T`` the chunk does not
+    divide falls back to the recurrent scan."""
+    B, T, _ = x.shape
+    hd, H = cfg.hd, cfg.n_heads
+    W = chunk
+    if T % W:
+        return mlstm_apply(p, x, cfg, state=state)  # ragged: fall back
+    q, k, v, i_pre, f_pre = _mlstm_qkv_gates(p, x, cfg)
+    f_log = F.logsigmoid(f_pre)
+
+    def to_chunks(t):  # (B,T,H,*) -> (n, B, H, W, *)
+        t = t.movedim(2, 1)                              # (B,H,T,*)
+        t = t.reshape(*t.shape[:2], T // W, W, *t.shape[3:])
+        return t.movedim(2, 0).contiguous()
+
+    qs, ks, vs = (to_chunks(t.float()) for t in (q, k, v))
+    ii, ff = to_chunks(i_pre), to_chunks(f_log)          # (n, B, H, W)
+    C, n, m = _mlstm_state(state, cfg, B, x.device)
+    hs = []
+    for c in range(T // W):
+        h, (C, n, m) = _mlstm_chunk_body(qs[c], ks[c], vs[c], ii[c], ff[c],
+                                         C, n, m, W=W)
+        hs.append(h)
+    # hs: n x (B, H, W, hd) -> (B, T, H*hd)
+    h = torch.stack(hs, dim=2).reshape(B, H, T, hd)
+    h = h.movedim(1, 2).reshape(B, T, H * hd)
+    return _mlstm_out(p, h, x, cfg, state, C, n, m)
+
+
+def slstm_init(gen, cfg: ModelConfig, dtype, *, device=None) -> Params:
+    d, hd, H = cfg.d_model, cfg.hd, cfg.n_heads
+    kw = dict(device=device)
+    return {
+        "wz": layers.dense_init(gen, d, H * hd, dtype, bias=True, **kw),
+        "wi": layers.dense_init(gen, d, H * hd, dtype, bias=True, **kw),
+        "wf": layers.dense_init(gen, d, H * hd, dtype, bias=True, **kw),
+        "wo_gate": layers.dense_init(gen, d, H * hd, dtype, bias=True, **kw),
+        "wo": layers.dense_init(gen, H * hd, d, dtype, **kw,
+                                scale=1.0 / math.sqrt(H * hd * 2 * cfg.n_layers)),
+    }
+
+
+def slstm_apply(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    state: Optional[State] = None,
+) -> Tuple[torch.Tensor, Optional[State]]:
+    B, T, _ = x.shape
+    cd = layers.torch_dtype(cfg.compute_dtype)
+    f32 = torch.float32
+    z = torch.tanh(layers.dense_apply(p["wz"], x, f32))
+    i_pre = layers.dense_apply(p["wi"], x, f32)
+    f_pre = F.logsigmoid(layers.dense_apply(p["wf"], x, f32))
+    o = torch.sigmoid(layers.dense_apply(p["wo_gate"], x, f32))
+
+    s = state if state is not None else xlstm_init_state(
+        cfg, B, "slstm", device=x.device)
+    c, n, m = s["c"], s["n"], s["m"]
+    hs = []
+    for t in range(T):
+        zt, it, fm = z[:, t], i_pre[:, t], f_pre[:, t] + m
+        m_new = torch.maximum(fm, it)
+        i_g = torch.exp(it - m_new)
+        f_g = torch.exp(fm - m_new)
+        c = f_g * c + i_g * zt
+        n = f_g * n + i_g
+        hs.append(c / torch.clamp(n, min=1.0))
+        m = m_new
+    h = torch.stack(hs, dim=1) * o                       # (B, T, D)
+    out = layers.dense_apply(p["wo"], h.to(cd), cd)
+    new_state = {"c": c, "n": n, "m": m} if state is not None else None
+    return out.to(x.dtype), new_state
+
+
+def xlstm_block_kind(layer_idx: int, cfg: ModelConfig) -> str:
+    every = cfg.xlstm.slstm_every
+    return "slstm" if (every > 0 and layer_idx % every == 0) else "mlstm"
+
+
+def xlstm_init_state(cfg: ModelConfig, batch: int, kind: str, *,
+                     device=None) -> State:
+    hd, H = cfg.hd, cfg.n_heads
+    kw = dict(dtype=torch.float32, device=device)
+    if kind == "mlstm":
+        return {
+            "C": torch.zeros((batch, H, hd, hd), **kw),
+            "n": torch.zeros((batch, H, hd), **kw),
+            "m": torch.zeros((batch, H), **kw),
+        }
+    return {
+        "c": torch.zeros((batch, H * hd), **kw),
+        "n": torch.zeros((batch, H * hd), **kw),
+        "m": torch.full((batch, H * hd), SLSTM_M0, **kw),
+    }

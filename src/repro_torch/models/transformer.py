@@ -1,22 +1,26 @@
-"""Decoder-only transformer (dense / MoE / VLM families).
+"""Decoder-only transformer (dense / MoE / VLM families) and the xLSTM
+stack.
 
 Block params are stacked along a leading ``n_layers`` axis, as the
 reference stacks them with ``jax.vmap``; :func:`_scan_blocks` is a Python
-loop over the layers in place of ``lax.scan``.  The encoder-decoder
-(whisper) and xLSTM stacks of the reference's module are not ported yet
-(ROADMAP queue 1, items 11 and 12).
+loop over the layers in place of ``lax.scan``.  The xLSTM's blocks stay a
+list of ``{"ln", "core"}`` dicts, as in the reference: ``core``'s keys
+differ between its sLSTM and mLSTM layers.  The encoder-decoder
+(whisper) stack of the reference's module is not ported yet (ROADMAP
+queue 1, item 12).
 
 ``cfg.remat`` matters only to training (it wraps the reference's scan
 body in ``jax.checkpoint``); these forward passes ignore it.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from . import layers, moe as moe_mod
+from . import layers, moe as moe_mod, ssm
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -190,3 +194,65 @@ def decoder_decode_step(
         params["embed"], params.get("head"), x, cfg
     )
     return logits[:, 0], new_caches
+
+
+# =============================================================================
+# xLSTM stack (12 small layers: python loop)
+# =============================================================================
+
+def xlstm_init(cfg: ModelConfig, generator: Optional[torch.Generator], *,
+               device=None) -> Params:
+    """Random params from ``generator`` (on ``device``); with
+    ``device="meta"`` and no generator, only the shapes and dtypes."""
+    dtype = layers.torch_dtype(cfg.param_dtype)
+    blocks = []
+    for i in range(cfg.n_layers):
+        kind = ssm.xlstm_block_kind(i, cfg)  # static per index: not stored
+        init = ssm.slstm_init if kind == "slstm" else ssm.mlstm_init
+        blocks.append({
+            "ln": layers.norm_init(cfg.d_model, cfg.norm, dtype, device=device),
+            "core": init(generator, cfg, dtype, device=device),
+        })
+    return {
+        "embed": layers.embed_init(generator, cfg, dtype, device=device),
+        "blocks": blocks,
+        "ln_f": layers.norm_init(cfg.d_model, cfg.norm, dtype, device=device),
+    }
+
+
+def xlstm_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  states: Optional[List[ssm.State]] = None):
+    """float32 logits (B, T, V).  With ``states`` (a list of per-layer
+    recurrent states, the O(1) "cache") returns ``(logits, new_states)``;
+    the states passed in are left as they were."""
+    x = layers.embed_apply(params["embed"], tokens, cfg)
+    new_states = [] if states is not None else None
+    for i, bp in enumerate(params["blocks"]):
+        kind = ssm.xlstm_block_kind(i, cfg)
+        h = layers.norm_apply(bp["ln"], x, cfg.norm, cfg.norm_eps)
+        if kind == "slstm":
+            apply = ssm.slstm_apply
+        elif ssm.MLSTM_CHUNK and tokens.shape[1] > ssm.MLSTM_CHUNK:
+            apply = functools.partial(ssm.mlstm_apply_chunked,
+                                      chunk=ssm.MLSTM_CHUNK)
+        else:
+            apply = ssm.mlstm_apply
+        st = states[i] if states is not None else None
+        y, new_st = apply(bp["core"], h, cfg, state=st)
+        if states is not None:
+            new_states.append(new_st)
+        x = x + y
+    x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
+    logits = layers.unembed_apply(params["embed"], None, x, cfg)
+    if states is not None:
+        return logits, new_states
+    return logits
+
+
+def xlstm_init_states(cfg: ModelConfig, batch: int, *,
+                      device=None) -> List[ssm.State]:
+    return [
+        ssm.xlstm_init_state(cfg, batch, ssm.xlstm_block_kind(i, cfg),
+                             device=device)
+        for i in range(cfg.n_layers)
+    ]

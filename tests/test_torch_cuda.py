@@ -35,6 +35,9 @@ MoE: ``moe_apply`` on the card equals the CPU's within rtol 1e-5 and
 atol 1e-5 max|CPU| (float32 sums in another order; the scatter mode's
 atomic adds in none) with the same kept assignments, so the sort, search
 and gathers of the dispatch behave on CUDA as on the CPU.
+xLSTM: ``mlstm_apply``, ``mlstm_apply_chunked`` and ``slstm_apply`` on the
+card equal the CPU's within the same rtol 1e-5 / atol 1e-5 max|CPU|, with
+and without a carried state (float32 sums and scans in another order).
 """
 import pytest
 import torch
@@ -1247,3 +1250,47 @@ def test_moe_apply_on_the_card_matches_the_cpu(cuda):
     finally:
         moe._NUM_GROUPS, moe._EP_SPEC, moe.COMBINE_MODE = saved
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("fn", ["mlstm", "chunked", "slstm"])
+def test_xlstm_blocks_on_the_card_match_the_cpu(cuda, fn, with_state):
+    """xlstm-125m's smoke config in float32, the same params and inputs
+    on the card and the CPU, T = 128 (two chunks of 64), and a carried
+    state made by a first call on the CPU: outputs and new states within
+    rtol 1e-5 / atol 1e-5 max|CPU|."""
+    import functools
+
+    from repro_torch import configs
+    from repro_torch.models import ssm
+
+    cfg = configs.get_smoke("xlstm-125m")
+    gen = torch.Generator().manual_seed(0)
+    kind = "slstm" if fn == "slstm" else "mlstm"
+    init = ssm.slstm_init if kind == "slstm" else ssm.mlstm_init
+    apply = {"mlstm": ssm.mlstm_apply, "slstm": ssm.slstm_apply,
+             "chunked": functools.partial(ssm.mlstm_apply_chunked,
+                                          chunk=64)}[fn]
+    p_cpu = init(gen, cfg, torch.float32)
+    p_dev = {k: {kk: vv.to(cuda) for kk, vv in v.items()}
+             for k, v in p_cpu.items()}
+    x = torch.randn(2, 128, cfg.d_model, generator=gen)
+    st = None
+    if with_state:
+        _, st = apply(p_cpu, torch.randn(2, 64, cfg.d_model, generator=gen),
+                      cfg, state=ssm.xlstm_init_state(cfg, 2, kind))
+    tf32, torch.backends.cuda.matmul.allow_tf32 = (
+        torch.backends.cuda.matmul.allow_tf32, False)
+    try:
+        want, want_st = apply(p_cpu, x, cfg, state=st)
+        got, got_st = apply(p_dev, x.to(cuda), cfg, state=None if st is None
+                            else {k: v.to(cuda) for k, v in st.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    pairs = [(got, want)] + ([] if st is None else
+                             [(got_st[k], want_st[k]) for k in want_st])
+    for g, w in pairs:
+        assert g.device == cuda
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5,
+                                   atol=1e-5 * w.abs().max().item())

@@ -24,7 +24,9 @@ import torch
 from repro import configs as r_configs
 from repro.models import build_model as r_build_model
 from repro_torch import configs as t_configs
+from repro.models import ssm as r_ssm
 from repro_torch.models import build_model, params_from_jax
+from repro_torch.models import ssm as t_ssm
 from repro_torch.models import transformer as t_transformer
 from repro_torch.runtime import losses as t_losses
 from repro.runtime import losses as r_losses
@@ -258,8 +260,7 @@ def test_moe_capacity_reaches_every_block(arch, rng, monkeypatch):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("jamba-1.5-large-398b", "item 11"), ("xlstm-125m", "item 11"),
-    ("whisper-tiny", "item 12"),
+    ("jamba-1.5-large-398b", "item 11b"), ("whisper-tiny", "item 12"),
 ])
 def test_build_model_raises_for_families_not_ported(arch, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -269,7 +270,7 @@ def test_build_model_raises_for_families_not_ported(arch, item):
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default is that card")
-    for arch in ("internlm2-1.8b", "olmoe-1b-7b"):
+    for arch in ("internlm2-1.8b", "olmoe-1b-7b", "xlstm-125m"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(t_configs.get_smoke(arch))
 
@@ -314,3 +315,190 @@ def test_layers_off_the_dense_path_match_reference(rng):
     np.testing.assert_allclose(
         _np(t_layers.sinusoidal_positions(12, d)),
         np.asarray(r_layers.sinusoidal_positions(12, d)), **TOL)
+
+
+# -- the xLSTM (ssm_xlstm) --------------------------------------------------
+
+XLSTM = "xlstm-125m"
+
+
+@pytest.fixture
+def restore_mlstm_chunk():
+    """Both packages' ``MLSTM_CHUNK`` as it was before the test."""
+    saved = [(m, m.MLSTM_CHUNK) for m in (r_ssm, t_ssm)]
+    yield
+    for m, chunk in saved:
+        m.MLSTM_CHUNK = chunk
+
+
+def _states_np(states):
+    return [{k: _np(v) for k, v in s.items()} for s in states]
+
+
+def _close_states(got, want):
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert set(g) == set(w), i
+        for k in w:
+            assert g[k].dtype == torch.float32, (i, k)
+            np.testing.assert_allclose(_np(g[k]), np.asarray(w[k]), **TOL,
+                                       err_msg=f"layer {i} {k}")
+
+
+@pytest.mark.parametrize("chunk", [None, 4])
+def test_xlstm_forward_matches_reference(chunk, rng, restore_mlstm_chunk):
+    """The smoke xLSTM (sLSTM, then three mLSTM layers) on the exact
+    recurrent scan and, with ``MLSTM_CHUNK = 4``, on chunks of 4 steps."""
+    r_model, r_params, t_model, t_params = _pair(XLSTM)
+    r_ssm.MLSTM_CHUNK = t_ssm.MLSTM_CHUNK = chunk
+    cfg = t_model.cfg
+    tokens = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    want = np.asarray(r_model.forward(r_params, {"tokens": jnp.asarray(tokens)}))
+    got = t_model.forward(t_params, {"tokens": torch.from_numpy(tokens).long()})
+    assert got.dtype == torch.float32 and got.shape == (2, 16, cfg.vocab)
+    np.testing.assert_allclose(_np(got), want, **TOL)
+    r_loss = float(r_losses.next_token_loss(jnp.asarray(want), jnp.asarray(tokens)))
+    t_loss = float(t_losses.next_token_loss(got, torch.from_numpy(tokens).long()))
+    assert abs(t_loss - r_loss) <= 2e-4 * abs(r_loss)
+
+
+@pytest.mark.parametrize("chunk", [None, 2])
+def test_xlstm_prefill_and_decode_match_reference(chunk, rng,
+                                                  restore_mlstm_chunk):
+    """Prefill of 4 tokens (chunked at ``MLSTM_CHUNK = 2``), then decode
+    steps on the recurrent state: last-position logits and every layer's
+    new state within TOL of the reference's.  ``cache_index`` is ignored
+    by both, so each side gets another value."""
+    r_model, r_params, t_model, t_params = _pair(XLSTM)
+    r_ssm.MLSTM_CHUNK = t_ssm.MLSTM_CHUNK = chunk
+    cfg = t_model.cfg
+    B, T, P = 2, 8, 4
+    tokens = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+    tt = torch.from_numpy(tokens).long()
+    r_states, t_states = r_model.init_cache(B, T), t_model.init_cache(B, T)
+    _close_states(t_states, r_states)
+    r_lg, r_states = r_model.prefill(
+        r_params, {"tokens": jnp.asarray(tokens[:, :P])}, r_states)
+    t_lg, t_states = t_model.prefill(t_params, {"tokens": tt[:, :P]}, t_states)
+    assert t_lg.shape == (B, cfg.vocab)
+    np.testing.assert_allclose(_np(t_lg), np.asarray(r_lg), **TOL)
+    _close_states(t_states, r_states)
+    for t in range(P, T):
+        r_lg, r_states = r_model.decode_step(
+            r_params, jnp.asarray(tokens[:, t]), r_states, jnp.int32(t))
+        t_lg, t_states = t_model.decode_step(t_params, tt[:, t], t_states,
+                                             1000 + t)
+        np.testing.assert_allclose(_np(t_lg), np.asarray(r_lg), **TOL)
+    _close_states(t_states, r_states)
+
+
+def test_xlstm_decode_matches_its_teacher_forced_forward(rng):
+    """Port only, with params from its own generator: greedy decode on
+    the O(1) state from an empty state gives the full forward's logits,
+    position by position (the reference's
+    ``test_xlstm_stateful_equals_stateless``), and so does prefill of a
+    prompt followed by greedy decode."""
+    cfg = t_configs.get_smoke(XLSTM)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    B, P, n = 2, 5, 6
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, P))).long()
+    lg, states = model.prefill(params, {"tokens": prompt},
+                               model.init_cache(B, P + n))
+    seq, steps = prompt, [lg]
+    for t in range(P, P + n - 1):
+        tok = steps[-1].argmax(-1)
+        seq = torch.cat([seq, tok[:, None]], dim=1)
+        lg, states = model.decode_step(params, tok, states, t)
+        steps.append(lg)
+    full = model.forward(params, {"tokens": seq})
+    for i, lg in enumerate(steps):
+        torch.testing.assert_close(lg, full[:, P - 1 + i], **TOL)
+    states = model.init_cache(B, 1)
+    for t in range(seq.shape[1]):
+        lg, states = model.decode_step(params, seq[:, t], states, t)
+        torch.testing.assert_close(lg, full[:, t], **TOL)
+
+
+def test_xlstm_leaves_the_states_passed_in_unchanged(rng, restore_mlstm_chunk):
+    """Prefill (recurrent and chunked) and decode return new states and
+    write nothing into the ones they were given."""
+    cfg = t_configs.get_smoke(XLSTM)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(1))
+    B = 2
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 8))).long()
+    for chunk in (None, 4):
+        t_ssm.MLSTM_CHUNK = chunk
+        given = model.init_cache(B, 8)
+        before = _states_np(given)
+        _, states = model.prefill(params, {"tokens": tokens}, given)
+        snap = _states_np(states)
+        _, after = model.decode_step(params, tokens[:, -1], states, 8)
+        for now, then in ((given, before), (states, snap)):
+            for s, b in zip(_states_np(now), then):
+                for k in b:
+                    np.testing.assert_array_equal(s[k], b[k])
+        assert any(not np.array_equal(a[k], b[k])
+                   for a, b in zip(_states_np(after), snap) for k in b)
+        assert any(not np.array_equal(a[k], b[k])
+                   for a, b in zip(snap, before) for k in b)
+
+
+def test_params_from_jax_carries_the_xlstm_list_tree():
+    """The reference's list of ``{"ln", "core"}`` blocks arrives as a list
+    with every leaf's values; a block of the wrong kind, a leaf of the
+    wrong shape and a list of the wrong length are each named."""
+    cfg = t_configs.get_smoke(XLSTM)
+    good = jax.tree_util.tree_map(np.asarray, _reference_params(XLSTM))
+    got = params_from_jax(cfg, good, device="cpu")
+    assert isinstance(got["blocks"], list)
+    assert len(got["blocks"]) == cfg.n_layers
+    assert "head" not in got                        # tied embeddings
+    for i, (t, r) in enumerate(zip(got["blocks"], good["blocks"])):
+        kind = t_ssm.xlstm_block_kind(i, cfg)
+        assert ("wz" in t["core"]) == (kind == "slstm"), i
+        for key in r["core"]:
+            for leaf in r["core"][key]:
+                np.testing.assert_array_equal(t["core"][key][leaf].numpy(),
+                                              r["core"][key][leaf])
+    np.testing.assert_array_equal(got["embed"]["tok"].numpy(),
+                                  good["embed"]["tok"])
+
+    swapped = dict(good, blocks=[good["blocks"][1], good["blocks"][0],
+                                 *good["blocks"][2:]])
+    with pytest.raises(ValueError, match="blocks/0/core: keys.*blocks/1/core: keys"):
+        params_from_jax(cfg, swapped, device="cpu")
+    blocks = [dict(b) for b in good["blocks"]]
+    blocks[2] = dict(blocks[2], core=dict(blocks[2]["core"],
+                                          wq={"w": np.zeros((3, 3), np.float32)}))
+    with pytest.raises(ValueError, match="blocks/2/core/wq/w: \\(3, 3\\)"):
+        params_from_jax(cfg, dict(good, blocks=blocks), device="cpu")
+    with pytest.raises(ValueError, match="blocks: 3 items, want a list of 4"):
+        params_from_jax(cfg, dict(good, blocks=good["blocks"][:3]),
+                        device="cpu")
+
+
+@pytest.mark.parametrize("get", ["get", "get_smoke"])
+def test_xlstm_init_on_meta_is_shaped_like_the_reference(get):
+    """``xlstm_init`` on the meta device against the reference's tree
+    (made by ``jax.eval_shape``, so the full config costs nothing): the
+    same paths, shapes and dtypes; at full size the 68,789,064 params
+    of the tied embedding, nine mLSTM and three sLSTM layers."""
+    r_cfg, t_cfg = getattr(r_configs, get)(XLSTM), getattr(t_configs, get)(XLSTM)
+    want = jax.eval_shape(lambda k: r_build_model(r_cfg).init(k),
+                          jax.random.PRNGKey(0))
+    got = t_transformer.xlstm_init(t_cfg, None, device="meta")
+    n = 0
+    for path, leaf in jax.tree_util.tree_leaves_with_path(want):
+        node = got
+        for key in path:
+            node = node[key.idx if hasattr(key, "idx") else key.key]
+        assert node.device.type == "meta"
+        assert tuple(node.shape) == leaf.shape, path
+        assert str(node.dtype).removeprefix("torch.") == leaf.dtype.name, path
+        n += node.numel()
+    assert len(jax.tree_util.tree_leaves(want)) == len(
+        jax.tree_util.tree_leaves(got))
+    if get == "get":
+        assert n == 68_789_064
