@@ -122,8 +122,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      model path's shape (B = 4, Hq = 16, Hkv = 8, T = 4096, d = 128,
      causal): bfloat16 on the tensor-core (wgmma) route, float32 on the
      CUDA-core (fma) route, plus Tq = 512 < Tk = 4096, a non-causal
-     case, and phase E's two shapes (olmoe: B = 4, Hq = Hkv = 16; dbrx:
-     B = 2, Hq = 48 over Hkv = 8; T = 4096, d = 128, bfloat16, causal),
+     case, phase E's two shapes (olmoe: B = 4, Hq = Hkv = 16; dbrx:
+     B = 2, Hq = 48 over Hkv = 8) and phase J's (jamba: B = 2, Hq = 64
+     over Hkv = 8; all T = 4096, d = 128, bfloat16, causal),
      each checked to run on its route; bitwise equality of G heads
      with two calls of G/2; times of kernel, plain version and
      ``scaled_dot_product_attention`` (``is_causal`` at Tq = Tk; at
@@ -163,16 +164,38 @@ Phases (any failure exits non-zero, and no result line is printed):
      tokens, at ``MLSTM_CHUNK`` None and 64; a scoring forward of (4,
      4096) on the exact recurrent scan (at (4, 1024) if a timed (4, 256)
      forward says (4, 4096) would take over 60 s) and one on chunks of 64,
-     their logits held against each other; the chunked forward profiled,
-     the recurrent loops' launches and kernel time a step (profiles at
-     8 and 16 steps, differenced) multiplied out, an sLSTM and a chunked
-     mLSTM layer timed alone; prefill of (4, 512) and 32 greedy decode
-     steps on the recurrent state against the teacher-forced forward,
-     prefill and one decode step profiled.  Logits by phase 5's bounds;
+     their logits held against each other; the chunked forward's and the
+     recurrent loops' launches and kernel time a step (profiles at 256
+     and 512 tokens for the chunked forward, 8 and 16 steps for the
+     recurrent loops, differenced) multiplied out, an sLSTM and a
+     chunked mLSTM layer timed alone; prefill of (4, 512) and 32 greedy
+     decode steps on the recurrent state against the teacher-forced
+     forward, prefill's cost multiplied out the same way (8 and 16
+     steps) and one decode step profiled.  Logits by phase 5's bounds;
      the path reaches no kernel of the port (counters zeroed just before
      each forward, prefill and decode, all 0 just after);
+  J. the jamba hybrid: ``mamba_apply`` on the card against the CPU
+     (jamba's smoke config in float32, (2, 128), with and without a
+     carried state: within rtol 1e-5 / atol 1e-5 max|CPU|) and the smoke
+     hybrid's forward (one flash launch, fma route at d = 16) against
+     the CPU by phase 5's logit bounds; then, with the earlier phases'
+     models freed, ``build_model`` of jamba-1.5-large at its published
+     widths cut to one period (8 of 72 layers) and 8 of 16 experts
+     (bfloat16, random weights from generator seed 0, 25.37 B params):
+     a scoring forward on (2, 4096) tokens, counters zeroed just before
+     and read just after (exactly one flash launch, on wgmma), against
+     ``attn_impl="xla"`` by phase 5's bounds on the positions routed
+     alike in every MoE layer and the argmax bound on all; tokens/s,
+     the drop share at the default capacity, peak memory above the
+     params; the Mamba loops' launches and kernel time a step (profiles
+     of forwards at 64 and 128 tokens, differenced) multiplied out, a
+     Mamba mixer, an MoE layer, a dense MLP and the attention layer
+     timed alone at (2, 4096) and the busy share; prefill of (4, 512)
+     and 32 greedy decode steps against the teacher-forced forward, one
+     decode step profiled;
   6. one JSON line describing every kernel (the flash row's launches
-     are phase 5's and phase E's scoring forwards'), then the result line.
+     are phase 5's, phase E's and phase J's scoring forwards'), then the
+     result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 with a non-zero code before printing any result.
@@ -288,16 +311,32 @@ XLSTM_ARCH, XLSTM_CHUNK = "xlstm-125m", 64
 #: (4, XLSTM_PROBE_LEN) forward, multiplied out, says it would take more
 #: than XLSTM_RECURRENT_LIMIT_S; then at (4, XLSTM_SHORT_LEN)
 XLSTM_PROBE_LEN, XLSTM_RECURRENT_LIMIT_S, XLSTM_SHORT_LEN = 256, 60.0, 1024
-#: phase R: the blocks on the card against the CPU (smoke config,
-#: float32, (2, XLSTM_CHECK_LEN) inputs, a state from a first (2, 64)
-#: call): rtol, and atol of that fraction of max|CPU| -- float32 sums and
-#: scans in another order; and the full-width model on the card against
-#: the same code on the CPU on (2, XLSTM_CHECK_LEN) tokens, by phase 5's
-#: logit bounds
+#: phases R and J: the recurrent blocks on the card against the CPU
+#: (smoke config, float32, (2, XLSTM_CHECK_LEN) inputs, a state from a
+#: first (2, 64) call): rtol, and atol of that fraction of max|CPU| --
+#: float32 sums and scans in another order; and a model on the card
+#: against the same code on the CPU on (2, XLSTM_CHECK_LEN) tokens, by
+#: phase 5's logit bounds
 XLSTM_CARD_RTOL, XLSTM_CHECK_LEN = 1e-5, 128
 #: phase R: the step counts whose profiles are differenced for the
 #: launches and kernel time one step of a recurrent loop takes
 XLSTM_STEP_PROFILE = (8, 16)
+#: phase J: jamba-1.5-large at its published widths, cut in depth and
+#: in experts.  The reference builds n_layers // attn_period periods, so
+#: one period of JAMBA_LAYERS = 8 is the least depth that keeps the 1:7
+#: layout (72 layers are 9 periods); its four MoE layers of 16 experts
+#: alone are 77.3 GB in bfloat16, so JAMBA_EXPERTS = 8 (top-2 routing,
+#: d_ff_expert 24,576 and every width kept): 25.37 B params, 50.75 GB.
+#: Scored at batch 2, as dbrx: batch 4 would put the MoE's float32
+#: transients near the card's limit
+JAMBA_ARCH, JAMBA_LAYERS, JAMBA_EXPERTS = "jamba-1.5-large-398b", 8, 8
+JAMBA_BATCH = 2
+#: phase J: the forward lengths whose profiles are differenced for the
+#: launches and kernel time one step of the Mamba loops takes
+JAMBA_STEP_PROFILE = (64, 128)
+#: phase R: the chunked forward's lengths (multiples of XLSTM_CHUNK)
+#: whose profiles are differenced, in place of one of the whole forward
+XLSTM_CHUNKED_PROFILE = (256, 512)
 #: the flash-attention kernel of each route
 FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "fma": "src/repro_torch/csrc/flash_attention.cu"}
@@ -1440,7 +1479,8 @@ def phase_flash():
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     # (name, model, batch, Tq, Tk, causal, dtype); the first is phase 5's
-    # main path, the last two phase E's scoring forwards
+    # main path, the next to last two phase E's scoring forwards, the last
+    # phase J's
     cases = [
         ("causal bf16", MODEL_ARCH, SCORE_BATCH, SCORE_LEN, SCORE_LEN, True,
          torch.bfloat16),
@@ -1454,6 +1494,8 @@ def phase_flash():
          SCORE_LEN, True, torch.bfloat16),
         (f"{DBRX_ARCH} causal bf16", DBRX_ARCH, DBRX_BATCH, SCORE_LEN,
          SCORE_LEN, True, torch.bfloat16),
+        ("jamba causal bf16", JAMBA_ARCH, JAMBA_BATCH, SCORE_LEN, SCORE_LEN,
+         True, torch.bfloat16),
     ]
     rows = []
     for name, arch, B, Tq, Tk, causal, dtype in cases:
@@ -1704,8 +1746,7 @@ def moe_card_vs_cpu() -> dict:
     return out
 
 
-def _build_moe(cfg, attn_impl="auto"):
-    import torch
+def _build_on_card(cfg, attn_impl="auto"):
     from repro_torch.models import build_model
 
     model = build_model(cfg, attn_impl=attn_impl)
@@ -1729,7 +1770,7 @@ def _score_moe(cfg, batch_size: int, stats: dict):
 
     dev = torch.device("cuda", 0)
     torch.cuda.reset_peak_memory_stats()
-    model = _build_moe(cfg)
+    model = _build_on_card(cfg)
     t = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
@@ -1785,7 +1826,7 @@ def _score_moe(cfg, batch_size: int, stats: dict):
                      f"{cfg.arch_id} scoring forward"))
     routes = log.by_position(L, batch_size)
 
-    xla_model = _build_moe(cfg, attn_impl="xla")
+    xla_model = _build_on_card(cfg, attn_impl="xla")
     with RoutingLog(E) as xla_log:
         t = time.perf_counter()
         logits_x = xla_model.forward(params, batch)
@@ -1899,41 +1940,28 @@ def phase_experts() -> dict:
     return stats
 
 
-def xlstm_card_vs_cpu() -> dict:
-    """``mlstm_apply``, ``mlstm_apply_chunked`` and ``slstm_apply`` on the
-    card against the CPU: xlstm-125m's smoke config in float32, the same
-    params and (2, XLSTM_CHECK_LEN) inputs on both, without a state and
-    with the state a first (2, 64) call on the CPU left; outputs and new
-    states within XLSTM_CARD_RTOL (rtol, and atol of that fraction of
-    max|CPU|)."""
-    import functools
-
+def blocks_card_vs_cpu(cfg, blocks, gen) -> dict:
+    """Recurrent blocks on the card against the CPU: for each ``name:
+    (init, apply, init_state)`` the same float32 params (``init(gen)``)
+    and (2, XLSTM_CHECK_LEN) inputs on both, without a state and with
+    the state a first (2, 64) call on the CPU left; output and new state
+    within XLSTM_CARD_RTOL (rtol, and atol of that fraction of
+    max|CPU|).  Returns each case's max|err|."""
     import torch
-    from repro_torch import configs
-    from repro_torch.models import ssm
 
-    cfg = configs.get_smoke(XLSTM_ARCH)
     dev = torch.device("cuda", 0)
-    gen = torch.Generator().manual_seed(0)
-    applies = {"mlstm_apply": ssm.mlstm_apply,
-               "mlstm_apply_chunked": functools.partial(
-                   ssm.mlstm_apply_chunked, chunk=XLSTM_CHUNK),
-               "slstm_apply": ssm.slstm_apply}
     out = {}
-    for name, apply in applies.items():
-        kind = "slstm" if name == "slstm_apply" else "mlstm"
-        init = ssm.slstm_init if kind == "slstm" else ssm.mlstm_init
-        p_cpu = init(gen, cfg, torch.float32)
-        p_dev = {k: {kk: vv.to(dev) for kk, vv in v.items()}
-                 for k, v in p_cpu.items()}
+    for name, (init, apply, init_state) in blocks.items():
+        p_cpu = init(gen)
+        p_dev = _tree_to(p_cpu, dev)
         x = torch.randn(2, XLSTM_CHECK_LEN, cfg.d_model, generator=gen)
         _, carried = apply(p_cpu, torch.randn(2, 64, cfg.d_model, generator=gen),
-                           cfg, state=ssm.xlstm_init_state(cfg, 2, kind))
+                           cfg, state=init_state)
         for st in (None, carried):
             what = f"{name} {'with' if st else 'without'} state"
             want, want_st = apply(p_cpu, x, cfg, state=st)
             got, got_st = apply(p_dev, x.to(dev), cfg, state=None if st is None
-                                else {k: v.to(dev) for k, v in st.items()})
+                                else _tree_to(st, dev))
             err = compare(got.cpu(), want, XLSTM_CARD_RTOL, XLSTM_CARD_RTOL,
                           what)
             for k in (want_st or {}):
@@ -1941,6 +1969,29 @@ def xlstm_card_vs_cpu() -> dict:
                                        XLSTM_CARD_RTOL, XLSTM_CARD_RTOL,
                                        f"{what}: new state {k}"))
             out[what] = err
+    return out
+
+
+def xlstm_card_vs_cpu() -> dict:
+    """``mlstm_apply``, ``mlstm_apply_chunked`` and ``slstm_apply`` on the
+    card against the CPU (xlstm-125m's smoke config, ``blocks_card_vs_cpu``)."""
+    import functools
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import ssm
+
+    cfg = configs.get_smoke(XLSTM_ARCH)
+    f32 = torch.float32
+    m_init = lambda g: ssm.mlstm_init(g, cfg, f32)
+    m_state = ssm.xlstm_init_state(cfg, 2, "mlstm")
+    out = blocks_card_vs_cpu(cfg, {
+        "mlstm_apply": (m_init, ssm.mlstm_apply, m_state),
+        "mlstm_apply_chunked": (m_init, functools.partial(
+            ssm.mlstm_apply_chunked, chunk=XLSTM_CHUNK), m_state),
+        "slstm_apply": (lambda g: ssm.slstm_init(g, cfg, f32), ssm.slstm_apply,
+                        ssm.xlstm_init_state(cfg, 2, "slstm")),
+    }, torch.Generator().manual_seed(0))
     print(f"xLSTM blocks on the card vs the CPU ({cfg.arch_id}, float32, "
           f"(2, {XLSTM_CHECK_LEN}), chunk {XLSTM_CHUNK}; max|err| over the "
           "output and new state): "
@@ -1948,30 +1999,52 @@ def xlstm_card_vs_cpu() -> dict:
     return out
 
 
-def per_step(fn_of_len, what: str) -> dict:
+def per_step(fn_of_len, what: str, lens=XLSTM_STEP_PROFILE, full_len=None,
+             wall_s=None) -> dict:
     """What one step of a recurrent loop costs on the card: ``fn_of_len``
-    profiled at the two lengths of XLSTM_STEP_PROFILE, differenced --
-    kernels a step, their device time a step, and the rest (the
-    launches outside the loop, at the shorter length)."""
-    t0, t1 = XLSTM_STEP_PROFILE
+    profiled at the two lengths ``lens``, differenced -- kernels a step,
+    their device time a step, and the rest (the launches and kernel time
+    outside the loop, at the shorter length).  With ``full_len`` and
+    ``wall_s`` (a call's wall time at ``full_len``, taken without the
+    profiler) also that call multiplied out, in place of a profile of
+    it: its launches, kernel time, busy share and wall a launch, and the
+    largest kernels of the longer profile."""
+    t0, t1 = lens
     fn_of_len(t0)  # warm-up
 
     def totals(n):
         kernels = profiled_kernels(lambda: fn_of_len(n))
-        return (sum(e.count for e in kernels),
+        return (kernels, sum(e.count for e in kernels),
                 sum(e.self_device_time_total for e in kernels) / 1e6)
 
-    (n0, d0), (n1, d1) = totals(t0), totals(t1)
+    (_, n0, d0), (k1, n1, d1) = totals(t0), totals(t1)
     if not n0 < n1:
         fail(f"{what}: the profiler saw {n0} and {n1} kernels at T = {t0} "
              f"and {t1}")
     out = dict(launches_per_step=(n1 - n0) / (t1 - t0),
                device_s_per_step=(d1 - d0) / (t1 - t0))
     out["other_launches"] = n0 - t0 * out["launches_per_step"]
+    out["other_device_s"] = d0 - t0 * out["device_s_per_step"]
     print(f"  {what}: {out['launches_per_step']:.1f} launches and "
           f"{out['device_s_per_step'] * 1e6:.1f} us of kernels a step "
           f"(profiles at T = {t0} and {t1}); {out['other_launches']:.0f} "
           "launches outside the loop")
+    if full_len is None:
+        return out
+    launches = out["other_launches"] + full_len * out["launches_per_step"]
+    dev_s = out["other_device_s"] + full_len * out["device_s_per_step"]
+    top = sorted(k1, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    out.update(len=full_len, wall_s=wall_s, device_s=dev_s,
+               busy_share=dev_s / wall_s, launches=launches,
+               s_per_launch=wall_s / launches, top_at=t1,
+               top=[dict(kernel=e.key[:80], s=e.self_device_time_total / 1e6,
+                         calls=e.count) for e in top])
+    print(f"    multiplied out to T = {full_len}: {launches:.0f} launches, "
+          f"kernels {dev_s:.4f} s on the card, wall {wall_s:.4f} s, busy "
+          f"share {dev_s / wall_s:.3f}, {wall_s / launches * 1e6:.1f} us of "
+          f"wall a launch; the largest kernels at T = {t1}:")
+    for k in out["top"]:
+        print(f"      {k['s']:.4f} s  x{k['calls']}  {k['kernel']}")
     return out
 
 
@@ -2110,12 +2183,14 @@ def phase_xlstm() -> dict:
         del rec, chunked
         torch.cuda.empty_cache()
 
-        # where the time goes: the chunked forward profiled; the recurrent
-        # loops' cost a step, multiplied out; the layers timed alone
+        # where the time goes: the chunked forward's and the recurrent
+        # loops' cost a step (a chunk's worth of tokens for the chunked
+        # forward), multiplied out; the layers timed alone
         ssm.MLSTM_CHUNK = XLSTM_CHUNK
-        stats["chunked"]["profile"] = device_profile(
-            lambda: model.forward(params, {"tokens": tokens}),
-            f"{cfg.arch_id} chunked forward ({SCORE_BATCH}, {SCORE_LEN})")
+        stats["chunked"]["profile"] = per_step(
+            lambda n: model.forward(params, {"tokens": tokens[:, :n]}),
+            f"{cfg.arch_id} chunked forward, a token", XLSTM_CHUNKED_PROFILE,
+            SCORE_LEN, chk_s)
         ssm.MLSTM_CHUNK = None
         blk = params["blocks"]
         h = layers.norm_apply(blk[1]["ln"], layers.embed_apply(
@@ -2204,16 +2279,284 @@ def phase_xlstm() -> dict:
             vs_forced=logit_agreement(
                 torch.stack(steps, dim=1), forced,
                 f"{cfg.arch_id} decode logits vs teacher-forced forward"),
-            prefill_profile=device_profile(
-                lambda: model.prefill(params, {"tokens": prompt},
-                                      model.init_cache(B, PROMPT_LEN)),
-                f"{cfg.arch_id} prefill ({B}, {PROMPT_LEN}), recurrent"),
+            prefill_profile=per_step(
+                lambda n: model.prefill(params, {"tokens": prompt[:, :n]},
+                                        model.init_cache(B, n)),
+                f"{cfg.arch_id} prefill ({B}, {PROMPT_LEN}), recurrent",
+                full_len=PROMPT_LEN, wall_s=prefill_s),
             decode_profile=device_profile(
                 lambda: model.decode_step(params, fed[-1], states, 0),
                 f"{cfg.arch_id} one decode step"))
     finally:
         ssm.MLSTM_CHUNK = saved
     del model, params, tokens, states, full, forced, steps, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def jamba_card_vs_cpu() -> dict:
+    """``mamba_apply`` on the card against the CPU (jamba's smoke config,
+    ``blocks_card_vs_cpu``), then the smoke hybrid whole (one period:
+    three Mamba mixers, attention, two MoE layers) on the same params
+    and tokens: one flash launch on the card, on the fma route (d = 16),
+    and logits against the CPU's by phase 5's bounds."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.attention import attention
+    from repro_torch.models import build_model, ssm
+
+    cfg = configs.get_smoke(JAMBA_ARCH)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    out = blocks_card_vs_cpu(cfg, {"mamba_apply": (
+        lambda g: ssm.mamba_init(g, cfg, torch.float32), ssm.mamba_apply,
+        ssm.mamba_init_state(cfg, 2))}, gen)
+    print(f"mamba_apply on the card vs the CPU ({cfg.arch_id}, float32, "
+          f"(2, {XLSTM_CHECK_LEN}); max|err| over the output and new state): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in out.items()))
+
+    cpu_model, model = build_model(cfg, device="cpu"), build_model(cfg)
+    params = cpu_model.init(torch.Generator().manual_seed(1))
+    tokens = torch.randint(0, cfg.vocab, (2, XLSTM_CHECK_LEN), generator=gen)
+    want = cpu_model.forward(params, {"tokens": tokens})
+    before = dict(attention.flash_attention.launches_by_route)
+    got = model.forward(_tree_to(params, dev), {"tokens": tokens.to(dev)})
+    torch.cuda.synchronize()
+    after = dict(attention.flash_attention.launches_by_route)
+    if after != dict(before, fma=before["fma"] + 1):
+        fail(f"smoke hybrid forward: flash launches by route {before} -> "
+             f"{after}; want one fma launch")
+    out["smoke_forward"] = logit_agreement(
+        got.cpu(), want, f"{cfg.arch_id} forward on the card (one fma flash "
+        f"launch) vs the CPU, (2, {XLSTM_CHECK_LEN}) tokens")
+    return out
+
+
+def phase_jamba() -> dict:
+    """Phase J: the jamba hybrid.  Mamba and the smoke hybrid on the card
+    against the CPU; jamba-1.5-large at its widths cut to one period and
+    JAMBA_EXPERTS experts (bf16, seed 0): a scoring forward through the
+    flash kernel against ``attn_impl="xla"``, where its time goes, then
+    prefill and greedy decode against the teacher-forced forward.  The
+    earlier phases' models are freed first."""
+    import dataclasses
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import layers, moe, ssm
+    from repro_torch.models.transformer import _layer
+    from repro_torch.runtime import losses
+
+    dev = torch.device("cuda", 0)
+    stats = {"card_vs_cpu": jamba_card_vs_cpu()}
+    full_cfg = configs.get(JAMBA_ARCH)
+    cfg = dataclasses.replace(
+        full_cfg, n_layers=JAMBA_LAYERS,
+        moe=dataclasses.replace(full_cfg.moe, n_experts=JAMBA_EXPERTS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    print(f"{JAMBA_ARCH}: cut to {JAMBA_LAYERS} of {full_cfg.n_layers} layers "
+          f"({cfg.n_layers // cfg.attn_period} period of {cfg.attn_period}) "
+          f"and {JAMBA_EXPERTS} of "
+          f"{full_cfg.moe.n_experts} experts | device memory allocated "
+          f"before init {base / 2**30:.3f} GiB")
+    model = _build_on_card(cfg)
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    leaves = list(_leaves(params))
+    n_params = sum(x.numel() for x in leaves)
+    n_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    n_moe = sum(i % 2 for i in range(cfg.n_layers))
+    n_mamba = cfg.n_layers - cfg.n_layers // cfg.attn_period
+    print(f"model {cfg.arch_id} (cut): {cfg.n_layers} layers ({n_mamba} "
+          f"Mamba, {cfg.n_layers - n_mamba} attention; {n_moe} MoE FFNs), "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.hd}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab}: {n_params / 1e9:.3f} B "
+          f"params ({n_bytes / 1e9:.2f} GB {cfg.param_dtype}), init "
+          f"{init_s:.1f} s")
+    stats.update(layers=cfg.n_layers, published_layers=full_cfg.n_layers,
+                 experts=cfg.moe.n_experts,
+                 published_experts=full_cfg.moe.n_experts, params=n_params,
+                 param_bytes=n_bytes, allocated_before_init_gib=base / 2**30,
+                 init_s=init_s)
+
+    # -- scoring -----------------------------------------------------------
+    B, E, T = JAMBA_BATCH, cfg.moe.n_experts, SCORE_LEN
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (B, T), generator=gen, device=dev)
+    batch = {"tokens": tokens}
+    model.forward(params, batch)  # warm-up
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with RoutingLog(E) as log:
+        zero_counts()
+        t = time.perf_counter()
+        logits = model.forward(params, batch)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t
+        launches = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    n_flash = cfg.n_layers // cfg.attn_period
+    by_route = dict(_wrappers()["flash_attention"].launches_by_route)
+    want = {"helmholtz": 0, "gemm_chain": 0, "flash_attention": n_flash}
+    if launches != want or by_route != {"wgmma": n_flash, "fma": 0}:
+        fail(f"{cfg.arch_id} scoring forward launched {launches}, flash by "
+             f"route {by_route}; want {want}, all on wgmma")
+    launches["flash_attention_by_route"] = by_route
+    if logits.shape != (B, T, cfg.vocab) or logits.dtype != torch.float32 \
+            or not torch.isfinite(logits).all():
+        fail(f"{cfg.arch_id} logits {tuple(logits.shape)} {logits.dtype}, "
+             "or not finite")
+    loss = losses.next_token_loss(logits, tokens).item()
+    if not math.isfinite(loss):
+        fail(f"{cfg.arch_id} next-token loss {loss}")
+    dropped = log.dropped_share()
+    print(f"{cfg.arch_id} scoring forward ({B}, {T}): {fwd_s:.3f} s, "
+          f"{B * T / fwd_s:.0f} tokens/s | launches {launches} | next-token "
+          f"loss {loss:.1f} (ln V = {math.log(cfg.vocab):.4f}; the tied "
+          f"embedding at scale 1 scores a position's own token about |e|^2 "
+          f"= d) | dropped at the default capacity (factor "
+          f"{cfg.moe.capacity_factor}) {dropped:.5f} | peak memory "
+          f"{peak:.2f} GiB above the params and inputs")
+    stats.update(forward_s=fwd_s, forward_tokens_per_s=B * T / fwd_s,
+                 loss=loss, launches=launches, dropped_share=dropped,
+                 peak_above_params_gib=peak)
+    routes = log.by_position(n_moe, B)
+    xla_model = _build_on_card(cfg, attn_impl="xla")
+    with RoutingLog(E) as xla_log:
+        t = time.perf_counter()
+        logits_x = xla_model.forward(params, batch)
+        torch.cuda.synchronize()
+        stats["xla_forward_s"] = time.perf_counter() - t
+    print(f"  {cfg.arch_id} attn_impl='xla' forward: "
+          f"{stats['xla_forward_s']:.3f} s")
+    stats["vs_xla"] = logit_agreement(
+        logits, logits_x, f"{cfg.arch_id} kernel logits vs attn_impl='xla'",
+        rerouted=rerouted(routes, xla_log.by_position(n_moe, B)))
+    del logits, logits_x, xla_model, routes
+    torch.cuda.empty_cache()
+
+    # -- where the time goes: the Mamba loops a step, multiplied out; each
+    # kind of layer alone at (B, T) ------------------------------------------
+    steps = per_step(lambda n: model.forward(params, {"tokens": tokens[:, :n]}),
+                     f"{cfg.arch_id} forward", JAMBA_STEP_PROFILE, T, fwd_s)
+    period = _layer(params["periods"], 0)
+    attn_sub = f"sub{cfg.attn_period - 1}"
+    h = layers.norm_apply(period["sub0"]["ln1"], layers.embed_apply(
+        params["embed"], tokens, cfg), cfg.norm, cfg.norm_eps)
+    pos = torch.arange(T, device=dev)[None].expand(B, T)
+    mamba_runs = []
+    for _ in range(3):  # the first warms up; the mean of the other two
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ssm.mamba_apply(period["sub0"]["mamba"], h, cfg)
+        torch.cuda.synchronize()
+        mamba_runs.append(time.perf_counter() - t)
+    mamba_s = sum(mamba_runs[1:]) / 2
+    layer_fns = {
+        "moe": (lambda: moe.moe_apply(period["sub1"]["moe"], h, cfg),
+                f"one MoE layer alone ({B}, {T})"),
+        "mlp": (lambda: layers.mlp_apply(period["sub0"]["mlp"], h, cfg),
+                f"one dense MLP alone ({B}, {T})"),
+        "attention": (lambda: layers.attention_apply(
+            period[attn_sub]["attn"], h, cfg, positions=pos),
+            f"the attention layer alone ({B}, {T}), flash kernel"),
+    }
+    alone = {}
+    for name, (fn, what) in layer_fns.items():
+        fn()  # warm-up: a first call's wall time also pays the allocator
+        alone[name] = device_profile(fn, what)
+    counts = {"mamba": n_mamba, "moe": n_moe,
+              "mlp": cfg.n_layers - n_moe, "attention": n_flash}
+    walls = dict(mamba=mamba_s, **{k: v["wall_s"] for k, v in alone.items()})
+    loop_s = T * steps["device_s_per_step"]
+    other_dev = [v["device_s"] for v in alone.values()]
+    busy = None
+    if None not in other_dev:
+        busy = (loop_s + sum(counts[k] * v["device_s"]
+                             for k, v in alone.items())) / fwd_s
+    shares = {k: counts[k] * walls[k] / fwd_s for k in walls}
+    print(f"  one Mamba mixer alone ({B}, {T}): {mamba_s:.3f} s (the mean of "
+          f"two after a warm-up of {mamba_runs[0]:.3f} s) | each kind "
+          "of layer's wall times its count over the forward's: "
+          + ", ".join(f"{k} x{counts[k]} {v:.3f}" for k, v in shares.items())
+          + f" | busy share (the Mamba loops' kernels multiplied out, "
+          f"{loop_s:.3f} s, plus the other layers' kernels alone) "
+          + (f"{busy:.3f}" if busy is not None else "not measured"))
+    stats.update(per_step=steps, mamba_alone_s=mamba_s,
+                 mamba_alone_runs_s=mamba_runs, alone=alone,
+                 layer_wall_shares=shares, loop_device_s=loop_s,
+                 busy_share=busy, s_per_launch=steps["s_per_launch"])
+    del h, pos
+
+    # -- serving: prefill, greedy decode, teacher-forced forward ------------
+    # capacity depends on a call's token count, so prefill and the
+    # teacher-forced forward get one slot per token (nothing drops); decode
+    # at batch 4 has the default 8 slots, more than its 4 tokens can fill
+    Bs = SCORE_BATCH
+    prompt = torch.randint(0, cfg.vocab, (Bs, PROMPT_LEN), generator=gen,
+                           device=dev)
+    cache = model.init_cache(Bs, PROMPT_LEN + DECODE_STEPS)
+    with RoutingLog(E) as served_log:
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = model.prefill(params, {"tokens": prompt}, cache,
+                                  moe_capacity=Bs * PROMPT_LEN)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        steps_lg, fed = [lg], []
+        t = time.perf_counter()
+        for i in range(DECODE_STEPS):
+            tok = steps_lg[-1].argmax(-1)
+            fed.append(tok)
+            lg, cache = model.decode_step(params, tok, cache, PROMPT_LEN + i)
+            steps_lg.append(lg)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+        serve_launches = read_counts()
+    if any(serve_launches.values()):
+        fail(f"{cfg.arch_id} prefill/decode launched {serve_launches}: the "
+             "cache path should not reach a kernel of the port")
+    if served_log.dropped_share() != 0.0:
+        fail(f"{cfg.arch_id} serving dropped {served_log.dropped_share()} "
+             "of its assignments")
+    seq = torch.cat([prompt, torch.stack(fed, dim=1)], dim=1)
+    # causal (attention and Mamba): padding past the sequence leaves its
+    # logits unchanged, and 1024 rows satisfy the attention's block rule
+    pad = torch.zeros(Bs, 1024 - seq.shape[1], dtype=seq.dtype, device=dev)
+    with RoutingLog(E) as forced_log:
+        full = model.forward(params, {"tokens": torch.cat([seq, pad], dim=1)},
+                             moe_capacity=Bs * 1024)
+    span = slice(PROMPT_LEN - 1, PROMPT_LEN + DECODE_STEPS)
+    forced, served = full[:, span], torch.stack(steps_lg, dim=1)
+    moved = rerouted(served_log.by_position(n_moe, Bs),
+                     forced_log.by_position(n_moe, Bs)[:, :, :seq.shape[1]])
+    print(f"  serving {cfg.arch_id}: prefill ({Bs}, {PROMPT_LEN}) "
+          f"{prefill_s:.3f} s, {DECODE_STEPS} decode steps {decode_s:.3f} s "
+          f"= {Bs * DECODE_STEPS / decode_s:.1f} tokens/s | launches "
+          f"{serve_launches} | nothing dropped")
+    stats.update(prefill_s=prefill_s, decode_s=decode_s,
+                 decode_tokens_per_s=Bs * DECODE_STEPS / decode_s,
+                 vs_forced=logit_agreement(
+                     served, forced,
+                     f"{cfg.arch_id} decode logits vs teacher-forced forward",
+                     rerouted=moved[:, span]))
+    last = PROMPT_LEN + DECODE_STEPS - 1   # rewrites that slot's same K/V
+    stats["decode_profile"] = device_profile(
+        lambda: model.decode_step(params, fed[-1], cache, last),
+        f"{cfg.arch_id} one decode step")
+    stats["flash_launches"] = launches["flash_attention"]
+    del model, params, tokens, cache, full, forced, served, steps_lg, lg
     gc.collect()
     torch.cuda.empty_cache()
     return stats
@@ -2997,6 +3340,10 @@ def main() -> int:
         xlstm = phase_xlstm()
         xlstm["seconds"] = time.perf_counter() - t_r
         print(f"phase R: {xlstm['seconds']:.1f} s")
+        t_j = time.perf_counter()
+        jamba = phase_jamba()
+        jamba["seconds"] = time.perf_counter() - t_j
+        print(f"phase J: {jamba['seconds']:.1f} s")
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -3035,7 +3382,7 @@ def main() -> int:
         "source": FLASH_SOURCES[main_case["route"]],
         "replaces": "src/repro/kernels/attention/attention.py:88",
         "launches": (model["launches"]["flash_attention"]
-                     + experts["flash_launches"]),
+                     + experts["flash_launches"] + jamba["flash_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
@@ -3049,6 +3396,7 @@ def main() -> int:
     print(json.dumps({"model": model}))
     print(json.dumps({"experts": experts}))
     print(json.dumps({"xlstm": xlstm}))
+    print(json.dumps({"jamba": jamba}))
     print(json.dumps({"serve": serve_stats}))
     print(json.dumps({"placement": place_stats}))
     print(card)

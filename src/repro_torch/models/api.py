@@ -1,11 +1,11 @@
 """Unified model facade: ``build_model(cfg)`` -> :class:`Model` with init /
 forward / prefill / decode, dispatching on the architecture family.
 
-The decoder families ``dense``, ``moe`` and ``vlm`` and the recurrent
-``ssm_xlstm`` are ported.  The model runs on ``device`` (default: the
-CUDA card; ``device="cpu"`` for the plain paths); ``init`` draws params
-from an explicit ``torch.Generator`` on that device, and inputs are
-moved to it.
+The decoder families ``dense``, ``moe`` and ``vlm``, the jamba hybrid
+``hybrid_jamba`` and the recurrent ``ssm_xlstm`` are ported.  The model
+runs on ``device`` (default: the CUDA card; ``device="cpu"`` for the
+plain paths); ``init`` draws params from an explicit ``torch.Generator``
+on that device, and inputs are moved to it.
 """
 from __future__ import annotations
 
@@ -15,14 +15,13 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..memory.channels import resolve_device
-from . import transformer
+from . import hybrid, transformer
 from .config import ModelConfig
 
 Params = Dict[str, Any]
 
 #: families of the reference not ported yet, and their ROADMAP item
 NOT_PORTED = {
-    "hybrid_jamba": "ROADMAP queue 1, item 11b (hybrid: jamba and Mamba)",
     "encdec": "ROADMAP queue 1, item 12 (encoder-decoder)",
 }
 
@@ -54,7 +53,7 @@ def build_model(cfg: ModelConfig, *, attn_impl: str = "auto",
         raise NotImplementedError(
             f"model family {fam!r} is not ported yet: {NOT_PORTED[fam]}"
         )
-    if fam not in ("dense", "moe", "vlm", "ssm_xlstm"):
+    if fam not in ("dense", "moe", "vlm", "hybrid_jamba", "ssm_xlstm"):
         raise ValueError(f"unknown family {fam!r}")
     dev = resolve_device(device)
 
@@ -63,33 +62,42 @@ def build_model(cfg: ModelConfig, *, attn_impl: str = "auto",
 
     if fam == "ssm_xlstm":
         return _xlstm_model(cfg, dev, tokens_of)
+    # the decoders and the jamba hybrid take the same calls; the hybrid's
+    # cache holds Mamba states beside k and v (new each call), and its
+    # decode takes a scalar cache_index
+    if fam == "hybrid_jamba":
+        fns = (hybrid.hybrid_init, hybrid.hybrid_forward,
+               hybrid.hybrid_init_cache, hybrid.hybrid_prefill,
+               hybrid.hybrid_decode_step)
+    else:
+        fns = (transformer.decoder_init, transformer.decoder_forward,
+               transformer.decoder_init_cache, transformer.decoder_prefill,
+               transformer.decoder_decode_step)
+    init, forward, init_cache, prefill_fn, decode_fn = fns
 
     # moe_capacity: the global slots per expert of every MoE block in the
     # call (default: from the call's token count); dense blocks ignore it
     def fwd(params, batch, moe_capacity=None):
-        return transformer.decoder_forward(
-            params, tokens_of(batch), cfg, attn_impl=attn_impl,
-            moe_capacity=moe_capacity)
+        return forward(params, tokens_of(batch), cfg, attn_impl=attn_impl,
+                       moe_capacity=moe_capacity)
 
     def prefill(params, batch, cache, moe_capacity=None):
-        return transformer.decoder_prefill(
-            params, tokens_of(batch), cache, cfg, moe_capacity=moe_capacity)
+        return prefill_fn(params, tokens_of(batch), cache, cfg,
+                          moe_capacity=moe_capacity)
 
     def decode(params, token, cache, cache_index, moe_capacity=None):
         if isinstance(cache_index, torch.Tensor):
             cache_index = cache_index.to(dev)
-        return transformer.decoder_decode_step(
-            params, torch.as_tensor(token, device=dev), cache, cache_index,
-            cfg, moe_capacity=moe_capacity)
+        return decode_fn(params, torch.as_tensor(token, device=dev), cache,
+                         cache_index, cfg, moe_capacity=moe_capacity)
 
     return Model(
         cfg=cfg,
         device=dev,
-        init=lambda generator: transformer.decoder_init(
-            cfg, generator, device=dev),
+        init=lambda generator: init(cfg, generator, device=dev),
         forward=fwd,
-        init_cache=lambda batch, max_len: transformer.decoder_init_cache(
-            cfg, batch, max_len, device=dev),
+        init_cache=lambda batch, max_len: init_cache(cfg, batch, max_len,
+                                                     device=dev),
         prefill=prefill,
         decode_step=decode,
     )

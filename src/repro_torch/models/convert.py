@@ -5,10 +5,13 @@ layout the port keeps: dense weights are ``(d_in, d_out)``, every leaf
 under ``blocks`` has a leading ``n_layers`` axis (``jax.vmap`` stacks
 them), and a tied head (``tie_embeddings``) has no ``head`` entry.  Its
 ``xlstm_init`` keeps ``blocks`` a list, one ``{"ln", "core"}`` dict a
-layer, whose ``core`` keys differ by the layer's kind.  So the
-conversion is a copy of every leaf, checked against the tree, shapes and
-dtypes :func:`~.transformer.decoder_init` (or
-:func:`~.transformer.xlstm_init`) gives the same config.
+layer, whose ``core`` keys differ by the layer's kind.  Its
+``hybrid_init`` stacks ``periods/sub{i}`` over a leading ``n_periods``
+axis and has no ``head``.  So the conversion is a copy of every leaf,
+checked against the tree, shapes and dtypes the port's init of the same
+family (:func:`~.transformer.decoder_init`,
+:func:`~.transformer.xlstm_init` or :func:`~.hybrid.hybrid_init`) gives
+the same config.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 
 from ..memory.channels import resolve_device
-from . import transformer
+from . import hybrid, transformer
 from .config import ModelConfig
 
 
@@ -60,8 +63,9 @@ def params_from_jax(cfg: ModelConfig, params: Dict[str, Any], *,
     arrays (numpy or anything ``np.asarray`` takes); raises ``ValueError``
     listing every missing key or mismatched shape or dtype."""
     dev = resolve_device(device)
-    init = (transformer.xlstm_init if cfg.family == "ssm_xlstm"
-            else transformer.decoder_init)
+    init = {"ssm_xlstm": transformer.xlstm_init,
+            "hybrid_jamba": hybrid.hybrid_init}.get(cfg.family,
+                                                    transformer.decoder_init)
     want = init(cfg, None, device="meta")
     bad: List[str] = []
     out = _convert(params, want, "", dev, bad)

@@ -1,18 +1,20 @@
-"""Recurrent blocks of the xLSTM (sLSTM + mLSTM): the xLSTM half of the
-reference's ``models/ssm.py``, step for step.
+"""State-space and recurrent blocks: the Mamba (S6) mixer of the jamba
+hybrid and the xLSTM (sLSTM + mLSTM), the reference's ``models/ssm.py``
+step for step.
 
 The recurrences are data-dependent over time.  The reference runs them
 with ``lax.scan``; here each scan is a Python loop over the steps (or,
-for the chunkwise mLSTM, over the chunks) in eager PyTorch.  Decode is
-O(1): the "cache" is the fixed-size recurrent state.  Every apply returns
-new states and never writes into the ones it was given.
+for the chunkwise mLSTM, over the chunks) in eager PyTorch, with the
+time axis moved to the front, contiguous, once before the loop.  Decode
+is O(1): the "cache" is the fixed-size recurrent state.  Every apply
+returns new states and never writes into the ones it was given.
 
-Dtypes follow the reference: q, k and v come out of the compute dtype
-(``k`` is scaled by 1/sqrt(hd) in it), the gates from float32 products,
-and the scans carry ``C``, ``n`` and ``m`` in float32.
-
-The Mamba (S6) half of the reference's module, which the jamba hybrid
-uses, is not ported yet (ROADMAP queue 1, item 11b).
+Dtypes follow the reference.  Mamba: the projections come out of the
+compute dtype, the causal conv sums its taps in float32 and rounds once,
+and dt, the gates and the scan's state are float32.  xLSTM: q, k and v
+come out of the compute dtype (``k`` is scaled by 1/sqrt(hd) in it), the
+gates from float32 products, and the scans carry ``C``, ``n`` and ``m``
+in float32.
 """
 from __future__ import annotations
 
@@ -27,6 +29,136 @@ from .config import ModelConfig
 
 Params = Dict[str, Any]
 State = Dict[str, torch.Tensor]
+
+# =============================================================================
+# Mamba (S6) -- used by the jamba hybrid
+# =============================================================================
+
+def _dt_rank(cfg: ModelConfig) -> int:
+    return cfg.mamba.dt_rank or -(-cfg.d_model // 16)
+
+
+def mamba_init(gen, cfg: ModelConfig, dtype, *, lead: Tuple[int, ...] = (),
+               device=None) -> Params:
+    m = cfg.mamba
+    d = cfg.d_model
+    d_in = m.expand * d
+    dtr = _dt_rank(cfg)
+    kw = dict(lead=lead, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    a = torch.arange(1, m.d_state + 1, **f32).log()
+    return {
+        "in_proj": layers.dense_init(gen, d, 2 * d_in, dtype, **kw),
+        "conv_w": layers._normal(gen, (*lead, m.d_conv, d_in), dtype,
+                                 1.0 / math.sqrt(m.d_conv), device),
+        "conv_b": torch.zeros((*lead, d_in), dtype=dtype, device=device),
+        "x_proj": layers.dense_init(gen, d_in, dtr + 2 * m.d_state, dtype,
+                                    **kw),
+        "dt_proj": layers.dense_init(gen, dtr, d_in, dtype, bias=True, **kw),
+        "A_log": a.expand(*lead, d_in, m.d_state).clone(),
+        "D": torch.ones((*lead, d_in), **f32),
+        "out_proj": layers.dense_init(
+            gen, d_in, d, dtype, **kw,
+            scale=1.0 / math.sqrt(d_in * 2 * cfg.n_layers)),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv1d.  x: (B, T, C), w: (K, C).  The K taps
+    are summed in ascending order in float32, then the bias, then one
+    cast to ``x.dtype``.
+
+    Returns (y, new_state), the state being the last K-1 inputs (rows of
+    ``[state, x]``, so also right when T < K-1)."""
+    B, T, C = x.shape
+    K = w.shape[0]
+    if state is None:
+        pad = torch.zeros((B, K - 1, C), dtype=x.dtype, device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                    # (B, T+K-1, C)
+    wf = w.float()
+    y = xp[:, 0:T].float() * wf[0]
+    for i in range(1, K):
+        y = y + xp[:, i:i + T].float() * wf[i]
+    y = y + b.float()
+    new_state = xp[:, T:].clone()                      # (B, K-1, C)
+    return y.to(x.dtype), new_state
+
+
+def mamba_apply(
+    p: Params,
+    x: torch.Tensor,                 # (B, T, d)
+    cfg: ModelConfig,
+    *,
+    state: Optional[State] = None,
+) -> Tuple[torch.Tensor, Optional[State]]:
+    """The selective scan, one step at a time:
+    ``h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t`` and ``y_t = h_t . C_t``
+    in float32.  ``exp(dt A)`` and the input term are formed per step, so
+    the (B, T, d_in, S) tensor is never built (at jamba's widths it would
+    be 2 x 4,096 x 16,384 x 16 x 4 bytes = 8.6 GB a layer); only
+    (B, T, d_in) activations leave the loop."""
+    m = cfg.mamba
+    B, T, d = x.shape
+    d_in = m.expand * d
+    dtr = _dt_rank(cfg)
+    cd = layers.torch_dtype(cfg.compute_dtype)
+
+    xz = layers.dense_apply(p["in_proj"], x, cd)
+    xs, z = xz.split(d_in, dim=-1)                     # (B, T, d_in) each
+
+    conv_state = state["conv"] if state is not None else None
+    xs, new_conv = _causal_conv(xs, p["conv_w"], p["conv_b"], conv_state)
+    xs = F.silu(xs.float()).to(cd)
+
+    dbc = layers.dense_apply(p["x_proj"], xs, cd)
+    dt, Bc, Cc = dbc.split([dtr, m.d_state, m.d_state], dim=-1)
+    dt = layers.dense_apply(p["dt_proj"], dt, cd)     # (B, T, d_in)
+    dt = F.softplus(dt.float())
+    A = -torch.exp(p["A_log"])                          # (d_in, S)
+
+    h = (state["ssm"] if state is not None else
+         torch.zeros((B, d_in, m.d_state), dtype=torch.float32,
+                     device=x.device))
+    xs_f32 = xs.float()
+
+    def steps_first(t):  # (B, T, *) -> (T, B, *), contiguous
+        return t.transpose(0, 1).contiguous()
+
+    dts = steps_first(dt)
+    dtxs = steps_first(dt * xs_f32)
+    Bs, Cs = steps_first(Bc.float()), steps_first(Cc.float())
+    ys = []
+    for t in range(T):
+        dA = torch.exp(dts[t][..., None] * A)          # (B, d_in, S)
+        dBx = dtxs[t][..., None] * Bs[t][:, None, :]
+        h = dA * h + dBx
+        ys.append(torch.einsum("bds,bs->bd", h, Cs[t]))
+    y = torch.stack(ys, dim=1)                          # (B, T, d_in)
+    y = y + p["D"].float() * xs_f32
+    y = y * F.silu(z.float())
+    out = layers.dense_apply(p["out_proj"], y.to(cd), cd)
+    new_state = {"conv": new_conv, "ssm": h} if state is not None else None
+    return out.to(x.dtype), new_state
+
+
+def mamba_init_state(cfg: ModelConfig, batch: int, *, device=None) -> State:
+    m = cfg.mamba
+    d_in = m.expand * cfg.d_model
+    return {
+        "conv": torch.zeros((batch, m.d_conv - 1, d_in),
+                            dtype=layers.torch_dtype(cfg.compute_dtype),
+                            device=device),
+        "ssm": torch.zeros((batch, d_in, m.d_state), dtype=torch.float32,
+                           device=device),
+    }
+
+
+# =============================================================================
+# xLSTM: mLSTM (matrix memory) + sLSTM (scalar memory)
+# =============================================================================
 
 #: Chunkwise-parallel mLSTM switch (None = exact recurrent scan).  With a
 #: chunk width W the matrix memory C is read and written once per chunk

@@ -38,6 +38,12 @@ and gathers of the dispatch behave on CUDA as on the CPU.
 xLSTM: ``mlstm_apply``, ``mlstm_apply_chunked`` and ``slstm_apply`` on the
 card equal the CPU's within the same rtol 1e-5 / atol 1e-5 max|CPU|, with
 and without a carried state (float32 sums and scans in another order).
+Jamba: ``mamba_apply`` on the card equals the CPU's within the same
+rtol 1e-5 / atol 1e-5 max|CPU|, with and without a carried state; the
+smoke hybrid's forward (the flash kernel on its fma route at d = 16 on
+the card, plain attention on the CPU), prefill and a decode step within
+rtol 1e-4 / atol 1e-4 max|CPU| (float32 through four layers in another
+order).
 """
 import pytest
 import torch
@@ -1294,3 +1300,86 @@ def test_xlstm_blocks_on_the_card_match_the_cpu(cuda, fn, with_state):
         assert g.device == cuda
         torch.testing.assert_close(g.cpu(), w, rtol=1e-5,
                                    atol=1e-5 * w.abs().max().item())
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mamba_on_the_card_matches_the_cpu(cuda, with_state):
+    """jamba's smoke config in float32, the same params and (2, 128)
+    inputs on the card and the CPU, and a carried state made by a first
+    (2, 64) call on the CPU: output and new state within rtol 1e-5 /
+    atol 1e-5 max|CPU|."""
+    from repro_torch import configs
+    from repro_torch.models import ssm
+
+    cfg = configs.get_smoke("jamba-1.5-large-398b")
+    gen = torch.Generator().manual_seed(0)
+    p_cpu = ssm.mamba_init(gen, cfg, torch.float32)
+    x = torch.randn(2, 128, cfg.d_model, generator=gen)
+    st = None
+    if with_state:
+        _, st = ssm.mamba_apply(
+            p_cpu, torch.randn(2, 64, cfg.d_model, generator=gen), cfg,
+            state=ssm.mamba_init_state(cfg, 2))
+    tf32, torch.backends.cuda.matmul.allow_tf32 = (
+        torch.backends.cuda.matmul.allow_tf32, False)
+    try:
+        want, want_st = ssm.mamba_apply(p_cpu, x, cfg, state=st)
+        got, got_st = ssm.mamba_apply(_to(p_cpu, cuda), x.to(cuda), cfg,
+                                      state=None if st is None
+                                      else _to(st, cuda))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    pairs = [(got, want)] + ([] if st is None else
+                             [(got_st[k], want_st[k]) for k in want_st])
+    for g, w in pairs:
+        assert g.device == cuda
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5,
+                                   atol=1e-5 * w.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_smoke_hybrid_on_the_card_matches_the_cpu(cuda):
+    """The smoke hybrid (one period: three Mamba mixers, attention, two
+    MoE layers) with the same params on the card and the CPU: the
+    forward on (2, 128) tokens -- one flash launch, on the fma route --
+    then prefill of 8 tokens and a decode step, logits within rtol 1e-4 /
+    atol 1e-4 max|CPU|."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    cfg = configs.get_smoke("jamba-1.5-large-398b")
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg)
+    assert card.device.type == "cuda"
+    params = cpu.init(torch.Generator().manual_seed(0))
+    p_dev = _to(params, cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 128),
+                           generator=torch.Generator().manual_seed(1))
+    tf32, torch.backends.cuda.matmul.allow_tf32 = (
+        torch.backends.cuda.matmul.allow_tf32, False)
+    before = dict(t_attn.flash_attention.launches_by_route)
+    try:
+        want = cpu.forward(params, {"tokens": tokens})
+        got = card.forward(p_dev, {"tokens": tokens.to(cuda)})
+        torch.cuda.synchronize()
+        after = dict(t_attn.flash_attention.launches_by_route)
+        w_lg, w_cache = cpu.prefill(params, {"tokens": tokens[:, :8]},
+                                    cpu.init_cache(2, 9))
+        g_lg, g_cache = card.prefill(p_dev, {"tokens": tokens[:, :8]},
+                                     card.init_cache(2, 9))
+        w_dec, _ = cpu.decode_step(params, tokens[:, 8], w_cache, 8)
+        g_dec, _ = card.decode_step(p_dev, tokens[:, 8].to(cuda), g_cache, 8)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert after["fma"] == before["fma"] + 1
+    assert after["wgmma"] == before["wgmma"]
+    for g, w in ((got, want), (g_lg, w_lg), (g_dec, w_dec)):
+        assert g.device == cuda
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * w.abs().max().item())

@@ -1,4 +1,5 @@
-"""The port's xLSTM blocks held against the reference's.
+"""The port's recurrent blocks held against the reference's: the xLSTM
+and the Mamba (S6) mixer of the jamba hybrid.
 
 ``mlstm_apply``, ``mlstm_apply_chunked`` (and its ``_mlstm_chunk_body``)
 and ``slstm_apply`` at the float32 smoke config of xlstm-125m (d 32, 2
@@ -12,6 +13,11 @@ decoder models: both sides accumulate in float32, in another summation
 order, through the scans.  The reference's own chunked and recurrent
 mLSTM agree within 4.5e-6 at T = 128, W = 64, so the port's chunked path
 is held against its own recurrent one at the same 2e-4.
+
+The Mamba mixer (``_causal_conv``, ``mamba_apply``, ``mamba_init_state``)
+runs at jamba-1.5-large's float32 smoke config (d 64, d_in 128, d_state
+4, d_conv 4), with and without a carried state, T below K-1 included
+(decode has T = 1), at the same 2e-4.
 """
 import dataclasses
 
@@ -275,3 +281,181 @@ def test_xlstm_forward_takes_chunks_only_past_mlstm_chunk(chunk, T, chunked,
     logits = t_transformer.xlstm_forward(params, tokens, cfg)
     assert logits.shape == (B, T, cfg.vocab)
     assert calls == ([chunk] * 3 if chunked else [])
+
+
+# -- the Mamba (S6) mixer ------------------------------------------------------
+
+JAMBA = "jamba-1.5-large-398b"
+
+
+def _mamba_cfgs(**changes):
+    r_cfg, t_cfg = r_configs.get_smoke(JAMBA), t_configs.get_smoke(JAMBA)
+    if changes:
+        r_cfg = dataclasses.replace(r_cfg, **changes)
+        t_cfg = dataclasses.replace(t_cfg, **changes)
+    return r_cfg, t_cfg
+
+
+def _mamba_params(r_cfg, seed=0, dtype=jnp.float32):
+    p = r_ssm.mamba_init(jax.random.PRNGKey(seed), r_cfg, dtype)
+    return p, jax.tree_util.tree_map(_torch, p)
+
+
+def _mamba_state(rng, r_cfg, t_cfg):
+    """A carried state as after some steps: conv rows and an ssm state
+    of random values, the same for both packages."""
+    shapes = {k: (tuple(v.shape), v.dtype) for k, v in
+              t_ssm.mamba_init_state(t_cfg, B).items()}
+    want = {k: (v.shape, jnp.dtype(v.dtype).name) for k, v in
+            r_ssm.mamba_init_state(r_cfg, B).items()}
+    assert {k: (s, str(d).removeprefix("torch.")) for k, (s, d)
+            in shapes.items()} == want
+    st = {k: rng.normal(size=s).astype(np.float32) for k, (s, _)
+          in shapes.items()}
+    return ({k: jnp.asarray(v) for k, v in st.items()},
+            {k: torch.from_numpy(v) for k, v in st.items()})
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("T", [1, 2, 12])
+def test_causal_conv_matches_reference(T, with_state, rng):
+    """Output and new state (the last K-1 rows of [state, x]) for T = 1
+    and 2, below K-1 = 3, and T = 12; the new state is a copy, not a
+    view of the padded input."""
+    K, C = 4, 6
+    x = rng.normal(size=(B, T, C)).astype(np.float32)
+    w = rng.normal(size=(K, C)).astype(np.float32)
+    b = rng.normal(size=(C,)).astype(np.float32)
+    st = rng.normal(size=(B, K - 1, C)).astype(np.float32) if with_state \
+        else None
+    want = r_ssm._causal_conv(*map(jnp.asarray, (x, w, b)),
+                              None if st is None else jnp.asarray(st))
+    got = t_ssm._causal_conv(*map(torch.from_numpy, (x, w, b)),
+                             None if st is None else torch.from_numpy(st))
+    for g, r in zip(got, want):
+        assert tuple(g.shape) == r.shape
+        np.testing.assert_allclose(_np(g), _np(r), **TOL)
+    assert got[1]._base is None
+
+
+@pytest.mark.parametrize("T,with_state", [
+    (12, False), (12, True),
+    (1, True),          # a decode step
+    (2, False),         # shorter than the conv's K-1 = 3
+])
+def test_mamba_apply_matches_reference(T, with_state, rng):
+    r_cfg, t_cfg = _mamba_cfgs()
+    r_p, t_p = _mamba_params(r_cfg)
+    x = _x(rng, T, r_cfg.d_model)
+    r_st, t_st = (_mamba_state(rng, r_cfg, t_cfg) if with_state
+                  else (None, None))
+    want = r_ssm.mamba_apply(r_p, jnp.asarray(x), r_cfg, state=r_st)
+    got = t_ssm.mamba_apply(t_p, torch.from_numpy(x), t_cfg, state=t_st)
+    y_t, s_t = got
+    np.testing.assert_allclose(_np(y_t), _np(want[0]), **TOL)
+    if with_state:
+        assert s_t["ssm"].dtype == torch.float32
+        assert s_t["conv"].dtype == torch.float32   # the compute dtype
+        for k in ("conv", "ssm"):
+            np.testing.assert_allclose(_np(s_t[k]), _np(want[1][k]), **TOL,
+                                       err_msg=k)
+    else:
+        assert s_t is None and want[1] is None
+
+
+def test_mamba_stateful_equals_stateless(rng):
+    """Port only: one step at a time through the carried state gives the
+    stateless call's outputs (the reference's
+    ``test_mamba_stateful_equals_stateless``), here at the decoders' 2e-4
+    since both runs sum in the same order."""
+    _, t_cfg = _mamba_cfgs()
+    p = t_ssm.mamba_init(torch.Generator().manual_seed(0), t_cfg,
+                         torch.float32)
+    x = torch.from_numpy(_x(rng, 6, t_cfg.d_model))
+    full, none = t_ssm.mamba_apply(p, x, t_cfg)
+    assert none is None
+    st = t_ssm.mamba_init_state(t_cfg, B)
+    ys = []
+    for t in range(x.shape[1]):
+        y, st = t_ssm.mamba_apply(p, x[:, t:t + 1], t_cfg, state=st)
+        ys.append(y)
+    torch.testing.assert_close(torch.cat(ys, dim=1), full, **TOL)
+
+
+def test_mamba_leaves_the_state_passed_in_unchanged(rng):
+    r_cfg, t_cfg = _mamba_cfgs()
+    _, t_p = _mamba_params(r_cfg, seed=1)
+    _, st = _mamba_state(rng, r_cfg, t_cfg)
+    before = {k: v.clone() for k, v in st.items()}
+    _, new = t_ssm.mamba_apply(t_p, torch.from_numpy(_x(rng, 5, 64)), t_cfg,
+                               state=st)
+    for k in st:
+        assert torch.equal(st[k], before[k]), k
+        assert not torch.equal(new[k], before[k]), k
+
+
+def test_bf16_mamba_matches_reference(rng):
+    """bfloat16 params and activations at smoke widths, as the full
+    config runs.  Both packages round at the same places (the
+    projections, the conv's output, silu's, y before the output
+    projection) and run the scan in float32 from the same bfloat16
+    values; a float32 sum in another order can flip one rounding, a
+    bfloat16 step (2^-8 relative) that later products carry on.
+    Allowed, as for the xLSTM's blocks: rtol 1e-2 and atol 1e-2
+    max|ref|."""
+    r_cfg, t_cfg = _mamba_cfgs(param_dtype="bfloat16",
+                               compute_dtype="bfloat16")
+    r_p, t_p = _mamba_params(r_cfg, seed=5, dtype=jnp.bfloat16)
+    assert t_p["A_log"].dtype == t_p["D"].dtype == torch.float32
+    x = _x(rng, 32, r_cfg.d_model)
+    xr, xt = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).bfloat16()
+    r_st = r_ssm.mamba_init_state(r_cfg, B)
+    t_st = t_ssm.mamba_init_state(t_cfg, B)
+    assert t_st["conv"].dtype == torch.bfloat16
+    want = r_ssm.mamba_apply(r_p, xr, r_cfg, state=r_st)
+    got = t_ssm.mamba_apply(t_p, xt, t_cfg, state=t_st)
+    assert got[0].dtype == torch.bfloat16
+    scale = np.abs(_np(want[0])).max()
+    tol = dict(rtol=1e-2, atol=1e-2 * scale)
+    np.testing.assert_allclose(_np(got[0]), _np(want[0]), **tol)
+    for k in ("conv", "ssm"):
+        np.testing.assert_allclose(
+            _np(got[1][k]), _np(want[1][k]), rtol=1e-2,
+            atol=1e-2 * np.abs(_np(want[1][k])).max(), err_msg=k)
+
+
+@pytest.mark.parametrize("arch_get", ["get", "get_smoke"])
+def test_mamba_init_and_state_are_shaped_like_the_reference(arch_get):
+    """``mamba_init`` on meta against ``jax.eval_shape`` of the
+    reference's (dt_rank 512 and d_in 16,384 at the full config), and
+    ``mamba_init_state`` equal to the reference's zeros; A_log is
+    log(1..S) in float32 on every channel and D is ones."""
+    r_cfg = getattr(r_configs, arch_get)(JAMBA)
+    t_cfg = getattr(t_configs, arch_get)(JAMBA)
+    want = jax.eval_shape(lambda k: r_ssm.mamba_init(k, r_cfg, jnp.bfloat16),
+                          jax.random.PRNGKey(0))
+    got = t_ssm.mamba_init(None, t_cfg, torch.bfloat16, device="meta")
+    flat = jax.tree_util.tree_leaves_with_path(want)
+    assert len(flat) == len(jax.tree_util.tree_leaves(
+        got, is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    for path, leaf in flat:
+        node = got
+        for key in path:
+            node = node[key.key]
+        assert tuple(node.shape) == leaf.shape, path
+        assert str(node.dtype).removeprefix("torch.") == leaf.dtype.name, path
+    if arch_get == "get":
+        assert got["x_proj"]["w"].shape == (16384, 512 + 32)
+    st_r, st_t = (r_ssm.mamba_init_state(r_cfg, 3),
+                  t_ssm.mamba_init_state(t_cfg, 3, device="meta"))
+    for k in st_r:
+        assert tuple(st_t[k].shape) == st_r[k].shape, k
+        assert str(st_t[k].dtype).removeprefix("torch.") == st_r[k].dtype.name
+    small = t_ssm.mamba_init(torch.Generator().manual_seed(0),
+                             t_configs.get_smoke(JAMBA), torch.float32,
+                             lead=(2,))
+    ref = r_ssm.mamba_init(jax.random.PRNGKey(0), r_configs.get_smoke(JAMBA),
+                           jnp.float32)
+    for k in ("A_log", "D"):
+        assert small[k].shape == (2, *ref[k].shape)
+        np.testing.assert_array_equal(small[k][1].numpy(), np.asarray(ref[k]))
