@@ -124,8 +124,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      CUDA-core (fma) route, plus Tq = 512 < Tk = 4096, a non-causal
      case, phase E's two shapes (olmoe: B = 4, Hq = Hkv = 16; dbrx:
      B = 2, Hq = 48 over Hkv = 8) and phase J's (jamba: B = 2, Hq = 64
-     over Hkv = 8; all T = 4096, d = 128, bfloat16, causal),
-     each checked to run on its route; bitwise equality of G heads
+     over Hkv = 8; all T = 4096, d = 128, bfloat16, causal), and phase
+     W's two at d = 64 (whisper's encoder: B = 16, Hq = Hkv = 6, T =
+     1,500, non-causal, one whole-axis block; its decoder: T = 448,
+     causal), each checked to run on its route; bitwise equality of G heads
      with two calls of G/2; times of kernel, plain version and
      ``scaled_dot_product_attention`` (``is_causal`` at Tq = Tk; at
      Tq < Tk the end-aligned mask ``causal_lower_right(Tq, Tk)``);
@@ -193,9 +195,26 @@ Phases (any failure exits non-zero, and no result line is printed):
      timed alone at (2, 4096) and the busy share; prefill of (4, 512)
      and 32 greedy decode steps against the teacher-forced forward, one
      decode step profiled;
+  W. the encoder-decoder: whisper-tiny's smoke config in float32 on the
+     card against the CPU at the published 1,500 frames (``encode`` and
+     a whole ``encdec_forward`` through the flash kernel on its fma route
+     against its plain version, within rtol 1e-5 / atol 1e-5 max|CPU|);
+     then ``build_model(configs.get("whisper-tiny"))`` at its published
+     widths, nothing cut (4 + 4 layers, d 384, 6 heads of 64, vocab
+     51,865, 1,500 frames; bfloat16, random weights from generator seed
+     0; the conv frontend stubbed, as in the reference, so frames are
+     random d_model embeddings): a scoring forward on 16 x (1,500
+     frames, 448 tokens), counters zeroed just before and read just
+     after (exactly 8 flash launches, all wgmma: 4 encoder layers at one
+     whole-axis block, 4 causal decoder layers), against
+     ``attn_impl="xla"`` by phase 5's bounds, profiled; prefill of the
+     4-token prompt (exactly 4 launches, the encoder's) and 32 greedy
+     decode steps (none) against the teacher-forced forward, one decode
+     step profiled, and the cross-attention's K and V projections of
+     every frame, which each step recomputes, timed alone;
   6. one JSON line describing every kernel (the flash row's launches
-     are phase 5's, phase E's and phase J's scoring forwards'), then the
-     result line.
+     are phase 5's, phase E's and phase J's scoring forwards' and phase
+     W's forward and prefill), then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 with a non-zero code before printing any result.
@@ -337,6 +356,15 @@ JAMBA_STEP_PROFILE = (64, 128)
 #: phase R: the chunked forward's lengths (multiples of XLSTM_CHUNK)
 #: whose profiles are differenced, in place of one of the whole forward
 XLSTM_CHUNKED_PROFILE = (256, 512)
+#: phase W: whisper-tiny at its published widths, nothing cut: a batch
+#: of 16 thirty-second windows (1,500 frames each) scored at whisper's
+#: decoder context of 448 tokens; serving prefills its 4-token
+#: start-of-transcript sequence, then decodes greedily
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_BATCH, WHISPER_TOKENS, WHISPER_PROMPT = 16, 448, 4
+#: phase W: the smoke encoder-decoder on the card against the CPU in
+#: float32 at the published frame count, (2, frames) and (2, 64) tokens
+WHISPER_CHECK_TOKENS = 64
 #: the flash-attention kernel of each route
 FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "fma": "src/repro_torch/csrc/flash_attention.cu"}
@@ -1478,9 +1506,11 @@ def phase_flash():
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    # (name, model, batch, Tq, Tk, causal, dtype); the first is phase 5's
-    # main path, the next to last two phase E's scoring forwards, the last
-    # phase J's
+    # (name, model, batch, Tq, Tk, causal, dtype[, blocks]); the first is
+    # phase 5's main path, then phase E's two scoring forwards, phase J's
+    # and phase W's two (whisper's encoder at one whole-axis block, its
+    # decoder at the default blocks)
+    Tf = configs.get(WHISPER_ARCH).n_audio_frames
     cases = [
         ("causal bf16", MODEL_ARCH, SCORE_BATCH, SCORE_LEN, SCORE_LEN, True,
          torch.bfloat16),
@@ -1496,15 +1526,21 @@ def phase_flash():
          SCORE_LEN, True, torch.bfloat16),
         ("jamba causal bf16", JAMBA_ARCH, JAMBA_BATCH, SCORE_LEN, SCORE_LEN,
          True, torch.bfloat16),
+        ("whisper encoder bf16", WHISPER_ARCH, WHISPER_BATCH, Tf, Tf, False,
+         torch.bfloat16, (Tf, Tf)),
+        ("whisper decoder bf16", WHISPER_ARCH, WHISPER_BATCH, WHISPER_TOKENS,
+         WHISPER_TOKENS, True, torch.bfloat16),
     ]
     rows = []
-    for name, arch, B, Tq, Tk, causal, dtype in cases:
+    for name, arch, B, Tq, Tk, causal, dtype, *blocks in cases:
         cfg = configs.get(arch)
         Hq, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         q = torch.randn(B * Hq, Tq, d, generator=gen, device=dev).to(dtype)
         k = torch.randn(B * Hkv, Tk, d, generator=gen, device=dev).to(dtype)
         v = torch.randn(B * Hkv, Tk, d, generator=gen, device=dev).to(dtype)
         kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=causal)
+        if blocks:
+            kw.update(block_q=blocks[0][0], block_k=blocks[0][1])
         kernel = ref.route(dtype, d)
         counts = dict(attention.flash_attention.launches_by_route)
         got = attention.flash_attention(q, k, v, **kw)
@@ -1556,6 +1592,7 @@ def phase_flash():
         rows.append(dict(case=name, route=kernel, source=FLASH_SOURCES[kernel],
                          model=arch, B=B, Hq=Hq, Hkv=Hkv,
                          G=B * Hq, Tq=Tq, Tk=Tk, d=d, causal=causal,
+                         blocks=blocks[0] if blocks else (512, 512),
                          dtype=str(dtype).split(".")[-1], ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=b_ms, bound_by=b_by, peak=peak_name,
@@ -2562,6 +2599,222 @@ def phase_jamba() -> dict:
     return stats
 
 
+def whisper_card_vs_cpu() -> dict:
+    """The smoke encoder-decoder in float32 on the card against the same
+    code on the CPU, the same params: ``encode`` of (2, n_audio_frames)
+    frames at the published 1,500 (a whole-axis block; the flash kernel
+    on its fma route at head dim 16) and a whole ``encdec_forward`` on
+    (2, WHISPER_CHECK_TOKENS) tokens, both at ``attn_impl="pallas"``
+    (the kernel on the card, its plain version on the CPU), within rtol
+    1e-5 / atol 1e-5 max|CPU|; exactly 2 and 4 fma launches on the
+    card."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.attention import attention
+    from repro_torch.models import transformer
+
+    Tf = configs.get(WHISPER_ARCH).n_audio_frames
+    cfg = dataclasses.replace(configs.get_smoke(WHISPER_ARCH),
+                              n_audio_frames=Tf)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    params = transformer.encdec_init(cfg, gen, device="cpu")
+    p_dev = _tree_to(params, dev)
+    frames = torch.randn(2, Tf, cfg.d_model, generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (2, WHISPER_CHECK_TOKENS),
+                           generator=gen)
+    out = {}
+    for name, n_flash, run in (
+            ("encode", cfg.n_encoder_layers, lambda p, f, t: transformer.encode(
+                p, f, cfg, attn_impl="pallas")),
+            ("encdec_forward", cfg.n_encoder_layers + cfg.n_layers,
+             lambda p, f, t: transformer.encdec_forward(
+                 p, f, t, cfg, attn_impl="pallas"))):
+        want = run(params, frames, tokens)
+        before = dict(attention.flash_attention.launches_by_route)
+        got = run(p_dev, frames.to(dev), tokens.to(dev))
+        torch.cuda.synchronize()
+        after = dict(attention.flash_attention.launches_by_route)
+        if after != dict(before, fma=before["fma"] + n_flash):
+            fail(f"{cfg.arch_id} {name} on the card: flash launches by route "
+                 f"{before} -> {after}; want {n_flash} fma launches")
+        out[name] = compare(got.cpu(), want, XLSTM_CARD_RTOL, XLSTM_CARD_RTOL,
+                            f"{cfg.arch_id} {name} on the card vs the CPU")
+    print(f"{cfg.arch_id} on the card vs the CPU (float32, (2, {Tf}) frames, "
+          f"(2, {WHISPER_CHECK_TOKENS}) tokens, the flash kernel against its "
+          "plain version; max|err|): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in out.items()))
+    return out
+
+
+def phase_whisper() -> dict:
+    """Phase W: the encoder-decoder.  The smoke model on the card against
+    the CPU; whisper-tiny at its published widths (bf16, seed 0): a
+    scoring forward of WHISPER_BATCH x (1,500 frames, 448 tokens) through
+    the flash kernel (8 wgmma launches: 4 encoder layers at one
+    whole-axis block, 4 causal decoder layers) against
+    ``attn_impl="xla"``, where its time goes; then prefill of the
+    4-token prompt (4 launches, the encoder's) and 32 greedy decode
+    steps (none) against the teacher-forced forward, with what
+    recomputing the cross-attention's K and V costs a step."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import layers
+    from repro_torch.runtime import losses
+
+    dev = torch.device("cuda", 0)
+    stats = {"card_vs_cpu": whisper_card_vs_cpu()}
+    cfg = configs.get(WHISPER_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = _build_on_card(cfg)
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(x.numel() for x in _leaves(params))
+    L_enc, L_dec = cfg.n_encoder_layers, cfg.n_layers
+    print(f"model {cfg.arch_id}: {L_enc} encoder and {L_dec} decoder layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_audio_frames} frames: "
+          f"{n_params / 1e6:.3f} M params ({cfg.param_dtype}), init "
+          f"{init_s:.1f} s")
+    stats.update(params=n_params, init_s=init_s)
+
+    # -- scoring ------------------------------------------------------------
+    B, T, Tf = WHISPER_BATCH, WHISPER_TOKENS, cfg.n_audio_frames
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn(B, Tf, cfg.d_model, generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (B, T), generator=gen, device=dev)
+    batch = {"frames": frames, "tokens": tokens}
+    model.forward(params, batch)  # warm-up
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t = time.perf_counter()
+    logits = model.forward(params, batch)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t
+    launches = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    n_flash = L_enc + L_dec
+    by_route = dict(_wrappers()["flash_attention"].launches_by_route)
+    want = {"helmholtz": 0, "gemm_chain": 0, "flash_attention": n_flash}
+    if launches != want or by_route != {"wgmma": n_flash, "fma": 0}:
+        fail(f"{cfg.arch_id} scoring forward launched {launches}, flash by "
+             f"route {by_route}; want {want}, all on wgmma")
+    launches["flash_attention_by_route"] = by_route
+    if logits.shape != (B, T, cfg.vocab) or logits.dtype != torch.float32 \
+            or not torch.isfinite(logits).all():
+        fail(f"{cfg.arch_id} logits {tuple(logits.shape)} {logits.dtype}, "
+             "or not finite")
+    loss = losses.next_token_loss(logits, tokens).item()
+    if not math.isfinite(loss):
+        fail(f"{cfg.arch_id} next-token loss {loss}")
+    print(f"{cfg.arch_id} scoring forward ({B} x ({Tf} frames, {T} tokens)): "
+          f"{fwd_s:.4f} s, {B * T / fwd_s:.0f} tokens/s ({B * Tf / fwd_s:.0f} "
+          f"frames/s) | launches {launches} | next-token loss {loss:.1f} (ln V "
+          f"= {math.log(cfg.vocab):.4f}; the tied embedding at scale 1 scores "
+          f"a position's own token about |e|^2 = d) | peak memory {peak:.2f} "
+          "GiB above the params and inputs")
+    stats.update(forward_s=fwd_s, forward_tokens_per_s=B * T / fwd_s,
+                 forward_frames_per_s=B * Tf / fwd_s, loss=loss,
+                 launches=launches, peak_above_params_gib=peak)
+    stats["forward_profile"] = device_profile(
+        lambda: model.forward(params, batch), f"{cfg.arch_id} scoring forward")
+    xla_model = _build_on_card(cfg, attn_impl="xla")
+    t = time.perf_counter()
+    logits_x = xla_model.forward(params, batch)
+    torch.cuda.synchronize()
+    stats["xla_forward_s"] = time.perf_counter() - t
+    print(f"  {cfg.arch_id} attn_impl='xla' forward: "
+          f"{stats['xla_forward_s']:.4f} s")
+    stats["vs_xla"] = logit_agreement(
+        logits, logits_x, f"{cfg.arch_id} kernel logits vs attn_impl='xla'")
+    del logits, logits_x, xla_model
+    torch.cuda.empty_cache()
+
+    # -- serving: prefill, greedy decode, teacher-forced forward ------------
+    P = WHISPER_PROMPT
+    prompt = {"frames": frames, "tokens": tokens[:, :P]}
+    cache = model.init_cache(B, T)
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lg, cache = model.prefill(params, prompt, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_launches = read_counts()
+    want = {"helmholtz": 0, "gemm_chain": 0, "flash_attention": L_enc}
+    if prefill_launches != want:
+        fail(f"{cfg.arch_id} prefill launched {prefill_launches}; want {want} "
+             "(the encoder's layers)")
+    steps, fed = [lg], []
+    zero_counts()
+    t = time.perf_counter()
+    for i in range(DECODE_STEPS):
+        tok = steps[-1].argmax(-1)
+        fed.append(tok)
+        lg, cache = model.decode_step(params, tok, cache, P + i)
+        steps.append(lg)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    decode_launches = read_counts()
+    if any(decode_launches.values()):
+        fail(f"{cfg.arch_id} decode launched {decode_launches}: the cache "
+             "path should not reach a kernel of the port")
+    seq = torch.cat([tokens[:, :P], torch.stack(fed, dim=1)], dim=1)
+    full = model.forward(params, {"frames": frames, "tokens": seq})
+    forced = full[:, P - 1:P + DECODE_STEPS]
+    served = torch.stack(steps, dim=1)
+    print(f"  serving {cfg.arch_id}: prefill ({B}, {P}) with {Tf} frames "
+          f"{prefill_s:.4f} s (launches {prefill_launches}), {DECODE_STEPS} "
+          f"decode steps {decode_s:.4f} s = {B * DECODE_STEPS / decode_s:.1f} "
+          f"tokens/s (launches {decode_launches})")
+    stats.update(prefill_s=prefill_s, prefill_launches=prefill_launches,
+                 decode_s=decode_s,
+                 decode_tokens_per_s=B * DECODE_STEPS / decode_s,
+                 decode_launches=decode_launches,
+                 vs_forced=logit_agreement(
+                     served, forced,
+                     f"{cfg.arch_id} decode logits vs teacher-forced forward"))
+    last = P + DECODE_STEPS - 1   # rewrites that slot's same K/V
+    stats["decode_profile"] = device_profile(
+        lambda: model.decode_step(params, fed[-1], cache, last),
+        f"{cfg.arch_id} one decode step")
+    # what recomputing the cross-attention's K and V of every frame costs a
+    # step (the reference's decode does it too): those projections alone
+    enc, cd = cache["enc"], layers.torch_dtype(cfg.compute_dtype)
+
+    def cross_kv():
+        for bp in params["dec_blocks"]:
+            layers.dense_apply(bp["cross_attn"]["wk"], enc, cd)
+            layers.dense_apply(bp["cross_attn"]["wv"], enc, cd)
+
+    kv_ms = time_ms(cross_kv, 10)
+    kv_flops = 2 * 2 * L_dec * B * Tf * cfg.d_model * cfg.n_kv_heads * cfg.hd
+    step_s = decode_s / DECODE_STEPS
+    print(f"  cross-attention K and V of {Tf} frames recomputed a step: "
+          f"{kv_ms:.3f} ms on the card ({kv_flops / 1e9:.1f} GFLOP), "
+          f"{kv_ms / 1e3 / step_s:.3f} of a decode step's {step_s * 1e3:.2f} "
+          "ms of wall")
+    stats.update(cross_kv_ms=kv_ms, cross_kv_gflop=kv_flops / 1e9,
+                 cross_kv_share_of_step=kv_ms / 1e3 / step_s,
+                 flash_launches=launches["flash_attention"]
+                 + prefill_launches["flash_attention"])
+    del model, params, frames, tokens, cache, full, forced, served, steps, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
 def profiled_kernels(fn):
     """The CUDA kernels ``torch.profiler`` records in one call of ``fn``,
     summed by name (``key_averages``)."""
@@ -3344,6 +3597,10 @@ def main() -> int:
         jamba = phase_jamba()
         jamba["seconds"] = time.perf_counter() - t_j
         print(f"phase J: {jamba['seconds']:.1f} s")
+        t_w = time.perf_counter()
+        whisper = phase_whisper()
+        whisper["seconds"] = time.perf_counter() - t_w
+        print(f"phase W: {whisper['seconds']:.1f} s")
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -3382,7 +3639,8 @@ def main() -> int:
         "source": FLASH_SOURCES[main_case["route"]],
         "replaces": "src/repro/kernels/attention/attention.py:88",
         "launches": (model["launches"]["flash_attention"]
-                     + experts["flash_launches"] + jamba["flash_launches"]),
+                     + experts["flash_launches"] + jamba["flash_launches"]
+                     + whisper["flash_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
@@ -3397,6 +3655,7 @@ def main() -> int:
     print(json.dumps({"experts": experts}))
     print(json.dumps({"xlstm": xlstm}))
     print(json.dumps({"jamba": jamba}))
+    print(json.dumps({"whisper": whisper}))
     print(json.dumps({"serve": serve_stats}))
     print(json.dumps({"placement": place_stats}))
     print(card)

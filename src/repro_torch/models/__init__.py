@@ -1,5 +1,6 @@
 """Model zoo of the port: the decoder families ``dense``, ``moe`` and
-``vlm`` (``transformer``, with the MoE FFN in ``moe``), the jamba hybrid
+``vlm`` (``transformer``, with the MoE FFN in ``moe``), the
+encoder-decoder (whisper, ``transformer``), the jamba hybrid
 (``hybrid``, with its Mamba mixer in ``ssm``) and the xLSTM
 (``transformer``, with its recurrent blocks in ``ssm``), their
 ``layers``, the ``api`` facade, and ``convert`` for params made by the

@@ -1,8 +1,9 @@
 """Unified model facade: ``build_model(cfg)`` -> :class:`Model` with init /
 forward / prefill / decode, dispatching on the architecture family.
 
-The decoder families ``dense``, ``moe`` and ``vlm``, the jamba hybrid
-``hybrid_jamba`` and the recurrent ``ssm_xlstm`` are ported.  The model
+Every family of the reference is ported: the decoders ``dense``, ``moe``
+and ``vlm``, the jamba hybrid ``hybrid_jamba``, the recurrent
+``ssm_xlstm`` and the encoder-decoder ``encdec`` (whisper).  The model
 runs on ``device`` (default: the CUDA card; ``device="cpu"`` for the
 plain paths); ``init`` draws params from an explicit ``torch.Generator``
 on that device, and inputs are moved to it.
@@ -19,11 +20,6 @@ from . import hybrid, transformer
 from .config import ModelConfig
 
 Params = Dict[str, Any]
-
-#: families of the reference not ported yet, and their ROADMAP item
-NOT_PORTED = {
-    "encdec": "ROADMAP queue 1, item 12 (encoder-decoder)",
-}
 
 
 @dataclasses.dataclass
@@ -49,11 +45,8 @@ def build_model(cfg: ModelConfig, *, attn_impl: str = "auto",
     attention (``"auto"``: the flash kernel on the card, plain ops on the
     CPU; see ``kernels.attention.ops``)."""
     fam = cfg.family
-    if fam in NOT_PORTED:
-        raise NotImplementedError(
-            f"model family {fam!r} is not ported yet: {NOT_PORTED[fam]}"
-        )
-    if fam not in ("dense", "moe", "vlm", "hybrid_jamba", "ssm_xlstm"):
+    if fam not in ("dense", "moe", "vlm", "hybrid_jamba", "ssm_xlstm",
+                   "encdec"):
         raise ValueError(f"unknown family {fam!r}")
     dev = resolve_device(device)
 
@@ -62,6 +55,8 @@ def build_model(cfg: ModelConfig, *, attn_impl: str = "auto",
 
     if fam == "ssm_xlstm":
         return _xlstm_model(cfg, dev, tokens_of)
+    if fam == "encdec":
+        return _encdec_model(cfg, dev, tokens_of, attn_impl)
     # the decoders and the jamba hybrid take the same calls; the hybrid's
     # cache holds Mamba states beside k and v (new each call), and its
     # decode takes a scalar cache_index
@@ -131,6 +126,44 @@ def _xlstm_model(cfg: ModelConfig, dev: torch.device, tokens_of) -> Model:
         forward=fwd,
         init_cache=lambda batch, max_len: transformer.xlstm_init_states(
             cfg, batch, device=dev),
+        prefill=prefill,
+        decode_step=decode,
+    )
+
+
+def _encdec_model(cfg: ModelConfig, dev: torch.device, tokens_of,
+                  attn_impl: str) -> Model:
+    """The encoder-decoder: a batch holds ``frames`` (B, n_audio_frames,
+    d_model) and ``tokens``.  Prefill encodes at the default
+    ``attn_impl="auto"`` whatever the model's, as the reference's does
+    (the flash kernel on the card, a launch an encoder layer); decode
+    takes a scalar ``cache_index``.  ``moe_capacity`` is accepted and
+    ignored, as by the reference."""
+    def frames_of(batch):
+        return torch.as_tensor(batch["frames"], device=dev)
+
+    def fwd(params, batch, moe_capacity=None):
+        return transformer.encdec_forward(
+            params, frames_of(batch), tokens_of(batch), cfg,
+            attn_impl=attn_impl)
+
+    def prefill(params, batch, cache, moe_capacity=None):
+        return transformer.encdec_prefill(
+            params, frames_of(batch), tokens_of(batch), cache, cfg)
+
+    def decode(params, token, cache, cache_index, moe_capacity=None):
+        return transformer.encdec_decode_step(
+            params, torch.as_tensor(token, device=dev), cache, cache_index,
+            cfg)
+
+    return Model(
+        cfg=cfg,
+        device=dev,
+        init=lambda generator: transformer.encdec_init(
+            cfg, generator, device=dev),
+        forward=fwd,
+        init_cache=lambda batch, max_len: transformer.encdec_init_cache(
+            cfg, batch, max_len, device=dev),
         prefill=prefill,
         decode_step=decode,
     )

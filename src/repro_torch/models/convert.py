@@ -7,10 +7,12 @@ them), and a tied head (``tie_embeddings``) has no ``head`` entry.  Its
 ``xlstm_init`` keeps ``blocks`` a list, one ``{"ln", "core"}`` dict a
 layer, whose ``core`` keys differ by the layer's kind.  Its
 ``hybrid_init`` stacks ``periods/sub{i}`` over a leading ``n_periods``
-axis and has no ``head``.  So the conversion is a copy of every leaf,
-checked against the tree, shapes and dtypes the port's init of the same
-family (:func:`~.transformer.decoder_init`,
-:func:`~.transformer.xlstm_init` or :func:`~.hybrid.hybrid_init`) gives
+axis and has no ``head``.  Its ``encdec_init`` (whisper) keeps
+``enc_blocks`` and ``dec_blocks`` lists of per-layer dicts and has no
+``head`` either.  So the conversion is a copy of every leaf, checked
+against the tree, shapes and dtypes the port's init of the same family
+(:func:`~.transformer.decoder_init`, :func:`~.transformer.xlstm_init`,
+:func:`~.transformer.encdec_init` or :func:`~.hybrid.hybrid_init`) gives
 the same config.
 """
 from __future__ import annotations
@@ -64,8 +66,9 @@ def params_from_jax(cfg: ModelConfig, params: Dict[str, Any], *,
     listing every missing key or mismatched shape or dtype."""
     dev = resolve_device(device)
     init = {"ssm_xlstm": transformer.xlstm_init,
-            "hybrid_jamba": hybrid.hybrid_init}.get(cfg.family,
-                                                    transformer.decoder_init)
+            "hybrid_jamba": hybrid.hybrid_init,
+            "encdec": transformer.encdec_init}.get(cfg.family,
+                                                   transformer.decoder_init)
     want = init(cfg, None, device="meta")
     bad: List[str] = []
     out = _convert(params, want, "", dev, bad)

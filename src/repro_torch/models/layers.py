@@ -138,11 +138,16 @@ def attention_apply(
     cache_index=None,
     causal: bool = True,
     attn_impl: str = "auto",
+    block_q: int = 512,
+    block_k: int = 512,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Self- (or cross-) attention.  Without a cache or ``kv`` it goes
     through :func:`~repro_torch.kernels.attention.ops.multi_head_attention`
-    (the flash kernel on the card); with a cache -- prefill and decode --
-    through :func:`_masked_attention`, as in the reference."""
+    (the flash kernel on the card) at ``block_q``/``block_k`` (the
+    reference's 512; only the encoder passes others, see
+    :func:`~.transformer.encode`); with a cache or ``kv`` -- prefill,
+    decode, cross-attention -- through :func:`_masked_attention`, as in
+    the reference."""
     B, T, d = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     cd = torch_dtype(cfg.compute_dtype)
@@ -207,7 +212,8 @@ def attention_apply(
                               valid=valid, cache_index=cache_index)
     else:
         o = attn_ops.multi_head_attention(
-            qh, kh, vh, causal=causal, impl=attn_impl
+            qh, kh, vh, causal=causal, impl=attn_impl, block_q=block_q,
+            block_k=block_k,
         )
     o = o.transpose(1, 2).reshape(B, T, Hq * hd)
     out = dense_apply(p["wo"], o, cd)

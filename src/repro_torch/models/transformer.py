@@ -1,13 +1,12 @@
-"""Decoder-only transformer (dense / MoE / VLM families) and the xLSTM
-stack.
+"""Decoder-only transformer (dense / MoE / VLM families), the
+encoder-decoder (whisper) and the xLSTM stack.
 
 Block params are stacked along a leading ``n_layers`` axis, as the
 reference stacks them with ``jax.vmap``; :func:`_scan_blocks` is a Python
-loop over the layers in place of ``lax.scan``.  The xLSTM's blocks stay a
-list of ``{"ln", "core"}`` dicts, as in the reference: ``core``'s keys
-differ between its sLSTM and mLSTM layers.  The encoder-decoder
-(whisper) stack of the reference's module is not ported yet (ROADMAP
-queue 1, item 12).
+loop over the layers in place of ``lax.scan``.  The encoder-decoder's
+``enc_blocks`` and ``dec_blocks`` and the xLSTM's ``blocks`` stay lists
+of per-layer dicts, as in the reference (the xLSTM's ``core`` keys
+differ between its sLSTM and mLSTM layers).
 
 ``cfg.remat`` matters only to training (it wraps the reference's scan
 body in ``jax.checkpoint``); these forward passes ignore it.
@@ -194,6 +193,197 @@ def decoder_decode_step(
         params["embed"], params.get("head"), x, cfg
     )
     return logits[:, 0], new_caches
+
+
+# =============================================================================
+# Encoder-decoder (whisper backbone; the conv frontend stubbed, as in the
+# reference: frames arrive as d_model embeddings)
+# =============================================================================
+
+def encdec_init(cfg: ModelConfig, generator: Optional[torch.Generator], *,
+                device=None) -> Params:
+    """Random params from ``generator`` (on ``device``); with
+    ``device="meta"`` and no generator, only the shapes and dtypes."""
+    dtype = layers.torch_dtype(cfg.param_dtype)
+    kw = dict(device=device)
+
+    def enc_block():
+        return {
+            "ln1": layers.norm_init(cfg.d_model, cfg.norm, dtype, **kw),
+            "attn": layers.attention_init(generator, cfg, dtype, **kw),
+            "ln2": layers.norm_init(cfg.d_model, cfg.norm, dtype, **kw),
+            "mlp": layers.mlp_init(generator, cfg, dtype, **kw),
+        }
+
+    def dec_block():
+        return {
+            "ln1": layers.norm_init(cfg.d_model, cfg.norm, dtype, **kw),
+            "self_attn": layers.attention_init(generator, cfg, dtype, **kw),
+            "ln_x": layers.norm_init(cfg.d_model, cfg.norm, dtype, **kw),
+            "cross_attn": layers.attention_init(generator, cfg, dtype, **kw),
+            "ln2": layers.norm_init(cfg.d_model, cfg.norm, dtype, **kw),
+            "mlp": layers.mlp_init(generator, cfg, dtype, **kw),
+        }
+
+    return {
+        "embed": layers.embed_init(generator, cfg, dtype, **kw),
+        "enc_blocks": [enc_block() for _ in range(cfg.n_encoder_layers)],
+        "dec_blocks": [dec_block() for _ in range(cfg.n_layers)],
+        "ln_enc": layers.norm_init(cfg.d_model, cfg.norm, dtype, **kw),
+        "ln_f": layers.norm_init(cfg.d_model, cfg.norm, dtype, **kw),
+    }
+
+
+def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *,
+           attn_impl: str = "auto") -> torch.Tensor:
+    """frames: (B, n_frames, d_model) -- precomputed stub embeddings.
+
+    The self-attention is non-causal at one block the length of the
+    frame axis, ``block_q = block_k = n_frames``: the reference's default
+    512-row blocks do not divide whisper's 1,500 frames, so its kernel
+    refuses them, and no multiple of 8 divides 1,500.  Without causality
+    every row sees all keys whatever the blocks, so this changes nothing
+    that is computed (ROADMAP fault 13)."""
+    B, Tf, _ = frames.shape
+    cd = layers.torch_dtype(cfg.compute_dtype)
+    pe = layers.sinusoidal_positions(Tf, cfg.d_model, device=frames.device)
+    x = frames.to(cd) + pe.to(cd)[None]
+    positions = _positions(B, Tf, x.device)
+    for bp in params["enc_blocks"]:
+        h = layers.norm_apply(bp["ln1"], x, cfg.norm, cfg.norm_eps)
+        a, _ = layers.attention_apply(
+            bp["attn"], h, cfg, positions=positions, causal=False,
+            attn_impl=attn_impl, block_q=Tf, block_k=Tf,
+        )
+        x = x + a
+        h = layers.norm_apply(bp["ln2"], x, cfg.norm, cfg.norm_eps)
+        x = x + layers.mlp_apply(bp["mlp"], h, cfg)
+    return layers.norm_apply(params["ln_enc"], x, cfg.norm, cfg.norm_eps)
+
+
+def _dec_embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+               n_positions: int, start: int = 0) -> torch.Tensor:
+    """Token embeddings plus the sinusoidal positions ``[start, start +
+    T)`` of a table of ``n_positions`` rows."""
+    x = layers.embed_apply(params["embed"], tokens, cfg)
+    pe = layers.sinusoidal_positions(n_positions, cfg.d_model,
+                                     device=x.device).to(x.dtype)
+    return x + pe[start:start + tokens.shape[1]][None]
+
+
+def _dec_block(bp: Params, x, enc, cfg: ModelConfig, *, positions,
+               attn_impl: str, cache=None, cache_index=None):
+    """One decoder block: causal self-attention (through the cache, which
+    is written in place, if one is given), cross-attention on the encoder
+    output, MLP.  Returns ``(x, new self-attention cache)``."""
+    h = layers.norm_apply(bp["ln1"], x, cfg.norm, cfg.norm_eps)
+    a, new_cache = layers.attention_apply(
+        bp["self_attn"], h, cfg, positions=positions, cache=cache,
+        cache_index=cache_index, causal=True, attn_impl=attn_impl,
+    )
+    x = x + a
+    h = layers.norm_apply(bp["ln_x"], x, cfg.norm, cfg.norm_eps)
+    a, _ = layers.attention_apply(
+        bp["cross_attn"], h, cfg, positions=positions, kv=(enc, enc),
+        causal=False, attn_impl=attn_impl,
+    )
+    x = x + a
+    h = layers.norm_apply(bp["ln2"], x, cfg.norm, cfg.norm_eps)
+    return x + layers.mlp_apply(bp["mlp"], h, cfg), new_cache
+
+
+def encdec_forward(
+    params: Params,
+    frames: torch.Tensor,               # (B, n_frames, d_model)
+    tokens: torch.Tensor,               # (B, T)
+    cfg: ModelConfig,
+    *,
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """float32 logits (B, T, V).  The encoder's and the decoder's
+    self-attention go through the flash kernel on the card (one launch
+    a layer each); cross-attention takes the masked plain path, as in
+    the reference."""
+    enc = encode(params, frames, cfg, attn_impl=attn_impl)
+    B, T = tokens.shape
+    x = _dec_embed(params, tokens, cfg, T)
+    positions = _positions(B, T, x.device)
+    for bp in params["dec_blocks"]:
+        x, _ = _dec_block(bp, x, enc, cfg, positions=positions,
+                          attn_impl=attn_impl)
+    x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
+    return layers.unembed_apply(params["embed"], None, x, cfg)
+
+
+def encdec_init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                      device=None) -> Params:
+    """``{"self": [{"k", "v"}] a decoder layer, "enc"}`` in the compute
+    dtype, zeros.  Each layer gets tensors of its own: prefill and decode
+    write k and v in place (the reference copies one dict of immutable
+    arrays into every layer)."""
+    dt = layers.torch_dtype(cfg.compute_dtype)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+
+    def zeros(*s):
+        return torch.zeros(s, dtype=dt, device=device)
+
+    return {
+        "self": [{"k": zeros(*shape), "v": zeros(*shape)}
+                 for _ in range(cfg.n_layers)],
+        # encoder output buffer; replaced at prefill
+        "enc": zeros(batch, cfg.n_audio_frames, cfg.d_model),
+    }
+
+
+def encdec_prefill(params, frames, tokens, cache, cfg, *,
+                   attn_impl: str = "auto"):
+    """Encode ``frames`` (through the flash kernel on the card, at
+    ``attn_impl``), then run the prompt through the decoder on the cache
+    path.  Returns (last-position logits, a new cache dict holding the
+    encoder output under ``"enc"`` and the self-attention caches it was
+    given, written in place)."""
+    enc = encode(params, frames, cfg, attn_impl=attn_impl)
+    cache = dict(cache)
+    cache["enc"] = enc
+    B, T = tokens.shape
+    x = _dec_embed(params, tokens, cfg, T)
+    positions = _positions(B, T, x.device)
+    new_self = []
+    for bp, c in zip(params["dec_blocks"], cache["self"]):
+        x, nc = _dec_block(bp, x, enc, cfg, positions=positions,
+                           attn_impl="xla", cache=c, cache_index=0)
+        new_self.append(nc)
+    x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
+    logits = layers.unembed_apply(params["embed"], None, x[:, -1:], cfg)
+    cache["self"] = new_self
+    return logits[:, 0], cache
+
+
+def encdec_decode_step(params, token, cache, cache_index, cfg):
+    """One token a sequence at the scalar ``cache_index`` (an int or a 0-d
+    tensor).  The cross-attention's K and V are computed again from
+    ``cache["enc"]`` every step, as in the reference."""
+    if isinstance(cache_index, torch.Tensor) and cache_index.dim():
+        raise ValueError(
+            "the encoder-decoder decodes at one scalar cache_index, got "
+            f"shape {tuple(cache_index.shape)}")
+    idx = int(cache_index)
+    B = token.shape[0]
+    Tmax = cache["self"][0]["k"].shape[1]
+    # dynamic_slice_in_dim semantics: the start is clamped into the table
+    x = _dec_embed(params, token[:, None], cfg, Tmax,
+                   start=min(max(idx, 0), Tmax - 1))
+    positions = torch.full((B, 1), idx, device=x.device)
+    new_self = []
+    for bp, c in zip(params["dec_blocks"], cache["self"]):
+        x, nc = _dec_block(bp, x, cache["enc"], cfg, positions=positions,
+                           attn_impl="xla", cache=c, cache_index=idx)
+        new_self.append(nc)
+    x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
+    logits = layers.unembed_apply(params["embed"], None, x, cfg)
+    new_cache = dict(cache)
+    new_cache["self"] = new_self
+    return logits[:, 0], new_cache
 
 
 # =============================================================================

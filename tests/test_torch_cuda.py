@@ -44,6 +44,10 @@ smoke hybrid's forward (the flash kernel on its fma route at d = 16 on
 the card, plain attention on the CPU), prefill and a decode step within
 rtol 1e-4 / atol 1e-4 max|CPU| (float32 through four layers in another
 order).
+Whisper: the smoke encoder-decoder on the card (flash on the fma route
+at head dim 16, the encoder at one whole-axis block) equals the CPU's
+within rtol 1e-4 / atol 1e-4 max|CPU|: forward, prefill, a decode step,
+the encoder output and the caches.
 """
 import pytest
 import torch
@@ -600,6 +604,10 @@ WGMMA_CASES = [
     (2, 4, 2, 320, 96, 128, True, 64, 32),       # Tq > Tk, other blocks
     (2, 4, 2, 200, 200, 128, True, 200, 200),    # ragged: 128 divides no T
     (2, 4, 2, 200, 200, 64, False, 200, 200),
+    # whisper-tiny's encoder (1,500 frames, one whole-axis block) and
+    # decoder (448 tokens) at batch 2
+    (2, 6, 6, 1500, 1500, 64, False, 1500, 1500),
+    (2, 6, 6, 448, 448, 64, True, 512, 512),
 ]
 
 
@@ -1305,6 +1313,8 @@ def test_xlstm_blocks_on_the_card_match_the_cpu(cuda, fn, with_state):
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
     return tree.to(device)
 
 
@@ -1380,6 +1390,61 @@ def test_smoke_hybrid_on_the_card_matches_the_cpu(cuda):
     assert after["fma"] == before["fma"] + 1
     assert after["wgmma"] == before["wgmma"]
     for g, w in ((got, want), (g_lg, w_lg), (g_dec, w_dec)):
+        assert g.device == cuda
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * w.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_smoke_whisper_on_the_card_matches_the_cpu(cuda):
+    """The smoke encoder-decoder (2 + 2 layers, head dim 16) with the same
+    params on the card and the CPU: the forward on 64 frames and 16
+    tokens -- four flash launches, on the fma route: two encoder layers
+    at one whole-axis block, two causal decoder layers -- then prefill
+    of 8 tokens (two launches, the encoder's) and a decode step (none),
+    logits, the encoder output and the caches within rtol 1e-4 / atol
+    1e-4 max|CPU|."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    cfg = configs.get_smoke("whisper-tiny")
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg)
+    assert card.device.type == "cuda"
+    params = cpu.init(torch.Generator().manual_seed(0))
+    p_dev = _to(params, cuda)
+    gen = torch.Generator().manual_seed(1)
+    frames = torch.randn(2, 64, cfg.d_model, generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+    batch = {"frames": frames, "tokens": tokens}
+    prompt = {"frames": frames, "tokens": tokens[:, :8]}
+    tf32, torch.backends.cuda.matmul.allow_tf32 = (
+        torch.backends.cuda.matmul.allow_tf32, False)
+    counts = []
+    try:
+        want = cpu.forward(params, batch)
+        counts.append(dict(t_attn.flash_attention.launches_by_route))
+        got = card.forward(p_dev, _to(batch, cuda))
+        torch.cuda.synchronize()
+        counts.append(dict(t_attn.flash_attention.launches_by_route))
+        w_lg, w_cache = cpu.prefill(params, prompt, cpu.init_cache(2, 9))
+        g_lg, g_cache = card.prefill(p_dev, _to(prompt, cuda),
+                                     card.init_cache(2, 9))
+        torch.cuda.synchronize()
+        counts.append(dict(t_attn.flash_attention.launches_by_route))
+        w_dec, w_cache = cpu.decode_step(params, tokens[:, 8], w_cache, 8)
+        g_dec, g_cache = card.decode_step(p_dev, tokens[:, 8].to(cuda),
+                                          g_cache, 8)
+        torch.cuda.synchronize()
+        counts.append(dict(t_attn.flash_attention.launches_by_route))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert [c["fma"] - counts[0]["fma"] for c in counts] == [0, 4, 6, 6]
+    assert all(c["wgmma"] == counts[0]["wgmma"] for c in counts)
+    pairs = [(got, want), (g_lg, w_lg), (g_dec, w_dec),
+             (g_cache["enc"], w_cache["enc"])] + [
+        (g[k], w[k]) for g, w in zip(g_cache["self"], w_cache["self"])
+        for k in ("k", "v")]
+    for g, w in pairs:
         assert g.device == cuda
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
                                    atol=1e-4 * w.abs().max().item())

@@ -13,6 +13,7 @@ Tolerance rtol = atol = 2e-4 on logits of order 1: both sides accumulate
 in float32 through two layers and the vocab projection, in another
 summation order.
 """
+import dataclasses
 import functools
 
 import jax
@@ -259,17 +260,38 @@ def test_moe_capacity_reaches_every_block(arch, rng, monkeypatch):
     assert seen == [cap] * (2 * L)
 
 
-@pytest.mark.parametrize("arch,item", [("whisper-tiny", "item 12")])
-def test_build_model_raises_for_families_not_ported(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(t_configs.get_smoke(arch), device="cpu")
+#: the first config of each family the reference serves, in ARCH_IDS
+FAMILY_ARCHS = {t_configs.get_smoke(a).family: a
+                for a in reversed(t_configs.ARCH_IDS)}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_build_model_builds_every_family(family):
+    """Every family in ``configs`` builds on the CPU, inits from a
+    generator and scores a batch (the encoder-decoder's with frames)."""
+    cfg = t_configs.get_smoke(FAMILY_ARCHS[family])
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
+    if cfg.is_encdec:
+        batch["frames"] = torch.zeros(1, cfg.n_audio_frames, cfg.d_model)
+    logits = model.forward(params, batch)
+    assert logits.shape == (1, 4, cfg.vocab)
+    assert torch.isfinite(logits).all()
+
+
+def test_build_model_rejects_an_unknown_family():
+    cfg = dataclasses.replace(t_configs.get_smoke("internlm2-1.8b"),
+                              family="no-such-family")
+    with pytest.raises(ValueError, match="unknown family 'no-such-family'"):
+        build_model(cfg, device="cpu")
 
 
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default is that card")
     for arch in ("internlm2-1.8b", "olmoe-1b-7b", "xlstm-125m",
-                 "jamba-1.5-large-398b"):
+                 "jamba-1.5-large-398b", "whisper-tiny"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(t_configs.get_smoke(arch))
 
