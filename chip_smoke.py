@@ -131,6 +131,17 @@ Phases (any failure exits non-zero, and no result line is printed):
      with two calls of G/2; times of kernel, plain version and
      ``scaled_dot_product_attention`` (``is_causal`` at Tq = Tk; at
      Tq < Tk the end-aligned mask ``causal_lower_right(Tq, Tk)``);
+     then the backward kernel (``csrc/flash_attention_bwd.cu``) at phase
+     T's training shape (B = 4, Hq = 16, Hkv = 8, T = 4096, d = 128,
+     bfloat16, causal) and a float32 smoke shape at d = 16: the forward
+     kernel's output with its LSE written bitwise the output without it,
+     the LSE of both forward routes against the plain version's, dq, dk
+     and dv against ``flash_attention_bwd_plain`` on the same (q, k, v,
+     o, lse, do) (float32 by the f32 rule; bfloat16 within rtol 8e-3 /
+     atol 1e-3 max|plain|), two calls bitwise equal, one count a call;
+     times of kernel, plain version and SDPA's backward
+     (``torch.autograd.grad`` with ``retain_graph``), beside the bound
+     (10 d flops a visible pair at the peak of the dtype);
   5. the model path: ``build_model(configs.get("internlm2-1.8b"))`` at
      full size (24 layers, bfloat16, random weights from generator seed
      0), one scoring ``forward`` on tokens (4, 4096) with the launch
@@ -212,9 +223,25 @@ Phases (any failure exits non-zero, and no result line is printed):
      decode steps (none) against the teacher-forced forward, one decode
      step profiled, and the cross-attention's K and V projections of
      every frame, which each step recomputes, timed alone;
+  T. training: the smoke internlm2 (float32) on the card against the
+     CPU from the same params and batch (the loss within rtol 1e-5, every
+     gradient within rtol 1e-4 / atol 1e-4 max|CPU|, two AdamW steps'
+     updates within 1e-3 relative L2 a leaf); the smoke model trained 3 steps,
+     checkpointed, trained 2 more, then restored and trained the same 2
+     again: losses and every state leaf bitwise equal; then
+     internlm2-1.8b whole (published widths, bfloat16, remat "block",
+     seed 0) trained 5 AdamW steps of 4 x 4,096 ``TokenStream`` tokens
+     through ``PrefetchPipeline``, counters zeroed just before and read
+     just after (exactly 48 forward flash launches a step, 24 of them
+     the remat recompute, and 24 backward calls): seconds, tokens/s,
+     loss, grad norm and lr a step, peak memory, a step's busy share and
+     top kernels; and one step at 4 x 1,024 through the kernels against
+     ``attn_impl="xla"`` (loss within 0.5 %, each gradient leaf within
+     2 % relative L2);
   6. one JSON line describing every kernel (the flash row's launches
-     are phase 5's, phase E's and phase J's scoring forwards' and phase
-     W's forward and prefill), then the result line.
+     are phase 5's, phase E's and phase J's scoring forwards', phase
+     W's forward and prefill, and phase T's steps; the backward's are
+     phase T's steps), then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 with a non-zero code before printing any result.
@@ -368,6 +395,46 @@ WHISPER_CHECK_TOKENS = 64
 #: the flash-attention kernel of each route
 FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "fma": "src/repro_torch/csrc/flash_attention.cu"}
+#: the backward kernel (both dtypes, CUDA cores) and the TPU-side function
+#: it replaces (the reference's Pallas kernel has no derivative)
+FLASH_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+FLASH_BWD_REPLACES = "src/repro/kernels/attention/xla_flash.py:96"
+#: phase 4's backward rows: phase T's training shape (internlm2, B 4,
+#: T 4,096, bfloat16, causal) and a float32 smoke shape at head dim 16
+#: (internlm2's smoke config: 4 query heads over 2, B 2, T 256)
+BWD_SMOKE_BATCH, BWD_SMOKE_LEN = 2, 256
+#: the backward in bfloat16, per element: kernel and plain version compute
+#: in float32 from the same inputs (q, k, v, do, and o and lse from the
+#: forward kernel) and round each gradient once, so they differ by one
+#: bfloat16 step where their float32 values straddle a rounding boundary
+#: (2^-7 relative: rtol 8e-3), plus a floor for their two float32
+#: summation orders over up to 8,192 rows a key (1e-3 max|plain|); a
+#: dropped tile, a wrong D or a scale off by 1 % fails it.  float32 rows
+#: take F32_RTOL / F32_ATOL_FRAC
+BWD_BF16_RTOL, BWD_BF16_ATOL_FRAC = 8e-3, 1e-3
+#: phase T: internlm2-1.8b trained whole (published widths, bfloat16,
+#: remat "block") for TRAIN_STEPS AdamW steps of TRAIN_BATCH x TRAIN_LEN
+#: tokens (configs/shapes.py's train_4k sequence length; its global batch
+#: of 256 cut to 4 on one card), the launcher's optimizer settings
+TRAIN_ARCH = MODEL_ARCH
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 4096, 5
+#: phase T: the smoke step card against the CPU (float32) and the resume
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_LEN = 2, 128
+#: phase T: one step through the kernels against attn_impl="xla" at
+#: TRAIN_BATCH x TRAIN_CHECK_LEN: two bfloat16 paths that round at other
+#: places (the kernels round p for PV in the forward, the plain path
+#: rounds p before PV and differentiates that), so the loss within 0.5 %
+#: and each leaf's gradient within 2 % relative L2
+TRAIN_CHECK_LEN = 1024
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2 = 5e-3, 2e-2
+#: phase T's smoke step on the card against the CPU (float32): loss rtol
+#: 1e-5, each gradient within rtol 1e-4 / atol 1e-4 max|CPU| (float32 sums
+#: in another order through two layers and the attention kernels), and
+#: each leaf's update after two AdamW steps within 1e-3 relative L2 of
+#: the CPU's.  Not entry by entry: Adam's step is a ratio of moments, so
+#: an entry with a small gradient carries that gradient's relative error
+#: (up to ~1e-3 at |g| ~ 1e-4 max|g|) into its update whole
+TRAIN_CARD_LOSS_RTOL, TRAIN_CARD_GRAD_TOL, TRAIN_CARD_UPDATE_L2 = 1e-5, 1e-4, 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -463,10 +530,23 @@ def _wrappers():
 
 
 def zero_counts() -> None:
-    """Set every kernel's launch count to 0 (just before a main path)."""
+    """Set every kernel's launch count to 0 (just before a main path):
+    the forward kernels' (``read_counts``) and the flash backward's
+    (``read_bwd_count``)."""
+    from repro_torch.kernels.attention import attention
+
     for fn in _wrappers().values():
         fn.launches = 0
     _wrappers()["flash_attention"].launches_by_route.update(wgmma=0, fma=0)
+    attention.flash_attention_bwd.launches = 0
+
+
+def read_bwd_count() -> int:
+    """The flash backward's calls since ``zero_counts`` (only training
+    reaches it)."""
+    from repro_torch.kernels.attention import attention
+
+    return attention.flash_attention_bwd.launches
 
 
 def read_counts() -> dict:
@@ -1608,6 +1688,112 @@ def phase_flash():
               f"(max|sdpa - plain| {lib_err:.3e})  bound {b_ms:.3f} ms "
               f"({b_by}; {flops / 1e9:.1f} GFLOP at the {peak_name} peak)")
         del q, k, v, got, want, parts
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_flash_bwd():
+    """The flash backward kernel against its plain version at phase T's
+    training shape (bfloat16) and a float32 smoke shape; the LSE of both
+    forward kernels against the plain version's, and their output with
+    the LSE written bitwise the output without it; times beside the
+    backward of SDPA and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels.attention import attention, ref
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cfg, smoke = configs.get(TRAIN_ARCH), configs.get_smoke(TRAIN_ARCH)
+    cases = [("train bf16", cfg, TRAIN_BATCH, TRAIN_LEN, torch.bfloat16),
+             ("smoke f32", smoke, BWD_SMOKE_BATCH, BWD_SMOKE_LEN,
+              torch.float32)]
+    rows = []
+    for name, c, B, T, dtype in cases:
+        Hq, Hkv, d = c.n_heads, c.n_kv_heads, c.hd
+        q = torch.randn(B * Hq, T, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B * Hkv, T, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B * Hkv, T, d, generator=gen, device=dev).to(dtype)
+        do = torch.randn(B * Hq, T, d, generator=gen, device=dev).to(dtype)
+        kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=True)
+        fwd_kw = dict(kw, scale=1.0 / d ** 0.5, block_q=512, block_k=512)
+        kernel = ref.route(dtype, d)
+        o_plain, _ = attention._forward_kernel(q, k, v, with_lse=False,
+                                               **fwd_kw)
+        o, lse = attention._forward_kernel(q, k, v, with_lse=True, **fwd_kw)
+        torch.cuda.synchronize()
+        if not torch.equal(o, o_plain):
+            fail(f"flash bwd {name}: the forward's output with the LSE "
+                 f"written differs from the output without it [{kernel}]")
+        _, want_lse = ref.flash_attention_plain(q, k, v, return_lse=True,
+                                                **kw)
+        lse_err = compare(lse, want_lse, F32_RTOL, F32_ATOL_FRAC,
+                          f"flash {name} LSE [{kernel}]")
+        before = attention.flash_attention_bwd.launches
+        got = attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        if attention.flash_attention_bwd.launches != before + 1:
+            fail(f"flash bwd {name}: launches {before} -> "
+                 f"{attention.flash_attention_bwd.launches}; want one more")
+        want = ref.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        rtol, frac = ((F32_RTOL, F32_ATOL_FRAC) if dtype == torch.float32
+                      else (BWD_BF16_RTOL, BWD_BF16_ATOL_FRAC))
+        errs = {g: compare(a, b, rtol, frac, f"flash bwd {name} {g}")
+                for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+        again = attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash bwd {name}: two calls differ bitwise")
+        max_plain = {g: w.float().abs().max().item()
+                     for g, w in zip(("dq", "dk", "dv"), want)}
+        del again, want
+        ms = time_ms(lambda: attention.flash_attention_bwd(
+            q, k, v, o, lse, do, **kw), 3)
+        plain_ms = time_ms(lambda: ref.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, **kw), 1)
+        # the library yardstick: SDPA's backward on the same inputs
+        shape4 = lambda t, H: t.view(B, H, T, d).detach().requires_grad_()
+        q4, k4, v4 = shape4(q, Hq), shape4(k, Hkv), shape4(v, Hkv)
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                              enable_gqa=True)
+        do4 = do.view(B, Hq, T, d)
+        sdpa = lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                           retain_graph=True)
+        lib_err = max((a.reshape(b.shape).float() - b.float()).abs().max().item()
+                      / max_plain[g]
+                      for g, a, b in zip(("dq", "dk", "dv"), sdpa(), got))
+        if lib_err > 0.1:
+            fail(f"flash bwd {name}: SDPA's gradients are off the kernel's "
+                 f"by {lib_err:.3e} of max|plain|: not the same function")
+        library_ms = time_ms(sdpa, 5)
+        del out4, q4, k4, v4
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        pairs = visible_pairs(T, T, True)
+        flops = 10 * d * B * Hq * pairs
+        b_ms, b_by = bound(nbytes(q, k, v, o, do, lse, *got), flops, peak)
+        peak_name = ("bf16 tensor-core 989 TFLOP/s" if dtype == torch.bfloat16
+                     else "f32 CUDA-core 67 TFLOP/s")
+        rows.append(dict(case=name, route="cuda", source=FLASH_BWD_SOURCE,
+                         forward_route=kernel, model=c.arch_id, B=B, Hq=Hq,
+                         Hkv=Hkv, G=B * Hq, T=T, d=d, causal=True,
+                         dtype=str(dtype).split(".")[-1], ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=b_ms, bound_by=b_by, peak=peak_name,
+                         max_abs_err=max(errs.values()), errs=errs,
+                         max_abs_plain=max_plain, lse_max_abs_err=lse_err,
+                         sdpa_rel_err=lib_err))
+        print(f"flash bwd {name}: G={B * Hq} (Hq {Hq} over Hkv {Hkv}) T={T} "
+              f"d={d} {rows[-1]['dtype']}: forward [{kernel}] output with "
+              f"LSE bitwise without, max|LSE err| {lse_err:.3e} | max|err| "
+              + ", ".join(f"{g} {e:.3e} (max|plain| {max_plain[g]:.3f})"
+                          for g, e in errs.items())
+              + f", bitwise repeatable | kernel {ms:.3f} ms  plain "
+              f"{plain_ms:.3f} ms  sdpa backward {library_ms:.3f} ms (max "
+              f"|sdpa - kernel| {lib_err:.2e} of max|plain|)  bound "
+              f"{b_ms:.3f} ms ({b_by}; {flops / 1e9:.1f} GFLOP at the "
+              f"{peak_name} peak)")
+        del q, k, v, do, o, o_plain, lse, want_lse, got
     torch.cuda.empty_cache()
     return rows
 
@@ -2815,6 +3001,296 @@ def phase_whisper() -> dict:
     return stats
 
 
+def _rel_l2(got, want) -> float:
+    want = want.float()
+    den = want.norm().item()
+    diff = (got.float() - want).norm().item()
+    return diff / den if den else diff
+
+
+def _state_leaves(state):
+    from repro_torch.tree import named_leaves
+
+    return named_leaves(state)
+
+
+def train_card_vs_cpu() -> dict:
+    """The smoke internlm2 (float32) on the card against the CPU: the same
+    params and batch on both, the loss and every gradient of one step,
+    then the params after two AdamW steps (each leaf's update within
+    TRAIN_CARD_UPDATE_L2 relative L2 of the CPU's)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import (init_train_state, make_loss_fn,
+                                           make_train_step, value_and_grad)
+
+    dev = torch.device("cuda", 0)
+    cfg = configs.get_smoke(TRAIN_ARCH)
+    models = {d: build_model(cfg, device=d) for d in ("cpu", dev)}
+    state_cpu = init_train_state(models["cpu"],
+                                 torch.Generator().manual_seed(0))
+    states = {"cpu": state_cpu, dev: _tree_to(state_cpu, dev)}
+    p0 = _tree_to(state_cpu["params"], "cpu")
+    stream = TokenStream(vocab=cfg.vocab, batch=TRAIN_SMOKE_BATCH,
+                         seq_len=TRAIN_SMOKE_LEN, seed=0)
+    batches = [stream.batch_at(i) for i in range(2)]
+    out = {}
+    zero_counts()
+    grads, losses = {}, {}
+    for d, model in models.items():
+        batch = {k: torch.as_tensor(v, device=d) for k, v in batches[0].items()}
+        losses[d], grads[d] = value_and_grad(make_loss_fn(model),
+                                             states[d]["params"], batch)
+    # remat "block": each layer's forward runs again in the backward
+    want = (2 * cfg.n_layers, cfg.n_layers)
+    if (read_counts()["flash_attention"], read_bwd_count()) != want:
+        fail(f"smoke step on the card: flash {read_counts()}, backward "
+             f"{read_bwd_count()}; want {want[0]} forward, {want[1]} backward")
+    l_card, l_cpu = losses[dev].item(), losses["cpu"].item()
+    if not abs(l_card - l_cpu) <= TRAIN_CARD_LOSS_RTOL * abs(l_cpu):
+        fail(f"smoke step: loss on the card {l_card} vs CPU {l_cpu}")
+    out["loss_card"], out["loss_cpu"] = l_card, l_cpu
+    g_cpu = dict(_state_leaves(grads["cpu"]))
+    out["grad_max_abs_err"] = max(
+        compare(g.cpu(), g_cpu[n], TRAIN_CARD_GRAD_TOL, TRAIN_CARD_GRAD_TOL,
+                f"smoke step gradient {n}")
+        for n, g in _state_leaves(grads[dev]))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    for d, model in models.items():
+        step = make_train_step(model, opt)
+        for b in batches:
+            states[d], _ = step(states[d], b)
+    cpu_p = dict(_state_leaves(states["cpu"]["params"]))
+    base = dict(_state_leaves(p0))
+    worst = 0.0
+    for n, p in _state_leaves(states[dev]["params"]):
+        e = _rel_l2(p.cpu() - base[n], cpu_p[n] - base[n])
+        if not e <= TRAIN_CARD_UPDATE_L2:
+            fail(f"smoke steps: {n}'s update on the card is {e:.3e} "
+                 "relative L2 off the CPU's")
+        worst = max(worst, e)
+    out["update_rel_l2"] = worst
+    print(f"  smoke {cfg.arch_id} (float32, {TRAIN_SMOKE_BATCH} x "
+          f"{TRAIN_SMOKE_LEN}) card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f}, "
+          f"max|grad err| {out['grad_max_abs_err']:.3e}, two AdamW steps' "
+          f"updates within {worst:.3e} relative L2")
+    return out
+
+
+def train_resume() -> dict:
+    """The smoke model on the card: 3 steps, a checkpoint, 2 more; then the
+    checkpoint restored and the same 2 steps again: losses and every leaf
+    of the state bitwise equal (deterministic kernels, resumable data)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import init_train_state, make_train_step
+
+    dev = torch.device("cuda", 0)
+    cfg = configs.get_smoke(TRAIN_ARCH)
+    model = build_model(cfg, device=dev)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                              total_steps=10))
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0))
+
+    def run(state, start, n):
+        data = TokenStream(vocab=cfg.vocab, batch=TRAIN_SMOKE_BATCH,
+                           seq_len=TRAIN_SMOKE_LEN, seed=0, start_step=start)
+        losses = []
+        for _ in range(n):
+            state, m = step(state, next(data))
+            losses.append(m["loss"].item())
+        return state, losses
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        state, first = run(state, 0, 3)
+        mgr.save(state, step=3, blocking=False)
+        mgr.wait()
+        state, tail = run(state, 3, 2)
+        ref_leaves = [(n, v.clone()) for n, v in _state_leaves(state)]
+        restored = mgr.restore(state)
+        if int(restored["step"]) != 3:
+            fail(f"resume: restored step {int(restored['step'])}, want 3")
+        restored, again = run(restored, 3, 2)
+    if tail != again:
+        fail(f"resume: losses {again} after the restore, {tail} without")
+    got = dict(_state_leaves(restored))
+    for n, v in ref_leaves:
+        if not torch.equal(got[n], v):
+            fail(f"resume: {n} differs bitwise from the uninterrupted run")
+    print(f"  resume (smoke, card): losses {first} | {tail}; after restoring "
+          f"step 3: {again}, every one of {len(ref_leaves)} state leaves "
+          "bitwise equal")
+    return dict(losses=first + tail, resumed=again, leaves=len(ref_leaves))
+
+
+#: kernel classes of a train step's profile, matched in order on the
+#: lower-cased kernel name
+KERNEL_CLASSES = (
+    ("flash backward", ("flash_bwd",)),
+    ("flash forward", ("flash_sm90", "flash_attention_kernel")),
+    ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+    ("copies and casts", ("copy",)),
+    ("reductions and softmax", ("reduce", "softmax", "norm")),
+    ("other elementwise", ("elementwise",)),
+)
+
+
+def kernel_breakdown(kernels, what: str) -> dict:
+    """Device seconds and calls of ``profiled_kernels``' result by
+    :data:`KERNEL_CLASSES` (the rest as "other"), printed largest first."""
+    out = {}
+    for e in kernels:
+        name = e.key.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES
+                    if any(k in name for k in keys)), "other")
+        s, n = out.get(cls, (0.0, 0))
+        out[cls] = (s + e.self_device_time_total / 1e6, n + e.count)
+    total = sum(s for s, _ in out.values())
+    print(f"  {what}: {total:.4f} s on the card")
+    for cls, (sec, n) in sorted(out.items(), key=lambda x: -x[1][0]):
+        print(f"    {cls}: {sec:.4f} s ({sec / total:.3f}), {n} calls")
+    return {cls: dict(s=sec, calls=n) for cls, (sec, n) in out.items()}
+
+
+def phase_train() -> dict:
+    """Phase T: the training path on the card -- the smoke step against
+    the CPU, a bitwise resume, internlm2-1.8b trained whole, and one step
+    through the kernels against attn_impl="xla"."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import PrefetchPipeline, TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_leaves
+    from repro_torch.runtime.train import (init_train_state, make_loss_fn,
+                                           make_train_step, value_and_grad)
+
+    stats = {"card_vs_cpu": train_card_vs_cpu(), "resume": train_resume()}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda", 0)
+    cfg = configs.get(TRAIN_ARCH)
+    if cfg.remat != "block" or cfg.param_dtype != "bfloat16":
+        fail(f"{cfg.arch_id}: remat {cfg.remat}, params {cfg.param_dtype}; "
+             "want block and bfloat16")
+    model = build_model(cfg)
+    t = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    state_gb = sum(x.numel() * x.element_size()
+                   for x in tree_leaves(state)) / 1e9
+    print(f"  {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, vocab "
+          f"{cfg.vocab}: {n_params / 1e6:.1f} M params ({cfg.param_dtype}), "
+          f"train state {state_gb:.2f} GB, init "
+          f"{time.perf_counter() - t:.1f} s")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=TRAIN_STEPS)
+    train_step = make_train_step(model, opt)
+    data = PrefetchPipeline(TokenStream(vocab=cfg.vocab, batch=TRAIN_BATCH,
+                                        seq_len=TRAIN_LEN, seed=0),
+                            device=dev)
+    n_tok = TRAIN_BATCH * TRAIN_LEN
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    zero_counts()
+    for i in range(TRAIN_STEPS):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = train_step(state, batch)
+        loss = m["loss"].item()
+        dt = time.perf_counter() - t
+        fwd, bwd = read_counts()["flash_attention"], read_bwd_count()
+        want = (2 * cfg.n_layers * (i + 1), cfg.n_layers * (i + 1))
+        if (fwd, bwd) != want:
+            fail(f"train step {i}: flash forward/backward launches so far "
+                 f"{fwd}/{bwd}, want {want[0]}/{want[1]}")
+        gnorm, lr = m["grad_norm"].item(), m["lr"].item()
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"train step {i}: loss {loss}, grad norm {gnorm}")
+        steps.append(dict(step=i, s=dt, tokens_per_s=n_tok / dt, loss=loss,
+                          grad_norm=gnorm, lr=lr))
+        print(f"  step {i}: {dt:.3f} s, {n_tok / dt:,.0f} tokens/s, loss "
+              f"{loss:.4f}, grad norm {gnorm:.4f}, lr {lr:.3e}")
+    launches = read_counts()
+    launches["flash_attention_bwd"] = read_bwd_count()
+    launches["flash_attention_by_route"] = dict(
+        _wrappers()["flash_attention"].launches_by_route)
+    if launches["flash_attention_by_route"]["fma"] != 0:
+        fail(f"training launched {launches}: want every forward on wgmma")
+    data.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if int(state["step"]) != TRAIN_STEPS:
+        fail(f"state step {int(state['step'])}, want {TRAIN_STEPS}")
+    warm = steps[1:]
+    print(f"  {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_LEN}: launches "
+          f"{launches} | steps 1-{TRAIN_STEPS - 1}: "
+          f"{sum(x['s'] for x in warm) / len(warm):.3f} s a step, "
+          f"{n_tok * len(warm) / sum(x['s'] for x in warm):,.0f} tokens/s | "
+          f"peak memory {peak_gb:.2f} GB (train state {base_gb:.2f} GB)")
+    stats.update(arch=cfg.arch_id, params=n_params, state_gb=state_gb,
+                 batch=TRAIN_BATCH, seq_len=TRAIN_LEN, steps=steps,
+                 launches=launches, peak_gb=peak_gb,
+                 mean_step_s=sum(x["s"] for x in warm) / len(warm),
+                 tokens_per_s=n_tok * len(warm) / sum(x["s"] for x in warm))
+    stats["step_profile"] = device_profile(
+        lambda: train_step(state, batch), "one train step")
+    stats["step_breakdown"] = kernel_breakdown(
+        profiled_kernels(lambda: train_step(state, batch)),
+        "one train step's kernels")
+    del batch
+    gc.collect()
+
+    # one step through the kernels against attn_impl="xla"
+    check = {k: torch.as_tensor(v, device=dev) for k, v in TokenStream(
+        vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_CHECK_LEN,
+        seed=1).batch_at(0).items()}
+    params = state["params"]
+    del state, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    l_k, g_k = value_and_grad(make_loss_fn(model), params, check)
+    l_x, g_x = value_and_grad(make_loss_fn(build_model(cfg, attn_impl="xla")),
+                              params, check)
+    l_k, l_x = l_k.item(), l_x.item()
+    if not abs(l_k - l_x) <= TRAIN_LOSS_RTOL * abs(l_x):
+        fail(f"kernel step loss {l_k} vs xla {l_x}")
+    g_x = dict(_state_leaves(g_x))
+    rel = {n: _rel_l2(g, g_x[n]) for n, g in _state_leaves(g_k)}
+    worst = max(rel, key=rel.get)
+    if rel[worst] > TRAIN_GRAD_REL_L2:
+        fail(f"kernel step gradient {worst} is {rel[worst]:.3e} relative L2 "
+             f"off attn_impl='xla'")
+    print(f"  kernels vs attn_impl='xla' at {TRAIN_BATCH} x "
+          f"{TRAIN_CHECK_LEN}: loss {l_k:.5f} vs {l_x:.5f}, worst gradient "
+          f"relative L2 {rel[worst]:.3e} ({worst})")
+    stats["vs_xla"] = dict(loss=l_k, loss_xla=l_x, worst_leaf=worst,
+                           worst_rel_l2=rel[worst])
+    del params, g_k, g_x, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
 def profiled_kernels(fn):
     """The CUDA kernels ``torch.profiler`` records in one call of ``fn``,
     summed by name (``key_averages``)."""
@@ -3581,6 +4057,7 @@ def main() -> int:
         print(f"phase M: {place_stats['seconds']:.1f} s")
         t_f = time.perf_counter()
         flash_rows = phase_flash()
+        bwd_rows = phase_flash_bwd()
         print(f"phase 4: {time.perf_counter() - t_f:.1f} s")
         t_5 = time.perf_counter()
         model = phase_model()
@@ -3601,6 +4078,10 @@ def main() -> int:
         whisper = phase_whisper()
         whisper["seconds"] = time.perf_counter() - t_w
         print(f"phase W: {whisper['seconds']:.1f} s")
+        t_t = time.perf_counter()
+        train = phase_train()
+        train["seconds"] = time.perf_counter() - t_t
+        print(f"phase T: {train['seconds']:.1f} s")
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -3640,11 +4121,22 @@ def main() -> int:
         "replaces": "src/repro/kernels/attention/attention.py:88",
         "launches": (model["launches"]["flash_attention"]
                      + experts["flash_launches"] + jamba["flash_launches"]
-                     + whisper["flash_launches"]),
+                     + whisper["flash_launches"]
+                     + train["launches"]["flash_attention"]),
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
         "shapes": flash_rows,
+    })
+    train_case = bwd_rows[0]  # the shape phase T's training gives it
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": FLASH_BWD_SOURCE, "replaces": FLASH_BWD_REPLACES,
+        "launches": train["launches"]["flash_attention_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        **{k: train_case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+        "shapes": bwd_rows,
     })
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"fig2": fig2, "fixed_point": fixed, "dse": dse_stats,
@@ -3656,6 +4148,7 @@ def main() -> int:
     print(json.dumps({"xlstm": xlstm}))
     print(json.dumps({"jamba": jamba}))
     print(json.dumps({"whisper": whisper}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"serve": serve_stats}))
     print(json.dumps({"placement": place_stats}))
     print(card)

@@ -1,0 +1,4 @@
+"""Atomic, async checkpoints in the reference's on-disk layout."""
+from .manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

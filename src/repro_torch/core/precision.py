@@ -323,24 +323,69 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``b`` is 2-D, or has ``a``'s leading (batch) dims.  On a CUDA card,
     bfloat16/float16 operands go to ``torch.mm``/``torch.bmm`` with
     ``out_dtype=torch.float32`` (no rounding to the low precision), and
-    any other shape raises.  On the CPU, which has no kernel for those
+    any other shape raises; that product is differentiable through
+    :class:`_MatmulF32`.  On the CPU, which has no kernel for those
     overloads, and for float32 operands, both are upcast to float32,
     which is exact for bfloat16 values and accumulates in float32."""
     low = (torch.bfloat16, torch.float16)
     if a.device.type == "cuda" and (a.dtype in low or b.dtype in low):
         if a.dtype != b.dtype:
             raise TypeError(f"matmul_f32: operands of {a.dtype} and {b.dtype}")
-        if b.dim() == 2:
-            out = torch.mm(a.reshape(-1, a.shape[-1]), b,
-                           out_dtype=torch.float32)
-            return out.reshape(*a.shape[:-1], b.shape[-1])
-        if b.dim() == a.dim() >= 3 and b.shape[:-2] == a.shape[:-2]:
-            out = torch.bmm(a.reshape(-1, *a.shape[-2:]),
-                            b.reshape(-1, *b.shape[-2:]),
-                            out_dtype=torch.float32)
-            return out.reshape(*a.shape[:-2], *out.shape[-2:])
-        raise ValueError(
-            f"matmul_f32: b {tuple(b.shape)} is neither 2-D nor batched "
-            f"like a {tuple(a.shape)}"
-        )
+        if not (b.dim() == 2 or (b.dim() == a.dim() >= 3
+                                 and b.shape[:-2] == a.shape[:-2])):
+            raise ValueError(
+                f"matmul_f32: b {tuple(b.shape)} is neither 2-D nor batched "
+                f"like a {tuple(a.shape)}"
+            )
+        return _MatmulF32.apply(a, b)
     return torch.matmul(a.float(), b.float())
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in float32 for 2-D or 3-D (batched) operands of one
+    dtype: ``out_dtype=float32`` on the card, an upcast on the CPU."""
+    mm = torch.mm if a.dim() == 2 else torch.bmm
+    if a.device.type == "cuda" and a.dtype != torch.float32:
+        return mm(a, b, out_dtype=torch.float32)
+    return mm(a.float(), b.float())
+
+
+class _MatmulF32(torch.autograd.Function):
+    """The card's low-precision ``matmul_f32`` with a gradient.
+
+    Forward: the float32-accumulated product, ``b`` 2-D (``a`` flattened
+    to rows) or batched like ``a``.  Backward: the float32 cotangent is
+    rounded to the operands' dtype -- as XLA's DEFAULT precision rounds
+    it on a TPU -- and multiplied with the other operand, transposed, by
+    the same float32-accumulated product; each gradient comes back in its
+    operand's dtype (float32 operands: float32 throughout, exact)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if b.dim() == 2:
+            out = _mm_f32(a.reshape(-1, a.shape[-1]), b)
+            return out.reshape(*a.shape[:-1], b.shape[-1])
+        out = _mm_f32(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]))
+        return out.reshape(*a.shape[:-2], *out.shape[-2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = db = None
+        if b.dim() == 2:
+            a2, g2 = a.reshape(-1, a.shape[-1]), g.reshape(-1, b.shape[-1])
+            if ctx.needs_input_grad[0]:
+                da = _mm_f32(g2, b.t()).reshape(a.shape).to(a.dtype)
+            if ctx.needs_input_grad[1]:
+                db = _mm_f32(a2.t(), g2).to(b.dtype)
+            return da, db
+        a3 = a.reshape(-1, *a.shape[-2:])
+        b3 = b.reshape(-1, *b.shape[-2:])
+        g3 = g.reshape(-1, *g.shape[-2:])
+        if ctx.needs_input_grad[0]:
+            da = _mm_f32(g3, b3.transpose(1, 2)).reshape(a.shape).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _mm_f32(a3.transpose(1, 2), g3).reshape(b.shape).to(b.dtype)
+        return da, db

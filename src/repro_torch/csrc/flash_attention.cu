@@ -24,6 +24,9 @@
 // reference -- and 0 when K_lim = 0, never NaN.
 // Arithmetic is f32 on f32 or bf16 storage; only the output is rounded to
 // the storage type (the Pallas kernel keeps p in f32 for the PV product).
+// Given a non-null `lse` (G, Tq) float32, it also writes each row's
+// m + log(l) (natural log, l == 0 replaced by 1) for the backward
+// (flash_attention_bwd.cu); the output is the same either way.
 //
 // Bound on an H100 SXM: operations.  At B = 4, Hq = 16, Hkv = 8,
 // T = 4096, d = 128, causal, f32, the call reads q, k, v and writes o
@@ -106,8 +109,9 @@ template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
-                           int Tq, int Tk, int n_q_heads, int n_kv_heads,
-                           int causal, float scale, int bq, int bk) {
+                           float* __restrict__ lse, int Tq, int Tk,
+                           int n_q_heads, int n_kv_heads, int causal,
+                           float scale, int bq, int bk) {
   using S = Smem<D>;
   constexpr int kVec = D / 16 < 4 ? D / 16 : 4;  // output columns per load
   constexpr int kGroups = D / (16 * kVec);
@@ -273,6 +277,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int r = 4 * ty + i;
     if (r >= q_rows) continue;
     const float den = l[i] == 0.f ? 1.f : l[i];
+    if (lse != nullptr && tx == 0) {
+      lse[static_cast<int64_t>(g) * Tq + q0 + r] = m[i] + logf(den);
+    }
     T* orow = o + (static_cast<int64_t>(g) * Tq + q0 + r) * D + tx * kVec;
 #pragma unroll
     for (int gi = 0; gi < kGroups; ++gi)
@@ -285,9 +292,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 template <int D, typename T>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
-                         void* o, int G, int Tq, int Tk, int n_q_heads,
-                         int n_kv_heads, int causal, float scale, int bq,
-                         int bk, cudaStream_t stream) {
+                         void* o, float* lse, int G, int Tq, int Tk,
+                         int n_q_heads, int n_kv_heads, int causal,
+                         float scale, int bq, int bk, cudaStream_t stream) {
   const size_t smem = Smem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<D, T>,
@@ -296,28 +303,29 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
   const dim3 grid(G, (Tq + kTileQ - 1) / kTileQ);
   flash_attention_kernel<D, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Tq, Tk, n_q_heads,
-      n_kv_heads, causal, scale, bq, bk);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Tq, Tk,
+      n_q_heads, n_kv_heads, causal, scale, bq, bk);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_flash(int d, const void* q, const void* k,
-                           const void* v, void* o, int G, int Tq, int Tk,
-                           int n_q_heads, int n_kv_heads, int causal,
-                           float scale, int bq, int bk, cudaStream_t stream) {
+                           const void* v, void* o, float* lse, int G,
+                           int Tq, int Tk, int n_q_heads, int n_kv_heads,
+                           int causal, float scale, int bq, int bk,
+                           cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch_flash<16, T>(q, k, v, o, G, Tq, Tk, n_q_heads,
+      return launch_flash<16, T>(q, k, v, o, lse, G, Tq, Tk, n_q_heads,
                                  n_kv_heads, causal, scale, bq, bk, stream);
     case 32:
-      return launch_flash<32, T>(q, k, v, o, G, Tq, Tk, n_q_heads,
+      return launch_flash<32, T>(q, k, v, o, lse, G, Tq, Tk, n_q_heads,
                                  n_kv_heads, causal, scale, bq, bk, stream);
     case 64:
-      return launch_flash<64, T>(q, k, v, o, G, Tq, Tk, n_q_heads,
+      return launch_flash<64, T>(q, k, v, o, lse, G, Tq, Tk, n_q_heads,
                                  n_kv_heads, causal, scale, bq, bk, stream);
     case 128:
-      return launch_flash<128, T>(q, k, v, o, G, Tq, Tk, n_q_heads,
+      return launch_flash<128, T>(q, k, v, o, lse, G, Tq, Tk, n_q_heads,
                                   n_kv_heads, causal, scale, bq, bk, stream);
     default:
       return cudaErrorInvalidValue;
@@ -328,24 +336,25 @@ cudaError_t dispatch_flash(int d, const void* q, const void* k,
 }  // namespace repro
 
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int G, int Tq,
-                                     int Tk, int d, int n_q_heads,
-                                     int n_kv_heads, int causal, float scale,
-                                     int bq, int bk, int dtype,
-                                     void* stream) {
+                                     const void* v, void* o, float* lse,
+                                     int G, int Tq, int Tk, int d,
+                                     int n_q_heads, int n_kv_heads,
+                                     int causal, float scale, int bq, int bk,
+                                     int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_q_heads <= 0 || n_kv_heads <= 0 || n_q_heads % n_kv_heads != 0 ||
       bq <= 0 || bk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == repro::kFloat32) {
-    return repro::dispatch_flash<float>(d, q, k, v, o, G, Tq, Tk, n_q_heads,
-                                        n_kv_heads, causal, scale, bq, bk, s);
+    return repro::dispatch_flash<float>(d, q, k, v, o, lse, G, Tq, Tk,
+                                        n_q_heads, n_kv_heads, causal, scale,
+                                        bq, bk, s);
   }
   if (dtype == repro::kBFloat16) {
     return repro::dispatch_flash<__nv_bfloat16>(
-        d, q, k, v, o, G, Tq, Tk, n_q_heads, n_kv_heads, causal, scale, bq,
-        bk, s);
+        d, q, k, v, o, lse, G, Tq, Tk, n_q_heads, n_kv_heads, causal, scale,
+        bq, bk, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,7 +18,10 @@
 // products summed in f32, as in the reference.  p is rounded to bf16 for
 // the PV product -- as the reference's xla attention rounds it
 // (p.astype(v.dtype)) -- while l sums the unrounded f32 p; O accumulates
-// in f32 and is rounded to bf16 once, after the division by l.
+// in f32 and is rounded to bf16 once, after the division by l.  Given a
+// non-null `lse` (G, Tq) float32, it also writes each row's m + log(l) in
+// natural units for the backward (flash_attention_bwd.cu); the output is
+// the same either way.
 //
 // Bound on an H100 SXM: operations.  At B = 4, Hq = 16, Hkv = 8,
 // T = 4096, d = 128, causal, the call reads q, k, v and writes o once
@@ -74,6 +77,7 @@ constexpr int kThreads = 384;  // producer warpgroup + two consumers
 constexpr int kSpan = 64;      // bf16 columns per 128-byte swizzle span
 constexpr int kRowBytes = 128;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 // the reference's masked score -1e30, in log2 units
 constexpr float kMaskedL2 = -1e30f * kLog2e;
 
@@ -291,7 +295,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
-                      __nv_bfloat16* __restrict__ o, int Tq, int Tk,
+                      __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int Tq, int Tk,
                       int n_q_heads, int n_kv_heads, int causal,
                       float scale_log2, int bq, int bk) {
   using S = Sm90Smem<D>;
@@ -486,6 +491,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float den0 = l0 == 0.f ? 1.f : l0;
     const float den1 = l1 == 0.f ? 1.f : l1;
+    if (lse != nullptr && quad == 0) {
+      // m is in log2 units: lse = m ln 2 + log(l), natural
+      float* lse_g = lse + static_cast<int64_t>(g) * Tq;
+      if (row0 < Tq) lse_g[row0] = m0 * kLn2 + logf(den0);
+      if (row1 < Tq) lse_g[row1] = m1 * kLn2 + logf(den1);
+    }
     __nv_bfloat16* out = o + static_cast<int64_t>(g) * Tq * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -553,9 +564,9 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int heads, int T,
 
 template <int D>
 cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* o,
-                        int G, int Gkv, int Tq, int Tk, int n_q_heads,
-                        int n_kv_heads, int causal, float scale, int bq,
-                        int bk, cudaStream_t stream) {
+                        float* lse, int G, int Gkv, int Tq, int Tk,
+                        int n_q_heads, int n_kv_heads, int causal,
+                        float scale, int bq, int bk, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   cudaError_t err = make_map(&tm_q, q, G, Tq, D, kBM);
   if (err == cudaSuccess) err = make_map(&tm_k, k, Gkv, Tk, D, kBN);
@@ -568,8 +579,8 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const dim3 grid(G, (Tq + kBM - 1) / kBM);
   flash_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Tq, Tk, n_q_heads,
-      n_kv_heads, causal, scale * kLog2e, bq, bk);
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, Tq, Tk,
+      n_q_heads, n_kv_heads, causal, scale * kLog2e, bq, bk);
   return cudaGetLastError();
 }
 
@@ -577,9 +588,11 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* o,
 }  // namespace repro
 
 // bf16 q (G, Tq, d), k/v (G / Hq * Hkv, Tk, d), o like q; d in {64, 128};
-// bq, bk the reference's effective blocks.  Returns a cudaError_t.
+// lse null or (G, Tq) float32; bq, bk the reference's effective blocks.
+// Returns a cudaError_t.
 extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
-                                          const void* v, void* o, int G,
+                                          const void* v, void* o,
+                                          float* lse, int G,
                                           int Tq, int Tk, int d,
                                           int n_q_heads, int n_kv_heads,
                                           int causal, float scale, int bq,
@@ -591,12 +604,14 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
   }
   const int Gkv = G / n_q_heads * n_kv_heads;
   if (d == 128) {
-    return repro::launch_sm90<128>(q, k, v, o, G, Gkv, Tq, Tk, n_q_heads,
-                                   n_kv_heads, causal, scale, bq, bk, s);
+    return repro::launch_sm90<128>(q, k, v, o, lse, G, Gkv, Tq, Tk,
+                                   n_q_heads, n_kv_heads, causal, scale, bq,
+                                   bk, s);
   }
   if (d == 64) {
-    return repro::launch_sm90<64>(q, k, v, o, G, Gkv, Tq, Tk, n_q_heads,
-                                  n_kv_heads, causal, scale, bq, bk, s);
+    return repro::launch_sm90<64>(q, k, v, o, lse, G, Gkv, Tq, Tk,
+                                  n_q_heads, n_kv_heads, causal, scale, bq,
+                                  bk, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

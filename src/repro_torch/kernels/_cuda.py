@@ -27,7 +27,7 @@ BUILD_DIR = (
 )
 SOURCES = (
     "helmholtz.cu", "gemm_chain.cu", "flash_attention.cu",
-    "flash_attention_sm90.cu",
+    "flash_attention_sm90.cu", "flash_attention_bwd.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -125,14 +125,17 @@ def library() -> ctypes.CDLL:
         lib.repro_gemm_chain.restype = ci
         lib.repro_gemm_chain_limits.argtypes = [vp]
         lib.repro_gemm_chain_limits.restype = ci
+        cf = ctypes.c_float
         lib.repro_flash_attention.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci,
-            ci, vp]
+            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, ci, ci, ci, vp]
         lib.repro_flash_attention.restype = ci
         lib.repro_flash_attention_sm90.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci,
-            vp]
+            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, ci, ci, vp]
         lib.repro_flash_attention_sm90.restype = ci
+        lib.repro_flash_attention_bwd.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+            ci, cf, ci, vp]
+        lib.repro_flash_attention_bwd.restype = ci
         lib.repro_cuda_error_string.argtypes = [ci]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

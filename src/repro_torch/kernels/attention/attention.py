@@ -20,6 +20,15 @@ a function of the row and the caller's ``block_q``/``block_k``
 the reference's do.  Layout is head-folded: q ``(G, Tq, d)`` with ``G =
 batch * n_q_heads``, k and v ``(Gkv, Tk, d)``; query head ``g`` reads KV
 head ``(g // Hq) * Hkv + (g % Hq) // (Hq / Hkv)``.
+
+:func:`flash_attention` is differentiable.  When an input requires a
+gradient, the forward kernel also writes each row's log-sum-exp, and
+the backward runs :func:`flash_attention_bwd`: on CUDA tensors the
+kernels of ``csrc/flash_attention_bwd.cu`` (the counterpart of the
+reference's ``_flash_bwd`` in ``xla_flash.py``, since its Pallas kernel
+has no derivative), on CPU tensors
+:func:`~.ref.flash_attention_bwd_plain`.  Nothing falls back: a build or
+launch failure raises.
 """
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ import ctypes
 import torch
 
 from .ref import (TILE_Q, WGMMA_TILE_Q, check_blocks, check_shapes,
-                  flash_attention_plain, route)
+                  flash_attention_bwd_plain, flash_attention_plain, route)
 
 #: head dims the kernels are instantiated for (the fma kernel takes all)
 HEAD_DIMS = (16, 32, 64, 128)
@@ -53,32 +62,87 @@ def flash_attention(
     ``scale`` defaults to ``1/sqrt(d)``; ``min(block, T)`` must divide T
     (the reference's rule, else ``ValueError``).  The blocks set each
     row's key limit, as in the reference, never the kernel's own tiles.
-    ``flash_attention.launches`` counts kernel launches, and
+    ``flash_attention.launches`` counts forward kernel launches, and
     ``flash_attention.launches_by_route`` counts them per kernel
     (``"wgmma"``, ``"fma"``)."""
-    check_shapes(q, k, v, n_q_heads, n_kv_heads)
+    return _Flash.apply(q, k, v, n_q_heads, n_kv_heads, causal, scale,
+                        block_q, block_k, False)
+
+
+def flash_attention_interpret(q, k, v, *, n_q_heads: int, n_kv_heads: int,
+                              causal: bool = True, scale: float | None = None,
+                              block_q: int = 512, block_k: int = 512):
+    """:func:`flash_attention` through the plain versions on any device:
+    :func:`~.ref.flash_attention_plain` forward and
+    :func:`~.ref.flash_attention_bwd_plain` backward (``impl="interpret"``)."""
+    return _Flash.apply(q, k, v, n_q_heads, n_kv_heads, causal, scale,
+                        block_q, block_k, True)
+
+
+class _Flash(torch.autograd.Function):
+    """The kernels' forward and backward as one differentiable op; the
+    residuals are ``(q, k, v, o, lse)``, as the reference's custom VJP
+    keeps them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_q_heads, n_kv_heads, causal, scale, block_q,
+                block_k, plain):
+        check_shapes(q, k, v, n_q_heads, n_kv_heads)
+        if scale is None:
+            scale = 1.0 / (q.shape[2] ** 0.5)
+        kw = dict(n_q_heads=n_q_heads, n_kv_heads=n_kv_heads, causal=causal,
+                  scale=scale)
+        grad = any(ctx.needs_input_grad[:3])
+        if plain or q.device.type == "cpu":
+            out = flash_attention_plain(q, k, v, block_q=block_q,
+                                        block_k=block_k, return_lse=grad,
+                                        **kw)
+            o, lse = out if grad else (out, None)
+        else:
+            o, lse = _forward_kernel(q, k, v, block_q=block_q,
+                                     block_k=block_k, with_lse=grad, **kw)
+        if grad:
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.kw, ctx.plain = kw, plain
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_plain if ctx.plain else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def _check_launch(q, *tensors) -> None:
+    """What every kernel launch needs of its tensors: one CUDA device,
+    one dtype, contiguous and 16-byte aligned."""
+    devices = {t.device for t in (q, *tensors)}
+    if len(devices) != 1:
+        raise ValueError(f"the tensors lie on different devices: {devices}")
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    if any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(
+            "q, k, v (and o, do) must share one dtype, got "
+            + ", ".join(str(t.dtype) for t in (q, *tensors)))
+    if not all(t.is_contiguous() for t in (q, *tensors)):
+        raise ValueError("the kernel reads contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, *tensors)):
+        raise ValueError("the kernel reads tensors with 16-byte alignment")
+
+
+def _forward_kernel(q, k, v, *, n_q_heads, n_kv_heads, causal, scale,
+                    block_q, block_k, with_lse):
+    """Launch the forward kernel of :func:`~.ref.route`; returns ``(o,
+    lse)``, ``lse`` None unless ``with_lse``."""
     G, Tq, d = q.shape
     Tk = k.shape[1]
     bq, bk = check_blocks(Tq, Tk, block_q, block_k)
-    if scale is None:
-        scale = 1.0 / (d ** 0.5)
-    devices = {q.device, k.device, v.device}
-    if len(devices) != 1:
-        raise ValueError(f"q, k and v lie on different devices: {devices}")
     device = q.device
-    kw = dict(n_q_heads=n_q_heads, n_kv_heads=n_kv_heads, causal=causal,
-              scale=scale, block_q=block_q, block_k=block_k)
-    if device.type == "cpu":
-        return flash_attention_plain(q, k, v, **kw)
-    if device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {device}")
+    _check_launch(q, k, v)
     from .. import _cuda
 
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(
-            f"q, k and v must share one dtype, got {q.dtype}, {k.dtype}, "
-            f"{v.dtype}"
-        )
     code = _cuda.dtype_code(q.dtype)
     if d not in HEAD_DIMS:
         raise ValueError(f"kernel supports head dims {HEAD_DIMS}, got {d}")
@@ -87,15 +151,14 @@ def flash_attention(
     if -(-Tq // tile_q) > MAX_Q_TILES:
         raise ValueError(f"kernel takes at most {MAX_Q_TILES * tile_q} query "
                          f"rows, got {Tq}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the kernel reads contiguous q, k and v")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the kernel reads q, k and v with 16-byte alignment")
     o = torch.empty_like(q)
+    lse = (torch.empty(G, Tq, dtype=torch.float32, device=device)
+           if with_lse else None)
     if G == 0 or Tq == 0:
-        return o
+        return o, lse
     lib = _cuda.library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             G, Tq, Tk, d, n_q_heads, n_kv_heads, int(causal),
             ctypes.c_float(scale), bq, bk)
     with _cuda.launch_on(device) as stream:
@@ -106,8 +169,76 @@ def flash_attention(
     _cuda.check(err, f"flash_attention ({kernel})")
     flash_attention.launches += 1
     flash_attention.launches_by_route[kernel] += 1
-    return o
+    return o, lse
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = {"wgmma": 0, "fma": 0}
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    n_q_heads: int,
+    n_kv_heads: int,
+    causal: bool = True,
+    scale: float | None = None,
+):
+    """``(dq, dk, dv)`` of :func:`flash_attention` from its residuals
+    ``(q, k, v, o, lse)`` and the output's gradient ``do``; ``Tq <= Tk``.
+
+    On CUDA tensors (float32 or bfloat16, head dims 16/32/64/128) it
+    launches ``csrc/flash_attention_bwd.cu`` -- a rowsum pass, a dk/dv
+    kernel over (KV head, key tile) and a dq kernel over (query head,
+    query tile), with no atomics, so the result is bitwise fixed -- and
+    adds one to ``flash_attention_bwd.launches`` a call; on CPU tensors
+    it runs :func:`~.ref.flash_attention_bwd_plain`."""
+    check_shapes(q, k, v, n_q_heads, n_kv_heads)
+    G, Tq, d = q.shape
+    Tk = k.shape[1]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    kw = dict(n_q_heads=n_q_heads, n_kv_heads=n_kv_heads, causal=causal,
+              scale=scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    if Tq > Tk:
+        raise ValueError(f"the backward takes Tq <= Tk, got Tq={Tq} > Tk={Tk}")
+    if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (G, Tq):
+        raise ValueError(
+            f"o {tuple(o.shape)}, do {tuple(do.shape)} and lse "
+            f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    device = q.device
+    _check_launch(q, k, v, o, do)
+    from .. import _cuda
+
+    code = _cuda.dtype_code(q.dtype)
+    if lse.dtype != torch.float32 or not lse.is_contiguous() or (
+            lse.device != device):
+        raise ValueError("lse must be contiguous float32 on the tensors' card")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"kernel supports head dims {HEAD_DIMS}, got {d}")
+    if -(-Tk // TILE_Q) > MAX_Q_TILES:   # Tq <= Tk
+        raise ValueError(f"kernel takes at most {MAX_Q_TILES * TILE_Q} rows")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if G == 0 or Tq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty(G, Tq, dtype=torch.float32, device=device)
+    lib = _cuda.library()
+    with _cuda.launch_on(device) as stream:
+        err = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), G, Tq, Tk, d, n_q_heads,
+            n_kv_heads, int(causal), ctypes.c_float(scale), code, stream)
+    _cuda.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -7,11 +7,16 @@ head folding to the kernel layout happens here.  ``impl``:
   the reference takes the Pallas kernel only on a TPU);
 * ``"pallas"``: the kernel's wrapper (:func:`.attention.flash_attention`),
   which runs the plain version for CPU tensors;
-* ``"interpret"``: the kernel's plain PyTorch version on any device;
+* ``"interpret"``: the kernel's plain PyTorch version on any device
+  (:func:`.attention.flash_attention_interpret`);
 * ``"xla"``: the same math in plain whole-tensor PyTorch ops
   (:func:`_xla_attention`);
-* ``"xla_flash"``: the reference's custom-VJP blockwise path for
-  training, not ported yet.
+* ``"xla_flash"``: the reference's blockwise path with its hand-written
+  backward (:func:`.xla_flash.flash_attention_xla`).
+
+Every impl is differentiable: ``"pallas"`` and ``"interpret"`` through
+the backward kernel and its plain version (``Tq <= Tk``), ``"xla"``
+through autograd, ``"xla_flash"`` through its own backward.
 
 ``"pallas"`` and ``"interpret"`` agree with the reference's kernel on
 every row, those that see no key (causal, ``Tq > Tk``) included: such a
@@ -26,8 +31,9 @@ from typing import Literal, Optional
 import torch
 
 from ...core.precision import matmul_f32
-from .attention import flash_attention
-from .ref import NEG_INF, flash_attention_plain
+from .attention import flash_attention, flash_attention_interpret
+from .ref import NEG_INF
+from .xla_flash import flash_attention_xla
 
 Impl = Literal["auto", "pallas", "interpret", "xla", "xla_flash"]
 
@@ -69,10 +75,7 @@ def multi_head_attention(
     if impl == "auto":
         impl = "pallas" if q.device.type == "cuda" else "xla"
     if impl == "xla_flash":
-        raise NotImplementedError(
-            "impl='xla_flash' (the blockwise custom-VJP path for training) "
-            "is not ported yet: ROADMAP queue 1, item 13 (training)"
-        )
+        return flash_attention_xla(q, k, v, causal=causal, scale=scale)
     if impl == "xla":
         return _xla_attention(q, k, v, causal=causal, scale=scale)
     if impl not in ("pallas", "interpret"):
@@ -81,7 +84,7 @@ def multi_head_attention(
     qf = q.reshape(B * Hq, Tq, d).contiguous()
     kf = k.reshape(B * Hkv, Tk, d).contiguous()
     vf = v.reshape(B * Hkv, Tk, d).contiguous()
-    fn = flash_attention if impl == "pallas" else flash_attention_plain
+    fn = flash_attention if impl == "pallas" else flash_attention_interpret
     out = fn(
         qf, kf, vf,
         n_q_heads=Hq, n_kv_heads=Hkv, causal=causal, scale=scale,

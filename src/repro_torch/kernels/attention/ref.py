@@ -115,8 +115,14 @@ def flash_attention_plain(
     block_q: int = 512,
     block_k: int = 512,
     return_p_bound: bool = False,
+    return_lse: bool = False,
 ):
     """The kernel's function in plain PyTorch; output in ``q.dtype``.
+
+    With ``return_lse`` it also returns each row's log-sum-exp of its
+    scaled scores, ``m + log(l)`` (``l == 0`` replaced by 1; float32,
+    ``(G, Tq)``), which the kernels write for the backward
+    (:func:`flash_attention_bwd_plain`); it comes last in the tuple.
 
     With ``return_p_bound`` it also returns, per output entry, one
     bfloat16 rounding of the ``p`` terms, ``2^-8 * sum_j p_j |v_j| / l``
@@ -164,8 +170,70 @@ def flash_attention_plain(
         m = m_new
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     out = (acc / l).reshape(G, Tq, d).to(q.dtype)
-    if not return_p_bound:
-        return out
-    if acc_abs is None:
-        return out, torch.zeros(G, Tq, d, dtype=f32, device=q.device)
-    return out, (P_ROUND * acc_abs / l).reshape(G, Tq, d)
+    extra = []
+    if return_p_bound:
+        extra.append(torch.zeros(G, Tq, d, dtype=f32, device=q.device)
+                     if acc_abs is None
+                     else (P_ROUND * acc_abs / l).reshape(G, Tq, d))
+    if return_lse:
+        extra.append((m + torch.log(l)).reshape(G, Tq))
+    return (out, *extra) if extra else out
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    n_q_heads: int,
+    n_kv_heads: int,
+    causal: bool = True,
+    scale: float | None = None,
+):
+    """The backward kernel's function in plain PyTorch: ``(dq, dk, dv)``
+    in the inputs' dtypes from the forward's output ``o`` and per-row
+    ``lse`` (:func:`flash_attention_plain` with ``return_lse``) and the
+    output's gradient ``do``.
+
+    It repeats ``csrc/flash_attention_bwd.cu``'s arithmetic, the
+    reference's ``_flash_bwd`` (``xla_flash.py``) per key tile of
+    :data:`TILE_K` keys, all in float32: ``p = exp(s scale - lse)`` (0
+    where causally masked), ``D = rowsum(do o)``, ``dv = p^T do``, ``dp =
+    do v^T``, ``ds = p (dp - D) scale``, ``dq = ds k``, ``dk = ds^T q``;
+    dk and dv sum over the group's query heads.  Causal is end-aligned,
+    and ``Tq <= Tk`` (every row sees a key), else ``ValueError``."""
+    check_shapes(q, k, v, n_q_heads, n_kv_heads)
+    G, Tq, d = q.shape
+    Gkv, Tk, _ = k.shape
+    if Tq > Tk:
+        raise ValueError(f"the backward takes Tq <= Tk, got Tq={Tq} > Tk={Tk}")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    group = n_q_heads // n_kv_heads
+    f32 = torch.float32
+    rows = group * Tq
+    qf = q.to(f32).reshape(Gkv, rows, d)
+    dof = do.to(f32).reshape(Gkv, rows, d)
+    kf, vf = k.to(f32), v.to(f32)
+    lse_f = lse.to(f32).reshape(Gkv, rows, 1)
+    delta = (dof * o.to(f32).reshape(Gkv, rows, d)).sum(dim=2, keepdim=True)
+    qpos = (torch.arange(Tq, device=q.device) + (Tk - Tq)).repeat(group)
+    dq = torch.zeros_like(qf)
+    dk = torch.empty_like(kf)
+    dv = torch.empty_like(vf)
+    for k0 in range(0, Tk, TILE_K):
+        kt, vt = kf[:, k0:k0 + TILE_K], vf[:, k0:k0 + TILE_K]
+        p = torch.exp(torch.matmul(qf, kt.transpose(1, 2)) * scale - lse_f)
+        if causal:
+            kpos = torch.arange(k0, k0 + kt.shape[1], device=q.device)
+            p = torch.where(qpos[:, None] >= kpos[None, :], p, 0.0)
+        dv[:, k0:k0 + TILE_K] = torch.matmul(p.transpose(1, 2), dof)
+        dp = torch.matmul(dof, vt.transpose(1, 2))
+        ds = p * (dp - delta) * scale
+        dq += torch.matmul(ds, kt)
+        dk[:, k0:k0 + TILE_K] = torch.matmul(ds.transpose(1, 2), qf)
+    return (dq.reshape(G, Tq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -8,10 +8,11 @@ reference."""
 from . import api, config, convert, hybrid, layers, moe, ssm, transformer
 from .api import Model, build_model
 from .config import MambaConfig, ModelConfig, MoEConfig, XLSTMConfig
-from .convert import params_from_jax
+from .convert import params_from_jax, train_state_from_jax
 
 __all__ = [
     "api", "config", "convert", "hybrid", "layers", "moe", "ssm",
-    "transformer", "Model", "build_model", "params_from_jax", "MambaConfig", "ModelConfig",
-    "MoEConfig", "XLSTMConfig",
+    "transformer", "Model", "build_model", "params_from_jax",
+    "train_state_from_jax", "MambaConfig", "ModelConfig", "MoEConfig",
+    "XLSTMConfig",
 ]

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..memory.channels import resolve_device
+from ..tree import tree_map
 from . import hybrid, transformer
 from .config import ModelConfig
 
@@ -59,20 +60,59 @@ def _convert(got, want, path: str, device, bad: List[str]):
     return t.to(device)
 
 
+def _meta_params(cfg: ModelConfig):
+    init = {"ssm_xlstm": transformer.xlstm_init,
+            "hybrid_jamba": hybrid.hybrid_init,
+            "encdec": transformer.encdec_init}.get(cfg.family,
+                                                   transformer.decoder_init)
+    return init(cfg, None, device="meta")
+
+
+def _converted(got, want, what: str, cfg: ModelConfig, device):
+    bad: List[str] = []
+    out = _convert(got, want, "", device, bad)
+    if bad:
+        raise ValueError(f"{what} do not match {cfg.arch_id}: "
+                         + "; ".join(bad))
+    return out
+
+
 def params_from_jax(cfg: ModelConfig, params: Dict[str, Any], *,
                     device=None) -> Dict[str, Any]:
     """The port's params for ``cfg`` from the reference's nested dict of
     arrays (numpy or anything ``np.asarray`` takes); raises ``ValueError``
     listing every missing key or mismatched shape or dtype."""
+    return _converted(params, _meta_params(cfg), "params", cfg,
+                      resolve_device(device))
+
+
+def _scalar_int32(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.shape != () or a.dtype != np.int32:
+        raise ValueError(f"a step must be an int32 scalar, got {a.dtype} "
+                         f"{a.shape}")
+    return torch.tensor(int(a), dtype=torch.int32, device=device)
+
+
+def train_state_from_jax(cfg: ModelConfig, state: Dict[str, Any], *,
+                         device=None) -> Dict[str, Any]:
+    """The port's train state (``runtime.train.init_train_state``'s
+    layout) from the reference's: its params as :func:`params_from_jax`
+    converts them, the AdamW moments ``mu`` and ``nu`` (float32 trees
+    shaped like the params), the optimizer's step and the state's step
+    (int32 scalars)."""
     dev = resolve_device(device)
-    init = {"ssm_xlstm": transformer.xlstm_init,
-            "hybrid_jamba": hybrid.hybrid_init,
-            "encdec": transformer.encdec_init}.get(cfg.family,
-                                                   transformer.decoder_init)
-    want = init(cfg, None, device="meta")
-    bad: List[str] = []
-    out = _convert(params, want, "", dev, bad)
-    if bad:
-        raise ValueError("params do not match " + cfg.arch_id + ": "
-                         + "; ".join(bad))
-    return out
+    want = _meta_params(cfg)
+    moments = tree_map(
+        lambda t: torch.empty(t.shape, dtype=torch.float32, device="meta"),
+        want)
+    opt = state["opt_state"]
+    return {
+        "params": _converted(state["params"], want, "params", cfg, dev),
+        "opt_state": {
+            "mu": _converted(opt["mu"], moments, "mu", cfg, dev),
+            "nu": _converted(opt["nu"], moments, "nu", cfg, dev),
+            "step": _scalar_int32(opt["step"], dev),
+        },
+        "step": _scalar_int32(state["step"], dev),
+    }

@@ -21,17 +21,20 @@ are given, in place (as every decoder of ``layers`` does), and return
 the Mamba states as new stacked tensors, as the reference stacks them:
 the conv and ssm states passed in are left as they were.
 
-``cfg.remat`` matters only to training; the forward ignores it.
+``cfg.remat == "block"`` recomputes each period in the backward while
+autograd records (:func:`~.transformer.remat`), as the reference wraps
+its scan body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from . import layers, moe as moe_mod, ssm
 from .config import ModelConfig
-from .transformer import _layer, _positions
+from .transformer import _layer, _positions, _unstack, remat
 
 Params = Dict[str, Any]
 
@@ -124,11 +127,11 @@ def hybrid_forward(
     B, T = tokens.shape
     x = layers.embed_apply(params["embed"], tokens, cfg)
     positions = _positions(B, T, x.device)
-    for i in range(_n_periods(cfg)):
-        x, _ = _period_apply(
-            _layer(params["periods"], i), x, cfg, positions=positions,
-            attn_impl=attn_impl, moe_capacity=moe_capacity,
-        )
+    body = remat(cfg, functools.partial(
+        _period_apply, cfg=cfg, positions=positions, attn_impl=attn_impl,
+        moe_capacity=moe_capacity))
+    for pp in _unstack(params["periods"], _n_periods(cfg)):
+        x, _ = body(pp, x)
     x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
     return layers.unembed_apply(params["embed"], None, x, cfg)
 

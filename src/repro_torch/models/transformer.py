@@ -8,17 +8,24 @@ loop over the layers in place of ``lax.scan``.  The encoder-decoder's
 of per-layer dicts, as in the reference (the xLSTM's ``core`` keys
 differ between its sLSTM and mLSTM layers).
 
-``cfg.remat`` matters only to training (it wraps the reference's scan
-body in ``jax.checkpoint``); these forward passes ignore it.
+``cfg.remat == "block"`` recomputes each block in the backward
+(:func:`remat`, ``torch.utils.checkpoint``) at the reference's four
+places of ``jax.checkpoint``: the decoder's scan body, the encoder's and
+the decoder's blocks of the encoder-decoder, and the hybrid's period.
+It applies only while autograd records a block's inputs (training); a
+forward under ``torch.no_grad`` or on params that need no gradient runs
+the blocks directly, and the outputs are bitwise the same either way.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
+from ..tree import tree_leaves
 from . import layers, moe as moe_mod, ssm
 from .config import ModelConfig
 
@@ -99,14 +106,52 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int) -> List[Any]:
+    """The ``n`` layers of a stacked param tree, each leaf taken apart by
+    one ``torch.unbind`` (views): under autograd the layers' gradients
+    are stacked back once, where selecting ``tree[i]`` layer by layer
+    would build a full-size zero gradient of the leaf for every layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def remat(cfg: ModelConfig, fn: Callable) -> Callable:
+    """``fn`` recomputed in the backward when ``cfg.remat == "block"`` and
+    autograd records a tensor argument (``torch.utils.checkpoint``,
+    non-reentrant), the counterpart of the reference's
+    ``jax.checkpoint``; else ``fn`` itself."""
+    if cfg.remat != "block":
+        return fn
+
+    def wrapped(*args, **kwargs):
+        if torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for t in tree_leaves(args)):
+            return torch.utils.checkpoint.checkpoint(
+                fn, *args, use_reentrant=False, **kwargs)
+        return fn(*args, **kwargs)
+
+    return wrapped
+
+
 def _scan_blocks(params_blocks, x, cfg, *, positions, attn_impl,
                  moe_capacity=None, caches=None, cache_index=None):
     """The blocks in order over stacked params (and stacked caches, which
-    are written in place, if serving)."""
-    for i in range(cfg.n_layers):
+    are written in place, if serving).  Without caches each block is
+    :func:`remat`'s (recomputed in the backward at ``remat="block"``)."""
+    layers_p = _unstack(params_blocks, cfg.n_layers)
+    if caches is None:
+        body = remat(cfg, functools.partial(
+            block_apply, cfg=cfg, positions=positions, attn_impl=attn_impl,
+            moe_capacity=moe_capacity))
+        for bp in layers_p:
+            x, _ = body(bp, x)
+        return x, None
+    for i, bp in enumerate(layers_p):
         x, _ = block_apply(
-            _layer(params_blocks, i), x, cfg, positions=positions,
-            cache=None if caches is None else _layer(caches, i),
+            bp, x, cfg, positions=positions, cache=_layer(caches, i),
             cache_index=cache_index, attn_impl=attn_impl,
             moe_capacity=moe_capacity,
         )
@@ -249,7 +294,8 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *,
     pe = layers.sinusoidal_positions(Tf, cfg.d_model, device=frames.device)
     x = frames.to(cd) + pe.to(cd)[None]
     positions = _positions(B, Tf, x.device)
-    for bp in params["enc_blocks"]:
+
+    def enc_block(bp, x):
         h = layers.norm_apply(bp["ln1"], x, cfg.norm, cfg.norm_eps)
         a, _ = layers.attention_apply(
             bp["attn"], h, cfg, positions=positions, causal=False,
@@ -257,7 +303,11 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *,
         )
         x = x + a
         h = layers.norm_apply(bp["ln2"], x, cfg.norm, cfg.norm_eps)
-        x = x + layers.mlp_apply(bp["mlp"], h, cfg)
+        return x + layers.mlp_apply(bp["mlp"], h, cfg)
+
+    enc_block = remat(cfg, enc_block)
+    for bp in params["enc_blocks"]:
+        x = enc_block(bp, x)
     return layers.norm_apply(params["ln_enc"], x, cfg.norm, cfg.norm_eps)
 
 
@@ -308,9 +358,10 @@ def encdec_forward(
     B, T = tokens.shape
     x = _dec_embed(params, tokens, cfg, T)
     positions = _positions(B, T, x.device)
+    dec_block = remat(cfg, functools.partial(
+        _dec_block, cfg=cfg, positions=positions, attn_impl=attn_impl))
     for bp in params["dec_blocks"]:
-        x, _ = _dec_block(bp, x, enc, cfg, positions=positions,
-                          attn_impl=attn_impl)
+        x, _ = dec_block(bp, x, enc)
     x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
     return layers.unembed_apply(params["embed"], None, x, cfg)
 

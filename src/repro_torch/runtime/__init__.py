@@ -1,7 +1,7 @@
-"""Runtime of the port: the losses (``losses``) and the step/request
+"""Runtime of the port: the losses (``losses``), the step/request
 monitors (``monitor``: :class:`~repro_torch.runtime.monitor.StepMonitor`,
-:class:`~repro_torch.runtime.monitor.RequestLatency`).  The reference's
-training loop is not ported yet."""
-from . import losses, monitor
+:class:`~repro_torch.runtime.monitor.RequestLatency`) and the train-step
+builders and fault-tolerant loop (``train``)."""
+from . import losses, monitor, train
 
-__all__ = ["losses", "monitor"]
+__all__ = ["losses", "monitor", "train"]

@@ -187,8 +187,12 @@ def test_impl_switch(rng):
     t_ops.multi_head_attention(q, k, v, impl="pallas")      # CPU: plain
     assert t_attn.flash_attention.launches == before        # no kernel ran
     assert t_attn.flash_attention.launches_by_route == by_route
-    with pytest.raises(NotImplementedError, match="training"):
-        t_ops.multi_head_attention(q, k, v, impl="xla_flash")
+    # xla_flash: the reference's blockwise path, ported (equal to its own)
+    want = r_ops.multi_head_attention(q.numpy(), k.numpy(), v.numpy(),
+                                      impl="xla_flash")
+    np.testing.assert_allclose(
+        t_ops.multi_head_attention(q, k, v, impl="xla_flash").numpy(),
+        np.asarray(want), **TOL)
     with pytest.raises(ValueError, match="unknown attention impl"):
         t_ops.multi_head_attention(q, k, v, impl="flash")
 

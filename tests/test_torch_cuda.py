@@ -685,6 +685,131 @@ def test_flash_attention_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     assert t_attn.flash_attention.launches == before
 
 
+BWD_CASES = [
+    # B, Hq, Hkv, Tq, Tk, d, causal
+    (2, 4, 2, 128, 128, 16, True),    # GQA 2:1
+    (1, 4, 1, 96, 160, 32, True),     # Tq < Tk, ragged tiles
+    (2, 2, 2, 64, 64, 64, False),
+    (1, 8, 2, 200, 200, 128, True),   # group 4, ragged last tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, case, dtype):
+    """The backward kernel against its plain version on the same (q, k,
+    v, o, lse, do): float32 within rtol 5e-4 / atol 5e-4 max|plain|,
+    bfloat16 within one bfloat16 step (rtol 8e-3) + 1e-3 max|plain|
+    (both compute in float32 from the same inputs, in other orders, and
+    round once); bitwise repeatable and the same when the batch is split
+    across calls; one count a call; the forward kernel's LSE against the
+    plain version's."""
+    B, Hq, Hkv, Tq, Tk, d, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (x.to(dtype) for x in _flash_inputs(gen, cuda, B, Hq, Hkv, Tq, Tk, d))
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=causal)
+    o, lse = t_attn._forward_kernel(q, k, v, scale=d ** -0.5, block_q=512,
+                                    block_k=512, with_lse=True, **kw)
+    _, want_lse = t_attn_ref.flash_attention_plain(q, k, v, return_lse=True,
+                                                   **kw)
+    torch.testing.assert_close(lse, want_lse, rtol=5e-4,
+                               atol=5e-4 * want_lse.abs().max().item())
+    before = t_attn.flash_attention_bwd.launches
+    got = t_attn.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert t_attn.flash_attention_bwd.launches == before + 1
+    want = t_attn_ref.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    rtol, frac = (5e-4, 5e-4) if dtype == torch.float32 else (8e-3, 1e-3)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=frac * w.float().abs().max().item())
+    again = t_attn.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if B > 1:
+        hq, hk = B // 2 * Hq, B // 2 * Hkv
+        parts = [t_attn.flash_attention_bwd(
+            q[a:a + hq], k[b:b + hk], v[b:b + hk], o[a:a + hq],
+            lse[a:a + hq], do[a:a + hq], **kw)
+            for a, b in ((0, 0), (hq, hk))]
+        for i, g in enumerate(got):
+            assert torch.equal(g, torch.cat([pt[i] for pt in parts]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_on_the_card(cuda, dtype):
+    """multi_head_attention(impl="pallas") differentiated on the card: one
+    forward launch (with LSE) and one backward call, the gradients those
+    of the plain versions on the same card."""
+    from repro_torch.kernels.attention import ops as t_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    B, Hq, Hkv, T, d = 2, 4, 2, 128, 64
+    leaves = [torch.randn(s, generator=gen, device=cuda).to(dtype)
+              .requires_grad_() for s in ((B, Hq, T, d), (B, Hkv, T, d),
+                                          (B, Hkv, T, d))]
+    do = torch.randn(B, Hq, T, d, generator=gen, device=cuda).to(dtype)
+    fwd, bwd = t_attn.flash_attention.launches, t_attn.flash_attention_bwd.launches
+    o = t_ops.multi_head_attention(*leaves, impl="pallas")
+    got = torch.autograd.grad(o, leaves, do)
+    assert t_attn.flash_attention.launches == fwd + 1
+    assert t_attn.flash_attention_bwd.launches == bwd + 1
+    o2 = t_ops.multi_head_attention(*leaves, impl="interpret")
+    want = torch.autograd.grad(o2, leaves, do)
+    assert t_attn.flash_attention.launches == fwd + 1   # plain: no kernel
+    rtol, frac = (5e-4, 5e-4) if dtype == torch.float32 else (2e-2, 1e-2)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=frac * w.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_refuses_what_the_kernel_cannot_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = _flash_inputs(gen, cuda, 1, 2, 1, 64, 32, 32)
+    lse = torch.zeros(2, 64, device=cuda)
+    kw = dict(n_q_heads=2, n_kv_heads=1)
+    before = t_attn.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="Tq <= Tk"):
+        t_attn.flash_attention_bwd(q, k, v, q, lse, q, **kw)
+    q, k, v = _flash_inputs(gen, cuda, 1, 2, 1, 64, 64, 32)
+    with pytest.raises(TypeError, match="one dtype"):
+        t_attn.flash_attention_bwd(q, k, v, q, lse, q.bfloat16(), **kw)
+    with pytest.raises(ValueError, match="lse"):
+        t_attn.flash_attention_bwd(q, k, v, q, lse.double(), q, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_attn.flash_attention_bwd(q, k, v, q, lse, q.transpose(1, 2)
+                                   .contiguous().transpose(1, 2), **kw)
+    assert t_attn.flash_attention_bwd.launches == before
+
+
+@pytest.mark.cuda
+def test_matmul_f32_gradient_on_the_card(cuda):
+    """The bfloat16 product's Function on the card: its gradients are the
+    float32 products of the bfloat16-rounded cotangent with the other
+    operand, rounded once to bfloat16."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(2, 3, 64, 96, generator=gen, device=cuda).bfloat16()
+    for b in (torch.randn(96, 80, generator=gen, device=cuda).bfloat16(),
+              torch.randn(2, 3, 96, 40, generator=gen, device=cuda).bfloat16()):
+        a_, b_ = a.clone().requires_grad_(), b.clone().requires_grad_()
+        out = matmul_f32(a_, b_)
+        g = torch.randn(out.shape, generator=gen, device=cuda)
+        da, db = torch.autograd.grad(out, (a_, b_), g)
+        assert da.dtype == db.dtype == torch.bfloat16
+        gr = g.bfloat16().double()
+        want_a = torch.matmul(gr, b.double().transpose(-1, -2))
+        want_b = torch.matmul(a.double().transpose(-1, -2), gr)
+        if b.dim() == 2:
+            want_b = want_b.sum(dim=(0, 1))
+        for got, want in ((da, want_a), (db, want_b)):
+            torch.testing.assert_close(got.double(), want, rtol=2 ** -7,
+                                       atol=1e-3 * want.abs().max().item())
+
+
 @pytest.mark.cuda
 def test_matmul_f32_keeps_bf16_products_in_float32(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
