@@ -131,17 +131,22 @@ Phases (any failure exits non-zero, and no result line is printed):
      with two calls of G/2; times of kernel, plain version and
      ``scaled_dot_product_attention`` (``is_causal`` at Tq = Tk; at
      Tq < Tk the end-aligned mask ``causal_lower_right(Tq, Tk)``);
-     then the backward kernel (``csrc/flash_attention_bwd.cu``) at phase
-     T's training shape (B = 4, Hq = 16, Hkv = 8, T = 4096, d = 128,
-     bfloat16, causal) and a float32 smoke shape at d = 16: the forward
-     kernel's output with its LSE written bitwise the output without it,
-     the LSE of both forward routes against the plain version's, dq, dk
-     and dv against ``flash_attention_bwd_plain`` on the same (q, k, v,
-     o, lse, do) (float32 by the f32 rule; bfloat16 within rtol 8e-3 /
-     atol 1e-3 max|plain|), two calls bitwise equal, one count a call;
-     times of kernel, plain version and SDPA's backward
+     then the backward kernels, split by the same routes
+     (``csrc/flash_attention_bwd_sm90.cu`` on tensor cores,
+     ``csrc/flash_attention_bwd.cu`` on CUDA cores), at phase T's
+     training shape (B = 4, Hq = 16, Hkv = 8, T = 4096, d = 128,
+     bfloat16, causal; wgmma), a float32 smoke shape at d = 16 (fma) and
+     whisper-tiny's decoder (B = 16, Hq = Hkv = 6, T = 448, d = 64,
+     causal; wgmma): the forward kernel's output with its LSE written
+     bitwise the output without it, the LSE of both forward routes
+     against the plain version's, dq, dk and dv against
+     ``flash_attention_bwd_plain`` on the same (q, k, v, o, lse, do)
+     (float32 by the f32 rule; bfloat16 within rtol 8e-3 / atol 1e-3
+     max|plain|), two calls bitwise equal, one count a call on the
+     case's route; times of kernel, plain version and SDPA's backward
      (``torch.autograd.grad`` with ``retain_graph``), beside the bound
-     (10 d flops a visible pair at the peak of the dtype);
+     (10 d flops a visible pair at the peak of the dtype), and the
+     route's kernels' ptxas registers and spills;
   5. the model path: ``build_model(configs.get("internlm2-1.8b"))`` at
      full size (24 layers, bfloat16, random weights from generator seed
      0), one scoring ``forward`` on tokens (4, 4096) with the launch
@@ -233,7 +238,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      seed 0) trained 5 AdamW steps of 4 x 4,096 ``TokenStream`` tokens
      through ``PrefetchPipeline``, counters zeroed just before and read
      just after (exactly 48 forward flash launches a step, 24 of them
-     the remat recompute, and 24 backward calls): seconds, tokens/s,
+     the remat recompute, and 24 backward calls, all on the wgmma
+     route): seconds, tokens/s,
      loss, grad norm and lr a step, peak memory, a step's busy share and
      top kernels; and one step at 4 x 1,024 through the kernels against
      ``attn_impl="xla"`` (loss within 0.5 %, each gradient leaf within
@@ -395,19 +401,25 @@ WHISPER_CHECK_TOKENS = 64
 #: the flash-attention kernel of each route
 FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "fma": "src/repro_torch/csrc/flash_attention.cu"}
-#: the backward kernel (both dtypes, CUDA cores) and the TPU-side function
-#: it replaces (the reference's Pallas kernel has no derivative)
-FLASH_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+#: the backward kernel of each route (as the forward's: "wgmma" bfloat16
+#: at head dims 64 and 128 on tensor cores, "fma" the rest on CUDA cores)
+#: and the TPU-side function they replace (the reference's Pallas kernel
+#: has no derivative)
+FLASH_BWD_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+                     "fma": "src/repro_torch/csrc/flash_attention_bwd.cu"}
 FLASH_BWD_REPLACES = "src/repro/kernels/attention/xla_flash.py:96"
 #: phase 4's backward rows: phase T's training shape (internlm2, B 4,
-#: T 4,096, bfloat16, causal) and a float32 smoke shape at head dim 16
-#: (internlm2's smoke config: 4 query heads over 2, B 2, T 256)
+#: T 4,096, bfloat16, causal; wgmma), a float32 smoke shape at head dim 16
+#: (internlm2's smoke config: 4 query heads over 2, B 2, T 256; fma) and
+#: whisper-tiny's decoder self-attention (B 16, 6 heads, T 448, d 64,
+#: causal; wgmma)
 BWD_SMOKE_BATCH, BWD_SMOKE_LEN = 2, 256
 #: the backward in bfloat16, per element: kernel and plain version compute
-#: in float32 from the same inputs (q, k, v, do, and o and lse from the
-#: forward kernel) and round each gradient once, so they differ by one
-#: bfloat16 step where their float32 values straddle a rounding boundary
-#: (2^-7 relative: rtol 8e-3), plus a floor for their two float32
+#: from the same inputs (q, k, v, do, and o and lse from the forward
+#: kernel), sum in float32 and round at the same places (on the wgmma
+#: route p and ds as product operands, each gradient once), so they differ
+#: by one bfloat16 step where their float32 values straddle a rounding
+#: boundary (2^-7 relative: rtol 8e-3), plus a floor for their two float32
 #: summation orders over up to 8,192 rows a key (1e-3 max|plain|); a
 #: dropped tile, a wrong D or a scale off by 1 % fails it.  float32 rows
 #: take F32_RTOL / F32_ATOL_FRAC
@@ -539,6 +551,7 @@ def zero_counts() -> None:
         fn.launches = 0
     _wrappers()["flash_attention"].launches_by_route.update(wgmma=0, fma=0)
     attention.flash_attention_bwd.launches = 0
+    attention.flash_attention_bwd.launches_by_route.update(wgmma=0, fma=0)
 
 
 def read_bwd_count() -> int:
@@ -547,6 +560,13 @@ def read_bwd_count() -> int:
     from repro_torch.kernels.attention import attention
 
     return attention.flash_attention_bwd.launches
+
+
+def read_bwd_routes() -> dict:
+    """The flash backward's calls by route since ``zero_counts``."""
+    from repro_torch.kernels.attention import attention
+
+    return dict(attention.flash_attention_bwd.launches_by_route)
 
 
 def read_counts() -> dict:
@@ -584,9 +604,36 @@ def phase_setup():
     return card
 
 
+def kernel_label(mangled: str) -> str:
+    """A compiled kernel's name from its mangled one, with its template
+    arguments: the storage dtype first, then the integers (a CFD kernel's
+    p, a flash kernel's head dim), e.g. ``flash_bwd_sm90_dq_kernel<128>``."""
+    import re
+
+    # the nested name: <length><identifier> pieces after _ZN (or one after _Z)
+    pos, name = (3 if mangled.startswith("_ZN") else 2), None
+    while (m := re.match(r"\d+", mangled[pos:])):
+        n, start = int(m.group()), pos + len(m.group())
+        piece = mangled[start:start + n]
+        pos = start + n
+        if piece.endswith("_kernel"):
+            name = piece
+            break
+    if name is None:
+        return mangled[:60]
+    rest = mangled[pos:]
+    if not rest.startswith("I"):
+        return name
+    part = rest[:rest.find("Ev")] if "Ev" in rest else rest
+    args = (["bf16"] if "13__nv_bfloat16" in part
+            else ["f32"] if re.search(r"(?:^I|E)f(?:L|E|$)", part) else [])
+    args += re.findall(r"Li(\d+)E", part)
+    return f"{name}<{', '.join(args)}>"
+
+
 def ptxas_summary(build_log) -> list:
     """One line per compiled kernel from nvcc's ``-Xptxas -v`` output: its
-    name (CFD kernels as name<dtype, p>), registers and spills."""
+    name (:func:`kernel_label`), registers and spills."""
     import re
 
     out, name, spill = [], "?", ""
@@ -594,11 +641,7 @@ def ptxas_summary(build_log) -> list:
         if line.startswith("=="):
             out.append(line.strip())
         elif "Compiling entry function" in line:
-            mangled = line.split("'")[1]
-            m = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
-                          mangled)
-            name = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}, "
-                    f"{m.group(3)}>" if m else mangled[:60])
+            name = kernel_label(line.split("'")[1])
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line:
@@ -1692,16 +1735,33 @@ def phase_flash():
     return rows
 
 
+def ptxas_by_source(build_log) -> dict:
+    """:func:`ptxas_summary`'s kernel lines grouped by source file name."""
+    out, src = {}, None
+    for line in ptxas_summary(build_log):
+        if line.startswith("=="):
+            src = line[2:].strip()
+            out[src] = []
+        elif src is not None:
+            out[src].append(line)
+    return out
+
+
 def phase_flash_bwd():
-    """The flash backward kernel against its plain version at phase T's
-    training shape (bfloat16) and a float32 smoke shape; the LSE of both
-    forward kernels against the plain version's, and their output with
-    the LSE written bitwise the output without it; times beside the
-    backward of SDPA and the bound."""
+    """The flash backward kernels against their plain version at phase T's
+    training shape (bfloat16, the wgmma route), a float32 smoke shape (the
+    fma route) and whisper-tiny's decoder (bfloat16 at d = 64, wgmma); the
+    LSE of both forward kernels against the plain version's, and their
+    output with the LSE written bitwise the output without it; times
+    beside the backward of SDPA and the bound, and each route's kernels'
+    registers and spills."""
+    import re
+
     import torch
     import torch.nn.functional as F
 
     from repro_torch import configs
+    from repro_torch.kernels import _cuda
     from repro_torch.kernels.attention import attention, ref
 
     dev = torch.device("cuda", 0)
@@ -1709,7 +1769,10 @@ def phase_flash_bwd():
     cfg, smoke = configs.get(TRAIN_ARCH), configs.get_smoke(TRAIN_ARCH)
     cases = [("train bf16", cfg, TRAIN_BATCH, TRAIN_LEN, torch.bfloat16),
              ("smoke f32", smoke, BWD_SMOKE_BATCH, BWD_SMOKE_LEN,
-              torch.float32)]
+              torch.float32),
+             ("whisper decoder bf16", configs.get(WHISPER_ARCH),
+              WHISPER_BATCH, WHISPER_TOKENS, torch.bfloat16)]
+    ptxas = ptxas_by_source(_cuda.build_log)
     rows = []
     for name, c, B, T, dtype in cases:
         Hq, Hkv, d = c.n_heads, c.n_kv_heads, c.hd
@@ -1720,6 +1783,9 @@ def phase_flash_bwd():
         kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=True)
         fwd_kw = dict(kw, scale=1.0 / d ** 0.5, block_q=512, block_k=512)
         kernel = ref.route(dtype, d)
+        source = FLASH_BWD_SOURCES[kernel]
+        regs = ptxas.get(pathlib.Path(source).name,
+                         ["not reported (the library was built earlier)"])
         o_plain, _ = attention._forward_kernel(q, k, v, with_lse=False,
                                                **fwd_kw)
         o, lse = attention._forward_kernel(q, k, v, with_lse=True, **fwd_kw)
@@ -1731,12 +1797,13 @@ def phase_flash_bwd():
                                                 **kw)
         lse_err = compare(lse, want_lse, F32_RTOL, F32_ATOL_FRAC,
                           f"flash {name} LSE [{kernel}]")
-        before = attention.flash_attention_bwd.launches
+        before = dict(attention.flash_attention_bwd.launches_by_route)
         got = attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
-        if attention.flash_attention_bwd.launches != before + 1:
-            fail(f"flash bwd {name}: launches {before} -> "
-                 f"{attention.flash_attention_bwd.launches}; want one more")
+        after = attention.flash_attention_bwd.launches_by_route
+        if after != dict(before, **{kernel: before[kernel] + 1}):
+            fail(f"flash bwd {name}: launches by route {before} -> {after}; "
+                 f"want one more on {kernel}")
         want = ref.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
         rtol, frac = ((F32_RTOL, F32_ATOL_FRAC) if dtype == torch.float32
                       else (BWD_BF16_RTOL, BWD_BF16_ATOL_FRAC))
@@ -1750,6 +1817,13 @@ def phase_flash_bwd():
         del again, want
         ms = time_ms(lambda: attention.flash_attention_bwd(
             q, k, v, o, lse, do, **kw), 3)
+        # each of the call's kernels (rowsum, dk/dv, dq) on the device
+        kernel_ms = {}
+        for e in profiled_kernels(lambda: attention.flash_attention_bwd(
+                q, k, v, o, lse, do, **kw)):
+            m = re.search(r"flash_bwd\w*?_kernel", e.key)
+            if m:
+                kernel_ms[m.group()] = e.self_device_time_total / 1e3 / e.count
         plain_ms = time_ms(lambda: ref.flash_attention_bwd_plain(
             q, k, v, o, lse, do, **kw), 1)
         # the library yardstick: SDPA's backward on the same inputs
@@ -1774,18 +1848,20 @@ def phase_flash_bwd():
         b_ms, b_by = bound(nbytes(q, k, v, o, do, lse, *got), flops, peak)
         peak_name = ("bf16 tensor-core 989 TFLOP/s" if dtype == torch.bfloat16
                      else "f32 CUDA-core 67 TFLOP/s")
-        rows.append(dict(case=name, route="cuda", source=FLASH_BWD_SOURCE,
-                         forward_route=kernel, model=c.arch_id, B=B, Hq=Hq,
+        rows.append(dict(case=name, route="cuda", bwd_route=kernel,
+                         source=source, ptxas=regs, model=c.arch_id, B=B, Hq=Hq,
                          Hkv=Hkv, G=B * Hq, T=T, d=d, causal=True,
                          dtype=str(dtype).split(".")[-1], ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=b_ms, bound_by=b_by, peak=peak_name,
+                         kernel_ms=kernel_ms,
                          max_abs_err=max(errs.values()), errs=errs,
                          max_abs_plain=max_plain, lse_max_abs_err=lse_err,
                          sdpa_rel_err=lib_err))
-        print(f"flash bwd {name}: G={B * Hq} (Hq {Hq} over Hkv {Hkv}) T={T} "
-              f"d={d} {rows[-1]['dtype']}: forward [{kernel}] output with "
-              f"LSE bitwise without, max|LSE err| {lse_err:.3e} | max|err| "
+        print(f"flash bwd {name} [{kernel}: {source}]: G={B * Hq} (Hq {Hq} "
+              f"over Hkv {Hkv}) T={T} d={d} {rows[-1]['dtype']}: forward "
+              f"[{kernel}] output with LSE bitwise without, max|LSE err| "
+              f"{lse_err:.3e} | max|err| "
               + ", ".join(f"{g} {e:.3e} (max|plain| {max_plain[g]:.3f})"
                           for g, e in errs.items())
               + f", bitwise repeatable | kernel {ms:.3f} ms  plain "
@@ -1793,6 +1869,11 @@ def phase_flash_bwd():
               f"|sdpa - kernel| {lib_err:.2e} of max|plain|)  bound "
               f"{b_ms:.3f} ms ({b_by}; {flops / 1e9:.1f} GFLOP at the "
               f"{peak_name} peak)")
+        print("  its kernels on the card: " + (", ".join(
+            f"{n} {t:.3f} ms" for n, t in kernel_ms.items())
+            or "the profiler saw no device time"))
+        for line in regs:
+            print(f"  ptxas: {line}")
         del q, k, v, do, o, o_plain, lse, want_lse, got
     torch.cuda.empty_cache()
     return rows
@@ -3224,6 +3305,9 @@ def phase_train() -> dict:
         if (fwd, bwd) != want:
             fail(f"train step {i}: flash forward/backward launches so far "
                  f"{fwd}/{bwd}, want {want[0]}/{want[1]}")
+        if read_bwd_routes() != {"wgmma": want[1], "fma": 0}:
+            fail(f"train step {i}: flash backward launches by route "
+                 f"{read_bwd_routes()}; want all {want[1]} on wgmma")
         gnorm, lr = m["grad_norm"].item(), m["lr"].item()
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             fail(f"train step {i}: loss {loss}, grad norm {gnorm}")
@@ -3233,6 +3317,7 @@ def phase_train() -> dict:
               f"{loss:.4f}, grad norm {gnorm:.4f}, lr {lr:.3e}")
     launches = read_counts()
     launches["flash_attention_bwd"] = read_bwd_count()
+    launches["flash_attention_bwd_by_route"] = read_bwd_routes()
     launches["flash_attention_by_route"] = dict(
         _wrappers()["flash_attention"].launches_by_route)
     if launches["flash_attention_by_route"]["fma"] != 0:
@@ -4131,7 +4216,8 @@ def main() -> int:
     train_case = bwd_rows[0]  # the shape phase T's training gives it
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
-        "source": FLASH_BWD_SOURCE, "replaces": FLASH_BWD_REPLACES,
+        "source": FLASH_BWD_SOURCES[train_case["bwd_route"]],
+        "replaces": FLASH_BWD_REPLACES,
         "launches": train["launches"]["flash_attention_bwd"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         **{k: train_case[k] for k in ("ms", "plain_ms", "bound_ms",

@@ -57,6 +57,24 @@ __device__ __forceinline__ int key_stop(int r0, int r1, int Tq, int Tk,
   return stop;
 }
 
+// Flash backward: sum_c b[c] a[c] over one row of d values, read by the
+// 32 lanes of a warp (lane-strided fmaf chains, then an xor-shuffle
+// tree); every lane gets the sum.  The whole warp calls it.
+template <typename T>
+__device__ __forceinline__ float row_dot(const T* __restrict__ a,
+                                         const T* __restrict__ b, int d,
+                                         int lane) {
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    acc = fmaf(to_float(b[c]), to_float(a[c]), acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  return acc;
+}
+
 // ---------------------------------------------------------------------------
 // The CFD kernels' building blocks: element cubes in shared memory, the
 // register-blocked mode contraction, and the cp.async staging of element

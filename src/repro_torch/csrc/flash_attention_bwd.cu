@@ -1,6 +1,9 @@
 // The backward of flash attention with GQA and causal masking, for Hopper
-// (sm_90a), on CUDA cores: float32 and bfloat16 storage at head dims 16,
-// 32, 64 and 128, float32 arithmetic throughout.
+// (sm_90a), on CUDA cores -- the "fma" route: float32 storage at head dims
+// 16, 32, 64 and 128 and bfloat16 at 16 and 32, float32 arithmetic
+// throughout.  bfloat16 at head dims 64 and 128 takes
+// flash_attention_bwd_sm90.cu (the "wgmma" route, tensor cores), as the
+// forward's route() splits them.
 //
 // Replaces: src/repro/kernels/attention/xla_flash.py:96, _flash_bwd -- the
 //   reference's only flash-attention backward (a custom VJP that recomputes
@@ -49,13 +52,13 @@
 //
 // Bound on an H100 SXM: operations.  The backward does 5 products of
 // 2 d flops per visible (row, key) pair -- 2.5 times the forward's 2 --
-// which at B = 4, Hq = 16, Hkv = 8, T = 4096, d = 128, causal is 687
-// GFLOP: 0.69 ms at the 989 TFLOP/s bf16 tensor-core peak, 10.3 ms at the
-// 67 TFLOP/s f32 CUDA-core peak this kernel runs on (and it recomputes
-// s and dp in both 2 and 3: 7 products a pair, 14 d flops).
+// all of them at the 67 TFLOP/s f32 CUDA-core peak this kernel runs on
+// (and it recomputes s and dp in both 2 and 3: 7 products a pair, 14 d
+// flops).
 #include <math_constants.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -230,16 +233,7 @@ __global__ void __launch_bounds__(kThreads)
       static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const T* a = o + row * d;
-  const T* b = dout + row * d;
-  float acc = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    acc = fmaf(to_float(b[c]), to_float(a[c]), acc);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  }
+  const float acc = row_dot(o + row * d, dout + row * d, d, lane);
   if (lane == 0) delta[row] = acc;
 }
 
@@ -447,6 +441,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// float32 at head dims 16, 32, 64 and 128; bfloat16 at 16 and 32 only.
 template <typename T>
 cudaError_t dispatch_bwd(int d, const void* q, const void* k, const void* v,
                          const void* o, const float* lse, const void* dout,
@@ -462,11 +457,18 @@ cudaError_t dispatch_bwd(int d, const void* q, const void* k, const void* v,
   switch (d) {
     REPRO_BWD_CASE(16)
     REPRO_BWD_CASE(32)
-    REPRO_BWD_CASE(64)
-    REPRO_BWD_CASE(128)
     default:
-      return cudaErrorInvalidValue;
+      break;
   }
+  if constexpr (std::is_same<T, float>::value) {
+    switch (d) {
+      REPRO_BWD_CASE(64)
+      REPRO_BWD_CASE(128)
+      default:
+        break;
+    }
+  }
+  return cudaErrorInvalidValue;
 #undef REPRO_BWD_CASE
 }
 
@@ -475,7 +477,8 @@ cudaError_t dispatch_bwd(int d, const void* q, const void* k, const void* v,
 
 // q, o, do (G, Tq, d); k, v (G / Hq * Hkv, Tk, d); dq, dk, dv like q, k, v;
 // lse (G, Tq) float32 from the forward; delta a (G, Tq) float32
-// workspace; Tq <= Tk; d in {16, 32, 64, 128}.  Returns a cudaError_t.
+// workspace; Tq <= Tk; d in {16, 32, 64, 128} for float32, {16, 32} for
+// bfloat16.  Returns a cudaError_t.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const float* lse, const void* dout, void* dq, void* dk, void* dv,

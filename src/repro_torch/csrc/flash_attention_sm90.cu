@@ -60,12 +60,12 @@
 // The tensor maps are encoded per call on the host with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion
 // (no -lcuda), and passed as __grid_constant__ kernel parameters.
-#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <math_constants.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace repro {
 namespace {
@@ -74,10 +74,6 @@ constexpr int kBM = 128;       // query rows per CTA (two consumers of 64)
 constexpr int kBN = 128;       // keys per tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kThreads = 384;  // producer warpgroup + two consumers
-constexpr int kSpan = 64;      // bf16 columns per 128-byte swizzle span
-constexpr int kRowBytes = 128;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 // the reference's masked score -1e30, in log2 units
 constexpr float kMaskedL2 = -1e30f * kLog2e;
 
@@ -95,200 +91,6 @@ struct Sm90Smem {
   static constexpr int kBar = kV + kStages * kKVTile;   // 8-byte mbarriers
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of a 3-D tensor map into shared memory; completion counts
-// its bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row,
-                                         int head) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
-      "r"(head)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor for a 128-byte-swizzled operand:
-// start address, leading and stride byte offsets (16-byte units).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving reads or writes of an accumulator across
-// an asynchronous wgmma's issue or wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D (64 x 128, f32) += A (64 x 16) B (16 x 128), bf16, both from shared memory
-// through descriptors, K-major (no transpose); scale_d = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
-                                             uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// D (64 x 128, f32) += A (64 x 16, bf16 pairs in registers, the
-// accumulator's own layout) B (16 x 128) from shared memory, MN-major
-// (transposed).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(1));
-}
-
-// D (64 x 64, f32) += A (64 x 16, bf16 pairs in registers, the
-// accumulator's own layout) B (16 x 64) from shared memory, MN-major
-// (transposed).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc_v) {
-  if constexpr (D == 128) {
-    wgmma_rs_n128(o, a, desc_v);
-  } else {
-    wgmma_rs_n64(o, a, desc_v);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -400,7 +202,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           wgmma_ss_n128(sc, da, db, kk > 0);
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(sc);
 
         // online softmax on the fragment: sc[4j + c] is (row0, key
@@ -460,13 +262,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // O += P V over 8 steps of 16 keys; P's A fragment for keys
         // 16 kk .. 16 kk + 15 is S's n8 blocks 2 kk and 2 kk + 1
         uint32_t pa[8][4];
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-        }
+        pack_a(sc, pa);
         const uint32_t v_base = base + S::kV + s * S::kKVTile;
         fence_regs(acc);
         wgmma_fence();
@@ -479,7 +275,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                  1024));
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(acc);
       }
       mbar_arrive(bar_empty + 8 * s);
@@ -514,52 +310,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// A 3-D map over a (heads, T, d) bf16 tensor: boxes of `rows` rows by 64
-// columns of one head, 128-byte swizzled; reads past T are zero.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int heads, int T,
-                     int d, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(T) * d * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kSpan),
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int D>

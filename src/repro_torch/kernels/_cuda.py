@@ -28,6 +28,7 @@ BUILD_DIR = (
 SOURCES = (
     "helmholtz.cu", "gemm_chain.cu", "flash_attention.cu",
     "flash_attention_sm90.cu", "flash_attention_bwd.cu",
+    "flash_attention_bwd_sm90.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -136,6 +137,10 @@ def library() -> ctypes.CDLL:
             vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
             ci, cf, ci, vp]
         lib.repro_flash_attention_bwd.restype = ci
+        lib.repro_flash_attention_bwd_sm90.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+            ci, cf, vp]
+        lib.repro_flash_attention_bwd_sm90.restype = ci
         lib.repro_cuda_error_string.argtypes = [ci]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -23,10 +23,12 @@ head ``(g // Hq) * Hkv + (g % Hq) // (Hq / Hkv)``.
 
 :func:`flash_attention` is differentiable.  When an input requires a
 gradient, the forward kernel also writes each row's log-sum-exp, and
-the backward runs :func:`flash_attention_bwd`: on CUDA tensors the
-kernels of ``csrc/flash_attention_bwd.cu`` (the counterpart of the
+the backward runs :func:`flash_attention_bwd` (the counterpart of the
 reference's ``_flash_bwd`` in ``xla_flash.py``, since its Pallas kernel
-has no derivative), on CPU tensors
+has no derivative), by the same routes: ``"wgmma"`` ->
+``csrc/flash_attention_bwd_sm90.cu`` (tensor cores; ``p`` and ``ds``
+rounded to bfloat16 as product operands), ``"fma"`` ->
+``csrc/flash_attention_bwd.cu`` (CUDA cores, float32); on CPU tensors
 :func:`~.ref.flash_attention_bwd_plain`.  Nothing falls back: a build or
 launch failure raises.
 """
@@ -36,8 +38,9 @@ import ctypes
 
 import torch
 
-from .ref import (TILE_Q, WGMMA_TILE_Q, check_blocks, check_shapes,
-                  flash_attention_bwd_plain, flash_attention_plain, route)
+from .ref import (TILE_Q, WGMMA_BWD_ROWS, WGMMA_TILE_Q, check_blocks,
+                  check_shapes, flash_attention_bwd_plain,
+                  flash_attention_plain, route)
 
 #: head dims the kernels are instantiated for (the fma kernel takes all)
 HEAD_DIMS = (16, 32, 64, 128)
@@ -117,11 +120,17 @@ class _Flash(torch.autograd.Function):
 def _check_launch(q, *tensors) -> None:
     """What every kernel launch needs of its tensors: one CUDA device,
     one dtype, contiguous and 16-byte aligned."""
+    _check_tensors(q, *tensors)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+
+
+def _check_tensors(q, *tensors) -> None:
+    """:func:`_check_launch` but the device type: one device, one dtype,
+    contiguous and 16-byte aligned."""
     devices = {t.device for t in (q, *tensors)}
     if len(devices) != 1:
         raise ValueError(f"the tensors lie on different devices: {devices}")
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
     if any(t.dtype != q.dtype for t in tensors):
         raise TypeError(
             "q, k, v (and o, do) must share one dtype, got "
@@ -192,12 +201,16 @@ def flash_attention_bwd(
     """``(dq, dk, dv)`` of :func:`flash_attention` from its residuals
     ``(q, k, v, o, lse)`` and the output's gradient ``do``; ``Tq <= Tk``.
 
-    On CUDA tensors (float32 or bfloat16, head dims 16/32/64/128) it
-    launches ``csrc/flash_attention_bwd.cu`` -- a rowsum pass, a dk/dv
-    kernel over (KV head, key tile) and a dq kernel over (query head,
-    query tile), with no atomics, so the result is bitwise fixed -- and
-    adds one to ``flash_attention_bwd.launches`` a call; on CPU tensors
-    it runs :func:`~.ref.flash_attention_bwd_plain`."""
+    On CUDA tensors it launches the kernels of the route
+    :func:`bwd_route` names -- a rowsum pass, a dk/dv kernel over (KV
+    head, key tile) and a dq kernel over (query head, query tile), with
+    no atomics, so the result is bitwise fixed: ``"wgmma"`` (bfloat16 at
+    head dims 64 and 128) -> ``csrc/flash_attention_bwd_sm90.cu``,
+    ``"fma"`` (float32 at 16/32/64/128, bfloat16 at 16 and 32) ->
+    ``csrc/flash_attention_bwd.cu`` -- and adds one to
+    ``flash_attention_bwd.launches`` and to its route's count in
+    ``flash_attention_bwd.launches_by_route`` a call; on CPU tensors it
+    runs :func:`~.ref.flash_attention_bwd_plain`."""
     check_shapes(q, k, v, n_q_heads, n_kv_heads)
     G, Tq, d = q.shape
     Tk = k.shape[1]
@@ -207,38 +220,71 @@ def flash_attention_bwd(
               scale=scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    kernel = bwd_route(q, k, v, o, lse, do, n_q_heads=n_q_heads,
+                       n_kv_heads=n_kv_heads)
+    device = q.device
+    _check_launch(q)   # the rest of the tensors: bwd_route
+    from .. import _cuda
+
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if G == 0 or Tq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lib = _cuda.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr())
+    tail = (G, Tq, Tk, d, n_q_heads, n_kv_heads, int(causal),
+            ctypes.c_float(scale))
+    with _cuda.launch_on(device) as stream:
+        if kernel == "wgmma":
+            # D and a copy of lse, each head's rows padded to the ring tile
+            t_pad = -(-Tq // WGMMA_BWD_ROWS) * WGMMA_BWD_ROWS
+            ws = torch.empty(2, G, t_pad, dtype=torch.float32, device=device)
+            err = lib.repro_flash_attention_bwd_sm90(*args, ws.data_ptr(),
+                                                     *tail, stream)
+        else:
+            delta = torch.empty(G, Tq, dtype=torch.float32, device=device)
+            err = lib.repro_flash_attention_bwd(
+                *args, delta.data_ptr(), *tail, _cuda.dtype_code(q.dtype),
+                stream)
+    _cuda.check(err, f"flash_attention_bwd ({kernel})")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route[kernel] += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = {"wgmma": 0, "fma": 0}
+
+
+def bwd_route(q, k, v, o, lse, do, *, n_q_heads: int, n_kv_heads: int) -> str:
+    """The backward kernel that takes these tensors: ``"wgmma"`` or
+    ``"fma"`` (:func:`~.ref.route` of their dtype and head dim).  Raises
+    on what neither takes -- ``Tq > Tk``, ``o``/``do``/``lse`` that do not
+    match ``q``, mixed devices or dtypes, strided or unaligned tensors,
+    a dtype or head dim no kernel is built for, more key tiles than a
+    grid holds -- and so before anything is launched; the device type is
+    the launch's own check."""
+    check_shapes(q, k, v, n_q_heads, n_kv_heads)
+    G, Tq, d = q.shape
+    Tk = k.shape[1]
     if Tq > Tk:
         raise ValueError(f"the backward takes Tq <= Tk, got Tq={Tq} > Tk={Tk}")
     if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (G, Tq):
         raise ValueError(
             f"o {tuple(o.shape)}, do {tuple(do.shape)} and lse "
             f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
-    device = q.device
-    _check_launch(q, k, v, o, do)
+    _check_tensors(q, k, v, o, do)
     from .. import _cuda
 
-    code = _cuda.dtype_code(q.dtype)
+    _cuda.dtype_code(q.dtype)
     if lse.dtype != torch.float32 or not lse.is_contiguous() or (
-            lse.device != device):
+            lse.device != q.device):
         raise ValueError("lse must be contiguous float32 on the tensors' card")
     if d not in HEAD_DIMS:
         raise ValueError(f"kernel supports head dims {HEAD_DIMS}, got {d}")
-    if -(-Tk // TILE_Q) > MAX_Q_TILES:   # Tq <= Tk
-        raise ValueError(f"kernel takes at most {MAX_Q_TILES * TILE_Q} rows")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if G == 0 or Tq == 0:
-        return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty(G, Tq, dtype=torch.float32, device=device)
-    lib = _cuda.library()
-    with _cuda.launch_on(device) as stream:
-        err = lib.repro_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), G, Tq, Tk, d, n_q_heads,
-            n_kv_heads, int(causal), ctypes.c_float(scale), code, stream)
-    _cuda.check(err, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
-
-
-flash_attention_bwd.launches = 0
+    kernel = route(q.dtype, d)
+    tile = WGMMA_TILE_Q if kernel == "wgmma" else TILE_Q
+    if -(-Tk // tile) > MAX_Q_TILES:   # Tq <= Tk
+        raise ValueError(f"kernel takes at most {MAX_Q_TILES * tile} rows")
+    return kernel

@@ -15,8 +15,11 @@ head folding to the kernel layout happens here.  ``impl``:
   backward (:func:`.xla_flash.flash_attention_xla`).
 
 Every impl is differentiable: ``"pallas"`` and ``"interpret"`` through
-the backward kernel and its plain version (``Tq <= Tk``), ``"xla"``
-through autograd, ``"xla_flash"`` through its own backward.
+the backward kernels and their plain version (``Tq <= Tk``; on the
+``wgmma`` route, bfloat16 at head dims 64 and 128, ``p`` is rounded to
+bfloat16 for dv and ``ds`` for dq and dk, as the tensor-core kernel
+rounds them), ``"xla"`` through autograd, ``"xla_flash"`` through its own
+backward.
 
 ``"pallas"`` and ``"interpret"`` agree with the reference's kernel on
 every row, those that see no key (causal, ``Tq > Tk``) included: such a

@@ -47,6 +47,9 @@ WGMMA_TILE_Q = 128
 WGMMA_TILE_K = 128
 #: head dims the tensor-core (``wgmma``) kernel is instantiated for
 WGMMA_HEAD_DIMS = (64, 128)
+#: query rows per ring tile of the tensor-core backward's dk/dv kernel,
+#: to which its workspace (D and a copy of lse) pads each head's rows
+WGMMA_BWD_ROWS = 64
 #: one bfloat16 rounding of p, relative (half a step of 8 significant bits)
 P_ROUND = 2.0 ** -8
 
@@ -198,13 +201,20 @@ def flash_attention_bwd_plain(
     ``lse`` (:func:`flash_attention_plain` with ``return_lse``) and the
     output's gradient ``do``.
 
-    It repeats ``csrc/flash_attention_bwd.cu``'s arithmetic, the
-    reference's ``_flash_bwd`` (``xla_flash.py``) per key tile of
-    :data:`TILE_K` keys, all in float32: ``p = exp(s scale - lse)`` (0
-    where causally masked), ``D = rowsum(do o)``, ``dv = p^T do``, ``dp =
-    do v^T``, ``ds = p (dp - D) scale``, ``dq = ds k``, ``dk = ds^T q``;
-    dk and dv sum over the group's query heads.  Causal is end-aligned,
-    and ``Tq <= Tk`` (every row sees a key), else ``ValueError``."""
+    It repeats the arithmetic of the backward kernel :func:`route` picks,
+    the reference's ``_flash_bwd`` (``xla_flash.py``) per key tile of
+    :data:`TILE_K` keys, in float32: ``p = exp(s scale - lse)`` (0 where
+    causally masked), ``D = rowsum(do o)``, ``dv = p^T do``, ``dp = do
+    v^T``, ``ds = p (dp - D) scale``, ``dq = ds k``, ``dk = ds^T q``; dk
+    and dv sum over the group's query heads.  On the ``fma`` route
+    (``csrc/flash_attention_bwd.cu``: float32, and bfloat16 at head dims
+    16 and 32) everything stays float32.  On the ``wgmma`` route
+    (``csrc/flash_attention_bwd_sm90.cu``: bfloat16 at head dims 64 and
+    128) it rounds where that kernel's tensor-core products do: ``p`` to
+    bfloat16 for ``dv``, and ``ds`` -- computed from the float32 ``p`` --
+    to bfloat16 for ``dq`` and ``dk``; every sum stays float32.  Causal
+    is end-aligned, and ``Tq <= Tk`` (every row sees a key), else
+    ``ValueError``."""
     check_shapes(q, k, v, n_q_heads, n_kv_heads)
     G, Tq, d = q.shape
     Gkv, Tk, _ = k.shape
@@ -214,6 +224,8 @@ def flash_attention_bwd_plain(
         scale = 1.0 / (d ** 0.5)
     group = n_q_heads // n_kv_heads
     f32 = torch.float32
+    bf16 = torch.bfloat16
+    rounds = route(q.dtype, d) == "wgmma"
     rows = group * Tq
     qf = q.to(f32).reshape(Gkv, rows, d)
     dof = do.to(f32).reshape(Gkv, rows, d)
@@ -230,9 +242,12 @@ def flash_attention_bwd_plain(
         if causal:
             kpos = torch.arange(k0, k0 + kt.shape[1], device=q.device)
             p = torch.where(qpos[:, None] >= kpos[None, :], p, 0.0)
-        dv[:, k0:k0 + TILE_K] = torch.matmul(p.transpose(1, 2), dof)
+        p_dv = p.to(bf16).to(f32) if rounds else p
+        dv[:, k0:k0 + TILE_K] = torch.matmul(p_dv.transpose(1, 2), dof)
         dp = torch.matmul(dof, vt.transpose(1, 2))
         ds = p * (dp - delta) * scale
+        if rounds:
+            ds = ds.to(bf16).to(f32)
         dq += torch.matmul(ds, kt)
         dk[:, k0:k0 + TILE_K] = torch.matmul(ds.transpose(1, 2), qf)
     return (dq.reshape(G, Tq, d).to(q.dtype), dk.to(k.dtype),

@@ -698,13 +698,15 @@ BWD_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_flash_attention_bwd_kernel_matches_plain(cuda, case, dtype):
-    """The backward kernel against its plain version on the same (q, k,
-    v, o, lse, do): float32 within rtol 5e-4 / atol 5e-4 max|plain|,
-    bfloat16 within one bfloat16 step (rtol 8e-3) + 1e-3 max|plain|
-    (both compute in float32 from the same inputs, in other orders, and
-    round once); bitwise repeatable and the same when the batch is split
-    across calls; one count a call; the forward kernel's LSE against the
-    plain version's."""
+    """The backward kernel of the case's route against its plain version
+    on the same (q, k, v, o, lse, do): float32 within rtol 5e-4 / atol
+    5e-4 max|plain|, bfloat16 within one bfloat16 step (rtol 8e-3) + 1e-3
+    max|plain| (both compute in float32 from the same inputs, in other
+    orders, round p and ds where the route's kernel does -- only on the
+    wgmma route, bf16 at d 64/128 -- and round each gradient once);
+    bitwise repeatable and the same when the batch is split across calls;
+    one count a call; the forward kernel's LSE against the plain
+    version's."""
     B, Hq, Hkv, Tq, Tk, d, causal = case
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (x.to(dtype) for x in _flash_inputs(gen, cuda, B, Hq, Hkv, Tq, Tk, d))
@@ -736,6 +738,56 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, case, dtype):
             for a, b in ((0, 0), (hq, hk))]
         for i, g in enumerate(got):
             assert torch.equal(g, torch.cat([pt[i] for pt in parts]))
+
+
+WGMMA_BWD_CASES = [
+    # B, Hq, Hkv, Tq, Tk, d, causal
+    (2, 4, 2, 256, 256, 128, True),   # GQA 2:1
+    (2, 8, 1, 192, 192, 128, True),   # GQA 8:1
+    (2, 4, 2, 96, 320, 128, True),    # Tq < Tk
+    (2, 2, 1, 200, 200, 128, True),   # ragged last query and key tiles
+    (2, 3, 3, 160, 224, 64, False),   # d 64, non-causal, Tq < Tk, ragged
+    (16, 6, 6, 448, 448, 64, True),   # whisper-tiny's decoder self-attention
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_BWD_CASES)
+def test_flash_attention_bwd_wgmma_route_matches_plain(cuda, case):
+    """The tensor-core backward (bfloat16 at d 64 and 128) against its
+    plain version on the same (q, k, v, o, lse, do), per element within
+    rtol 8e-3 + 1e-3 max|plain|: both round p and ds to bfloat16 at the
+    same places and sum in float32 in other orders, so they differ by a
+    bfloat16 step of an output, or of a p or ds whose float32 values
+    straddle a rounding boundary.  Bitwise repeatable, a batch split
+    across two calls gives the same bits, one count on the wgmma route."""
+    B, Hq, Hkv, Tq, Tk, d, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (x.bfloat16() for x in _flash_inputs(gen, cuda, B, Hq, Hkv, Tq, Tk, d))
+    do = torch.randn(q.shape, generator=gen, device=cuda).bfloat16()
+    kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=causal)
+    assert t_attn_ref.route(q.dtype, d) == "wgmma"
+    o, lse = t_attn._forward_kernel(q, k, v, scale=d ** -0.5, block_q=512,
+                                    block_k=512, with_lse=True, **kw)
+    by_route = dict(t_attn.flash_attention_bwd.launches_by_route)
+    got = t_attn.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert t_attn.flash_attention_bwd.launches_by_route == dict(
+        by_route, wgmma=by_route["wgmma"] + 1)
+    want = t_attn_ref.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g.float(), w.float(), rtol=8e-3,
+                                   atol=1e-3 * w.float().abs().max().item())
+    again = t_attn.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    hq, hk = B // 2 * Hq, B // 2 * Hkv
+    parts = [t_attn.flash_attention_bwd(
+        q[a:a + hq], k[b:b + hk], v[b:b + hk], o[a:a + hq], lse[a:a + hq],
+        do[a:a + hq], **kw) for a, b in ((0, 0), (hq, hk))]
+    for i, g in enumerate(got):
+        assert torch.equal(g, torch.cat([pt[i] for pt in parts]))
 
 
 @pytest.mark.cuda
