@@ -243,11 +243,20 @@ Phases (any failure exits non-zero, and no result line is printed):
      loss, grad norm and lr a step, peak memory, a step's busy share and
      top kernels; and one step at 4 x 1,024 through the kernels against
      ``attn_impl="xla"`` (loss within 0.5 %, each gradient leaf within
-     2 % relative L2);
+     2 % relative L2); every family's smoke step (float32, 2 x 16) on the
+     card against the CPU (the loss within rtol 1e-5, each gradient leaf
+     within 1e-4 x the tree's largest |gradient|); and the sharded step at world
+     size 1: internlm2-1.8b's state distributed over a 1 x 1
+     ``DeviceMesh`` (``distributed.sharding.distribute_state``, the
+     one-process nccl group of ``launch.mesh.make_local_mesh``), 3 steps
+     of 4 x 1,024 against the unsharded step from a copy of the state,
+     counters zeroed just before each step and read just after (48 + 24
+     flash calls, all wgmma): loss, grad norm and every state leaf
+     bitwise equal, and both steps' seconds;
   6. one JSON line describing every kernel (the flash row's launches
      are phase 5's, phase E's and phase J's scoring forwards', phase
-     W's forward and prefill, and phase T's steps; the backward's are
-     phase T's steps), then the result line.
+     W's forward and prefill, and phase T's steps, the sharded ones
+     included; the backward's are phase T's steps), then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 with a non-zero code before printing any result.
@@ -447,6 +456,18 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2 = 5e-3, 2e-2
 #: an entry with a small gradient carries that gradient's relative error
 #: (up to ~1e-3 at |g| ~ 1e-4 max|g|) into its update whole
 TRAIN_CARD_LOSS_RTOL, TRAIN_CARD_GRAD_TOL, TRAIN_CARD_UPDATE_L2 = 1e-5, 1e-4, 1e-3
+#: phase T: every family's smoke step (float32, B 2 x T 16, seeded
+#: tokens) on the card against the CPU: the loss within rtol 1e-5, each
+#: gradient leaf within 1e-4 x the tree's largest |gradient| on the CPU
+#: (tests/test_torch_train_families.py's bound: float32 sums in another
+#: order, and leaves whose gradients are float32 noise)
+FAMILY_BATCH, FAMILY_LEN, FAMILY_GRAD_FRAC = 2, 16, 1e-4
+#: phase T: the sharded step at world size 1 -- internlm2-1.8b whole on a
+#: 1 x 1 mesh of the one-process nccl group against the unsharded step
+#: from the same state, TRAIN_SHARDED_STEPS steps of TRAIN_BATCH x
+#: TRAIN_SHARDED_LEN tokens, each bitwise equal (loss, grad norm, every
+#: param and moment): on one rank every redistribution is a no-op
+TRAIN_SHARDED_LEN, TRAIN_SHARDED_STEPS = 1024, 3
 
 
 class SmokeFailure(RuntimeError):
@@ -3216,6 +3237,159 @@ def train_resume() -> dict:
     return dict(losses=first + tail, resumed=again, leaves=len(ref_leaves))
 
 
+def train_families_card_vs_cpu() -> dict:
+    """Every family's smoke step (float32) on the card against the CPU:
+    the same params (the CPU's init, copied) and batch on both, the loss
+    and every gradient leaf of one ``value_and_grad`` (the card through
+    the flash kernels, the CPU through plain attention)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train import (init_train_state, make_loss_fn,
+                                           value_and_grad)
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_smoke(arch)
+        rng = np.random.default_rng(0)
+        batch = {k: torch.as_tensor(rng.integers(
+            0, cfg.vocab, (FAMILY_BATCH, FAMILY_LEN)).astype(np.int32))
+            for k in ("tokens", "labels")}
+        if cfg.is_encdec:
+            batch["frames"] = torch.as_tensor(rng.normal(size=(
+                FAMILY_BATCH, cfg.n_audio_frames, cfg.d_model)).astype(
+                    np.float32))
+        res = {}
+        params = init_train_state(build_model(cfg, device="cpu"),
+                                  torch.Generator().manual_seed(0))["params"]
+        for d in ("cpu", dev):
+            loss, grads = value_and_grad(
+                make_loss_fn(build_model(cfg, device=d)), _tree_to(params, d),
+                {k: v.to(d) for k, v in batch.items()})
+            res[d] = (loss.item(), dict(_state_leaves(grads)))
+        (l_card, g_card), (l_cpu, g_cpu) = res[dev], res["cpu"]
+        if not abs(l_card - l_cpu) <= TRAIN_CARD_LOSS_RTOL * abs(l_cpu):
+            fail(f"{arch} smoke step: loss on the card {l_card} vs CPU {l_cpu}")
+        scale = max(g.abs().max().item() for g in g_cpu.values())
+        err = {n: (g.cpu() - g_cpu[n]).abs().max().item()
+               for n, g in g_card.items()}
+        worst = max(err, key=err.get)
+        if not err[worst] <= FAMILY_GRAD_FRAC * scale:
+            fail(f"{arch} smoke step: gradient {worst} off the CPU's by "
+                 f"{err[worst]:.3e} > {FAMILY_GRAD_FRAC} x {scale:.3e}")
+        out[arch] = dict(loss_card=l_card, loss_cpu=l_cpu,
+                         grad_err_frac=err[worst] / scale, worst_leaf=worst)
+        print(f"  {arch} smoke step card vs CPU (float32): loss {l_card:.6f} "
+              f"vs {l_cpu:.6f}, worst gradient {err[worst] / scale:.2e} of "
+              f"max|grad| ({worst})")
+    return out
+
+
+def _step_launches() -> dict:
+    from repro_torch.kernels.attention import attention
+
+    return dict(forward=read_counts()["flash_attention"],
+                forward_wgmma=_wrappers()[
+                    "flash_attention"].launches_by_route["wgmma"],
+                backward=read_bwd_count(),
+                backward_wgmma=attention.flash_attention_bwd
+                .launches_by_route["wgmma"])
+
+
+def train_sharded_one_rank() -> dict:
+    """internlm2-1.8b whole, its state distributed over a 1 x 1
+    ``DeviceMesh`` on cuda:0 (``make_local_mesh``'s one-process nccl
+    group): TRAIN_SHARDED_STEPS steps against the unsharded step from a
+    copy of the same state on the same batches, each bitwise equal in
+    loss, grad norm and every leaf of the state; both steps' seconds
+    (the sharded one's excess is DTensor's dispatch) and flash launches
+    (counters zeroed just before each step and read just after)."""
+    import gc
+
+    import torch
+    import torch.distributed
+
+    from repro_torch import configs
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    dev = torch.device("cuda", 0)
+    cfg = configs.get(TRAIN_ARCH)
+    model = build_model(cfg)
+    mesh = make_local_mesh(1, device=dev)
+    if mesh.size() != 1:
+        fail(f"mesh of {mesh.size()} ranks; want 1")
+    plain = init_train_state(model, torch.Generator(device=dev).manual_seed(0))
+    state = sharding.distribute_state(tree_map(torch.clone, plain), mesh)
+    step = make_train_step(model, AdamWConfig(lr=3e-4, warmup_steps=10,
+                                              total_steps=TRAIN_STEPS))
+    stream = TokenStream(vocab=cfg.vocab, batch=TRAIN_BATCH,
+                         seq_len=TRAIN_SHARDED_LEN, seed=0)
+    want = dict(forward=2 * cfg.n_layers, forward_wgmma=2 * cfg.n_layers,
+                backward=cfg.n_layers, backward_wgmma=cfg.n_layers)
+    steps, total = [], {"forward": 0, "backward": 0}
+    for i in range(TRAIN_SHARDED_STEPS):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in stream.batch_at(i).items()}
+        row = {}
+        for name in ("unsharded", "sharded"):
+            b = batch if name == "unsharded" else sharding.distribute_batch(
+                batch, mesh)
+            zero_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if name == "unsharded":
+                plain, m = step(plain, b)
+            else:
+                state, m = step(state, b)
+            loss = m["loss"].item()
+            row[name] = dict(s=time.perf_counter() - t, loss=loss,
+                             grad_norm=m["grad_norm"].item(),
+                             launches=_step_launches(), metrics=m)
+            if row[name]["launches"] != want:
+                fail(f"{name} step {i}: flash launches "
+                     f"{row[name]['launches']}; want {want}")
+            total["forward"] += row[name]["launches"]["forward"]
+            total["backward"] += row[name]["launches"]["backward"]
+        mu, ms = row["unsharded"].pop("metrics"), row["sharded"].pop("metrics")
+        for k in ("loss", "grad_norm", "lr"):
+            if not torch.equal(mu[k], ms[k]):
+                fail(f"sharded step {i}: {k} {ms[k].item()!r} vs unsharded "
+                     f"{mu[k].item()!r}")
+        got = dict(_state_leaves(state))
+        bad = [n for n, v in _state_leaves(plain)
+               if not torch.equal(got[n].to_local() if hasattr(
+                   got[n], "to_local") else got[n], v)]
+        if bad:
+            fail(f"sharded step {i}: {len(bad)} state leaves differ from "
+                 f"the unsharded step's, first {bad[0]}")
+        steps.append(row)
+        print(f"  sharded step {i} (1 x 1 mesh, {TRAIN_BATCH} x "
+              f"{TRAIN_SHARDED_LEN}): {row['sharded']['s']:.3f} s vs "
+              f"unsharded {row['unsharded']['s']:.3f} s, loss "
+              f"{row['sharded']['loss']:.5f}, flash "
+              f"{row['sharded']['launches']}; loss, grad norm and "
+              f"{len(got)} state leaves bitwise the unsharded step's")
+    del plain, state, step, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    warm = steps[1:]
+    return dict(mesh={"data": 1, "model": 1}, batch=TRAIN_BATCH,
+                seq_len=TRAIN_SHARDED_LEN, steps=steps, launches=total,
+                sharded_s=sum(r["sharded"]["s"] for r in warm) / len(warm),
+                unsharded_s=sum(r["unsharded"]["s"] for r in warm) / len(warm),
+                bitwise=True)
+
+
 #: kernel classes of a train step's profile, matched in order on the
 #: lower-cased kernel name
 KERNEL_CLASSES = (
@@ -3262,7 +3436,8 @@ def phase_train() -> dict:
     from repro_torch.runtime.train import (init_train_state, make_loss_fn,
                                            make_train_step, value_and_grad)
 
-    stats = {"card_vs_cpu": train_card_vs_cpu(), "resume": train_resume()}
+    stats = {"card_vs_cpu": train_card_vs_cpu(), "resume": train_resume(),
+             "families": train_families_card_vs_cpu()}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3373,6 +3548,7 @@ def phase_train() -> dict:
     del params, g_k, g_x, model
     gc.collect()
     torch.cuda.empty_cache()
+    stats["sharded"] = train_sharded_one_rank()
     return stats
 
 
@@ -4207,7 +4383,8 @@ def main() -> int:
         "launches": (model["launches"]["flash_attention"]
                      + experts["flash_launches"] + jamba["flash_launches"]
                      + whisper["flash_launches"]
-                     + train["launches"]["flash_attention"]),
+                     + train["launches"]["flash_attention"]
+                     + train["sharded"]["launches"]["forward"]),
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
@@ -4218,7 +4395,8 @@ def main() -> int:
         "name": "flash_attention_bwd", "route": "cuda",
         "source": FLASH_BWD_SOURCES[train_case["bwd_route"]],
         "replaces": FLASH_BWD_REPLACES,
-        "launches": train["launches"]["flash_attention_bwd"],
+        "launches": (train["launches"]["flash_attention_bwd"]
+                     + train["sharded"]["launches"]["backward"]),
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         **{k: train_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},

@@ -24,6 +24,13 @@ Fault-tolerance contract:
     joins before exit);
   * ``restore()`` places the leaves on ``device`` (default: each leaf of
     ``like``'s device).
+
+A sharded state (DTensor leaves, :mod:`repro_torch.distributed`) is
+saved whole, in the same format: every rank gathers each leaf
+(``full_tensor()``), rank 0 writes, and every rank waits on a barrier.
+Restored into a ``like`` of DTensors, each leaf is placed back by its
+placements, so a checkpoint of a sharded run restores into an unsharded
+state and back.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..tree import named_leaves, tree_unflatten
 
@@ -62,10 +71,15 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
     def save(self, state: Any, *, step: int, blocking: bool = True) -> None:
-        """Write ``state`` as step ``step`` (by a thread unless blocking)."""
+        """Write ``state`` as step ``step`` (by a thread unless blocking).
+        Of a sharded state, every rank must call it; rank 0 writes."""
+        leaves = named_leaves(state)
+        if any(isinstance(v, DTensor) for _, v in leaves):
+            self._save_sharded(leaves, step)
+            return
         # copy to the host first, so later in-place updates cannot reach
         # the checkpoint
-        host = [(name, *_to_host(v)) for name, v in named_leaves(state)]
+        host = [(name, *_to_host(v)) for name, v in leaves]
         if blocking:
             self._write(host, step)
         else:
@@ -74,6 +88,18 @@ class CheckpointManager:
                 target=self._write, args=(host, step), daemon=True
             )
             self._thread.start()
+
+    def _save_sharded(self, leaves, step: int) -> None:
+        """Gather each DTensor leaf whole on every rank (a collective),
+        write on rank 0, then a barrier; blocking."""
+        host = []
+        for name, v in leaves:
+            if isinstance(v, DTensor):
+                v = v.full_tensor()
+            host.append((name, *_to_host(v)))
+        if dist.get_rank() == 0:
+            self._write(host, step)
+        dist.barrier()
 
     def wait(self) -> None:
         """Join the writer of the last non-blocking save."""
@@ -129,7 +155,9 @@ class CheckpointManager:
                 device=None) -> Any:
         """Restore into the structure, shapes and dtypes of ``like`` (a tree
         of tensors, meta tensors included); leaves go to ``device``, else
-        to the device of ``like``'s leaf (the CPU for a meta leaf)."""
+        to the device of ``like``'s leaf (the CPU for a meta leaf).  A
+        DTensor leaf of ``like`` comes back a DTensor of its mesh and
+        placements (every rank reads the whole leaf and keeps its shard)."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -150,7 +178,12 @@ class CheckpointManager:
             dev = device
             if dev is None:
                 dev = leaf.device if leaf.device.type != "meta" else "cpu"
-            out.append(self._tensor(arr, leaf.dtype, name).to(dev))
+            t = self._tensor(arr, leaf.dtype, name).to(dev)
+            if isinstance(leaf, DTensor):
+                from ..distributed.sharding import distribute
+
+                t = distribute(t, leaf.device_mesh, leaf.placements)
+            out.append(t)
         return tree_unflatten(like, out)
 
     @staticmethod

@@ -3,7 +3,7 @@ own CFD operator configs live in repro_torch.cfd).
 
 Use ``get(arch_id)`` for the full config and ``get_smoke(arch_id)`` for
 the reduced same-family smoke config.  The config files are copies of
-the reference's; the assigned input shapes (``shapes``) are not ported yet.
+the reference's, and ``shapes`` holds the assigned input shapes.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from . import (
     olmoe_1b_7b,
     qwen2_7b,
     qwen3_14b,
+    shapes,
     whisper_tiny,
     xlstm_125m,
 )

@@ -37,6 +37,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .ref import (TILE_Q, WGMMA_BWD_ROWS, WGMMA_TILE_Q, check_blocks,
                   check_shapes, flash_attention_bwd_plain,
@@ -126,8 +127,12 @@ def _check_launch(q, *tensors) -> None:
 
 
 def _check_tensors(q, *tensors) -> None:
-    """:func:`_check_launch` but the device type: one device, one dtype,
-    contiguous and 16-byte aligned."""
+    """:func:`_check_launch` but the device type: local tensors (a DTensor
+    is refused: a sharded caller runs the kernels on its local shards,
+    ``distributed.rules.local_attention``), one device, one dtype, contiguous
+    and 16-byte aligned."""
+    if any(isinstance(t, DTensor) for t in (q, *tensors)):
+        raise TypeError("the flash kernels take local tensors, not DTensors")
     devices = {t.device for t in (q, *tensors)}
     if len(devices) != 1:
         raise ValueError(f"the tensors lie on different devices: {devices}")

@@ -21,6 +21,10 @@ bfloat16 for dv and ``ds`` for dq and dk, as the tensor-core kernel
 rounds them), ``"xla"`` through autograd, ``"xla_flash"`` through its own
 backward.
 
+On DTensors (a sharded train step) ``"pallas"`` and ``"interpret"`` run
+on each rank's local shards (:func:`repro_torch.distributed.rules.local_attention`):
+a DTensor never reaches the kernels' wrapper.
+
 ``"pallas"`` and ``"interpret"`` agree with the reference's kernel on
 every row, those that see no key (causal, ``Tq > Tk``) included: such a
 row is the mean of the V rows below its key limit, which is set by
@@ -29,9 +33,11 @@ that limit is 0; see ``ref.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Literal, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ...core.precision import matmul_f32
 from .attention import flash_attention, flash_attention_interpret
@@ -83,6 +89,13 @@ def multi_head_attention(
         return _xla_attention(q, k, v, causal=causal, scale=scale)
     if impl not in ("pallas", "interpret"):
         raise ValueError(f"unknown attention impl {impl!r}")
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        # the kernels take local tensors: each rank's batch rows and heads
+        from ...distributed.rules import local_attention
+
+        return local_attention(functools.partial(
+            multi_head_attention, causal=causal, scale=scale, impl=impl,
+            block_q=block_q, block_k=block_k), q, k, v)
 
     qf = q.reshape(B * Hq, Tq, d).contiguous()
     kf = k.reshape(B * Hkv, Tk, d).contiguous()

@@ -1,2 +1,3 @@
-"""Launchers of the port: the train entry point (``train``).  The mesh
-and the multi-pod dry run are not ported yet (ROADMAP item 13b)."""
+"""Launchers of the port: device meshes (``mesh``) and the train entry
+point (``train``).  The multi-pod dry run is not ported yet (ROADMAP
+item 13c)."""

@@ -1,10 +1,23 @@
-"""Training launcher: pick an architecture, build the train step, and run
-the fault-tolerant loop on one device -- the port of the reference's
+"""Training launcher: pick an architecture and a mesh, build the train
+step, and run the fault-tolerant loop -- the port of the reference's
 ``repro/launch/train.py``.  It runs on the CUDA card unless given
 ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
       --smoke --steps 20 --device cpu
+
+Under ``torch.distributed.run`` (``RANK`` and ``WORLD_SIZE`` set) every
+process joins the process group (``nccl`` on the card, each rank on
+``cuda:LOCAL_RANK``; ``gloo`` with ``--device cpu``), the state and
+each batch are sharded over a (data, model) mesh of ``world_size //
+--model-axis`` by ``--model-axis`` ranks, and rank 0 prints:
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.train --smoke --steps 3 \\
+      --batch 4 --seq-len 16 --model-axis 2 --device cpu
+
+Every rank draws the same global batch from the token stream's seed and
+keeps its share.  One process with ``--model-axis 1`` runs unsharded.
 """
 from __future__ import annotations
 
@@ -14,15 +27,18 @@ import sys
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from .. import configs
 from ..checkpoint import CheckpointManager
 from ..data import PrefetchPipeline, TokenStream
+from ..distributed import sharding
 from ..memory.channels import resolve_device
 from ..models import build_model
 from ..optim import AdamWConfig
 from ..runtime.train import (LoopConfig, TrainLoop, init_train_state,
                              make_train_step)
+from . import mesh as mesh_mod
 
 
 def main(argv=None) -> int:
@@ -48,20 +64,28 @@ def main(argv=None) -> int:
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    if args.model_axis != 1:
-        raise NotImplementedError(
-            "--model-axis > 1 (a sharded model) is not ported yet: ROADMAP "
-            "item 13b (distributed training)")
     from ..models import ssm as ssm_mod
     ssm_mod.MLSTM_CHUNK = args.mlstm_chunk
 
-    device = resolve_device(args.device)
+    device = args.device
+    if mesh_mod.launched() and device is None:
+        device = f"cuda:{os.environ.get('LOCAL_RANK', '0')}"
+    device = resolve_device(device)
+    mesh = None
+    if mesh_mod.launched() or args.model_axis != 1:
+        mesh = mesh_mod.make_local_mesh(args.model_axis, device)
+    rank0 = mesh is None or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     model = build_model(cfg, attn_impl=args.attn_impl, device=device)
-    print(f"device: {device}")
+    say(f"device: {device}")
+    if mesh is not None:
+        say(f"mesh: {mesh_mod.axis_sizes(mesh)}")
 
     gen = torch.Generator(device=device).manual_seed(0)
     state = init_train_state(model, gen)
+    if mesh is not None:
+        state = sharding.distribute_state(state, mesh)
     opt = AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=args.steps)
     step = make_train_step(model, opt, grad_accum=args.grad_accum)
     ckpt = CheckpointManager(args.ckpt_dir)
@@ -69,14 +93,16 @@ def main(argv=None) -> int:
     if args.resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         start = int(state["step"])
-        print(f"resumed at step {start}")
+        say(f"resumed at step {start}")
     stream = TokenStream(
         vocab=cfg.vocab, batch=args.batch, seq_len=args.seq_len,
         cfg=cfg, start_step=start,
     )
     data = PrefetchPipeline(stream, device=device)
+    batches = data if mesh is None else (
+        sharding.distribute_batch(b, mesh) for b in data)
     loop = TrainLoop(
-        step, state, data,
+        step, state, batches,
         cfg=LoopConfig(total_steps=args.steps, checkpoint_every=25),
         checkpointer=ckpt,
     )
@@ -86,9 +112,11 @@ def main(argv=None) -> int:
         data.close()
         ckpt.wait()
     if loop.history:
-        print(f"steps {loop.history[0]['step']}..{loop.history[-1]['step']}: "
-              f"loss {loop.history[0]['loss']:.4f} -> "
-              f"{loop.history[-1]['loss']:.4f}")
+        say(f"steps {loop.history[0]['step']}..{loop.history[-1]['step']}: "
+            f"loss {loop.history[0]['loss']:.4f} -> "
+            f"{loop.history[-1]['loss']:.4f}")
+    if mesh is not None:
+        dist.destroy_process_group()
     return 0
 
 

@@ -108,7 +108,7 @@ def _route(p: Params, xt: torch.Tensor, cfg: ModelConfig,
     first = torch.searchsorted(sorted_e, experts)                # (G, E)
     rank_sorted = (torch.arange(NKg, device=xt.device)[None]
                    - torch.gather(first, 1, sorted_e))
-    flat_pos = torch.zeros_like(flat_e).scatter_(1, sorted_idx, rank_sorted)
+    flat_pos = torch.zeros_like(flat_e).scatter(1, sorted_idx, rank_sorted)
     keep = flat_pos < cap_g
     return gate, eidx, flat_e, flat_pos, keep, sorted_idx, first, cap_g
 
@@ -173,7 +173,7 @@ def moe_apply(
         contrib = out_flat * (slot_gate[..., None].to(cd)
                               * slot_valid.reshape(G, E * cap_g)[..., None]
                               .to(cd))
-        y = torch.zeros((G, Ng, d), dtype=cd, device=dev).scatter_add_(
+        y = torch.zeros((G, Ng, d), dtype=cd, device=dev).scatter_add(
             1, slot_token[..., None].expand(G, E * cap_g, d), contrib)
     else:
         # token-side gather (baseline): every token reads its k slots

@@ -125,7 +125,9 @@ def mamba_apply(
     xs_f32 = xs.float()
 
     def steps_first(t):  # (B, T, *) -> (T, B, *), contiguous
-        return t.transpose(0, 1).contiguous()
+        # a stack of the steps, not a transposed copy: its gradient is
+        # laid out (B, T, *) again, as sharded tensors expect
+        return torch.stack(t.unbind(1))
 
     dts = steps_first(dt)
     dtxs = steps_first(dt * xs_f32)

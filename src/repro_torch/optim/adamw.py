@@ -16,6 +16,7 @@ import math
 from typing import Any, Tuple
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..tree import tree_leaves, tree_map
 
@@ -63,7 +64,9 @@ def adamw_init(params: Any) -> dict:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt(sum of every leaf's squares), in float32."""
+    """sqrt(sum of every leaf's squares), in float32.  Of DTensor leaves,
+    the norm of the whole tree: each leaf's sum is a sum over its shards
+    (a replicated DTensor)."""
     total = None
     for leaf in tree_leaves(tree):
         sq = torch.sum(torch.square(leaf.to(torch.float32)))
@@ -85,8 +88,9 @@ def adamw_update(
     The params and moments passed in are updated in place and returned
     (the counterpart of the reference launcher's ``donate_argnums=(0,)``:
     the old state is not kept), so a caller that needs the old values
-    must copy them first."""
-    with torch.no_grad():
+    must copy them first.  DTensor leaves (:mod:`repro_torch.distributed`)
+    keep their placements; the scalars meet them as replicated."""
+    with torch.no_grad(), implicit_replication():
         step = opt_state["step"] + 1
         gnorm = global_norm(grads)
         clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),

@@ -1,5 +1,5 @@
 """Train-step builders and the fault-tolerant training loop, as the
-reference's ``repro/runtime/train.py``, on one device.
+reference's ``repro/runtime/train.py``.
 
 ``make_train_step``: one step -- the loss and its gradient by autograd
 (through the flash kernels' forward and backward on the card), then the
@@ -7,6 +7,16 @@ AdamW update of :mod:`repro_torch.optim`.  With ``grad_accum > 1`` the
 batch is split into microbatches along its leading axis and their
 float32 gradients are summed in a Python loop (the reference's
 ``lax.scan``), then averaged.
+
+A state placed by :func:`repro_torch.distributed.sharding.distribute_state`
+(params and moments DTensors) and a batch from ``distribute_batch`` give
+the sharded step, with the same code: DTensor propagates each op's
+sharding (with the rules of :mod:`repro_torch.distributed.rules` for the
+ops that need them), the plain tensors the model makes meet DTensors as
+replicated (``implicit_replication``, over the forward, the backward and
+the update), and a gradient's partial sums over the data axes are
+reduced where the update first needs them -- DTensor's work, as GSPMD's
+in the reference.  Its metrics come back as plain tensors.
 
 ``TrainLoop``: checkpoint/restart, straggler monitoring, preemption-signal
 handling, and resumable data, with the reference's rules.  A step
@@ -22,6 +32,8 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models.api import Model
 from ..optim import AdamWConfig, adamw_init, adamw_update
@@ -52,9 +64,10 @@ def make_loss_fn(model: Model, *, moe_capacity: Optional[int] = None):
 def value_and_grad(loss_fn: Callable, params, batch):
     """``(loss, grads)`` of ``loss_fn(params, batch)``: gradients in each
     param's dtype, zeros for a param the loss does not reach (as
-    ``jax.grad`` gives)."""
+    ``jax.grad`` gives).  Of DTensor params, DTensor gradients (a
+    partial sum over ranks where the step left one)."""
     leaves = tree_leaves(params)
-    with torch.enable_grad():
+    with torch.enable_grad(), implicit_replication():
         live = [p.detach().requires_grad_(True) for p in leaves]
         loss = loss_fn(tree_unflatten(params, live), batch)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
@@ -91,14 +104,15 @@ def make_train_step(
                 for i in range(grad_accum)
             ]
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            for mb in mbatches:
-                l, g = value_and_grad(loss_fn, params, mb)
-                loss = loss + l
-                grads = tree_map(torch.add, grads, g)
-            loss = loss / grad_accum
-            grads = tree_map(lambda g: g / grad_accum, grads)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
+            with implicit_replication():
+                for mb in mbatches:
+                    l, g = value_and_grad(loss_fn, params, mb)
+                    loss = loss + l
+                    grads = tree_map(torch.add, grads, g)
+                loss = loss / grad_accum
+                grads = tree_map(lambda g: g / grad_accum, grads)
 
         new_params, new_opt, metrics = adamw_update(
             opt_cfg, grads, state["opt_state"], params
@@ -109,7 +123,8 @@ def make_train_step(
             "opt_state": new_opt,
             "step": state["step"] + 1,
         }
-        metrics = dict(metrics, loss=loss)
+        metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                   for k, v in dict(metrics, loss=loss).items()}
         return new_state, metrics
 
     return train_step

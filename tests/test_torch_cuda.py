@@ -48,6 +48,12 @@ Whisper: the smoke encoder-decoder on the card (flash on the fma route
 at head dim 16, the encoder at one whole-axis block) equals the CPU's
 within rtol 1e-4 / atol 1e-4 max|CPU|: forward, prefill, a decode step,
 the encoder output and the caches.
+Training: every family's smoke step (float32) on the card equals the
+CPU's within rtol 1e-5 on the loss and 1e-4 x the tree's largest
+|gradient| on each gradient leaf (float32 through two layers in another
+order); the sharded step on a one-rank mesh (nccl, in a subprocess:
+``tests/torch_dist_worker.py cuda1``) is bitwise the unsharded one on
+both flash routes.
 """
 import pytest
 import torch
@@ -1625,3 +1631,62 @@ def test_smoke_whisper_on_the_card_matches_the_cpu(cuda):
         assert g.device == cuda
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
                                    atol=1e-4 * w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [
+    "whisper-tiny", "command-r-plus-104b", "internlm2-1.8b", "qwen3-14b",
+    "qwen2-7b", "dbrx-132b", "olmoe-1b-7b", "xlstm-125m",
+    "jamba-1.5-large-398b", "chameleon-34b"])
+def test_train_step_on_the_card_matches_the_cpu_every_family(cuda, arch):
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train import (init_train_state, make_loss_fn,
+                                           value_and_grad)
+    from repro_torch.tree import named_leaves, tree_map
+
+    cfg = configs.get_smoke(arch)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    if cfg.is_encdec:
+        batch["frames"] = torch.as_tensor(rng.normal(
+            size=(2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+    params = init_train_state(build_model(cfg, device="cpu"),
+                              torch.Generator().manual_seed(0))["params"]
+    out = {}
+    for d in ("cpu", cuda):
+        loss, grads = value_and_grad(
+            make_loss_fn(build_model(cfg, device=d)),
+            tree_map(lambda t: t.to(d), params),
+            {k: v.to(d) for k, v in batch.items()})
+        out[str(d)] = (loss.item(), dict(named_leaves(grads)))
+    (l_card, g_card), (l_cpu, g_cpu) = out[str(cuda)], out["cpu"]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    scale = max(g.abs().max().item() for g in g_cpu.values())
+    for n, g in g_card.items():
+        assert (g.cpu() - g_cpu[n]).abs().max().item() <= 1e-4 * scale, n
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_a_one_rank_mesh_is_bitwise_on_the_card(cuda,
+                                                                 tmp_path):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    worker = os.path.join(os.path.dirname(__file__), "torch_dist_worker.py")
+    res = subprocess.run([sys.executable, worker, "cuda1", str(tmp_path)],
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = json.loads((tmp_path / "cuda1.json").read_text())
+    assert "error" not in out, out["error"]
+    for route in ("fma", "wgmma"):
+        r = out[route]
+        assert r["loss_equal"] and r["gnorm_equal"], route
+        assert r["unequal_leaves"] == [], (route, r["unequal_leaves"])
+        # two steps of two layers, each layer's backward on this route
+        assert r["bwd_launches"] == [4, 4], (route, r["bwd_launches"])

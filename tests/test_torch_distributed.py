@@ -1,0 +1,356 @@
+"""The port's distribution layer held against the reference's on the CPU:
+int8 compression bit for bit, and the sharded train step, the pipeline
+schedule and the compressed all-reduce across ``gloo`` ranks.
+
+The multi-rank parts run in ``tests/torch_dist_worker.py``, one world
+of ranks per part started by a module-scoped fixture (over a
+``FileStore``, no TCP port), each within a 300-s timeout.  Bounds, as
+the reference's ``tests/test_distributed.py::test_multidevice_semantics``
+holds its own: |loss single - loss sharded| < 1e-3, ``pp_err`` < 1e-5,
+``psum_err`` < 2e-4.  Beyond it:
+
+* every gradient leaf of the sharded step within 1e-4 x the tree's
+  largest |gradient| of the unsharded one (float32 summed in another
+  order: partial sums over ranks);
+* each param after one AdamW step within 1e-5 relative L2 of the
+  unsharded step's -- every param that is not all zeros before the step.
+  A zero-initialized leaf (a bias) is after one step Adam's first update
+  itself, -lr g / (|g| + eps), whose entries with |g| near eps carry
+  the gradient's rounding whole (xlstm's input-gate bias has gradients
+  of 1e-9 of the tree's largest); its gradient is held by the bound
+  above;
+* on a mesh of one rank the sharded step is bitwise the unsharded one;
+* the compressed mean bitwise the reference's ``compressed_psum`` on the
+  same array over 4 forced host devices.
+"""
+import json
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_dist_worker as worker
+from conftest import subprocess_env
+from repro.distributed import compression as r_compression
+from repro_torch import configs
+from repro_torch.distributed import compression
+
+WORKER = os.path.join(os.path.dirname(__file__), "torch_dist_worker.py")
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+TIMEOUT_S = 300
+LOSS_ATOL, GRAD_FRAC, PARAM_REL_L2 = 1e-3, 1e-4, 1e-5
+
+
+PARTS = ("sharded8", "sharded2", "collect4", "single1")
+
+
+def _write_references(out_dir):
+    """For every arch at smoke, the reference's initial state (seed 0,
+    ``attn_impl="xla"``) and its loss and gradients on the worker's batch
+    (``jax.value_and_grad``), pickled as numpy for the worker."""
+    from repro import configs as r_configs
+    from repro.models import build_model as r_build_model
+    from repro.runtime import train as r_train
+
+    for arch in configs.ARCH_IDS:
+        r_model = r_build_model(r_configs.get_smoke(arch), attn_impl="xla")
+        state = r_train.init_train_state(r_model, jax.random.PRNGKey(0))
+        batch = {k: jnp.asarray(v) for k, v in
+                 worker._batch(configs.get_smoke(arch)).items()}
+        loss, grads = jax.value_and_grad(r_train.make_loss_fn(r_model))(
+            state["params"], batch)
+        path = os.path.join(out_dir, f"ref_{arch}.pkl")
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump({"state": jax.device_get(state), "loss": float(loss),
+                         "grads": jax.device_get(grads)}, f)
+        os.replace(path + ".tmp", path)   # whole when a worker sees it
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """Every part's results; the worlds run side by side while this
+    process writes the reference's states, which their step cases wait
+    for."""
+    out_dir = tmp_path_factory.mktemp("worlds")
+    logs = {part: open(os.path.join(out_dir, f"{part}.log"), "w+")
+            for part in PARTS}
+    procs = {part: subprocess.Popen(
+        [sys.executable, WORKER, part, str(out_dir)], stdout=logs[part],
+        stderr=subprocess.STDOUT) for part in PARTS}
+    out = {}
+    try:
+        _write_references(out_dir)
+        for part, p in procs.items():
+            p.wait(timeout=TIMEOUT_S)
+            logs[part].seek(0)
+            assert p.returncode == 0, logs[part].read()[-4000:]
+            with open(os.path.join(out_dir, f"{part}.json")) as f:
+                out[part] = json.load(f)
+            assert "error" not in out[part], out[part]["error"]
+    finally:
+        for part, p in procs.items():
+            if p.poll() is None:
+                p.kill()
+            logs[part].close()
+    return out
+
+
+def _check_step(r):
+    assert abs(r["loss_single"] - r["loss_sharded"]) < LOSS_ATOL
+    # the reference's jax.value_and_grad on the same state and batch
+    assert abs(r["loss_sharded"] - r["loss_ref"]) < LOSS_ATOL
+    assert abs(r["loss_sharded_grad"] - r["loss_ref"]) < LOSS_ATOL
+    bad = {n: e for n, e in r["ref_grad_err"].items() if not e <= GRAD_FRAC}
+    assert not bad, bad
+    np.testing.assert_allclose(r["gnorm_sharded"], r["gnorm_single"],
+                               rtol=1e-5)
+    bad = {n: e for n, e in r["grad_err"].items() if not e <= GRAD_FRAC}
+    assert not bad, bad
+    bad = {n: e for n, e in r["param_rel_l2"].items()
+           if not r["zero_init"][n] and not e <= PARAM_REL_L2}
+    assert not bad, bad
+    assert r["step"] == 1
+
+
+# -- compression, in one process ------------------------------------------------------
+
+def _bits(t):
+    return np.asarray(t).tobytes()
+
+
+def test_quantize_bitwise_reference(rng):
+    for scale in (1.0, 1e-3, 1e-30, 0.0):
+        g = (rng.normal(size=(257,)) * scale).astype(np.float32)
+        q, s = compression.quantize(torch.as_tensor(g))
+        rq, rs = r_compression.quantize(jnp.asarray(g))
+        assert q.dtype == torch.int8
+        assert _bits(q.numpy()) == _bits(rq) and _bits(s.numpy()) == _bits(rs)
+        assert _bits(compression.dequantize(q, s).numpy()) == _bits(
+            r_compression.dequantize(rq, rs))
+
+
+def test_quantize_rounds_half_to_even():
+    # 127 * (k + 0.5) / 127.5 ... exact halves of the scale: g = 2.5 s
+    g = torch.tensor([127.0, 2.5, -2.5, 0.5, 1.5], dtype=torch.float32)
+    q, s = compression.quantize(g)
+    assert s.item() == 1.0 and q.tolist() == [127, 2, -2, 0, 2]
+    rq, _ = r_compression.quantize(jnp.asarray(g.numpy()))
+    assert q.tolist() == np.asarray(rq).tolist()
+
+
+def test_compress_with_feedback_bitwise_reference(rng):
+    g = rng.normal(size=(4, 33)).astype(np.float32) * 0.01
+    err = rng.normal(size=(4, 33)).astype(np.float32) * 1e-4
+    got = compression.compress_with_feedback(torch.as_tensor(g),
+                                             torch.as_tensor(err))
+    want = r_compression.compress_with_feedback(jnp.asarray(g),
+                                                jnp.asarray(err))
+    for a, b in zip(got, want):
+        assert _bits(a.numpy()) == _bits(b)
+
+
+def test_quantize_roundtrip_bound(rng):
+    g = rng.normal(size=(128,)).astype(np.float32)
+    q, scale = compression.quantize(torch.as_tensor(g))
+    back = compression.dequantize(q, scale).numpy()
+    assert np.abs(back - g).max() <= float(scale) * 0.5 + 1e-7
+
+
+def test_error_feedback_reduces_bias(rng):
+    """With error feedback the time-averaged quantized gradient converges
+    to the true mean (unbiasedness over steps)."""
+    g = torch.as_tensor(rng.normal(size=(256,)).astype(np.float32) * 0.01)
+    err = torch.zeros_like(g)
+    acc = torch.zeros_like(g)
+    n = 50
+    for _ in range(n):
+        q, s, err = compression.compress_with_feedback(g, err)
+        acc += compression.dequantize(q, s)
+    assert (acc / n - g).abs().max().item() < 1e-4
+
+
+def test_init_error_feedback_and_tree_shapes():
+    like = {"a": torch.zeros(3, 4, dtype=torch.bfloat16),
+            "b": [torch.zeros(5)]}
+    errs = compression.init_error_feedback(like)
+    assert errs["a"].dtype == torch.float32 and errs["a"].shape == (3, 4)
+    assert errs["b"][0].shape == (5,) and not errs["b"][0].any()
+
+
+# -- multi-rank -----------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "olmoe-1b-7b"])
+def test_sharded_step_4x2_through_the_cards_product_rules(worlds, arch):
+    """The rules registered for the card's ``mm.dtype``/``bmm.dtype``,
+    given to the CPU's ``mm``/``bmm``, over a (4, 2) mesh."""
+    _check_step(worlds["sharded8"][f"{arch}/mm_dtype_rules"])
+
+
+def test_sharded_step_4x2_matches_single(worlds):
+    r = worlds["sharded8"]
+    assert r["mesh"] == {"data": 4, "model": 2}
+    step = r["internlm2-1.8b"]
+    _check_step(step)
+    # the rules placed the params: heads and ffn over model, vocab too
+    pl = step["placements"]
+    assert pl["blocks.attn.wq.w"] == ["R", "S2"]
+    assert pl["embed.tok"] == ["R", "S0"]
+    assert pl["blocks.ln1.scale"] == ["R", "R"]
+    # the cache (L 2, B 8, T, Hkv 2, hd): batch over data; over model the
+    # reference's rule takes the first other axis equal to Hkv, here L
+    assert r["cache_placements"] == {"k": ["S1", "S0"], "v": ["S1", "S0"]}
+
+
+@pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS
+                                  if a != "internlm2-1.8b"])
+def test_sharded_step_1x2_matches_single(worlds, arch):
+    _check_step(worlds["sharded2"][f"{arch}/xla"])
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "whisper-tiny"])
+def test_sharded_step_through_flash_path_matches_single(worlds, arch):
+    """``attn_impl="pallas"``: attention on each rank's local heads (the
+    kernels' plain versions on the CPU)."""
+    _check_step(worlds["sharded2"][f"{arch}/pallas"])
+
+
+def test_one_rank_mesh_step_is_bitwise_unsharded(worlds):
+    r = worlds["single1"]
+    for impl in ("pallas", "xla"):
+        got = r[impl]
+        assert got["loss_equal"] and got["gnorm_equal"], impl
+        assert got["unequal_leaves"] == [] and got["leaves"] > 10, impl
+
+
+def test_sharded_checkpoint_restores_unsharded_and_back(worlds):
+    r = worlds["single1"]
+    assert r["restore_plain_equal"] and r["restore_sharded_equal"]
+    assert r["restore_sharded_placements"]
+
+
+def test_flash_launch_checks_refuse_a_dtensor(worlds):
+    assert worlds["single1"]["kernel_refuses_dtensor"]
+
+
+#: the reference's pipeline_forward and compressed_psum over 4 forced host
+#: devices, on the worker's collect4 arrays
+REF_FOUR = textwrap.dedent("""
+    import json
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import PartitionSpec as P
+    from repro.distributed import compression, pipeline
+    from repro.distributed.pipeline import shard_map
+    assert len(jax.devices()) == 4, jax.devices()
+    mesh = jax.sharding.Mesh(np.array(jax.devices()), ("pod",))
+    S, mb, M, d = 4, 2, 4, 8
+    rng = np.random.default_rng(1)
+    w = rng.normal(size=(S, d, d)).astype(np.float32) * 0.3
+    x = rng.normal(size=(M, mb, d)).astype(np.float32)
+    pp = pipeline.pipeline_forward(lambda wi, h: jnp.tanh(h @ wi),
+                                   jnp.asarray(w), jnp.asarray(x), mesh=mesh,
+                                   stage_axis="pod")
+    g = np.random.default_rng(3).normal(size=(4, 64)).astype(np.float32) * 0.01
+
+    def red(gl, el):
+        m, ne = compression.compressed_psum(gl[0], el[0], "pod")
+        return m[None], ne[None]
+
+    fn = shard_map(red, mesh=mesh, in_specs=(P("pod"), P("pod")),
+                   out_specs=(P("pod"), P("pod")), check_vma=False)
+    mean, err = fn(jnp.asarray(g), jnp.zeros((4, 64), jnp.float32))
+    print(json.dumps({"mean_hex": np.asarray(mean[0]).tobytes().hex(),
+                      "err_hex": np.asarray(err[0]).tobytes().hex(),
+                      "pp_out": np.asarray(pp).ravel().tolist()}))
+""")
+
+
+@pytest.fixture(scope="module")
+def reference_four():
+    res = subprocess.run([sys.executable, "-c", REF_FOUR],
+                         env=subprocess_env(4), capture_output=True,
+                         text=True, timeout=TIMEOUT_S)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_pipeline_forward_matches_direct_apply(worlds, reference_four):
+    r = worlds["collect4"]
+    assert r["pp_err"] < 1e-5
+    assert r["microbatch_roundtrip"]
+    # and the reference's pipeline_forward on the same arrays
+    got, want = np.array(r["pp_out"]), np.array(reference_four["pp_out"])
+    assert got.shape == want.shape == (4 * 2 * 8,)
+    assert np.abs(got - want).max() < 1e-5
+
+
+def test_compressed_psum_matches_reference_bitwise(worlds, reference_four):
+    r = worlds["collect4"]
+    assert r["psum_err"] < 2e-4 and r["ranks_agree"] and r["tree_psum_equal"]
+    want = reference_four
+    assert r["mean_hex"] == want["mean_hex"]
+    assert r["err_hex"] == want["err_hex"]
+
+
+# -- the launcher under torch.distributed.run ------------------------------------------
+
+def _launch(ckpt_dir, steps, *extra):
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+           "--arch", "internlm2-1.8b", "--smoke", "--steps", str(steps),
+           "--batch", "4", "--seq-len", "16", "--model-axis", "2",
+           "--device", "cpu", "--ckpt-dir", str(ckpt_dir), *extra]
+    res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=TIMEOUT_S)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return res.stdout
+
+
+def _leaves(ckpt_dir, step):
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        man = json.load(f)
+    return {l["name"]: np.load(os.path.join(d, l["file"]))
+            for l in man["leaves"]}
+
+
+def test_launch_train_model_axis_resumes_and_restores_unsharded(tmp_path):
+    """The launcher checkpoints every 25 steps, as the reference's does:
+    a 25-step run over two ranks, then its resume to 27 (the resume's
+    bits are held by test_sharded_loop_resume_is_bitwise)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train import init_train_state
+    from repro_torch.tree import named_leaves
+
+    out = _launch(tmp_path, 25)
+    assert "mesh: {'data': 1, 'model': 2}" in out
+    assert "steps 0..24: loss" in out and out.count("steps 0..24") == 1
+    saved = _leaves(tmp_path, 25)
+    out = _launch(tmp_path, 27, "--resume")
+    assert "resumed at step 25" in out and "steps 25..26: loss" in out
+    # the sharded run's checkpoint restores into a one-process state
+    model = build_model(configs.get_smoke("internlm2-1.8b"), device="cpu")
+    like = init_train_state(model, torch.Generator().manual_seed(1))
+    state = CheckpointManager(str(tmp_path)).restore(like, step=25)
+    assert int(state["step"]) == 25
+    assert sorted(n for n, _ in named_leaves(state)) == sorted(saved)
+    for n, v in named_leaves(state):
+        assert v.numpy().tobytes() == saved[n].tobytes(), n
+
+
+def test_sharded_loop_resume_is_bitwise(worlds):
+    """TrainLoop over a (1, 2) mesh, checkpointing every step: 2 steps,
+    a restore into a fresh sharded state and 1 more equal 3 straight
+    steps bit for bit, in every leaf of the state."""
+    r = worlds["sharded2"]["resume"]
+    assert r["resumed_at"] == 2 and r["steps"] == 3
+    assert r["unequal_leaves"] == [] and r["leaves"] > 10

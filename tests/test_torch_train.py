@@ -445,5 +445,6 @@ def test_launch_train_cli_on_cpu(tmp_path, capsys):
     assert t_launch.main(args + ["--resume", "--steps", "27"]) == 0
     out = capsys.readouterr().out
     assert "resumed at step 25" in out and "steps 25..26: loss" in out
-    with pytest.raises(NotImplementedError, match="13b"):
+    # one process is a world of one: a model axis of 2 does not divide it
+    with pytest.raises(ValueError, match="nproc-per-node"):
         t_launch.main(args + ["--model-axis", "2"])

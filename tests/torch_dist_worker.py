@@ -1,0 +1,434 @@
+"""Multi-process checks of the port's sharded paths, for
+``tests/test_torch_distributed.py``: one world of ``gloo`` ranks on the
+CPU, started with ``torch.multiprocessing`` over a ``FileStore`` (no TCP
+port), each part writing its results as JSON.
+
+  python tests/torch_dist_worker.py PART OUT_DIR
+
+PART is one of:
+  sharded8  internlm2's smoke step over 8 ranks as a (4, 2) mesh, then
+            with the card's product rules given to the CPU's mm and bmm
+            (internlm2 and olmoe);
+  sharded2  every other arch's smoke step over a (1, 2) mesh (``xla``
+            attention), two through the flash path (``pallas``), and a
+            TrainLoop resumed from a sharded checkpoint;
+  collect4  ``pipeline_forward`` and ``compressed_psum`` over 4 ranks;
+  single1   the sharded step on a 1 x 1 mesh against the unsharded one,
+            bit for bit, and a sharded checkpoint restored unsharded;
+  cuda1     on the card (nccl, one rank): the sharded step on a 1 x 1 mesh
+            bit for bit the unsharded one, through the flash kernels on
+            both routes (the float32 smoke model: fma; a bfloat16 one at
+            head dim 64: wgmma).
+
+The step cases of sharded8 and sharded2 start from the reference's state
+and hold the sharded step against the reference's loss and gradients
+too: the test module pickles them (numpy arrays; no JAX here) as
+``OUT_DIR/ref_<arch>.pkl`` while the worlds run, and a case waits for
+its file.
+
+Each rank is stopped if the world has not finished within DEADLINE_S.
+"""
+import datetime
+import json
+import os
+import pickle
+import sys
+import time
+import traceback
+
+import numpy as np
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
+
+#: a world that has not finished by then is stopped (the test's own
+#: subprocess timeout is 300 s)
+DEADLINE_S = 270
+#: the world's output directory (checkpoints of the resume case go there)
+OUT_DIR = None
+WORLDS = {"sharded8": 8, "sharded2": 2, "collect4": 4, "single1": 1,
+          "cuda1": 1}
+
+
+def _batch(cfg, B=8, T=16):
+    """The reference's multi-device test batch (tokens = labels = 0..15 a
+    row), with seeded frames for the encoder-decoder."""
+    row = np.arange(T, dtype=np.int32)
+    batch = {"tokens": np.tile(row[None], (B, 1)) % cfg.vocab,
+             "labels": np.tile(row[None], (B, 1)) % cfg.vocab}
+    if cfg.is_encdec:
+        batch["frames"] = np.random.default_rng(1).normal(
+            size=(B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _placement(p) -> str:
+    """``R``, ``S<dim>`` or ``P`` (reprs differ between torch versions)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if isinstance(p, Shard):
+        return f"S{p.dim}"
+    return "R" if isinstance(p, Replicate) else "P"
+
+
+def _rel_l2(got, want):
+    den = want.float().norm().item()
+    diff = (got.float() - want.float()).norm().item()
+    return diff / den if den else diff
+
+
+def _reference(arch):
+    """The reference's state, loss and gradients for ``arch`` on
+    :func:`_batch`, as the test module pickled them (numpy only); it
+    writes them while the worlds run, so this waits for the file."""
+    path = os.path.join(OUT_DIR, f"ref_{arch}.pkl")
+    while not os.path.exists(path):
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _grad_err(grads, want):
+    """Each leaf's max |error| over the largest |gradient| of ``want``."""
+    from repro_torch.tree import named_leaves
+
+    got = dict((n, _full(g)) for n, g in named_leaves(grads))
+    gmax = max(g.abs().max().item() for _, g in named_leaves(want))
+    return {n: (got[n] - g).abs().max().item() / gmax
+            for n, g in named_leaves(want)}
+
+
+def _step_case(arch, mesh, impl):
+    """One smoke step of ``arch`` unsharded and sharded on ``mesh``, both
+    from the reference's initial state: the two losses and grad norms
+    and the reference's loss; each gradient leaf's max |error| over the
+    tree's max |gradient|, of the sharded step against the unsharded
+    one's and against the reference's ``jax.value_and_grad``; and each
+    param's relative L2 after the step (with whether it was all zeros
+    before it)."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.models import (build_model, params_from_jax,
+                                    train_state_from_jax)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import (make_loss_fn, make_train_step,
+                                           value_and_grad)
+    from repro_torch.tree import named_leaves
+
+    cfg = configs.get_smoke(arch)
+    ref = _reference(arch)
+    model = build_model(cfg, attn_impl=impl, device="cpu")
+    batch = {k: torch.as_tensor(v) for k, v in _batch(cfg).items()}
+    single = train_state_from_jax(cfg, ref["state"], device="cpu")
+    zero = {n: bool((p == 0).all()) for n, p in named_leaves(single["params"])}
+    state = sharding.distribute_state(
+        train_state_from_jax(cfg, ref["state"], device="cpu"), mesh)
+    dbatch = sharding.distribute_batch(batch, mesh)
+    loss_fn = make_loss_fn(model)
+    _, g1 = value_and_grad(loss_fn, single["params"], batch)
+    loss2, g2 = value_and_grad(loss_fn, state["params"], dbatch)
+    grad_err = _grad_err(g2, g1)
+    ref_grad_err = _grad_err(g2, params_from_jax(cfg, ref["grads"],
+                                                 device="cpu"))
+    step = make_train_step(model, AdamWConfig(lr=1e-3))
+    single, m1 = step(single, batch)
+    state, m2 = step(state, dbatch)
+    p2 = dict((n, _full(p)) for n, p in named_leaves(state["params"]))
+    return {
+        "loss_single": m1["loss"].item(), "loss_sharded": m2["loss"].item(),
+        "loss_ref": ref["loss"], "loss_sharded_grad": _full(loss2).item(),
+        "ref_grad_err": ref_grad_err,
+        "gnorm_single": m1["grad_norm"].item(),
+        "gnorm_sharded": m2["grad_norm"].item(),
+        "grad_err": grad_err,
+        "param_rel_l2": {n: _rel_l2(p2[n], p)
+                         for n, p in named_leaves(single["params"])},
+        "zero_init": zero,
+        "step": int(_full(state["step"])),
+        "placements": {n: [_placement(x) for x in p.placements]
+                       for n, p in named_leaves(state["params"])},
+    }
+
+
+def part_sharded8(rank, out):
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(2, device="cpu")
+    out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    out["internlm2-1.8b"] = _step_case("internlm2-1.8b", mesh, "xla")
+    # the card's product rules (mm.dtype, bmm.dtype, which the CPU has no
+    # kernel for) given to the CPU's mm and bmm, which matmul_f32 reaches
+    from repro_torch.distributed import rules
+    from torch.distributed.tensor.experimental import register_sharding
+
+    register_sharding(torch.ops.aten.mm.default)(rules._mm)
+    register_sharding(torch.ops.aten.bmm.default)(rules._bmm)
+    for arch in ("internlm2-1.8b", "olmoe-1b-7b"):
+        out[f"{arch}/mm_dtype_rules"] = _step_case(arch, mesh, "xla")
+    # a serving cache's placements: batch 8 over data, kv heads over model
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build_model
+
+    cfg = configs.get_smoke("internlm2-1.8b")
+    cache = build_model(cfg, device="meta").init_cache(8, 32)
+    out["cache_placements"] = {
+        k: [_placement(x) for x in v] for k, v in
+        sharding.cache_shardings(cache, cfg, mesh, batch=8).items()}
+
+
+def part_sharded2(rank, out):
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(2, device="cpu")
+    for arch in configs.ARCH_IDS:
+        if arch != "internlm2-1.8b":
+            out[f"{arch}/xla"] = _step_case(arch, mesh, "xla")
+    for arch in ("internlm2-1.8b", "whisper-tiny"):
+        out[f"{arch}/pallas"] = _step_case(arch, mesh, "pallas")
+    out["resume"] = _resume_case(mesh)
+
+
+def _resume_case(mesh):
+    """TrainLoop on ``mesh``, checkpointing every step: 3 steps straight
+    against 2, a restore into a fresh sharded state, and 1 more."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import (LoopConfig, TrainLoop,
+                                           init_train_state, make_train_step)
+    from repro_torch.tree import named_leaves
+
+    cfg = configs.get_smoke("internlm2-1.8b")
+    model = build_model(cfg, device="cpu")
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                              total_steps=3))
+
+    def fresh():
+        return sharding.distribute_state(
+            init_train_state(model, torch.Generator().manual_seed(0)), mesh)
+
+    def run(state, ckpt_dir, start, total):
+        stream = TokenStream(vocab=cfg.vocab, batch=4, seq_len=16,
+                             start_step=start)
+        data = (sharding.distribute_batch(b, mesh) for b in stream)
+        return TrainLoop(step, state, data, cfg=LoopConfig(
+            total_steps=total, checkpoint_every=1),
+            checkpointer=CheckpointManager(ckpt_dir)).run()
+
+    whole = run(fresh(), os.path.join(OUT_DIR, "resume_whole"), 0, 3)
+    split_dir = os.path.join(OUT_DIR, "resume_split")
+    run(fresh(), split_dir, 0, 2)
+    state = CheckpointManager(split_dir).restore(fresh())
+    resumed_at = int(_full(state["step"]))
+    split = run(state, split_dir, resumed_at, 3)
+    got = dict((n, _full(v)) for n, v in named_leaves(split))
+    return {"resumed_at": resumed_at, "steps": int(_full(split["step"])),
+            "unequal_leaves": [n for n, v in named_leaves(whole)
+                               if not torch.equal(got[n], _full(v))],
+            "leaves": len(got)}
+
+
+def part_collect4(rank, out):
+    from repro_torch.distributed import compression, pipeline
+
+    # pipeline: the reference's S 4, L 4, mb 2, M 4, d 8
+    S, mb, M, d = 4, 2, 4, 8
+    rng = np.random.default_rng(1)
+    w = torch.as_tensor(rng.normal(size=(S, d, d)).astype(np.float32) * 0.3)
+    x = torch.as_tensor(rng.normal(size=(M, mb, d)).astype(np.float32))
+    got = pipeline.pipeline_forward(lambda wi, h: torch.tanh(h @ wi), w, x)
+    want = x
+    for s in range(S):
+        want = torch.tanh(want @ w[s])
+    out["pp_err"] = (got - want).abs().max().item()
+    out["pp_out"] = got.flatten().tolist()
+    xs = pipeline.microbatch(torch.arange(24.0).reshape(8, 3), 4)
+    out["microbatch_roundtrip"] = bool(torch.equal(
+        pipeline.unmicrobatch(xs), torch.arange(24.0).reshape(8, 3)))
+
+    # compressed psum of row `rank` of a (4, 64) array
+    g = np.random.default_rng(3).normal(size=(4, 64)).astype(np.float32) * 0.01
+    mean, new_err = compression.compressed_psum(
+        torch.as_tensor(g[rank]), torch.zeros(64))
+    out["psum_err"] = float(np.abs(mean.numpy() - g.mean(axis=0)).max())
+    out["mean_hex"] = mean.numpy().tobytes().hex()
+    out["err_hex"] = new_err.numpy().tobytes().hex()
+    # every rank's mean, to show they agree
+    means = [torch.zeros(64) for _ in range(4)]
+    dist.all_gather(means, mean)
+    out["ranks_agree"] = all(torch.equal(m, mean) for m in means)
+    # the tree form: each leaf as compressed_psum alone
+    tree = {"a": torch.as_tensor(g[rank]), "b": [torch.as_tensor(g[rank, :8])]}
+    errs = compression.init_error_feedback(tree)
+    tm, te = compression.tree_compressed_psum(tree, errs)
+    m_b, e_b = compression.compressed_psum(tree["b"][0], errs["b"][0])
+    out["tree_psum_equal"] = (torch.equal(tm["a"], mean) and torch.equal(
+        te["a"], new_err) and torch.equal(tm["b"][0], m_b)
+        and torch.equal(te["b"][0], e_b))
+
+
+def part_single1(rank, out):
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import init_train_state, make_train_step
+    from repro_torch.tree import named_leaves
+
+    mesh = make_local_mesh(1, device="cpu")
+    cfg = configs.get_smoke("internlm2-1.8b")
+    for impl in ("pallas", "xla"):
+        model = build_model(cfg, attn_impl=impl, device="cpu")
+        batch = {k: torch.as_tensor(v) for k, v in _batch(cfg).items()}
+        step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=0))
+        single = init_train_state(model, torch.Generator().manual_seed(0))
+        state = sharding.distribute_state(
+            init_train_state(model, torch.Generator().manual_seed(0)), mesh)
+        for _ in range(2):
+            single, m1 = step(single, batch)
+            state, m2 = step(state, sharding.distribute_batch(batch, mesh))
+        got = dict((n, _full(v)) for n, v in named_leaves(state))
+        out[impl] = {
+            "loss_equal": m1["loss"].item() == m2["loss"].item(),
+            "gnorm_equal": m1["grad_norm"].item() == m2["grad_norm"].item(),
+            "unequal_leaves": [n for n, v in named_leaves(single)
+                               if not torch.equal(got[n], v)],
+            "leaves": len(got),
+        }
+    # a DTensor never reaches the kernels' launch checks
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.kernels.attention import attention
+
+    q = DTensor.from_local(torch.zeros(2, 8, 16), mesh, (Replicate(),) * 2)
+    try:
+        attention._check_tensors(q)
+        out["kernel_refuses_dtensor"] = False
+    except TypeError:
+        out["kernel_refuses_dtensor"] = True
+    # a sharded checkpoint restores into an unsharded state, and back
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        mgr.save(state, step=2)
+        plain = mgr.restore(init_train_state(
+            model, torch.Generator().manual_seed(1)))
+        again = mgr.restore(state)
+    out["restore_plain_equal"] = all(
+        torch.equal(plain_v, got[n]) for n, plain_v in named_leaves(plain))
+    out["restore_sharded_equal"] = all(
+        torch.equal(_full(v), got[n]) for n, v in named_leaves(again))
+    out["restore_sharded_placements"] = all(
+        tuple(v.placements) == tuple(w.placements) for (_, v), (_, w) in
+        zip(named_leaves(again), named_leaves(state)))
+
+
+def part_cuda1(rank, out):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.attention import attention
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import init_train_state, make_train_step
+    from repro_torch.tree import named_leaves
+
+    dev = torch.device("cuda", 0)
+    mesh = make_local_mesh(1, device=dev)
+    smoke = configs.get_smoke("internlm2-1.8b")
+    cases = {"fma": smoke, "wgmma": dataclasses.replace(
+        smoke, d_model=256, n_heads=4, n_kv_heads=2, param_dtype="bfloat16",
+        compute_dtype="bfloat16")}
+    for route, cfg in cases.items():
+        model = build_model(cfg, device=dev)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in _batch(cfg, B=2, T=128).items()}
+        step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=0))
+        gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+        single = init_train_state(model, gen())
+        state = sharding.distribute_state(init_train_state(model, gen()), mesh)
+        counts = []
+        for st in ("single", "sharded"):
+            attention.flash_attention_bwd.launches_by_route[route] = 0
+            for _ in range(2):
+                if st == "single":
+                    single, m1 = step(single, batch)
+                else:
+                    state, m2 = step(state, sharding.distribute_batch(
+                        batch, mesh))
+            counts.append(attention.flash_attention_bwd.launches_by_route[
+                route])
+        got = dict((n, _full(v)) for n, v in named_leaves(state))
+        out[route] = {
+            "loss_equal": m1["loss"].item() == m2["loss"].item(),
+            "gnorm_equal": m1["grad_norm"].item() == m2["grad_norm"].item(),
+            "unequal_leaves": [n for n, v in named_leaves(single)
+                               if not torch.equal(got[n], v)],
+            "bwd_launches": counts,
+        }
+
+
+def _rank_main(rank, world, part, out_dir):
+    global OUT_DIR
+    OUT_DIR = out_dir
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(out_dir, f"{part}.store"), world)
+    backend = "nccl" if part.startswith("cuda") else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DEADLINE_S))
+    out = {}
+    try:
+        globals()[f"part_{part}"](rank, out)
+    except Exception:
+        out["error"] = traceback.format_exc()[-4000:]
+    if rank == 0 or "error" in out:
+        name = f"{part}.json" if rank == 0 else f"{part}.rank{rank}.json"
+        with open(os.path.join(out_dir, name), "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def main(part: str, out_dir: str) -> int:
+    world = WORLDS[part]
+    store = os.path.join(out_dir, f"{part}.store")
+    if os.path.exists(store):   # a FileStore must start empty
+        os.remove(store)
+    ctx = mp.start_processes(_rank_main, args=(world, part, out_dir),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DEADLINE_S
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{part}: not done in {DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1], sys.argv[2]))
