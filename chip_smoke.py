@@ -253,6 +253,20 @@ Phases (any failure exits non-zero, and no result line is printed):
      counters zeroed just before each step and read just after (48 + 24
      flash calls, all wgmma): loss, grad norm and every state leaf
      bitwise equal, and both steps' seconds;
+  Y. the dry run (``repro_torch.launch.dryrun``), after phase T and
+     alone, in a process of its own (its fake group of 256 ranks must
+     not meet phase T's nccl group): the single-pod cells of
+     ``decode_32k`` for every arch and of ``train_4k`` for every arch
+     but the two whose loops are composed from short runs (the xLSTM
+     and jamba, 40-160 s each on the host; the tests hold their
+     composition), on meta tensors with nothing on the card, each with
+     status, seconds, per-device GFLOPs, bytes, collective bytes,
+     memory and bound, none in error; then the card check:
+     phase T's check step (internlm2-1.8b, 4 x 1,024, attn_impl="xla",
+     one AdamW step) counted on the card by ``FlopCounterMode`` equals
+     the dry run's 1 x 1 count of it exactly, and three timed steps'
+     seconds and peak memory are printed against the roofline's
+     max(t_compute, t_memory) and the predicted arguments + temporaries;
   6. one JSON line describing every kernel (the flash row's launches
      are phase 5's, phase E's and phase J's scoring forwards', phase
      W's forward and prefill, and phase T's steps, the sharded ones
@@ -272,11 +286,17 @@ import time
 
 REPO = pathlib.Path(__file__).resolve().parent
 SRC = REPO / "src"
+sys.path.insert(0, str(SRC))
+try:
+    from repro_torch.memory.channels import H100_SXM, H100_SXM_BF16_FLOPS
+except ImportError:     # no repository beside this file: main() says so
+    H100_SXM = H100_SXM_BF16_FLOPS = None
 
 #: H100 SXM datasheet peaks the bounds are computed against
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12           # CUDA cores
-PEAK_BF16_FLOPS = 989e12         # dense tensor cores
+#: (``repro_torch.memory.channels``, one source with the roofline)
+PEAK_BYTES_PER_S = H100_SXM and H100_SXM.hbm_bw          # 3.35 TB/s
+PEAK_F32_FLOPS = H100_SXM and H100_SXM.peak_flops        # CUDA cores
+PEAK_BF16_FLOPS = H100_SXM_BF16_FLOPS                    # dense tensor cores
 N_BATCHES = 8
 CHECK_ELEMENTS = 64
 F32_RTOL, F32_ATOL_FRAC = 5e-4, 5e-4
@@ -468,6 +488,48 @@ FAMILY_BATCH, FAMILY_LEN, FAMILY_GRAD_FRAC = 2, 16, 1e-4
 #: TRAIN_SHARDED_LEN tokens, each bitwise equal (loss, grad norm, every
 #: param and moment): on one rank every redistribution is a no-op
 TRAIN_SHARDED_LEN, TRAIN_SHARDED_STEPS = 1024, 3
+#: phase Y: the dry run's single-pod cells built on the host, after
+#: phase T and alone (every arch at these shapes but DRYRUN_COMPOSED's
+#: train_4k, whose loops ``scancost`` composes from short runs: 40-160 s
+#: a cell), and its 1 x 1 count of phase T's check step (TRAIN_BATCH x
+#: TRAIN_CHECK_LEN, attn_impl="xla") held against the card's
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_COMPOSED = ("xlstm-125m", "jamba-1.5-large-398b")
+DRYRUN_TIMEOUT_S = 300
+#: the dry run on the host: cells, then the check step's count (last line)
+DRYRUN_HOST = """
+import json, sys, tempfile, time
+sys.path.insert(0, sys.argv[1])
+from repro_torch import configs
+from repro_torch.analysis import roofline
+from repro_torch.configs import shapes as shape_mod
+from repro_torch.launch import dryrun, mesh as mesh_mod
+names, composed = sys.argv[2].split(","), sys.argv[6].split(",")
+batch, seq_len = int(sys.argv[3]), int(sys.argv[4])
+results = tempfile.mkdtemp(prefix="dryrun_smoke_")
+cells = []
+for arch in configs.ARCH_IDS:
+    for name in names:
+        if arch in composed and name == "train_4k":
+            continue
+        t = time.perf_counter()
+        rec = dryrun.run_cell(arch, name, "single", results_dir=results)
+        rec.pop("traceback", None)
+        rec["seconds"] = time.perf_counter() - t
+        cells.append(rec)
+shape_mod.SHAPES["check"] = shape_mod.ShapeSpec("check", "train", seq_len,
+                                                batch)
+cfg = configs.get(sys.argv[5])
+mesh = dryrun.fake_mesh(mesh_mod.MeshShape(("data", "model"), (1, 1)))
+dryrun.set_dispatch(mesh, False)
+c = dryrun.count_cell(cfg, "check", mesh, attn_impl="xla")
+r = roofline.analyze(c, arch=cfg.arch_id, shape="check", mesh_name="1x1",
+                     chips=1, model_flops_value=c["model_flops"])
+dryrun.release_fake_group()
+print(json.dumps({"cells": cells, "check": dict(
+    flops=c["flops"], bytes=c["bytes"], memory=c["memory"],
+    t_compute=r.t_compute, t_memory=r.t_memory, seconds=c["seconds"])}))
+"""
 
 
 class SmokeFailure(RuntimeError):
@@ -3419,6 +3481,122 @@ def kernel_breakdown(kernels, what: str) -> dict:
     return {cls: dict(s=sec, calls=n) for cls, (sec, n) in out.items()}
 
 
+def phase_dryrun(card: str) -> dict:
+    """Phase Y: the dry run (``launch.dryrun``).  Its single-pod cells
+    (``DRYRUN_SHAPES`` of every arch but ``DRYRUN_COMPOSED``'s train
+    cells, on meta tensors over a fake group of 256 ranks, built in a
+    process of its own while nothing else runs) each with status, seconds, per-device
+    GFLOPs, bytes, collective bytes, memory and bound; then the card
+    check: phase T's check step (internlm2-1.8b, TRAIN_BATCH x
+    TRAIN_CHECK_LEN, ``attn_impl="xla"``, one AdamW step) counted by
+    ``FlopCounterMode`` on the card must equal the dry run's 1 x 1 count
+    exactly (the same ops), and the step's peak memory and seconds are
+    printed beside the dry run's prediction and roofline bound."""
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.dryrun import FLOP_FORMULAS
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import init_train_state, make_train_step
+
+    t = time.perf_counter()
+    try:
+        host = subprocess.run(
+            [sys.executable, "-c", DRYRUN_HOST, str(SRC),
+             ",".join(DRYRUN_SHAPES), str(TRAIN_BATCH), str(TRAIN_CHECK_LEN),
+             TRAIN_ARCH, ",".join(DRYRUN_COMPOSED)],
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"the dry run's host process took over {DRYRUN_TIMEOUT_S} s")
+    if host.returncode != 0:
+        fail(f"the dry run's host process failed: {host.stderr[-3000:]}")
+    res = json.loads(host.stdout.strip().splitlines()[-1])
+    host_s = time.perf_counter() - t
+    print(f"  the host's cells and count: {host_s:.1f} s (torch "
+          f"{res['cells'][0]['torch_version']})")
+    bad = [f"{c['arch']} {c['shape']}: {c.get('error')}"
+           for c in res["cells"] if c["status"] == "error"]
+    for c in res["cells"]:
+        if c["status"] != "ok":
+            print(f"  {c['arch']:<22} {c['shape']:<11} {c['status']} "
+                  f"({c.get('reason') or c.get('error')})")
+            continue
+        rf, ma = c["roofline"], c["memory_analysis"]
+        print(f"  {c['arch']:<22} {c['shape']:<11} ok {c['seconds']:6.1f} s  "
+              f"{rf['device_flops'] / 1e9:12.1f} GFLOP  "
+              f"{rf['device_bytes'] / 1e9:10.1f} GB  coll "
+              f"{rf['coll_bytes'] / 1e9:8.2f} GB  mem "
+              f"{ma['argument_size_in_bytes'] / 2**30:.2f}+"
+              f"{ma['temp_size_in_bytes'] / 2**30:.2f} GiB  bound "
+              f"{rf['bottleneck']} {max(rf['t_compute'], rf['t_memory'], rf['t_collective']):.4g} s")
+    if bad:
+        fail("dry-run cells failed: " + "; ".join(bad))
+
+    check = res["check"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    cfg = configs.get(TRAIN_ARCH)
+    model = build_model(cfg, attn_impl="xla")
+    base = torch.cuda.memory_allocated()
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in TokenStream(
+        vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_CHECK_LEN,
+        seed=1).batch_at(0).items()}
+    step = make_train_step(model, AdamWConfig())
+    with FlopCounterMode(display=False, custom_mapping=FLOP_FORMULAS) as fc:
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    flops = fc.get_total_flops()
+    if flops != check["flops"]:
+        fail(f"the card's step counts {flops} FLOPs, the dry run's 1 x 1 "
+             f"count {check['flops']}")
+    seconds = []
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() - base
+    if not torch.isfinite(m["loss"]):
+        fail("the check step's loss is not finite")
+    ma = check["memory"]
+    predicted = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
+    bound = max(check["t_compute"], check["t_memory"])
+    print(f"  card check ({card}): {cfg.arch_id} train step {TRAIN_BATCH} x "
+          f"{TRAIN_CHECK_LEN}, attn_impl='xla': FlopCounterMode "
+          f"{flops} FLOPs = the dry run's 1 x 1 count (held exactly); peak "
+          f"memory {peak / 2**30:.2f} GiB measured vs {predicted / 2**30:.2f} "
+          f"GiB predicted (arguments {ma['argument_size_in_bytes'] / 2**30:.2f}"
+          f" + temporaries {ma['temp_size_in_bytes'] / 2**30:.2f}); a step "
+          f"{min(seconds):.4f}-{max(seconds):.4f} s against the roofline's "
+          f"max(t_compute {check['t_compute']:.4f}, t_memory "
+          f"{check['t_memory']:.4f}) = {bound:.4f} s")
+    del state, batch, step, model, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cells": [{k: c.get(k) for k in ("arch", "shape", "status",
+                                               "seconds", "roofline",
+                                               "memory_analysis", "reason",
+                                               "error")}
+                      for c in res["cells"]],
+            "card_check": dict(card=card, flops=flops,
+                               dryrun_flops=check["flops"],
+                               peak_bytes=peak, predicted_bytes=predicted,
+                               memory=ma, step_s=seconds,
+                               t_compute=check["t_compute"],
+                               t_memory=check["t_memory"], bound_s=bound,
+                               dryrun_host_s=check["seconds"]),
+            "host_s": host_s}
+
+
 def phase_train() -> dict:
     """Phase T: the training path on the card -- the smoke step against
     the CPU, a bitwise resume, internlm2-1.8b trained whole, and one step
@@ -4262,7 +4440,6 @@ def main() -> int:
         print(f"error: {SRC / 'repro_torch'} not found; run from the "
               "repository root", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
     try:
         card = phase_setup()
@@ -4343,6 +4520,10 @@ def main() -> int:
         train = phase_train()
         train["seconds"] = time.perf_counter() - t_t
         print(f"phase T: {train['seconds']:.1f} s")
+        t_y = time.perf_counter()
+        dry = phase_dryrun(card)
+        dry["seconds"] = time.perf_counter() - t_y
+        print(f"phase Y: {dry['seconds']:.1f} s")
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -4413,6 +4594,7 @@ def main() -> int:
     print(json.dumps({"jamba": jamba}))
     print(json.dumps({"whisper": whisper}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"serve": serve_stats}))
     print(json.dumps({"placement": place_stats}))
     print(card)

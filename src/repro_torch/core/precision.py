@@ -316,6 +316,12 @@ def get_policy(name: str) -> Policy:
     raise ValueError(f"unknown policy {name!r}; known: {sorted(POLICIES)}")
 
 
+#: devices whose low-precision products take the card's route: the card,
+#: and ``meta``, where the dry run (``launch.dryrun``) counts the card's
+#: work without data
+_CARD_LIKE = ("cuda", "meta")
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` accumulated and returned in float32, like the reference's
     ``einsum(..., preferred_element_type=float32)`` on bfloat16 operands.
@@ -324,11 +330,12 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bfloat16/float16 operands go to ``torch.mm``/``torch.bmm`` with
     ``out_dtype=torch.float32`` (no rounding to the low precision), and
     any other shape raises; that product is differentiable through
-    :class:`_MatmulF32`.  On the CPU, which has no kernel for those
-    overloads, and for float32 operands, both are upcast to float32,
-    which is exact for bfloat16 values and accumulates in float32."""
+    :class:`_MatmulF32`; ``meta`` tensors take the same route.  On the
+    CPU, which has no kernel for those overloads, and for float32
+    operands, both are upcast to float32, which is exact for bfloat16
+    values and accumulates in float32."""
     low = (torch.bfloat16, torch.float16)
-    if a.device.type == "cuda" and (a.dtype in low or b.dtype in low):
+    if a.device.type in _CARD_LIKE and (a.dtype in low or b.dtype in low):
         if a.dtype != b.dtype:
             raise TypeError(f"matmul_f32: operands of {a.dtype} and {b.dtype}")
         if not (b.dim() == 2 or (b.dim() == a.dim() >= 3
@@ -345,7 +352,7 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in float32 for 2-D or 3-D (batched) operands of one
     dtype: ``out_dtype=float32`` on the card, an upcast on the CPU."""
     mm = torch.mm if a.dim() == 2 else torch.bmm
-    if a.device.type == "cuda" and a.dtype != torch.float32:
+    if a.device.type in _CARD_LIKE and a.dtype != torch.float32:
         return mm(a, b, out_dtype=torch.float32)
     return mm(a.float(), b.float())
 

@@ -24,9 +24,10 @@ spec functions (:func:`spec_for_param`, :func:`param_specs`,
 pure functions of axis names and sizes: they take a ``DeviceMesh`` or a
 :class:`~repro_torch.launch.mesh.MeshShape`, and leaves that are tensors
 (``meta`` ones too) or ``(shape, dtype)`` pairs.  :func:`to_placements`
-turns a spec into DTensor placements on a ``DeviceMesh``;
-:func:`distribute_state` and :func:`distribute_batch` place a train
-state and a batch by them.
+turns a spec into DTensor placements on a ``DeviceMesh``
+(:func:`placements_of`: a tree of them); :func:`place` places a tree by
+them, :func:`distribute_state` and :func:`distribute_batch` a train
+state and a batch.
 """
 from __future__ import annotations
 
@@ -317,6 +318,11 @@ def cache_shardings(cache: Any, cfg, mesh, *, batch: int) -> Any:
                 cache_specs(cache, cfg, mesh, batch=batch))
 
 
+def placements_of(specs: Any, mesh) -> Any:
+    """The placements of every spec of a tree (:func:`to_placements`)."""
+    return _map(lambda path, spec: to_placements(spec, mesh), specs)
+
+
 def local_shard(t: torch.Tensor, mesh, placements) -> torch.Tensor:
     """This rank's shard of a full tensor that every rank holds alike (no
     communication; at world size 1 the tensor itself)."""
@@ -338,21 +344,24 @@ def distribute(t: torch.Tensor, mesh, placements) -> DTensor:
                               placements, run_check=False)
 
 
+def place(tree: Any, placements: Any, mesh) -> Any:
+    """Every leaf of ``tree`` (full tensors, alike on every rank) as a
+    DTensor of its placements in ``placements``, a tree shaped alike."""
+    return _map(lambda path, t, p: distribute(t, mesh, p), tree, placements)
+
+
 def distribute_state(state: Dict[str, Any], mesh) -> Dict[str, Any]:
     """A train state (``params``, ``opt_state`` {mu, nu, step}, ``step``),
     alike on every rank, as DTensors: params by :func:`param_shardings`,
     the moments by their params' placements (as the reference's launcher
     places them), the steps replicated."""
     pl = param_shardings(state["params"], mesh)
-
-    def place(tree):
-        return _map(lambda path, t, p: distribute(t, mesh, p), tree, pl)
-
     opt = state["opt_state"]
     rep = replicated(mesh)
     return {
-        "params": place(state["params"]),
-        "opt_state": {"mu": place(opt["mu"]), "nu": place(opt["nu"]),
+        "params": place(state["params"], pl, mesh),
+        "opt_state": {"mu": place(opt["mu"], pl, mesh),
+                      "nu": place(opt["nu"], pl, mesh),
                       "step": distribute(opt["step"], mesh, rep)},
         "step": distribute(state["step"], mesh, rep),
     }

@@ -21,9 +21,10 @@ bfloat16 for dv and ``ds`` for dq and dk, as the tensor-core kernel
 rounds them), ``"xla"`` through autograd, ``"xla_flash"`` through its own
 backward.
 
-On DTensors (a sharded train step) ``"pallas"`` and ``"interpret"`` run
-on each rank's local shards (:func:`repro_torch.distributed.rules.local_attention`):
-a DTensor never reaches the kernels' wrapper.
+On DTensors (a sharded train step) every impl runs on each rank's local
+shards (:func:`repro_torch.distributed.rules.local_attention`): a
+DTensor never reaches the kernels' wrapper, and each rank's q heads meet
+their KV heads where the model axis splits a group of q heads.
 
 ``"pallas"`` and ``"interpret"`` agree with the reference's kernel on
 every row, those that see no key (causal, ``Tq > Tk``) included: such a
@@ -83,19 +84,19 @@ def multi_head_attention(
         scale = 1.0 / (d ** 0.5)
     if impl == "auto":
         impl = "pallas" if q.device.type == "cuda" else "xla"
-    if impl == "xla_flash":
-        return flash_attention_xla(q, k, v, causal=causal, scale=scale)
-    if impl == "xla":
-        return _xla_attention(q, k, v, causal=causal, scale=scale)
-    if impl not in ("pallas", "interpret"):
+    if impl not in ("pallas", "interpret", "xla", "xla_flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if any(isinstance(t, DTensor) for t in (q, k, v)):
-        # the kernels take local tensors: each rank's batch rows and heads
+        # each rank's batch rows and heads, as local tensors
         from ...distributed.rules import local_attention
 
         return local_attention(functools.partial(
             multi_head_attention, causal=causal, scale=scale, impl=impl,
             block_q=block_q, block_k=block_k), q, k, v)
+    if impl == "xla_flash":
+        return flash_attention_xla(q, k, v, causal=causal, scale=scale)
+    if impl == "xla":
+        return _xla_attention(q, k, v, causal=causal, scale=scale)
 
     qf = q.reshape(B * Hq, Tq, d).contiguous()
     kf = k.reshape(B * Hkv, Tk, d).contiguous()

@@ -131,6 +131,12 @@ H100_SXM = MemoryTarget(
     dispatch_overhead_s=20e-6,
 )
 
+#: NVIDIA H100 SXM5 datasheet: dense BF16 on the tensor cores, 989
+#: TFLOP/s (1,979 is with sparsity) -- the peak a model's bf16 products
+#: are priced at (``analysis.roofline``, the chip smoke's bounds), where
+#: ``H100_SXM.peak_flops`` is the CUDA cores' f32 rate the CFD plans use
+H100_SXM_BF16_FLOPS = 989e12
+
 TARGETS = {t.name: t for t in (ALVEO_U280, TPU_V5E, CPU_HOST, H100_SXM)}
 
 #: datasheets of a card the port's CUDA kernels run on.  There a kernel

@@ -29,6 +29,13 @@ from .config import ModelConfig
 
 Params = Dict[str, Any]
 
+#: When True, matmul partial sums are produced in the compute dtype so
+#: cross-shard (TP) reductions move bf16 instead of f32 -- halves the
+#: activation-collective bytes at the cost of one extra rounding per
+#: reduction.  Set by the dry run (``launch.dryrun --bf16-reduce``), as
+#: the reference's flag of the same name.
+REDUCE_IN_COMPUTE_DTYPE = False
+
 
 def torch_dtype(name) -> torch.dtype:
     """``"bfloat16"`` -> ``torch.bfloat16`` (dtypes pass through)."""
@@ -52,13 +59,23 @@ def dense_init(gen, d_in: int, d_out: int, dtype, *, bias: bool = False,
     return p
 
 
+def matmul_acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as :func:`matmul_f32`, or with ``REDUCE_IN_COMPUTE_DTYPE``
+    returned in the operands' dtype (float32 accumulation inside the
+    product, rounded once at its end)."""
+    if REDUCE_IN_COMPUTE_DTYPE:
+        return torch.matmul(a, b)
+    return matmul_f32(a, b)
+
+
 def dense_apply(p: Params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """``x @ w (+ b)``: accumulated in float32, bias added in float32,
-    then cast to the compute dtype."""
+    """``x @ w (+ b)``: accumulated in float32 (the product's dtype under
+    ``REDUCE_IN_COMPUTE_DTYPE``), bias added in that dtype, then cast to
+    the compute dtype."""
     cd = torch_dtype(compute_dtype)
-    y = matmul_f32(x.to(cd), p["w"].to(cd))
+    y = matmul_acc(x.to(cd), p["w"].to(cd))
     if "b" in p:
-        y = y + p["b"].float()
+        y = y + p["b"].to(y.dtype)
     return y.to(cd)
 
 

@@ -29,7 +29,6 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core.precision import matmul_f32
 from . import layers
 from .config import ModelConfig
 
@@ -154,15 +153,16 @@ def moe_apply(
     # ---- expert compute (batched products over the expert axis) -----------
     wg, wu, wd = (p["w_gate"].to(cd), p["w_up"].to(cd), p["w_down"].to(cd))
     xe = buf.transpose(0, 1).reshape(E, G * cap_g, d)
+    mm = layers.matmul_acc       # f32, or cd under REDUCE_IN_COMPUTE_DTYPE
     if cfg.act == "swiglu":
-        g = matmul_f32(xe, wg)
-        u = matmul_f32(xe, wu)
-        h = F.silu(g).to(cd) * u.to(cd)
+        g = mm(xe, wg)
+        u = mm(xe, wu)
+        h = F.silu(g.float()).to(cd) * u.to(cd)
     else:
-        u = matmul_f32(xe, wu)
+        u = mm(xe, wu)
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(u, approximate="tanh").to(cd)
-    out_flat = (matmul_f32(h, wd).to(cd).reshape(E, G, cap_g, d)
+        h = F.gelu(u.float(), approximate="tanh").to(cd)
+    out_flat = (mm(h, wd).to(cd).reshape(E, G, cap_g, d)
                 .transpose(0, 1).reshape(G, E * cap_g, d))
 
     # ---- combine ------------------------------------------------------------

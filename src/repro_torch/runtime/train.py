@@ -14,9 +14,9 @@ the sharded step, with the same code: DTensor propagates each op's
 sharding (with the rules of :mod:`repro_torch.distributed.rules` for the
 ops that need them), the plain tensors the model makes meet DTensors as
 replicated (``implicit_replication``, over the forward, the backward and
-the update), and a gradient's partial sums over the data axes are
-reduced where the update first needs them -- DTensor's work, as GSPMD's
-in the reference.  Its metrics come back as plain tensors.
+the update), and a gradient left as partial sums over ranks is reduced
+to its param's placements right after the backward.  Its metrics come
+back as plain tensors.
 
 ``TrainLoop``: checkpoint/restart, straggler monitoring, preemption-signal
 handling, and resumable data, with the reference's rules.  A step
@@ -64,16 +64,26 @@ def make_loss_fn(model: Model, *, moe_capacity: Optional[int] = None):
 def value_and_grad(loss_fn: Callable, params, batch):
     """``(loss, grads)`` of ``loss_fn(params, batch)``: gradients in each
     param's dtype, zeros for a param the loss does not reach (as
-    ``jax.grad`` gives).  Of DTensor params, DTensor gradients (a
-    partial sum over ranks where the step left one)."""
+    ``jax.grad`` gives).  Of DTensor params, DTensor gradients in their
+    params' placements."""
     leaves = tree_leaves(params)
     with torch.enable_grad(), implicit_replication():
         live = [p.detach().requires_grad_(True) for p in leaves]
         loss = loss_fn(tree_unflatten(params, live), batch)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _placed_like(g, p)
              for p, g in zip(live, grads)]
     return loss.detach(), tree_unflatten(params, grads)
+
+
+def _placed_like(g, p):
+    """A DTensor gradient in its param's placements: a partial sum over
+    ranks is reduced here, once.  Left partial, the update's ``g * g``
+    would be formed as the full ``g`` times each rank's part, summed:
+    a square that can round below zero."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(

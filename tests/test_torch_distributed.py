@@ -48,7 +48,7 @@ TIMEOUT_S = 300
 LOSS_ATOL, GRAD_FRAC, PARAM_REL_L2 = 1e-3, 1e-4, 1e-5
 
 
-PARTS = ("sharded8", "sharded2", "collect4", "single1")
+PARTS = ("sharded8", "sharded2", "sharded4", "collect4", "single1")
 
 
 def _write_references(out_dir):
@@ -214,6 +214,16 @@ def test_sharded_step_1x2_matches_single(worlds, arch):
     _check_step(worlds["sharded2"][f"{arch}/xla"])
 
 
+@pytest.mark.parametrize("arch,impl", worker.SHARDED4)
+def test_sharded_step_1x4_model_axis_outnumbers_heads(worlds, arch, impl):
+    """A (1, 4) mesh over the smoke models' 2 KV heads (whisper's and the
+    xLSTM's 2 heads): K and V gathered whole before their head view,
+    each rank's q heads meeting the KV head they share; held against
+    the unsharded step and the reference's as the (1, 2) cases are."""
+    assert worlds["sharded4"]["mesh"] == {"data": 1, "model": 4}
+    _check_step(worlds["sharded4"][f"{arch}/{impl}"])
+
+
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "whisper-tiny"])
 def test_sharded_step_through_flash_path_matches_single(worlds, arch):
     """``attn_impl="pallas"``: attention on each rank's local heads (the
@@ -300,13 +310,13 @@ def test_compressed_psum_matches_reference_bitwise(worlds, reference_four):
 
 # -- the launcher under torch.distributed.run ------------------------------------------
 
-def _launch(ckpt_dir, steps, *extra):
+def _launch(ckpt_dir, steps, *extra, ranks=2):
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+           "--nproc-per-node", str(ranks), "-m", "repro_torch.launch.train",
            "--arch", "internlm2-1.8b", "--smoke", "--steps", str(steps),
-           "--batch", "4", "--seq-len", "16", "--model-axis", "2",
+           "--batch", "4", "--seq-len", "16", "--model-axis", str(ranks),
            "--device", "cpu", "--ckpt-dir", str(ckpt_dir), *extra]
     res = subprocess.run(cmd, env=env, capture_output=True, text=True,
                          timeout=TIMEOUT_S)
@@ -345,6 +355,30 @@ def test_launch_train_model_axis_resumes_and_restores_unsharded(tmp_path):
     assert sorted(n for n, _ in named_leaves(state)) == sorted(saved)
     for n, v in named_leaves(state):
         assert v.numpy().tobytes() == saved[n].tobytes(), n
+
+
+def test_launch_train_model_axis_4_over_two_kv_heads(tmp_path):
+    """``launch.train --model-axis 4`` on the smoke internlm2 (2 KV
+    heads) over 4 ranks: 3 steps whose first and last losses (printed to
+    4 places) are those of the same run in one process, unsharded."""
+    def span(out):
+        line = next(x for x in out.splitlines() if x.startswith("steps 0..2"))
+        return [float(v) for v in line.split("loss ")[1].split(" -> ")]
+
+    out = _launch(tmp_path / "four", 3, ranks=4)
+    assert "mesh: {'data': 1, 'model': 4}" in out
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    one = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "internlm2-1.8b", "--smoke", "--steps", "3", "--batch", "4",
+         "--seq-len", "16", "--device", "cpu", "--ckpt-dir",
+         str(tmp_path / "one")], env=env, capture_output=True, text=True,
+        timeout=TIMEOUT_S)
+    assert one.returncode == 0, one.stderr[-4000:]
+    got, want = span(out), span(one.stdout)
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, atol=1.5e-4)
 
 
 def test_sharded_loop_resume_is_bitwise(worlds):

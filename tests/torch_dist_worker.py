@@ -12,6 +12,10 @@ PART is one of:
   sharded2  every other arch's smoke step over a (1, 2) mesh (``xla``
             attention), two through the flash path (``pallas``), and a
             TrainLoop resumed from a sharded checkpoint;
+  sharded4  smoke steps over a (1, 4) mesh, whose model axis outnumbers
+            the KV heads (2 in every arch below; whisper's 2 heads, the
+            xLSTM's 2): the dense family through both attention paths,
+            whisper, the MoE, the xLSTM and jamba;
   collect4  ``pipeline_forward`` and ``compressed_psum`` over 4 ranks;
   single1   the sharded step on a 1 x 1 mesh against the unsharded one,
             bit for bit, and a sharded checkpoint restored unsharded;
@@ -49,8 +53,12 @@ import torch.multiprocessing as mp  # noqa: E402
 DEADLINE_S = 270
 #: the world's output directory (checkpoints of the resume case go there)
 OUT_DIR = None
-WORLDS = {"sharded8": 8, "sharded2": 2, "collect4": 4, "single1": 1,
-          "cuda1": 1}
+WORLDS = {"sharded8": 8, "sharded2": 2, "sharded4": 4, "collect4": 4,
+          "single1": 1, "cuda1": 1}
+#: (arch, attention impl) of the sharded4 part
+SHARDED4 = (("internlm2-1.8b", "xla"), ("internlm2-1.8b", "pallas"),
+            ("whisper-tiny", "xla"), ("dbrx-132b", "xla"),
+            ("xlstm-125m", "xla"), ("jamba-1.5-large-398b", "xla"))
 
 
 def _batch(cfg, B=8, T=16):
@@ -197,6 +205,15 @@ def part_sharded2(rank, out):
     for arch in ("internlm2-1.8b", "whisper-tiny"):
         out[f"{arch}/pallas"] = _step_case(arch, mesh, "pallas")
     out["resume"] = _resume_case(mesh)
+
+
+def part_sharded4(rank, out):
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(4, device="cpu")
+    out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    for arch, impl in SHARDED4:
+        out[f"{arch}/{impl}"] = _step_case(arch, mesh, impl)
 
 
 def _resume_case(mesh):
