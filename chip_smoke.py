@@ -259,18 +259,25 @@ Phases (any failure exits non-zero, and no result line is printed):
      ``decode_32k`` for every arch and of ``train_4k`` for every arch
      but the two whose loops are composed from short runs (the xLSTM
      and jamba, 40-160 s each on the host; the tests hold their
-     composition), on meta tensors with nothing on the card, each with
-     status, seconds, per-device GFLOPs, bytes, collective bytes,
-     memory and bound, none in error; then the card check:
-     phase T's check step (internlm2-1.8b, 4 x 1,024, attn_impl="xla",
-     one AdamW step) counted on the card by ``FlopCounterMode`` equals
-     the dry run's 1 x 1 count of it exactly, and three timed steps'
-     seconds and peak memory are printed against the roofline's
-     max(t_compute, t_memory) and the predicted arguments + temporaries;
+     composition), and internlm2-1.8b's ``train_4k`` and ``decode_32k``
+     on the multi-pod 2 x 16 x 16 mesh, on meta tensors with nothing on
+     the card, each with status, seconds, per-device GFLOPs, bytes,
+     collective bytes, memory and bound, none in error; then two card
+     checks, each a step counted on the card by ``FlopCounterMode``
+     that equals the dry run's 1 x 1 count of it exactly, with three
+     timed steps' seconds and peak memory printed against the
+     roofline's max(t_compute, t_memory) and the predicted arguments +
+     temporaries: phase T's check step (internlm2-1.8b, 4 x 1,024,
+     attn_impl="xla", one AdamW step, no flash launch) and phase T's
+     training step (4 x 4,096 through the flash kernels' ops, remat
+     "block", one AdamW step; counters zeroed just before the counted
+     step and read just after: 48 forward and 24 backward launches, all
+     wgmma);
   6. one JSON line describing every kernel (the flash row's launches
      are phase 5's, phase E's and phase J's scoring forwards', phase
-     W's forward and prefill, and phase T's steps, the sharded ones
-     included; the backward's are phase T's steps), then the result line.
+     W's forward and prefill, phase T's steps, the sharded ones
+     included, and phase Y's counted kernel-path step; the backward's
+     are phase T's steps and phase Y's), then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 with a non-zero code before printing any result.
@@ -491,12 +498,17 @@ TRAIN_SHARDED_LEN, TRAIN_SHARDED_STEPS = 1024, 3
 #: phase Y: the dry run's single-pod cells built on the host, after
 #: phase T and alone (every arch at these shapes but DRYRUN_COMPOSED's
 #: train_4k, whose loops ``scancost`` composes from short runs: 40-160 s
-#: a cell), and its 1 x 1 count of phase T's check step (TRAIN_BATCH x
-#: TRAIN_CHECK_LEN, attn_impl="xla") held against the card's
+#: a cell), DRYRUN_MULTIPOD's cells on the 2 x 16 x 16 mesh, and its
+#: 1 x 1 counts of phase T's check step (TRAIN_BATCH x TRAIN_CHECK_LEN,
+#: attn_impl="xla") and of phase T's training step (TRAIN_BATCH x
+#: TRAIN_LEN through the flash kernels' ops, attn_impl="auto"), each held
+#: against the card's
 DRYRUN_SHAPES = ("train_4k", "decode_32k")
 DRYRUN_COMPOSED = ("xlstm-125m", "jamba-1.5-large-398b")
+DRYRUN_MULTIPOD = (("internlm2-1.8b", "train_4k"),
+                   ("internlm2-1.8b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 300
-#: the dry run on the host: cells, then the check step's count (last line)
+#: the dry run on the host: cells, then the two steps' counts (last line)
 DRYRUN_HOST = """
 import json, sys, tempfile, time
 sys.path.insert(0, sys.argv[1])
@@ -504,31 +516,34 @@ from repro_torch import configs
 from repro_torch.analysis import roofline
 from repro_torch.configs import shapes as shape_mod
 from repro_torch.launch import dryrun, mesh as mesh_mod
-names, composed = sys.argv[2].split(","), sys.argv[6].split(",")
-batch, seq_len = int(sys.argv[3]), int(sys.argv[4])
+job = json.loads(sys.argv[2])
 results = tempfile.mkdtemp(prefix="dryrun_smoke_")
-cells = []
-for arch in configs.ARCH_IDS:
-    for name in names:
-        if arch in composed and name == "train_4k":
-            continue
-        t = time.perf_counter()
-        rec = dryrun.run_cell(arch, name, "single", results_dir=results)
-        rec.pop("traceback", None)
-        rec["seconds"] = time.perf_counter() - t
-        cells.append(rec)
-shape_mod.SHAPES["check"] = shape_mod.ShapeSpec("check", "train", seq_len,
-                                                batch)
-cfg = configs.get(sys.argv[5])
+cells = [(arch, name, "single") for arch in configs.ARCH_IDS
+         for name in job["shapes"]
+         if not (arch in job["composed"] and name == "train_4k")]
+cells += [(arch, name, "multipod") for arch, name in job["multipod"]]
+out = {"cells": []}
+for arch, name, mesh_kind in cells:
+    t = time.perf_counter()
+    rec = dryrun.run_cell(arch, name, mesh_kind, results_dir=results)
+    rec.pop("traceback", None)
+    rec["seconds"] = time.perf_counter() - t
+    out["cells"].append(rec)
+cfg = configs.get(job["arch"])
 mesh = dryrun.fake_mesh(mesh_mod.MeshShape(("data", "model"), (1, 1)))
 dryrun.set_dispatch(mesh, False)
-c = dryrun.count_cell(cfg, "check", mesh, attn_impl="xla")
-r = roofline.analyze(c, arch=cfg.arch_id, shape="check", mesh_name="1x1",
-                     chips=1, model_flops_value=c["model_flops"])
+for key, impl, seq_len in (("check", "xla", job["check_len"]),
+                           ("check_auto", "auto", job["train_len"])):
+    shape_mod.SHAPES[key] = shape_mod.ShapeSpec(key, "train", seq_len,
+                                                job["batch"])
+    c = dryrun.count_cell(cfg, key, mesh, attn_impl=impl)
+    r = roofline.analyze(c, arch=cfg.arch_id, shape=key, mesh_name="1x1",
+                         chips=1, model_flops_value=c["model_flops"])
+    out[key] = dict(flops=c["flops"], bytes=c["bytes"], memory=c["memory"],
+                    t_compute=r.t_compute, t_memory=r.t_memory,
+                    seconds=c["seconds"], seq_len=seq_len, attn_impl=impl)
 dryrun.release_fake_group()
-print(json.dumps({"cells": cells, "check": dict(
-    flops=c["flops"], bytes=c["bytes"], memory=c["memory"],
-    t_compute=r.t_compute, t_memory=r.t_memory, seconds=c["seconds"])}))
+print(json.dumps(out))
 """
 
 
@@ -3484,14 +3499,76 @@ def kernel_breakdown(kernels, what: str) -> dict:
 def phase_dryrun(card: str) -> dict:
     """Phase Y: the dry run (``launch.dryrun``).  Its single-pod cells
     (``DRYRUN_SHAPES`` of every arch but ``DRYRUN_COMPOSED``'s train
-    cells, on meta tensors over a fake group of 256 ranks, built in a
-    process of its own while nothing else runs) each with status, seconds, per-device
-    GFLOPs, bytes, collective bytes, memory and bound; then the card
-    check: phase T's check step (internlm2-1.8b, TRAIN_BATCH x
-    TRAIN_CHECK_LEN, ``attn_impl="xla"``, one AdamW step) counted by
-    ``FlopCounterMode`` on the card must equal the dry run's 1 x 1 count
-    exactly (the same ops), and the step's peak memory and seconds are
-    printed beside the dry run's prediction and roofline bound."""
+    cells) and ``DRYRUN_MULTIPOD``'s cells on the multi-pod mesh, on
+    meta tensors over a fake group of 256 or 512 ranks, built in a
+    process of its own while nothing else runs, each with status,
+    seconds, per-device GFLOPs, bytes, collective bytes, memory and
+    bound; then two card checks, each a step counted by
+    ``FlopCounterMode`` on the card that must equal the dry run's 1 x 1
+    count of it exactly (the same ops), its peak memory and seconds
+    printed beside the dry run's prediction and roofline bound: phase
+    T's check step (internlm2-1.8b, TRAIN_BATCH x TRAIN_CHECK_LEN,
+    ``attn_impl="xla"``, one AdamW step) and phase T's training step
+    (TRAIN_BATCH x TRAIN_LEN through the flash kernels, remat "block";
+    counters zeroed just before the counted step and read just after:
+    48 forward and 24 backward launches, all wgmma)."""
+    import torch
+
+    t = time.perf_counter()
+    job = dict(shapes=DRYRUN_SHAPES, composed=DRYRUN_COMPOSED,
+               multipod=DRYRUN_MULTIPOD, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+               check_len=TRAIN_CHECK_LEN, train_len=TRAIN_LEN)
+    try:
+        host = subprocess.run(
+            [sys.executable, "-c", DRYRUN_HOST, str(SRC), json.dumps(job)],
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"the dry run's host process took over {DRYRUN_TIMEOUT_S} s")
+    if host.returncode != 0:
+        fail(f"the dry run's host process failed: {host.stderr[-3000:]}")
+    res = json.loads(host.stdout.strip().splitlines()[-1])
+    host_s = time.perf_counter() - t
+    print(f"  the host's cells and counts: {host_s:.1f} s (torch "
+          f"{res['cells'][0]['torch_version']})")
+    bad = [f"{c['arch']} {c['shape']} {c['mesh']}: {c.get('error')}"
+           for c in res["cells"] if c["status"] == "error"]
+    for c in res["cells"]:
+        if c["status"] != "ok":
+            print(f"  {c['arch']:<22} {c['shape']:<11} {c['mesh']:<8} "
+                  f"{c['status']} ({c.get('reason') or c.get('error')})")
+            continue
+        rf, ma = c["roofline"], c["memory_analysis"]
+        print(f"  {c['arch']:<22} {c['shape']:<11} {c['mesh']:<8} ok "
+              f"{c['seconds']:6.1f} s  "
+              f"{rf['device_flops'] / 1e9:12.1f} GFLOP  "
+              f"{rf['device_bytes'] / 1e9:10.1f} GB  coll "
+              f"{rf['coll_bytes'] / 1e9:8.2f} GB  mem "
+              f"{ma['argument_size_in_bytes'] / 2**30:.2f}+"
+              f"{ma['temp_size_in_bytes'] / 2**30:.2f} GiB  bound "
+              f"{rf['bottleneck']} {max(rf['t_compute'], rf['t_memory'], rf['t_collective']):.4g} s")
+    if bad:
+        fail("dry-run cells failed: " + "; ".join(bad))
+    checks = {}
+    for key in ("check", "check_auto"):
+        checks[key] = _dryrun_card_check(card, res[key])
+    return {"cells": [{k: c.get(k) for k in ("arch", "shape", "mesh",
+                                               "status", "seconds",
+                                               "roofline",
+                                               "memory_analysis", "reason",
+                                               "error")}
+                      for c in res["cells"]],
+            "card_check": checks["check"],
+            "card_check_auto": checks["check_auto"],
+            "host_s": host_s}
+
+
+def _dryrun_card_check(card: str, check: dict) -> dict:
+    """One of phase Y's card checks: ``check`` (the host's 1 x 1 count of
+    a TRAIN_BATCH x ``check["seq_len"]`` internlm2-1.8b train step at
+    ``check["attn_impl"]``) against the same step on the card, counted by
+    ``FlopCounterMode`` with ``FLOP_FORMULAS`` (counters zeroed just
+    before it and read just after), then three timed steps' seconds and
+    the peak memory above the pre-state base."""
     import gc
 
     import torch
@@ -3504,58 +3581,33 @@ def phase_dryrun(card: str) -> dict:
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime.train import init_train_state, make_train_step
 
-    t = time.perf_counter()
-    try:
-        host = subprocess.run(
-            [sys.executable, "-c", DRYRUN_HOST, str(SRC),
-             ",".join(DRYRUN_SHAPES), str(TRAIN_BATCH), str(TRAIN_CHECK_LEN),
-             TRAIN_ARCH, ",".join(DRYRUN_COMPOSED)],
-            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        fail(f"the dry run's host process took over {DRYRUN_TIMEOUT_S} s")
-    if host.returncode != 0:
-        fail(f"the dry run's host process failed: {host.stderr[-3000:]}")
-    res = json.loads(host.stdout.strip().splitlines()[-1])
-    host_s = time.perf_counter() - t
-    print(f"  the host's cells and count: {host_s:.1f} s (torch "
-          f"{res['cells'][0]['torch_version']})")
-    bad = [f"{c['arch']} {c['shape']}: {c.get('error')}"
-           for c in res["cells"] if c["status"] == "error"]
-    for c in res["cells"]:
-        if c["status"] != "ok":
-            print(f"  {c['arch']:<22} {c['shape']:<11} {c['status']} "
-                  f"({c.get('reason') or c.get('error')})")
-            continue
-        rf, ma = c["roofline"], c["memory_analysis"]
-        print(f"  {c['arch']:<22} {c['shape']:<11} ok {c['seconds']:6.1f} s  "
-              f"{rf['device_flops'] / 1e9:12.1f} GFLOP  "
-              f"{rf['device_bytes'] / 1e9:10.1f} GB  coll "
-              f"{rf['coll_bytes'] / 1e9:8.2f} GB  mem "
-              f"{ma['argument_size_in_bytes'] / 2**30:.2f}+"
-              f"{ma['temp_size_in_bytes'] / 2**30:.2f} GiB  bound "
-              f"{rf['bottleneck']} {max(rf['t_compute'], rf['t_memory'], rf['t_collective']):.4g} s")
-    if bad:
-        fail("dry-run cells failed: " + "; ".join(bad))
-
-    check = res["check"]
+    impl, seq_len = check["attn_impl"], check["seq_len"]
     gc.collect()
     torch.cuda.empty_cache()
     dev = torch.device("cuda", 0)
     cfg = configs.get(TRAIN_ARCH)
-    model = build_model(cfg, attn_impl="xla")
+    model = build_model(cfg, attn_impl=impl)
     base = torch.cuda.memory_allocated()
     state = init_train_state(model, torch.Generator(device=dev).manual_seed(0))
     batch = {k: torch.as_tensor(v, device=dev) for k, v in TokenStream(
-        vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_CHECK_LEN,
+        vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=seq_len,
         seed=1).batch_at(0).items()}
     step = make_train_step(model, AdamWConfig())
+    zero_counts()
     with FlopCounterMode(display=False, custom_mapping=FLOP_FORMULAS) as fc:
         state, m = step(state, batch)
     torch.cuda.synchronize()
+    launches = _step_launches()
     flops = fc.get_total_flops()
     if flops != check["flops"]:
-        fail(f"the card's step counts {flops} FLOPs, the dry run's 1 x 1 "
-             f"count {check['flops']}")
+        fail(f"the card's {impl} step counts {flops} FLOPs, the dry run's "
+             f"1 x 1 count {check['flops']}")
+    want = (dict(forward=0, forward_wgmma=0, backward=0, backward_wgmma=0)
+            if impl == "xla" else
+            dict(forward=2 * cfg.n_layers, forward_wgmma=2 * cfg.n_layers,
+                 backward=cfg.n_layers, backward_wgmma=cfg.n_layers))
+    if launches != want:
+        fail(f"the {impl} check step launched {launches}; want {want}")
     seconds = []
     for _ in range(3):
         torch.cuda.reset_peak_memory_stats()
@@ -3566,35 +3618,29 @@ def phase_dryrun(card: str) -> dict:
         seconds.append(time.perf_counter() - t)
     peak = torch.cuda.max_memory_allocated() - base
     if not torch.isfinite(m["loss"]):
-        fail("the check step's loss is not finite")
+        fail(f"the {impl} check step's loss is not finite")
     ma = check["memory"]
     predicted = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
     bound = max(check["t_compute"], check["t_memory"])
     print(f"  card check ({card}): {cfg.arch_id} train step {TRAIN_BATCH} x "
-          f"{TRAIN_CHECK_LEN}, attn_impl='xla': FlopCounterMode "
-          f"{flops} FLOPs = the dry run's 1 x 1 count (held exactly); peak "
-          f"memory {peak / 2**30:.2f} GiB measured vs {predicted / 2**30:.2f} "
-          f"GiB predicted (arguments {ma['argument_size_in_bytes'] / 2**30:.2f}"
-          f" + temporaries {ma['temp_size_in_bytes'] / 2**30:.2f}); a step "
+          f"{seq_len}, attn_impl={impl!r}: FlopCounterMode "
+          f"{flops} FLOPs = the dry run's 1 x 1 count (held exactly), "
+          f"flash {launches}; peak memory {peak / 2**30:.2f} GiB measured "
+          f"vs {predicted / 2**30:.2f} GiB predicted (arguments "
+          f"{ma['argument_size_in_bytes'] / 2**30:.2f} + temporaries "
+          f"{ma['temp_size_in_bytes'] / 2**30:.2f}); a step "
           f"{min(seconds):.4f}-{max(seconds):.4f} s against the roofline's "
           f"max(t_compute {check['t_compute']:.4f}, t_memory "
           f"{check['t_memory']:.4f}) = {bound:.4f} s")
     del state, batch, step, model, m
     gc.collect()
     torch.cuda.empty_cache()
-    return {"cells": [{k: c.get(k) for k in ("arch", "shape", "status",
-                                               "seconds", "roofline",
-                                               "memory_analysis", "reason",
-                                               "error")}
-                      for c in res["cells"]],
-            "card_check": dict(card=card, flops=flops,
-                               dryrun_flops=check["flops"],
-                               peak_bytes=peak, predicted_bytes=predicted,
-                               memory=ma, step_s=seconds,
-                               t_compute=check["t_compute"],
-                               t_memory=check["t_memory"], bound_s=bound,
-                               dryrun_host_s=check["seconds"]),
-            "host_s": host_s}
+    return dict(card=card, attn_impl=impl, seq_len=seq_len, flops=flops,
+                dryrun_flops=check["flops"], launches=launches,
+                peak_bytes=peak, predicted_bytes=predicted, memory=ma,
+                step_s=seconds, t_compute=check["t_compute"],
+                t_memory=check["t_memory"], bound_s=bound,
+                dryrun_host_s=check["seconds"])
 
 
 def phase_train() -> dict:
@@ -4565,7 +4611,8 @@ def main() -> int:
                      + experts["flash_launches"] + jamba["flash_launches"]
                      + whisper["flash_launches"]
                      + train["launches"]["flash_attention"]
-                     + train["sharded"]["launches"]["forward"]),
+                     + train["sharded"]["launches"]["forward"]
+                     + dry["card_check_auto"]["launches"]["forward"]),
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
@@ -4577,7 +4624,8 @@ def main() -> int:
         "source": FLASH_BWD_SOURCES[train_case["bwd_route"]],
         "replaces": FLASH_BWD_REPLACES,
         "launches": (train["launches"]["flash_attention_bwd"]
-                     + train["sharded"]["launches"]["backward"]),
+                     + train["sharded"]["launches"]["backward"]
+                     + dry["card_check_auto"]["launches"]["backward"]),
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         **{k: train_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},

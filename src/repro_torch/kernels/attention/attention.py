@@ -31,12 +31,21 @@ rounded to bfloat16 as product operands), ``"fma"`` ->
 ``csrc/flash_attention_bwd.cu`` (CUDA cores, float32); on CPU tensors
 :func:`~.ref.flash_attention_bwd_plain`.  Nothing falls back: a build or
 launch failure raises.
+
+The launches are PyTorch ops, ``torch.ops.repro_torch.flash_fwd`` and
+``torch.ops.repro_torch.flash_bwd`` (``torch.library.custom_op``): on
+CUDA tensors each runs the ctypes launch above; on ``meta`` tensors its
+fake returns the outputs' shapes and dtypes, so that the dry run
+(``launch.dryrun``) can build and count the kernel path a card trains;
+any other device raises.  A dispatch mode sees each launch as one op
+(``launch.dryrun.FLOP_FORMULAS`` counts its work).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch import Tensor
 from torch.distributed.tensor import DTensor
 
 from .ref import (TILE_Q, WGMMA_BWD_ROWS, WGMMA_TILE_Q, check_blocks,
@@ -103,8 +112,10 @@ class _Flash(torch.autograd.Function):
                                         **kw)
             o, lse = out if grad else (out, None)
         else:
-            o, lse = _forward_kernel(q, k, v, block_q=block_q,
-                                     block_k=block_k, with_lse=grad, **kw)
+            o, lse = torch.ops.repro_torch.flash_fwd(
+                q, k, v, n_q_heads, n_kv_heads, causal, scale, block_q,
+                block_k, grad)
+            lse = lse if grad else None
         if grad:
             ctx.save_for_backward(q, k, v, o, lse)
             ctx.kw, ctx.plain = kw, plain
@@ -190,6 +201,28 @@ flash_attention.launches = 0
 flash_attention.launches_by_route = {"wgmma": 0, "fma": 0}
 
 
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, n_q_heads: int,
+               n_kv_heads: int, causal: bool, scale: float, block_q: int,
+               block_k: int, with_lse: bool) -> tuple[Tensor, Tensor]:
+    """:func:`_forward_kernel` as an op: ``(o, lse)``, ``lse`` empty
+    unless ``with_lse`` (an op returns tensors only)."""
+    o, lse = _forward_kernel(q, k, v, n_q_heads=n_q_heads,
+                             n_kv_heads=n_kv_heads, causal=causal,
+                             scale=scale, block_q=block_q, block_k=block_k,
+                             with_lse=with_lse)
+    return o, q.new_empty(0, dtype=torch.float32) if lse is None else lse
+
+
+@_flash_fwd.register_fake
+def _(q, k, v, n_q_heads, n_kv_heads, causal, scale, block_q, block_k,
+      with_lse):
+    check_shapes(q, k, v, n_q_heads, n_kv_heads)
+    check_blocks(q.shape[1], k.shape[1], block_q, block_k)
+    rows = q.shape[:2] if with_lse else (0,)
+    return torch.empty_like(q), q.new_empty(rows, dtype=torch.float32)
+
+
 def flash_attention_bwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -214,17 +247,43 @@ def flash_attention_bwd(
     ``"fma"`` (float32 at 16/32/64/128, bfloat16 at 16 and 32) ->
     ``csrc/flash_attention_bwd.cu`` -- and adds one to
     ``flash_attention_bwd.launches`` and to its route's count in
-    ``flash_attention_bwd.launches_by_route`` a call; on CPU tensors it
-    runs :func:`~.ref.flash_attention_bwd_plain`."""
+    ``flash_attention_bwd.launches_by_route`` a call (through the op
+    ``repro_torch::flash_bwd``, whose ``meta`` fake returns the three
+    gradients' shapes); on CPU tensors it runs
+    :func:`~.ref.flash_attention_bwd_plain`."""
     check_shapes(q, k, v, n_q_heads, n_kv_heads)
+    if scale is None:
+        scale = 1.0 / (q.shape[2] ** 0.5)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, o, lse, do, n_q_heads=n_q_heads, n_kv_heads=n_kv_heads,
+            causal=causal, scale=scale)
+    return torch.ops.repro_torch.flash_bwd(q, k, v, o, lse, do, n_q_heads,
+                                           n_kv_heads, causal, scale)
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=())
+def _flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
+               do: Tensor, n_q_heads: int, n_kv_heads: int, causal: bool,
+               scale: float) -> tuple[Tensor, Tensor, Tensor]:
+    """:func:`_backward_kernel` as an op: ``(dq, dk, dv)``."""
+    return _backward_kernel(q, k, v, o, lse, do, n_q_heads=n_q_heads,
+                            n_kv_heads=n_kv_heads, causal=causal,
+                            scale=scale)
+
+
+@_flash_bwd.register_fake
+def _(q, k, v, o, lse, do, n_q_heads, n_kv_heads, causal, scale):
+    _bwd_shapes(q, k, v, o, lse, do, n_q_heads, n_kv_heads)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _backward_kernel(q, k, v, o, lse, do, *, n_q_heads, n_kv_heads, causal,
+                     scale):
+    """Launch the backward kernels of :func:`bwd_route` (see
+    :func:`flash_attention_bwd`); returns ``(dq, dk, dv)``."""
     G, Tq, d = q.shape
     Tk = k.shape[1]
-    if scale is None:
-        scale = 1.0 / (d ** 0.5)
-    kw = dict(n_q_heads=n_q_heads, n_kv_heads=n_kv_heads, causal=causal,
-              scale=scale)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     kernel = bwd_route(q, k, v, o, lse, do, n_q_heads=n_q_heads,
                        n_kv_heads=n_kv_heads)
     device = q.device
@@ -270,16 +329,10 @@ def bwd_route(q, k, v, o, lse, do, *, n_q_heads: int, n_kv_heads: int) -> str:
     a dtype or head dim no kernel is built for, more key tiles than a
     grid holds -- and so before anything is launched; the device type is
     the launch's own check."""
-    check_shapes(q, k, v, n_q_heads, n_kv_heads)
-    G, Tq, d = q.shape
-    Tk = k.shape[1]
-    if Tq > Tk:
-        raise ValueError(f"the backward takes Tq <= Tk, got Tq={Tq} > Tk={Tk}")
-    if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (G, Tq):
-        raise ValueError(
-            f"o {tuple(o.shape)}, do {tuple(do.shape)} and lse "
-            f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    _bwd_shapes(q, k, v, o, lse, do, n_q_heads, n_kv_heads)
     _check_tensors(q, k, v, o, do)
+    d = q.shape[2]
+    Tk = k.shape[1]
     from .. import _cuda
 
     _cuda.dtype_code(q.dtype)
@@ -293,3 +346,17 @@ def bwd_route(q, k, v, o, lse, do, *, n_q_heads: int, n_kv_heads: int) -> str:
     if -(-Tk // tile) > MAX_Q_TILES:   # Tq <= Tk
         raise ValueError(f"kernel takes at most {MAX_Q_TILES * tile} rows")
     return kernel
+
+
+def _bwd_shapes(q, k, v, o, lse, do, n_q_heads: int, n_kv_heads: int) -> None:
+    """The backward's shape rules: :func:`~.ref.check_shapes`, ``Tq <=
+    Tk``, ``o`` and ``do`` shaped as ``q``, ``lse`` ``(G, Tq)``."""
+    check_shapes(q, k, v, n_q_heads, n_kv_heads)
+    G, Tq, _ = q.shape
+    Tk = k.shape[1]
+    if Tq > Tk:
+        raise ValueError(f"the backward takes Tq <= Tk, got Tq={Tq} > Tk={Tk}")
+    if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (G, Tq):
+        raise ValueError(
+            f"o {tuple(o.shape)}, do {tuple(do.shape)} and lse "
+            f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")

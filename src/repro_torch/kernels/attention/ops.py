@@ -3,8 +3,10 @@
 Models call :func:`multi_head_attention` with ``(B, H, T, d)`` tensors;
 head folding to the kernel layout happens here.  ``impl``:
 
-* ``"auto"``: the CUDA kernel for CUDA tensors, ``"xla"`` on the CPU (as
-  the reference takes the Pallas kernel only on a TPU);
+* ``"auto"``: the CUDA kernel for CUDA tensors and for ``meta`` ones
+  (whose launches are shapes only: the dry run counts the kernel path),
+  ``"xla"`` on the CPU (as the reference takes the Pallas kernel only on
+  a TPU);
 * ``"pallas"``: the kernel's wrapper (:func:`.attention.flash_attention`),
   which runs the plain version for CPU tensors;
 * ``"interpret"``: the kernel's plain PyTorch version on any device
@@ -83,7 +85,7 @@ def multi_head_attention(
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     if impl == "auto":
-        impl = "pallas" if q.device.type == "cuda" else "xla"
+        impl = "pallas" if q.device.type in ("cuda", "meta") else "xla"
     if impl not in ("pallas", "interpret", "xla", "xla_flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if any(isinstance(t, DTensor) for t in (q, k, v)):

@@ -90,6 +90,23 @@ def key_limits(Tq: int, Tk: int, bq: int, bk: int, causal: bool,
     return torch.where(q_end < 0, torch.zeros_like(lim), lim)
 
 
+def visible_pairs(Tq: int, Tk: int, bq: int, bk: int, causal: bool) -> int:
+    """The (query, key) pairs whose ``p`` the visit rule leaves nonzero,
+    summed over the rows: a row that sees a key, the keys causality
+    leaves it (end-aligned: the last ``min(Tq, Tk)`` rows see ``Tk -
+    min(Tq, Tk) + 1`` up to ``Tk``); a row that sees none (causal, ``Tq >
+    Tk``), every key below its ``K_lim`` (``p = 1`` on each).  The work a
+    launch does on (q, k, v): 4 d flops a pair forward, 10 d backward."""
+    if not causal:
+        return Tq * Tk
+    n = min(Tq, Tk)
+    pairs = n * (Tk - n) + n * (n + 1) // 2
+    for t in range(Tq - n):
+        q_end = (t // bq + 1) * bq - 1 + (Tk - Tq)
+        pairs += 0 if q_end < 0 else min(Tk, (q_end // bk + 1) * bk)
+    return pairs
+
+
 def check_shapes(q, k, v, n_q_heads: int, n_kv_heads: int) -> None:
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(

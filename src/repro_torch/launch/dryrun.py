@@ -28,7 +28,11 @@ learn an output's shape are not counted):
   * ``flops``: the FLOPs of the matrix products, by
     ``torch.utils.flop_counter``'s registry (the ops ``FlopCounterMode``
     counts, with ``FLOP_FORMULAS``).  XLA's count adds the elementwise
-    FLOPs;
+    FLOPs.  With ``attn_impl="auto"`` attention runs the flash kernels'
+    ops (``repro_torch::flash_fwd``, ``repro_torch::flash_bwd``: shapes
+    only on ``meta``), counted by their work -- 4 d flops a visible
+    (query, key) pair forward, 10 d backward -- where ``"xla"`` counts
+    its two whole (B, H, T, T) products and their gradients;
   * ``bytes``: the operand bytes plus result bytes of every local op
     that moves data -- views move nothing, collectives are booked apart.
     An eager program's traffic, where XLA's ``bytes accessed`` is its
@@ -67,6 +71,8 @@ with the reference's keys (``lower_s``: building the placed state;
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2-1.8b \\
       --shape train_4k --mesh single           # one cell
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2-1.8b \\
+      --shape train_4k --attn-impl auto        # the kernel path
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all       # sweep
   PYTHONPATH=src python -m repro_torch.analysis.aggregate        # tables
 """
@@ -86,6 +92,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
+from torch.distributed.tensor.placement_types import _StridedShard
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map
 from torch.utils.flop_counter import flop_registry
@@ -94,6 +101,8 @@ from .. import configs
 from ..analysis import roofline, scancost
 from ..configs import shapes as shape_mod
 from ..distributed import sharding as shard_rules
+from ..kernels.attention import attention as _flash_ops  # noqa: F401  (ops)
+from ..kernels.attention import ref as attn_ref
 from ..models import build_model
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, adamw_init
@@ -177,9 +186,35 @@ def _bmm_flops(a_shape, b_shape, *_, out_shape=None, **__) -> int:
     return 2 * b * m * k * b_shape[2]
 
 
+def _flash_fwd_flops(q_shape, k_shape, v_shape, n_q_heads, n_kv_heads,
+                     causal, scale, block_q, block_k, *_, out_shape=None,
+                     **__) -> int:
+    """The flash forward's work (``repro_torch::flash_fwd``): 4 d flops
+    (QK^T and PV) a visible pair of each query head, pairs by the
+    reference's visit rule (``kernels.attention.ref.visible_pairs``)."""
+    G, Tq, d = q_shape
+    Tk = k_shape[1]
+    bq, bk = attn_ref.check_blocks(Tq, Tk, block_q, block_k)
+    return 4 * d * G * attn_ref.visible_pairs(Tq, Tk, bq, bk, causal)
+
+
+def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape,
+                     do_shape, n_q_heads, n_kv_heads, causal, *_,
+                     out_shape=None, **__) -> int:
+    """The flash backward's work (``repro_torch::flash_bwd``): 10 d flops
+    a visible pair (S, dP, dV, dQ, dK), every row seeing a key (``Tq <=
+    Tk``)."""
+    G, Tq, d = q_shape
+    Tk = k_shape[1]
+    return 10 * d * G * attn_ref.visible_pairs(Tq, Tk, Tq, Tk, causal)
+
+
 #: formulas beside ``torch.utils.flop_counter``'s, by shapes: give them
-#: to ``FlopCounterMode(custom_mapping=FLOP_FORMULAS)`` to count alike
-FLOP_FORMULAS = {torch.ops.aten.bmm: _bmm_flops}
+#: to ``FlopCounterMode(custom_mapping=FLOP_FORMULAS)`` to count alike.
+#: The flash kernels' ops count the work, not a kernel's own products
+FLOP_FORMULAS = {torch.ops.aten.bmm: _bmm_flops,
+                 torch.ops.repro_torch.flash_fwd: _flash_fwd_flops,
+                 torch.ops.repro_torch.flash_bwd: _flash_bwd_flops}
 
 
 def _shape(x):
@@ -222,19 +257,15 @@ def _key(t) -> int:
     return t.untyped_storage()._cdata
 
 
-def _greedy(graph_based: Callable) -> Callable:
+def _greedy(_search: Callable) -> Callable:
     """DTensor's redistribution planner, greedy as by default where torch
     2.13 would switch to its graph search (shard orders off the mesh
     order): on the 3-D mesh that search held one xLSTM cell for over 40
-    minutes.  The search is kept for ``_StridedShard``, which the greedy
-    plan cannot read."""
+    minutes.  The greedy plan cannot read ``_StridedShard``, which the
+    port's view rule (``distributed.rules``) leaves on no activation."""
     from torch.distributed.tensor import _redistribute
-    from torch.distributed.tensor.placement_types import _StridedShard
 
     def plan(src, dst, use_graph_based_transform=None):
-        if any(isinstance(p, _StridedShard)
-               for p in (*src.placements, *dst.placements)):
-            return graph_based(src, dst, use_graph_based_transform)
         return _redistribute.get_redistribute_planner(
             src.device_mesh, src.tensor_meta
         ).generate_greedy_transform_infos(src, dst)
@@ -245,7 +276,12 @@ def _greedy(graph_based: Callable) -> Callable:
 class Meter(TorchDispatchMode):
     """Counts rank 0's local work while active (see the module
     docstring): ``flops``, ``bytes``, ``coll`` ({kind: result bytes})
-    and the peak of live bytes above ``args`` (``peak``)."""
+    and the peak of live bytes above ``args`` (``peak``, and ``top``,
+    the largest temporaries live at it: bytes, shape, dtype and the op
+    that made each, snapshot where the peak grew 1 %); ``strided``,
+    the DTensor ops that read an input placed ``_StridedShard`` (the
+    port's rules leave none: DTensor plans such a placement's
+    redistributions by a graph search)."""
 
     def __init__(self, args: Any = ()):
         super().__init__()
@@ -256,6 +292,9 @@ class Meter(TorchDispatchMode):
         self.used = set()
         self.live = 0
         self.peak = 0
+        self.top: list = []
+        self._top_at = 0
+        self.strided = 0
         self._refs: Dict[int, list] = {}
         self._quiet = 0
         self._views: Dict[Any, bool] = {}
@@ -273,7 +312,7 @@ class Meter(TorchDispatchMode):
                 ins, outs = _tensors(args), _tensors(out)
                 self.coll[book] += _size(outs)
                 self._read(ins)
-                self._track(outs, ins)
+                self._track(outs, ins, book)
             return out
         return wrapped
 
@@ -345,7 +384,7 @@ class Meter(TorchDispatchMode):
             self.live -= ref[0]
             del self._refs[key]
 
-    def _track(self, outs, ins) -> None:
+    def _track(self, outs, ins, op: str) -> None:
         ids = {id(t) for t in ins}
         for t in outs:
             if id(t) in ids:
@@ -355,15 +394,24 @@ class Meter(TorchDispatchMode):
                 continue
             ref = self._refs.get(key)
             if ref is None:
-                ref = self._refs[key] = [t.untyped_storage().nbytes(), 0]
+                ref = self._refs[key] = [t.untyped_storage().nbytes(), 0,
+                                         (tuple(t.shape), str(t.dtype), op)]
                 self.live += ref[0]
                 self.peak = max(self.peak, self.live)
             ref[1] += 1
             weakref.finalize(t, self._release, key)
+        if self.peak > 1.01 * self._top_at:
+            self._top_at = self.peak
+            self.top = sorted(([r[0], *r[2]] for r in self._refs.values()),
+                              reverse=True)[:5]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
+            self.strided += any(
+                isinstance(p, _StridedShard)
+                for t in _tensors((args, kwargs)) if isinstance(t, DTensor)
+                for p in t.placements)
             return NotImplemented                # DTensor runs it locally
         out = func(*args, **kwargs)
         if self._quiet:
@@ -379,12 +427,12 @@ class Meter(TorchDispatchMode):
             kind = next((k for s, k in _KINDS if s in name), None)
             if kind is not None:
                 self.coll[kind] += _size(outs)
-            self._track(outs, ins)
+            self._track(outs, ins, str(func))
             return out
         self.flops += _flops(func, args, kwargs, out)
         if not view:
             self.bytes += _size(ins) + _size(outs)
-        self._track(outs, ins)
+        self._track(outs, ins, str(func))
         return out
 
 
@@ -425,6 +473,8 @@ def measure(fn: Callable, args: tuple, *, donated: tuple = (),
             "alias_size_in_bytes": alias,
         },
         "seconds": seconds,
+        "strided_ops": meter.strided,
+        "peak_top": meter.top,
     }
 
 
@@ -662,6 +712,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
             lower_s=round(t_lower, 2),
             compile_s=round(t_compile, 2),
             memory_analysis=corr["memory"],
+            # [bytes, shape, dtype, op] of the largest temporaries at the
+            # peak (a composed cell's: at its shortest run)
+            peak_temporaries=counts["peak_top"],
+            strided_ops=sum(c["strided_ops"] for c in samples.values()),
             roofline=report.to_dict(),
         )
         ma = record["memory_analysis"]
@@ -704,7 +758,8 @@ def main(argv=None) -> int:
     ap.add_argument("--results", default=RESULTS_DIR)
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--attn-impl", default="xla",
-                    choices=["xla", "xla_flash"])
+                    choices=["xla", "xla_flash", "auto"],
+                    help="auto: the flash kernels' ops, as the card trains")
     ap.add_argument("--mlstm-chunk", type=int, default=None)
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--moe-combine", default="gather",

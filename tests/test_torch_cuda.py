@@ -27,6 +27,9 @@ boundary) + 1e-4 max|plain| (their float32 difference near zero) + the
 plain version's p bound, 2^-8 sum_j p_j |v_j| / l, on the wgmma route:
 it rounds p to bfloat16 for the PV product, and scores summed in another
 float32 order can round a p to the other bfloat16 neighbour.
+The flash launches as PyTorch ops (``repro_torch::flash_fwd``,
+``repro_torch::flash_bwd``) give bitwise the launch functions' outputs,
+each counted once on its route.
 Placement: a chain placed over the pool [cuda:0, cuda:0] gives the
 one-slot run's bits, each kernel launched once a shard; with two cards
 the kernels launch on their tensors' card and the chain over [cuda:0,
@@ -822,6 +825,39 @@ def test_flash_attention_autograd_on_the_card(cuda, dtype):
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
                                    atol=frac * w.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 4, 2, 128, 128, 64, True),
+                                  (1, 8, 1, 96, 160, 128, True),
+                                  (2, 4, 2, 96, 160, 64, False)])
+def test_flash_custom_ops_launch_the_kernels_directly(cuda, case, dtype):
+    """``repro_torch::flash_fwd`` and ``repro_torch::flash_bwd`` on the
+    card: the same launch, counted once on the same route as calling the
+    kernels' launch functions, and outputs bitwise equal to theirs."""
+    B, Hq, Hkv, Tq, Tk, d, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (t.to(dtype) for t in _flash_inputs(gen, cuda, B, Hq, Hkv,
+                                                  Tq, Tk, d))
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    kw = dict(n_q_heads=Hq, n_kv_heads=Hkv, causal=causal, scale=d ** -0.5)
+    route = t_attn_ref.route(dtype, d)
+    fwd = dict(t_attn.flash_attention.launches_by_route)
+    o, lse = torch.ops.repro_torch.flash_fwd(
+        q, k, v, Hq, Hkv, causal, kw["scale"], 32, 32, True)
+    o_k, lse_k = t_attn._forward_kernel(q, k, v, block_q=32, block_k=32,
+                                        with_lse=True, **kw)
+    fwd[route] += 2
+    assert t_attn.flash_attention.launches_by_route == fwd
+    assert torch.equal(o, o_k) and torch.equal(lse, lse_k)
+    bwd = dict(t_attn.flash_attention_bwd.launches_by_route)
+    got = torch.ops.repro_torch.flash_bwd(q, k, v, o, lse, do, Hq, Hkv,
+                                          causal, kw["scale"])
+    want = t_attn._backward_kernel(q, k, v, o, lse, do, **kw)
+    bwd[route] += 2
+    assert t_attn.flash_attention_bwd.launches_by_route == bwd
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -208,6 +208,15 @@ def test_sharded_step_4x2_matches_single(worlds):
     assert r["cache_placements"] == {"k": ["S1", "S0"], "v": ["S1", "S0"]}
 
 
+def test_sharded_step_2x2x2_pod_data_model_matches_single(worlds):
+    """The multi-pod mesh's layout: the batch over pod and data, the
+    vocab-sharded embedding table met by the port's ``index.Tensor``
+    rule (whole over ``model``), no flatten left strided."""
+    step = worlds["sharded8"]["internlm2-1.8b/pod_data_model"]
+    _check_step(step)
+    assert step["placements"]["embed.tok"] == ["R", "R", "S0"]
+
+
 @pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS
                                   if a != "internlm2-1.8b"])
 def test_sharded_step_1x2_matches_single(worlds, arch):

@@ -4,9 +4,10 @@
 replaced in both packages).
 
 The port's side runs in subprocesses (:data:`PORT`, side by side): its
-fake process group must not outlive it in a test worker.  The reference's compiled
-cells run in another, on 4 forced host devices (:data:`REF_COMPILE`);
-its jaxprs are walked here, where JAX keeps one device.  Held:
+fake process group must not outlive it in a test worker.  The
+reference's compiled cells run in two others, on 4 and 8 forced host
+devices (:data:`REF_COMPILE`); its jaxprs are walked here, where JAX
+keeps one device.  Held:
 
 * at 1 x 1, the per-device FLOPs of the matrix products of train,
   prefill and decode cells, one arch of each family (the xLSTM
@@ -15,10 +16,13 @@ its jaxprs are walked here, where JAX keeps one device.  Held:
   counted from the jaxpr of its ``build_cell`` function
   (``dot_general``: 2 x output elements x contracted size; scan bodies
   times their length, every other sub-jaxpr once);
-* on (2, 2) and (1, 4) meshes, argument bytes equal the reference's
+* on (2, 2) and (1, 4) meshes, and on the 3-D (pod, data, model) =
+  (2, 2, 2) mesh (:data:`MESH3_CELLS`, the reference compiling on 8
+  forced host devices), argument bytes equal the reference's
   compiled ``memory_analysis().argument_size_in_bytes``; collective
   bytes by kind equal what this torch's DTensor issues, pinned per
-  torch version (:data:`MESH_COLL`).  Per-device
+  torch version (:data:`MESH_COLL`); no DTensor op of a 3-D cell reads
+  an activation placed ``_StridedShard``.  Per-device
   FLOPs and collective bytes within the bounds of
   :data:`FLOPS_RATIO` and :data:`COLL_RATIO` of its
   ``roofline.analyze`` plus ``scancost.corrections``: XLA also counts
@@ -77,19 +81,32 @@ MESH_CELLS = (("internlm2-1.8b", "train_4k"),
               ("internlm2-1.8b", "decode_32k"),
               ("olmoe-1b-7b", "prefill_32k"),
               ("whisper-tiny", "train_4k"))
+#: the 3-D multi-pod mesh's cells, at a global batch of 8 (two rows a
+#: data shard, so that a flatten of the batch with a dim split over
+#: ``model`` would be strided)
+MESH3 = "2,2,2"
+MESH3_AXES = ("pod", "data", "model")
+MESH3_SHAPES = {"train_4k": ("train", 16, 8), "decode_32k": ("decode", 16, 8)}
+MESH3_CELLS = (("internlm2-1.8b", "train_4k"),
+               ("internlm2-1.8b", "decode_32k"),
+               ("jamba-1.5-large-398b", "train_4k"))
 #: the collective result bytes by kind that DTensor issues for rank 0
 #: in each mesh cell (all-reduce, all-gather, reduce-scatter,
 #: all-to-all, collective-permute), by torch version: DTensor picks its
 #: collectives differently from one version to the next
 MESH_COLL = {"2.13": {
     "2,2/internlm2-1.8b/train_4k": (215824, 689920, 192832, 36864, 0),
-    "2,2/internlm2-1.8b/decode_32k": (1024, 168960, 1792, 0, 0),
-    "2,2/olmoe-1b-7b/prefill_32k": (33792, 164352, 20480, 20480, 0),
-    "2,2/whisper-tiny/train_4k": (175472, 459712, 114496, 14336, 0),
+    "2,2/internlm2-1.8b/decode_32k": (1024, 168960, 1792, 1024, 0),
+    "2,2/olmoe-1b-7b/prefill_32k": (33792, 164352, 24576, 49152, 0),
+    "2,2/whisper-tiny/train_4k": (183792, 443328, 120640, 38912, 0),
     "1,4/internlm2-1.8b/train_4k": (67336, 737792, 151872, 28672, 0),
     "1,4/internlm2-1.8b/decode_32k": (8192, 235520, 3072, 1024, 0),
-    "1,4/olmoe-1b-7b/prefill_32k": (36864, 83712, 12480, 61440, 0),
+    "1,4/olmoe-1b-7b/prefill_32k": (36864, 149248, 12480, 94208, 0),
     "1,4/whisper-tiny/train_4k": (87752, 527040, 79680, 12288, 0),
+    "2,2,2/internlm2-1.8b/train_4k": (397336, 813952, 192832, 36864, 0),
+    "2,2,2/internlm2-1.8b/decode_32k": (1024, 168960, 1792, 1024, 0),
+    "2,2,2/jamba-1.5-large-398b/train_4k": (1246840, 2993792, 768320,
+                                           34816, 0),
 }, "2.11": {
     "2,2/internlm2-1.8b/train_4k": (273932, 394752, 90112, 0, 0),
     "2,2/internlm2-1.8b/decode_32k": (2048, 67584, 0, 0, 0),
@@ -99,6 +116,10 @@ MESH_COLL = {"2.13": {
     "1,4/internlm2-1.8b/decode_32k": (6144, 38912, 0, 0, 0),
     "1,4/olmoe-1b-7b/prefill_32k": (19200, 181248, 4096, 40960, 0),
     "1,4/whisper-tiny/train_4k": (173060, 413696, 30720, 0, 0),
+    "2,2,2/internlm2-1.8b/train_4k": (488212, 518784, 90112, 0, 0),
+    "2,2,2/internlm2-1.8b/decode_32k": (2048, 67584, 0, 0, 0),
+    "2,2,2/jamba-1.5-large-398b/train_4k": (1896468, 1991808, 244480,
+                                           118784, 0),
 }}
 #: (arch, shape, MLSTM_CHUNK) composed from runs at 4, 8, 12 and 16
 #: steps (8 to 20 chunked), and run whole at LOOP_T
@@ -110,7 +131,7 @@ LOOP_CELLS = (("xlstm-125m", "train_4k", None),
               ("jamba-1.5-large-398b", "prefill_32k", None))
 #: the port's side, in processes run side by side ("part:half" takes
 #: every other family or loop cell)
-PARTS = ("flops:0", "flops:1", "mesh", "loops:0", "loops:1")
+PARTS = ("flops:0", "flops:1", "mesh", "mesh3", "loops:0", "loops:1")
 
 PORT = textwrap.dedent("""
     import json, sys
@@ -131,8 +152,9 @@ PORT = textwrap.dedent("""
                           for n, (k, t, b) in job["shapes"].items()})
 
     def mesh(text):
+        sizes = tuple(int(x) for x in text.split(","))
         m = dryrun.fake_mesh(mesh_mod.MeshShape(
-            ("data", "model"), tuple(int(x) for x in text.split(","))))
+            ("pod", "data", "model")[-len(sizes):], sizes))
         dryrun.set_dispatch(m, False)
         return m
 
@@ -172,6 +194,14 @@ PORT = textwrap.dedent("""
                                     attn_impl="xla")
         out["block"] = {"coll": meter.coll, "B": B, "T": T,
                         "d": cfg.d_model, "ff": cfg.d_ff}
+    if part == "mesh3":
+        ts.SHAPES.clear()
+        ts.SHAPES.update({n: ts.ShapeSpec(n, k, t, b)
+                          for n, (k, t, b) in job["mesh3_shapes"].items()})
+        m = mesh(job["mesh3"])
+        for arch, shape in job["mesh3_cells"]:
+            c = dryrun.count_cell(configs.get_smoke(arch), shape, m)
+            out[f"{job['mesh3']}/{arch}/{shape}"] = c
     if part == "loops":
         scancost.BASE_T = job["loop_base"]
         shapes(job["loop_t"])
@@ -201,24 +231,28 @@ PORT = textwrap.dedent("""
 """)
 
 REF_COMPILE = textwrap.dedent("""
-    import json, sys
+    import json, math, sys
+    job = json.loads(sys.argv[1])
     import jax, numpy as np
-    assert len(jax.devices()) == 4, jax.devices()   # before the dry run's
-    from jax.sharding import Mesh                  # import forces 512
+    # before the dry run's import, which forces 512
+    assert len(jax.devices()) == job["devices"], jax.devices()
+    from jax.sharding import Mesh
     from repro.analysis import roofline, scancost
     from repro.configs import shapes as rs
     from repro.launch import dryrun
     from repro.models import build_model, moe
     from repro import configs
-    job = json.loads(sys.argv[1])
     rs.SHAPES.clear()
     rs.SHAPES.update({n: rs.ShapeSpec(n, k, t, b)
                       for n, (k, t, b) in job["shapes"].items()})
+    axes = tuple(job["axes"])
+    tokens = tuple(a for a in axes if a in ("pod", "data"))
     out = {}
     for text in job["meshes"]:
         shape = tuple(int(x) for x in text.split(","))
-        mesh = Mesh(np.array(jax.devices()).reshape(shape), ("data", "model"))
-        moe.set_ep_sharding("model", ("data",), num_groups=shape[0])
+        mesh = Mesh(np.array(jax.devices()).reshape(shape), axes)
+        moe.set_ep_sharding("model", tokens, num_groups=math.prod(
+            n for a, n in zip(axes, shape) if a in tokens))
         for arch, name in job["mesh_cells"]:
             cfg = configs.get_smoke(arch)
             cell = dryrun.build_cell(cfg, name, mesh)
@@ -236,7 +270,8 @@ REF_COMPILE = textwrap.dedent("""
                 cfg, name, mesh, model, ps,
                 moe_capacity=dryrun._moe_capacity(cfg, n))
             rep = roofline.analyze(
-                c, arch=arch, shape=name, mesh_name=text, chips=4,
+                c, arch=arch, shape=name, mesh_name=text,
+                chips=job["devices"],
                 model_flops_value=cell["model_flops"],
                 extra_flops=corr["flops"], extra_bytes=corr["bytes"])
             out[f"{text}/{arch}/{name}"] = {
@@ -250,7 +285,19 @@ REF_COMPILE = textwrap.dedent("""
 def _job():
     return {"shapes": SMOKE_SHAPES, "families": FAMILIES, "meshes": MESHES,
             "mesh_cells": MESH_CELLS, "loop_t": LOOP_T,
-            "loop_base": LOOP_BASE, "loop_cells": LOOP_CELLS}
+            "loop_base": LOOP_BASE, "loop_cells": LOOP_CELLS,
+            "mesh3": MESH3, "mesh3_shapes": MESH3_SHAPES,
+            "mesh3_cells": MESH3_CELLS}
+
+
+def _ref_jobs():
+    """The reference's compiles: the 2-D cells on 4 forced host devices,
+    the 3-D ones on 8."""
+    return [{"shapes": SMOKE_SHAPES, "meshes": MESHES,
+             "mesh_cells": MESH_CELLS, "devices": 4,
+             "axes": ("data", "model")},
+            {"shapes": MESH3_SHAPES, "meshes": (MESH3,),
+             "mesh_cells": MESH3_CELLS, "devices": 8, "axes": MESH3_AXES}]
 
 
 def _dot_flops(jaxpr, contracting_only=False) -> int:
@@ -332,16 +379,18 @@ def runs():
         [sys.executable, "-c", PORT, part, job], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for part in PARTS}
-    procs["ref"] = subprocess.Popen(
-        [sys.executable, "-c", REF_COMPILE, job],
-        env=dict(subprocess_env(4), OMP_NUM_THREADS="1"),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for i, ref in enumerate(_ref_jobs()):
+        procs[f"ref:{i}"] = subprocess.Popen(
+            [sys.executable, "-c", REF_COMPILE, json.dumps(ref)],
+            env=dict(subprocess_env(ref["devices"]), OMP_NUM_THREADS="1"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         out = {"dots": _reference_dot_flops()}
         for name, p in procs.items():
             so, se = p.communicate(timeout=TIMEOUT_S)
             assert p.returncode == 0, se[-4000:]
-            out.setdefault(name.split(":")[0], {}).update(
+            part = name.split(":")[0]
+            out.setdefault({"mesh3": "mesh"}.get(part, part), {}).update(
                 json.loads(so.strip().splitlines()[-1]))
     finally:
         for p in procs.values():
@@ -373,7 +422,9 @@ def test_one_by_one_matmul_flops_equal_reference_dots(runs, family, shape):
         assert 0.95 * contracting <= got < contracting
 
 
-MESH_KEYS = [f"{m}/{a}/{s}" for m in MESHES for a, s in MESH_CELLS]
+MESH3_KEYS = [f"{MESH3}/{a}/{s}" for a, s in MESH3_CELLS]
+MESH_KEYS = [f"{m}/{a}/{s}" for m in MESHES for a, s in MESH_CELLS] + (
+    MESH3_KEYS)
 
 
 @pytest.mark.parametrize("key", MESH_KEYS)
@@ -412,6 +463,16 @@ def test_collectives_by_kind_equal_this_torch_count(runs, key):
              "collective-permute")
     want = dict(zip(kinds, _pinned(MESH_COLL)[key]))
     assert runs["mesh"][key]["collectives"] == want
+
+
+@pytest.mark.parametrize("key", MESH3_KEYS)
+def test_no_activation_of_a_3d_cell_is_strided(runs, key):
+    """No DTensor op of the step reads an input placed ``_StridedShard``
+    (``dryrun.Meter.strided``): DTensor plans such a placement's
+    redistributions by a graph search, which held three multi-pod cells
+    past the sweep's budget.  The view rule of ``distributed.rules``
+    moves the split a flatten would make strided to a kept dim."""
+    assert runs["mesh"][key]["strided_ops"] == 0
 
 
 def test_sharded_cells_split_the_work(runs):

@@ -230,17 +230,24 @@ def test_bwd_route_refuses_what_no_backward_kernel_takes(which, rng):
 
 
 def test_bwd_wrapper_never_falls_back_off_the_card():
-    """Tensors on a device with no kernel (meta) are refused after the
-    route is chosen, nothing is counted, and nothing falls back to the
-    plain version."""
-    q = torch.empty(2, 64, 64, dtype=torch.bfloat16, device="meta")
-    k = torch.empty(1, 64, 64, dtype=torch.bfloat16, device="meta")
-    lse = torch.empty(2, 64, device="meta")
+    """The backward's op (``repro_torch::flash_bwd``) refuses tensors on
+    a device it has no kernel for (the CPU's, which only the wrapper
+    sends to the plain version) after the route is chosen, and counts
+    nothing; on ``meta`` tensors the wrapper returns the fake's shapes,
+    counts nothing and never runs the plain version."""
+    q = torch.empty(2, 64, 64, dtype=torch.bfloat16)
+    k = torch.empty(1, 64, 64, dtype=torch.bfloat16)
+    lse = torch.empty(2, 64)
     before = dict(t_attn.flash_attention_bwd.launches_by_route)
     n = t_attn.flash_attention_bwd.launches
     with pytest.raises(ValueError, match="no flash-attention kernel"):
-        t_attn.flash_attention_bwd(q, k, k, q, lse, q, n_q_heads=2,
-                                   n_kv_heads=1)
+        torch.ops.repro_torch.flash_bwd(q, k, k, q, lse, q, 2, 1, True, 0.125)
+    meta = [t.to("meta") for t in (q, k, lse)]
+    got = t_attn.flash_attention_bwd(meta[0], meta[1], meta[1], meta[0],
+                                     meta[2], meta[0], n_q_heads=2,
+                                     n_kv_heads=1)
+    assert [(g.device.type, g.shape, g.dtype) for g in got] == [
+        ("meta", t.shape, t.dtype) for t in (q, k, k)]
     assert t_attn.flash_attention_bwd.launches == n
     assert t_attn.flash_attention_bwd.launches_by_route == before
     assert set(before) == {"wgmma", "fma"}

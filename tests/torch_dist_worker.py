@@ -6,7 +6,8 @@ port), each part writing its results as JSON.
   python tests/torch_dist_worker.py PART OUT_DIR
 
 PART is one of:
-  sharded8  internlm2's smoke step over 8 ranks as a (4, 2) mesh, then
+  sharded8  internlm2's smoke step over 8 ranks as a (4, 2) mesh and
+            as the multi-pod layout (pod, data, model) = (2, 2, 2), then
             with the card's product rules given to the CPU's mm and bmm
             (internlm2 and olmoe);
   sharded2  every other arch's smoke step over a (1, 2) mesh (``xla``
@@ -173,6 +174,14 @@ def part_sharded8(rank, out):
     mesh = make_local_mesh(2, device="cpu")
     out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     out["internlm2-1.8b"] = _step_case("internlm2-1.8b", mesh, "xla")
+    # the multi-pod mesh's layout, (pod, data, model) = (2, 2, 2): the
+    # embedding lookup with the batch over pod and data
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh3 = init_device_mesh("cpu", (2, 2, 2),
+                             mesh_dim_names=("pod", "data", "model"))
+    out["internlm2-1.8b/pod_data_model"] = _step_case("internlm2-1.8b",
+                                                      mesh3, "xla")
     # the card's product rules (mm.dtype, bmm.dtype, which the CPU has no
     # kernel for) given to the CPU's mm and bmm, which matmul_f32 reaches
     from repro_torch.distributed import rules
