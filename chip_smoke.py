@@ -466,6 +466,10 @@ BWD_BF16_RTOL, BWD_BF16_ATOL_FRAC = 8e-3, 1e-3
 #: of 256 cut to 4 on one card), the launcher's optimizer settings
 TRAIN_ARCH = MODEL_ARCH
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 4096, 5
+#: phase T's peak memory before the vocab-parallel loss (NVIDIA H100
+#: 80GB HBM3, 700 W); plain logits still pick their labels by a gather
+#: (DTensor logits by the masked sum), so the peak should hold
+TRAIN_PEAK_GATHER_GB = 46.69
 #: phase T: the smoke step card against the CPU (float32) and the resume
 TRAIN_SMOKE_BATCH, TRAIN_SMOKE_LEN = 2, 128
 #: phase T: one step through the kernels against attn_impl="xla" at
@@ -528,6 +532,7 @@ for arch, name, mesh_kind in cells:
     rec = dryrun.run_cell(arch, name, mesh_kind, results_dir=results)
     rec.pop("traceback", None)
     rec["seconds"] = time.perf_counter() - t
+    rec["vocab"] = configs.get(arch).vocab
     out["cells"].append(rec)
 cfg = configs.get(job["arch"])
 mesh = dryrun.fake_mesh(mesh_mod.MeshShape(("data", "model"), (1, 1)))
@@ -3503,7 +3508,9 @@ def phase_dryrun(card: str) -> dict:
     meta tensors over a fake group of 256 or 512 ranks, built in a
     process of its own while nothing else runs, each with status,
     seconds, per-device GFLOPs, bytes, collective bytes, memory and
-    bound; then two card checks, each a step counted by
+    bound (a train cell whose largest temporaries have the whole vocab
+    as their last dim, where the model axis splits it, fails the phase);
+    then two card checks, each a step counted by
     ``FlopCounterMode`` on the card that must equal the dry run's 1 x 1
     count of it exactly (the same ops), its peak memory and seconds
     printed beside the dry run's prediction and roofline bound: phase
@@ -3542,10 +3549,20 @@ def phase_dryrun(card: str) -> dict:
               f"{c['seconds']:6.1f} s  "
               f"{rf['device_flops'] / 1e9:12.1f} GFLOP  "
               f"{rf['device_bytes'] / 1e9:10.1f} GB  coll "
-              f"{rf['coll_bytes'] / 1e9:8.2f} GB  mem "
+              f"{rf['coll_bytes'] / 1e6:12.1f} MB  mem "
               f"{ma['argument_size_in_bytes'] / 2**30:.2f}+"
               f"{ma['temp_size_in_bytes'] / 2**30:.2f} GiB  bound "
               f"{rf['bottleneck']} {max(rf['t_compute'], rf['t_memory'], rf['t_collective']):.4g} s")
+        # the vocab-parallel head and loss: no logits-like tensor (the
+        # whole vocab as its last dim) among the largest live at a train
+        # cell's peak, where the model axis of 16 splits the vocab
+        vocab = c["vocab"]
+        if c["shape"] == "train_4k" and vocab % 16 == 0 and any(
+                shape[-1] == vocab
+                for _, shape, _, _ in c["peak_temporaries"]):
+            bad.append(f"{c['arch']} train_4k {c['mesh']}: a tensor with "
+                       f"the whole vocab of {vocab} at the peak "
+                       f"({c['peak_temporaries']})")
     if bad:
         fail("dry-run cells failed: " + "; ".join(bad))
     checks = {}
@@ -3730,7 +3747,8 @@ def phase_train() -> dict:
           f"{launches} | steps 1-{TRAIN_STEPS - 1}: "
           f"{sum(x['s'] for x in warm) / len(warm):.3f} s a step, "
           f"{n_tok * len(warm) / sum(x['s'] for x in warm):,.0f} tokens/s | "
-          f"peak memory {peak_gb:.2f} GB (train state {base_gb:.2f} GB)")
+          f"peak memory {peak_gb:.2f} GB ({TRAIN_PEAK_GATHER_GB:.2f} GB "
+          f"before the vocab-parallel loss; train state {base_gb:.2f} GB)")
     stats.update(arch=cfg.arch_id, params=n_params, state_gb=state_gb,
                  batch=TRAIN_BATCH, seq_len=TRAIN_LEN, steps=steps,
                  launches=launches, peak_gb=peak_gb,

@@ -16,17 +16,25 @@ is always one of them, so each rule is exact whatever the placements.
 * ``cummax`` and its backward: the chunked mLSTM's running max, whole
   along the scanned dim (torch 2.11 has no rule); ``flip`` (a cumsum's
   backward there), whole along the flipped dims;
-* ``gather``: never split the gathered dim.  DTensor's own rule keeps a
-  gather along a sharded dim as a masked partial sum, which the loss's
-  ``[..., 0]`` after its label gather cannot index; whole rows instead;
-* ``index.Tensor`` (the embedding's ``table[tokens]``): the table
-  whole, the tokens whole or split on their own dims (:func:`_index`):
-  torch 2.11's own rule fails where the table is vocab-sharded over
-  ``model`` and the tokens over ``pod`` and ``data`` (the multi-pod
-  mesh), so the port's rule serves every version;
-* ``index_put`` (the backward of the embedding's ``table[tokens]``):
-  replicated, since DTensor's own rule fails there on some torch
-  versions;
+* ``gather``: never split the gathered dim (whole rows; DTensor's own
+  rule makes a gather along a sharded dim a masked partial sum).  The
+  loss picks its labels by a masked sum, not a gather;
+* ``mm.dtype`` of the LM head keeps its weight's split of the vocab
+  (:func:`_keep_column_split`): the logits leave the head split on V;
+* ``eq.Tensor``, ``div.Tensor`` (:func:`_broadcast_splits`): split on
+  any output dim where each input is split alike or broadcast -- the
+  loss's mask, ``ids == labels[..., None]``, with the labels split over
+  the data axes and the vocab ids over ``model``, is split on both;
+* ``log``, ``div.Tensor`` (:func:`_reduce_whole`): a partial input is
+  reduced whole (an all-reduce), never scattered -- the loss's log of
+  its vocab-split exp-sum and that log's backward;
+* ``index.Tensor``: the indexed tensor whole, the indices whole or
+  split on their own dims (:func:`_index`); ``index_put``: whole.
+  torch 2.11's own rules fail on the multi-pod mesh;
+* ``select.int`` of a dim one mesh dim splits (:func:`_select`, a
+  DTensor op handler): the rank that holds the index gives its slice,
+  the others zeros, a partial sum -- a stacked cache's layer, where
+  DTensor would gather the whole cache;
 * ``view`` and ``_unsafe_view`` (:func:`_gather_where_uneven`): an
   unflatten of a dim sharded more ways than its leading part has rows
   -- ``(B, T, H * hd)`` to ``(B, T, H, hd)`` when the model axis
@@ -46,6 +54,11 @@ is always one of them, so each rule is exact whatever the placements.
 Attention runs on local shards (:func:`local_attention`): the flash
 kernels take raw pointers, and the plain paths' grouping of q heads by
 KV head would gather q whole where the model axis splits the groups.
+A serving cache is written and attended where it lies
+(:func:`split_cache_attention`: flash-decoding over a split sequence),
+and a vocab-split embedding table looked up where it lies, forward and
+backward (DTensor op handlers for ``models.layers.embedding`` and its
+backward, :func:`_embedding`: Megatron's masked lookup).
 """
 from __future__ import annotations
 
@@ -74,6 +87,47 @@ def _mm(a, b, *rest, **kwargs):
             ([Partial()], [Shard(1), Shard(0), *x]),   # the contraction
             ([Partial()], [Partial(), R, *x]),
             ([Partial()], [R, Partial(), *x])]
+
+
+#: the vocab of the LM head whose params are split on V over a mesh dim,
+#: of the params tree ``sharding.param_specs`` placed last (one model's,
+#: :func:`set_vocab_split`): its product keeps the split
+VOCAB_SPLIT: frozenset = frozenset()
+
+
+def set_vocab_split(vocab) -> None:
+    """Make ``vocab`` :data:`VOCAB_SPLIT`; DTensor's cached choices,
+    made under another, are dropped."""
+    global VOCAB_SPLIT
+    if frozenset(vocab) != VOCAB_SPLIT:
+        VOCAB_SPLIT = frozenset(vocab)
+        DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding \
+            .cache_clear()
+
+
+def _keep_column_split(strict: Callable) -> Callable:
+    """The strategies of ``mm.dtype`` (``strict``) for the LM head's
+    product -- ``b`` (d, V) with V in :data:`VOCAB_SPLIT` -- that keep
+    ``b``'s column split on every mesh dim where it has one: the input
+    meets it (gathered, or reduced where it is a partial sum), and the
+    logits leave split on V (the vocab-parallel head).  DTensor's costs
+    count only the inputs' redistributions, so it would rather split the
+    contraction or gather the weight and leave the whole (B T, V) logits
+    on every rank.  Other products keep DTensor's choice."""
+    def strategy(op_schema):
+        out = strict(op_schema)
+        spec = op_schema.args_schema[1].strategies[0].output_spec
+        if spec.shape[1] not in VOCAB_SPLIT:
+            return out
+        cols = [i for i, p in enumerate(spec.placements) if p.is_shard(1)]
+        keep = [s for s in out.strategies
+                if all(s.input_specs[1].placements[i].is_shard(1)
+                       for i in cols)]
+        if cols and keep:
+            out.strategies = keep
+        return out
+
+    return strategy
 
 
 @register_sharding(aten.bmm.dtype)
@@ -153,17 +207,13 @@ def _cummaxmin_backward(grad, x, indices, dim):
 
 @register_sharding(aten.index.Tensor)
 def _index(x, indices):
-    """``x[indices]`` -- the embedding's ``table[tokens]``.  Exact on
-    every entry: ``x`` whole, the indices whole or split alike on one of
-    their broadcast dims (the output split there).  A vocab-sharded
-    table thus comes whole over ``model`` (one all-gather of V d a step)
-    and the output follows the tokens' split over ``pod`` and ``data``.
-    Left out: a split of ``x`` (a split of its columns would leave the
-    output split on d, whose partial products torch 2.11's DTensor then
-    adds a bias to by an unsupported Shard -> Partial redistribution),
-    and the masked partial sum of Megatron's vocab-parallel embedding,
-    which needs DTensor's private ``_MaskPartial``, whose mask lives in
-    a buffer the cached strategy shares between calls."""
+    """``x[indices]``.  Exact on every entry: ``x`` whole, the indices
+    whole or split alike on one of their broadcast dims (the output split
+    there).  A vocab-split embedding table does not come here but to
+    :func:`_embedding`.  Left out: a split of ``x``'s columns,
+    which would leave the output split on d, whose partial products
+    torch 2.11's DTensor then adds a bias to by an unsupported Shard ->
+    Partial redistribution."""
     idx = [(i, t) for i, t in enumerate(indices) if t is not None]
     dims = [i for i, _ in idx]
     nd = max(len(t.shape) for _, t in idx)
@@ -182,10 +232,6 @@ def _index(x, indices):
     return out
 
 
-# the rule above serves every version: a torch that keeps a single-dim
-# strategy for the op (2.13) would consult that before any registered rule
-getattr(DTensor._op_dispatcher.sharding_propagator,
-        "op_single_dim_strategy_funcs", {}).pop(aten.index.Tensor, None)
 
 
 @register_sharding([aten.index_put.default, aten.index_put_.default,
@@ -193,6 +239,64 @@ getattr(DTensor._op_dispatcher.sharding_propagator,
 def _index_put(x, indices, values, *rest, **kwargs):
     idx = [R for i in indices if i is not None]
     return [([R], [R, *idx, R, *_extra(rest)])]
+
+
+def _broadcast_splits(a, b) -> list:
+    """A binary elementwise op's entries: whole, or split on an output dim
+    where each input is split alike or broadcast there (a size-1 or
+    missing dim, replicated; a number, ``None``).  Per mesh dim, so inputs
+    split over different mesh dims keep both splits -- the loss's ``ids
+    == labels[..., None]``, the labels split over the data axes and the
+    vocab ids over ``model`` (torch 2.11's pointwise rule follows one
+    input on every mesh dim and would gather the other)."""
+    ts = [t if hasattr(t, "shape") else None for t in (a, b)]
+    nd = max(len(t.shape) for t in ts if t is not None)
+    out = [([R], [R if t is not None else None for t in ts])]
+    for d in range(nd):
+        pl = []
+        for t in ts:
+            k = None if t is None else d - nd + len(t.shape)
+            pl.append(None if t is None else
+                      Shard(k) if k >= 0 and t.shape[k] != 1 else R)
+        if any(p is not None and p != R for p in pl):
+            out.append(([Shard(d)], pl))
+    return out
+
+
+@register_sharding(aten.eq.Tensor)
+def _eq(a, b):
+    """``a == b`` (:func:`_broadcast_splits`)."""
+    return _broadcast_splits(a, b)
+
+
+@register_sharding(aten.div.Tensor)
+def _div(a, b):
+    """``a / b`` (:func:`_broadcast_splits`), and a partial ``a`` over a
+    replicated ``b``: partial.  A partial ``b`` is reduced whole
+    (:func:`_reduce_whole`): the log's backward divides by the loss's
+    exp-sum, a partial sum over the vocab split."""
+    out = _broadcast_splits(a, b)
+    if hasattr(b, "shape"):
+        out.append(([Partial()], [Partial(), R]))
+    else:
+        out.append(([Partial()], [Partial(), None]))
+    return out
+
+
+@register_sharding(aten.log.default)
+def _log(x):
+    """Elementwise; a partial input is reduced whole
+    (:func:`_reduce_whole`)."""
+    return [([R], [R])] + [([Shard(d)], [Shard(d)])
+                           for d in range(len(x.shape))]
+
+
+# the rules above serve every version: a torch that keeps a single-dim
+# strategy for an op (2.13) consults that before any registered rule
+for _op in (aten.index.Tensor, aten.eq.Tensor, aten.div.Tensor,
+            aten.log.default):
+    getattr(DTensor._op_dispatcher.sharding_propagator,
+            "op_single_dim_strategy_funcs", {}).pop(_op, None)
 
 
 def _out_shape(op_schema) -> list:
@@ -339,6 +443,111 @@ def _register_view_fallback() -> None:
 _register_view_fallback()
 
 
+def _register_column_split() -> None:
+    prop = DTensor._op_dispatcher.sharding_propagator
+    funcs = prop.op_strategy_funcs
+    funcs[aten.mm.dtype] = _keep_column_split(funcs[aten.mm.dtype])
+    prop.propagate_op_sharding.cache_clear()
+
+
+_register_column_split()
+
+
+def _reduce_whole(strict: Callable) -> Callable:
+    """The strategies of ``strict`` that keep a partial input partial or
+    reduce it to replicated (an all-reduce), never to a split (a
+    reduce-scatter), on every mesh dim where the input is partial.  The
+    loss's log of its vocab-split exp-sum, split over ``model`` by token,
+    would have its gradient meet the vocab-split logits with another
+    split, and DTensor would move the logits (an all-to-all of the whole
+    ``(B, T, V)``)."""
+    from torch.distributed.tensor._op_schema import OpStrategy
+
+    def strategy(op_schema):
+        out = strict(op_schema)
+        part = [(j, i) for j, a in enumerate(op_schema.args_schema)
+                if isinstance(a, OpStrategy)
+                for i, p in enumerate(a.strategies[0].output_spec.placements)
+                if p.is_partial()]
+        keep = [s for s in out.strategies
+                if not any(s.input_specs[j].placements[i].is_shard()
+                           for j, i in part)]
+        if part and keep:
+            out.strategies = keep
+        return out
+
+    return strategy
+
+
+def _register_reduce_whole() -> None:
+    prop = DTensor._op_dispatcher.sharding_propagator
+    funcs = prop.op_strategy_funcs
+    for op in (aten.log.default, aten.div.Tensor):
+        funcs[op] = _reduce_whole(funcs[op])
+    prop.propagate_op_sharding.cache_clear()
+
+
+_register_reduce_whole()
+
+
+def _select(op_call, args, kwargs):
+    """``aten.select.int`` of a DTensor without a gradient, along a dim
+    that one mesh dim splits -- a stacked cache's layer dim, which
+    ``sharding.cache_specs`` splits over ``model`` where the layers number
+    the KV heads (olmoe's 16), as the reference does: the rank that holds
+    the index gives its slice (a view, written in place), every other
+    rank zeros that take no memory (a zero-stride tensor), a partial sum.
+    DTensor's own rule would gather the whole tensor.  The cost: each
+    layer's attention runs on one rank while the others wait, serialized
+    across the ranks.  Any other select takes DTensor's rule."""
+    from torch.distributed.tensor._dtensor_spec import (DTensorSpec,
+                                                        TensorMeta)
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    x, dim, index = args[0], args[1] % args[0].ndim, args[2]
+    index += x.shape[dim] if index < 0 else 0
+    split = [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+    if (len(split) != 1 or x.requires_grad
+            or any(isinstance(p, _StridedShard) for p in x.placements)):
+        handlers = DTensor._op_dispatcher._custom_op_handlers
+        del handlers[op_call]
+        try:
+            return op_call(*args, **(kwargs or {}))
+        finally:
+            handlers[op_call] = _select
+    mesh, local = x.device_mesh, x._local_tensor
+    shape, offset = compute_local_shape_and_global_offset(
+        x.shape, mesh, x.placements)
+    at = index - offset[dim]
+    if 0 <= at < shape[dim] or local.is_meta:
+        # on meta tensors (the dry run) every rank takes a slice, so that
+        # rank 0 counts each layer's work: the ranks that hold the layers
+        # run them one after another, the others waiting on their sums,
+        # and the step's path is the sum of the layers'
+        out = local.select(dim, min(max(at, 0), shape[dim] - 1))
+    else:
+        out = local.new_zeros(()).expand(local.select(dim, 0).shape)
+    placements = tuple(
+        Partial() if i in split
+        else Shard(p.dim - 1) if p.is_shard() and p.dim > dim else p
+        for i, p in enumerate(x.placements))
+    keep = [d for d in range(x.ndim) if d != dim]
+    meta = TensorMeta(torch.Size(x.shape[d] for d in keep),
+                      tuple(x.stride()[d] for d in keep), x.dtype)
+    return DTensor(out, DTensorSpec(mesh, placements, tensor_meta=meta),
+                   requires_grad=False)
+
+
+DTensor._op_dispatcher._custom_op_handlers[aten.select.int] = _select
+
+
+def _holds(t) -> bool:
+    """False for the zero-stride zeros :func:`_select` gives a rank that
+    does not hold the selected slice."""
+    return t.numel() <= 1 or 0 not in t.stride()
+
+
 def _no_shard_to_partial(strict: Callable) -> Callable:
     """DTensor's rule for an elementwise op (``strict``) without its
     entries that ask a split input to become a partial sum, a
@@ -444,3 +653,207 @@ def local_attention(fn: Callable, q, k, v):
                      in_placements=(q_pl, kv_pl, kv_pl),
                      in_grad_placements=(q_pl, kv_grad, kv_grad),
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)[0]
+
+
+def _spec(mesh, placements, shape, dtype):
+    """A DTensor spec of a contiguous ``shape``."""
+    from torch.distributed.tensor._dtensor_spec import (DTensorSpec,
+                                                        TensorMeta)
+
+    stride, strides = 1, []
+    for n in reversed(shape):
+        strides.insert(0, stride)
+        stride *= n
+    return DTensorSpec(mesh, tuple(placements), tensor_meta=TensorMeta(
+        torch.Size(shape), tuple(strides), dtype))
+
+
+def _moved(t, placements):
+    """``t.redistribute(...).to_local()`` of a DTensor below autograd (an
+    op handler's: DTensor's autograd functions fail there on torch
+    2.11)."""
+    from torch.distributed.tensor._redistribute import (
+        redistribute_local_tensor)
+
+    return redistribute_local_tensor(
+        t._local_tensor, t._spec,
+        _spec(t.device_mesh, placements, t.shape, t.dtype))
+
+
+def _vocab_split(table, tokens):
+    """For a DTensor ``table`` (V, ...) split on V and ``tokens`` (a
+    tensor, or a DTensor on its mesh): the mesh dims that split V, the
+    tokens' placements with those dims whole (``t_pl``, their other
+    splits kept) and the rank's tokens so placed, the table's placements
+    for the lookup (``w_pl``: split on V, whole elsewhere -- an FSDP
+    split of d is gathered), and the rank's rows of V (``rows``, from
+    ``lo``); None where V is whole."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    if not vocab:
+        return None
+    if isinstance(tokens, DTensor):
+        t_pl = tuple(R if i in vocab else p
+                     for i, p in enumerate(tokens.placements))
+        tok = _moved(tokens, t_pl)
+    else:
+        t_pl, tok = (R,) * mesh.ndim, tokens
+    w_pl = tuple(Shard(0) if i in vocab else R for i in range(mesh.ndim))
+    rows, lo = compute_local_shape_and_global_offset(table.shape, mesh, w_pl)
+    return vocab, tok, t_pl, w_pl, rows[0], lo[0]
+
+
+def _embedding(op_call, args, kwargs):
+    """``models.layers.embedding`` -- ``table[tokens]`` -- of a DTensor
+    table split on V: Megatron's vocab-parallel lookup.  Each rank looks
+    up the rows it holds and gives zeros for the tokens it does not, and
+    one all-reduce of the (..., d) output sums them -- exact, one row
+    plus zeros.  The tokens keep their splits.  A table whole on V takes
+    ``index``'s rule (:func:`_index`)."""
+    from torch.distributed.tensor._redistribute import (
+        redistribute_local_tensor)
+
+    table, tokens = args
+    split = _vocab_split(table, tokens)
+    if split is None:
+        return table[tokens]
+    vocab, tok, t_pl, w_pl, rows, lo = split
+    mesh = table.device_mesh
+    w = _moved(table, w_pl)
+    local = tok - lo
+    ok = (local >= 0) & (local < rows)
+    out = torch.where(ok[..., None], w[local.clamp(0, rows - 1)], 0)
+    shape = (*tokens.shape, *table.shape[1:])
+    partial = _spec(mesh, [Partial() if i in vocab else p
+                           for i, p in enumerate(t_pl)], shape, out.dtype)
+    whole = _spec(mesh, t_pl, shape, out.dtype)
+    return DTensor(redistribute_local_tensor(out, partial, whole), whole,
+                   requires_grad=False)
+
+
+def _embedding_backward(op_call, args, kwargs):
+    """``models.layers.embedding_backward`` of a DTensor table split on V:
+    each rank sums the gradient of its own tokens into its own rows, with
+    no communication -- partial sums over the mesh dims that split the
+    tokens, the table's split of V elsewhere -- in the order the whole
+    table's backward sums them.  A table whole on V: autograd's
+    ``index`` backward under the rules above."""
+    grad, tokens, table = args
+    split = _vocab_split(table, tokens)
+    if split is None:
+        return grad.new_zeros(table.shape).index_put(
+            (tokens,), grad, accumulate=True)
+    vocab, tok, t_pl, w_pl, rows, lo = split
+    g = _moved(grad, t_pl)
+    local = tok - lo
+    ok = (local >= 0) & (local < rows)
+    out = g.new_zeros((rows, *table.shape[1:])).index_put_(
+        (local.clamp(0, rows - 1),), torch.where(ok[..., None], g, 0),
+        accumulate=True)
+    return DTensor(out, _spec(
+        table.device_mesh, [Partial() if p.is_shard() else q
+                            for p, q in zip(t_pl, w_pl)],
+        table.shape, out.dtype), requires_grad=False)
+
+
+def _register_embedding() -> None:
+    from ..models import layers  # noqa: F401  (defines the two ops)
+
+    handlers = DTensor._op_dispatcher._custom_op_handlers
+    handlers[torch.ops.repro_torch.embedding.default] = _embedding
+    handlers[torch.ops.repro_torch.embedding_backward.default] = (
+        _embedding_backward)
+
+
+_register_embedding()
+
+
+def split_cache_attention(fn: Callable, q, k, v, cache, cache_index, *,
+                          causal: bool):
+    """``fn(q, k, v, cache_k, cache_v, cache_index, causal=...)`` -- the
+    cache write and the attention over it
+    (``kernels.attention.ops._cache_attention``) -- on each rank's own split of
+    a DTensor cache (B, Tk, Hkv, hd), placed by ``sharding.cache_shardings``:
+    the batch over the data axes, then the KV heads over ``model``, else
+    the sequence.  Over a split of the batch or the heads, q, k and v come
+    split alike and each rank writes and attends its own rows and heads.
+    Over a split of the sequence they come whole; each rank writes the
+    new rows that fall in its slots and scores its own keys, and the
+    softmax's max and sum and the output are reduced over the split
+    (flash-decoding's combine: all-reduces of (B, Hq, T, ...), never the
+    cache).  Over a split of the head dim, q, k and v come split alike
+    and the partial scores are summed.  A layer of a cache split by layer
+    is written and attended on the rank that holds it, a partial sum of
+    the others' zeros.  No cache leaf is gathered.  Serving only (no
+    autograd)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    ck, cv = cache["k"], cache["v"]
+    mesh = ck.device_mesh
+    Hq = q.shape[2]
+    qkv_pl, out_pl, seq, feat = [], [], [], []
+    for i, p in enumerate(ck.placements):
+        if p.is_shard(3):
+            # the head dim (the reference's rule splits the longest axis,
+            # which at short lengths may be it): partial scores
+            qkv_pl.append(Shard(3))
+            out_pl.append(Shard(3))
+            feat.append(i)
+        elif p.is_partial():
+            # a layer of a cache split by layer (:func:`_select`): the rank
+            # that holds it writes and attends, the others give zeros
+            qkv_pl.append(R)
+            out_pl.append(Partial())
+        elif p.is_shard(0):
+            qkv_pl.append(Shard(0))
+            out_pl.append(Shard(0))
+        elif p.is_shard(2) and Hq % mesh.size(i) == 0:
+            qkv_pl.append(Shard(2))
+            out_pl.append(Shard(1))
+        elif p.is_shard(1) or p.is_replicate():
+            seq += [i] if p.is_shard(1) else []
+            qkv_pl.append(R)
+            out_pl.append(R)
+        else:
+            raise NotImplementedError(
+                f"a cache placed {tuple(ck.placements)}")
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [R] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, qkv_pl).to_local()
+
+    shape, offset = compute_local_shape_and_global_offset(
+        ck.shape, mesh, ck.placements)
+    idx = cache_index
+    if isinstance(idx, torch.Tensor) and idx.dim() == 1:
+        # per-slot positions: this rank's rows of the batch
+        if isinstance(idx, DTensor):
+            idx = idx.full_tensor()
+        idx = idx[offset[0]:offset[0] + shape[0]]
+
+    def over(dims):
+        def reduce(t, op="sum"):
+            for i in dims:
+                t = funcol.all_reduce(t, op, (mesh, i))
+            return funcol.wait_tensor(t)
+
+        return reduce if dims else None
+
+    B, T, _, hd = q.shape
+    ql, kl, vl = local(q), local(k), local(v)
+    ckl, cvl = ck.to_local(), cv.to_local()
+    if _holds(ckl):
+        o = fn(ql, kl, vl, ckl, cvl, idx, causal=causal, lo=offset[1],
+               Tk=ck.shape[1], reduce=over(seq), hd=q.shape[3],
+               reduce_scores=over(feat))
+    else:
+        o = ql.new_zeros((ql.shape[0], ql.shape[2], T, ql.shape[3]))
+    return DTensor.from_local(o, mesh, out_pl, run_check=False,
+                              shape=torch.Size((B, Hq, T, hd)),
+                              stride=(Hq * T * hd, T * hd, hd, 1))

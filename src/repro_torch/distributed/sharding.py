@@ -3,8 +3,9 @@
 
 Megatron-style TP over the ``model`` axis, DP over ``pod``+``data``:
 
-  * embeddings & LM head: vocab-sharded (the loss's label gather takes
-    whole vocab rows, :mod:`.rules`);
+  * embeddings & LM head: vocab-sharded (the head's logits stay split
+    on V and the loss picks its labels by a masked sum; the lookup is
+    Megatron's, :mod:`.rules`);
   * attention: head-sharded QKV (column) / output row-sharded;
   * MLP: column-parallel up/gate, row-parallel down;
   * MoE: expert-parallel (experts over ``model``);
@@ -40,7 +41,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from ..launch.mesh import Mesh, axis_names, axis_sizes, data_axes
 from ..memory.channels import H100_SXM
 from ..tree import named_leaves, tree_leaves, tree_unflatten
-from . import rules  # noqa: F401  (registers DTensor's rules)
+from . import rules  # registers DTensor's rules
 
 #: (path regex, spec for trailing dims)
 PARAM_RULES: List[Tuple[str, Tuple]] = [
@@ -82,6 +83,9 @@ PARAM_RULES: List[Tuple[str, Tuple]] = [
     # norms and anything else scalar-ish: replicated (fallback below)
 ]
 
+
+#: the params split on the vocab: the embedding table and the LM head
+VOCAB_PARAMS = r"(^|/)(embed/tok|head/w)$"
 
 #: when True, params replicate and the batch shards over EVERY mesh axis
 #: -- the right mapping for models too small to amortize TP collectives
@@ -155,12 +159,23 @@ def _divisible(shape, spec: Spec, mesh: Mesh) -> Spec:
 
 
 def param_specs(params: Any, mesh: Mesh) -> Any:
-    """A spec for every leaf of a params tree (tensors or (shape, dtype))."""
+    """A spec for every leaf of a params tree (tensors or (shape, dtype)).
+    The vocab the tree's embedding or head splits becomes
+    ``rules.VOCAB_SPLIT``, replacing the last tree's (its head's product
+    keeps the split)."""
+    vocab = set()
+
     def one(path, leaf):
         shape = _shape(leaf)
-        return _divisible(shape, spec_for_param(path, len(shape), mesh), mesh)
+        spec = _divisible(shape, spec_for_param(path, len(shape), mesh), mesh)
+        dim = {"tok": 0, "w": 1}.get(path.rsplit("/", 1)[-1])
+        if re.search(VOCAB_PARAMS, path) and spec[dim - len(shape)]:
+            vocab.add(shape[dim - len(shape)])
+        return spec
 
-    return _map(one, params)
+    out = _map(one, params)
+    rules.set_vocab_split(vocab)
+    return out
 
 
 def _dp(mesh: Mesh) -> tuple:

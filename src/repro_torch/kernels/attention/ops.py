@@ -28,6 +28,12 @@ shards (:func:`repro_torch.distributed.rules.local_attention`): a
 DTensor never reaches the kernels' wrapper, and each rank's q heads meet
 their KV heads where the model axis splits a group of q heads.
 
+The serving path -- prefill and decode over a KV cache, and the
+encoder-decoder's cross attention -- takes plain masked attention, as
+the reference does (:func:`cache_attention`, :func:`masked_attention`).
+A cache of DTensors is written and attended where it lies
+(:func:`repro_torch.distributed.rules.split_cache_attention`).
+
 ``"pallas"`` and ``"interpret"`` agree with the reference's kernel on
 every row, those that see no key (causal, ``Tq > Tk``) included: such a
 row is the mean of the V rows below its key limit, which is set by
@@ -37,6 +43,7 @@ that limit is 0; see ``ref.py``).
 from __future__ import annotations
 
 import functools
+import math
 from typing import Literal, Optional
 
 import torch
@@ -110,3 +117,116 @@ def multi_head_attention(
         block_q=block_q, block_k=block_k,
     )
     return out.reshape(B, Hq, Tq, d)
+
+
+def _is_per_slot(cache_index) -> bool:
+    return isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1
+
+
+def cache_attention(q, k, v, cache, cache_index, *, causal: bool = True):
+    """Write ``k``, ``v`` (B, T, Hkv, hd) into ``cache`` (``{"k", "v"}``,
+    each (B, Tk, Hkv, hd), written in place) at ``cache_index`` -- an int
+    (a slice, its start clamped so the T rows fit:
+    ``dynamic_update_slice``) or a (B,) tensor (continuous batching: each
+    sequence at its own position, T == 1) -- and attend ``q`` (B, T, Hq,
+    hd) over the written slots: (B, Hq, T, hd)."""
+    if isinstance(cache["k"], DTensor):
+        # a cache split over a mesh: written and read where it lies
+        from ...distributed.rules import split_cache_attention
+
+        return split_cache_attention(_cache_attention, q, k, v, cache,
+                                     cache_index, causal=causal)
+    return _cache_attention(q, k, v, cache["k"], cache["v"], cache_index,
+                            causal=causal)
+
+
+def _cache_attention(q, k, v, ck, cv, cache_index, *, causal: bool,
+                     lo: int = 0, Tk: Optional[int] = None, reduce=None,
+                     hd: Optional[int] = None, reduce_scores=None):
+    """:func:`cache_attention` on plain tensors.  ``ck`` and ``cv`` may
+    hold the rows ``lo`` .. ``lo + ck.shape[1]`` of a ``Tk``-row cache, a
+    rank's split of it: only the rows there are written, keys are masked
+    by their global positions, and ``reduce(t, op)`` sums (``op``
+    ``"sum"``) or takes the max (``"max"``) over the ranks for the
+    softmax (:func:`masked_attention`).  Split on the head dim (``hd``
+    whole, the local head dim a part of it), the scores are partial sums
+    that ``reduce_scores`` sums over the ranks."""
+    B, T = q.shape[:2]
+    Tl = ck.shape[1]
+    Tk = Tl if Tk is None else Tk
+    idx = cache_index if cache_index is not None else 0
+    per_slot = _is_per_slot(cache_index)
+    if per_slot:
+        bidx = torch.arange(B, device=q.device)
+        if Tl == Tk:
+            ck[bidx, idx] = k[:, 0].to(ck.dtype)
+            cv[bidx, idx] = v[:, 0].to(cv.dtype)
+        else:
+            # each sequence's row where it lies; elsewhere the slot it
+            # would clamp to keeps its value
+            at = (idx - lo).clamp(0, Tl - 1)
+            here = ((idx >= lo) & (idx < lo + Tl))[:, None, None]
+            ck[bidx, at] = torch.where(here, k[:, 0].to(ck.dtype),
+                                       ck[bidx, at])
+            cv[bidx, at] = torch.where(here, v[:, 0].to(cv.dtype),
+                                       cv[bidx, at])
+    else:
+        start = min(max(int(idx), 0), Tk - T)
+        a, b = max(start, lo), min(start + T, lo + Tl)
+        if a < b:
+            ck[:, a - lo:b - lo] = k[:, a - start:b - start].to(ck.dtype)
+            cv[:, a - lo:b - lo] = v[:, a - start:b - start].to(cv.dtype)
+    kpos = lo + torch.arange(Tl, device=q.device)
+    # mask out unwritten cache slots
+    if per_slot:
+        valid = kpos[None, :] <= idx[:, None]                # (B, Tk)
+    else:
+        valid = kpos[None, :] <= (idx + T - 1)               # (1, Tk)
+    # for per-slot decode the mask subsumes causality
+    return masked_attention(q.transpose(1, 2), ck.transpose(1, 2),
+                            cv.transpose(1, 2),
+                            causal=causal and not per_slot, valid=valid,
+                            cache_index=cache_index, kpos=kpos,
+                            reduce=reduce, hd=hd,
+                            reduce_scores=reduce_scores)
+
+
+def masked_attention(q, k, v, *, causal: bool, valid, cache_index,
+                     kpos=None, reduce=None, hd=None, reduce_scores=None):
+    """(B, Hq, T, d) x (B, Hkv, Tk, d) GQA attention with an explicit
+    validity/causal mask (the cache and cross paths): scores and softmax
+    in float32, ``p`` cast to ``v.dtype`` for the PV product (accumulated
+    in float32).  ``kpos``: the keys' positions (``arange(Tk)``).  With
+    ``reduce``, the keys are one rank's split of them: the softmax's max
+    and sum and the output are reduced over the ranks (flash-decoding's
+    combine).  ``hd``: the whole head dim where q and k hold a split of
+    it, whose partial scores ``reduce_scores`` sums."""
+    B, Hq, T, d = q.shape
+    _, Hkv, Tk, _ = k.shape
+    group = Hq // Hkv
+    qg = q.float().reshape(B, Hkv, group * T, d)
+    s = torch.matmul(qg, k.float().transpose(-1, -2))
+    if reduce_scores is not None:
+        s = reduce_scores(s)
+    s = s.reshape(B, Hkv, group, T, Tk) / math.sqrt(hd or d)
+    mask = None
+    if causal:
+        start = cache_index if cache_index is not None else 0
+        qpos = start + torch.arange(T, device=q.device)
+        if kpos is None:
+            kpos = torch.arange(Tk, device=q.device)
+        mask = qpos[:, None] >= kpos[None, :]
+    if valid is not None:
+        vmask = valid[:, None, :].expand(B, T, Tk)
+        mask = vmask if mask is None else (mask[None] & vmask)
+    if mask is not None:
+        mask = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
+        s = torch.where(mask, s, NEG_INF)
+    if reduce is None:
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        o = matmul_f32(p.reshape(B, Hkv, group * T, Tk), v)
+    else:
+        e = torch.exp(s - reduce(s.amax(dim=-1, keepdim=True), "max"))
+        p = (e / reduce(e.sum(dim=-1, keepdim=True), "sum")).to(v.dtype)
+        o = reduce(matmul_f32(p.reshape(B, Hkv, group * T, Tk), v), "sum")
+    return o.reshape(B, Hq, T, d).to(q.dtype)

@@ -24,7 +24,6 @@ import torch.nn.functional as F
 
 from ..core.precision import matmul_f32
 from ..kernels.attention import ops as attn_ops
-from ..kernels.attention.ref import NEG_INF
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -140,10 +139,6 @@ def attention_init(gen, cfg: ModelConfig, dtype, *, lead: Tuple[int, ...] = (),
     return p
 
 
-def _is_per_slot(cache_index) -> bool:
-    return isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1
-
-
 def attention_apply(
     p: Params,
     x: torch.Tensor,                  # (B, T, d)
@@ -163,7 +158,9 @@ def attention_apply(
     (the flash kernel on the card) at ``block_q``/``block_k`` (the
     reference's 512; only the encoder passes others, see
     :func:`~.transformer.encode`); with a cache or ``kv`` -- prefill,
-    decode, cross-attention -- through :func:`_masked_attention`, as in
+    decode, cross-attention -- through the plain masked attention of
+    :func:`~repro_torch.kernels.attention.ops.cache_attention` and
+    :func:`~repro_torch.kernels.attention.ops.masked_attention`, as in
     the reference."""
     B, T, d = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
@@ -188,80 +185,25 @@ def attention_apply(
         k = rope(k.transpose(1, 2), positions[:, None], cfg.rope_theta).transpose(1, 2)
 
     new_cache = None
-    per_slot = _is_per_slot(cache_index)
     if cache is not None:
         # write the new K/V at cache_index (decode: T == 1; prefill: T == n)
-        ck, cv = cache["k"], cache["v"]
-        idx = cache_index if cache_index is not None else 0
-        if per_slot:
-            # continuous batching: every sequence decodes at its own
-            # position (T must be 1)
-            bidx = torch.arange(B, device=x.device)
-            ck[bidx, idx] = k[:, 0].to(ck.dtype)
-            cv[bidx, idx] = v[:, 0].to(cv.dtype)
-        else:
-            # dynamic_update_slice semantics: the start is clamped so the
-            # T new rows fit
-            start = min(max(int(idx), 0), ck.shape[1] - T)
-            ck[:, start:start + T] = k.to(ck.dtype)
-            cv[:, start:start + T] = v.to(cv.dtype)
-        new_cache = {"k": ck, "v": cv}
-        k, v = ck, cv
-        Tk = k.shape[1]
-        kpos = torch.arange(Tk, device=x.device)
-        # mask out unwritten cache slots
-        if per_slot:
-            valid = kpos[None, :] <= idx[:, None]                # (B, Tk)
-        else:
-            valid = kpos[None, :] <= (idx + T - 1)               # (1, Tk)
-    else:
-        valid = None
-
-    qh = q.transpose(1, 2)  # (B, Hq, T, hd)
-    kh = k.transpose(1, 2)  # (B, Hkv, Tk, hd)
-    vh = v.transpose(1, 2)
-
-    if cache is not None or kv is not None:
-        # decode / cross path: plain attention with a validity mask; for
-        # per-slot decode the mask subsumes causality
-        o = _masked_attention(qh, kh, vh,
-                              causal=causal and kv is None and not per_slot,
-                              valid=valid, cache_index=cache_index)
+        # and attend over the written slots
+        o = attn_ops.cache_attention(q, k, v, cache, cache_index,
+                                     causal=causal and kv is None)
+        new_cache = {"k": cache["k"], "v": cache["v"]}
+    elif kv is not None:
+        # cross path: plain attention over the whole source
+        o = attn_ops.masked_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=False, valid=None, cache_index=None)
     else:
         o = attn_ops.multi_head_attention(
-            qh, kh, vh, causal=causal, impl=attn_impl, block_q=block_q,
-            block_k=block_k,
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, impl=attn_impl, block_q=block_q, block_k=block_k,
         )
     o = o.transpose(1, 2).reshape(B, T, Hq * hd)
     out = dense_apply(p["wo"], o, cd)
     return out, new_cache
-
-
-def _masked_attention(q, k, v, *, causal: bool, valid, cache_index):
-    """GQA attention with an explicit validity/causal mask (cache path):
-    scores and softmax in float32, ``p`` cast to ``v.dtype`` for the PV
-    product (accumulated in float32)."""
-    B, Hq, T, hd = q.shape
-    _, Hkv, Tk, _ = k.shape
-    group = Hq // Hkv
-    qg = q.float().reshape(B, Hkv, group * T, hd)
-    s = torch.matmul(qg, k.float().transpose(-1, -2))
-    s = s.reshape(B, Hkv, group, T, Tk) / math.sqrt(hd)
-    mask = None
-    if causal:
-        start = cache_index if cache_index is not None else 0
-        qpos = start + torch.arange(T, device=q.device)
-        kpos = torch.arange(Tk, device=q.device)
-        mask = qpos[:, None] >= kpos[None, :]
-    if valid is not None:
-        vmask = valid[:, None, :].expand(B, T, Tk)
-        mask = vmask if mask is None else (mask[None] & vmask)
-    if mask is not None:
-        mask = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
-        s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    o = matmul_f32(p.reshape(B, Hkv, group * T, Tk), v)
-    return o.reshape(B, Hq, T, hd).to(q.dtype)
 
 
 # -- MLP -----------------------------------------------------------------------
@@ -303,8 +245,50 @@ def embed_init(gen, cfg: ModelConfig, dtype, *, device=None) -> Params:
     return {"tok": _normal(gen, (cfg.vocab, cfg.d_model), dtype, 1.0, device)}
 
 
+@torch.library.custom_op("repro_torch::embedding", mutates_args=())
+def embedding(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` as an op of its own, whose gradient sums into the
+    rows as autograd's ``index`` does: the distribution layer gives it a
+    rule (a vocab-split table looked up where it lies,
+    :mod:`repro_torch.distributed.rules`) that ``index`` cannot take,
+    since a rule runs below autograd."""
+    return table[tokens]
+
+
+@embedding.register_fake
+def _(table, tokens):
+    return table.new_empty((*tokens.shape, *table.shape[1:]))
+
+
+@torch.library.custom_op("repro_torch::embedding_backward", mutates_args=())
+def embedding_backward(grad: torch.Tensor, tokens: torch.Tensor,
+                       table: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`embedding` with respect to ``table`` (read
+    for its shape only): autograd's ``index`` backward."""
+    return grad.new_zeros(table.shape).index_put_((tokens,), grad,
+                                                  accumulate=True)
+
+
+@embedding_backward.register_fake
+def _(grad, tokens, table):
+    return grad.new_empty(table.shape)
+
+
+def _embedding_context(ctx, inputs, output):
+    table, tokens = inputs
+    ctx.save_for_backward(tokens, table)
+
+
+def _embedding_grad(ctx, grad):
+    tokens, table = ctx.saved_tensors
+    return embedding_backward(grad, tokens, table), None
+
+
+embedding.register_autograd(_embedding_grad, setup_context=_embedding_context)
+
+
 def embed_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["tok"][tokens].to(torch_dtype(cfg.compute_dtype))
+    return embedding(p["tok"], tokens).to(torch_dtype(cfg.compute_dtype))
 
 
 def unembed_apply(p_embed: Params, p_head: Optional[Params], x: torch.Tensor,

@@ -23,6 +23,7 @@ holds its own: |loss single - loss sharded| < 1e-3, ``pp_err`` < 1e-5,
 * the compressed mean bitwise the reference's ``compressed_psum`` on the
   same array over 4 forced host devices.
 """
+import dataclasses
 import json
 import os
 import pickle
@@ -48,13 +49,15 @@ TIMEOUT_S = 300
 LOSS_ATOL, GRAD_FRAC, PARAM_REL_L2 = 1e-3, 1e-4, 1e-5
 
 
-PARTS = ("sharded8", "sharded2", "sharded4", "collect4", "single1")
+PARTS = ("sharded8", "sharded2", "sharded4", "decode2", "collect4",
+         "single1")
 
 
 def _write_references(out_dir):
     """For every arch at smoke, the reference's initial state (seed 0,
     ``attn_impl="xla"``) and its loss and gradients on the worker's batch
-    (``jax.value_and_grad``), pickled as numpy for the worker."""
+    (``jax.value_and_grad``); for each of decode2's caches, the
+    reference's serving calls; pickled as numpy for the worker."""
     from repro import configs as r_configs
     from repro.models import build_model as r_build_model
     from repro.runtime import train as r_train
@@ -66,11 +69,31 @@ def _write_references(out_dir):
                  worker._batch(configs.get_smoke(arch)).items()}
         loss, grads = jax.value_and_grad(r_train.make_loss_fn(r_model))(
             state["params"], batch)
-        path = os.path.join(out_dir, f"ref_{arch}.pkl")
-        with open(path + ".tmp", "wb") as f:
-            pickle.dump({"state": jax.device_get(state), "loss": float(loss),
-                         "grads": jax.device_get(grads)}, f)
-        os.replace(path + ".tmp", path)   # whole when a worker sees it
+        _pickle(out_dir, arch, {"state": jax.device_get(state),
+                                "loss": float(loss),
+                                "grads": jax.device_get(grads)})
+    # decode2: the reference's params (seed 0) and its serving calls'
+    # logits and last cache, for each cache of the part
+    for name, (n_layers, n_kv_heads, L, _) in worker.DECODE2.items():
+        cfg = dataclasses.replace(r_configs.get_smoke("internlm2-1.8b"),
+                                  n_layers=n_layers, n_kv_heads=n_kv_heads)
+        r_model = r_build_model(cfg, attn_impl="xla")
+        params = r_model.init(jax.random.PRNGKey(0))
+        tokens, at = worker.decode_inputs(cfg.vocab, L)
+        logits, cache = worker.decode_calls(
+            r_model, params, r_model.init_cache(worker.DECODE_B, L), tokens,
+            at, tensor=jnp.asarray, scalar=jnp.int32)
+        _pickle(out_dir, f"decode_{name}", {
+            "params": jax.tree_util.tree_map(np.asarray, params),
+            "logits": [np.asarray(x) for x in logits],
+            "cache": {k: np.asarray(v) for k, v in cache.items()}})
+
+
+def _pickle(out_dir, name, obj):
+    path = os.path.join(out_dir, f"ref_{name}.pkl")
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(obj, f)
+    os.replace(path + ".tmp", path)   # whole when a worker sees it
 
 
 @pytest.fixture(scope="module")
@@ -210,8 +233,8 @@ def test_sharded_step_4x2_matches_single(worlds):
 
 def test_sharded_step_2x2x2_pod_data_model_matches_single(worlds):
     """The multi-pod mesh's layout: the batch over pod and data, the
-    vocab-sharded embedding table met by the port's ``index.Tensor``
-    rule (whole over ``model``), no flatten left strided."""
+    vocab-sharded embedding table looked up where it lies
+    (``rules._embedding``), no flatten left strided."""
     step = worlds["sharded8"]["internlm2-1.8b/pod_data_model"]
     _check_step(step)
     assert step["placements"]["embed.tok"] == ["R", "R", "S0"]
@@ -238,6 +261,39 @@ def test_sharded_step_through_flash_path_matches_single(worlds, arch):
     """``attn_impl="pallas"``: attention on each rank's local heads (the
     kernels' plain versions on the CPU)."""
     _check_step(worlds["sharded2"][f"{arch}/pallas"])
+
+
+@pytest.mark.parametrize("split", list(worker.DECODE2))
+def test_decode_on_a_split_cache_matches_unsharded(worlds, split):
+    """Prefill and four decode steps (two at one position, two at a
+    position a sequence, on both ranks' slots) from the reference's
+    params, with the cache split over ``model`` by layer (the reference's
+    rule takes the layer axis where the layers number the KV heads), by
+    KV head, by sequence (flash-decoding's combine) and by head dim (its
+    longest axis at 16 slots; partial scores).  The logits and the
+    written cache, as max |difference| over max |value|, within 1e-5
+    (float32 summed in another order): sharded against unsharded, and
+    both against the reference's same calls (``prefill``,
+    ``decode_step``)."""
+    r = worlds["decode2"]
+    assert r["mesh"] == {"data": 1, "model": 2}
+    case = r[split]
+    assert case["placements"][1] == f"S{case['split_dim']}"
+    for against in ("sharded", "ref_single", "ref_sharded"):
+        err = case[against]
+        assert len(err["logits"]) == 5
+        assert max(err["logits"]) < 1e-5, (against, err)
+        assert err["cache"] < 1e-5, (against, err)
+
+
+def test_vocab_parallel_lookup_equals_whole_table(worlds):
+    """Megatron's lookup of a vocab-split table (each rank its rows,
+    zeros for the rest, one all-reduce) and its gradient (each rank's
+    rows, no communication) bit for bit the whole table's."""
+    r = worlds["decode2"]["lookup"]
+    assert r["rows_equal"] and r["grad_equal"]
+    assert r["out_placements"] == ["R", "R"]
+    assert r["grad_placements"] == ["R", "S0"]
 
 
 def test_one_rank_mesh_step_is_bitwise_unsharded(worlds):

@@ -197,6 +197,16 @@ def test_param_specs_match_reference(arch, mesh):
     assert got == want
 
 
+def test_vocab_split_is_the_last_params_trees():
+    """``param_specs`` makes ``rules.VOCAB_SPLIT`` the vocab that its tree's
+    embedding or head splits, replacing the last tree's: a process that
+    places several models (the dry run's sweep) keeps the head's column
+    split for the model it places only."""
+    for arch in ("internlm2-1.8b", "qwen2-7b", "internlm2-1.8b"):
+        sharding.param_specs(_port_params(arch), _port_mesh("16x16"))
+        assert rules.VOCAB_SPLIT == {configs.get(arch).vocab}
+
+
 @pytest.mark.parametrize("arch,mesh", CASES)
 def test_extend_with_dp_and_fit_match_reference(arch, mesh):
     jp, tp = _jax_params(arch), _port_params(arch)

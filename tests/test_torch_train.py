@@ -115,6 +115,64 @@ def test_adamw_update_matches_reference(rng):
                                        rtol=1e-6, atol=1e-7, err_msg=name)
 
 
+def _gather_cross_entropy(logits, labels, ignore_id=-1):
+    """The loss as it picked its labels by a gather alone, before the
+    masked sum (the bits the masked sum must keep)."""
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+    safe = torch.where(labels == ignore_id, 0, labels).long()
+    picked = lf.gather(-1, safe[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return -((picked - lse) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_masked_sum_cross_entropy_keeps_the_gathers_bits(rng, dtype):
+    """The label pick as a masked sum (``losses.masked_pick``: ``iota ==
+    label``, the reference's vocab-parallel form, which DTensor logits
+    take) against the gather that plain logits take: the picks and their
+    gradients bit for bit, ``ignore_id`` labels among them weighted 0
+    (one logit plus zeros; a gradient of one weight plus zeros).  The
+    loss (``cross_entropy``) bit for bit the gather loss, and within
+    float32 rounding of the reference's ``cross_entropy`` on the same
+    numpy inputs (its gradient in float32; a bfloat16 one rounded)."""
+    from repro.runtime import losses as r_losses
+    from repro_torch.runtime import losses
+
+    x = (4 * rng.normal(size=(3, 17, 301))).astype(np.float32)
+    labels = rng.integers(0, 301, size=(3, 17)).astype(np.int32)
+    labels[0, :5] = -1
+    logits = torch.from_numpy(x).to(getattr(torch, dtype))
+    tl = torch.from_numpy(labels)
+    weight = torch.from_numpy(rng.normal(size=(3, 17)).astype(np.float32))
+    weight = torch.where(tl == -1, 0.0, weight)
+    a = logits.clone().requires_grad_(True)
+    b = logits.clone().requires_grad_(True)
+    safe = torch.where(tl == -1, 0, tl).long()
+    pa = a.float().gather(-1, safe[..., None])[..., 0] * weight
+    pb = losses.masked_pick(b.float(), tl, torch.arange(301)) * weight
+    (ga,) = torch.autograd.grad(pa.sum(), a)
+    (gb,) = torch.autograd.grad(pb.sum(), b)
+    assert torch.equal(pb, pa) and torch.equal(gb, ga)
+
+    a = logits.clone().requires_grad_(True)
+    b = logits.clone().requires_grad_(True)
+    want, got = _gather_cross_entropy(a, tl), losses.cross_entropy(b, tl)
+    (ga,) = torch.autograd.grad(want, a)
+    (gb,) = torch.autograd.grad(got, b)
+    assert torch.equal(got, want) and torch.equal(gb, ga)
+    r_logits = jnp.asarray(logits.float().numpy())
+    ref = r_losses.cross_entropy(r_logits, jnp.asarray(labels))
+    r_grad = jax.grad(lambda z: r_losses.cross_entropy(z, jnp.asarray(
+        labels)))(r_logits)
+    np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=1e-6)
+    # a bfloat16 gradient is the float32 one rounded: 2^-8 relative
+    rtol = 1e-5 if dtype == "float32" else 2.0 ** -8
+    np.testing.assert_allclose(_np(gb.float()), np.asarray(r_grad),
+                               rtol=rtol, atol=1e-7)
+
+
 @pytest.mark.parametrize("step", [0, 1, 2, 5, 10, 55, 100, 150])
 def test_cosine_schedule_matches_reference(step):
     kw = dict(lr=1.0, warmup_steps=10, total_steps=100)

@@ -17,6 +17,11 @@ PART is one of:
             the KV heads (2 in every arch below; whisper's 2 heads, the
             xLSTM's 2): the dense family through both attention paths,
             whisper, the MoE, the xLSTM and jamba;
+  decode2   serving over a (1, 2) mesh: prefill and decode steps (a
+            slot each, and one position a sequence) on a cache split by
+            layer, by KV head, by sequence and by head dim, against the
+            same calls unsharded and the reference's; the vocab-parallel
+            embedding lookup and its gradient against the whole table's;
   collect4  ``pipeline_forward`` and ``compressed_psum`` over 4 ranks;
   single1   the sharded step on a 1 x 1 mesh against the unsharded one,
             bit for bit, and a sharded checkpoint restored unsharded;
@@ -29,7 +34,8 @@ The step cases of sharded8 and sharded2 start from the reference's state
 and hold the sharded step against the reference's loss and gradients
 too: the test module pickles them (numpy arrays; no JAX here) as
 ``OUT_DIR/ref_<arch>.pkl`` while the worlds run, and a case waits for
-its file.
+its file.  decode2's cases likewise start from the reference's params
+and meet its logits and caches (``OUT_DIR/ref_decode_<split>.pkl``).
 
 Each rank is stopped if the world has not finished within DEADLINE_S.
 """
@@ -54,8 +60,14 @@ import torch.multiprocessing as mp  # noqa: E402
 DEADLINE_S = 270
 #: the world's output directory (checkpoints of the resume case go there)
 OUT_DIR = None
-WORLDS = {"sharded8": 8, "sharded2": 2, "sharded4": 4, "collect4": 4,
-          "single1": 1, "cuda1": 1}
+WORLDS = {"sharded8": 8, "sharded2": 2, "sharded4": 4, "decode2": 2,
+          "collect4": 4, "single1": 1, "cuda1": 1}
+#: decode2's caches: (layers, KV heads, slots) of the smoke internlm2
+#: (head dim 16), and the dim of the stacked (L, B, T, Hkv, hd) cache the
+#: reference's rule splits over ``model``: the layers where they number
+#: the KV heads, the KV heads, else the longest axis (the last of equals)
+DECODE2 = {"layer": (2, 2, 32, 0), "heads": (3, 2, 32, 3),
+           "sequence": (3, 1, 32, 2), "head_dim": (3, 1, 16, 4)}
 #: (arch, attention impl) of the sharded4 part
 SHARDED4 = (("internlm2-1.8b", "xla"), ("internlm2-1.8b", "pallas"),
             ("whisper-tiny", "xla"), ("dbrx-132b", "xla"),
@@ -223,6 +235,132 @@ def part_sharded4(rank, out):
     out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     for arch, impl in SHARDED4:
         out[f"{arch}/{impl}"] = _step_case(arch, mesh, impl)
+
+
+#: decode2's batch and prompt length
+DECODE_B, DECODE_P = 4, 8
+
+
+def decode_inputs(vocab, L):
+    """decode2's tokens, (B, P + 4) from a seed, and the positions a
+    sequence of its per-slot steps (across both ranks' slots of an
+    ``L``-slot cache)."""
+    B, P = DECODE_B, DECODE_P
+    tokens = np.random.default_rng(2).integers(0, vocab, (B, P + 4))
+    return tokens, np.array([P + 2, P + 5, L // 2 + 1, L - 2])
+
+
+def decode_calls(model, params, cache, tokens, at, *, tensor, scalar=int):
+    """decode2's serving calls on a model of either package: a prefill of
+    P tokens, two decode steps at one position, then two at a position
+    a sequence (``at``, then ``at + 1``).  ``tensor`` makes the array
+    arguments, ``scalar`` the one positions.  The five logits and the
+    last cache."""
+    P = DECODE_P
+    logits, cache = model.prefill(params, {"tokens": tensor(tokens[:, :P])},
+                                  cache)
+    out = [logits]
+    for i in range(2):
+        logits, cache = model.decode_step(params, tensor(tokens[:, P + i]),
+                                          cache, scalar(P + i))
+        out.append(logits)
+    for i in range(2):
+        logits, cache = model.decode_step(params, tensor(tokens[:, P + 2 + i]),
+                                          cache, tensor(at + i))
+        out.append(logits)
+    return out, cache
+
+
+def _decode_case(mesh, name, n_layers, n_kv_heads, L, split_dim):
+    """The smoke internlm2 with ``n_layers`` and ``n_kv_heads``, from the
+    reference's params: :func:`decode_calls` into an ``L``-slot cache
+    unsharded and sharded on ``mesh``.  The logits' max |difference| over
+    their max |value| and the cache's, of the sharded calls against the
+    unsharded ones and of both against the reference's same calls."""
+    import dataclasses
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build_model, params_from_jax
+
+    cfg = dataclasses.replace(configs.get_smoke("internlm2-1.8b"),
+                              n_layers=n_layers, n_kv_heads=n_kv_heads)
+    ref = _reference(f"decode_{name}")
+    model = build_model(cfg, attn_impl="xla", device="cpu")
+    params = params_from_jax(cfg, ref["params"], device="cpu")
+    B = DECODE_B
+    tokens, at = decode_inputs(cfg.vocab, L)
+    pl = sharding.cache_shardings(model.init_cache(B, L), cfg, mesh, batch=B)
+    placed = sharding.place(params, sharding.param_shardings(params, mesh),
+                            mesh)
+    runs = {}
+    for run, p, cache in (
+            ("single", params, model.init_cache(B, L)),
+            ("sharded", placed, sharding.place(model.init_cache(B, L), pl,
+                                               mesh))):
+        with torch.no_grad(), implicit_replication():
+            out, cache = decode_calls(model, p, cache, tokens, at,
+                                      tensor=torch.as_tensor)
+        runs[run] = ([_full(x) for x in out],
+                     {k: _full(v) for k, v in cache.items()})
+    runs["ref"] = ([torch.as_tensor(x) for x in ref["logits"]],
+                   {k: torch.as_tensor(v) for k, v in ref["cache"].items()})
+
+    def err(got, want):
+        (g, gc), (w, wc) = runs[got], runs[want]
+        return {"logits": [(a - b).abs().max().item() / b.abs().max().item()
+                           for a, b in zip(g, w)],
+                "cache": max((gc[k].float() - wc[k].float()).abs().max().item()
+                             / wc[k].float().abs().max().item() for k in wc)}
+
+    return {
+        "placements": [_placement(x) for x in pl["k"]],
+        "split_dim": split_dim,
+        "sharded": err("sharded", "single"),
+        "ref_single": err("single", "ref"),
+        "ref_sharded": err("sharded", "ref"),
+    }
+
+
+def _lookup_case(mesh):
+    """``models.layers.embedding`` of a vocab-split table (its DTensor
+    rules) against the whole table's ``table[tokens]``: the rows and the
+    table's gradient, bit for bit (a row and zeros; each row's gradient
+    summed on its rank in the same order)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import layers
+
+    gen = torch.Generator().manual_seed(3)
+    table = torch.randn(128, 16, generator=gen)
+    tokens = torch.randint(0, 128, (4, 12), generator=gen)
+    tokens[0, :6] = 5                      # a repeated row
+    grad = torch.randn(4, 12, 16, generator=gen)
+    w = table.clone().requires_grad_(True)
+    want = w[tokens]
+    (want_g,) = torch.autograd.grad(want, w, grad)
+    wd = sharding.distribute(table, mesh, (Replicate(), Shard(0)))
+    wd.requires_grad_(True)
+    got = layers.embedding(wd, tokens)
+    (got_g,) = torch.autograd.grad(got, wd, sharding.distribute(
+        grad, mesh, (Replicate(), Replicate())))
+    return {"rows_equal": torch.equal(_full(got), want),
+            "out_placements": [_placement(x) for x in got.placements],
+            "grad_equal": torch.equal(_full(got_g), want_g),
+            "grad_placements": [_placement(x) for x in got_g.placements]}
+
+
+def part_decode2(rank, out):
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(2, device="cpu")
+    out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    for name, case in DECODE2.items():
+        out[name] = _decode_case(mesh, name, *case)
+    out["lookup"] = _lookup_case(mesh)
 
 
 def _resume_case(mesh):

@@ -1,0 +1,167 @@
+"""Digests of the training path's results at fixed inputs, to compare two
+source trees bit for bit on one CUDA card.
+
+Usage (from the repository root, on a machine with a CUDA card)::
+
+    python tools/train_digest.py [SRC_DIR]
+
+``SRC_DIR`` (default: this tree's ``src``) holds the ``repro_torch`` to
+load; its kernels build into that tree's ``build/``.  Prints one line per
+result -- name, then the float32 bits of a loss or gradient norm, or the
+sha256 of a state's bytes -- so two trees' results are bitwise equal
+exactly when their lines are:
+
+* internlm2-1.8b at its published widths (bfloat16 params, remat
+  ``block``, the flash kernels), ``STEPS`` AdamW steps of a 4 x 4,096
+  batch from the seeded token stream (``chip_smoke.py`` phase T's
+  step): each step's loss and gradient norm, and the state after them;
+* the smoke internlm2 (float32): 3 steps, a checkpoint, 2 more; the
+  checkpoint restored and the same 2 steps again (phase T's resume):
+  the losses and the resumed state.
+
+Lines starting ``#`` are times, not digests: the published-width run's
+``TIMED`` further steps, each in seconds (wall clock from a synchronized
+card to the loss on the host, as phase T times them) with the peak
+memory, and the loss alone (``runtime.losses.cross_entropy``, forward
+and backward) on phase T's (4, 4,096, V) float32 logits, in ms (CUDA
+events, the median of ``LOSS_REPS``).  Compare the digests without them:
+
+    python tools/train_digest.py checkout/parent/src > a.txt
+    python tools/train_digest.py > b.txt
+    diff <(grep -v '^#' a.txt) <(grep -v '^#' b.txt)
+"""
+from __future__ import annotations
+
+import hashlib
+import pathlib
+import sys
+import tempfile
+import time
+
+#: the published-width run's steps, batch and length
+STEPS, BATCH, LEN = 3, 4, 4096
+#: the steps timed after them, and the loss's timed repetitions
+TIMED, LOSS_REPS = 6, 10
+
+
+def _bits(x) -> str:
+    """A 0-d float32 tensor's bits, as hex."""
+    import struct
+
+    return struct.pack("<f", float(x)).hex()
+
+
+def _digest(state) -> str:
+    """sha256 of every leaf of ``state``'s bytes, in tree order."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(state):
+        t = t.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _loss_ms(vocab: int) -> float:
+    """The median ms of the loss's forward and backward on seeded
+    (BATCH, LEN, vocab) float32 logits."""
+    import torch
+
+    from repro_torch.runtime.losses import cross_entropy
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn(BATCH, LEN, vocab, device="cuda", generator=gen)
+    logits.requires_grad_(True)
+    labels = torch.randint(0, vocab, (BATCH, LEN), device="cuda",
+                           generator=gen)
+    ms = []
+    for i in range(LOSS_REPS + 2):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(cross_entropy(logits, labels), logits)
+        stop.record()
+        torch.cuda.synchronize()
+        if i >= 2:                        # two warm-up calls
+            ms.append(start.elapsed_time(stop))
+    return sorted(ms)[len(ms) // 2]
+
+
+def main() -> int:
+    """Print each result's digest; returns the exit code."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, sys.argv[1] if len(sys.argv) > 1 else str(root / "src"))
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import init_train_state, make_train_step
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    cfg = configs.get("internlm2-1.8b")
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0))
+    step = make_train_step(model, AdamWConfig(lr=3e-4, warmup_steps=10,
+                                              total_steps=STEPS))
+    data = TokenStream(vocab=cfg.vocab, batch=BATCH, seq_len=LEN, seed=0)
+    for i in range(STEPS):
+        state, m = step(state, next(data))
+        print(f"internlm2-1.8b step {i} loss {_bits(m['loss'])} grad_norm "
+              f"{_bits(m['grad_norm'])}")
+    print(f"internlm2-1.8b state after {STEPS} steps {_digest(state)}")
+    times = []
+    for _ in range(TIMED):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        m["loss"].item()
+        times.append(time.perf_counter() - t)
+    print(f"# internlm2-1.8b seconds a step {' '.join(f'{x:.4f}' for x in times)}"
+          f" peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del state, step, model
+    torch.cuda.empty_cache()
+    print(f"# cross_entropy forward and backward {_loss_ms(cfg.vocab):.3f} ms")
+
+    cfg = configs.get_smoke("internlm2-1.8b")
+    model = build_model(cfg)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                              total_steps=10))
+
+    def run(state, start, n):
+        data = TokenStream(vocab=cfg.vocab, batch=2, seq_len=128, seed=0,
+                           start_step=start)
+        losses = []
+        for _ in range(n):
+            state, m = step(state, next(data))
+            losses.append(_bits(m["loss"]))
+        return state, losses
+
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        state, first = run(state, 0, 3)
+        mgr.save(state, step=3, blocking=False)
+        mgr.wait()
+        state, tail = run(state, 3, 2)
+        resumed, again = run(mgr.restore(state), 3, 2)
+    print(f"smoke losses {' '.join(first + tail)} resumed "
+          f"{' '.join(again)}")
+    print(f"smoke resumed state {_digest(resumed)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
