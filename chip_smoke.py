@@ -409,6 +409,11 @@ XLSTM_CARD_RTOL, XLSTM_CHECK_LEN = 1e-5, 128
 #: phase R: the step counts whose profiles are differenced for the
 #: launches and kernel time one step of a recurrent loop takes
 XLSTM_STEP_PROFILE = (8, 16)
+#: how many times :func:`per_step` profiles its two lengths before it
+#: fails: the card's profiler has recorded fewer kernels at the longer
+#: length than at the shorter (an sLSTM layer, 126 and 114) in one run
+#: of several whose code was the same
+PROFILE_TRIES = 3
 #: phase J: jamba-1.5-large at its published widths, cut in depth and
 #: in experts.  The reference builds n_layers // attn_period periods, so
 #: one period of JAMBA_LAYERS = 8 is the least depth that keeps the 1:7
@@ -2424,10 +2429,15 @@ def per_step(fn_of_len, what: str, lens=XLSTM_STEP_PROFILE, full_len=None,
         return (kernels, sum(e.count for e in kernels),
                 sum(e.self_device_time_total for e in kernels) / 1e6)
 
-    (_, n0, d0), (k1, n1, d1) = totals(t0), totals(t1)
-    if not n0 < n1:
+    for _ in range(PROFILE_TRIES):
+        (_, n0, d0), (k1, n1, d1) = totals(t0), totals(t1)
+        if n0 < n1:
+            break
+        print(f"  {what}: the profiler saw {n0} and {n1} kernels at T = "
+              f"{t0} and {t1}; profiling both again")
+    else:
         fail(f"{what}: the profiler saw {n0} and {n1} kernels at T = {t0} "
-             f"and {t1}")
+             f"and {t1}, {PROFILE_TRIES} times")
     out = dict(launches_per_step=(n1 - n0) / (t1 - t0),
                device_s_per_step=(d1 - d0) / (t1 - t0))
     out["other_launches"] = n0 - t0 * out["launches_per_step"]

@@ -34,7 +34,8 @@ is always one of them, so each rule is exact whatever the placements.
 * ``select.int`` of a dim one mesh dim splits (:func:`_select`, a
   DTensor op handler): the rank that holds the index gives its slice,
   the others zeros, a partial sum -- a stacked cache's layer, where
-  DTensor would gather the whole cache;
+  DTensor would gather the whole cache
+  (:func:`split_cache_attention` attends it by KV head);
 * ``view`` and ``_unsafe_view`` (:func:`_gather_where_uneven`): an
   unflatten of a dim sharded more ways than its leading part has rows
   -- ``(B, T, H * hd)`` to ``(B, T, H, hd)`` when the model axis
@@ -58,7 +59,11 @@ A serving cache is written and attended where it lies
 (:func:`split_cache_attention`: flash-decoding over a split sequence),
 and a vocab-split embedding table looked up where it lies, forward and
 backward (DTensor op handlers for ``models.layers.embedding`` and its
-backward, :func:`_embedding`: Megatron's masked lookup).
+backward, :func:`_embedding`: Megatron's masked lookup).  The MoE
+dispatch buffer and the expert outputs are placed expert-parallel, as
+the reference constrains them (op handlers for ``models.moe``'s row
+gather, scatter-add and top-k sum: :func:`_gather_rows`,
+:func:`_scatter_add_rows`, :func:`_sum_top_k`).
 """
 from __future__ import annotations
 
@@ -496,10 +501,11 @@ def _select(op_call, args, kwargs):
     ``sharding.cache_specs`` splits over ``model`` where the layers number
     the KV heads (olmoe's 16), as the reference does: the rank that holds
     the index gives its slice (a view, written in place), every other
-    rank zeros that take no memory (a zero-stride tensor), a partial sum.
-    DTensor's own rule would gather the whole tensor.  The cost: each
-    layer's attention runs on one rank while the others wait, serialized
-    across the ranks.  Any other select takes DTensor's rule."""
+    rank zeros that take no memory (a zero-stride tensor), a partial sum
+    (on ``meta`` too, where the dry run's rank 0 holds the first layers).
+    DTensor's own rule would gather the whole tensor.
+    :func:`split_cache_attention` attends such a layer.  Any other
+    select takes DTensor's rule."""
     from torch.distributed.tensor._dtensor_spec import (DTensorSpec,
                                                         TensorMeta)
     from torch.distributed.tensor._utils import (
@@ -520,12 +526,8 @@ def _select(op_call, args, kwargs):
     shape, offset = compute_local_shape_and_global_offset(
         x.shape, mesh, x.placements)
     at = index - offset[dim]
-    if 0 <= at < shape[dim] or local.is_meta:
-        # on meta tensors (the dry run) every rank takes a slice, so that
-        # rank 0 counts each layer's work: the ranks that hold the layers
-        # run them one after another, the others waiting on their sums,
-        # and the step's path is the sum of the layers'
-        out = local.select(dim, min(max(at, 0), shape[dim] - 1))
+    if 0 <= at < shape[dim]:
+        out = local.select(dim, at)
     else:
         out = local.new_zeros(()).expand(local.select(dim, 0).shape)
     placements = tuple(
@@ -608,9 +610,11 @@ def local_attention(fn: Callable, q, k, v):
     output; of the head axis, when it divides ``Hq`` and each rank's
     block of q heads lies within the KV heads of a whole block: with
     ``Hkv`` divisible too, k and v are split alike, else they come
-    whole and each rank takes the one KV head its q heads share.  Any
-    other dim is gathered.  Heads and batch rows are independent, so
-    the kernels see whole problems."""
+    whole and each rank takes the one KV head its q heads share.  A
+    partial sum (q, k and v are partial where their projections contract
+    a split feature dim) is reduce-scattered onto the heads where both
+    ``Hq`` and ``Hkv`` divide.  Any other dim is gathered.  Heads and
+    batch rows are independent, so the kernels see whole problems."""
     mesh = q.device_mesh
     B, Hq = q.shape[:2]
     Hkv = k.shape[1]
@@ -621,8 +625,9 @@ def local_attention(fn: Callable, q, k, v):
         if isinstance(p, Shard) and p.dim == 0 and B % n == 0:
             q_pl.append(Shard(0))
             kv_pl.append(Shard(0))
-        elif isinstance(p, Shard) and p.dim == 1 and Hq % n == 0 and (
-                Hkv % n == 0 or (pick is None and n % Hkv == 0)):
+        elif (p.is_shard(1) and Hq % n == 0 and (
+                Hkv % n == 0 or (pick is None and n % Hkv == 0))) or (
+                p.is_partial() and Hq % n == 0 and Hkv % n == 0):
             q_pl.append(Shard(1))
             if Hkv % n == 0:
                 kv_pl.append(Shard(1))
@@ -771,6 +776,209 @@ def _register_embedding() -> None:
 _register_embedding()
 
 
+def _local_rows(t, placements):
+    """The rows of dim 1 that the rank holds of ``t`` so placed: their
+    first global index and their count."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, placements)
+    return offset[1], shape[1]
+
+
+def _ep_dims(src, index):
+    """The mesh dims that place the MoE row ops' operands (G, S, d), (G,
+    J): those that split the groups -- the token axes of
+    ``models.moe._EP_SPEC`` where their ranks divide G, and any dim that
+    splits both operands' groups already -- and the expert axis's dim,
+    where its ranks divide J (an expert-major (G, E C) axis split evenly
+    gives each rank its own experts' slots), else None."""
+    from ..models import moe
+
+    mesh = src.device_mesh
+    names = mesh.mesh_dim_names or ()
+    e_ax, t_axes = moe._EP_SPEC or (None, ())
+    G, J = index.shape
+
+    def placed(i):
+        return (src.placements[i].is_shard(0)
+                and index.placements[i].is_shard(0))
+
+    groups = [i for i in range(mesh.ndim) if names[i] in t_axes or placed(i)]
+    n = 1
+    for i in groups:
+        n *= mesh.size(i)
+    if G % n:
+        groups = [i for i in groups if placed(i)]
+    expert = next((i for i in range(mesh.ndim) if names[i] == e_ax
+                   and i not in groups and J % mesh.size(i) == 0), None)
+    return groups, expert
+
+
+def _dtensors(args):
+    """The handler's tensor arguments as DTensors: a plain one (a tensor
+    the model made) replicated on the others' mesh."""
+    mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
+    return [a if isinstance(a, DTensor) else DTensor(
+        a, _spec(mesh, [R] * mesh.ndim, a.shape, a.dtype),
+        requires_grad=False) for a in args]
+
+
+def _gather_rows(op_call, args, kwargs):
+    """``models.moe.gather_rows`` of DTensors: the dispatch buffer placed
+    expert-parallel as the reference constrains it (each rank gathers
+    its experts' slots from its groups' whole tokens), and the combine
+    from a source split over the experts as Megatron's vocab-parallel
+    lookup reads a split table (each rank its rows, zeros for the
+    others: a partial sum, which the combine's sum over the top k
+    reduces, :func:`_sum_top_k`).  The groups stay split over the token
+    axes (:func:`_ep_dims`); any other dim is gathered."""
+    src, index = _dtensors(args)
+    mesh = src.device_mesh
+    groups, expert = _ep_dims(src, index)
+    src_pl, idx_pl, out_pl = [], [], []
+    for i in range(mesh.ndim):
+        if i in groups:
+            pl = (Shard(0), Shard(0), Shard(0))
+        elif src.placements[i].is_shard(1):
+            pl = (Shard(1), R, Partial())
+        elif i == expert:
+            pl = (R, Shard(1), Shard(1))
+        else:
+            pl = (R, R, R)
+        for out, p in zip((src_pl, idx_pl, out_pl), pl):
+            out.append(p)
+    s = _moved(src, src_pl)
+    idx = _moved(index, idx_pl)
+    if any(p.is_partial() for p in out_pl):
+        lo, rows = _local_rows(src, src_pl)
+        at = idx - lo
+        ok = (at >= 0) & (at < rows)
+        got = torch.gather(s, 1, at.clamp(0, rows - 1)[..., None].expand(
+            *at.shape, s.shape[-1]))
+        out = torch.where(ok[..., None], got, 0)
+    else:
+        out = torch.gather(s, 1, idx[..., None].expand(*idx.shape,
+                                                      s.shape[-1]))
+    return DTensor(out, _spec(mesh, out_pl, (*index.shape, src.shape[-1]),
+                              out.dtype), requires_grad=False)
+
+
+def _scatter_add_rows(op_call, args, kwargs):
+    """``models.moe.scatter_add_rows`` of DTensors: the transpose of
+    :func:`_gather_rows`.  Into a result split over the experts like its
+    ``like`` (the combine source's gradient), each rank sums the
+    entries of its own rows in order; from a J side split by experts'
+    slots (the dispatch buffer's gradient, the expert-side combine),
+    each rank sums its slots into its groups' whole rows; so does it a
+    partial J side.  Partial sums are reduced here (:func:`_reduced`;
+    Megatron reduces a column-parallel input's gradient at once: a
+    partial gradient of the tokens would reach the attention's
+    backward, where DTensor gathers whole weights to meet it).  No
+    zeros of the global (G, S, d) on a rank, which autograd's
+    ``gather`` backward would make."""
+    src, index, like = _dtensors(args)
+    mesh = src.device_mesh
+    groups, expert = _ep_dims(src, index)
+    src_pl, idx_pl, out_pl = [], [], []
+    for i in range(mesh.ndim):
+        if i in groups:
+            pl = (Shard(0), Shard(0), Shard(0))
+        elif like.placements[i].is_shard(1):
+            pl = (R, R, Shard(1))
+        elif src.placements[i].is_partial():
+            pl = (Partial(), R, Partial())     # a scatter is linear
+        elif src.placements[i].is_shard(1) or i == expert:
+            pl = (Shard(1), Shard(1), Partial())
+        else:
+            pl = (R, R, R)
+        for out, p in zip((src_pl, idx_pl, out_pl), pl):
+            out.append(p)
+    s = _moved(src, src_pl)
+    idx = _moved(index, idx_pl)
+    shape = tuple(like.shape)
+    if any(p.is_shard(1) for p in out_pl):
+        lo, rows = _local_rows(like, out_pl)
+        at = idx - lo
+        ok = (at >= 0) & (at < rows)
+        s = torch.where(ok[..., None], s, 0)
+        idx = at.clamp(0, rows - 1)
+    else:
+        rows = shape[1]
+    out = s.new_zeros((s.shape[0], rows, s.shape[-1])).scatter_add_(
+        1, idx[..., None].expand(*idx.shape, s.shape[-1]), s)
+    return _reduced(out, mesh, out_pl, shape)
+
+
+def _reduced(local, mesh, placements, shape):
+    """A DTensor of ``shape`` from a rank's ``local`` (G, N, d) so
+    placed, its partial sums reduced: reduce-scattered onto the feature
+    dim d where the mesh dim divides it (the residual stream then stays
+    split there, as a dense block's sequence-parallel output leaves it),
+    else all-reduced."""
+    from torch.distributed.tensor._redistribute import (
+        redistribute_local_tensor)
+
+    out_pl, feat = [], 1
+    for i, p in enumerate(placements):
+        if not p.is_partial():
+            out_pl.append(p)
+        elif shape[2] % (feat * mesh.size(i)) == 0:
+            out_pl.append(Shard(2))
+            feat *= mesh.size(i)
+        else:
+            out_pl.append(R)
+    out = _spec(mesh, out_pl, shape, local.dtype)
+    return DTensor(redistribute_local_tensor(
+        local, _spec(mesh, placements, shape, local.dtype), out), out,
+        requires_grad=False)
+
+
+def _sum_top_k(op_call, args, kwargs):
+    """``models.moe.sum_top_k`` of a DTensor: each rank sums its rows,
+    and a partial sum over the experts' ranks (the combine) is reduced
+    here (:func:`_reduced`), on the (G, N, d) sum, ``k`` times smaller
+    than the rows.  A split of the groups stays; a split of the rows
+    stays where it falls on whole tokens."""
+    (rows,), k = _dtensors(args[:1]), args[1]
+    mesh = rows.device_mesh
+    G, NK, d = rows.shape
+    in_pl, ways = [], 1
+    for i, p in enumerate(rows.placements):
+        if p.is_shard(0) or p.is_partial():
+            in_pl.append(p)
+        elif p.is_shard(1) and (NK // k) % (ways * mesh.size(i)) == 0:
+            in_pl.append(p)
+            ways *= mesh.size(i)
+        else:
+            in_pl.append(R)
+    local = _moved(rows, in_pl)
+    out = local.reshape(local.shape[0], -1, k, d).sum(dim=2)
+    return _reduced(out, mesh, in_pl, (G, NK // k, d))
+
+
+def _register_rows() -> None:
+    from ..models import moe  # noqa: F401  (defines the ops)
+
+    handlers = DTensor._op_dispatcher._custom_op_handlers
+    handlers[torch.ops.repro_torch.gather_rows.default] = _gather_rows
+    handlers[torch.ops.repro_torch.scatter_add_rows.default] = (
+        _scatter_add_rows)
+    handlers[torch.ops.repro_torch.sum_top_k.default] = _sum_top_k
+
+
+_register_rows()
+
+
+def _by_heads(hq: int, hkv: int, ranks: int) -> bool:
+    """Whether :func:`split_cache_attention` attends a layer of a cache
+    split by layer on each rank's own KV heads: where the query and KV
+    heads divide over the ``ranks`` they are split over; else the rank
+    that holds the layer attends all of it."""
+    return hq % ranks == 0 and hkv % ranks == 0
+
+
 def split_cache_attention(fn: Callable, q, k, v, cache, cache_index, *,
                           causal: bool):
     """``fn(q, k, v, cache_k, cache_v, cache_index, causal=...)`` -- the
@@ -786,27 +994,45 @@ def split_cache_attention(fn: Callable, q, k, v, cache, cache_index, *,
     (flash-decoding's combine: all-reduces of (B, Hq, T, ...), never the
     cache).  Over a split of the head dim, q, k and v come split alike
     and the partial scores are summed.  A layer of a cache split by layer
-    is written and attended on the rank that holds it, a partial sum of
-    the others' zeros.  No cache leaf is gathered.  Serving only (no
-    autograd)."""
+    (:func:`_select`: the holder's slice, the others' zeros) is attended
+    by every rank on its own KV heads where they divide over the split
+    (:func:`_by_heads`): q, k and v split alike, the holder's
+    slice reduce-scattered onto the ranks' heads where the call reads
+    old rows (a decode step: one layer's cache a step, each rank its
+    share) and zeros where it does not (a prefill from row 0), and the
+    new rows gathered whole for the holder to write -- so that no rank
+    scores every head while the others wait.  Else the holder writes and
+    attends the whole layer, a partial sum of the others' zeros.  No
+    cache leaf is gathered.  Serving only (no autograd)."""
     import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
 
+    from ..kernels.attention.ops import reads_old_rows, write_cache
+
     ck, cv = cache["k"], cache["v"]
     mesh = ck.device_mesh
-    Hq = q.shape[2]
-    qkv_pl, out_pl, seq, feat = [], [], [], []
+    Hq, Hkv = q.shape[2], ck.shape[2]
+    heads = 1                    # the ranks a mesh dim splits the heads over
     for i, p in enumerate(ck.placements):
+        heads *= mesh.size(i) if p.is_shard(2) else 1
+    qkv_pl, out_pl, seq, feat, layer = [], [], [], [], []
+    for i, p in enumerate(ck.placements):
+        n = mesh.size(i)
         if p.is_shard(3):
             # the head dim (the reference's rule splits the longest axis,
             # which at short lengths may be it): partial scores
             qkv_pl.append(Shard(3))
             out_pl.append(Shard(3))
             feat.append(i)
+        elif p.is_partial() and not layer and _by_heads(Hq, Hkv, heads * n):
+            # a layer of a cache split by layer: each rank its KV heads
+            qkv_pl.append(Shard(2))
+            out_pl.append(Shard(1))
+            layer.append(i)
         elif p.is_partial():
-            # a layer of a cache split by layer (:func:`_select`): the rank
-            # that holds it writes and attends, the others give zeros
+            # ... or the rank that holds it writes and attends, the others
+            # give zeros
             qkv_pl.append(R)
             out_pl.append(Partial())
         elif p.is_shard(0):
@@ -823,10 +1049,10 @@ def split_cache_attention(fn: Callable, q, k, v, cache, cache_index, *,
             raise NotImplementedError(
                 f"a cache placed {tuple(ck.placements)}")
 
-    def local(t):
+    def local(t, placements=qkv_pl):
         if not isinstance(t, DTensor):
             t = DTensor.from_local(t, mesh, [R] * mesh.ndim, run_check=False)
-        return t.redistribute(mesh, qkv_pl).to_local()
+        return t.redistribute(mesh, placements).to_local()
 
     shape, offset = compute_local_shape_and_global_offset(
         ck.shape, mesh, ck.placements)
@@ -846,14 +1072,34 @@ def split_cache_attention(fn: Callable, q, k, v, cache, cache_index, *,
         return reduce if dims else None
 
     B, T, _, hd = q.shape
-    ql, kl, vl = local(q), local(k), local(v)
     ckl, cvl = ck.to_local(), cv.to_local()
-    if _holds(ckl):
-        o = fn(ql, kl, vl, ckl, cvl, idx, causal=causal, lo=offset[1],
-               Tk=ck.shape[1], reduce=over(seq), hd=q.shape[3],
-               reduce_scores=over(feat))
+    kw = dict(causal=causal, lo=offset[1], Tk=ck.shape[1], reduce=over(seq),
+              hd=q.shape[3], reduce_scores=over(feat))
+    if layer:
+        # the new rows of every head (an all-gather over the layer's mesh
+        # dim), this rank's heads of them, and its heads of the layer
+        i = layer[0]
+        whole = [R if j == i else p for j, p in enumerate(qkv_pl)]
+        kn, vn = local(k, whole), local(v, whole)
+        h = kn.shape[2] // mesh.size(i)
+        at = mesh.get_local_rank(i) * h
+        mine = [Shard(2) if j == i else p for j, p in enumerate(ck.placements)]
+        if reads_old_rows(cache_index):
+            ckh, cvh = _moved(ck, mine), _moved(cv, mine)
+        else:
+            rows, _ = compute_local_shape_and_global_offset(ck.shape, mesh,
+                                                            mine)
+            ckh, cvh = ckl.new_zeros(rows), cvl.new_zeros(rows)
+        o = fn(local(q), kn[:, :, at:at + h], vn[:, :, at:at + h], ckh, cvh,
+               idx, **kw)
+        if _holds(ckl):
+            write_cache(kn, vn, ckl, cvl, idx, lo=offset[1], Tk=ck.shape[1])
     else:
-        o = ql.new_zeros((ql.shape[0], ql.shape[2], T, ql.shape[3]))
+        ql, kl, vl = local(q), local(k), local(v)
+        if _holds(ckl):
+            o = fn(ql, kl, vl, ckl, cvl, idx, **kw)
+        else:
+            o = ql.new_zeros((ql.shape[0], ql.shape[2], T, ql.shape[3]))
     return DTensor.from_local(o, mesh, out_pl, run_check=False,
                               shape=torch.Size((B, Hq, T, hd)),
                               stride=(Hq * T * hd, T * hd, hd, 1))

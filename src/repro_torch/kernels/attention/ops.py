@@ -140,24 +140,25 @@ def cache_attention(q, k, v, cache, cache_index, *, causal: bool = True):
                             causal=causal)
 
 
-def _cache_attention(q, k, v, ck, cv, cache_index, *, causal: bool,
-                     lo: int = 0, Tk: Optional[int] = None, reduce=None,
-                     hd: Optional[int] = None, reduce_scores=None):
-    """:func:`cache_attention` on plain tensors.  ``ck`` and ``cv`` may
-    hold the rows ``lo`` .. ``lo + ck.shape[1]`` of a ``Tk``-row cache, a
-    rank's split of it: only the rows there are written, keys are masked
-    by their global positions, and ``reduce(t, op)`` sums (``op``
-    ``"sum"``) or takes the max (``"max"``) over the ranks for the
-    softmax (:func:`masked_attention`).  Split on the head dim (``hd``
-    whole, the local head dim a part of it), the scores are partial sums
-    that ``reduce_scores`` sums over the ranks."""
-    B, T = q.shape[:2]
+def reads_old_rows(cache_index) -> bool:
+    """Whether attending new rows written at ``cache_index`` reads rows
+    written before: a per-slot position, or a slice not written at row
+    0 (past the slice, every row is masked)."""
+    return _is_per_slot(cache_index) or int(cache_index or 0) != 0
+
+
+def write_cache(k, v, ck, cv, cache_index, *, lo: int = 0,
+                Tk: Optional[int] = None) -> None:
+    """Write ``k``, ``v`` (B, T, Hkv, hd) into ``ck``, ``cv`` in place at
+    ``cache_index`` (see :func:`cache_attention`), where ``ck`` and
+    ``cv`` hold the rows ``lo`` .. ``lo + ck.shape[1]`` of a ``Tk``-row
+    cache: the rows that fall there."""
+    B, T = k.shape[:2]
     Tl = ck.shape[1]
     Tk = Tl if Tk is None else Tk
-    idx = cache_index if cache_index is not None else 0
-    per_slot = _is_per_slot(cache_index)
-    if per_slot:
-        bidx = torch.arange(B, device=q.device)
+    idx = cache_index
+    if _is_per_slot(cache_index):
+        bidx = torch.arange(B, device=k.device)
         if Tl == Tk:
             ck[bidx, idx] = k[:, 0].to(ck.dtype)
             cv[bidx, idx] = v[:, 0].to(cv.dtype)
@@ -176,7 +177,24 @@ def _cache_attention(q, k, v, ck, cv, cache_index, *, causal: bool,
         if a < b:
             ck[:, a - lo:b - lo] = k[:, a - start:b - start].to(ck.dtype)
             cv[:, a - lo:b - lo] = v[:, a - start:b - start].to(cv.dtype)
-    kpos = lo + torch.arange(Tl, device=q.device)
+
+
+def _cache_attention(q, k, v, ck, cv, cache_index, *, causal: bool,
+                     lo: int = 0, Tk: Optional[int] = None, reduce=None,
+                     hd: Optional[int] = None, reduce_scores=None):
+    """:func:`cache_attention` on plain tensors.  ``ck`` and ``cv`` may
+    hold the rows ``lo`` .. ``lo + ck.shape[1]`` of a ``Tk``-row cache, a
+    rank's split of it: only the rows there are written, keys are masked
+    by their global positions, and ``reduce(t, op)`` sums (``op``
+    ``"sum"``) or takes the max (``"max"``) over the ranks for the
+    softmax (:func:`masked_attention`).  Split on the head dim (``hd``
+    whole, the local head dim a part of it), the scores are partial sums
+    that ``reduce_scores`` sums over the ranks."""
+    T = q.shape[1]
+    idx = cache_index if cache_index is not None else 0
+    per_slot = _is_per_slot(cache_index)
+    write_cache(k, v, ck, cv, idx, lo=lo, Tk=Tk)
+    kpos = lo + torch.arange(ck.shape[1], device=q.device)
     # mask out unwritten cache slots
     if per_slot:
         valid = kpos[None, :] <= idx[:, None]                # (B, Tk)

@@ -593,9 +593,10 @@ def build_cell(cfg: ModelConfig, shape_name: str, mesh,
 
 
 def set_dispatch(mesh, dp_only: bool) -> None:
-    """EP annotation: grouped dispatch -- one group per DP shard, experts
-    over the model axis (GShard 2D layout); ``dp_only`` replicates the
-    experts and shards groups over every axis."""
+    """The MoE dispatch's placement (``models.moe.set_ep_sharding``):
+    grouped dispatch -- one group per DP shard, experts over the model
+    axis (GShard 2D layout); ``dp_only`` replicates the experts and
+    shards groups over every axis."""
     from ..models import moe as moe_mod
 
     names = mesh_mod.axis_names(mesh)

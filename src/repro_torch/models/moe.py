@@ -17,6 +17,14 @@ Dispatch uses the Switch/GShard capacity formulation:
     expert-side scatter-add (``"scatter"``; on CUDA the adds are atomics
     and sum in no fixed order).
 
+The row gathers, the scatter-add and the combine's sum over the top k
+are ops of this package (:func:`gather_rows`, :func:`scatter_add_rows`,
+each the other's gradient as autograd's ``gather`` and ``scatter_add``
+are, and :func:`sum_top_k`; on plain tensors bit for bit the tensor ops
+they name), so that the distribution layer can place them
+expert-parallel (:mod:`repro_torch.distributed.rules`): a rule runs
+below autograd.
+
 Ties among router probabilities resolve as ``jax.lax.top_k`` resolves
 them, the lower expert index first: the top k come from a stable
 descending sort (``torch.topk`` promises no order among equal values).
@@ -35,10 +43,11 @@ from .config import ModelConfig
 Params = Dict[str, Any]
 
 #: the expert and token mesh axes last given to :func:`set_ep_sharding`.
-#: The reference turns them into sharding constraints on the dispatch
-#: buffer, which it drops when no mesh is in scope; this package has no
-#: device mesh for the model yet, so they are recorded and nothing else
-#: (a ``torch.distributed`` expert axis belongs to the training slice).
+#: On DTensor tokens the dispatch buffer and the expert outputs are
+#: placed by them, as the reference constrains both: groups over the
+#: token axes, experts over the expert axis (the rules of
+#: :func:`gather_rows` and :func:`scatter_add_rows`).  Plain tensors
+#: ignore them, as the reference drops its constraint with no mesh.
 _EP_SPEC: Optional[Tuple[Optional[str], Tuple[str, ...]]] = None
 #: GShard-style grouped dispatch: tokens reshaped to (G, N/G, d), every
 #: routing step (sort, rank, gather) batched per group.  The group count
@@ -52,15 +61,99 @@ COMBINE_MODE: str = "gather"
 def set_ep_sharding(expert_axis: Optional[str] = "model",
                     token_axes: Optional[Sequence[str]] = ("data",),
                     num_groups: int = 1) -> None:
-    """Set the dispatch's group count (and record the mesh axes, which
-    annotate sharding only; see ``_EP_SPEC``).  ``expert_axis=None`` and
-    no ``token_axes``: grouped dispatch with replicated experts."""
+    """Set the dispatch's group count and the mesh axes that place its
+    buffer (``_EP_SPEC``).  ``expert_axis=None`` and no ``token_axes``:
+    grouped dispatch with replicated experts."""
     global _EP_SPEC, _NUM_GROUPS
     if expert_axis is None and not token_axes:
         _EP_SPEC = None
     else:
         _EP_SPEC = (expert_axis, tuple(token_axes) if token_axes else ())
     _NUM_GROUPS = max(1, num_groups)
+
+
+@torch.library.custom_op("repro_torch::gather_rows", mutates_args=())
+def gather_rows(src: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``out[g, j] = src[g, index[g, j]]``: rows of ``src`` (G, S, d) by
+    ``index`` (G, J), as ``torch.gather`` along dim 1 -- the dispatch
+    (tokens into expert slots) and the token-side combine (slots back to
+    tokens)."""
+    return torch.gather(src, 1, index[..., None].expand(
+        *index.shape, src.shape[-1]))
+
+
+@gather_rows.register_fake
+def _(src, index):
+    return src.new_empty((*index.shape, src.shape[-1]))
+
+
+@torch.library.custom_op("repro_torch::scatter_add_rows", mutates_args=())
+def scatter_add_rows(src: torch.Tensor, index: torch.Tensor,
+                     like: torch.Tensor) -> torch.Tensor:
+    """Zeros of ``like``'s shape (G, S, d) in ``src``'s dtype, row
+    ``index[g, j]`` plus ``src[g, j]``, as ``scatter_add`` along dim 1
+    (``like`` read for its shape only): :func:`gather_rows`' gradient,
+    and the expert-side combine."""
+    return src.new_zeros(like.shape).scatter_add_(
+        1, index[..., None].expand(*index.shape, src.shape[-1]), src)
+
+
+@scatter_add_rows.register_fake
+def _(src, index, like):
+    return src.new_empty(like.shape)
+
+
+@torch.library.custom_op("repro_torch::sum_top_k", mutates_args=())
+def sum_top_k(rows: torch.Tensor, k: int) -> torch.Tensor:
+    """``rows`` (G, N k, d) summed over each token's ``k`` consecutive
+    rows: (G, N, d) -- the end of the combine, where the distribution
+    layer reduces a sum over the experts' ranks."""
+    G, NK, d = rows.shape
+    return rows.reshape(G, NK // k, k, d).sum(dim=2)
+
+
+@sum_top_k.register_fake
+def _(rows, k):
+    G, NK, d = rows.shape
+    return rows.new_empty((G, NK // k, d))
+
+
+def _sum_top_k_context(ctx, inputs, output):
+    ctx.k = inputs[1]
+
+
+def _sum_top_k_grad(ctx, grad):
+    G, N, d = grad.shape
+    return grad[:, :, None].expand(G, N, ctx.k, d).reshape(G, N * ctx.k,
+                                                          d), None
+
+
+sum_top_k.register_autograd(_sum_top_k_grad, setup_context=_sum_top_k_context)
+
+
+def _gather_rows_context(ctx, inputs, output):
+    src, index = inputs
+    ctx.save_for_backward(src, index)
+
+
+def _gather_rows_grad(ctx, grad):
+    src, index = ctx.saved_tensors
+    return scatter_add_rows(grad, index, src), None
+
+
+def _scatter_add_rows_context(ctx, inputs, output):
+    ctx.save_for_backward(inputs[1])
+
+
+def _scatter_add_rows_grad(ctx, grad):
+    (index,) = ctx.saved_tensors
+    return gather_rows(grad, index), None, None
+
+
+gather_rows.register_autograd(_gather_rows_grad,
+                              setup_context=_gather_rows_context)
+scatter_add_rows.register_autograd(_scatter_add_rows_grad,
+                                   setup_context=_scatter_add_rows_context)
 
 
 def moe_init(gen, cfg: ModelConfig, dtype, *, lead: Tuple[int, ...] = (),
@@ -147,7 +240,7 @@ def moe_apply(
     slot_src = torch.where(slot_valid, grid.clamp(0, NKg - 1), 0)
     slot_assign = torch.gather(sorted_idx, 1, slot_src.reshape(G, E * cap_g))
     slot_token = slot_assign // K                                # (G, E*C)
-    buf = torch.gather(xt, 1, slot_token[..., None].expand(G, E * cap_g, d))
+    buf = gather_rows(xt, slot_token)
     buf = buf.to(cd).reshape(G, E, cap_g, d) * slot_valid[..., None].to(cd)
 
     # ---- expert compute (batched products over the expert axis) -----------
@@ -173,16 +266,14 @@ def moe_apply(
         contrib = out_flat * (slot_gate[..., None].to(cd)
                               * slot_valid.reshape(G, E * cap_g)[..., None]
                               .to(cd))
-        y = torch.zeros((G, Ng, d), dtype=cd, device=dev).scatter_add(
-            1, slot_token[..., None].expand(G, E * cap_g, d), contrib)
+        y = scatter_add_rows(contrib, slot_token, xt)
     else:
         # token-side gather (baseline): every token reads its k slots
         safe_pos = torch.where(keep, flat_pos, cap_g - 1)
         flat_slot = flat_e * cap_g + safe_pos                    # (G, NKg)
-        gathered = torch.gather(out_flat, 1,
-                                flat_slot[..., None].expand(G, NKg, d))
+        gathered = gather_rows(out_flat, flat_slot)
         weighted = gathered * flat_gate[..., None].to(cd)
-        y = weighted.reshape(G, Ng, K, d).sum(dim=2)
+        y = sum_top_k(weighted, K)
     return y.reshape(B, T, d).to(x.dtype)
 
 

@@ -49,7 +49,7 @@ TIMEOUT_S = 300
 LOSS_ATOL, GRAD_FRAC, PARAM_REL_L2 = 1e-3, 1e-4, 1e-5
 
 
-PARTS = ("sharded8", "sharded2", "sharded4", "decode2", "collect4",
+PARTS = ("sharded8", "sharded2", "sharded4", "decode2", "moe4", "collect4",
          "single1")
 
 
@@ -72,18 +72,47 @@ def _write_references(out_dir):
         _pickle(out_dir, arch, {"state": jax.device_get(state),
                                 "loss": float(loss),
                                 "grads": jax.device_get(grads)})
+    # moe4: olmoe with two token groups (the dry run's dispatch on a (2, 2)
+    # mesh; the reference drops its buffer constraint with no mesh), under
+    # each combine mode
+    from repro.models import moe as r_moe
+
+    arch = "olmoe-1b-7b"
+    for mode in worker.MOE4_COMBINE:
+        r_moe.set_ep_sharding("model", ("data",), num_groups=2)
+        r_moe.COMBINE_MODE = mode
+        try:
+            r_model = r_build_model(r_configs.get_smoke(arch),
+                                    attn_impl="xla")
+            state = r_train.init_train_state(r_model, jax.random.PRNGKey(0))
+            batch = {k: jnp.asarray(v) for k, v in
+                     worker._batch(configs.get_smoke(arch)).items()}
+            loss, grads = jax.value_and_grad(r_train.make_loss_fn(r_model))(
+                state["params"], batch)
+        finally:
+            r_moe.set_ep_sharding(None, None)
+            r_moe.COMBINE_MODE = "gather"
+        _pickle(out_dir, f"{arch}_ep_{mode}", {
+            "state": jax.device_get(state), "loss": float(loss),
+            "grads": jax.device_get(grads)})
     # decode2: the reference's params (seed 0) and its serving calls'
     # logits and last cache, for each cache of the part
-    for name, (n_layers, n_kv_heads, L, _) in worker.DECODE2.items():
+    cases = [("decode", name, case, worker.DECODE_P, True)
+             for name, case in worker.DECODE2.items()
+             if name not in worker.BY_HAND] + [
+        ("prefill", name, case[:4], case[4], False)
+        for name, case in worker.PREFILL2.items()]
+    for kind, name, (n_layers, n_kv_heads, L, _), prompt, steps in cases:
         cfg = dataclasses.replace(r_configs.get_smoke("internlm2-1.8b"),
                                   n_layers=n_layers, n_kv_heads=n_kv_heads)
         r_model = r_build_model(cfg, attn_impl="xla")
         params = r_model.init(jax.random.PRNGKey(0))
-        tokens, at = worker.decode_inputs(cfg.vocab, L)
+        tokens, at = worker.decode_inputs(cfg.vocab, L, prompt)
         logits, cache = worker.decode_calls(
             r_model, params, r_model.init_cache(worker.DECODE_B, L), tokens,
-            at, tensor=jnp.asarray, scalar=jnp.int32)
-        _pickle(out_dir, f"decode_{name}", {
+            at, tensor=jnp.asarray, scalar=jnp.int32, prompt=prompt,
+            steps=steps)
+        _pickle(out_dir, f"{kind}_{name}", {
             "params": jax.tree_util.tree_map(np.asarray, params),
             "logits": [np.asarray(x) for x in logits],
             "cache": {k: np.asarray(v) for k, v in cache.items()}})
@@ -270,20 +299,79 @@ def test_decode_on_a_split_cache_matches_unsharded(worlds, split):
     params, with the cache split over ``model`` by layer (the reference's
     rule takes the layer axis where the layers number the KV heads), by
     KV head, by sequence (flash-decoding's combine) and by head dim (its
-    longest axis at 16 slots; partial scores).  The logits and the
+    longest axis at 16 slots; partial scores), and by layer over a single
+    KV head, placed so by hand (``layer_serial``: three layers, two on
+    one rank and one on the other; the heads do not divide, so each
+    layer's holder attends it alone).  The logits and the
     written cache, as max |difference| over max |value|, within 1e-5
     (float32 summed in another order): sharded against unsharded, and
     both against the reference's same calls (``prefill``,
-    ``decode_step``)."""
+    ``decode_step``).  Split by layer, every rank attends each layer on
+    its own KV head, or, over one KV head, each rank its own layer whole
+    (:func:`_check_cache_case`)."""
     r = worlds["decode2"]
     assert r["mesh"] == {"data": 1, "model": 2}
-    case = r[split]
+    _check_cache_case(r[split], calls=5)
+
+
+def _check_cache_case(case, calls):
+    """decode2's bounds on one case of ``calls`` serving calls; on a
+    cache split by layer, besides, every rank attends every layer of
+    every call on its own half of the q and KV heads, so that no rank
+    runs a layer's attention over all of its heads -- or, where the KV
+    heads do not divide over the two ranks, each rank attends the layers
+    it holds (the first rank the larger half), on all of their heads,
+    and no other."""
     assert case["placements"][1] == f"S{case['split_dim']}"
     for against in ("sharded", "ref_single", "ref_sharded"):
         err = case[against]
-        assert len(err["logits"]) == 5
+        assert len(err["logits"]) == calls
         assert max(err["logits"]) < 1e-5, (against, err)
         assert err["cache"] < 1e-5, (against, err)
+    if case["split_dim"] == 0:
+        n_layers, (hq, hkv) = case["layers"], case["heads"]
+        if hkv % 2 == 0:
+            want = [[[hq // 2, hkv // 2]] * (n_layers * calls)] * 2
+        else:
+            want = [[[hq, hkv]] * (held * calls)
+                    for held in (n_layers - n_layers // 2, n_layers // 2)]
+        assert case["attention"] == want
+
+
+@pytest.mark.parametrize("split", list(worker.PREFILL2))
+def test_prefill_on_a_split_cache_matches_unsharded(worlds, split):
+    """A prefill of 24 tokens into a 32-slot cache of two layers and two
+    KV heads split by layer over ``model``: each rank attends its KV
+    head of both layers, and the holder writes the new rows of both
+    heads.  Held as decode2's cases: the logits and the written cache
+    within 1e-5 of the unsharded call's and the reference's
+    ``prefill``."""
+    _check_cache_case(worlds["decode2"][f"prefill_{split}"], calls=1)
+
+
+@pytest.mark.parametrize("mode", worker.MOE4_COMBINE)
+def test_expert_parallel_dispatch_step_matches_reference(worlds, mode):
+    """olmoe's smoke step on a (2, 2) mesh with the dry run's dispatch
+    (``dryrun.set_dispatch``: two token groups over ``data``, the experts
+    over ``model``), under each ``COMBINE_MODE``: the loss and every
+    gradient leaf against the reference's ``jax.value_and_grad`` with two
+    groups and against the unsharded step (the existing bounds).  The
+    dispatch buffer and the expert outputs -- the (G, E C, d) side of
+    every row op of the forward -- are split as the reference constrains
+    them: the groups over ``data`` (``Shard(0)``), the experts' slots
+    over ``model`` (``Shard(1)``)."""
+    r = worlds["moe4"]
+    assert r["mesh"] == {"data": 2, "model": 2}
+    case = r[mode]
+    _check_step(case)
+    slots = case["slots"]
+    # two layers, a dispatch and a combine each, in each of the two
+    # sharded forwards (the remat recompute may add some)
+    assert len(case["rows"]) >= 8, case["rows"]
+    for op, S, J, s_side, j_side in case["rows"]:
+        assert slots in (S, J), (op, S, J)
+        side = j_side if J == slots else s_side
+        assert side == ["S0", "S1"], (op, S, J, s_side, j_side)
 
 
 def test_vocab_parallel_lookup_equals_whole_table(worlds):

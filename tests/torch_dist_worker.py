@@ -19,9 +19,17 @@ PART is one of:
             whisper, the MoE, the xLSTM and jamba;
   decode2   serving over a (1, 2) mesh: prefill and decode steps (a
             slot each, and one position a sequence) on a cache split by
-            layer, by KV head, by sequence and by head dim, against the
-            same calls unsharded and the reference's; the vocab-parallel
-            embedding lookup and its gradient against the whole table's;
+            layer, by KV head, by sequence and by head dim, and by layer
+            over one KV head (the holder attends), and a longer
+            prefill on a cache split by layer, against the same calls
+            unsharded and the reference's, with the heads each rank's
+            attention was given; the vocab-parallel embedding lookup and
+            its gradient against the whole table's;
+  moe4      olmoe's smoke step over a (2, 2) mesh with the dry run's
+            expert-parallel dispatch (``dryrun.set_dispatch``: two token
+            groups over ``data``, the experts over ``model``), under
+            both ``COMBINE_MODE``s, with the placements of the dispatch
+            buffer and the expert outputs;
   collect4  ``pipeline_forward`` and ``compressed_psum`` over 4 ranks;
   single1   the sharded step on a 1 x 1 mesh against the unsharded one,
             bit for bit, and a sharded checkpoint restored unsharded;
@@ -61,13 +69,22 @@ DEADLINE_S = 270
 #: the world's output directory (checkpoints of the resume case go there)
 OUT_DIR = None
 WORLDS = {"sharded8": 8, "sharded2": 2, "sharded4": 4, "decode2": 2,
-          "collect4": 4, "single1": 1, "cuda1": 1}
+          "moe4": 4, "collect4": 4, "single1": 1, "cuda1": 1}
 #: decode2's caches: (layers, KV heads, slots) of the smoke internlm2
 #: (head dim 16), and the dim of the stacked (L, B, T, Hkv, hd) cache the
 #: reference's rule splits over ``model``: the layers where they number
 #: the KV heads, the KV heads, else the longest axis (the last of equals)
 DECODE2 = {"layer": (2, 2, 32, 0), "heads": (3, 2, 32, 3),
-           "sequence": (3, 1, 32, 2), "head_dim": (3, 1, 16, 4)}
+           "sequence": (3, 1, 32, 2), "layer_serial": (3, 1, 32, 0),
+           "head_dim": (3, 1, 16, 4)}
+#: decode2's caches placed by layer by hand, each with the case whose
+#: model, cache and calls it shares, and so whose reference calls: the
+#: reference's rule splits the layers only where they number the KV heads
+#: and divide the model axis, so its layer splits always divide the
+#: heads.  Over one KV head, which no split of the heads can share, each
+#: layer's holder attends it (three layers: two on one rank, one on the
+#: other)
+BY_HAND = {"layer_serial": "sequence"}
 #: (arch, attention impl) of the sharded4 part
 SHARDED4 = (("internlm2-1.8b", "xla"), ("internlm2-1.8b", "pallas"),
             ("whisper-tiny", "xla"), ("dbrx-132b", "xla"),
@@ -128,7 +145,7 @@ def _grad_err(grads, want):
             for n, g in named_leaves(want)}
 
 
-def _step_case(arch, mesh, impl):
+def _step_case(arch, mesh, impl, ref=None):
     """One smoke step of ``arch`` unsharded and sharded on ``mesh``, both
     from the reference's initial state: the two losses and grad norms
     and the reference's loss; each gradient leaf's max |error| over the
@@ -146,7 +163,7 @@ def _step_case(arch, mesh, impl):
     from repro_torch.tree import named_leaves
 
     cfg = configs.get_smoke(arch)
-    ref = _reference(arch)
+    ref = _reference(ref or arch)
     model = build_model(cfg, attn_impl=impl, device="cpu")
     batch = {k: torch.as_tensor(v) for k, v in _batch(cfg).items()}
     single = train_state_from_jax(cfg, ref["state"], device="cpu")
@@ -237,74 +254,171 @@ def part_sharded4(rank, out):
         out[f"{arch}/{impl}"] = _step_case(arch, mesh, impl)
 
 
+#: the combine modes of the moe4 part
+MOE4_COMBINE = ("gather", "scatter")
+
+
+def _record_rows(moe, seen):
+    """Wrap ``moe``'s row ops so that each forward call on DTensors
+    records its (G, S, d) side's length, its (G, J, d) side's and the
+    placements of both, as ``(op, S, J, S side, J side)``."""
+    gather, scatter = moe.gather_rows, moe.scatter_add_rows
+
+    def pl(t):
+        return [_placement(p) for p in getattr(t, "placements", ())]
+
+    def gather_rows(src, index):
+        out = gather(src, index)
+        if torch.is_grad_enabled() and pl(out):
+            seen.append(("gather", src.shape[1], index.shape[1], pl(src),
+                         pl(out)))
+        return out
+
+    def scatter_add_rows(src, index, like):
+        out = scatter(src, index, like)
+        if torch.is_grad_enabled() and pl(out):
+            seen.append(("scatter", like.shape[1], index.shape[1], pl(out),
+                         pl(src)))
+        return out
+
+    moe.gather_rows, moe.scatter_add_rows = gather_rows, scatter_add_rows
+    return gather, scatter
+
+
+def part_moe4(rank, out):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import moe
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    cfg = configs.get_smoke("olmoe-1b-7b")
+    m = cfg.moe
+    # the expert side's length, E C: the capacity of the batch's N tokens
+    # over two groups
+    N = np.prod(_batch(cfg)["tokens"].shape)
+    cap = max(int(np.ceil(N * m.top_k / m.n_experts * m.capacity_factor)), 8)
+    slots = m.n_experts * max(8, cap // 2)
+    for mode in MOE4_COMBINE:
+        dryrun.set_dispatch(mesh, False)
+        moe.COMBINE_MODE = mode
+        seen = []
+        saved = _record_rows(moe, seen)
+        try:
+            case = _step_case("olmoe-1b-7b", mesh, "xla",
+                              ref=f"olmoe-1b-7b_ep_{mode}")
+        finally:
+            moe.gather_rows, moe.scatter_add_rows = saved
+            moe.set_ep_sharding(None, None)
+            moe.COMBINE_MODE = "gather"
+        case["rows"] = seen
+        case["slots"] = int(slots)
+        out[mode] = case
+
+
 #: decode2's batch and prompt length
 DECODE_B, DECODE_P = 4, 8
+#: decode2's prefill-only cases, as DECODE2's, with their prompt length
+#: (the layers must number the KV heads and not the batch, which the
+#: reference's rule looks for first)
+PREFILL2 = {"layer": (2, 2, 32, 0, 24)}
 
 
-def decode_inputs(vocab, L):
-    """decode2's tokens, (B, P + 4) from a seed, and the positions a
+def decode_inputs(vocab, L, prompt=DECODE_P):
+    """decode2's tokens, (B, prompt + 4) from a seed, and the positions a
     sequence of its per-slot steps (across both ranks' slots of an
     ``L``-slot cache)."""
-    B, P = DECODE_B, DECODE_P
+    B, P = DECODE_B, prompt
     tokens = np.random.default_rng(2).integers(0, vocab, (B, P + 4))
     return tokens, np.array([P + 2, P + 5, L // 2 + 1, L - 2])
 
 
-def decode_calls(model, params, cache, tokens, at, *, tensor, scalar=int):
+def decode_calls(model, params, cache, tokens, at, *, tensor, scalar=int,
+                 prompt=DECODE_P, steps=True):
     """decode2's serving calls on a model of either package: a prefill of
-    P tokens, two decode steps at one position, then two at a position
-    a sequence (``at``, then ``at + 1``).  ``tensor`` makes the array
-    arguments, ``scalar`` the one positions.  The five logits and the
-    last cache."""
-    P = DECODE_P
+    ``prompt`` tokens, then (with ``steps``) two decode steps at one
+    position and two at a position a sequence (``at``, then ``at +
+    1``).  ``tensor`` makes the array arguments, ``scalar`` the one
+    positions.  The logits of each call and the last cache."""
+    P = prompt
     logits, cache = model.prefill(params, {"tokens": tensor(tokens[:, :P])},
                                   cache)
     out = [logits]
-    for i in range(2):
+    for i in range(2 * steps):
         logits, cache = model.decode_step(params, tensor(tokens[:, P + i]),
                                           cache, scalar(P + i))
         out.append(logits)
-    for i in range(2):
+    for i in range(2 * steps):
         logits, cache = model.decode_step(params, tensor(tokens[:, P + 2 + i]),
                                           cache, tensor(at + i))
         out.append(logits)
     return out, cache
 
 
-def _decode_case(mesh, name, n_layers, n_kv_heads, L, split_dim):
+def _decode_case(mesh, name, n_layers, n_kv_heads, L, split_dim,
+                 prompt=DECODE_P, *, steps=True):
     """The smoke internlm2 with ``n_layers`` and ``n_kv_heads``, from the
     reference's params: :func:`decode_calls` into an ``L``-slot cache
     unsharded and sharded on ``mesh``.  The logits' max |difference| over
     their max |value| and the cache's, of the sharded calls against the
-    unsharded ones and of both against the reference's same calls."""
+    unsharded ones and of both against the reference's same calls; and
+    every rank's attention calls in the sharded run, as the (q heads, KV
+    heads) that each was given."""
     import dataclasses
 
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch import configs
     from repro_torch.distributed import sharding
+    from repro_torch.kernels.attention import ops
     from repro_torch.models import build_model, params_from_jax
 
     cfg = dataclasses.replace(configs.get_smoke("internlm2-1.8b"),
                               n_layers=n_layers, n_kv_heads=n_kv_heads)
-    ref = _reference(f"decode_{name}")
+    ref = _reference(
+        f"{'decode' if steps else 'prefill'}_{BY_HAND.get(name, name)}")
     model = build_model(cfg, attn_impl="xla", device="cpu")
     params = params_from_jax(cfg, ref["params"], device="cpu")
     B = DECODE_B
-    tokens, at = decode_inputs(cfg.vocab, L)
+    tokens, at = decode_inputs(cfg.vocab, L, prompt)
     pl = sharding.cache_shardings(model.init_cache(B, L), cfg, mesh, batch=B)
+    if name in BY_HAND:
+        # DTensor's own placement: ``sharding.place`` refuses a split
+        # that does not divide
+        from torch.distributed.tensor import (Replicate, Shard,
+                                              distribute_tensor)
+
+        pl = {k: (Replicate(), Shard(0)) for k in pl}
+        cache = {k: distribute_tensor(v, mesh, pl[k])
+                 for k, v in model.init_cache(B, L).items()}
+    else:
+        cache = sharding.place(model.init_cache(B, L), pl, mesh)
     placed = sharding.place(params, sharding.param_shardings(params, mesh),
                             mesh)
+    attend, calls = ops._cache_attention, []
+
+    def counted(q, k, v, ck, cv, *args, **kwargs):
+        calls.append((q.shape[2], ck.shape[2]))
+        return attend(q, k, v, ck, cv, *args, **kwargs)
+
     runs = {}
     for run, p, cache in (
             ("single", params, model.init_cache(B, L)),
-            ("sharded", placed, sharding.place(model.init_cache(B, L), pl,
-                                               mesh))):
-        with torch.no_grad(), implicit_replication():
-            out, cache = decode_calls(model, p, cache, tokens, at,
-                                      tensor=torch.as_tensor)
+            ("sharded", placed, cache)):
+        ops._cache_attention = counted if run == "sharded" else attend
+        try:
+            with torch.no_grad(), implicit_replication():
+                out, cache = decode_calls(model, p, cache, tokens, at,
+                                          tensor=torch.as_tensor,
+                                          prompt=prompt, steps=steps)
+        finally:
+            ops._cache_attention = attend
         runs[run] = ([_full(x) for x in out],
                      {k: _full(v) for k, v in cache.items()})
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, calls)
     runs["ref"] = ([torch.as_tensor(x) for x in ref["logits"]],
                    {k: torch.as_tensor(v) for k, v in ref["cache"].items()})
 
@@ -318,6 +432,9 @@ def _decode_case(mesh, name, n_layers, n_kv_heads, L, split_dim):
     return {
         "placements": [_placement(x) for x in pl["k"]],
         "split_dim": split_dim,
+        "heads": (cfg.n_heads, n_kv_heads),
+        "layers": n_layers,
+        "attention": ranks,
         "sharded": err("sharded", "single"),
         "ref_single": err("single", "ref"),
         "ref_sharded": err("sharded", "ref"),
@@ -360,6 +477,8 @@ def part_decode2(rank, out):
     out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     for name, case in DECODE2.items():
         out[name] = _decode_case(mesh, name, *case)
+    for name, case in PREFILL2.items():
+        out[f"prefill_{name}"] = _decode_case(mesh, name, *case, steps=False)
     out["lookup"] = _lookup_case(mesh)
 
 

@@ -3,7 +3,7 @@ source trees bit for bit on one CUDA card.
 
 Usage (from the repository root, on a machine with a CUDA card)::
 
-    python tools/train_digest.py [SRC_DIR]
+    python tools/train_digest.py [SRC_DIR] [--moe]
 
 ``SRC_DIR`` (default: this tree's ``src``) holds the ``repro_torch`` to
 load; its kernels build into that tree's ``build/``.  Prints one line per
@@ -18,6 +18,15 @@ exactly when their lines are:
 * the smoke internlm2 (float32): 3 steps, a checkpoint, 2 more; the
   checkpoint restored and the same 2 steps again (phase T's resume):
   the losses and the resumed state.
+
+With ``--moe``, the MoE path's forwards instead: olmoe-1b-7b at its
+published widths (bfloat16, seed 0, attention ``xla``: the MoE blocks
+are what is compared, not the kernels), a scoring forward of a 4 x 512
+batch at the capacity of its tokens (``chip_smoke.py`` phase E's rule),
+a prefill of 4 x 128 tokens and 8 greedy decode steps, and
+``moe_apply`` of one block on seeded input at the default capacity
+with its kept (token, expert) assignments.  Only forwards: a backward's
+scatter-add sums by atomics on the card, in no fixed order.
 
 Lines starting ``#`` are times, not digests: the published-width run's
 ``TIMED`` further steps, each in seconds (wall clock from a synchronized
@@ -42,6 +51,8 @@ import time
 STEPS, BATCH, LEN = 3, 4, 4096
 #: the steps timed after them, and the loss's timed repetitions
 TIMED, LOSS_REPS = 6, 10
+#: ``--moe``: the scoring batch, the prompt and the decode steps
+MOE_SCORE, MOE_PROMPT, MOE_STEPS = (4, 512), (4, 128), 8
 
 
 def _bits(x) -> str:
@@ -91,10 +102,54 @@ def _loss_ms(vocab: int) -> float:
     return sorted(ms)[len(ms) // 2]
 
 
+def _moe(dev) -> None:
+    """Print the ``--moe`` digests."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import build_model, moe
+
+    cfg = configs.get("olmoe-1b-7b")
+    model = build_model(cfg, attn_impl="xla")
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, MOE_SCORE, device=dev, generator=gen)
+    with torch.no_grad():
+        t = time.perf_counter()
+        logits = model.forward(params, {"tokens": tokens},
+                               moe_capacity=tokens.numel())
+        torch.cuda.synchronize()
+        print(f"olmoe-1b-7b forward {MOE_SCORE} {_digest([logits])}")
+        print(f"# forward {time.perf_counter() - t:.4f} s")
+        B, P = MOE_PROMPT
+        cache = model.init_cache(B, P + MOE_STEPS)
+        out, cache = model.prefill(params, {"tokens": tokens[:B, :P]}, cache,
+                                   moe_capacity=B * P)
+        outs = [out]
+        for i in range(MOE_STEPS):
+            out, cache = model.decode_step(params, out.argmax(-1), cache,
+                                           P + i)
+            outs.append(out)
+        print(f"olmoe-1b-7b prefill {MOE_PROMPT} and {MOE_STEPS} decode "
+              f"steps {_digest(outs + [cache['k'], cache['v']])}")
+        blk = {k: v[0] for k, v in params["blocks"]["moe"].items()
+               if not isinstance(v, dict)}
+        blk["router"] = {k: v[0] for k, v in
+                         params["blocks"]["moe"]["router"].items()}
+        x = torch.randn(*MOE_SCORE, cfg.d_model, device=dev, generator=gen,
+                        dtype=torch.bfloat16)
+        y = moe.moe_apply(blk, x, cfg)
+        *_, keep, _, _, _ = moe._route(blk, x.reshape(1, -1, cfg.d_model),
+                                       cfg, None)
+        print(f"olmoe-1b-7b moe_apply {tuple(x.shape)} {_digest([y])} kept "
+              f"{int(keep.sum())}")
+
+
 def main() -> int:
     """Print each result's digest; returns the exit code."""
     root = pathlib.Path(__file__).resolve().parents[1]
-    sys.path.insert(0, sys.argv[1] if len(sys.argv) > 1 else str(root / "src"))
+    args = [a for a in sys.argv[1:] if a != "--moe"]
+    sys.path.insert(0, args[0] if args else str(root / "src"))
     import torch
 
     from repro_torch import configs
@@ -109,6 +164,9 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if "--moe" in sys.argv[1:]:
+        _moe(dev)
+        return 0
 
     cfg = configs.get("internlm2-1.8b")
     model = build_model(cfg)
