@@ -516,6 +516,11 @@ DRYRUN_SHAPES = ("train_4k", "decode_32k")
 DRYRUN_COMPOSED = ("xlstm-125m", "jamba-1.5-large-398b")
 DRYRUN_MULTIPOD = (("internlm2-1.8b", "train_4k"),
                    ("internlm2-1.8b", "decode_32k"))
+#: phase Y's cells that must fit one H100's 80 GiB (arguments plus
+#: temporaries a device): the multi-pod train cell whose attention and MLP
+#: the sharded step used to leave whole on every rank of the model axis
+DRYRUN_FIT = (("internlm2-1.8b", "train_4k", "multipod"),)
+DRYRUN_FIT_BYTES = 80 * 2 ** 30
 DRYRUN_TIMEOUT_S = 300
 #: the dry run on the host: cells, then the two steps' counts (last line)
 DRYRUN_HOST = """
@@ -3519,7 +3524,9 @@ def phase_dryrun(card: str) -> dict:
     process of its own while nothing else runs, each with status,
     seconds, per-device GFLOPs, bytes, collective bytes, memory and
     bound (a train cell whose largest temporaries have the whole vocab
-    as their last dim, where the model axis splits it, fails the phase);
+    as their last dim, where the model axis splits it, fails the phase,
+    as does a cell of ``DRYRUN_FIT`` whose arguments and temporaries
+    exceed the card's 80 GiB);
     then two card checks, each a step counted by
     ``FlopCounterMode`` on the card that must equal the dry run's 1 x 1
     count of it exactly (the same ops), its peak memory and seconds
@@ -3573,6 +3580,13 @@ def phase_dryrun(card: str) -> dict:
             bad.append(f"{c['arch']} train_4k {c['mesh']}: a tensor with "
                        f"the whole vocab of {vocab} at the peak "
                        f"({c['peak_temporaries']})")
+        held = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
+        if (c["arch"], c["shape"], c["mesh"]) in DRYRUN_FIT and (
+                held > DRYRUN_FIT_BYTES):
+            bad.append(f"{c['arch']} {c['shape']} {c['mesh']}: "
+                       f"{held / 2**30:.2f} GiB of arguments and "
+                       f"temporaries, over the card's "
+                       f"{DRYRUN_FIT_BYTES / 2**30:.0f}")
     if bad:
         fail("dry-run cells failed: " + "; ".join(bad))
     checks = {}

@@ -21,6 +21,10 @@ is always one of them, so each rule is exact whatever the placements.
   loss picks its labels by a masked sum, not a gather;
 * ``mm.dtype`` of the LM head keeps its weight's split of the vocab
   (:func:`_keep_column_split`): the logits leave the head split on V;
+  and a product one of whose operands is a partial sum where the other
+  is split keeps its work split (by rows, columns or, where it shrinks,
+  its contraction), never the split operand gathered beside it (every
+  rank the whole product);
 * ``eq.Tensor``, ``div.Tensor`` (:func:`_broadcast_splits`): split on
   any output dim where each input is split alike or broadcast -- the
   loss's mask, ``ids == labels[..., None]``, with the labels split over
@@ -55,6 +59,9 @@ is always one of them, so each rule is exact whatever the placements.
 Attention runs on local shards (:func:`local_attention`): the flash
 kernels take raw pointers, and the plain paths' grouping of q heads by
 KV head would gather q whole where the model axis splits the groups.
+Each mesh dim splits the heads where they divide, else the batch rows
+(:func:`attention_splits`), so that no rank attends all heads of all
+its rows while a split exists.
 A serving cache is written and attended where it lies
 (:func:`split_cache_attention`: flash-decoding over a split sequence),
 and a vocab-split embedding table looked up where it lies, forward and
@@ -110,25 +117,59 @@ def set_vocab_split(vocab) -> None:
             .cache_clear()
 
 
+def _splits_work(a, b, grows: bool) -> bool:
+    """Whether placements ``a`` and ``b`` of ``a @ b`` on one mesh dim
+    split the product's work: by the rows of ``a`` or the columns of
+    ``b``, or by the contraction where the product shrinks its rows
+    (not ``grows``): a split contraction leaves each rank a partial sum
+    of the whole output, an MLP's whole hidden where it grows."""
+    return a.is_shard(0) or b.is_shard(1) or (
+        not grows and a.is_shard(1) and b.is_shard(0))
+
+
 def _keep_column_split(strict: Callable) -> Callable:
-    """The strategies of ``mm.dtype`` (``strict``) for the LM head's
-    product -- ``b`` (d, V) with V in :data:`VOCAB_SPLIT` -- that keep
-    ``b``'s column split on every mesh dim where it has one: the input
-    meets it (gathered, or reduced where it is a partial sum), and the
-    logits leave split on V (the vocab-parallel head).  DTensor's costs
-    count only the inputs' redistributions, so it would rather split the
-    contraction or gather the weight and leave the whole (B T, V) logits
-    on every rank.  Other products keep DTensor's choice."""
+    """The strategies of ``mm.dtype`` (``strict``), narrowed two ways.
+
+    * The LM head's product -- ``b`` (d, V) with V in
+      :data:`VOCAB_SPLIT` -- keeps ``b``'s column split on every mesh
+      dim where it has one: the input meets it (gathered, or reduced
+      where it is a partial sum), and the logits leave split on V (the
+      vocab-parallel head).
+    * On a mesh dim where one operand is a partial sum and the other is
+      split (a weight; in the backward, an activation), the product's
+      work stays split (:func:`_splits_work`): by its rows, its columns
+      or, where ``b`` has fewer columns than rows, its contraction --
+      never the split operand gathered beside the partial one, which
+      leaves every rank of the dim the whole product (the MLP's whole
+      hidden of its rows, as a partial sum, and the weights' gradients
+      on the multi-pod mesh: 2.7x the FLOPs a device of the single-pod
+      cell, with half its rows).
+
+    DTensor's costs count only the inputs' redistributions, so it would
+    rather gather the weight, and leave the whole (B T, V) logits, or
+    the whole work of a product, on every rank.  Other products keep
+    DTensor's choice."""
     def strategy(op_schema):
         out = strict(op_schema)
-        spec = op_schema.args_schema[1].strategies[0].output_spec
-        if spec.shape[1] not in VOCAB_SPLIT:
-            return out
-        cols = [i for i, p in enumerate(spec.placements) if p.is_shard(1)]
-        keep = [s for s in out.strategies
-                if all(s.input_specs[1].placements[i].is_shard(1)
-                       for i in cols)]
-        if cols and keep:
+        a, b = (op_schema.args_schema[i].strategies[0].output_spec
+                for i in (0, 1))
+        keep = out.strategies
+        if b.shape[1] in VOCAB_SPLIT:
+            cols = [i for i, p in enumerate(b.placements) if p.is_shard(1)]
+            keep = [s for s in keep
+                    if all(s.input_specs[1].placements[i].is_shard(1)
+                           for i in cols)]
+        split = [i for i, (pa, pb) in enumerate(zip(a.placements,
+                                                    b.placements))
+                 if ((pa.is_partial() and pb.is_shard())
+                     or (pb.is_partial() and pa.is_shard()))
+                 and a.mesh.size(i) > 1]
+        grows = b.shape[1] >= b.shape[0]
+        keep = [s for s in keep if all(
+            _splits_work(s.input_specs[0].placements[i],
+                         s.input_specs[1].placements[i], grows)
+            for i in split)]
+        if keep:
             out.strategies = keep
         return out
 
@@ -320,9 +361,10 @@ def _out_shape(op_schema) -> list:
 
 def _uneven(strategy, shape, mesh) -> set:
     """The mesh dims of a strategy's output that split a dim unevenly:
-    each that shares the dim with another, or all of them where the first
-    alone does not divide it (DTensor's view rule can propose such splits
-    for a dim sharded over two mesh dims)."""
+    those after the longest leading run of the mesh dims sharing the dim
+    whose product divides it (DTensor's view rule can propose such
+    splits for a dim sharded over several mesh dims: the batch of 256
+    over (2, 16, 16))."""
     bad = set()
     for spec in strategy.strategies:
         by_dim = {}
@@ -334,7 +376,11 @@ def _uneven(strategy, shape, mesh) -> set:
             for i in dims:
                 n *= mesh.size(i)
             if shape[d] % n:
-                bad.update(dims if shape[d] % mesh.size(dims[0]) else dims[1:])
+                n, k = 1, 0
+                while shape[d] % (n * mesh.size(dims[k])) == 0:
+                    n *= mesh.size(dims[k])
+                    k += 1
+                bad.update(dims[k:])
     return bad
 
 
@@ -403,14 +449,17 @@ def _placed_on(op_schema, mesh_dims: dict):
 def _gather_where_uneven(strict: Callable, gathering: Callable) -> Callable:
     """A view's sharding strategy: DTensor's own (``strict``); where that
     refuses a split or a flatten that needs a redistribution,
-    ``reshape``'s (``gathering``), which replicates the dim first; and where either
-    proposes an output split unevenly, the same with the input
-    replicated on the mesh dims at fault; where either proposes a
-    ``_StridedShard`` (:func:`_strided`), the same with the input moved,
-    on those mesh dims, to a dim the view keeps whole (an all-to-all;
-    :func:`_kept_dim`) or else replicated.  The view then aliases the
-    redistributed copy, not its input: the model's views are read, never
-    written through."""
+    ``reshape``'s (``gathering``), which replicates the dim first; and
+    where either proposes an output split unevenly, the same with the
+    input replicated on the mesh dims at fault -- or, where the view
+    unflattens (rows of a product back to (B, T, ...), whose batch the
+    mesh dims outnumber), moved there as for a ``_StridedShard``; where
+    either proposes a ``_StridedShard`` (:func:`_strided`), the same
+    with the input moved, on those mesh dims, to a dim the view keeps
+    whole (an all-to-all; :func:`_kept_dim`: an MLP hidden's columns
+    rather than the whole hidden gathered) or else replicated.  The view
+    then aliases the redistributed copy, not its input: the model's
+    views are read, never written through."""
     def strategy(op_schema):
         mesh = op_schema.args_schema[0].strategies[0].output_spec.mesh
         shape = _out_shape(op_schema)
@@ -428,9 +477,11 @@ def _gather_where_uneven(strict: Callable, gathering: Callable) -> Callable:
             strided = _strided(out) - bad
             if not bad and not strided:
                 return out
+            src = op_schema.args_schema[0].strategies[0].output_spec.shape
+            moved = strided | (bad if len(shape) > len(src) else set())
             op_schema = _placed_on(op_schema, {
-                **dict.fromkeys(bad, R),
-                **{i: _kept_dim(op_schema, shape, mesh, i) for i in strided}})
+                **dict.fromkeys(bad - moved, R),
+                **{i: _kept_dim(op_schema, shape, mesh, i) for i in moved}})
         raise RuntimeError(f"no even split of {op_schema} over {mesh}")
 
     return strategy
@@ -448,10 +499,13 @@ def _register_view_fallback() -> None:
 _register_view_fallback()
 
 
-def _register_column_split() -> None:
+def _register_column_split(op=aten.mm.dtype) -> None:
+    """Narrow ``op``'s strategies by :func:`_keep_column_split` (the
+    card's ``mm.dtype``; a test gives the CPU's ``mm`` the card's
+    rules)."""
     prop = DTensor._op_dispatcher.sharding_propagator
     funcs = prop.op_strategy_funcs
-    funcs[aten.mm.dtype] = _keep_column_split(funcs[aten.mm.dtype])
+    funcs[op] = _keep_column_split(funcs[op])
     prop.propagate_op_sharding.cache_clear()
 
 
@@ -603,61 +657,127 @@ def _register_partial_guard() -> None:
 _register_partial_guard()
 
 
+def attention_splits(placements, sizes, B: int, Hq: int, Hkv: int,
+                     kv_placements=None):
+    """Each mesh dim's split of attention on (B, H, T, d) q, k, v whose q
+    is placed ``placements`` (k and v ``kv_placements``, by default as
+    q) on a mesh of ``sizes``: ``"rows"`` (the batch), ``"heads"`` or
+    ``None`` (whole), and the mesh dim whose split of the q heads gives
+    each rank one KV head of whole k and v (or None).  In mesh-dim
+    order, on the rows and heads left by the dims before it:
+
+    * a batch split of q that divides the rows is kept;
+    * else the heads, where they divide (the KV heads too, or the mesh
+      dim is a multiple of them: each rank's q heads then share one KV
+      head, picked from whole k and v -- on one mesh dim at most, and
+      not where k or v is a partial mean, whose gradient DTensor cannot
+      give as the partial sum the pick leaves);
+    * else the rows, where they divide;
+    * else nothing, so every rank attends its rows and heads whole.
+
+    A replicated dim of one rank stays whole.  So no mesh dim that
+    splits nothing else leaves a rank all heads of all its rows while a
+    split exists (a partial q, k, v is reduce-scattered onto it, never
+    all-reduced whole)."""
+    rows, hq, hkv, pick = B, Hq, Hkv, None
+    out = []
+    for i, (p, n) in enumerate(zip(placements, sizes)):
+        kv = (kv_placements or placements)[i]
+        can_pick = pick is None and n % hkv == 0 and not (
+            kv.is_partial() and kv.reduce_op != "sum")
+        heads = hq % n == 0 and (hkv % n == 0 or can_pick)
+        if p.is_shard(0) and rows % n == 0:
+            choice = "rows"
+        elif p.is_replicate() and n == 1:
+            choice = None
+        elif heads:
+            choice = "heads"
+            if hkv % n:
+                pick, hkv = i, 1
+            else:
+                hkv //= n
+            hq //= n
+        elif rows % n == 0:
+            choice = "rows"
+        else:
+            choice = None
+        if choice == "rows":
+            rows //= n
+        out.append(choice)
+    return out, pick
+
+
+def attention_plan(q, k, v):
+    """:func:`attention_splits` of DTensors q, k, v (B, H, T, d): k's
+    placements, or v's where v is a partial mean."""
+    kv = [pv if pv.is_partial() and pv.reduce_op != "sum" else pk
+          for pk, pv in zip(k.placements, v.placements)]
+    return attention_splits(q.placements, tuple(q.device_mesh.mesh.shape),
+                            q.shape[0], q.shape[1], k.shape[1], kv)
+
+
 def local_attention(fn: Callable, q, k, v):
     """``fn(q, k, v)`` -- attention on (B, H, T, d) DTensors -- on each
-    rank's local batch rows and heads (``local_map``).  Each mesh dim
-    keeps ``q``'s sharding of the batch axis for all three and the
-    output; of the head axis, when it divides ``Hq`` and each rank's
-    block of q heads lies within the KV heads of a whole block: with
-    ``Hkv`` divisible too, k and v are split alike, else they come
-    whole and each rank takes the one KV head its q heads share.  A
-    partial sum (q, k and v are partial where their projections contract
-    a split feature dim) is reduce-scattered onto the heads where both
-    ``Hq`` and ``Hkv`` divide.  Any other dim is gathered.  Heads and
-    batch rows are independent, so the kernels see whole problems."""
+    rank's local batch rows and heads (``local_map``), split on each
+    mesh dim as :func:`attention_splits` chooses: k and v split as q,
+    but where the dim picks a KV head, when they come whole and each
+    rank takes the one its q heads share.  q, k and v are moved to
+    those placements (a partial sum -- they are partial where their
+    projections contract a split feature dim -- reduce-scattered), the
+    output leaves in q's, and the gradients of whole k and v are partial
+    over the picking dim.  Heads and batch rows are independent, so the
+    kernels see whole problems."""
     mesh = q.device_mesh
-    B, Hq = q.shape[:2]
-    Hkv = k.shape[1]
-    q_pl, kv_pl = [], []
-    pick = None                  # (mesh dim, ranks a KV head) of a split group
-    for i, p in enumerate(q.placements):
-        n = mesh.size(i)
-        if isinstance(p, Shard) and p.dim == 0 and B % n == 0:
-            q_pl.append(Shard(0))
-            kv_pl.append(Shard(0))
-        elif (p.is_shard(1) and Hq % n == 0 and (
-                Hkv % n == 0 or (pick is None and n % Hkv == 0))) or (
-                p.is_partial() and Hq % n == 0 and Hkv % n == 0):
-            q_pl.append(Shard(1))
-            if Hkv % n == 0:
-                kv_pl.append(Shard(1))
-            else:
-                kv_pl.append(R)
-                pick = (i, n // Hkv)
-        else:
-            q_pl.append(R)
-            kv_pl.append(R)
-    q_pl, kv_pl = tuple(q_pl), tuple(kv_pl)
+    splits, pick = attention_plan(q, k, v)
+    place = {"rows": Shard(0), "heads": Shard(1), None: R}
+    q_pl = tuple(place[c] for c in splits)
+    kv_pl = tuple(R if i == pick else place[c] for i, c in enumerate(splits))
     kv_grad = kv_pl
     if pick is None:
         local = fn
     else:
-        # this rank's q heads all belong to KV head coord // (n / Hkv);
-        # the whole k and v it was given get a gradient in that head
-        # only, summed over the ranks of the split
-        h = mesh.get_coordinate()[pick[0]] // pick[1]
-        kv_grad = tuple(Partial() if i == pick[0] else p
+        # this rank's q heads all belong to KV head coord // (n / Hkv) of
+        # its local k and v; they get a gradient in that head only,
+        # summed over the ranks of the split
+        hkv = k.shape[1]
+        for i, c in enumerate(splits[:pick]):
+            hkv //= mesh.size(i) if c == "heads" else 1
+        h = mesh.get_coordinate()[pick] // (mesh.size(pick) // hkv)
+        kv_grad = tuple(Partial() if i == pick else p
                         for i, p in enumerate(kv_pl))
 
         def local(q, k, v):
             return fn(q, k[:, h:h + 1], v[:, h:h + 1])
 
+    moved = [tuple(t.placements) != pl
+             for t, pl in ((q, q_pl), (k, kv_pl), (v, kv_pl))]
+
+    def dense(*args):
+        # the gradient of an input that was moved is gathered back: the
+        # gathered DTensor keeps the local gradient's strides, but its
+        # local tensor comes out contiguous, so a view in the backward
+        # that the strides allow fails on it unless they agree
+        return local(*(_DenseGrad.apply(t) if m else t
+                       for t, m in zip(args, moved)))
+
     # one output, given as a 1-tuple so that its placements read alike
     # on every torch version
-    return local_map(lambda *a: (local(*a),), out_placements=(q_pl,),
+    return local_map(lambda *a: (dense(*a),), out_placements=(q_pl,),
                      in_placements=(q_pl, kv_pl, kv_pl),
                      in_grad_placements=(q_pl, kv_grad, kv_grad),
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)[0]
+
+
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def _spec(mesh, placements, shape, dtype):

@@ -3,8 +3,12 @@ int8 compression bit for bit, and the sharded train step, the pipeline
 schedule and the compressed all-reduce across ``gloo`` ranks.
 
 The multi-rank parts run in ``tests/torch_dist_worker.py``, one world
-of ranks per part started by a module-scoped fixture (over a
-``FileStore``, no TCP port), each within a 300-s timeout.  Bounds, as
+of ranks per part (over a ``FileStore``, no TCP port), all started side
+by side by one module fixture, which then writes the reference's files
+the worlds read; each part's results are a module fixture of their own,
+so a world that fails or outruns its deadline (the worker's
+``DEADLINE_S``, counted from its inputs) errors only its own tests.
+Bounds, as
 the reference's ``tests/test_distributed.py::test_multidevice_semantics``
 holds its own: |loss single - loss sharded| < 1e-3, ``pp_err`` < 1e-5,
 ``psum_err`` < 2e-4.  Beyond it:
@@ -30,6 +34,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import time
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +51,8 @@ from repro_torch.distributed import compression
 WORKER = os.path.join(os.path.dirname(__file__), "torch_dist_worker.py")
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 TIMEOUT_S = 300
+#: a part's wait beyond its world's own deadline
+MARGIN_S = 60
 LOSS_ATOL, GRAD_FRAC, PARAM_REL_L2 = 1e-3, 1e-4, 1e-5
 
 
@@ -53,69 +60,80 @@ PARTS = ("sharded8", "sharded2", "sharded4", "decode2", "moe4", "collect4",
          "single1")
 
 
-def _write_references(out_dir):
-    """For every arch at smoke, the reference's initial state (seed 0,
+def _reference_groups():
+    """The reference files the worlds read, in the order they are written
+    (decode2's and moe4's first, then sharded8's, sharded4's and the
+    rest), as (name, function of the output directory)."""
+    writers = {f"olmoe-1b-7b_ep_{mode}": lambda d, m=mode: _write_moe(d, m)
+               for mode in worker.MOE4_COMBINE}
+    for kind, name, *rest in [
+            ("decode", name, case, worker.DECODE_P, True)
+            for name, case in worker.DECODE2.items()
+            if name not in worker.BY_HAND] + [
+            ("prefill", name, case[:4], case[4], False)
+            for name, case in worker.PREFILL2.items()]:
+        writers[f"{kind}_{name}"] = (
+            lambda d, c=(kind, name, *rest): _write_decode(d, *c))
+    order = [n for part in ("decode2", "moe4", "sharded8", "sharded4",
+                            "sharded2") for n in worker.NEEDS[part]]
+    return [(n, writers.get(n, lambda d, a=n: _write_step(d, a)))
+            for n in dict.fromkeys(order)]
+
+
+def _write_step(out_dir, arch, name=None):
+    """The reference's initial state of ``arch`` at smoke (seed 0,
     ``attn_impl="xla"``) and its loss and gradients on the worker's batch
-    (``jax.value_and_grad``); for each of decode2's caches, the
-    reference's serving calls; pickled as numpy for the worker."""
+    (``jax.value_and_grad``), pickled as numpy for the worker."""
     from repro import configs as r_configs
     from repro.models import build_model as r_build_model
     from repro.runtime import train as r_train
 
-    for arch in configs.ARCH_IDS:
-        r_model = r_build_model(r_configs.get_smoke(arch), attn_impl="xla")
-        state = r_train.init_train_state(r_model, jax.random.PRNGKey(0))
-        batch = {k: jnp.asarray(v) for k, v in
-                 worker._batch(configs.get_smoke(arch)).items()}
-        loss, grads = jax.value_and_grad(r_train.make_loss_fn(r_model))(
-            state["params"], batch)
-        _pickle(out_dir, arch, {"state": jax.device_get(state),
-                                "loss": float(loss),
-                                "grads": jax.device_get(grads)})
-    # moe4: olmoe with two token groups (the dry run's dispatch on a (2, 2)
-    # mesh; the reference drops its buffer constraint with no mesh), under
-    # each combine mode
+    r_model = r_build_model(r_configs.get_smoke(arch), attn_impl="xla")
+    state = r_train.init_train_state(r_model, jax.random.PRNGKey(0))
+    batch = {k: jnp.asarray(v) for k, v in
+             worker._batch(configs.get_smoke(arch)).items()}
+    loss, grads = jax.value_and_grad(r_train.make_loss_fn(r_model))(
+        state["params"], batch)
+    _pickle(out_dir, name or arch, {"state": jax.device_get(state),
+                                    "loss": float(loss),
+                                    "grads": jax.device_get(grads)})
+
+
+def _write_moe(out_dir, mode):
+    """moe4's: olmoe with two token groups (the dry run's dispatch on a
+    (2, 2) mesh; the reference drops its buffer constraint with no mesh),
+    under combine ``mode``."""
     from repro.models import moe as r_moe
 
-    arch = "olmoe-1b-7b"
-    for mode in worker.MOE4_COMBINE:
-        r_moe.set_ep_sharding("model", ("data",), num_groups=2)
-        r_moe.COMBINE_MODE = mode
-        try:
-            r_model = r_build_model(r_configs.get_smoke(arch),
-                                    attn_impl="xla")
-            state = r_train.init_train_state(r_model, jax.random.PRNGKey(0))
-            batch = {k: jnp.asarray(v) for k, v in
-                     worker._batch(configs.get_smoke(arch)).items()}
-            loss, grads = jax.value_and_grad(r_train.make_loss_fn(r_model))(
-                state["params"], batch)
-        finally:
-            r_moe.set_ep_sharding(None, None)
-            r_moe.COMBINE_MODE = "gather"
-        _pickle(out_dir, f"{arch}_ep_{mode}", {
-            "state": jax.device_get(state), "loss": float(loss),
-            "grads": jax.device_get(grads)})
-    # decode2: the reference's params (seed 0) and its serving calls'
-    # logits and last cache, for each cache of the part
-    cases = [("decode", name, case, worker.DECODE_P, True)
-             for name, case in worker.DECODE2.items()
-             if name not in worker.BY_HAND] + [
-        ("prefill", name, case[:4], case[4], False)
-        for name, case in worker.PREFILL2.items()]
-    for kind, name, (n_layers, n_kv_heads, L, _), prompt, steps in cases:
-        cfg = dataclasses.replace(r_configs.get_smoke("internlm2-1.8b"),
-                                  n_layers=n_layers, n_kv_heads=n_kv_heads)
-        r_model = r_build_model(cfg, attn_impl="xla")
-        params = r_model.init(jax.random.PRNGKey(0))
-        tokens, at = worker.decode_inputs(cfg.vocab, L, prompt)
-        logits, cache = worker.decode_calls(
-            r_model, params, r_model.init_cache(worker.DECODE_B, L), tokens,
-            at, tensor=jnp.asarray, scalar=jnp.int32, prompt=prompt,
-            steps=steps)
-        _pickle(out_dir, f"{kind}_{name}", {
-            "params": jax.tree_util.tree_map(np.asarray, params),
-            "logits": [np.asarray(x) for x in logits],
-            "cache": {k: np.asarray(v) for k, v in cache.items()}})
+    r_moe.set_ep_sharding("model", ("data",), num_groups=2)
+    r_moe.COMBINE_MODE = mode
+    try:
+        _write_step(out_dir, "olmoe-1b-7b", f"olmoe-1b-7b_ep_{mode}")
+    finally:
+        r_moe.set_ep_sharding(None, None)
+        r_moe.COMBINE_MODE = "gather"
+
+
+def _write_decode(out_dir, kind, name, case, prompt, steps):
+    """decode2's: the reference's params (seed 0) and its serving calls'
+    logits and last cache for one cache of the part."""
+    from repro import configs as r_configs
+    from repro.models import build_model as r_build_model
+
+    n_layers, n_kv_heads, L, _ = case
+    cfg = dataclasses.replace(r_configs.get_smoke("internlm2-1.8b"),
+                              n_layers=n_layers, n_kv_heads=n_kv_heads)
+    r_model = r_build_model(cfg, attn_impl="xla")
+    params = r_model.init(jax.random.PRNGKey(0))
+    tokens, at = worker.decode_inputs(cfg.vocab, L, prompt)
+    logits, cache = worker.decode_calls(
+        r_model, params, r_model.init_cache(worker.DECODE_B, L), tokens,
+        at, tensor=jnp.asarray, scalar=jnp.int32, prompt=prompt,
+        steps=steps)
+    _pickle(out_dir, f"{kind}_{name}", {
+        "params": jax.tree_util.tree_map(np.asarray, params),
+        "logits": [np.asarray(x) for x in logits],
+        "cache": {k: np.asarray(v) for k, v in cache.items()}})
 
 
 def _pickle(out_dir, name, obj):
@@ -125,33 +143,76 @@ def _pickle(out_dir, name, obj):
     os.replace(path + ".tmp", path)   # whole when a worker sees it
 
 
-@pytest.fixture(scope="module")
-def worlds(tmp_path_factory):
-    """Every part's results; the worlds run side by side while this
-    process writes the reference's states, which their step cases wait
-    for."""
-    out_dir = tmp_path_factory.mktemp("worlds")
-    logs = {part: open(os.path.join(out_dir, f"{part}.log"), "w+")
+class _Worlds:
+    """The worlds, started side by side, and the reference files written
+    meanwhile (:func:`_reference_groups`): when each was written, or the
+    error that stopped it."""
+
+    def __init__(self, out_dir):
+        self.out_dir = out_dir
+        self.started = time.monotonic()
+        self.logs = {part: open(os.path.join(out_dir, f"{part}.log"), "w+")
+                     for part in PARTS}
+        self.procs = {part: subprocess.Popen(
+            [sys.executable, WORKER, part, str(out_dir)],
+            stdout=self.logs[part], stderr=subprocess.STDOUT)
             for part in PARTS}
-    procs = {part: subprocess.Popen(
-        [sys.executable, WORKER, part, str(out_dir)], stdout=logs[part],
-        stderr=subprocess.STDOUT) for part in PARTS}
-    out = {}
-    try:
-        _write_references(out_dir)
-        for part, p in procs.items():
-            p.wait(timeout=TIMEOUT_S)
-            logs[part].seek(0)
-            assert p.returncode == 0, logs[part].read()[-4000:]
-            with open(os.path.join(out_dir, f"{part}.json")) as f:
-                out[part] = json.load(f)
-            assert "error" not in out[part], out[part]["error"]
-    finally:
-        for part, p in procs.items():
+        self.written, self.failed = {}, {}
+        for name, write in _reference_groups():
+            try:
+                write(out_dir)
+                self.written[name] = time.monotonic()
+            except Exception as e:      # only the parts that read it fail
+                self.failed[name] = repr(e)
+
+    def result(self, part):
+        """``part``'s results; raises if a reference it reads failed, or
+        if its world failed or outran its deadline.  The wait ends
+        :data:`MARGIN_S` after the world's own deadline, so that the
+        world's message is what a failure shows."""
+        p, log = self.procs[part], self.logs[part]
+        try:
+            needs = worker.NEEDS.get(part, ())
+            bad = {n: self.failed[n] for n in needs if n in self.failed}
+            assert not bad, f"{part}: its reference failed: {bad}"
+            ready = max([self.started] + [self.written[n] for n in needs])
+            limit = ready + worker.DEADLINE_S[part] + MARGIN_S
+            p.wait(timeout=max(limit - time.monotonic(), 1))
+        finally:
             if p.poll() is None:
                 p.kill()
-            logs[part].close()
-    return out
+        log.seek(0)
+        assert p.returncode == 0, log.read()[-4000:]
+        with open(os.path.join(self.out_dir, f"{part}.json")) as f:
+            out = json.load(f)
+        assert "error" not in out, out["error"]
+        return out
+
+    def close(self):
+        for part, p in self.procs.items():
+            if p.poll() is None:
+                p.kill()
+            self.logs[part].close()
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    w = _Worlds(tmp_path_factory.mktemp("worlds"))
+    yield w
+    w.close()
+
+
+def _part(part):
+    """A module fixture of ``part``'s results alone: a world that fails
+    errors the tests that read it and no others."""
+    @pytest.fixture(scope="module", name=part)
+    def fixture(worlds):
+        return worlds.result(part)
+    return fixture
+
+
+sharded8, sharded2, sharded4, decode2, moe4, collect4, single1 = map(
+    _part, PARTS)
 
 
 def _check_step(r):
@@ -239,14 +300,14 @@ def test_init_error_feedback_and_tree_shapes():
 # -- multi-rank -----------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "olmoe-1b-7b"])
-def test_sharded_step_4x2_through_the_cards_product_rules(worlds, arch):
+def test_sharded_step_4x2_through_the_cards_product_rules(sharded8, arch):
     """The rules registered for the card's ``mm.dtype``/``bmm.dtype``,
     given to the CPU's ``mm``/``bmm``, over a (4, 2) mesh."""
-    _check_step(worlds["sharded8"][f"{arch}/mm_dtype_rules"])
+    _check_step(sharded8[f"{arch}/mm_dtype_rules"])
 
 
-def test_sharded_step_4x2_matches_single(worlds):
-    r = worlds["sharded8"]
+def test_sharded_step_4x2_matches_single(sharded8):
+    r = sharded8
     assert r["mesh"] == {"data": 4, "model": 2}
     step = r["internlm2-1.8b"]
     _check_step(step)
@@ -260,40 +321,70 @@ def test_sharded_step_4x2_matches_single(worlds):
     assert r["cache_placements"] == {"k": ["S1", "S0"], "v": ["S1", "S0"]}
 
 
-def test_sharded_step_2x2x2_pod_data_model_matches_single(worlds):
+def test_sharded_step_2x2x2_pod_data_model_matches_single(sharded8):
     """The multi-pod mesh's layout: the batch over pod and data, the
     vocab-sharded embedding table looked up where it lies
     (``rules._embedding``), no flatten left strided."""
-    step = worlds["sharded8"]["internlm2-1.8b/pod_data_model"]
+    step = sharded8["internlm2-1.8b/pod_data_model"]
     _check_step(step)
     assert step["placements"]["embed.tok"] == ["R", "R", "S0"]
 
 
 @pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS
                                   if a != "internlm2-1.8b"])
-def test_sharded_step_1x2_matches_single(worlds, arch):
-    _check_step(worlds["sharded2"][f"{arch}/xla"])
+def test_sharded_step_1x2_matches_single(sharded2, arch):
+    _check_step(sharded2[f"{arch}/xla"])
 
 
 @pytest.mark.parametrize("arch,impl", worker.SHARDED4)
-def test_sharded_step_1x4_model_axis_outnumbers_heads(worlds, arch, impl):
+def test_sharded_step_1x4_model_axis_outnumbers_heads(sharded4, arch, impl):
     """A (1, 4) mesh over the smoke models' 2 KV heads (whisper's and the
     xLSTM's 2 heads): K and V gathered whole before their head view,
     each rank's q heads meeting the KV head they share; held against
     the unsharded step and the reference's as the (1, 2) cases are."""
-    assert worlds["sharded4"]["mesh"] == {"data": 1, "model": 4}
-    _check_step(worlds["sharded4"][f"{arch}/{impl}"])
+    assert sharded4["mesh"] == {"data": 1, "model": 4}
+    _check_step(sharded4[f"{arch}/{impl}"])
+
+
+#: (arch, impl) of sharded4 -> (q's placement over ``model``, the splits
+#: ``rules.attention_plan`` may choose there) that the step's attention
+#: meets
+SHARDED4_SPLITS = {
+    # 4 q heads over 2 KV heads: each rank's q head shares a KV head
+    ("internlm2-1.8b", "xla"): ("S1", {"pick"}),
+    ("internlm2-1.8b", "pallas"): ("S1", {"pick"}),
+    # 2 heads: the batch rows of a replicated q
+    ("whisper-tiny", "xla"): ("R", {"rows"}),
+    # the second layer's q, k and v partial sums (torch 2.11: one KV
+    # head picked) or partial means (2.13: the rows)
+    ("dbrx-132b", "xla"): ("P", {"pick", "rows"}),
+}
+
+
+def test_sharded_step_1x4_attends_each_ranks_share(sharded4):
+    """Every attention call of the (1, 4) steps splits the model axis,
+    by heads or by batch rows: none leaves a rank all heads of all its
+    rows (``rules.attention_plan``, recorded in the step).  A replicated
+    q splits by rows, a head-split q by one picked KV head, a partial q
+    by a picked KV head or, a partial mean, by rows; the steps are held
+    against the unsharded one and the reference's by the (1, 4) test
+    above."""
+    for (arch, impl), (q, splits) in SHARDED4_SPLITS.items():
+        calls = sharded4[f"{arch}/{impl}"]["attention"]
+        assert calls and all(c["splits"][1] is not None for c in calls)
+        assert any(c["q"][1] == q and c["splits"][1] in splits
+                   for c in calls), (arch, calls)
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "whisper-tiny"])
-def test_sharded_step_through_flash_path_matches_single(worlds, arch):
+def test_sharded_step_through_flash_path_matches_single(sharded2, arch):
     """``attn_impl="pallas"``: attention on each rank's local heads (the
     kernels' plain versions on the CPU)."""
-    _check_step(worlds["sharded2"][f"{arch}/pallas"])
+    _check_step(sharded2[f"{arch}/pallas"])
 
 
 @pytest.mark.parametrize("split", list(worker.DECODE2))
-def test_decode_on_a_split_cache_matches_unsharded(worlds, split):
+def test_decode_on_a_split_cache_matches_unsharded(decode2, split):
     """Prefill and four decode steps (two at one position, two at a
     position a sequence, on both ranks' slots) from the reference's
     params, with the cache split over ``model`` by layer (the reference's
@@ -309,7 +400,7 @@ def test_decode_on_a_split_cache_matches_unsharded(worlds, split):
     ``decode_step``).  Split by layer, every rank attends each layer on
     its own KV head, or, over one KV head, each rank its own layer whole
     (:func:`_check_cache_case`)."""
-    r = worlds["decode2"]
+    r = decode2
     assert r["mesh"] == {"data": 1, "model": 2}
     _check_cache_case(r[split], calls=5)
 
@@ -339,18 +430,18 @@ def _check_cache_case(case, calls):
 
 
 @pytest.mark.parametrize("split", list(worker.PREFILL2))
-def test_prefill_on_a_split_cache_matches_unsharded(worlds, split):
+def test_prefill_on_a_split_cache_matches_unsharded(decode2, split):
     """A prefill of 24 tokens into a 32-slot cache of two layers and two
     KV heads split by layer over ``model``: each rank attends its KV
     head of both layers, and the holder writes the new rows of both
     heads.  Held as decode2's cases: the logits and the written cache
     within 1e-5 of the unsharded call's and the reference's
     ``prefill``."""
-    _check_cache_case(worlds["decode2"][f"prefill_{split}"], calls=1)
+    _check_cache_case(decode2[f"prefill_{split}"], calls=1)
 
 
 @pytest.mark.parametrize("mode", worker.MOE4_COMBINE)
-def test_expert_parallel_dispatch_step_matches_reference(worlds, mode):
+def test_expert_parallel_dispatch_step_matches_reference(moe4, mode):
     """olmoe's smoke step on a (2, 2) mesh with the dry run's dispatch
     (``dryrun.set_dispatch``: two token groups over ``data``, the experts
     over ``model``), under each ``COMBINE_MODE``: the loss and every
@@ -360,7 +451,7 @@ def test_expert_parallel_dispatch_step_matches_reference(worlds, mode):
     every row op of the forward -- are split as the reference constrains
     them: the groups over ``data`` (``Shard(0)``), the experts' slots
     over ``model`` (``Shard(1)``)."""
-    r = worlds["moe4"]
+    r = moe4
     assert r["mesh"] == {"data": 2, "model": 2}
     case = r[mode]
     _check_step(case)
@@ -374,32 +465,32 @@ def test_expert_parallel_dispatch_step_matches_reference(worlds, mode):
         assert side == ["S0", "S1"], (op, S, J, s_side, j_side)
 
 
-def test_vocab_parallel_lookup_equals_whole_table(worlds):
+def test_vocab_parallel_lookup_equals_whole_table(decode2):
     """Megatron's lookup of a vocab-split table (each rank its rows,
     zeros for the rest, one all-reduce) and its gradient (each rank's
     rows, no communication) bit for bit the whole table's."""
-    r = worlds["decode2"]["lookup"]
+    r = decode2["lookup"]
     assert r["rows_equal"] and r["grad_equal"]
     assert r["out_placements"] == ["R", "R"]
     assert r["grad_placements"] == ["R", "S0"]
 
 
-def test_one_rank_mesh_step_is_bitwise_unsharded(worlds):
-    r = worlds["single1"]
+def test_one_rank_mesh_step_is_bitwise_unsharded(single1):
+    r = single1
     for impl in ("pallas", "xla"):
         got = r[impl]
         assert got["loss_equal"] and got["gnorm_equal"], impl
         assert got["unequal_leaves"] == [] and got["leaves"] > 10, impl
 
 
-def test_sharded_checkpoint_restores_unsharded_and_back(worlds):
-    r = worlds["single1"]
+def test_sharded_checkpoint_restores_unsharded_and_back(single1):
+    r = single1
     assert r["restore_plain_equal"] and r["restore_sharded_equal"]
     assert r["restore_sharded_placements"]
 
 
-def test_flash_launch_checks_refuse_a_dtensor(worlds):
-    assert worlds["single1"]["kernel_refuses_dtensor"]
+def test_flash_launch_checks_refuse_a_dtensor(single1):
+    assert single1["kernel_refuses_dtensor"]
 
 
 #: the reference's pipeline_forward and compressed_psum over 4 forced host
@@ -443,8 +534,8 @@ def reference_four():
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
-def test_pipeline_forward_matches_direct_apply(worlds, reference_four):
-    r = worlds["collect4"]
+def test_pipeline_forward_matches_direct_apply(collect4, reference_four):
+    r = collect4
     assert r["pp_err"] < 1e-5
     assert r["microbatch_roundtrip"]
     # and the reference's pipeline_forward on the same arrays
@@ -453,8 +544,8 @@ def test_pipeline_forward_matches_direct_apply(worlds, reference_four):
     assert np.abs(got - want).max() < 1e-5
 
 
-def test_compressed_psum_matches_reference_bitwise(worlds, reference_four):
-    r = worlds["collect4"]
+def test_compressed_psum_matches_reference_bitwise(collect4, reference_four):
+    r = collect4
     assert r["psum_err"] < 2e-4 and r["ranks_agree"] and r["tree_psum_equal"]
     want = reference_four
     assert r["mean_hex"] == want["mean_hex"]
@@ -534,10 +625,10 @@ def test_launch_train_model_axis_4_over_two_kv_heads(tmp_path):
     np.testing.assert_allclose(got, want, atol=1.5e-4)
 
 
-def test_sharded_loop_resume_is_bitwise(worlds):
+def test_sharded_loop_resume_is_bitwise(sharded2):
     """TrainLoop over a (1, 2) mesh, checkpointing every step: 2 steps,
     a restore into a fresh sharded state and 1 more equal 3 straight
     steps bit for bit, in every leaf of the state."""
-    r = worlds["sharded2"]["resume"]
+    r = sharded2["resume"]
     assert r["resumed_at"] == 2 and r["steps"] == 3
     assert r["unequal_leaves"] == [] and r["leaves"] > 10

@@ -36,8 +36,12 @@ keeps one device.  Held:
   than GSPMD's), while a decode cell, which writes and reads
   its cache where it lies, moves 0.27-7.6x (:data:`DECODE_COLL_RATIO`);
   the temporaries within :data:`TEMP_RATIO` of the compiled ones;
-* at published widths on the 16 x 16 mesh (:data:`PROD_CELLS`, the
-  reference's ``run_cell`` compiling on 512 forced host devices):
+* at published widths on the 16 x 16 mesh and the multi-pod one
+  (:data:`PROD_CELLS`, the reference's ``run_cell`` compiling on 512
+  forced host devices): qwen3-14b's and qwen2-7b's train cells within
+  the reference's temporaries, internlm2-1.8b's multi-pod one within
+  1.25x and at most 0.6x its single-pod cell's FLOPs a device (attention
+  and the MLP split over ``model``, :data:`PROD_SPLIT`);
   internlm2-1.8b's and olmoe's train cells hold no tensor with the
   whole vocab at their peak, olmoe's none of the global tokens' size,
   their temporaries within 2x the reference's and the total within the
@@ -59,6 +63,8 @@ import os
 import subprocess
 import sys
 import textwrap
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -66,7 +72,13 @@ import pytest
 from conftest import subprocess_env
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
-TIMEOUT_S = 240
+#: each process's limit in seconds from their common launch, by
+#: :data:`PARTS`' name (``part:half`` as ``part``) or the reference's:
+#: at least twice its time beside eight busy processes
+#: (``tools/fixture_timing.py dryrun --busy 8``: flops 84, mesh 76,
+#: mesh3 149, loops 140, production 173, ref 81, ref_production 145 s)
+TIMEOUT_S = {"flops": 300, "mesh": 300, "mesh3": 360, "loops": 360,
+             "production": 420, "ref": 300, "ref_production": 360}
 #: port / reference bounds (see the module docstring)
 FLOPS_RATIO = (0.4, 3.0)
 COLL_RATIO = (1.0, 10.0)
@@ -122,10 +134,10 @@ MESH_COLL = {"2.13": {
     "1,4/internlm2-1.8b/train_4k": (84744, 664064, 163968, 12288, 0),
     "1,4/internlm2-1.8b/decode_32k": (11264, 199680, 2560, 1280, 0),
     "1,4/olmoe-1b-7b/prefill_32k": (69632, 67328, 16576, 0, 0),
-    "1,4/whisper-tiny/train_4k": (96968, 492224, 90752, 0, 0),
+    "1,4/whisper-tiny/train_4k": (12808, 524928, 62592, 0, 0),
     "2,2,2/internlm2-1.8b/train_4k": (406040, 694400, 196736, 20480, 0),
     "2,2,2/internlm2-1.8b/decode_32k": (1536, 102400, 9984, 0, 0),
-    "2,2,2/jamba-1.5-large-398b/train_4k": (1519736, 2630784, 801280,
+    "2,2,2/jamba-1.5-large-398b/train_4k": (1519736, 2532480, 801280,
                                            55808, 0),
 }, "2.11": {
     "2,2/internlm2-1.8b/train_4k": (298512, 328960, 90112, 0, 0),
@@ -135,7 +147,7 @@ MESH_COLL = {"2.13": {
     "1,4/internlm2-1.8b/train_4k": (134408, 262144, 81920, 0, 0),
     "1,4/internlm2-1.8b/decode_32k": (7168, 4096, 0, 512, 0),
     "1,4/olmoe-1b-7b/prefill_32k": (35584, 66560, 12288, 0, 0),
-    "1,4/whisper-tiny/train_4k": (181256, 376832, 30720, 0, 0),
+    "1,4/whisper-tiny/train_4k": (13320, 518144, 51200, 0, 0),
     "2,2,2/internlm2-1.8b/train_4k": (529176, 419712, 90112, 0, 0),
     "2,2,2/internlm2-1.8b/decode_32k": (2560, 1024, 8192, 0, 0),
     "2,2,2/jamba-1.5-large-398b/train_4k": (1591448, 1914240, 387072,
@@ -158,9 +170,22 @@ PROD_TRAIN = ("internlm2-1.8b", "olmoe-1b-7b")
 PROD_DECODE = ("internlm2-1.8b", "qwen2-7b", "qwen3-14b", "chameleon-34b",
                "olmoe-1b-7b")
 PROD_PREFILL = ("olmoe-1b-7b",)
-PROD_CELLS = tuple((a, "train_4k") for a in PROD_TRAIN) + tuple(
-    (a, "decode_32k") for a in PROD_DECODE) + tuple(
-    (a, "prefill_32k") for a in PROD_PREFILL)
+#: train cells whose heads do not divide the model axis of 16 (or whose
+#: rows on the multi-pod mesh do not), each with its mesh: attention and
+#: the MLP split by heads or rows, never whole on every rank of ``model``
+#: (the multi-pod cell last: a process's cells after it would meet
+#: DTensor's caches of its group)
+PROD_SPLIT = (("qwen3-14b", "single"), ("qwen2-7b", "single"),
+              ("internlm2-1.8b", "multipod"))
+PROD_CELLS = tuple((a, "train_4k", "single") for a in PROD_TRAIN) + tuple(
+    (a, "decode_32k", "single") for a in PROD_DECODE) + tuple(
+    (a, "prefill_32k", "single") for a in PROD_PREFILL) + tuple(
+    (a, "train_4k", m) for a, m in PROD_SPLIT)
+#: the multi-pod train cell's FLOPs a device at most this share of the
+#: single-pod cell's: it has half the rows a rank
+MULTIPOD_FLOPS_SHARE = 0.6
+#: its temporaries at most this multiple of the reference's compiled ones
+MULTIPOD_TEMP_RATIO = 1.25
 #: the H100's device memory, which an arguments-plus-temporaries total
 #: must fit
 HBM_BYTES = 80 * 2 ** 30
@@ -290,15 +315,17 @@ PORT = textwrap.dedent("""
     if part == "production":
         import tempfile
         with tempfile.TemporaryDirectory() as tmp:
-            for arch, shape in job["production"]:
-                r = dryrun.run_cell(arch, shape, "single", results_dir=tmp)
-                out[f"{arch}/{shape}"] = {
-                    k: r.get(k) for k in ("status", "error",
-                                          "memory_analysis",
-                                          "peak_temporaries")}
-                out[f"{arch}/{shape}"]["coll"] = r["roofline"]["coll_bytes"]
-                out[f"{arch}/{shape}"]["vocab"] = configs.get(arch).vocab
-                out[f"{arch}/{shape}"]["d_model"] = configs.get(arch).d_model
+            for arch, shape, mesh_kind in job["production"]:
+                r = dryrun.run_cell(arch, shape, mesh_kind, results_dir=tmp)
+                key = f"{arch}/{shape}/{mesh_kind}"
+                out[key] = {k: r.get(k) for k in ("status", "error",
+                                                  "memory_analysis",
+                                                  "peak_temporaries")}
+                roof = r.get("roofline", {})
+                out[key]["coll"] = roof.get("coll_bytes")
+                out[key]["flops"] = roof.get("device_flops")
+                out[key]["vocab"] = configs.get(arch).vocab
+                out[key]["d_model"] = configs.get(arch).d_model
     dryrun.release_fake_group()
     print(json.dumps(out))
 """)
@@ -309,10 +336,11 @@ REF_PRODUCTION = textwrap.dedent("""
     from repro.launch import dryrun
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for arch, shape in json.loads(sys.argv[1]):
-            r = dryrun.run_cell(arch, shape, "single", results_dir=tmp)
-            out[f"{arch}/{shape}"] = {"memory": r["memory_analysis"],
-                                      "coll": r["roofline"]["coll_bytes"]}
+        for arch, shape, mesh_kind in json.loads(sys.argv[1]):
+            r = dryrun.run_cell(arch, shape, mesh_kind, results_dir=tmp)
+            out[f"{arch}/{shape}/{mesh_kind}"] = {
+                "memory": r["memory_analysis"],
+                "coll": r["roofline"]["coll_bytes"]}
     print(json.dumps(out))
 """)
 
@@ -464,45 +492,147 @@ def _reference_dot_flops():
     return out
 
 
-@pytest.fixture(scope="module")
-def runs():
+class _Procs:
+    """Subprocesses started side by side, each collected by a thread of
+    its own, so that each one's seconds from the launch are its own
+    (``seconds``); :meth:`result` waits for one until its
+    :data:`TIMEOUT_S` from the launch."""
+
+    def __init__(self, cmds):
+        self.started = time.monotonic()
+        self.procs, self.out, self.seconds, self.threads = {}, {}, {}, {}
+        for name, (argv, env) in cmds.items():
+            self.procs[name] = subprocess.Popen(
+                argv, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            self.threads[name] = threading.Thread(
+                target=self._collect, args=(name,), daemon=True)
+            self.threads[name].start()
+
+    def _collect(self, name):
+        self.out[name] = self.procs[name].communicate()
+        self.seconds[name] = time.monotonic() - self.started
+
+    def result(self, name):
+        """The JSON of ``name``'s last line; raises if it failed or
+        outran its limit."""
+        limit = TIMEOUT_S[name.split(":")[0]]
+        thread = self.threads[name]
+        thread.join(timeout=max(self.started + limit - time.monotonic(), 0))
+        if thread.is_alive():
+            self.procs[name].kill()
+            thread.join()
+            raise AssertionError(f"{name}: not done in {limit} s")
+        so, se = self.out[name]
+        assert self.procs[name].returncode == 0, se[-4000:]
+        return json.loads(so.strip().splitlines()[-1])
+
+    def close(self):
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+
+
+def _commands():
     """The port's counts (:data:`PARTS`), the reference's compiled cells
-    and its dot FLOPs: the subprocesses run while this one walks the
-    jaxprs."""
+    and its production cells, as (argv, env) by process name."""
     job = json.dumps(_job())
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
-    procs = {part: subprocess.Popen(
-        [sys.executable, "-c", PORT, part, job], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for part in PARTS}
+    cmds = {part: ([sys.executable, "-c", PORT, part, job], env)
+            for part in PARTS}
     for i, ref in enumerate(_ref_jobs()):
-        procs[f"ref:{i}"] = subprocess.Popen(
+        cmds[f"ref:{i}"] = (
             [sys.executable, "-c", REF_COMPILE, json.dumps(ref)],
-            env=dict(subprocess_env(ref["devices"]), OMP_NUM_THREADS="1"),
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    procs["ref_production"] = subprocess.Popen(
+            dict(subprocess_env(ref["devices"]), OMP_NUM_THREADS="1"))
+    cmds["ref_production"] = (
         [sys.executable, "-c", REF_PRODUCTION, json.dumps(PROD_CELLS)],
-        env=dict(subprocess_env(512), OMP_NUM_THREADS="1"),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        out = {"dots": _reference_dot_flops()}
-        for name, p in procs.items():
-            so, se = p.communicate(timeout=TIMEOUT_S)
-            assert p.returncode == 0, se[-4000:]
-            part = name.split(":")[0]
-            out.setdefault({"mesh3": "mesh"}.get(part, part), {}).update(
-                json.loads(so.strip().splitlines()[-1]))
-    finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
+        dict(subprocess_env(512), OMP_NUM_THREADS="1"))
+    return cmds
+
+
+@pytest.fixture(scope="module")
+def started():
+    """Every process of :func:`_commands`, started side by side; each
+    fixture below waits for its own, so that one that fails or outruns
+    its limit errors only the tests that read it."""
+    procs = _Procs(_commands())
+    yield procs
+    procs.close()
+
+
+def _merged(procs, *names):
+    out = {}
+    for name in names:
+        out.update(procs.result(name))
     return out
+
+
+@pytest.fixture(scope="module")
+def port_flops(started):
+    return _merged(started, "flops:0", "flops:1")
+
+
+@pytest.fixture(scope="module")
+def ref_dots(started):
+    """The reference's dot FLOPs, walked here while the processes run."""
+    return _reference_dot_flops()
+
+
+@pytest.fixture(scope="module")
+def port_mesh(started):
+    return started.result("mesh")
+
+
+@pytest.fixture(scope="module")
+def port_mesh3(started):
+    return started.result("mesh3")
+
+
+@pytest.fixture(scope="module")
+def ref_mesh(started):
+    return started.result("ref:0")
+
+
+@pytest.fixture(scope="module")
+def ref_mesh3(started):
+    return started.result("ref:1")
+
+
+@pytest.fixture(scope="module")
+def port_loops(started):
+    return _merged(started, "loops:0", "loops:1")
+
+
+@pytest.fixture(scope="module")
+def port_production(started):
+    return started.result("production")
+
+
+@pytest.fixture(scope="module")
+def ref_production(started):
+    return started.result("ref_production")
+
+
+@pytest.fixture
+def port_cell(request, key):
+    """The port's counts of mesh cell ``key`` (a 3-D one from the
+    multi-pod process)."""
+    three = key in MESH3_KEYS
+    return request.getfixturevalue("port_mesh3" if three else "port_mesh")[key]
+
+
+@pytest.fixture
+def ref_cell(request, key):
+    """The reference's compiled figures of mesh cell ``key``."""
+    three = key in MESH3_KEYS
+    return request.getfixturevalue("ref_mesh3" if three else "ref_mesh")[key]
 
 
 @pytest.mark.parametrize("shape", list(SMOKE_SHAPES))
 @pytest.mark.parametrize("family", list(FAMILIES))
-def test_one_by_one_matmul_flops_equal_reference_dots(runs, family, shape):
+def test_one_by_one_matmul_flops_equal_reference_dots(port_flops, ref_dots,
+                                                     family, shape):
     """Exactly, but for the chunked mLSTM's sequence cells.  There the
     reference's ``jnp.einsum("bhs,bhsk,bhsv->bhkv")`` forms its first
     pair as a ``dot_general`` that contracts nothing (the port's
@@ -513,13 +643,13 @@ def test_one_by_one_matmul_flops_equal_reference_dots(runs, family, shape):
     the reference's contracting dots at these shapes, held within 5 %
     below them."""
     key = f"{family}/{shape}"
-    got, dots = runs["flops"][key], runs["dots"][key]
+    got, dots = port_flops[key], ref_dots[key]
     if family != "xlstm_chunked" or shape == "decode_32k":
         assert got == dots > 0
     elif shape == "prefill_32k":
-        assert got == runs["dots"][key + "/contracting"] < dots
+        assert got == ref_dots[key + "/contracting"] < dots
     else:
-        contracting = runs["dots"][key + "/contracting"]
+        contracting = ref_dots[key + "/contracting"]
         assert 0.95 * contracting <= got < contracting
 
 
@@ -529,13 +659,14 @@ MESH_KEYS = [f"{m}/{a}/{s}" for m in MESHES for a, s in MESH_CELLS] + (
 
 
 @pytest.mark.parametrize("key", MESH_KEYS)
-def test_argument_bytes_equal_reference_compiled(runs, key):
-    got = runs["mesh"][key]["memory"]["argument_size_in_bytes"]
-    assert got == runs["ref"][key]["arg"] > 0
+def test_argument_bytes_equal_reference_compiled(port_cell, ref_cell, key):
+    got = port_cell["memory"]["argument_size_in_bytes"]
+    assert got == ref_cell["arg"] > 0
 
 
 @pytest.mark.parametrize("key", MESH_KEYS)
-def test_flops_and_collectives_within_bounds_of_reference(runs, key):
+def test_flops_and_collectives_within_bounds_of_reference(port_cell,
+                                                          ref_cell, key):
     """FLOPs and collective bytes a device against the reference's.  An
     MoE decoder's combine is held apart: the port reduces the (G, N, d)
     sum of the expert outputs once, after the top-k sum, reduce-scattered
@@ -544,7 +675,7 @@ def test_flops_and_collectives_within_bounds_of_reference(runs, key):
     n (olmoe's (1, 4) prefill: 4,096 B a layer against 32,768).  So the
     combine must move fewer bytes than GSPMD's, and the rest of the cell
     is held to the bounds."""
-    mine, ref = runs["mesh"][key], runs["ref"][key]
+    mine, ref = port_cell, ref_cell
     lo, hi = FLOPS_RATIO
     assert lo <= mine["flops"] / ref["flops"] <= hi
     lo, hi = DECODE_COLL_RATIO if "decode" in key else COLL_RATIO
@@ -556,23 +687,55 @@ def test_flops_and_collectives_within_bounds_of_reference(runs, key):
 
 
 @pytest.mark.parametrize("key", MESH_KEYS)
-def test_temporaries_within_bounds_of_reference_compiled(runs, key):
+def test_temporaries_within_bounds_of_reference_compiled(port_cell, ref_cell,
+                                                         key):
     """The port's peak of live bytes above the arguments against the
     reference's compiled ``temp_size_in_bytes``, within
     :data:`TEMP_RATIO`."""
-    got = runs["mesh"][key]["memory"]["temp_size_in_bytes"]
+    got = port_cell["memory"]["temp_size_in_bytes"]
     lo, hi = TEMP_RATIO
-    assert lo <= got / runs["ref"][key]["temp"] <= hi
+    assert lo <= got / ref_cell["temp"] <= hi
 
 
-def _prod(runs, arch, shape):
-    got = runs["production"][f"{arch}/{shape}"]
+def _prod(port_production, ref_production, arch, shape, mesh_kind="single"):
+    key = f"{arch}/{shape}/{mesh_kind}"
+    got = port_production[key]
     assert got["status"] == "ok", got["error"]
-    return got, runs["ref_production"][f"{arch}/{shape}"]
+    return got, ref_production[key]
+
+
+@pytest.mark.parametrize("arch,mesh_kind", PROD_SPLIT)
+def test_production_train_cell_splits_attention_and_mlp(
+        port_production, ref_production, arch, mesh_kind):
+    """``train_4k`` at published widths where the model axis of 16 does
+    not divide the heads (qwen3-14b: 40 over 8 KV heads; qwen2-7b: 28
+    over 4) or meets q, k and v as partial sums it cannot split by KV
+    head (internlm2-1.8b on the multi-pod mesh: 8 KV heads, 8 rows a
+    rank): every rank attends its share, by heads (one KV head picked
+    for each rank's q heads) or by rows, where it attended all heads of
+    all its rows; and on the multi-pod mesh the MLP's products keep the
+    work split where their input is a partial sum (the whole (8, 4,096,
+    8,192) hidden was every rank's).  The temporaries no more than the
+    reference's compiled ones (the multi-pod cell's within
+    :data:`MULTIPOD_TEMP_RATIO` of them), and the multi-pod cell's FLOPs
+    a device at most :data:`MULTIPOD_FLOPS_SHARE` of the single-pod
+    cell's, whose rows a rank are twice as many."""
+    got, ref = _prod(port_production, ref_production, arch, "train_4k",
+                     mesh_kind)
+    temp = got["memory_analysis"]["temp_size_in_bytes"]
+    want = ref["memory"]["temp_size_in_bytes"]
+    if mesh_kind == "multipod":
+        assert temp <= MULTIPOD_TEMP_RATIO * want
+        single, _ = _prod(port_production, ref_production, arch,
+                          "train_4k")
+        assert got["flops"] <= MULTIPOD_FLOPS_SHARE * single["flops"]
+    else:
+        assert temp <= want
 
 
 @pytest.mark.parametrize("arch", PROD_TRAIN)
-def test_production_train_cell_holds_no_whole_vocab(runs, arch):
+def test_production_train_cell_holds_no_whole_vocab(port_production,
+                                                    ref_production, arch):
     """``train_4k`` at published widths on the 16 x 16 mesh: the logits
     leave the head split on V and the loss picks its labels by a masked
     sum, so no tensor with the whole vocab as its last dim is among the
@@ -586,7 +749,7 @@ def test_production_train_cell_holds_no_whole_vocab(runs, arch):
     temporaries within the H100's 80 GiB."""
     from repro_torch.configs import shapes
 
-    got, ref = _prod(runs, arch, "train_4k")
+    got, ref = _prod(port_production, ref_production, arch, "train_4k")
     assert all(shape[-1] != got["vocab"]
                for _, shape, _, _ in got["peak_temporaries"])
     spec = shapes.SHAPES["train_4k"]
@@ -601,14 +764,15 @@ def test_production_train_cell_holds_no_whole_vocab(runs, arch):
 
 
 @pytest.mark.parametrize("arch", PROD_PREFILL)
-def test_production_prefill_cell_attends_by_kv_head(runs, arch):
+def test_production_prefill_cell_attends_by_kv_head(port_production,
+                                                    ref_production, arch):
     """``prefill_32k`` at published widths on the 16 x 16 mesh, olmoe's
     cache split by layer (its 16 layers number its 16 KV heads): every
     rank attends each layer on its own KV head, where the rank holding
     the layer scored all 16 heads' (T, T) (324 GiB), so the
     temporaries stay within 2x the reference's compiled ones and the
     total within the H100's 80 GiB."""
-    got, ref = _prod(runs, arch, "prefill_32k")
+    got, ref = _prod(port_production, ref_production, arch, "prefill_32k")
     mem = got["memory_analysis"]
     assert mem["temp_size_in_bytes"] <= 2 * ref["memory"][
         "temp_size_in_bytes"]
@@ -617,12 +781,13 @@ def test_production_prefill_cell_attends_by_kv_head(runs, arch):
 
 
 @pytest.mark.parametrize("arch", PROD_DECODE)
-def test_production_decode_collectives_within_10x_of_reference(runs, arch):
+def test_production_decode_collectives_within_10x_of_reference(
+        port_production, ref_production, arch):
     """``decode_32k`` at published widths on the 16 x 16 mesh: no cache
     leaf and no parameter gathered (the port gathered 16.9-550 GB a
     step), so its collective bytes stay within 10x (:data:`DECODE_COLL_RATIO`)
     of the reference's compiled ones (10.07-8,600 MB)."""
-    got, ref = _prod(runs, arch, "decode_32k")
+    got, ref = _prod(port_production, ref_production, arch, "decode_32k")
     assert 0 < got["coll"] <= DECODE_COLL_RATIO[1] * ref["coll"]
 
 
@@ -639,38 +804,38 @@ def _pinned(table):
 
 
 @pytest.mark.parametrize("key", MESH_KEYS)
-def test_collectives_by_kind_equal_this_torch_count(runs, key):
+def test_collectives_by_kind_equal_this_torch_count(port_cell, key):
     """Exactly what this torch's DTensor issues for rank 0
     (:data:`MESH_COLL`): a collective booked under the wrong kind,
     counted twice or missed changes the count."""
     kinds = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
              "collective-permute")
     want = dict(zip(kinds, _pinned(MESH_COLL)[key]))
-    assert runs["mesh"][key]["collectives"] == want
+    assert port_cell["collectives"] == want
 
 
 @pytest.mark.parametrize("key", MESH3_KEYS)
-def test_no_activation_of_a_3d_cell_is_strided(runs, key):
+def test_no_activation_of_a_3d_cell_is_strided(port_cell, key):
     """No DTensor op of the step reads an input placed ``_StridedShard``
     (``dryrun.Meter.strided``): DTensor plans such a placement's
     redistributions by a graph search, which held three multi-pod cells
     past the sweep's budget.  The view rule of ``distributed.rules``
     moves the split a flatten would make strided to a kept dim."""
-    assert runs["mesh"][key]["strided_ops"] == 0
+    assert port_cell["strided_ops"] == 0
 
 
-def test_sharded_cells_split_the_work(runs):
+def test_sharded_cells_split_the_work(port_mesh, port_flops):
     """Per device, a (2, 2) or (1, 4) train cell computes less than the
     whole model does at 1 x 1, and memory is that of one rank."""
     for text in MESHES:
-        c = runs["mesh"][f"{text}/internlm2-1.8b/train_4k"]
-        assert 0 < c["flops"] < runs["flops"]["dense/train_4k"]
+        c = port_mesh[f"{text}/internlm2-1.8b/train_4k"]
+        assert 0 < c["flops"] < port_flops["dense/train_4k"]
         m = c["memory"]
         assert m["alias_size_in_bytes"] <= m["output_size_in_bytes"]
         assert m["temp_size_in_bytes"] > 0
 
 
-def test_dense_block_collectives_equal_hand_count(runs):
+def test_dense_block_collectives_equal_hand_count(port_mesh):
     """One dense block's forward (smoke internlm2, float32, swiglu) on a
     (1, 2) mesh, x replicated.  Attention is local (Megatron's column
     and row split, heads divide); ``wo``'s output is a partial sum.
@@ -688,7 +853,7 @@ def test_dense_block_collectives_equal_hand_count(runs):
       the up projection's weights come whole, d ff f32 each;
     * reduce-scatter: the partial ``h`` to the down projection's rows,
       B T ff / 2 f32."""
-    b = runs["mesh"]["block"]
+    b = port_mesh["block"]
     B, T, d, ff = b["B"], b["T"], b["d"], b["ff"]
     by_version = {
         "2.11": (4 * 2 * B * T * d, 0, 0),
@@ -706,11 +871,11 @@ def test_dense_block_collectives_equal_hand_count(runs):
 
 
 @pytest.mark.parametrize("cell", [f"{a}/{s}/{c}" for a, s, c in LOOP_CELLS])
-def test_loop_composition_equals_the_whole_loop(runs, cell):
+def test_loop_composition_equals_the_whole_loop(port_loops, cell):
     """FLOPs and collective bytes exactly (their check holds); bytes and
     memory, which no polynomial in T gives (``scancost``), within
     :data:`MODELLED_REL` of the whole run at these lengths."""
-    r = runs["loops"][cell]
+    r = port_loops[cell]
     assert max(r["lengths"]) < LOOP_T
     assert r["check"]["flops"] and all(
         v for k, v in r["check"].items() if k.startswith("coll/"))

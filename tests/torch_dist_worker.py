@@ -45,8 +45,13 @@ too: the test module pickles them (numpy arrays; no JAX here) as
 its file.  decode2's cases likewise start from the reference's params
 and meet its logits and caches (``OUT_DIR/ref_decode_<split>.pkl``).
 
-Each rank is stopped if the world has not finished within DEADLINE_S.
+A world's clock starts when the files it reads (:data:`NEEDS`) are all
+written, or at launch if it reads none: its ranks are stopped if it has
+not finished within its part's :data:`DEADLINE_S` from then.  Rank 0's
+JSON then carries the world's seconds (``seconds``: launch to inputs,
+inputs to end).
 """
+import contextlib
 import datetime
 import json
 import os
@@ -63,9 +68,17 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
 
-#: a world that has not finished by then is stopped (the test's own
-#: subprocess timeout is 300 s)
-DEADLINE_S = 270
+from repro_torch.configs import ARCH_IDS  # noqa: E402
+
+#: each part's seconds from its inputs (or its launch) to its end before
+#: it is stopped: at least twice the part's whole time, launch to end,
+#: beside eight busy processes (``tools/fixture_timing.py worlds --busy
+#: 8``: 175, 281, 235, 48, 85, 25 and 32 s in the order below)
+DEADLINE_S = {"sharded8": 420, "sharded2": 600, "sharded4": 480,
+              "decode2": 300, "moe4": 300, "collect4": 180, "single1": 240,
+              "cuda1": 300}
+#: the longest a world waits for its inputs before it gives up
+INPUTS_S = 1200
 #: the world's output directory (checkpoints of the resume case go there)
 OUT_DIR = None
 WORLDS = {"sharded8": 8, "sharded2": 2, "sharded4": 4, "decode2": 2,
@@ -89,6 +102,21 @@ BY_HAND = {"layer_serial": "sequence"}
 SHARDED4 = (("internlm2-1.8b", "xla"), ("internlm2-1.8b", "pallas"),
             ("whisper-tiny", "xla"), ("dbrx-132b", "xla"),
             ("xlstm-125m", "xla"), ("jamba-1.5-large-398b", "xla"))
+#: the combine modes of the moe4 part
+MOE4_COMBINE = ("gather", "scatter")
+#: decode2's prefill-only cases, as DECODE2's, with their prompt length
+#: (the layers must number the KV heads and not the batch, which the
+#: reference's rule looks for first)
+PREFILL2 = {"layer": (2, 2, 32, 0, 24)}
+#: the reference files each part reads, ``OUT_DIR/ref_<name>.pkl``
+NEEDS = {
+    "sharded8": ("internlm2-1.8b", "olmoe-1b-7b"),
+    "sharded2": ARCH_IDS,
+    "sharded4": tuple(dict.fromkeys(a for a, _ in SHARDED4)),
+    "decode2": tuple(f"decode_{n}" for n in DECODE2 if n not in BY_HAND)
+    + tuple(f"prefill_{n}" for n in PREFILL2),
+    "moe4": tuple(f"olmoe-1b-7b_ep_{m}" for m in MOE4_COMBINE),
+}
 
 
 def _batch(cfg, B=8, T=16):
@@ -179,7 +207,8 @@ def _step_case(arch, mesh, impl, ref=None):
                                                  device="cpu"))
     step = make_train_step(model, AdamWConfig(lr=1e-3))
     single, m1 = step(single, batch)
-    state, m2 = step(state, dbatch)
+    with _recorded_attention() as attention:
+        state, m2 = step(state, dbatch)
     p2 = dict((n, _full(p)) for n, p in named_leaves(state["params"]))
     return {
         "loss_single": m1["loss"].item(), "loss_sharded": m2["loss"].item(),
@@ -194,7 +223,38 @@ def _step_case(arch, mesh, impl, ref=None):
         "step": int(_full(state["step"])),
         "placements": {n: [_placement(x) for x in p.placements]
                        for n, p in named_leaves(state["params"])},
+        "attention": attention,
     }
+
+
+@contextlib.contextmanager
+def _recorded_attention():
+    """While active, each call of ``rules.local_attention`` (the sharded
+    step's attention) is recorded as the placements of its q, k and v,
+    its (B, Hq, Hkv) and the split that ``rules.attention_plan`` chose
+    on each mesh dim (``rows``, ``heads``, ``pick`` -- heads
+    over whole k and v, one KV head picked -- or ``None``); yields the
+    distinct records, in order."""
+    from repro_torch.distributed import rules
+
+    seen, attend = [], rules.local_attention
+
+    def recorded(fn, q, k, v):
+        splits, pick = rules.attention_plan(q, k, v)
+        rec = {"q": [_placement(x) for x in q.placements],
+               "kv": [[_placement(x) for x in t.placements] for t in (k, v)],
+               "shape": [q.shape[0], q.shape[1], k.shape[1]],
+               "splits": ["pick" if i == pick else c
+                          for i, c in enumerate(splits)]}
+        if rec not in seen:
+            seen.append(rec)
+        return attend(fn, q, k, v)
+
+    rules.local_attention = recorded
+    try:
+        yield seen
+    finally:
+        rules.local_attention = attend
 
 
 def part_sharded8(rank, out):
@@ -218,6 +278,7 @@ def part_sharded8(rank, out):
 
     register_sharding(torch.ops.aten.mm.default)(rules._mm)
     register_sharding(torch.ops.aten.bmm.default)(rules._bmm)
+    rules._register_column_split(torch.ops.aten.mm.default)
     for arch in ("internlm2-1.8b", "olmoe-1b-7b"):
         out[f"{arch}/mm_dtype_rules"] = _step_case(arch, mesh, "xla")
     # a serving cache's placements: batch 8 over data, kv heads over model
@@ -252,10 +313,6 @@ def part_sharded4(rank, out):
     out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     for arch, impl in SHARDED4:
         out[f"{arch}/{impl}"] = _step_case(arch, mesh, impl)
-
-
-#: the combine modes of the moe4 part
-MOE4_COMBINE = ("gather", "scatter")
 
 
 def _record_rows(moe, seen):
@@ -320,10 +377,6 @@ def part_moe4(rank, out):
 
 #: decode2's batch and prompt length
 DECODE_B, DECODE_P = 4, 8
-#: decode2's prefill-only cases, as DECODE2's, with their prompt length
-#: (the layers must number the KV heads and not the batch, which the
-#: reference's rule looks for first)
-PREFILL2 = {"layer": (2, 2, 32, 0, 24)}
 
 
 def decode_inputs(vocab, L, prompt=DECODE_P):
@@ -680,8 +733,9 @@ def _rank_main(rank, world, part, out_dir):
     backend = "nccl" if part.startswith("cuda") else "gloo"
     if backend == "nccl":
         torch.cuda.set_device(rank)
-    dist.init_process_group(backend, store=store, rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=DEADLINE_S))
+    dist.init_process_group(
+        backend, store=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=INPUTS_S + DEADLINE_S[part]))
     out = {}
     try:
         globals()[f"part_{part}"](rank, out)
@@ -699,17 +753,35 @@ def main(part: str, out_dir: str) -> int:
     store = os.path.join(out_dir, f"{part}.store")
     if os.path.exists(store):   # a FileStore must start empty
         os.remove(store)
+    start = time.monotonic()
     ctx = mp.start_processes(_rank_main, args=(world, part, out_dir),
                              nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + DEADLINE_S
+    inputs = [os.path.join(out_dir, f"ref_{n}.pkl")
+              for n in NEEDS.get(part, ())]
+    ready = None
     try:
         while not ctx.join(timeout=1):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"{part}: not done in {DEADLINE_S} s")
+            now = time.monotonic()
+            if ready is None and all(map(os.path.exists, inputs)):
+                ready = now
+            if ready is None and now - start > INPUTS_S:
+                raise TimeoutError(f"{part}: inputs not written in "
+                                   f"{INPUTS_S} s")
+            if ready is not None and now - ready > DEADLINE_S[part]:
+                raise TimeoutError(f"{part}: not done in {DEADLINE_S[part]} s "
+                                   "from its inputs")
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
+    end = time.monotonic()
+    path = os.path.join(out_dir, f"{part}.json")
+    with open(path) as f:
+        out = json.load(f)
+    ready = end if ready is None else ready
+    out["seconds"] = {"inputs": ready - start, "run": end - ready}
+    with open(path, "w") as f:
+        json.dump(out, f)
     return 0
 
 
