@@ -543,6 +543,11 @@ for arch, name, mesh_kind in cells:
     rec.pop("traceback", None)
     rec["seconds"] = time.perf_counter() - t
     rec["vocab"] = configs.get(arch).vocab
+    # RoPE's angle table of the whole batch: (B, 1, T, hd / 2)
+    cfg = configs.get(arch)
+    spec = shape_mod.SHAPES[name]
+    rec["rope_table"] = ([spec.global_batch, spec.seq_len, cfg.hd // 2]
+                         if cfg.rope_theta > 0 else None)
     out["cells"].append(rec)
 cfg = configs.get(job["arch"])
 mesh = dryrun.fake_mesh(mesh_mod.MeshShape(("data", "model"), (1, 1)))
@@ -3525,8 +3530,10 @@ def phase_dryrun(card: str) -> dict:
     seconds, per-device GFLOPs, bytes, collective bytes, memory and
     bound (a train cell whose largest temporaries have the whole vocab
     as their last dim, where the model axis splits it, fails the phase,
-    as does a cell of ``DRYRUN_FIT`` whose arguments and temporaries
-    exceed the card's 80 GiB);
+    as does a multi-pod train cell that holds a RoPE table of the global
+    batch among them -- its three largest are printed -- and a cell of
+    ``DRYRUN_FIT`` whose arguments and temporaries exceed the card's 80
+    GiB);
     then two card checks, each a step counted by
     ``FlopCounterMode`` on the card that must equal the dry run's 1 x 1
     count of it exactly (the same ops), its peak memory and seconds
@@ -3580,6 +3587,22 @@ def phase_dryrun(card: str) -> dict:
             bad.append(f"{c['arch']} train_4k {c['mesh']}: a tensor with "
                        f"the whole vocab of {vocab} at the peak "
                        f"({c['peak_temporaries']})")
+        # RoPE's tables built from the positions every row shares: no
+        # (global batch, ..., T, hd / 2) table among the largest live at
+        # a multi-pod train cell's peak
+        if c["mesh"] == "multipod" and c["shape"] == "train_4k":
+            print(f"    {c['arch']} train_4k multipod, its largest "
+                  f"temporaries: " + "; ".join(
+                      f"{tuple(shape)} {dtype} {op} {size / 2**30:.2f} GiB"
+                      for size, shape, dtype, op in
+                      c["peak_temporaries"][:3]))
+            rope = c["rope_table"]
+            if rope and any(len(shape) > 2 and shape[0] == rope[0]
+                            and list(shape[-2:]) == rope[1:]
+                            for _, shape, _, _ in c["peak_temporaries"]):
+                bad.append(f"{c['arch']} train_4k multipod: a RoPE table "
+                           f"of the global batch of {rope[0]} at the peak "
+                           f"({c['peak_temporaries']})")
         held = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
         if (c["arch"], c["shape"], c["mesh"]) in DRYRUN_FIT and (
                 held > DRYRUN_FIT_BYTES):

@@ -51,10 +51,19 @@ is always one of them, so each rule is exact whatever the placements.
   V)`` with T split over ``model`` -- moves that split to a dim the
   view keeps (V) first, so that no activation of a step is strided
   (DTensor plans a strided placement's redistributions by a graph
-  search: minutes an op on the 2 x 16 x 16 mesh);
+  search: minutes an op on the 2 x 16 x 16 mesh).  A dim split unevenly
+  that the view merges with others -- 6 batch rows over 4 ranks
+  flattened with T -- is moved to a kept dim or replicated first
+  (:func:`_uneven_merged`): DTensor would name an even split of the
+  merged dim that the ranks' rows are not;
 * ``add`` (torch 2.11's rule, :func:`_no_shard_to_partial`): where it
   would turn a split input into a partial sum, which DTensor cannot
   run, the partial operands are reduced instead.
+
+Logits that reach the loss as a partial sum (a head whose input is one,
+at fewer rows than ranks) are reduced once before the loss reads them,
+onto the vocab where the head's weight splits it, else onto T
+(:func:`reduced_logits`).
 
 Attention runs on local shards (:func:`local_attention`): the flash
 kernels take raw pointers, and the plain paths' grouping of q heads by
@@ -367,21 +376,48 @@ def _uneven(strategy, shape, mesh) -> set:
     over (2, 16, 16))."""
     bad = set()
     for spec in strategy.strategies:
-        by_dim = {}
-        for i, p in enumerate(spec.output_specs.placements):
-            if p.is_shard():
-                by_dim.setdefault(p.dim, []).append(i)
-        for d, dims in by_dim.items():
-            n = 1
-            for i in dims:
-                n *= mesh.size(i)
-            if shape[d] % n:
-                n, k = 1, 0
-                while shape[d] % (n * mesh.size(dims[k])) == 0:
-                    n *= mesh.size(dims[k])
-                    k += 1
-                bad.update(dims[k:])
+        bad.update(_undivided(spec.output_specs.placements, shape, mesh))
     return bad
+
+
+def _undivided(placements, shape, mesh, dims=None) -> set:
+    """The mesh dims of ``placements`` that split a dim of ``shape`` (of
+    ``dims``, by default any) unevenly: those after the longest leading
+    run of the mesh dims sharing the dim whose product divides it."""
+    by_dim, bad = {}, set()
+    for i, p in enumerate(placements):
+        if p.is_shard() and (dims is None or p.dim in dims):
+            by_dim.setdefault(p.dim, []).append(i)
+    for d, split in by_dim.items():
+        n, k = 1, 0
+        while k < len(split) and shape[d] % (n * mesh.size(split[k])) == 0:
+            n *= mesh.size(split[k])
+            k += 1
+        bad.update(split[k:])
+    return bad
+
+
+def _uneven_merged(op_schema, shape, mesh) -> set:
+    """The mesh dims that split an input dim of a view unevenly where the
+    view does not keep that dim alone (:func:`_undivided`): a flatten of
+    a batch of 6 rows over 4 ranks (2, 2, 2, 0) into (6 T, ...) rows is
+    no split of the flattened rows that DTensor can name (it would take
+    each rank's local rows for an even quarter of them: a view of the
+    wrong numel)."""
+    spec = op_schema.args_schema[0].strategies[0].output_spec
+    src = tuple(spec.tensor_meta.shape)
+    kept = set()
+    lead_in = lead_out = 1
+    k = 0
+    for d, n in enumerate(src):
+        while k < len(shape) and lead_out < lead_in:
+            lead_out *= shape[k]
+            k += 1
+        if k < len(shape) and lead_out == lead_in and shape[k] == n:
+            kept.add(d)
+        lead_in *= n
+    return _undivided(spec.placements, src, mesh,
+                      set(range(len(src))) - kept)
 
 
 def _strided(strategy) -> set:
@@ -464,6 +500,11 @@ def _gather_where_uneven(strict: Callable, gathering: Callable) -> Callable:
         mesh = op_schema.args_schema[0].strategies[0].output_spec.mesh
         shape = _out_shape(op_schema)
         for _ in range(2 * mesh.ndim + 1):
+            merged = _uneven_merged(op_schema, shape, mesh)
+            if merged:
+                op_schema = _placed_on(op_schema, {
+                    i: _kept_dim(op_schema, shape, mesh, i) for i in merged})
+                continue
             try:
                 out = strict(op_schema)
             except RuntimeError as e:
@@ -778,6 +819,54 @@ class _DenseGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.contiguous()
+
+
+def reduced_logits(lf):
+    """The logits ``lf`` (..., V), a DTensor, with every partial sum
+    reduced once, before the loss reads them: on each mesh dim where
+    they are partial, reduce-scattered onto V where the head's weight is
+    split on V (V in :data:`VOCAB_SPLIT`) and V divides, else onto the
+    innermost other dim that divides (T: the loss works row by row),
+    else all-reduced -- never left whole on every rank where a split
+    exists.  The loss's ``amax`` saves its input for a backward that
+    compares it with the max: a partial input is reduced again there,
+    by another collective in another order (a reduce-scatter onto T
+    where the forward all-reduced), and a row whose max then matches no
+    logit divides by a count of 0 (NaN, the CPU's smoke step at 2 rows
+    over ``model`` 4).  The gradient keeps the reduced layout
+    (:class:`_Reduce`): DTensor's own redistribution would gather it
+    whole, as a partial sum's."""
+    mesh, last = lf.device_mesh, lf.ndim - 1
+    ways = [1] * lf.ndim
+    for i, p in enumerate(lf.placements):
+        if p.is_shard():
+            ways[p.dim] *= mesh.size(i)
+    dims = ([last] if lf.shape[-1] in VOCAB_SPLIT else []) + list(
+        range(last - 1, -1, -1))
+    pl = []
+    for i, p in enumerate(lf.placements):
+        n = mesh.size(i)
+        k = next((d for d in dims if lf.shape[d] % (ways[d] * n) == 0),
+                 None) if p.is_partial() else None
+        if k is not None:
+            ways[k] *= n
+        pl.append(p if not p.is_partial() else R if k is None else Shard(k))
+    pl = tuple(pl)
+    return lf if pl == tuple(lf.placements) else _Reduce.apply(lf, pl)
+
+
+class _Reduce(torch.autograd.Function):
+    """``x.redistribute`` to ``placements`` whose gradient stays in
+    them: the gradient of a partial sum is the whole tensor's, in any
+    layout."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def _spec(mesh, placements, shape, dtype):

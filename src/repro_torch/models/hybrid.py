@@ -124,9 +124,9 @@ def hybrid_forward(
 ) -> torch.Tensor:
     """float32 logits (B, T, V); cache-less, so each period's attention
     layer goes through the flash kernel on the card."""
-    B, T = tokens.shape
+    T = tokens.shape[1]
     x = layers.embed_apply(params["embed"], tokens, cfg)
-    positions = _positions(B, T, x.device)
+    positions = _positions(T, x.device)
     body = remat(cfg, functools.partial(
         _period_apply, cfg=cfg, positions=positions, attn_impl=attn_impl,
         moe_capacity=moe_capacity))
@@ -175,10 +175,10 @@ def _cached_apply(params, x, positions, cache, cache_index, cfg,
 def hybrid_prefill(params, tokens, cache, cfg, *, moe_capacity=None):
     """Run the prompt from cache index 0; returns (last-position logits,
     the cache)."""
-    B, T = tokens.shape
+    T = tokens.shape[1]
     x = layers.embed_apply(params["embed"], tokens, cfg)
     x, new_cache = _cached_apply(
-        params, x, _positions(B, T, x.device), cache, 0, cfg,
+        params, x, _positions(T, x.device), cache, 0, cfg,
         moe_capacity=moe_capacity,
     )
     x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)

@@ -104,8 +104,10 @@ def norm_apply(p: Params, x: torch.Tensor, kind: str, eps: float) -> torch.Tenso
 # -- rotary embeddings --------------------------------------------------------
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., T, d) with d even; positions: (..., T) integers.  Computed
-    in float32, cast back to ``x.dtype``."""
+    """x: (..., T, d) with d even; positions: (..., T) integers, or
+    dims of 1 where every row shares them (the tables are built at the
+    positions' shape and broadcast).  Computed in float32, cast back to
+    ``x.dtype``."""
     d = x.shape[-1]
     half = d // 2
     freqs = torch.exp(
@@ -144,7 +146,7 @@ def attention_apply(
     x: torch.Tensor,                  # (B, T, d)
     cfg: ModelConfig,
     *,
-    positions: torch.Tensor,          # (B, T)
+    positions: torch.Tensor,          # (B, T), or (1, T) for every row
     kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cross-attn src
     cache: Optional[Dict[str, torch.Tensor]] = None,         # decode KV cache
     cache_index=None,

@@ -158,8 +158,12 @@ def _scan_blocks(params_blocks, x, cfg, *, positions, attn_impl,
     return x, caches
 
 
-def _positions(B: int, T: int, device) -> torch.Tensor:
-    return torch.arange(T, device=device)[None].expand(B, T)
+def _positions(T: int, device) -> torch.Tensor:
+    """The positions ``0 .. T-1`` of a cache-less or from-zero call, (1,
+    T): every row's are the same, so RoPE builds its tables once and
+    broadcasts them over the rows (one table, not one a row of the
+    global batch on every rank of a sharded step)."""
+    return torch.arange(T, device=device)[None]
 
 
 def decoder_forward(
@@ -172,10 +176,10 @@ def decoder_forward(
 ) -> torch.Tensor:
     """float32 logits (B, T, V); cache-less, so every layer's attention
     goes through the flash kernel on the card."""
-    B, T = tokens.shape
+    T = tokens.shape[1]
     x = layers.embed_apply(params["embed"], tokens, cfg)
     x, _ = _scan_blocks(
-        params["blocks"], x, cfg, positions=_positions(B, T, x.device),
+        params["blocks"], x, cfg, positions=_positions(T, x.device),
         attn_impl=attn_impl, moe_capacity=moe_capacity,
     )
     x = layers.norm_apply(params["ln_f"], x, cfg.norm, cfg.norm_eps)
@@ -200,10 +204,10 @@ def decoder_prefill(
     moe_capacity: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Params]:
     """Run the prompt; returns (last-position logits, filled cache)."""
-    B, T = tokens.shape
+    T = tokens.shape[1]
     x = layers.embed_apply(params["embed"], tokens, cfg)
     x, new_caches = _scan_blocks(
-        params["blocks"], x, cfg, positions=_positions(B, T, x.device),
+        params["blocks"], x, cfg, positions=_positions(T, x.device),
         attn_impl=attn_impl, moe_capacity=moe_capacity, caches=cache,
         cache_index=0,
     )
@@ -289,11 +293,11 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *,
     refuses them, and no multiple of 8 divides 1,500.  Without causality
     every row sees all keys whatever the blocks, so this changes nothing
     that is computed (ROADMAP fault 13)."""
-    B, Tf, _ = frames.shape
+    Tf = frames.shape[1]
     cd = layers.torch_dtype(cfg.compute_dtype)
     pe = layers.sinusoidal_positions(Tf, cfg.d_model, device=frames.device)
     x = frames.to(cd) + pe.to(cd)[None]
-    positions = _positions(B, Tf, x.device)
+    positions = _positions(Tf, x.device)
 
     def enc_block(bp, x):
         h = layers.norm_apply(bp["ln1"], x, cfg.norm, cfg.norm_eps)
@@ -355,9 +359,9 @@ def encdec_forward(
     a layer each); cross-attention takes the masked plain path, as in
     the reference."""
     enc = encode(params, frames, cfg, attn_impl=attn_impl)
-    B, T = tokens.shape
+    T = tokens.shape[1]
     x = _dec_embed(params, tokens, cfg, T)
-    positions = _positions(B, T, x.device)
+    positions = _positions(T, x.device)
     dec_block = remat(cfg, functools.partial(
         _dec_block, cfg=cfg, positions=positions, attn_impl=attn_impl))
     for bp in params["dec_blocks"]:
@@ -396,9 +400,9 @@ def encdec_prefill(params, frames, tokens, cache, cfg, *,
     enc = encode(params, frames, cfg, attn_impl=attn_impl)
     cache = dict(cache)
     cache["enc"] = enc
-    B, T = tokens.shape
+    T = tokens.shape[1]
     x = _dec_embed(params, tokens, cfg, T)
-    positions = _positions(B, T, x.device)
+    positions = _positions(T, x.device)
     new_self = []
     for bp, c in zip(params["dec_blocks"], cache["self"]):
         x, nc = _dec_block(bp, x, enc, cfg, positions=positions,

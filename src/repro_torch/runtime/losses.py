@@ -4,7 +4,9 @@ Cross entropy picks the label's logit by a masked sum (``iota == label``)
 where the logits are a DTensor, as the reference does: with the logits
 split on the vocab over ``model`` (the vocab-parallel head), the max and
 the exp-sum reduce as partial sums, the pick is a masked partial sum,
-and no rank forms a tensor of the whole vocab (vocab-parallel CE).  On a
+and no rank forms a tensor of the whole vocab (vocab-parallel CE).
+Logits that arrive as a partial sum are reduced to that layout first
+(``distributed.rules.reduced_logits``).  On a
 plain tensor it picks by a gather, which gives the same bits (one logit
 plus zeros) without the masked sum's passes over the (B, T, V) logits.
 """
@@ -46,6 +48,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     The pick is exact: a DTensor's by :func:`masked_pick`, a tensor's by a
     gather."""
     lf = logits.float()
+    if isinstance(lf, DTensor):
+        from ..distributed import rules
+
+        lf = rules.reduced_logits(lf)
     m = lf.amax(dim=-1, keepdim=True)
     lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
     if isinstance(lf, DTensor):

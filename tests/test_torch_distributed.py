@@ -57,13 +57,13 @@ LOSS_ATOL, GRAD_FRAC, PARAM_REL_L2 = 1e-3, 1e-4, 1e-5
 
 
 PARTS = ("sharded8", "sharded2", "sharded4", "decode2", "moe4", "collect4",
-         "single1")
+         "single1", "small4")
 
 
 def _reference_groups():
     """The reference files the worlds read, in the order they are written
-    (decode2's and moe4's first, then sharded8's, sharded4's and the
-    rest), as (name, function of the output directory)."""
+    (decode2's and moe4's first, then sharded8's, sharded4's, small4's
+    and the rest), as (name, function of the output directory)."""
     writers = {f"olmoe-1b-7b_ep_{mode}": lambda d, m=mode: _write_moe(d, m)
                for mode in worker.MOE4_COMBINE}
     for kind, name, *rest in [
@@ -75,15 +75,16 @@ def _reference_groups():
         writers[f"{kind}_{name}"] = (
             lambda d, c=(kind, name, *rest): _write_decode(d, *c))
     order = [n for part in ("decode2", "moe4", "sharded8", "sharded4",
-                            "sharded2") for n in worker.NEEDS[part]]
-    return [(n, writers.get(n, lambda d, a=n: _write_step(d, a)))
-            for n in dict.fromkeys(order)]
+                            "small4", "sharded2") for n in worker.NEEDS[part]]
+    return [(n, writers.get(n, lambda d, a=n: _write_step(
+        d, *worker.ref_step(a), name=a))) for n in dict.fromkeys(order)]
 
 
-def _write_step(out_dir, arch, name=None):
+def _write_step(out_dir, arch, B=8, name=None):
     """The reference's initial state of ``arch`` at smoke (seed 0,
     ``attn_impl="xla"``) and its loss and gradients on the worker's batch
-    (``jax.value_and_grad``), pickled as numpy for the worker."""
+    of ``B`` rows (``jax.value_and_grad``), pickled as numpy for the
+    worker."""
     from repro import configs as r_configs
     from repro.models import build_model as r_build_model
     from repro.runtime import train as r_train
@@ -91,7 +92,7 @@ def _write_step(out_dir, arch, name=None):
     r_model = r_build_model(r_configs.get_smoke(arch), attn_impl="xla")
     state = r_train.init_train_state(r_model, jax.random.PRNGKey(0))
     batch = {k: jnp.asarray(v) for k, v in
-             worker._batch(configs.get_smoke(arch)).items()}
+             worker._batch(configs.get_smoke(arch), B).items()}
     loss, grads = jax.value_and_grad(r_train.make_loss_fn(r_model))(
         state["params"], batch)
     _pickle(out_dir, name or arch, {"state": jax.device_get(state),
@@ -108,7 +109,7 @@ def _write_moe(out_dir, mode):
     r_moe.set_ep_sharding("model", ("data",), num_groups=2)
     r_moe.COMBINE_MODE = mode
     try:
-        _write_step(out_dir, "olmoe-1b-7b", f"olmoe-1b-7b_ep_{mode}")
+        _write_step(out_dir, "olmoe-1b-7b", name=f"olmoe-1b-7b_ep_{mode}")
     finally:
         r_moe.set_ep_sharding(None, None)
         r_moe.COMBINE_MODE = "gather"
@@ -211,7 +212,7 @@ def _part(part):
     return fixture
 
 
-sharded8, sharded2, sharded4, decode2, moe4, collect4, single1 = map(
+sharded8, sharded2, sharded4, decode2, moe4, collect4, single1, small4 = map(
     _part, PARTS)
 
 
@@ -374,6 +375,50 @@ def test_sharded_step_1x4_attends_each_ranks_share(sharded4):
         assert calls and all(c["splits"][1] is not None for c in calls)
         assert any(c["q"][1] == q and c["splits"][1] in splits
                    for c in calls), (arch, calls)
+
+
+@pytest.mark.parametrize("arch,impl,B", worker.SMALL4)
+def test_sharded_step_1x4_batch_under_model_axis(small4, arch, impl, B):
+    """The (1, 4) steps at batches whose rows are fewer than the model
+    axis (2: each sharded4 case, and qwen2-7b's biases) or no multiple of
+    it (3; 6, which DTensor splits 2, 2, 2, 0): the logits reach the
+    loss as partial sums over ``model``, and the flattened rows of 6
+    split unevenly.  Every gradient leaf finite and held against the
+    unsharded step and the reference's ``jax.value_and_grad`` at the
+    same batch."""
+    assert small4["mesh"] == {"data": 1, "model": 4}
+    r = small4[f"{arch}/{impl}/{B}"]
+    assert all(np.isfinite(e) for e in r["grad_err"].values()), r["grad_err"]
+    _check_step(r)
+
+
+def test_loss_reads_partial_logits_split_on_the_vocab(small4, sharded4):
+    """Logits that reach the loss as a partial sum over ``model`` (2 rows
+    over 4 ranks, where the head contracts a partial input: torch 2.13's
+    rule for the CPU's ``mm``; 2.11's keeps the head's split of V) are
+    reduce-scattered onto the vocab, which the head's weight splits
+    there (``rules.reduced_logits``), once: the loss never reads a
+    partial sum, so its max's backward compares the logits it saw.  At
+    8 rows they arrive split (by rows on 2.13, on V on 2.11) and pass as
+    they are."""
+    first = small4["internlm2-1.8b/xla/2"]["logits"]
+    assert first and all(read == ["S0", "S2"] for _, read in first), first
+    for arch, impl, B in worker.SMALL4:
+        r = small4[f"{arch}/{impl}/{B}"]
+        assert r["logits"] and all("P" not in read
+                                   for _, read in r["logits"]), (arch, B)
+    eight = sharded4["internlm2-1.8b/xla"]["logits"]
+    assert eight and all(came == read and "P" not in read
+                         for came, read in eight), eight
+
+
+def test_sharded_step_2x4_two_rows_a_data_shard(sharded8):
+    """A (2, 4) mesh at a batch of 4: 2 rows a data shard under a model
+    axis of 4, the multi-pod train cells' layout (8 rows a rank against
+    ``model`` 16) in small."""
+    step = sharded8["internlm2-1.8b/2x4"]
+    _check_step(step)
+    assert all("P" not in read for _, read in step["logits"])
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "whisper-tiny"])
@@ -554,13 +599,13 @@ def test_compressed_psum_matches_reference_bitwise(collect4, reference_four):
 
 # -- the launcher under torch.distributed.run ------------------------------------------
 
-def _launch(ckpt_dir, steps, *extra, ranks=2):
+def _launch(ckpt_dir, steps, *extra, ranks=2, batch=4):
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(ranks), "-m", "repro_torch.launch.train",
            "--arch", "internlm2-1.8b", "--smoke", "--steps", str(steps),
-           "--batch", "4", "--seq-len", "16", "--model-axis", str(ranks),
+           "--batch", str(batch), "--seq-len", "16", "--model-axis", str(ranks),
            "--device", "cpu", "--ckpt-dir", str(ckpt_dir), *extra]
     res = subprocess.run(cmd, env=env, capture_output=True, text=True,
                          timeout=TIMEOUT_S)
@@ -601,21 +646,24 @@ def test_launch_train_model_axis_resumes_and_restores_unsharded(tmp_path):
         assert v.numpy().tobytes() == saved[n].tobytes(), n
 
 
-def test_launch_train_model_axis_4_over_two_kv_heads(tmp_path):
+@pytest.mark.parametrize("batch", [4, 2])
+def test_launch_train_model_axis_4_over_two_kv_heads(tmp_path, batch):
     """``launch.train --model-axis 4`` on the smoke internlm2 (2 KV
     heads) over 4 ranks: 3 steps whose first and last losses (printed to
-    4 places) are those of the same run in one process, unsharded."""
+    4 places) are those of the same run in one process, unsharded; at a
+    batch of 4, and of 2 (fewer rows than ranks: the logits reach the
+    loss as partial sums)."""
     def span(out):
         line = next(x for x in out.splitlines() if x.startswith("steps 0..2"))
         return [float(v) for v in line.split("loss ")[1].split(" -> ")]
 
-    out = _launch(tmp_path / "four", 3, ranks=4)
+    out = _launch(tmp_path / "four", 3, ranks=4, batch=batch)
     assert "mesh: {'data': 1, 'model': 4}" in out
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     one = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "internlm2-1.8b", "--smoke", "--steps", "3", "--batch", "4",
+         "internlm2-1.8b", "--smoke", "--steps", "3", "--batch", str(batch),
          "--seq-len", "16", "--device", "cpu", "--ckpt-dir",
          str(tmp_path / "one")], env=env, capture_output=True, text=True,
         timeout=TIMEOUT_S)

@@ -314,8 +314,25 @@ PORT = textwrap.dedent("""
                           "memory": whole["memory"]}}
     if part == "production":
         import tempfile
+        from repro_torch.distributed import rules
+        # the logits' placements as they reach the loss and as it reads
+        # them (``rules.reduced_logits``)
+        reduce, seen = rules.reduced_logits, []
+
+        def pl(t):
+            return ["S%d" % p.dim if p.is_shard() else
+                    "R" if p.is_replicate() else "P" for p in t.placements]
+
+        def recorded(lf):
+            got = reduce(lf)
+            if [pl(lf), pl(got)] not in seen:
+                seen.append([pl(lf), pl(got)])
+            return got
+
+        rules.reduced_logits = recorded
         with tempfile.TemporaryDirectory() as tmp:
             for arch, shape, mesh_kind in job["production"]:
+                seen.clear()
                 r = dryrun.run_cell(arch, shape, mesh_kind, results_dir=tmp)
                 key = f"{arch}/{shape}/{mesh_kind}"
                 out[key] = {k: r.get(k) for k in ("status", "error",
@@ -326,6 +343,7 @@ PORT = textwrap.dedent("""
                 out[key]["flops"] = roof.get("device_flops")
                 out[key]["vocab"] = configs.get(arch).vocab
                 out[key]["d_model"] = configs.get(arch).d_model
+                out[key]["logits"] = list(seen)
     dryrun.release_fake_group()
     print(json.dumps(out))
 """)
@@ -733,14 +751,24 @@ def test_production_train_cell_splits_attention_and_mlp(
         assert temp <= want
 
 
-@pytest.mark.parametrize("arch", PROD_TRAIN)
+#: the train cells held to no whole-vocab tensor at their peak: PROD_TRAIN's
+#: on the 16 x 16 mesh, and internlm2's on the multi-pod mesh (8 rows a
+#: rank under a model axis of 16)
+NO_VOCAB_CELLS = [pytest.param(a, "single", id=a) for a in PROD_TRAIN] + [
+    pytest.param("internlm2-1.8b", "multipod", id="internlm2-1.8b-multipod")]
+
+
+@pytest.mark.parametrize("arch,mesh_kind", NO_VOCAB_CELLS)
 def test_production_train_cell_holds_no_whole_vocab(port_production,
-                                                    ref_production, arch):
-    """``train_4k`` at published widths on the 16 x 16 mesh: the logits
-    leave the head split on V and the loss picks its labels by a masked
-    sum, so no tensor with the whole vocab as its last dim is among the
-    largest live at the peak (it was the label gather's backward: a
-    zeros of the global (256, 4,096, V) logits).  The MoE dispatch
+                                                    ref_production, arch,
+                                                    mesh_kind):
+    """``train_4k`` at published widths on the 16 x 16 mesh, and
+    internlm2's on the 2 x 16 x 16 mesh: the logits leave the head split
+    on V (or, a partial sum, are reduce-scattered onto V before the
+    loss reads them) and the loss picks its labels by a masked sum, so
+    no tensor with the whole vocab as its last dim is among the largest
+    live at the peak (it was the label gather's backward: a zeros of the
+    global (256, 4,096, V) logits).  The MoE dispatch
     buffer and the expert outputs are split as the reference constrains
     them, so no tensor at the peak holds as many elements as the global
     tokens (256 x 4,096 x d): it was the combine gather's backward, a
@@ -749,7 +777,11 @@ def test_production_train_cell_holds_no_whole_vocab(port_production,
     temporaries within the H100's 80 GiB."""
     from repro_torch.configs import shapes
 
-    got, ref = _prod(port_production, ref_production, arch, "train_4k")
+    got, ref = _prod(port_production, ref_production, arch, "train_4k",
+                     mesh_kind)
+    # the loss reads the logits split on V over ``model``, never partial
+    assert got["logits"] and all(read[-1] == "S2" and "P" not in read
+                                 for _, read in got["logits"]), got["logits"]
     assert all(shape[-1] != got["vocab"]
                for _, shape, _, _ in got["peak_temporaries"])
     spec = shapes.SHAPES["train_4k"]
@@ -761,6 +793,25 @@ def test_production_train_cell_holds_no_whole_vocab(port_production,
         HBM_BYTES)
     assert mem["temp_size_in_bytes"] <= 2 * ref["memory"][
         "temp_size_in_bytes"]
+
+
+def test_multipod_train_cell_builds_rope_tables_once(port_production,
+                                                   ref_production):
+    """internlm2's ``train_4k`` on the 2 x 16 x 16 mesh: RoPE's angle
+    tables are built from the positions every row shares, (1, 4,096) --
+    not one a row of the global batch of 256 on every rank, three
+    (256, 1, 4,096, 64) float32 tables of 256 MiB among the largest
+    temporaries at the peak (ROADMAP fault 33)."""
+    from repro_torch import configs
+    from repro_torch.configs import shapes
+
+    got, _ = _prod(port_production, ref_production, "internlm2-1.8b",
+                   "train_4k", "multipod")
+    spec, cfg = shapes.SHAPES["train_4k"], configs.get("internlm2-1.8b")
+    table = (spec.seq_len, cfg.hd // 2)
+    assert not [shape for _, shape, _, _ in got["peak_temporaries"]
+                if len(shape) > 2 and shape[0] == spec.global_batch
+                and tuple(shape[-2:]) == table], got["peak_temporaries"]
 
 
 @pytest.mark.parametrize("arch", PROD_PREFILL)

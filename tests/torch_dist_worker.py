@@ -6,10 +6,12 @@ port), each part writing its results as JSON.
   python tests/torch_dist_worker.py PART OUT_DIR
 
 PART is one of:
-  sharded8  internlm2's smoke step over 8 ranks as a (4, 2) mesh and
-            as the multi-pod layout (pod, data, model) = (2, 2, 2), then
-            with the card's product rules given to the CPU's mm and bmm
-            (internlm2 and olmoe);
+  sharded8  internlm2's smoke step over 8 ranks as a (4, 2) mesh, as
+            the multi-pod layout (pod, data, model) = (2, 2, 2), and on a
+            (2, 4) mesh at a batch of 4 (2 rows a data shard under
+            ``model`` 4, the multi-pod train cells' layout in small),
+            then with the card's product rules given to the CPU's mm and
+            bmm (internlm2 and olmoe);
   sharded2  every other arch's smoke step over a (1, 2) mesh (``xla``
             attention), two through the flash path (``pallas``), and a
             TrainLoop resumed from a sharded checkpoint;
@@ -17,6 +19,10 @@ PART is one of:
             the KV heads (2 in every arch below; whisper's 2 heads, the
             xLSTM's 2): the dense family through both attention paths,
             whisper, the MoE, the xLSTM and jamba;
+  small4    smoke steps over a (1, 4) mesh at batches whose rows are
+            fewer than the model axis or no multiple of it: each
+            sharded4 case and qwen2-7b (the bias path) at 2 rows, and
+            internlm2 at 3 and 6 (an uneven split of the rows);
   decode2   serving over a (1, 2) mesh: prefill and decode steps (a
             slot each, and one position a sequence) on a cache split by
             layer, by KV head, by sequence and by head dim, and by layer
@@ -71,18 +77,21 @@ import torch.multiprocessing as mp  # noqa: E402
 from repro_torch.configs import ARCH_IDS  # noqa: E402
 
 #: each part's seconds from its inputs (or its launch) to its end before
-#: it is stopped: at least twice the part's whole time, launch to end,
-#: beside eight busy processes (``tools/fixture_timing.py worlds --busy
-#: 8``: 175, 281, 235, 48, 85, 25 and 32 s in the order below)
+#: it is stopped: at least four times the part's run from its inputs to
+#: its end beside eight busy processes (``tools/fixture_timing.py worlds
+#: --busy 8``: 98, 84, 44, 5, 20, 29, 34 and 61 s in the order below,
+#: 211, 466, 285, 55, 95, 30, 35 and 419 s from the launch), and short
+#: enough that the last inputs (written 391 s after the launch there)
+#: plus a deadline stay well inside a tier-1 run's limit
 DEADLINE_S = {"sharded8": 420, "sharded2": 600, "sharded4": 480,
               "decode2": 300, "moe4": 300, "collect4": 180, "single1": 240,
-              "cuda1": 300}
+              "small4": 300, "cuda1": 300}
 #: the longest a world waits for its inputs before it gives up
 INPUTS_S = 1200
 #: the world's output directory (checkpoints of the resume case go there)
 OUT_DIR = None
 WORLDS = {"sharded8": 8, "sharded2": 2, "sharded4": 4, "decode2": 2,
-          "moe4": 4, "collect4": 4, "single1": 1, "cuda1": 1}
+          "moe4": 4, "collect4": 4, "single1": 1, "small4": 4, "cuda1": 1}
 #: decode2's caches: (layers, KV heads, slots) of the smoke internlm2
 #: (head dim 16), and the dim of the stacked (L, B, T, Hkv, hd) cache the
 #: reference's rule splits over ``model``: the layers where they number
@@ -102,17 +111,40 @@ BY_HAND = {"layer_serial": "sequence"}
 SHARDED4 = (("internlm2-1.8b", "xla"), ("internlm2-1.8b", "pallas"),
             ("whisper-tiny", "xla"), ("dbrx-132b", "xla"),
             ("xlstm-125m", "xla"), ("jamba-1.5-large-398b", "xla"))
+#: (arch, attention impl, batch) of the small4 part: every sharded4 case
+#: and qwen2-7b at 2 rows over ``model`` 4, internlm2 at 3 and 6
+SMALL4 = tuple((a, i, 2) for a, i in SHARDED4) + (
+    ("qwen2-7b", "xla", 2), ("internlm2-1.8b", "xla", 3),
+    ("internlm2-1.8b", "xla", 6))
+#: the batch of sharded8's (2, 4) case
+BATCH_2X4 = 4
 #: the combine modes of the moe4 part
 MOE4_COMBINE = ("gather", "scatter")
 #: decode2's prefill-only cases, as DECODE2's, with their prompt length
 #: (the layers must number the KV heads and not the batch, which the
 #: reference's rule looks for first)
 PREFILL2 = {"layer": (2, 2, 32, 0, 24)}
+
+
+def ref_name(arch, B=8):
+    """The name of the reference's step file of ``arch`` at a batch of
+    ``B`` rows (:func:`_batch`'s 8 by default)."""
+    return arch if B == 8 else f"{arch}_b{B}"
+
+
+def ref_step(name):
+    """``(arch, B)`` of a step file's :func:`ref_name`."""
+    arch, _, b = name.rpartition("_b")
+    return (arch, int(b)) if arch and b.isdigit() else (name, 8)
+
+
 #: the reference files each part reads, ``OUT_DIR/ref_<name>.pkl``
 NEEDS = {
-    "sharded8": ("internlm2-1.8b", "olmoe-1b-7b"),
+    "sharded8": ("internlm2-1.8b", ref_name("internlm2-1.8b", BATCH_2X4),
+                 "olmoe-1b-7b"),
     "sharded2": ARCH_IDS,
     "sharded4": tuple(dict.fromkeys(a for a, _ in SHARDED4)),
+    "small4": tuple(dict.fromkeys(ref_name(a, B) for a, _, B in SMALL4)),
     "decode2": tuple(f"decode_{n}" for n in DECODE2 if n not in BY_HAND)
     + tuple(f"prefill_{n}" for n in PREFILL2),
     "moe4": tuple(f"olmoe-1b-7b_ep_{m}" for m in MOE4_COMBINE),
@@ -173,14 +205,16 @@ def _grad_err(grads, want):
             for n, g in named_leaves(want)}
 
 
-def _step_case(arch, mesh, impl, ref=None):
-    """One smoke step of ``arch`` unsharded and sharded on ``mesh``, both
-    from the reference's initial state: the two losses and grad norms
-    and the reference's loss; each gradient leaf's max |error| over the
-    tree's max |gradient|, of the sharded step against the unsharded
-    one's and against the reference's ``jax.value_and_grad``; and each
-    param's relative L2 after the step (with whether it was all zeros
-    before it)."""
+def _step_case(arch, mesh, impl, ref=None, B=8):
+    """One smoke step of ``arch`` on :func:`_batch`'s ``B`` rows,
+    unsharded and sharded on ``mesh``, both from the reference's initial
+    state: the two losses and grad norms and the reference's loss (its
+    file ``ref``, else :func:`ref_name`'s); each gradient leaf's max
+    |error| over the tree's max |gradient|, of the sharded step against
+    the unsharded one's and against the reference's
+    ``jax.value_and_grad``; each param's relative L2 after the step
+    (with whether it was all zeros before it); and the placements of
+    the logits as they reach the loss and as it reads them."""
     from repro_torch import configs
     from repro_torch.distributed import sharding
     from repro_torch.models import (build_model, params_from_jax,
@@ -191,9 +225,9 @@ def _step_case(arch, mesh, impl, ref=None):
     from repro_torch.tree import named_leaves
 
     cfg = configs.get_smoke(arch)
-    ref = _reference(ref or arch)
+    ref = _reference(ref or ref_name(arch, B))
     model = build_model(cfg, attn_impl=impl, device="cpu")
-    batch = {k: torch.as_tensor(v) for k, v in _batch(cfg).items()}
+    batch = {k: torch.as_tensor(v) for k, v in _batch(cfg, B).items()}
     single = train_state_from_jax(cfg, ref["state"], device="cpu")
     zero = {n: bool((p == 0).all()) for n, p in named_leaves(single["params"])}
     state = sharding.distribute_state(
@@ -207,7 +241,7 @@ def _step_case(arch, mesh, impl, ref=None):
                                                  device="cpu"))
     step = make_train_step(model, AdamWConfig(lr=1e-3))
     single, m1 = step(single, batch)
-    with _recorded_attention() as attention:
+    with _recorded_attention() as attention, _recorded_logits() as logits:
         state, m2 = step(state, dbatch)
     p2 = dict((n, _full(p)) for n, p in named_leaves(state["params"]))
     return {
@@ -224,7 +258,31 @@ def _step_case(arch, mesh, impl, ref=None):
         "placements": {n: [_placement(x) for x in p.placements]
                        for n, p in named_leaves(state["params"])},
         "attention": attention,
+        "logits": logits,
     }
+
+
+@contextlib.contextmanager
+def _recorded_logits():
+    """While active, each call of ``rules.reduced_logits`` (the loss's
+    DTensor logits) is recorded as the logits' placements and those the
+    loss reads them in; yields the distinct records."""
+    from repro_torch.distributed import rules
+
+    seen, reduce = [], rules.reduced_logits
+
+    def recorded(lf):
+        out = reduce(lf)
+        rec = [[_placement(x) for x in t.placements] for t in (lf, out)]
+        if rec not in seen:
+            seen.append(rec)
+        return out
+
+    rules.reduced_logits = recorded
+    try:
+        yield seen
+    finally:
+        rules.reduced_logits = reduce
 
 
 @contextlib.contextmanager
@@ -271,6 +329,10 @@ def part_sharded8(rank, out):
                              mesh_dim_names=("pod", "data", "model"))
     out["internlm2-1.8b/pod_data_model"] = _step_case("internlm2-1.8b",
                                                       mesh3, "xla")
+    # 2 rows a data shard under a model axis of 4
+    mesh24 = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    out["internlm2-1.8b/2x4"] = _step_case("internlm2-1.8b", mesh24, "xla",
+                                           B=BATCH_2X4)
     # the card's product rules (mm.dtype, bmm.dtype, which the CPU has no
     # kernel for) given to the CPU's mm and bmm, which matmul_f32 reaches
     from repro_torch.distributed import rules
@@ -313,6 +375,15 @@ def part_sharded4(rank, out):
     out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     for arch, impl in SHARDED4:
         out[f"{arch}/{impl}"] = _step_case(arch, mesh, impl)
+
+
+def part_small4(rank, out):
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(4, device="cpu")
+    out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    for arch, impl, B in SMALL4:
+        out[f"{arch}/{impl}/{B}"] = _step_case(arch, mesh, impl, B=B)
 
 
 def _record_rows(moe, seen):
