@@ -259,7 +259,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      ``decode_32k`` for every arch and of ``train_4k`` for every arch
      but the two whose loops are composed from short runs (the xLSTM
      and jamba, 40-160 s each on the host; the tests hold their
-     composition), and internlm2-1.8b's ``train_4k`` and ``decode_32k``
+     composition), xlstm-125m's ``prefill_32k`` (composed; its
+     temporaries within 2x the reference's 0.86 GiB), and
+     internlm2-1.8b's ``train_4k`` and ``decode_32k``
      on the multi-pod 2 x 16 x 16 mesh, on meta tensors with nothing on
      the card, each with status, seconds, per-device GFLOPs, bytes,
      collective bytes, memory and bound, none in error; then two card
@@ -516,6 +518,14 @@ DRYRUN_SHAPES = ("train_4k", "decode_32k")
 DRYRUN_COMPOSED = ("xlstm-125m", "jamba-1.5-large-398b")
 DRYRUN_MULTIPOD = (("internlm2-1.8b", "train_4k"),
                    ("internlm2-1.8b", "decode_32k"))
+#: phase Y's composed single-pod cells that it runs (four short runs,
+#: 15-30 s), each with the reference's temporaries in GiB (its JAX
+#: compile on 512 forced host devices, the production cell of
+#: ``tests/test_torch_dryrun.py``): the port's must stay within
+#: DRYRUN_TEMP_RATIO of them -- each rank steps its own rows of the
+#: xLSTM's recurrences (it held the global batch's: 15.22 GiB)
+DRYRUN_RECURRENT = (("xlstm-125m", "prefill_32k", 0.86),)
+DRYRUN_TEMP_RATIO = 2.0
 #: phase Y's cells that must fit one H100's 80 GiB (arguments plus
 #: temporaries a device): the multi-pod train cell whose attention and MLP
 #: the sharded step used to leave whole on every rank of the model axis
@@ -535,6 +545,7 @@ results = tempfile.mkdtemp(prefix="dryrun_smoke_")
 cells = [(arch, name, "single") for arch in configs.ARCH_IDS
          for name in job["shapes"]
          if not (arch in job["composed"] and name == "train_4k")]
+cells += [(arch, name, "single") for arch, name, _ in job["recurrent"]]
 cells += [(arch, name, "multipod") for arch, name in job["multipod"]]
 out = {"cells": []}
 for arch, name, mesh_kind in cells:
@@ -3524,7 +3535,9 @@ def kernel_breakdown(kernels, what: str) -> dict:
 def phase_dryrun(card: str) -> dict:
     """Phase Y: the dry run (``launch.dryrun``).  Its single-pod cells
     (``DRYRUN_SHAPES`` of every arch but ``DRYRUN_COMPOSED``'s train
-    cells) and ``DRYRUN_MULTIPOD``'s cells on the multi-pod mesh, on
+    cells, and ``DRYRUN_RECURRENT``'s composed cells, each held within
+    ``DRYRUN_TEMP_RATIO`` of the reference's temporaries) and
+    ``DRYRUN_MULTIPOD``'s cells on the multi-pod mesh, on
     meta tensors over a fake group of 256 or 512 ranks, built in a
     process of its own while nothing else runs, each with status,
     seconds, per-device GFLOPs, bytes, collective bytes, memory and
@@ -3547,7 +3560,8 @@ def phase_dryrun(card: str) -> dict:
 
     t = time.perf_counter()
     job = dict(shapes=DRYRUN_SHAPES, composed=DRYRUN_COMPOSED,
-               multipod=DRYRUN_MULTIPOD, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+               multipod=DRYRUN_MULTIPOD, recurrent=DRYRUN_RECURRENT,
+               arch=TRAIN_ARCH, batch=TRAIN_BATCH,
                check_len=TRAIN_CHECK_LEN, train_len=TRAIN_LEN)
     try:
         host = subprocess.run(
@@ -3603,6 +3617,19 @@ def phase_dryrun(card: str) -> dict:
                 bad.append(f"{c['arch']} train_4k multipod: a RoPE table "
                            f"of the global batch of {rope[0]} at the peak "
                            f"({c['peak_temporaries']})")
+        for arch, name, ref_gib in DRYRUN_RECURRENT:
+            if (c["arch"], c["shape"], c["mesh"]) != (arch, name, "single"):
+                continue
+            tmp = ma["temp_size_in_bytes"] / 2**30
+            print(f"    {arch} {name} single: temporaries {tmp:.2f} GiB "
+                  f"beside the reference's {ref_gib:.2f} GiB "
+                  f"({tmp / ref_gib:.2f}x; its largest: " + "; ".join(
+                      f"{tuple(shape)} {dtype} {op}" for _, shape, dtype, op
+                      in c["peak_temporaries"][:3]) + ")")
+            if tmp > DRYRUN_TEMP_RATIO * ref_gib:
+                bad.append(f"{arch} {name} single: {tmp:.2f} GiB of "
+                           f"temporaries, over {DRYRUN_TEMP_RATIO}x the "
+                           f"reference's {ref_gib:.2f}")
         held = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
         if (c["arch"], c["shape"], c["mesh"]) in DRYRUN_FIT and (
                 held > DRYRUN_FIT_BYTES):

@@ -10,8 +10,6 @@ import os
 import sys
 from typing import List, Set
 
-from .scancost import MODELS
-
 ORDER_SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
 #: the mark of a term that a composed cell extrapolates (``modelled``)
 MODELLED = "~"
@@ -43,14 +41,13 @@ def fmt_s(x: float) -> str:
 def modelled(rec: dict) -> Set[str]:
     """The fields of a composed cell (``analysis.scancost``) that are
     extrapolated from its short runs, a model and not a count -- those
-    whose check failed, and ``scancost.MODELS`` -- as the terms and
-    memory fields they feed: of ``t_compute``, ``t_memory``,
-    ``t_collective``, ``argument_size_in_bytes`` and
-    ``temp_size_in_bytes``."""
+    whose check failed -- as the terms and memory fields they feed: of
+    ``t_compute``, ``t_memory``, ``t_collective``,
+    ``argument_size_in_bytes`` and ``temp_size_in_bytes``."""
     check = rec.get("scan_correction", {}).get("detail", {}).get("check", {})
     out = set()
     for field, held in check.items():
-        if held and field not in MODELS:
+        if held:
             continue
         if field == "flops":
             out.add("t_compute")

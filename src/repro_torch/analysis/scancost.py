@@ -30,19 +30,25 @@ composes the full one:
     group) is linear in them over the whole range, and at multiples of
     ``MLSTM_CHUNK`` above it for the chunked mLSTM.
 
-The bytes and memory fields are composed alike, but are no such
-polynomial: autograd's backward of a step's ``x[:, t]`` writes a zero
-gradient of the whole sequence every step, and the peak of live bytes
-moves with ``T``; nor, where DTensor picks its collectives by their
-cost, which depends on ``T``, are the collective bytes.  Where a
-field's check fails it is extrapolated along the line through the two
-longest runs instead (:func:`compose`), and is a model of the full
-cell, not a count of it: the line carries the samples (T <= 32, or a
-few chunks) 128-1,000 times further out, and its error there is not
-measured.  ``analysis.aggregate`` marks each such field, and the
-bytes and temporaries (:data:`MODELS`) of every composed cell.  The model modules stay unaware of
-the dry run; the reference's x3 and x4 backward factors (its probes of
-a step's forward only) are not needed.
+The bytes and memory fields are composed alike and held to the same
+check: a step loop reads its steps as the views of one ``unbind``, so
+its backward writes O(T) bytes, as the scan's does.  Where a field's
+check fails it is extrapolated along the line through the two longest
+runs instead (:func:`compose`), and is a model of the full cell, not a
+count of it: the line carries the samples (T <= 32, or a few chunks)
+128-1,000 times further out, and its error there is not measured.
+``analysis.aggregate`` marks each such field.  A check fails where the
+cell changes regime between the samples: DTensor picks a product's or a
+redistribution's layout by its cost, which grows with ``T``
+(xlstm-125m's ``train_4k``: its sLSTM gate products, float32 by
+DTensor's own ``mm`` rule, gather their (768, 768) weights at T <= 24
+and split their contraction at 32 -- its bytes, temporaries and three
+collective kinds; jamba's cells), or the peak moves from one tensor to
+another (xlstm-125m's ``prefill_32k``: the steps' state pieces at T =
+8, the loop's output gathered for its output projection from 16 on,
+linear from there).  The model modules stay unaware of the dry run;
+the reference's x3 and x4 backward factors (its probes of a step's
+forward only) are not needed.
 """
 from __future__ import annotations
 
@@ -58,9 +64,6 @@ BASE_T = 8
 #: the degree in ``T`` of the polynomial the counts are composed by
 DEGREE = 2
 LOOPING = ("ssm_xlstm", "hybrid_jamba")
-#: the fields a composed cell gives as a model whatever their check: no
-#: polynomial in ``T`` (see the module docstring)
-MODELS = ("bytes", "memory/temp_size_in_bytes")
 
 
 def _moe_linear(cfg: ModelConfig, batch: int, lengths, groups: int) -> bool:

@@ -12,10 +12,13 @@ is always one of them, so each rule is exact whatever the placements.
   in float32 (``core.precision.matmul_f32``) -- the rules of ``mm`` and
   ``bmm``: row-, column-, batch- or contraction-parallel;
 * ``searchsorted``: MoE routing (``models.moe``), on whole rows;
-* ``log_sigmoid_backward``: the xLSTM's forget gate, elementwise;
+* ``log_sigmoid_forward`` and its backward: the xLSTM's forget gate,
+  elementwise; ``softplus_backward`` (and ``softplus`` where torch has
+  no rule, 2.11): Mamba's dt, elementwise;
 * ``cummax`` and its backward: the chunked mLSTM's running max, whole
-  along the scanned dim (torch 2.11 has no rule); ``flip`` (a cumsum's
-  backward there), whole along the flipped dims;
+  along the scanned dim (torch 2.11 has no rule); ``scatter_add``, the
+  gradient ``models.ssm`` gives it, split off the scattered dim;
+  ``flip`` (a cumsum's backward there), whole along the flipped dims;
 * ``gather``: never split the gathered dim (whole rows; DTensor's own
   rule makes a gather along a sharded dim a masked partial sum).  The
   loss picks its labels by a masked sum, not a gather;
@@ -56,6 +59,8 @@ is always one of them, so each rule is exact whatever the placements.
   flattened with T -- is moved to a kept dim or replicated first
   (:func:`_uneven_merged`): DTensor would name an even split of the
   merged dim that the ranks' rows are not;
+* ``unbind`` (:func:`_unbind_whole`): a step loop's steps, the unbound
+  dim replicated where it is split, a partial input reduced once;
 * ``add`` (torch 2.11's rule, :func:`_no_shard_to_partial`): where it
   would turn a split input into a partial sum, which DTensor cannot
   run, the partial operands are reduced instead.
@@ -79,7 +84,9 @@ backward, :func:`_embedding`: Megatron's masked lookup).  The MoE
 dispatch buffer and the expert outputs are placed expert-parallel, as
 the reference constrains them (op handlers for ``models.moe``'s row
 gather, scatter-add and top-k sum: :func:`_gather_rows`,
-:func:`_scatter_add_rows`, :func:`_sum_top_k`).
+:func:`_scatter_add_rows`, :func:`_sum_top_k`).  The xLSTM's steps run
+on each rank's own rows (an op handler for ``models.ssm.scan_rows``,
+:func:`_scan_rows`).
 """
 from __future__ import annotations
 
@@ -209,6 +216,20 @@ def _searchsorted(seq, values, *rest, **kwargs):
     return out
 
 
+@register_sharding(aten.log_sigmoid_forward.default)
+def _log_sigmoid_forward(x):
+    """The xLSTM's forget gate (``F.logsigmoid``; no rule in torch 2.13,
+    whose fallback ran it on the whole tensor): elementwise, the output
+    and the buffer split like ``x`` on any dim.  The buffer has ``x``'s
+    shape on the CPU and is empty on a card (``aten``'s decomposition:
+    ``cuda`` and ``xpu``), where it is replicated."""
+    empty = x.mesh.device_type in ("cuda", "xpu")
+    out = [([R, R], [R])]
+    out += [([Shard(d), R if empty else Shard(d)], [Shard(d)])
+            for d in range(len(x.shape))]
+    return out
+
+
 @register_sharding(aten.log_sigmoid_backward.default)
 def _log_sigmoid_backward(grad, x, buffer):
     # the CPU's buffer is x's shape; the card's is empty (replicated)
@@ -217,6 +238,34 @@ def _log_sigmoid_backward(grad, x, buffer):
     out += [([Shard(d)], [Shard(d), Shard(d), Shard(d) if buf else R])
             for d in range(len(x.shape))]
     return out
+
+
+@register_sharding(aten.softplus_backward.default)
+def _softplus_backward(grad, x, *rest):
+    # Mamba's dt (no rule in torch 2.11 or 2.13, whose fallbacks run it
+    # on the whole tensor): elementwise
+    x_ = _extra(rest)
+    out = [([R], [R, R, *x_])]
+    out += [([Shard(d)], [Shard(d), Shard(d), *x_])
+            for d in range(len(x.shape))]
+    return out
+
+
+def _softplus(x, *rest):
+    # its forward, where torch has no rule (2.11; 2.13's is kept)
+    x_ = _extra(rest)
+    return [([R], [R, *x_])] + [([Shard(d)], [Shard(d), *x_])
+                                for d in range(len(x.shape))]
+
+
+def _has_strategy(op) -> bool:
+    prop = DTensor._op_dispatcher.sharding_propagator
+    return op in prop.op_strategy_funcs or op in getattr(
+        prop, "op_single_dim_strategy_funcs", {})
+
+
+if not _has_strategy(aten.softplus.default):
+    register_sharding(aten.softplus.default)(_softplus)
 
 
 @register_sharding(aten.gather.default)
@@ -248,6 +297,18 @@ def _flip(x, dims):
     out = [([R], [R, None])]
     out += [([Shard(d)], [Shard(d), None])
             for d in range(len(x.shape)) if d not in flipped]
+    return out
+
+
+@register_sharding(aten.scatter_add.default)
+def _scatter_add(x, dim, index, src):
+    # the chunked mLSTM's running-max gradient: split on a dim other than
+    # the scattered one where all three are alike (DTensor gathers them)
+    dim %= len(x.shape)
+    out = [([R], [R, None, R, R])]
+    out += [([Shard(d)], [Shard(d), None, Shard(d), Shard(d)])
+            for d in range(len(x.shape))
+            if d != dim and x.shape[d] == index.shape[d] == src.shape[d]]
     return out
 
 
@@ -528,12 +589,33 @@ def _gather_where_uneven(strict: Callable, gathering: Callable) -> Callable:
     return strategy
 
 
+def _unbind_whole(strict: Callable) -> Callable:
+    """``unbind``'s strategy: DTensor's own (``strict``), with the unbound
+    dim replicated first on the mesh dims that split it, which DTensor
+    refuses -- as ``select`` gathers a split dim -- and a partial sum
+    reduced whole.  A step loop reads its steps (or chunks) as one
+    ``unbind``'s views, then aliasing the redistributed copy: a loop's
+    input is reduced once, not each step, where a step's non-linear
+    update meets it (Mamba's B and C, the row-parallel ``x_proj``'s
+    partial outputs)."""
+    def strategy(op_schema):
+        spec = op_schema.args_schema[0].strategies[0].output_spec
+        dim = op_schema.args_schema[1] if len(op_schema.args_schema) > 1 else 0
+        dim %= len(spec.shape)
+        whole = {i: R for i, p in enumerate(spec.placements)
+                 if p.is_shard(dim) or p.is_partial()}
+        return strict(_placed_on(op_schema, whole) if whole else op_schema)
+
+    return strategy
+
+
 def _register_view_fallback() -> None:
     prop = DTensor._op_dispatcher.sharding_propagator
     funcs = prop.op_strategy_funcs
     for op in (aten.view.default, aten._unsafe_view.default):
         funcs[op] = _gather_where_uneven(funcs[op],
                                          funcs[aten.reshape.default])
+    funcs[aten.unbind.int] = _unbind_whole(funcs[aten.unbind.int])
     prop.propagate_op_sharding.cache_clear()
 
 
@@ -1178,6 +1260,52 @@ def _register_rows() -> None:
 
 
 _register_rows()
+
+
+def _scan_rows(op_call, args, kwargs):
+    """``models.ssm.scan_rows`` of a DTensor (B, ...): the copy split by
+    its rows on every mesh dim where they divide, else by its ``free``
+    dim where that divides -- a dim split elsewhere moved there (an
+    all-to-all), a partial sum reduce-scattered there, a whole one
+    sliced -- else as it comes, a partial sum reduced whole; the local
+    copy contiguous, as its spec says.  The mLSTM's steps then run on
+    each rank's own rows, all heads, and its state C (B, H, hd, hd) is
+    split as the rows are, no step moving data; where the rows do not
+    divide (the multi-pod mesh's 8 a data shard under 16), C is split by
+    its columns, as v's head dim is, and every rank steps the rest of
+    its rows whole.  Heads fewer than ``model`` (xlstm-125m's 4 under
+    16) cannot split it, and a split of the dims a step contracts would
+    make its products partial sums."""
+    x = _dtensors(args[:1])[0]
+    free = args[1] if len(args) > 1 else (kwargs or {}).get("free")
+    dims = [0] if free is None else [0, free % x.ndim]
+    mesh = x.device_mesh
+    ways = dict.fromkeys(dims, 1)
+    for i, p in enumerate(x.placements):
+        if p.is_shard() and p.dim in ways:
+            ways[p.dim] *= mesh.size(i)
+    pl = []
+    for i, p in enumerate(x.placements):
+        if not (p.is_shard() and p.dim in ways):
+            d = next((d for d in dims
+                      if x.shape[d] % (ways[d] * mesh.size(i)) == 0), None)
+            if d is not None:
+                p = Shard(d)
+                ways[d] *= mesh.size(i)
+        pl.append(R if p.is_partial() else p)
+    local = _moved(x, pl).clone(memory_format=torch.contiguous_format)
+    return DTensor(local, _spec(mesh, pl, x.shape, local.dtype),
+                   requires_grad=False)
+
+
+def _register_scan_rows() -> None:
+    from ..models import ssm  # noqa: F401  (defines the op)
+
+    handlers = DTensor._op_dispatcher._custom_op_handlers
+    handlers[torch.ops.repro_torch.scan_rows.default] = _scan_rows
+
+
+_register_scan_rows()
 
 
 def _by_heads(hq: int, hkv: int, ranks: int) -> bool:

@@ -4,10 +4,15 @@ step for step.
 
 The recurrences are data-dependent over time.  The reference runs them
 with ``lax.scan``; here each scan is a Python loop over the steps (or,
-for the chunkwise mLSTM, over the chunks) in eager PyTorch, with the
-time axis moved to the front, contiguous, once before the loop.  Decode
-is O(1): the "cache" is the fixed-size recurrent state.  Every apply
-returns new states and never writes into the ones it was given.
+for the chunkwise mLSTM, over the chunks) in eager PyTorch.  A loop
+reads its steps as the views of one ``unbind``, whose backward stacks
+the steps' gradients once, as the scan does (a ``select`` a step would
+write a zero gradient of the whole sequence every step).  A state the
+caller does not pass starts as zeros made ``*_like`` a step of the
+loop's own input, so that it has that input's rows (and, on sharded
+tensors, its layout).  Decode is O(1): the "cache" is the fixed-size
+recurrent state.  Every apply returns new states and never writes into
+the ones it was given.
 
 Dtypes follow the reference.  Mamba: the projections come out of the
 compute dtype, the causal conv sums its taps in float32 and rounds once,
@@ -74,7 +79,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     B, T, C = x.shape
     K = w.shape[0]
     if state is None:
-        pad = torch.zeros((B, K - 1, C), dtype=x.dtype, device=x.device)
+        pad = torch.zeros_like(x[:, :1]).expand(B, K - 1, C)
     else:
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)                    # (B, T+K-1, C)
@@ -101,7 +106,7 @@ def mamba_apply(
     be 2 x 4,096 x 16,384 x 16 x 4 bytes = 8.6 GB a layer); only
     (B, T, d_in) activations leave the loop."""
     m = cfg.mamba
-    B, T, d = x.shape
+    B, _, d = x.shape
     d_in = m.expand * d
     dtr = _dt_rank(cfg)
     cd = layers.torch_dtype(cfg.compute_dtype)
@@ -119,25 +124,24 @@ def mamba_apply(
     dt = F.softplus(dt.float())
     A = -torch.exp(p["A_log"])                          # (d_in, S)
 
-    h = (state["ssm"] if state is not None else
-         torch.zeros((B, d_in, m.d_state), dtype=torch.float32,
-                     device=x.device))
     xs_f32 = xs.float()
 
-    def steps_first(t):  # (B, T, *) -> (T, B, *), contiguous
+    def steps(t):  # (B, T, *) -> T contiguous (B, *) views
         # a stack of the steps, not a transposed copy: its gradient is
         # laid out (B, T, *) again, as sharded tensors expect
-        return torch.stack(t.unbind(1))
+        return torch.stack(t.unbind(1)).unbind(0)
 
-    dts = steps_first(dt)
-    dtxs = steps_first(dt * xs_f32)
-    Bs, Cs = steps_first(Bc.float()), steps_first(Cc.float())
+    dts = steps(dt)
+    h = (state["ssm"] if state is not None else
+         torch.zeros_like(dts[0])[..., None].expand(
+             B, d_in, m.d_state).contiguous())
     ys = []
-    for t in range(T):
-        dA = torch.exp(dts[t][..., None] * A)          # (B, d_in, S)
-        dBx = dtxs[t][..., None] * Bs[t][:, None, :]
+    for dt_t, dtx_t, B_t, C_t in zip(dts, steps(dt * xs_f32),
+                                     steps(Bc.float()), steps(Cc.float())):
+        dA = torch.exp(dt_t[..., None] * A)            # (B, d_in, S)
+        dBx = dtx_t[..., None] * B_t[:, None, :]
         h = dA * h + dBx
-        ys.append(torch.einsum("bds,bs->bd", h, Cs[t]))
+        ys.append(torch.einsum("bds,bs->bd", h, C_t))
     y = torch.stack(ys, dim=1)                          # (B, T, d_in)
     y = y + p["D"].float() * xs_f32
     y = y * F.silu(z.float())
@@ -187,24 +191,62 @@ def mlstm_init(gen, cfg: ModelConfig, dtype, *, device=None) -> Params:
     }
 
 
+@torch.library.custom_op("repro_torch::scan_rows", mutates_args=())
+def scan_rows(x: torch.Tensor, free: Optional[int] = None) -> torch.Tensor:
+    """A copy of ``x`` (B, ...) for a step loop whose rows step alone: the
+    mLSTM's projections and output h, the sLSTM's input.  ``free`` names
+    a dim along which the loop's update is elementwise too (the head dim
+    of v and h: the columns of the state C).  Where the tensors are
+    sharded, the distribution layer (``distributed.rules``) gives each
+    rank its own rows of the copy, or its own part of ``free`` where the
+    rows do not divide, so that no rank steps the whole state of its
+    rows.  Its gradient is this op's copy of the incoming one, placed
+    alike."""
+    return x.clone()
+
+
+@scan_rows.register_fake
+def _(x, free=None):
+    return torch.empty_like(x)
+
+
+def _scan_rows_context(ctx, inputs, output):
+    ctx.free = inputs[1]
+
+
+scan_rows.register_autograd(lambda ctx, grad: (scan_rows(grad, ctx.free),
+                                               None),
+                            setup_context=_scan_rows_context)
+
+
 def _mlstm_qkv_gates(p: Params, x: torch.Tensor, cfg: ModelConfig):
     """q, k, v as (B, T, H, hd) in the compute dtype (k scaled by
-    1/sqrt(hd) there) and the float32 gate pre-activations (B, T, H)."""
+    1/sqrt(hd) there) and the float32 gate pre-activations (B, T, H),
+    each from :func:`scan_rows` (the products' own layout would leave
+    every head whole on each rank where they are fewer than the ranks
+    that split the products)."""
     B, T, _ = x.shape
     hd, H = cfg.hd, cfg.n_heads
     cd = layers.torch_dtype(cfg.compute_dtype)
-    q = layers.dense_apply(p["wq"], x, cd).reshape(B, T, H, hd)
-    k = layers.dense_apply(p["wk"], x, cd).reshape(B, T, H, hd) / math.sqrt(hd)
-    v = layers.dense_apply(p["wv"], x, cd).reshape(B, T, H, hd)
-    i_pre = layers.dense_apply(p["wi"], x, torch.float32)
-    f_pre = layers.dense_apply(p["wf"], x, torch.float32)
-    return q, k, v, i_pre, f_pre
+
+    def proj(name, dtype):
+        return scan_rows(layers.dense_apply(p[name], x, dtype))
+
+    q = proj("wq", cd).reshape(B, T, H, hd)
+    k = proj("wk", cd).reshape(B, T, H, hd) / math.sqrt(hd)
+    v = scan_rows(proj("wv", cd).reshape(B, T, H, hd), 3)
+    return q, k, v, proj("wi", torch.float32), proj("wf", torch.float32)
 
 
-def _mlstm_state(state: Optional[State], cfg: ModelConfig, B: int, device):
+def _mlstm_state(state: Optional[State], k0: torch.Tensor, v0: torch.Tensor,
+                 i0: torch.Tensor):
+    """``state``'s (C, n, m), or zeros like a step's k and v (B, H, hd)
+    and input gate (B, H), as :func:`xlstm_init_state` makes them: C
+    (B, H, hd, hd) like v along its columns."""
     if state is None:
-        s = xlstm_init_state(cfg, B, "mlstm", device=device)
-        return s["C"], s["n"], s["m"]
+        C = torch.zeros_like(v0)[..., None, :].expand(
+            *k0.shape, v0.shape[-1]).contiguous()
+        return C, torch.zeros_like(k0), torch.zeros_like(i0)
     return state["C"], state["n"], state["m"]
 
 
@@ -227,13 +269,13 @@ def mlstm_apply(
     B, T, _ = x.shape
     hd, H = cfg.hd, cfg.n_heads
     q, k, v, i_pre, f_pre = _mlstm_qkv_gates(p, x, cfg)
-    C, n, m = _mlstm_state(state, cfg, B, x.device)
-    qs, ks, vs = q.float(), k.float(), v.float()
+    qs, ks, vs = (t.float().unbind(1) for t in (q, k, v))  # (B, H, hd)
+    i_s = i_pre.unbind(1)                                  # (B, H)
+    C, n, m = _mlstm_state(state, ks[0], vs[0], i_s[0])
     fs = F.logsigmoid(f_pre)        # log(sigmoid) underflows where this does not
     hs = []
-    for t in range(T):
-        qt, kt, vt = qs[:, t], ks[:, t], vs[:, t]    # (B, H, hd)
-        it, fm = i_pre[:, t], fs[:, t] + m           # (B, H)
+    for qt, kt, vt, it, ft in zip(qs, ks, vs, i_s, fs.unbind(1)):
+        fm = ft + m
         m_new = torch.maximum(fm, it)                # stabilizer
         i_g = torch.exp(it - m_new)
         f_g = torch.exp(fm - m_new)
@@ -244,8 +286,26 @@ def mlstm_apply(
         den = torch.einsum("bhk,bhk->bh", n, qt).abs()
         hs.append(num / torch.clamp(den, min=1.0)[..., None])
         m = m_new
-    h = torch.stack(hs, dim=1).reshape(B, T, H * hd)
+    h = scan_rows(torch.stack(hs, dim=1), 3).reshape(B, T, H * hd)
     return _mlstm_out(p, h, x, cfg, state, C, n, m)
+
+
+class _RunningMax(torch.autograd.Function):
+    """``torch.cummax(a, -1).values``, whose gradient is scattered onto
+    zeros like the incoming gradient (autograd's ``cummaxmin_backward``
+    makes plain zeros of the input's shape, which on a sharded tensor
+    is the global one) -- the same sums."""
+
+    @staticmethod
+    def forward(ctx, a):
+        values, indices = torch.cummax(a, dim=-1)
+        ctx.save_for_backward(indices)
+        return values
+
+    @staticmethod
+    def backward(ctx, grad):
+        (indices,) = ctx.saved_tensors
+        return torch.zeros_like(grad).scatter_add(-1, indices, grad)
 
 
 def _mlstm_chunk_body(q, k, v, i_pre, f_log, C, n, m, *, W: int):
@@ -257,7 +317,7 @@ def _mlstm_chunk_body(q, k, v, i_pre, f_log, C, n, m, *, W: int):
     """
     Fc = torch.cumsum(f_log, dim=-1)                     # (B,H,W)
     a = i_pre - Fc
-    M = torch.maximum(m[..., None], torch.cummax(a, dim=-1).values)
+    M = torch.maximum(m[..., None], _RunningMax.apply(a))
     # intra-chunk scores with per-(t,s) decay, causal within the chunk
     S = torch.einsum("bhtd,bhsd->bhts", q, k)
     decay = torch.exp(a[..., None, :] - M[..., :, None])  # (B,H,t,s)
@@ -305,17 +365,17 @@ def mlstm_apply_chunked(
         t = t.reshape(*t.shape[:2], T // W, W, *t.shape[3:])
         return t.movedim(2, 0).contiguous()
 
-    qs, ks, vs = (to_chunks(t.float()) for t in (q, k, v))
-    ii, ff = to_chunks(i_pre), to_chunks(f_log)          # (n, B, H, W)
-    C, n, m = _mlstm_state(state, cfg, B, x.device)
+    qs, ks, vs, ii, ff = (to_chunks(t).unbind(0) for t in (
+        q.float(), k.float(), v.float(), i_pre, f_log))  # (B, H, W, *)
+    C, n, m = _mlstm_state(state, ks[0][:, :, 0], vs[0][:, :, 0],
+                           ii[0][:, :, 0])
     hs = []
-    for c in range(T // W):
-        h, (C, n, m) = _mlstm_chunk_body(qs[c], ks[c], vs[c], ii[c], ff[c],
-                                         C, n, m, W=W)
+    for inputs in zip(qs, ks, vs, ii, ff):
+        h, (C, n, m) = _mlstm_chunk_body(*inputs, C, n, m, W=W)
         hs.append(h)
     # hs: n x (B, H, W, hd) -> (B, T, H*hd)
     h = torch.stack(hs, dim=2).reshape(B, H, T, hd)
-    h = h.movedim(1, 2).reshape(B, T, H * hd)
+    h = scan_rows(h.movedim(1, 2), 3).reshape(B, T, H * hd)
     return _mlstm_out(p, h, x, cfg, state, C, n, m)
 
 
@@ -339,20 +399,23 @@ def slstm_apply(
     *,
     state: Optional[State] = None,
 ) -> Tuple[torch.Tensor, Optional[State]]:
-    B, T, _ = x.shape
     cd = layers.torch_dtype(cfg.compute_dtype)
     f32 = torch.float32
+    x = scan_rows(x)
     z = torch.tanh(layers.dense_apply(p["wz"], x, f32))
     i_pre = layers.dense_apply(p["wi"], x, f32)
     f_pre = F.logsigmoid(layers.dense_apply(p["wf"], x, f32))
     o = torch.sigmoid(layers.dense_apply(p["wo_gate"], x, f32))
 
-    s = state if state is not None else xlstm_init_state(
-        cfg, B, "slstm", device=x.device)
-    c, n, m = s["c"], s["n"], s["m"]
+    zs = z.unbind(1)                                     # (B, D)
+    if state is None:
+        c, n = torch.zeros_like(zs[0]), torch.zeros_like(zs[0])
+        m = torch.full_like(zs[0], SLSTM_M0)
+    else:
+        c, n, m = state["c"], state["n"], state["m"]
     hs = []
-    for t in range(T):
-        zt, it, fm = z[:, t], i_pre[:, t], f_pre[:, t] + m
+    for zt, it, ft in zip(zs, i_pre.unbind(1), f_pre.unbind(1)):
+        fm = ft + m
         m_new = torch.maximum(fm, it)
         i_g = torch.exp(it - m_new)
         f_g = torch.exp(fm - m_new)

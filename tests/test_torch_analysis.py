@@ -200,19 +200,24 @@ def test_aggregate_main_prints_both_meshes(tmp_path, capsys, monkeypatch):
 
 
 def test_aggregate_marks_the_modelled_terms_of_a_composed_cell():
-    """A composed cell (``scancost``) whose collective and bytes checks
-    failed: its t_mem, t_coll, bound and temporaries carry the mark, its
-    t_comp and arguments (exact) do not, and a line under the table says
-    what the mark means; the other rows keep the reference's text."""
+    """A composed cell (``scancost``) whose collective, bytes and
+    temporaries checks failed: its t_mem, t_coll, bound and temporaries
+    carry the mark, its t_comp and arguments (exact) do not, and a line
+    under the table says what the mark means; the other rows keep the
+    reference's text.  A composed cell whose every check held is a
+    count: no mark."""
     recs = [r for r in _records() if r["mesh"] == "single"]
-    composed = dict(recs[0], arch="z-arch", scan_correction={"detail": {
-        "check": {"flops": True, "bytes": False, "coll/all-reduce": False,
-                  "coll/all-gather": True,
-                  "memory/argument_size_in_bytes": True,
-                  "memory/temp_size_in_bytes": True}}})
+    check = {"flops": True, "bytes": False, "coll/all-reduce": False,
+             "coll/all-gather": True, "memory/argument_size_in_bytes": True,
+             "memory/temp_size_in_bytes": False}
+    composed = dict(recs[0], arch="z-arch",
+                    scan_correction={"detail": {"check": check}})
     assert aggregate.modelled(composed) == {
         "t_memory", "t_collective", "temp_size_in_bytes"}
     assert aggregate.modelled(recs[0]) == set()
+    held = dict(composed, scan_correction={"detail": {"check": dict.fromkeys(
+        check, True)}})
+    assert aggregate.modelled(held) == set()
     want = r_aggregate.roofline_table(recs + [composed], "single")
     got = aggregate.roofline_table(recs + [composed], "single")
     *rows, blank, note = got.splitlines()

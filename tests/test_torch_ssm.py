@@ -18,6 +18,9 @@ The Mamba mixer (``_causal_conv``, ``mamba_apply``, ``mamba_init_state``)
 runs at jamba-1.5-large's float32 smoke config (d 64, d_in 128, d_state
 4, d_conv 4), with and without a carried state, T below K-1 included
 (decode has T = 1), at the same 2e-4.
+
+Each step loop's backward writes O(T) bytes, its gradients the
+reference's within the same 2e-4.
 """
 import dataclasses
 
@@ -26,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro import configs as r_configs
 from repro.models import ssm as r_ssm
@@ -459,3 +463,88 @@ def test_mamba_init_and_state_are_shaped_like_the_reference(arch_get):
     for k in ("A_log", "D"):
         assert small[k].shape == (2, *ref[k].shape)
         np.testing.assert_array_equal(small[k][1].numpy(), np.asarray(ref[k]))
+
+
+# -- the step loops' backward ----------------------------------------------------
+
+#: the lengths the backward's bytes are counted at, and the most a
+#: doubling of T may multiply them by: a loop that reads its steps as
+#: one ``unbind``'s views writes O(T) bytes (a ``select`` a step wrote a
+#: zero gradient of the whole sequence each step: 2.5-3.6x a doubling)
+BYTES_T = (16, 32, 64)
+BYTES_GROWTH = 2.2
+
+
+class _Written(TorchDispatchMode):
+    """The bytes of every result of an op that is not a view."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not any(r.alias_info is not None and not r.alias_info.is_write
+                   for r in func._schema.returns):
+            self.bytes += sum(t.numel() * t.element_size()
+                              for t in torch.utils._pytree.tree_leaves(out)
+                              if isinstance(t, torch.Tensor))
+        return out
+
+
+def _loop(kind):
+    """(reference apply, port apply, reference params, port params, d)."""
+    if kind == "mamba":
+        r_cfg, t_cfg = _mamba_cfgs()
+        r_p, t_p = _mamba_params(r_cfg, seed=7)
+        return (lambda p, x: r_ssm.mamba_apply(p, x, r_cfg),
+                lambda p, x: t_ssm.mamba_apply(p, x, t_cfg), r_p, t_p,
+                r_cfg.d_model)
+    r_cfg, t_cfg = _cfgs()
+    r_p, t_p = _params("slstm" if kind == "slstm" else "mlstm", r_cfg,
+                       seed=7)
+    if kind == "chunked":
+        return (lambda p, x: r_ssm.mlstm_apply_chunked(p, x, r_cfg, chunk=8),
+                lambda p, x: t_ssm.mlstm_apply_chunked(p, x, t_cfg, chunk=8),
+                r_p, t_p, r_cfg.d_model)
+    r_fn = r_ssm.slstm_apply if kind == "slstm" else r_ssm.mlstm_apply
+    t_fn = t_ssm.slstm_apply if kind == "slstm" else t_ssm.mlstm_apply
+    return (lambda p, x: r_fn(p, x, r_cfg), lambda p, x: t_fn(p, x, t_cfg),
+            r_p, t_p, r_cfg.d_model)
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "chunked", "slstm", "mamba"])
+def test_step_loop_backward_writes_bytes_linear_in_T(kind, rng):
+    """``mlstm_apply``, ``mlstm_apply_chunked`` (W = 8), ``slstm_apply``
+    and ``mamba_apply`` at smoke widths, T = 16, 32, 64: the bytes the
+    backward writes (a dispatch mode over ``torch.autograd.backward``)
+    grow at most :data:`BYTES_GROWTH` times a doubling of T; at T = 16
+    the outputs and the gradients of x and of every param equal the
+    reference's (``jax.vjp``, the same cotangent) within :data:`TOL`."""
+    r_fn, t_fn, r_p, t_p, d = _loop(kind)
+    written = []
+    for T in BYTES_T:
+        x, g = _x(rng, T, d), _x(rng, T, d)
+        leaves = torch.utils._pytree.tree_leaves(t_p)
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(True)
+        xt = torch.from_numpy(x).requires_grad_(True)
+        got, _ = t_fn(t_p, xt)
+        mode = _Written()
+        with mode:
+            torch.autograd.backward(got, torch.from_numpy(g))
+        written.append(mode.bytes)
+        for t in leaves:
+            t.requires_grad_(False)
+        if T > BYTES_T[0]:
+            continue
+        want, vjp = jax.vjp(lambda p, x: r_fn(p, x)[0], r_p, jnp.asarray(x))
+        want_p, want_x = vjp(jnp.asarray(g))
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
+        np.testing.assert_allclose(_np(xt.grad), _np(want_x), **TOL)
+        jax.tree_util.tree_map(
+            lambda w, t: np.testing.assert_allclose(_np(t.grad), _np(w),
+                                                    **TOL), want_p, t_p)
+    for a, b in zip(written, written[1:]):
+        assert b <= BYTES_GROWTH * a, written

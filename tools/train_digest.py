@@ -3,7 +3,7 @@ source trees bit for bit on one CUDA card.
 
 Usage (from the repository root, on a machine with a CUDA card)::
 
-    python tools/train_digest.py [SRC_DIR] [--moe]
+    python tools/train_digest.py [SRC_DIR] [--moe | --recurrent]
 
 ``SRC_DIR`` (default: this tree's ``src``) holds the ``repro_torch`` to
 load; its kernels build into that tree's ``build/``.  Prints one line per
@@ -27,6 +27,15 @@ a prefill of 4 x 128 tokens and 8 greedy decode steps, and
 ``moe_apply`` of one block on seeded input at the default capacity
 with its kept (token, expert) assignments.  Only forwards: a backward's
 scatter-add sums by atomics on the card, in no fixed order.
+
+With ``--recurrent``, the step loops' results instead (``models.ssm``):
+xlstm-125m at its published widths (bfloat16, seed 0) scoring a 4 x
+1,024 batch through the exact scan and through ``MLSTM_CHUNK = 64``, a
+prefill of 4 x 128 tokens and 8 greedy decode steps, and the loss and
+every gradient of a 2 x 256 batch through the exact scan; and the smoke
+jamba (float32): its forward, and ``mamba_apply`` of its first Mamba
+layer with the gradients of x and of every param.  (The chunked scan's
+gradient scatters its running max's by atomics on the card.)
 
 Lines starting ``#`` are times, not digests: the published-width run's
 ``TIMED`` further steps, each in seconds (wall clock from a synchronized
@@ -53,6 +62,10 @@ STEPS, BATCH, LEN = 3, 4, 4096
 TIMED, LOSS_REPS = 6, 10
 #: ``--moe``: the scoring batch, the prompt and the decode steps
 MOE_SCORE, MOE_PROMPT, MOE_STEPS = (4, 512), (4, 128), 8
+#: ``--recurrent``: the scoring batch, the chunk, the prompt and decode
+#: steps, and the batch whose gradients are digested
+REC_SCORE, REC_CHUNK, REC_PROMPT, REC_STEPS = (4, 1024), 64, (4, 128), 8
+REC_GRAD = (2, 256)
 
 
 def _bits(x) -> str:
@@ -145,10 +158,82 @@ def _moe(dev) -> None:
               f"{int(keep.sum())}")
 
 
+def _recurrent(dev) -> None:
+    """Print the ``--recurrent`` digests."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import build_model, ssm
+    from repro_torch.runtime.losses import cross_entropy
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get("xlstm-125m")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, REC_SCORE, device=dev, generator=gen)
+    with torch.no_grad():
+        for chunk in (None, REC_CHUNK):
+            ssm.MLSTM_CHUNK = chunk
+            t = time.perf_counter()
+            logits = model.forward(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            print(f"xlstm-125m forward {REC_SCORE} chunk {chunk} "
+                  f"{_digest([logits])}")
+            print(f"# forward chunk {chunk} {time.perf_counter() - t:.4f} s")
+        ssm.MLSTM_CHUNK = None
+        B, P = REC_PROMPT
+        cache = model.init_cache(B, P + REC_STEPS)
+        out, cache = model.prefill(params, {"tokens": tokens[:B, :P]}, cache)
+        outs = [out]
+        for i in range(REC_STEPS):
+            out, cache = model.decode_step(params, out.argmax(-1), cache,
+                                           P + i)
+            outs.append(out)
+        print(f"xlstm-125m prefill {REC_PROMPT} and {REC_STEPS} decode steps "
+              f"{_digest(outs + [cache])}")
+    B, T = REC_GRAD
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    batch = tokens[:B, :T + 1]
+    loss = cross_entropy(model.forward(params, {"tokens": batch[:, :-1]}),
+                         batch[:, 1:])
+    grads = torch.autograd.grad(loss, leaves)
+    print(f"xlstm-125m loss {REC_GRAD} {_bits(loss.detach())} gradients "
+          f"{_digest(list(grads))}")
+    del params, grads, leaves
+
+    cfg = configs.get_smoke("jamba-1.5-large-398b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=dev, generator=gen)
+    with torch.no_grad():
+        print(f"jamba smoke forward (2, 64) "
+              f"{_digest([model.forward(params, {'tokens': tokens})])}")
+    p = _first_layer(params["periods"]["sub0"]["mamba"])
+    x = torch.randn(2, 64, cfg.d_model, device=dev, generator=gen)
+    leaves = [x] + tree_leaves(p)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    y, _ = ssm.mamba_apply(p, x, cfg)
+    grads = torch.autograd.grad(y.square().sum(), leaves)
+    print(f"jamba smoke mamba_apply (2, 64) {_digest([y])} gradients "
+          f"{_digest(list(grads))}")
+
+
+def _first_layer(tree):
+    """The first period's layer of a stacked (period, ...) params tree,
+    a copy."""
+    if isinstance(tree, dict):
+        return {k: _first_layer(v) for k, v in tree.items()}
+    return tree[0].detach().clone()
+
+
 def main() -> int:
     """Print each result's digest; returns the exit code."""
     root = pathlib.Path(__file__).resolve().parents[1]
-    args = [a for a in sys.argv[1:] if a != "--moe"]
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
     sys.path.insert(0, args[0] if args else str(root / "src"))
     import torch
 
@@ -166,6 +251,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if "--moe" in sys.argv[1:]:
         _moe(dev)
+        return 0
+    if "--recurrent" in sys.argv[1:]:
+        _recurrent(dev)
         return 0
 
     cfg = configs.get("internlm2-1.8b")
